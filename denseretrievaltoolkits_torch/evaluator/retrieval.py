@@ -1,0 +1,146 @@
+"""Offline retrieval CLI: pickled embedding shards -> top-k ranking file.
+
+Counterpart of ``denseretrievaltoolkits_tpu/evaluator/retrieval.py``, with the
+same flags and output: glob the passage shards (pickled ``(reps, lookup)``
+pairs), load them into one :class:`FlatIPIndex`, search the pickled query
+reps at depth, and save ``qid\\tdocid\\tscore`` text or a pickle. The small
+helpers are reimplemented here because the reference module imports its
+jax index. ``--search_mode`` and ``--index_dtype`` are validated by the index
+(exact search on fp32/bf16 rows; the rest raise until ported).
+
+    python -m denseretrievaltoolkits_torch.evaluator.retrieval \\
+        --query_reps q.pkl --passage_reps 'p*.pkl' --depth 100 \\
+        --save_ranking_to run.tsv --save_text
+"""
+
+from __future__ import annotations
+
+import glob
+import logging
+import pickle
+from argparse import ArgumentParser
+
+import numpy as np
+
+# re-exported: the jax-free reference metrics that score a ranking made here
+from denseretrievaltoolkits_tpu.evaluator.metrics import get_metrics  # noqa: F401
+
+from ..index.flat import FlatIPIndex
+
+logger = logging.getLogger(__name__)
+
+
+def pickle_load(path):
+    with open(path, "rb") as fh:
+        reps, lookup = pickle.load(fh)
+    return np.array(reps, dtype=np.float32), list(lookup)
+
+
+def pickle_save(obj, path):
+    with open(path, "wb") as fh:
+        pickle.dump(obj, fh)
+
+
+def search_queries(retriever, q_reps, p_lookup, depth: int, batch_size: int = 0,
+                   quiet: bool = False, mode: str = "exact"):
+    """Search and translate row ids to docids. Rows with the -1 sentinel are
+    dropped before translation (``p_lookup[-1]`` would name the last doc)."""
+    if batch_size > 0:
+        all_scores, all_indices = retriever.batch_search(q_reps, depth, batch_size, quiet,
+                                                         mode=mode)
+    else:
+        all_scores, all_indices = retriever.search(q_reps, depth, mode=mode)
+    all_indices = np.asarray(all_indices)
+    if (all_indices < 0).any():
+        scores, ids = [], []
+        for q_s, q_dd in zip(np.asarray(all_scores), all_indices):
+            keep = q_dd >= 0
+            ids.append([str(p_lookup[x]) for x in q_dd[keep]])
+            scores.append(list(q_s[keep]))
+        return scores, ids
+    psg_indices = np.array([[str(p_lookup[x]) for x in q_dd] for q_dd in all_indices])
+    return all_scores, psg_indices
+
+
+def write_ranking(corpus_indices, corpus_scores, q_lookup, ranking_save_file: str):
+    with open(ranking_save_file, "w") as fh:
+        for qid, q_doc_scores, q_doc_indices in zip(q_lookup, corpus_scores, corpus_indices):
+            ranked = sorted(zip(q_doc_scores, q_doc_indices), key=lambda x: x[0], reverse=True)
+            for s, idx in ranked:
+                fh.write(f"{qid}\t{idx}\t{s}\n")
+
+
+def run(query_reps: str, passage_reps: str = "", save_ranking_to: str = "",
+        depth: int = 1000, batch_size: int = 128, save_text: bool = False,
+        quiet: bool = False, index_dtype: str = "float32",
+        search_mode: str = "exact", index_path: str = ""):
+    if index_path:
+        from ..index.io import load_index
+
+        retriever = load_index(index_path)
+        look_up = list(retriever.docid)
+        if not look_up:
+            raise ValueError(f"index at {index_path} carries no docids")
+    else:
+        index_files = sorted(glob.glob(passage_reps))
+        if not index_files:
+            raise FileNotFoundError(f"no passage rep shards match {passage_reps}")
+        logger.info("Pattern matched %d shard files; loading into index.", len(index_files))
+        look_up = []
+        retriever = None
+        for path in index_files:
+            p_reps, p_lookup = pickle_load(path)
+            if retriever is None:
+                retriever = FlatIPIndex(p_reps.shape[1], dtype=index_dtype)
+            retriever.add(p_reps)
+            look_up += p_lookup
+
+    q_reps, q_lookup = pickle_load(query_reps)
+    logger.info("Index search start (%d docs, %d queries, depth %d)",
+                len(retriever), len(q_reps), depth)
+    all_scores, psg_indices = search_queries(
+        retriever, q_reps, look_up, depth, batch_size, quiet, mode=search_mode)
+    logger.info("Index search finished")
+    if save_text:
+        write_ranking(psg_indices, all_scores, q_lookup, save_ranking_to)
+    else:
+        pickle_save((all_scores, psg_indices), save_ranking_to)
+    return all_scores, psg_indices
+
+
+def main(argv=None):
+    logging.basicConfig(
+        format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
+        datefmt="%m/%d/%Y %H:%M:%S",
+        level=logging.INFO,
+    )
+    parser = ArgumentParser()
+    parser.add_argument("--query_reps", required=True)
+    parser.add_argument("--passage_reps", default="",
+                        help="glob of pickled (reps, lookup) shards to build a flat index "
+                        "from (mutually exclusive with --index_path)")
+    parser.add_argument("--index_path", default="",
+                        help="serve a SAVED flat index instead")
+    parser.add_argument("--batch_size", type=int, default=128)
+    parser.add_argument("--depth", type=int, default=1000)
+    parser.add_argument("--save_ranking_to", required=True)
+    parser.add_argument("--save_text", action="store_true")
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--index_dtype", default="float32",
+                        choices=["float32", "bfloat16", "int8", "int4"],
+                        help="float32/bfloat16 are served; int8/int4 raise until ported")
+    parser.add_argument("--search_mode", default="exact",
+                        choices=["exact", "serve", "partial", "i8q", "approx", "bulk", "probe"],
+                        help="exact: certified exact search (the K5 kernel on CUDA). The "
+                        "other modes keep the reference's contract (index/modes.py) and "
+                        "raise on CUDA until their kernels are ported")
+    args = parser.parse_args(argv)
+    if bool(args.passage_reps) == bool(args.index_path):
+        parser.error("give exactly one of --passage_reps / --index_path")
+    run(args.query_reps, args.passage_reps, args.save_ranking_to, args.depth,
+        args.batch_size, args.save_text, args.quiet, args.index_dtype,
+        args.search_mode, index_path=args.index_path)
+
+
+if __name__ == "__main__":
+    main()

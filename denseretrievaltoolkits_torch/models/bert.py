@@ -1,0 +1,180 @@
+"""BERT encoder as a PyTorch module, on the reference's xla-path semantics.
+
+Counterpart of ``denseretrievaltoolkits_tpu/models/bert.py``. The numerics
+follow ``_encoder_block`` (bert.py:192-286): fused QKV ``[H,3H]`` projection,
+fp32 LayerNorm, fp32 scores plus the additive -1e9 mask bias, fp32 softmax
+with probs cast to the compute dtype, exact gelu, post-LN, and on the xla
+path the residual added in the compute dtype. ``attention="fused"`` routes
+each block through the K1 and K2 kernels (``ops/attn.py``), exactly where the
+reference calls its Pallas kernels (bert.py:215-244).
+
+Weights keep the reference's ``[in, out]`` kernel layout, so the JAX pytree
+maps onto the module with no transpose (``models/convert.py``). Matrices and
+biases are stored in the compute dtype (the reference casts them at every
+use); embeddings and LayerNorm parameters stay fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..ops import attn as attn_ops
+
+ATTENTIONS = ("xla", "flash", "fused")
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    """Same fields and ``bert_config.json`` as the reference ``BertConfig``."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    pad_token_id: int = 0
+    initializer_range: float = 0.02
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, blob: str) -> "BertConfig":
+        data = json.loads(blob)
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in data.items() if k in names})
+
+
+def save_config(config: BertConfig, path: str) -> None:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "bert_config.json"), "w") as fh:
+        fh.write(config.to_json())
+
+
+def load_config(path: str) -> BertConfig:
+    with open(os.path.join(path, "bert_config.json")) as fh:
+        return BertConfig.from_json(fh.read())
+
+
+def layer_norm(x, scale, bias, eps):
+    """LayerNorm in fp32 regardless of compute dtype (``_layer_norm``)."""
+    return attn_ops.layer_norm_f32(x.float(), scale, bias, eps).to(x.dtype)
+
+
+def _param(*shape, dtype, device):
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, config: BertConfig, device=None):
+        super().__init__()
+        c, f32 = config, torch.float32
+        self.word = _param(c.vocab_size, c.hidden_size, dtype=f32, device=device)
+        self.position = _param(c.max_position_embeddings, c.hidden_size, dtype=f32, device=device)
+        self.token_type = _param(c.type_vocab_size, c.hidden_size, dtype=f32, device=device)
+        self.ln_scale = _param(c.hidden_size, dtype=f32, device=device)
+        self.ln_bias = _param(c.hidden_size, dtype=f32, device=device)
+
+
+class BertLayer(nn.Module):
+    """One post-LN block; parameter names follow the reference pytree."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        H, F, f32 = config.hidden_size, config.intermediate_size, torch.float32
+        self.qkv_kernel = _param(H, 3 * H, dtype=dtype, device=device)
+        self.qkv_bias = _param(3 * H, dtype=dtype, device=device)
+        self.o_kernel = _param(H, H, dtype=dtype, device=device)
+        self.o_bias = _param(H, dtype=dtype, device=device)
+        self.attn_ln_scale = _param(H, dtype=f32, device=device)
+        self.attn_ln_bias = _param(H, dtype=f32, device=device)
+        self.wi_kernel = _param(H, F, dtype=dtype, device=device)
+        self.wi_bias = _param(F, dtype=dtype, device=device)
+        self.wo_kernel = _param(F, H, dtype=dtype, device=device)
+        self.wo_bias = _param(H, dtype=dtype, device=device)
+        self.mlp_ln_scale = _param(H, dtype=f32, device=device)
+        self.mlp_ln_bias = _param(H, dtype=f32, device=device)
+
+
+def _dense(h, kernel, bias):
+    """``jnp.dot(h, kernel, preferred_element_type=compute) + bias``."""
+    return torch.matmul(h, kernel) + bias
+
+
+def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str):
+    """One post-LN BERT block. x [B,S,H] compute dtype; mask [B,S] 0/1."""
+    c = config
+    nh, hd = c.num_attention_heads, c.head_dim
+    qkv = _dense(x, layer.qkv_kernel, layer.qkv_bias)
+    if attention == "fused":
+        x = attn_ops.fused_attention_ln(
+            qkv, x, mask, layer.o_kernel, layer.o_bias, layer.attn_ln_scale,
+            layer.attn_ln_bias, 1.0 / math.sqrt(hd), nh, hd, c.layer_norm_eps)
+        return attn_ops.fused_mlp_ln(
+            x, layer.wi_kernel, layer.wi_bias, layer.wo_kernel, layer.wo_bias,
+            layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
+    # the xla path: the same attention, then projection and residual in the compute dtype
+    ctx = attn_ops._reference_attention(qkv, mask, 1.0 / math.sqrt(hd), nh, hd)
+    attn_out = _dense(ctx, layer.o_kernel, layer.o_bias)
+    x = layer_norm(x + attn_out, layer.attn_ln_scale, layer.attn_ln_bias, c.layer_norm_eps)
+    h = _dense(x, layer.wi_kernel, layer.wi_bias)
+    h = torch.nn.functional.gelu(h)
+    h = _dense(h, layer.wo_kernel, layer.wo_bias)
+    return layer_norm(x + h, layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
+
+
+class BertEncoder(nn.Module):
+    """BERT encoder + HF-style pooler. ``forward`` returns last_hidden_state
+    [B,S,H] in ``dtype`` (the reference ``bert_encode``)."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 attention: str = "xla", device=None):
+        super().__init__()
+        if attention not in ATTENTIONS:
+            raise ValueError(f"Unknown attention impl: {attention}")
+        if attention == "flash":
+            raise NotImplementedError(
+                "attention='flash' calls JAX's library Pallas flash kernel in the "
+                "reference; its port is ROADMAP queue 1, item 'Flash attention'. "
+                "Use 'fused' or 'xla'.")
+        self.config = config
+        self.dtype = dtype
+        self.attention = attention
+        self.embeddings = BertEmbeddings(config, device=device)
+        self.layers = nn.ModuleList(
+            BertLayer(config, dtype, device=device) for _ in range(config.num_hidden_layers))
+        H = config.hidden_size
+        self.pooler_kernel = _param(H, H, dtype=dtype, device=device)
+        self.pooler_bias = _param(H, dtype=dtype, device=device)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None):
+        c = self.config
+        emb = self.embeddings
+        S = input_ids.shape[1]
+        x = emb.word[input_ids]
+        x = x + emb.position[torch.arange(S, device=input_ids.device)][None]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = x + emb.token_type[token_type_ids]
+        x = layer_norm(x, emb.ln_scale, emb.ln_bias, c.layer_norm_eps).to(self.dtype)
+        for layer in self.layers:
+            x = encoder_block(x, layer, attention_mask, c, self.attention)
+        return x
+
+    def pooler(self, hidden):
+        """HF-style pooler: tanh(dense(CLS)) (``bert_pooler``)."""
+        return torch.tanh(_dense(hidden[:, 0, :], self.pooler_kernel, self.pooler_bias))

@@ -1,0 +1,98 @@
+"""Weight bridge between the reference's JAX pytree and the port's modules.
+
+The reference stores a BERT as a nested dict (``bert.init_params``,
+bert.py:96-140): kernels ``[in, out]``, the transformer layers stacked on
+axis 0, saved flat as ``weights.npz`` with ``"a/b"`` keys
+(``bert.save_params``, bert.py:387-394). These helpers read that layout with
+numpy only, so a retriever trained with the JAX package is served by the port
+unchanged, and build a seeded random pytree of the same layout where no
+checkpoint exists.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .bert import BertConfig
+
+_LAYER_KEYS = ("o_kernel", "o_bias", "attn_ln_scale", "attn_ln_bias", "wi_kernel", "wi_bias",
+               "wo_kernel", "wo_bias", "mlp_ln_scale", "mlp_ln_bias")
+_QKV = ("q_kernel", "q_bias", "k_kernel", "k_bias", "v_kernel", "v_bias")
+
+
+def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """JAX BERT pytree (numpy arrays) -> ``BertEncoder`` state_dict (fp32;
+    ``load_state_dict`` casts to the module's storage dtypes). Q/K/V fuse
+    into the ``[H,3H]`` kernel the encoder multiplies by."""
+    layers = tree["layers"]
+    unknown = set(layers) - set(_LAYER_KEYS) - set(_QKV)
+    if unknown:
+        raise NotImplementedError(
+            f"layer params {sorted(unknown)} are not served by the port (LoRA adapters "
+            f"wait for ROADMAP queue 1, item 'LoRA and HF import/export')")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))  # noqa: E731
+    emb = tree["embeddings"]
+    out = {f"embeddings.{k}": t(emb[k])
+           for k in ("word", "position", "token_type", "ln_scale", "ln_bias")}
+    L = np.asarray(layers["o_kernel"]).shape[0]
+    for i in range(L):
+        p = f"layers.{i}."
+        out[p + "qkv_kernel"] = t(np.concatenate(
+            [np.asarray(layers[n][i]) for n in ("q_kernel", "k_kernel", "v_kernel")], axis=-1))
+        out[p + "qkv_bias"] = t(np.concatenate(
+            [np.asarray(layers[n][i]) for n in ("q_bias", "k_bias", "v_bias")], axis=-1))
+        for k in _LAYER_KEYS:
+            out[p + k] = t(np.asarray(layers[k][i]))
+    out["pooler_kernel"] = t(tree["pooler"]["kernel"])
+    out["pooler_bias"] = t(tree["pooler"]["bias"])
+    return out
+
+
+def load_jax_params(path: str, name: str = "weights") -> Dict:
+    """Read ``<path>/<name>.npz`` as written by ``bert.save_params`` into the
+    nested numpy pytree."""
+    tree: Dict = {}
+    with np.load(os.path.join(path, f"{name}.npz")) as z:
+        for key in z.files:
+            node = tree
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = z[key]
+    return tree
+
+
+def init_params_numpy(config: BertConfig, seed: int = 0) -> Dict:
+    """Seeded random pytree in the reference layout: N(0, initializer_range)
+    matrices, zero biases, unit LayerNorm scales (the shapes of
+    ``bert.init_params``; numpy draws, not JAX's)."""
+    c = config
+    L, H, F, V = c.num_hidden_layers, c.hidden_size, c.intermediate_size, c.vocab_size
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(c.initializer_range)
+
+    zeros = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    ones = lambda *s: np.ones(s, np.float32)  # noqa: E731
+    return {
+        "embeddings": {
+            "word": normal(V, H), "position": normal(c.max_position_embeddings, H),
+            "token_type": normal(c.type_vocab_size, H), "ln_scale": ones(H), "ln_bias": zeros(H),
+        },
+        "layers": {
+            "q_kernel": normal(L, H, H), "q_bias": zeros(L, H),
+            "k_kernel": normal(L, H, H), "k_bias": zeros(L, H),
+            "v_kernel": normal(L, H, H), "v_bias": zeros(L, H),
+            "o_kernel": normal(L, H, H), "o_bias": zeros(L, H),
+            "attn_ln_scale": ones(L, H), "attn_ln_bias": zeros(L, H),
+            "wi_kernel": normal(L, H, F), "wi_bias": zeros(L, F),
+            "wo_kernel": normal(L, F, H), "wo_bias": zeros(L, H),
+            "mlp_ln_scale": ones(L, H), "mlp_ln_bias": zeros(L, H),
+        },
+        "pooler": {"kernel": normal(H, H), "bias": zeros(H)},
+    }

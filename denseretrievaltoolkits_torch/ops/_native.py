@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+At first use every ``csrc/*.cu`` is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into ONE shared library with a plain C interface, which is then
+loaded with ``ctypes``. The library lands in ``_build/`` next to this package
+(git-ignored), named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused.
+
+Every C entry point takes device pointers and the CUDA stream as ``void*``
+and returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
+a non-zero code. If ``nvcc`` is missing or the build fails, :func:`library`
+raises with the compiler's output — there is no stub and no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures: name -> argtypes (every entry returns an int: a cudaError_t unless noted)
+SIGNATURES = {
+    # qkv, x, mask, o_kernel, o_bias, ln_scale, ln_bias, out,
+    # B, S, nh, hd, sm_scale, eps, is_bf16, stream
+    "drt_attn_ln": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _P],
+    # x, wi, bi, wo, bo, ln_scale, ln_bias, out, rows, H, F, eps, is_bf16, stream
+    "drt_mlp_ln": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    # q, corpus, out_vals, out_ids, Q, N, H, n_valid, block, J, is_bf16, stream
+    "drt_block_topj": [_P] * 4 + [_I] * 7 + [_P],
+    # nh, hd, is_bf16 -> the longest S drt_attn_ln takes (not a cudaError_t)
+    "drt_attn_ln_max_seq": [_I, _I, _I],
+}
+
+# wall seconds the last build took (0.0 when a cached library was reused)
+build_seconds = 0.0
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of denseretrievaltoolkits_torch "
+            "are compiled at first use and need the CUDA toolkit")
+    return nvcc
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + fh.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into ``_build/libdrt_kernels_<hash>.so`` unless it
+    exists. Returns the library path; raises with nvcc's output on failure."""
+    global build_seconds
+    target = os.path.join(BUILD_DIR, f"libdrt_kernels_{_digest()}.so")
+    if os.path.exists(target):
+        build_seconds = 0.0
+        return target
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, target)  # atomic: a concurrent build never sees a partial .so
+    return target
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.drt_error_string.argtypes = [_I]
+    lib.drt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a launch returned a non-zero ``cudaError_t``. The kernels
+    return ``cudaErrorInvalidValue`` for a shape they do not take (for
+    example a sequence whose K/V does not fit in shared memory)."""
+    if code != 0:
+        what = library().drt_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: cudaError_t {code} ({what})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,159 @@
+"""Fused encoder-block kernels K1 and K2, with their plain PyTorch versions.
+
+Counterparts of ``denseretrievaltoolkits_tpu/ops/attn.py``:
+
+- :func:`fused_attention_ln` (K1, ``csrc/attn_ln.cu``): attention over the raw
+  fused-QKV output, output projection, residual and LayerNorm in one kernel;
+  its plain version is :func:`_reference_attention_ln`.
+- :func:`fused_mlp_ln` (K2, ``csrc/mlp_ln.cu``): wi -> exact gelu -> wo,
+  residual and LayerNorm in one kernel; its plain version is
+  :func:`_reference_mlp_ln`.
+
+A wrapper runs its plain version for tensors on the CPU. For CUDA tensors it
+launches its kernel or raises; it never falls back. Each wrapper counts its
+kernel launches in a plain int attribute, ``<wrapper>.launches``.
+
+The plain versions reproduce the reference's numerics: products of
+compute-dtype values accumulate in fp32 (inputs upcast, so a bf16 product is
+exact; on CUDA this needs ``torch.backends.cuda.matmul.allow_tf32 = False``,
+PyTorch's default), softmax and LayerNorm run in fp32, probs and ctx are cast
+to the compute dtype, and the residual is added in fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _native
+
+_NEG = -1e9
+
+
+def layer_norm_f32(y, ls, lb, eps):
+    """LayerNorm of fp32 ``y`` over its last dim, fp32 scale/bias; returns fp32."""
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y - mean).square().mean(dim=-1, keepdim=True)
+    y = (y - mean) * torch.rsqrt(var + eps)
+    return y * ls.float() + lb.float()
+
+
+def _reference_attention(qkv, mask, sm_scale, nh, hd):
+    """Plain attention over the raw QKV output (``_reference_attention``,
+    attn.py:370-384). qkv [B,S,3H] heads contiguous; mask [B,S] 0/1.
+    Returns ctx [B,S,H] in qkv's dtype."""
+    B, S, _ = qkv.shape
+    H = nh * hd
+    f = qkv.float()
+    q = f[..., :H].reshape(B, S, nh, hd)
+    k = f[..., H:2 * H].reshape(B, S, nh, hd)
+    v = f[..., 2 * H:].reshape(B, S, nh, hd)
+    mask_bias = (1.0 - mask.float())[:, None, None, :] * _NEG
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale + mask_bias
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", p.float(), v).to(qkv.dtype)
+    return ctx.reshape(B, S, H)
+
+
+def _reference_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps):
+    """Plain version of K1 (``_reference_attention_ln``, attn.py:190-202)."""
+    ctx = _reference_attention(qkv, mask, sm_scale, nh, hd)
+    attn = torch.matmul(ctx.float(), ok.float())
+    y = x.float() + attn + ob.float()
+    return layer_norm_f32(y, ls, lb, eps).to(x.dtype)
+
+
+def _reference_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps):
+    """Plain version of K2 (``_reference_mlp_ln``, attn.py:328-341): exact gelu."""
+    h = torch.matmul(x.float(), wi.float()) + bi.float()
+    h = torch.nn.functional.gelu(h).to(x.dtype)
+    y = x.float() + torch.matmul(h.float(), wo.float()) + bo.float()
+    return layer_norm_f32(y, ls, lb, eps).to(x.dtype)
+
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(name, dtype, tensors, floats=()):
+    """Validate what the kernel takes; raise on anything else."""
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, got {dtype}")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: every operand must be a contiguous {dtype} tensor on {dev}; "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    for t in floats:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: LayerNorm params must be contiguous float32 on {dev}")
+
+
+def fused_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps):
+    """Attention + output projection + residual + LayerNorm (K1).
+
+    qkv: [B,S,3H] raw fused-QKV output ([q|k|v], heads contiguous); x: [B,S,H]
+    the block input; mask: [B,S] 0/1; ok/ob: [H,H] / [H] in the compute dtype;
+    ls/lb: LayerNorm scale/bias [H]. Returns the post-LN hidden [B,S,H]."""
+    if not qkv.is_cuda:
+        return _reference_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps)
+    B, S, threeH = qkv.shape
+    H = nh * hd
+    if threeH != 3 * H or x.shape != (B, S, H) or ok.shape != (H, H) or ob.shape != (H,):
+        raise ValueError(f"fused_attention_ln: bad shapes qkv {tuple(qkv.shape)}, "
+                         f"x {tuple(x.shape)}, ok {tuple(ok.shape)}, nh={nh}, hd={hd}")
+    if H > 1024:
+        raise ValueError(f"fused_attention_ln: the kernel takes H <= 1024, got {H}")
+    ls = ls.float().contiguous()
+    lb = lb.float().contiguous()
+    mask = mask.to(device=qkv.device, dtype=torch.int32).contiguous()
+    _check_cuda("fused_attention_ln", qkv.dtype, (qkv, x, ok, ob), (ls, lb))
+    lib = _native.library()
+    is_bf16 = int(qkv.dtype == torch.bfloat16)
+    max_s = lib.drt_attn_ln_max_seq(nh, hd, is_bf16)
+    if S > max_s:
+        raise ValueError(
+            f"fused_attention_ln: the {qkv.dtype} kernel holds one head's K/V in shared memory "
+            f"and takes S <= {max_s} at nh={nh}, hd={hd}; got S={S} (longer sequences wait for "
+            f"the flash kernel, ROADMAP queue 1 item 4)")
+    out = torch.empty_like(x)
+    fused_attention_ln.launches += 1
+    _native.check(lib.drt_attn_ln(
+        qkv.data_ptr(), x.data_ptr(), mask.data_ptr(), ok.data_ptr(), ob.data_ptr(),
+        ls.data_ptr(), lb.data_ptr(), out.data_ptr(), B, S, nh, hd, float(sm_scale),
+        float(eps), is_bf16, _native.stream_ptr(qkv)),
+        "drt_attn_ln")
+    return out
+
+
+fused_attention_ln.launches = 0
+
+
+def fused_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps):
+    """MLP (wi -> exact gelu -> wo) + residual + LayerNorm (K2).
+
+    x: [B,S,H]; wi [H,F], bi [F], wo [F,H], bo [H] in the compute dtype;
+    ls/lb LayerNorm params [H]. Returns the post-LN hidden [B,S,H]."""
+    if not x.is_cuda:
+        return _reference_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps)
+    H = x.shape[-1]
+    F = wi.shape[-1]
+    if wi.shape != (H, F) or bi.shape != (F,) or wo.shape != (F, H) or bo.shape != (H,):
+        raise ValueError(f"fused_mlp_ln: bad shapes x {tuple(x.shape)}, wi {tuple(wi.shape)}, "
+                         f"wo {tuple(wo.shape)}")
+    if H > 1024:
+        raise ValueError(f"fused_mlp_ln: the kernel takes H <= 1024, got {H}")
+    ls = ls.float().contiguous()
+    lb = lb.float().contiguous()
+    _check_cuda("fused_mlp_ln", x.dtype, (x, wi, bi, wo, bo), (ls, lb))
+    out = torch.empty_like(x)
+    rows = x.numel() // H
+    lib = _native.library()
+    fused_mlp_ln.launches += 1
+    _native.check(lib.drt_mlp_ln(
+        x.data_ptr(), wi.data_ptr(), bi.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        ls.data_ptr(), lb.data_ptr(), out.data_ptr(), rows, H, F, float(eps),
+        int(x.dtype == torch.bfloat16), _native.stream_ptr(x)), "drt_mlp_ln")
+    return out
+
+
+fused_mlp_ln.launches = 0

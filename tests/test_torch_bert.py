@@ -1,0 +1,167 @@
+"""The torch port's BERT encoder and its K1/K2 plain versions vs the JAX reference.
+
+Inputs and weights are made with numpy from a seed and fed to both packages.
+On the CPU the port's fused path runs the kernels' plain versions; the JAX
+fused path runs its Pallas kernels in interpret mode.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from denseretrievaltoolkits_tpu.models import bert as jbert
+from denseretrievaltoolkits_tpu.ops import attn as jattn
+from denseretrievaltoolkits_torch.models import bert as tbert
+from denseretrievaltoolkits_torch.models.convert import (
+    init_params_numpy,
+    load_jax_params,
+    params_from_jax,
+)
+from denseretrievaltoolkits_torch.ops import attn as tattn
+
+CFG = dict(vocab_size=97, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+           intermediate_size=128, max_position_embeddings=40)
+
+
+def _tree(seed=0):
+    """Seeded pytree with non-trivial biases and LayerNorm params."""
+    tree = init_params_numpy(tbert.BertConfig(**CFG), seed)
+    rng = np.random.default_rng(seed + 1)
+    for group in tree.values():
+        for name, arr in group.items():
+            if "bias" in name or "ln_" in name:
+                group[name] = (arr + 0.1 * rng.standard_normal(arr.shape)).astype(np.float32)
+    return tree
+
+
+def _inputs(B=4, S=16, seed=2):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, CFG["vocab_size"], (B, S)).astype(np.int32)
+    mask = np.zeros((B, S), np.int32)
+    for b, n in enumerate([S, 9, 3, 0][:B]):  # ragged, with one all-pad row
+        mask[b, :n] = 1
+    ids = np.where(mask == 1, ids, 0).astype(np.int32)
+    return ids, mask
+
+
+def _port(tree, attention, dtype=torch.float32):
+    enc = tbert.BertEncoder(tbert.BertConfig(**CFG), dtype, attention)
+    enc.load_state_dict(params_from_jax(tree))
+    return enc
+
+
+@pytest.mark.parametrize("attention", ["xla", "fused"])
+def test_encoder_matches_jax_fp32(attention):
+    """fp32 last_hidden_state within 2e-5 (the reference's own fused-vs-xla
+    tolerance, tests/test_bert_parity.py:226). On the fused path the Pallas
+    kernel's erf approximation (~1.5e-7 before LN) stays under it at F=128."""
+    tree = _tree()
+    ids, mask = _inputs()
+    ref = jbert.bert_encode(jax.tree.map(jnp.asarray, tree), jbert.BertConfig(**CFG),
+                            jnp.asarray(ids), jnp.asarray(mask), attention=attention)
+    with torch.inference_mode():
+        out = _port(tree, attention)(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    assert np.isfinite(out.numpy()).all()  # the all-pad row stays finite
+
+
+def test_pooler_matches_jax():
+    tree = _tree()
+    ids, mask = _inputs()
+    jp = jax.tree.map(jnp.asarray, tree)
+    hidden = jbert.bert_encode(jp, jbert.BertConfig(**CFG), jnp.asarray(ids), jnp.asarray(mask))
+    ref = jbert.bert_pooler(jp, hidden)
+    enc = _port(tree, "xla")
+    with torch.inference_mode():
+        out = enc.pooler(torch.from_numpy(np.asarray(hidden)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def _block_inputs(B, S, H, F, seed, dtype):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: (scale * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    mask = np.ones((B, S), np.int32)
+    mask[1, S // 2:] = 0
+    mask[-1] = 0
+    arrays = dict(qkv=f(B, S, 3 * H), x=f(B, S, H), ok=f(H, H, scale=0.05), ob=f(H, scale=0.05),
+                  ls=1 + f(H, scale=0.1), lb=f(H, scale=0.1), wi=f(H, F, scale=0.05),
+                  bi=f(F, scale=0.05), wo=f(F, H, scale=0.05), bo=f(H, scale=0.05))
+    # round through the compute dtype once so both sides see identical values
+    jx = {k: jnp.asarray(v).astype(dtype if k not in ("ls", "lb") else jnp.float32)
+          for k, v in arrays.items()}
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    tx = {k: torch.from_numpy(np.asarray(v.astype(jnp.float32))).to(
+        tdt if k not in ("ls", "lb") else torch.float32) for k, v in jx.items()}
+    return mask, jx, tx
+
+
+# bf16: post-LN values are O(1); 3e-2 is two bf16 ulps at |y| < 4, and the mean
+# bound catches systematic drift. fp32: summation order only.
+TOL = {"bfloat16": (3e-2, 1e-3), "float32": (2e-5, 2e-6)}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_ln_plain_matches_reference(dtype):
+    """K1's plain version vs the JAX ``_reference_attention_ln`` (residual
+    added in fp32), the contract K1 is held to in bf16."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    B, S, nh, hd = 3, 20, 4, 16
+    mask, j, t = _block_inputs(B, S, nh * hd, 128, 3, jdt)
+    ref = jattn._reference_attention_ln(j["qkv"], j["x"], jnp.asarray(mask), j["ok"], j["ob"],
+                                        j["ls"], j["lb"], 0.25, nh, hd, 1e-12)
+    out = tattn.fused_attention_ln(t["qkv"], t["x"], torch.from_numpy(mask), t["ok"], t["ob"],
+                                   t["ls"], t["lb"], 0.25, nh, hd, 1e-12)
+    assert tattn.fused_attention_ln.launches == 0  # CPU tensors never launch
+    d = np.abs(out.float().numpy() - np.asarray(ref.astype(jnp.float32)))
+    assert d.max() <= TOL[dtype][0] and d.mean() <= TOL[dtype][1], (d.max(), d.mean())
+    assert out.dtype == t["x"].dtype
+
+
+@pytest.mark.parametrize("dtype,F", [("bfloat16", 128), ("float32", 128), ("float32", 1536)])
+def test_mlp_ln_plain_matches_reference(dtype, F):
+    """K2's plain version vs the JAX ``_reference_mlp_ln`` (exact gelu), also
+    at a chunked width F=1536 where the Pallas kernel's erf approximation
+    would exceed the fp32 tolerance."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    mask, j, t = _block_inputs(2, 12, 64, F, 4, jdt)
+    ref = jattn._reference_mlp_ln(j["x"], j["wi"], j["bi"], j["wo"], j["bo"], j["ls"], j["lb"],
+                                  1e-12)
+    out = tattn.fused_mlp_ln(t["x"], t["wi"], t["bi"], t["wo"], t["bo"], t["ls"], t["lb"], 1e-12)
+    assert tattn.fused_mlp_ln.launches == 0
+    d = np.abs(out.float().numpy() - np.asarray(ref.astype(jnp.float32)))
+    assert d.max() <= TOL[dtype][0] and d.mean() <= TOL[dtype][1], (d.max(), d.mean())
+
+
+def test_fused_bf16_encoder_tracks_xla_bf16():
+    """bf16 end to end: the fused and xla paths add the residual in different
+    precisions (bert.py:223-226), so they agree only to bf16 noise."""
+    tree = _tree()
+    ids, mask = _inputs()
+    with torch.inference_mode():
+        args = (torch.from_numpy(ids).long(), torch.from_numpy(mask))
+        fused = _port(tree, "fused", torch.bfloat16)(*args).float()
+        xla = _port(tree, "xla", torch.bfloat16)(*args).float()
+    real = torch.from_numpy(mask).bool()
+    assert torch.isfinite(fused).all()
+    assert (fused - xla)[real].abs().mean() < 3e-2
+
+
+def test_load_jax_params_roundtrip(tmp_path):
+    tree = _tree()
+    jbert.save_params(jax.tree.map(jnp.asarray, tree), str(tmp_path))
+    back = load_jax_params(str(tmp_path))
+    sd_a, sd_b = params_from_jax(tree), params_from_jax(back)
+    assert sd_a.keys() == sd_b.keys()
+    for k in sd_a:
+        torch.testing.assert_close(sd_a[k], sd_b[k], rtol=0, atol=0)
+
+
+def test_flash_and_lora_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbert.BertEncoder(tbert.BertConfig(**CFG), attention="flash")
+    tree = _tree()
+    tree["layers"]["lora_q_A"] = np.zeros((2, 64, 4), np.float32)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        params_from_jax(tree)

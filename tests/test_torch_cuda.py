@@ -1,0 +1,105 @@
+"""The port's CUDA kernels vs their plain versions, on the card.
+
+Marked ``cuda``: these skip where ``torch.cuda.is_available()`` is false (a
+CUDA kernel has no interpret mode). On a machine with an H100 run them with
+``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``; ``chip_smoke.py``
+makes the same comparisons at the main path's full shapes."""
+
+import pytest
+import torch
+
+from denseretrievaltoolkits_torch.index.flat import blockwise_topk
+from denseretrievaltoolkits_torch.ops import attn, topk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are compiled with nvcc and run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, scale=1.0, dtype=torch.float32):
+    return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+
+# bf16 post-LN outputs: 3e-2 is two bf16 ulps at |y| < 4; fp32: summation order
+TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nh", [4, 3])  # H=128 takes the tensor-core projection in bf16
+def test_attention_ln_kernel(gen, dtype, nh):
+    B, S, hd = 3, 37, 32
+    H = nh * hd
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    mask[1, 20:] = 0
+    mask[2] = 0  # all-pad row: outputs must stay finite
+    args = (_randn(gen, B, S, 3 * H, dtype=dtype), _randn(gen, B, S, H, dtype=dtype), mask,
+            _randn(gen, H, H, scale=0.05, dtype=dtype), _randn(gen, H, scale=0.05, dtype=dtype),
+            1 + _randn(gen, H, scale=0.1), _randn(gen, H, scale=0.1), 0.2, nh, hd, 1e-12)
+    n = attn.fused_attention_ln.launches
+    out = attn.fused_attention_ln(*args)
+    torch.cuda.synchronize()
+    assert attn.fused_attention_ln.launches == n + 1
+    ref = attn._reference_attention_ln(*args)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,F", [(128, 320), (96, 600)])  # tensor-core path / CUDA-core path
+def test_mlp_ln_kernel(gen, dtype, H, F):
+    rows = 50
+    x = _randn(gen, 2, rows // 2, H, dtype=dtype)
+    args = (x, _randn(gen, H, F, scale=0.05, dtype=dtype), _randn(gen, F, scale=0.05, dtype=dtype),
+            _randn(gen, F, H, scale=0.05, dtype=dtype), _randn(gen, H, scale=0.05, dtype=dtype),
+            1 + _randn(gen, H, scale=0.1), _randn(gen, H, scale=0.1), 1e-12)
+    out = attn.fused_mlp_ln(*args)
+    torch.cuda.synchronize()
+    ref = attn._reference_mlp_ln(*args)
+    assert (out.float() - ref.float()).abs().max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [64, 48])  # bf16 at H % 64 == 0 takes the tensor-core path
+def test_block_topj_and_certified_topk(gen, dtype, H):
+    c = _randn(gen, 5000, H, dtype=dtype)
+    c[700:710] = c[700]  # exact ties inside one block
+    q = _randn(gen, 70, H)
+    q[0] = c[700].float()
+    v, i = topk.block_topj(q.to(dtype), c, 8, 1024, 4990)
+    torch.cuda.synchronize()
+    rv, ri = topk._block_topj_reference(q.to(dtype), c, 8, 1024, 4990)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+    s, ids = topk.certified_topk(q, c, 50, block_size=512)
+    bs, bids = blockwise_topk(q, c, 50, 512)
+    assert torch.equal(ids, bids)
+    torch.testing.assert_close(s, bs, rtol=1e-5, atol=1e-5)
+
+
+def test_unsupported_shape_raises(gen):
+    """fp32 at bert-base widths takes S <= 306 (one head's K/V in the CUDA-core
+    kernel's shared memory): S=306 runs, and S=307 or 512 is refused with the
+    limit named, never run or silently replaced. bf16 takes S=512."""
+    nh, hd = 12, 64
+    H = nh * hd
+
+    def args(S, dtype=torch.float32):
+        return (_randn(gen, 1, S, 3 * H, dtype=dtype), _randn(gen, 1, S, H, dtype=dtype),
+                torch.ones(1, S, dtype=torch.int32, device="cuda"),
+                _randn(gen, H, H, scale=0.02, dtype=dtype), _randn(gen, H, dtype=dtype),
+                _randn(gen, H), _randn(gen, H), 0.125, nh, hd, 1e-12)
+
+    for S, dtype in ((306, torch.float32), (512, torch.bfloat16)):
+        a = args(S, dtype)
+        out = attn.fused_attention_ln(*a)
+        torch.cuda.synchronize()
+        assert (out.float() - attn._reference_attention_ln(*a).float()).abs().max() <= TOL[dtype]
+    for S in (307, 512):
+        with pytest.raises(ValueError, match=r"takes S <= 306 at nh=12, hd=64; got S=" + str(S)):
+            attn.fused_attention_ln(*args(S))
