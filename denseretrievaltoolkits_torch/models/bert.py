@@ -10,8 +10,11 @@ reference calls its Pallas kernels (bert.py:215-244).
 
 Weights keep the reference's ``[in, out]`` kernel layout, so the JAX pytree
 maps onto the module with no transpose (``models/convert.py``). Matrices and
-biases are stored in the compute dtype (the reference casts them at every
-use); embeddings and LayerNorm parameters stay fp32.
+biases are stored in ``param_dtype`` and cast to the compute dtype at every
+use, as the reference does (bert.py:200-244): training keeps fp32 master
+parameters, so gradients and optimizer state are fp32; serving stores them
+in the compute dtype, where the cast is a no-op. Embeddings and LayerNorm
+parameters stay fp32. Every parameter takes gradients.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ def layer_norm(x, scale, bias, eps):
 
 
 def _param(*shape, dtype, device):
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
 class BertEmbeddings(nn.Module):
@@ -111,8 +114,9 @@ class BertLayer(nn.Module):
 
 
 def _dense(h, kernel, bias):
-    """``jnp.dot(h, kernel, preferred_element_type=compute) + bias``."""
-    return torch.matmul(h, kernel) + bias
+    """``jnp.dot(h, kernel.astype(cd), preferred_element_type=cd) + bias.astype(cd)``
+    with cd = h's dtype."""
+    return torch.matmul(h, kernel.to(h.dtype)) + bias.to(h.dtype)
 
 
 def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str):
@@ -121,12 +125,13 @@ def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str)
     nh, hd = c.num_attention_heads, c.head_dim
     qkv = _dense(x, layer.qkv_kernel, layer.qkv_bias)
     if attention == "fused":
+        cd = x.dtype
         x = attn_ops.fused_attention_ln(
-            qkv, x, mask, layer.o_kernel, layer.o_bias, layer.attn_ln_scale,
+            qkv, x, mask, layer.o_kernel.to(cd), layer.o_bias.to(cd), layer.attn_ln_scale,
             layer.attn_ln_bias, 1.0 / math.sqrt(hd), nh, hd, c.layer_norm_eps)
         return attn_ops.fused_mlp_ln(
-            x, layer.wi_kernel, layer.wi_bias, layer.wo_kernel, layer.wo_bias,
-            layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
+            x, layer.wi_kernel.to(cd), layer.wi_bias.to(cd), layer.wo_kernel.to(cd),
+            layer.wo_bias.to(cd), layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
     # the xla path: the same attention, then projection and residual in the compute dtype
     ctx = attn_ops._reference_attention(qkv, mask, 1.0 / math.sqrt(hd), nh, hd)
     attn_out = _dense(ctx, layer.o_kernel, layer.o_bias)
@@ -139,10 +144,11 @@ def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str)
 
 class BertEncoder(nn.Module):
     """BERT encoder + HF-style pooler. ``forward`` returns last_hidden_state
-    [B,S,H] in ``dtype`` (the reference ``bert_encode``)."""
+    [B,S,H] in ``dtype`` (the reference ``bert_encode``). ``param_dtype``
+    (default: ``dtype``) is the storage dtype of matrices and biases."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
-                 attention: str = "xla", device=None):
+                 attention: str = "xla", device=None, param_dtype=None):
         super().__init__()
         if attention not in ATTENTIONS:
             raise ValueError(f"Unknown attention impl: {attention}")
@@ -154,12 +160,14 @@ class BertEncoder(nn.Module):
         self.config = config
         self.dtype = dtype
         self.attention = attention
+        param_dtype = param_dtype or dtype
         self.embeddings = BertEmbeddings(config, device=device)
         self.layers = nn.ModuleList(
-            BertLayer(config, dtype, device=device) for _ in range(config.num_hidden_layers))
+            BertLayer(config, param_dtype, device=device)
+            for _ in range(config.num_hidden_layers))
         H = config.hidden_size
-        self.pooler_kernel = _param(H, H, dtype=dtype, device=device)
-        self.pooler_bias = _param(H, dtype=dtype, device=device)
+        self.pooler_kernel = _param(H, H, dtype=param_dtype, device=device)
+        self.pooler_bias = _param(H, dtype=param_dtype, device=device)
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
         c = self.config

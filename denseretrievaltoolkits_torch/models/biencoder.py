@@ -1,11 +1,17 @@
-"""DPR-style dual encoder, encode-only half.
+"""DPR-style dual encoder.
 
 Counterpart of ``denseretrievaltoolkits_tpu/models/biencoder.py``: tied or
 untied BERT towers, optional bias-free head, first/mean/max pooling, optional
-L2 normalization, and ``DRModel.build`` from a directory the JAX package saved
-(``openmatch_config.json`` + ``weights.npz``, biencoder.py:244-280), so a
-retriever trained there is served here unchanged. The contrastive-loss
-branch of ``forward`` and HF-hub loading wait for the training port.
+L2 normalization; ``DRModel.forward(query, passage)`` with the in-batch
+contrastive loss (plain, or the fused K3/K4 kernels with ``fused_loss``);
+``DRModel.build`` from a directory the JAX package saved (``openmatch_config.json``
++ ``weights.npz``, biencoder.py:244-280), an architecture-only directory or a
+config (seeded random init); and ``save`` in that same layout, which the JAX
+package loads. HF-hub loading waits for ROADMAP queue 1 item 8.
+
+``DRModel`` trains: matrices are fp32 master parameters cast to the compute
+dtype at use. ``DRModelForInference`` serves: it stores them in the compute
+dtype (the cast is then a no-op) and never computes a loss.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..train.losses import contrastive_loss
 from . import bert, linear
-from .convert import init_params_numpy, load_jax_params, params_from_jax
+from .convert import (init_params_numpy, load_jax_params, params_from_jax, params_to_jax,
+                      save_jax_params)
 from .pooling import l2_normalize, pool
 
 MANIFEST = "openmatch_config.json"
@@ -30,8 +38,7 @@ DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.
 
 @dataclass(frozen=True)
 class DRModelSpec:
-    """Static model configuration (the reference ``DRModelSpec`` minus the
-    training-only fields)."""
+    """Static model configuration (the reference ``DRModelSpec``)."""
 
     bert_config: bert.BertConfig
     tied: bool = True
@@ -40,7 +47,9 @@ class DRModelSpec:
     linear_head: bool = False
     normalize: bool = False
     dtype: str = "float32"
+    remat: str = ""
     backbone: str = "bert"
+    fused_loss: bool = False  # K3/K4 fused similarity + CE (ops/contrastive.py)
     attention: str = "xla"
 
     def __post_init__(self):
@@ -53,21 +62,31 @@ class DRModelSpec:
             raise ValueError(f"Unknown backbone: {self.backbone}")
         if self.attention not in bert.ATTENTIONS:
             raise ValueError(f"Unknown attention impl: {self.attention}")
+        if self.remat:
+            raise NotImplementedError(
+                f"remat={self.remat!r} is not ported yet (ROADMAP queue 1 item 5, "
+                f"torch.utils.checkpoint)")
 
 
 class DRModel(nn.Module):
     """Dual encoder. ``encode_query`` / ``encode_passage`` take a batch dict of
     ``input_ids`` / ``attention_mask`` (and optionally ``token_type_ids``), as
-    numpy arrays or tensors, and return fp32 reps [B, D] on the model's device."""
+    numpy arrays or tensors, and return fp32 reps [B, D] on the model's device,
+    under ``inference_mode``. ``forward(query, passage)`` encodes with autograd
+    and adds the contrastive loss."""
+
+    serving = False  # True: matrices stored in the compute dtype
 
     def __init__(self, spec: DRModelSpec, device=None, head_dims=None):
         super().__init__()
         self.spec = spec
         self.device = torch.device(device) if device is not None else torch.device("cpu")
         dtype = DTYPES[spec.dtype]
+        param_dtype = dtype if self.serving else torch.float32
 
         def tower():
-            return bert.BertEncoder(spec.bert_config, dtype, spec.attention, device=self.device)
+            return bert.BertEncoder(spec.bert_config, dtype, spec.attention, device=self.device,
+                                    param_dtype=param_dtype)
 
         self.lm_q = tower()
         self.lm_p = None if spec.tied else tower()
@@ -79,16 +98,24 @@ class DRModel(nn.Module):
                 self.head_p = linear.LinearHead(in_dim, out_dim, device=self.device)
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
+        """Host ids -> device tensors. To a card they go from pinned memory
+        without blocking, so the host never waits here for queued work."""
         out = {}
         for key in ("input_ids", "attention_mask", "token_type_ids"):
             v = batch.get(key)
             if v is not None:
                 t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
-                out[key] = t.to(self.device, torch.long)
+                t = t.long()
+                if self.device.type == "cuda" and not t.is_cuda:
+                    t = t.pin_memory()
+                out[key] = t.to(self.device, non_blocking=True)
         return out
 
     @torch.inference_mode()
     def _encode(self, lm: bert.BertEncoder, head, batch) -> torch.Tensor:
+        return self._reps(lm, head, batch)
+
+    def _reps(self, lm: bert.BertEncoder, head, batch) -> torch.Tensor:
         spec = self.spec
         b = self._batch(batch)
         hidden = lm(b["input_ids"], b["attention_mask"], b.get("token_type_ids"))
@@ -103,13 +130,39 @@ class DRModel(nn.Module):
             reps = l2_normalize(reps)
         return reps
 
+    def _towers(self, side):
+        if side == "query" or self.spec.tied:
+            return self.lm_q, self.head_q
+        return self.lm_p, self.head_p
+
     def encode_query(self, query) -> torch.Tensor:
-        return self._encode(self.lm_q, self.head_q, query)
+        return self._encode(*self._towers("query"), query)
 
     def encode_passage(self, passage) -> torch.Tensor:
-        if self.spec.tied:
-            return self._encode(self.lm_q, self.head_q, passage)
-        return self._encode(self.lm_p, self.head_p, passage)
+        return self._encode(*self._towers("passage"), passage)
+
+    def forward(self, query=None, passage=None) -> Dict[str, torch.Tensor]:
+        """Encode (with autograd) and, when both sides are given, add the
+        in-batch contrastive loss (reference biencoder.py:143-170): fp32
+        reps; ``"scores"`` only on the plain loss (the fused kernels never
+        build them)."""
+        out: Dict[str, torch.Tensor] = {}
+        if query is not None:
+            out["q_reps"] = self._reps(*self._towers("query"), query)
+        if passage is not None:
+            out["p_reps"] = self._reps(*self._towers("passage"), passage)
+        if query is None or passage is None:
+            return out
+        if self.spec.fused_loss:
+            from ..ops.contrastive import contrastive_loss_auto
+
+            loss, scores = contrastive_loss_auto(out["q_reps"], out["p_reps"])
+        else:
+            loss, scores = contrastive_loss(out["q_reps"], out["p_reps"])
+        out["loss"] = loss
+        if scores is not None:
+            out["scores"] = scores
+        return out
 
     def encode_only_forward(self, query=None, passage=None) -> Dict[str, torch.Tensor]:
         """Reps, never a loss (the reference ``DRModelForInference`` contract)."""
@@ -124,15 +177,52 @@ class DRModel(nn.Module):
         """Load a JAX BERT pytree (numpy) into ``lm_q`` or ``lm_p``."""
         getattr(self, tower).load_state_dict(params_from_jax(tree))
 
+    def _manifest(self) -> Dict:
+        """The reference's manifest schema (biencoder.py:174-183)."""
+        spec = self.spec
+        return {"tied": spec.tied,
+                "plm_backbone": {"type": spec.backbone, "feature": spec.feature},
+                "pooling": spec.pooling, "linear_head": spec.linear_head,
+                "normalize": spec.normalize, "dtype": spec.dtype}
+
+    def save(self, output_dir: str) -> None:
+        """Save in the reference's layout (biencoder.py:185-207): tied towers
+        at the top, untied ones under ``query_model/`` and ``passage_model/``,
+        heads (``query_head/``, ``passage_head/`` when untied), the
+        ``bert_config.json`` of each tower and ``openmatch_config.json``."""
+        os.makedirs(output_dir, exist_ok=True)
+
+        def tower(lm, path):
+            save_jax_params(params_to_jax(lm.state_dict()), path)
+            bert.save_config(self.spec.bert_config, path)
+
+        if self.spec.tied:
+            tower(self.lm_q, output_dir)
+            if self.spec.linear_head:
+                linear.save_head(self.head_q, output_dir)
+        else:
+            tower(self.lm_q, os.path.join(output_dir, "query_model"))
+            tower(self.lm_p, os.path.join(output_dir, "passage_model"))
+            if self.spec.linear_head:
+                linear.save_head(self.head_q, os.path.join(output_dir, "query_head"))
+                linear.save_head(self.head_p, os.path.join(output_dir, "passage_head"))
+        with open(os.path.join(output_dir, MANIFEST), "w") as fh:
+            json.dump(self._manifest(), fh, indent=4)
+
     @classmethod
     def build(cls, model_args, bert_config: Optional[bert.BertConfig] = None,
               device=None, seed: int = 0) -> "DRModel":
-        """From a saved JAX-package checkpoint dir, an architecture-only dir
-        (``bert_config.json``, random init), or random init from
-        ``bert_config``. Random weights come from ``init_params_numpy(seed)``."""
+        """From a saved checkpoint dir (either package's ``save``), an
+        architecture-only dir (``bert_config.json``, random init), or random
+        init from ``bert_config``. Random weights come from
+        ``init_params_numpy(seed)``; random heads (``add_linear_head``) from
+        ``linear.init_head`` seeded with (seed, 1, 0) and, untied, (seed, 1, 1),
+        as the reference folds its key (biencoder.py:351-359)."""
         path = model_args.model_name_or_path
         dtype = getattr(model_args, "dtype", "float32")
         attention = getattr(model_args, "attention", "xla")
+        training = dict(remat=getattr(model_args, "remat", ""),
+                        fused_loss=getattr(model_args, "fused_loss", False))
         if path and os.path.isdir(path) and os.path.exists(os.path.join(path, MANIFEST)):
             with open(os.path.join(path, MANIFEST)) as fh:
                 manifest = json.load(fh)
@@ -148,7 +238,7 @@ class DRModel(nn.Module):
                 backbone=manifest["plm_backbone"].get("type", "bert"),
                 feature=manifest["plm_backbone"]["feature"], pooling=manifest["pooling"],
                 linear_head=manifest["linear_head"], normalize=manifest["normalize"],
-                dtype=dtype, attention=attention)
+                dtype=dtype, attention=attention, **training)
             model = cls(spec, device=device,
                         head_dims=tuple(heads[0].kernel.shape) if heads else None)
             model.load_jax_tower("lm_q", load_jax_params(qdir))
@@ -172,21 +262,25 @@ class DRModel(nn.Module):
         spec = DRModelSpec(
             bert_config=config, tied=not model_args.untie_encoder, feature=model_args.feature,
             pooling=model_args.pooling, linear_head=model_args.add_linear_head,
-            normalize=model_args.normalize, dtype=dtype, attention=attention)
-        if spec.linear_head:
-            raise NotImplementedError(
-                "random-init linear heads are a training concern (ROADMAP queue 1, "
-                "item 'Training'); load a saved checkpoint instead")
-        model = cls(spec, device=device)
+            normalize=model_args.normalize, dtype=dtype, attention=attention, **training)
+        dims = (model_args.projection_in_dim, model_args.projection_out_dim)
+        model = cls(spec, device=device, head_dims=dims)
         tree = init_params_numpy(config, seed)
         model.load_jax_tower("lm_q", tree)
         if model.lm_p is not None:
             model.load_jax_tower("lm_p", tree)
+        if spec.linear_head:
+            for i, head in enumerate((model.head_q, model.head_p)):
+                if head is not None:
+                    head.load_state_dict(linear.init_head(*dims, (seed, 1, i)).state_dict())
         return model
 
 
 class DRModelForInference(DRModel):
-    """Encode-only variant: ``forward`` never computes a loss."""
+    """Encode-only variant: ``forward`` never computes a loss, and matrices
+    are stored in the compute dtype."""
+
+    serving = True
 
     def forward(self, query=None, passage=None):
         return self.encode_only_forward(query, passage)

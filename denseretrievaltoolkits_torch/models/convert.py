@@ -6,7 +6,9 @@ axis 0, saved flat as ``weights.npz`` with ``"a/b"`` keys
 (``bert.save_params``, bert.py:387-394). These helpers read that layout with
 numpy only, so a retriever trained with the JAX package is served by the port
 unchanged, and build a seeded random pytree of the same layout where no
-checkpoint exists.
+checkpoint exists. The inverse bridge (:func:`params_to_jax`,
+:func:`save_jax_params`) writes a port-trained encoder in that layout, so the
+JAX package loads it with ``bert.load_params``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,43 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     out["pooler_kernel"] = t(tree["pooler"]["kernel"])
     out["pooler_bias"] = t(tree["pooler"]["bias"])
     return out
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
+    """``BertEncoder`` state_dict (or any dict of the same keys, e.g. its
+    gradients) -> the JAX BERT pytree of fp32 numpy arrays: ``qkv_*`` splits
+    back into ``q/k/v`` and the layers stack on axis 0. Inverse of
+    :func:`params_from_jax`. The arrays are copies: later in-place updates of
+    the module do not reach them."""
+    n = lambda t: np.array(t.detach().float().cpu())  # noqa: E731
+    L = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("layers."))
+    layer = [{k.split(".", 2)[2]: n(v) for k, v in state.items()
+              if k.startswith(f"layers.{i}.")} for i in range(L)]
+    layers = {k: np.stack([lay[k] for lay in layer]) for k in _LAYER_KEYS}
+    for fused, parts in (("qkv_kernel", _QKV[0::2]), ("qkv_bias", _QKV[1::2])):
+        stacked = np.stack([lay[fused] for lay in layer])
+        for name, part in zip(parts, np.split(stacked, 3, axis=-1)):
+            layers[name] = np.ascontiguousarray(part)
+    emb = {k: n(state[f"embeddings.{k}"])
+           for k in ("word", "position", "token_type", "ln_scale", "ln_bias")}
+    return {"embeddings": emb, "layers": layers,
+            "pooler": {"kernel": n(state["pooler_kernel"]), "bias": n(state["pooler_bias"])}}
+
+
+def save_jax_params(tree: Dict, path: str, name: str = "weights") -> None:
+    """Write a nested numpy pytree as ``<path>/<name>.npz`` with ``"a/b"``
+    keys, as ``bert.save_params`` does (bert.py:365-389)."""
+
+    def flat(node, prefix=""):
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                yield from flat(v, key)
+            else:
+                yield key, np.asarray(v)
+
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, f"{name}.npz"), **dict(flat(tree)))
 
 
 def load_jax_params(path: str, name: str = "weights") -> Dict:

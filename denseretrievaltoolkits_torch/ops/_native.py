@@ -46,6 +46,13 @@ SIGNATURES = {
     "drt_block_topj": [_P] * 4 + [_I] * 7 + [_P],
     # nh, hd, is_bf16 -> the longest S drt_attn_ln takes (not a cudaError_t)
     "drt_attn_ln_max_seq": [_I, _I, _I],
+    # q, p, lse, tgt, Q, P, H, stride, stream
+    "drt_contrastive_fwd": [_P] * 4 + [_I] * 4 + [_P],
+    # q, p, lse, gout, dq (dp), Q, P, H, stride, stream
+    "drt_contrastive_dq": [_P] * 5 + [_I] * 4 + [_P],
+    "drt_contrastive_dp": [_P] * 5 + [_I] * 4 + [_P],
+    # -> the widest H the contrastive kernels take (not a cudaError_t)
+    "drt_contrastive_max_h": [],
 }
 
 # wall seconds the last build took (0.0 when a cached library was reused)

@@ -13,6 +13,12 @@ A wrapper runs its plain version for tensors on the CPU. For CUDA tensors it
 launches its kernel or raises; it never falls back. Each wrapper counts its
 kernel launches in a plain int attribute, ``<wrapper>.launches``.
 
+Both wrappers are differentiable, as ``jax.custom_vjp`` makes them in the
+reference (attn.py:205-238, 344-367): the forward is the kernel, and the
+backward recomputes the block through its plain version under autograd and
+returns ``torch.autograd.grad`` of it. The mask takes no gradient. The JAX
+package has no backward kernel for K1/K2, so neither has the port.
+
 The plain versions reproduce the reference's numerics: products of
 compute-dtype values accumulate in fp32 (inputs upcast, so a bf16 product is
 exact; on CUDA this needs ``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -88,12 +94,48 @@ def _check_cuda(name, dtype, tensors, floats=()):
             raise ValueError(f"{name}: LayerNorm params must be contiguous float32 on {dev}")
 
 
+class _RecomputeBackward(torch.autograd.Function):
+    """Forward by ``forward_fn`` (a kernel launch, or the plain version for
+    CPU tensors); backward by autograd through ``plain_fn`` recomputed on the
+    saved inputs. ``tensors`` are the differentiable inputs, ``static`` the
+    rest of ``plain_fn``'s arguments (mask and scalars), which take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, plain_fn, static, *tensors):
+        ctx.plain_fn, ctx.static = plain_fn, static
+        ctx.save_for_backward(*tensors)
+        return forward_fn(*tensors, **static)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = ctx.plain_fn(*inputs, **ctx.static)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (None, None, None) + tuple(next(grads) if t.requires_grad else None
+                                          for t in inputs)
+
+
+def _attention_ln_plain(qkv, x, ok, ob, ls, lb, *, mask, sm_scale, nh, hd, eps):
+    return _reference_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps)
+
+
 def fused_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps):
     """Attention + output projection + residual + LayerNorm (K1).
 
     qkv: [B,S,3H] raw fused-QKV output ([q|k|v], heads contiguous); x: [B,S,H]
     the block input; mask: [B,S] 0/1; ok/ob: [H,H] / [H] in the compute dtype;
-    ls/lb: LayerNorm scale/bias [H]. Returns the post-LN hidden [B,S,H]."""
+    ls/lb: LayerNorm scale/bias [H]. Returns the post-LN hidden [B,S,H].
+    Differentiable in every input but the mask."""
+    static = dict(mask=mask, sm_scale=sm_scale, nh=nh, hd=hd, eps=eps)
+    return _RecomputeBackward.apply(_attention_ln_forward, _attention_ln_plain, static,
+                                    qkv, x, ok, ob, ls, lb)
+
+
+def _attention_ln_forward(qkv, x, ok, ob, ls, lb, *, mask, sm_scale, nh, hd, eps):
     if not qkv.is_cuda:
         return _reference_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps)
     B, S, threeH = qkv.shape
@@ -128,11 +170,21 @@ def fused_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps):
 fused_attention_ln.launches = 0
 
 
+def _mlp_ln_plain(x, wi, bi, wo, bo, ls, lb, *, eps):
+    return _reference_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps)
+
+
 def fused_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps):
     """MLP (wi -> exact gelu -> wo) + residual + LayerNorm (K2).
 
     x: [B,S,H]; wi [H,F], bi [F], wo [F,H], bo [H] in the compute dtype;
-    ls/lb LayerNorm params [H]. Returns the post-LN hidden [B,S,H]."""
+    ls/lb LayerNorm params [H]. Returns the post-LN hidden [B,S,H].
+    Differentiable in every input."""
+    return _RecomputeBackward.apply(_mlp_ln_forward, _mlp_ln_plain, dict(eps=eps),
+                                    x, wi, bi, wo, bo, ls, lb)
+
+
+def _mlp_ln_forward(x, wi, bi, wo, bo, ls, lb, *, eps):
     if not x.is_cuda:
         return _reference_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps)
     H = x.shape[-1]

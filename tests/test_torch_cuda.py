@@ -103,3 +103,75 @@ def test_unsupported_shape_raises(gen):
     for S in (307, 512):
         with pytest.raises(ValueError, match=r"takes S <= 306 at nh=12, hd=64; got S=" + str(S)):
             attn.fused_attention_ln(*args(S))
+
+
+# K3/K4: fp32 products in true fp32, so summation order only
+@pytest.mark.parametrize("Q,P,H", [(64, 512, 768), (1000, 8000, 64), (37, 111, 48), (5, 10, 4)])
+def test_contrastive_kernels(gen, Q, P, H):
+    """K3 (lse, target) and K4 (dq, dp with an upstream scalar) vs their plain
+    versions, tile-exact and ragged in Q and P (37 x 111: stride 3)."""
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+
+    stride = P // Q
+    q, p = _randn(gen, Q, H, scale=0.3), _randn(gen, P, H, scale=0.3)
+    gout = torch.tensor(1.7, device="cuda")
+    n = (con.contrastive_fwd.launches, con.contrastive_bwd_dq.launches,
+         con.contrastive_bwd_dp.launches)
+    lse, tgt = con.contrastive_fwd(q, p, stride)
+    dq = con.contrastive_bwd_dq(q, p, lse, stride, gout)
+    dp = con.contrastive_bwd_dp(q, p, lse, stride, gout)
+    torch.cuda.synchronize()
+    assert (con.contrastive_fwd.launches, con.contrastive_bwd_dq.launches,
+            con.contrastive_bwd_dp.launches) == tuple(x + 1 for x in n)
+    rlse, rtgt = con._reference_contrastive_fwd(q, p, stride)
+    rdq, rdp = con._reference_contrastive_bwd(q, p, rlse, stride, gout)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tgt, rtgt, rtol=1e-5, atol=1e-5)
+    for got, want in ((dq, rdq), (dp, rdp)):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_fused_loss_autograd_on_card(gen):
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+    from denseretrievaltoolkits_torch.train.losses import contrastive_loss
+
+    q = _randn(gen, 48, 128, scale=0.3).requires_grad_(True)
+    p = _randn(gen, 384, 128, scale=0.3).requires_grad_(True)
+    loss, scores = con.contrastive_loss_auto(q, p)
+    assert scores is None
+    gq, gp = torch.autograd.grad(loss, (q, p))
+    ref, _ = contrastive_loss(q, p)
+    rq, rp = torch.autograd.grad(ref, (q, p))
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=0)
+    torch.testing.assert_close(gq, rq, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gp, rp, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_kernel_gradients(gen, dtype):
+    """K1/K2 under autograd: the kernel forward with the recompute backward
+    gives the plain path's gradients (the backward is the plain recompute, so
+    they agree up to the forward's rounding, which they do not depend on)."""
+    B, S, nh, hd, F = 2, 24, 4, 32, 320
+    H = nh * hd
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    mask[1, 15:] = 0
+    k1 = [_randn(gen, B, S, 3 * H, dtype=dtype), _randn(gen, B, S, H, dtype=dtype),
+          _randn(gen, H, H, scale=0.05, dtype=dtype), _randn(gen, H, scale=0.05, dtype=dtype),
+          1 + _randn(gen, H, scale=0.1), _randn(gen, H, scale=0.1)]
+    k2 = [_randn(gen, B, S, H, dtype=dtype), _randn(gen, H, F, scale=0.05, dtype=dtype),
+          _randn(gen, F, scale=0.05, dtype=dtype), _randn(gen, F, H, scale=0.05, dtype=dtype),
+          _randn(gen, H, scale=0.05, dtype=dtype), 1 + _randn(gen, H, scale=0.1),
+          _randn(gen, H, scale=0.1)]
+    g = _randn(gen, B, S, H, dtype=dtype)
+    for fn, ref, args in (
+            (lambda *a: attn.fused_attention_ln(a[0], a[1], mask, *a[2:], 0.2, nh, hd, 1e-12),
+             lambda *a: attn._reference_attention_ln(a[0], a[1], mask, *a[2:], 0.2, nh, hd,
+                                                     1e-12), k1),
+            (lambda *a: attn.fused_mlp_ln(*a, 1e-12), lambda *a: attn._reference_mlp_ln(*a, 1e-12),
+             k2)):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        got = torch.autograd.grad(fn(*leaves), leaves, g)
+        want = torch.autograd.grad(ref(*leaves), leaves, g)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

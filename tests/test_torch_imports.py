@@ -51,4 +51,4 @@ def test_shared_modules_are_jax_free():
 
 def test_kernel_sources_present():
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
-    assert names == {"attn_ln.cu", "mlp_ln.cu", "block_topj.cu"}
+    assert names == {"attn_ln.cu", "mlp_ln.cu", "block_topj.cu", "contrastive.cu"}
