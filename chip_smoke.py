@@ -42,9 +42,37 @@ Phases, each of which fails the run on error:
    ``DRModelForInference.build`` (same reps), and a checkpoint resume (the
    next step's loss equals the uninterrupted run's).
 
-Prints the card's name and power limit, one JSON line of per-kernel results,
-and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
-when no CUDA card is present or any phase fails.
+6. K7 (int8 quantization) on the K5 phase's 1,000,000 x 768 fp32 corpus:
+   values and scales bit-equal to the plain version; kernel / plain ms.
+7. K6, K8 and K12 vs their plain versions on that corpus int8-quantized (and
+   its fp32 and bf16 forms for K8), 1024 queries, k=100: K6 through the
+   certified int8 ``exact`` search (ids vs the plain-version search, rescored
+   against ``blockwise_topk`` on the int8 rows), K8 through ``serve_topk`` on
+   all three dtypes and K12 through ``serve_topk(i8_native=True)``: top-k vs
+   the plain versions, recall@100 vs the certified search of the same index;
+   kernel, plain and search ms.
+8. The int8 serving path through the entry points, on the main path's
+   bert-base reps: ``FlatIPIndex(dtype="int8")`` filled by ``add_device``,
+   ``search_queries`` in ``exact``, ``serve``, ``i8q`` and ``approx``
+   (docids, ranking file, ``get_metrics``) with the launch counters of K6,
+   K7, K8 and K12 zeroed before and read after. K6 (at the certified J and
+   its escalated J), K8 and K12 (at the serve J) then meet their plain
+   versions block by block on this path's own int8 slab, queries and blocks:
+   ids equal up to ties, scores within 1e-5 (K6) / 1e-4 (K8), K12 bit-equal.
+   Top-100 overlap and metric gap vs the fp32 ranking of phase 3; the same
+   path with the plain versions must agree. Then ``save`` and
+   ``evaluator.retrieval.main --index_path ... --search_mode serve`` on the
+   card, the reloaded payload bit-equal.
+9. Scale: 8,841,823 x 768 int8 rows (MS MARCO passage) built by
+   ``add_device`` in 262,144-row slabs of seeded fp32 quantized by K7 (the
+   trainer's evaluation path); queries/s of ``serve``, ``i8q`` and
+   ``exact`` at k=100, recall@100 of serve / i8q vs exact, peak memory.
+
+Prints the card's name and power limit, one JSON line of per-kernel results
+(each with its bound: the larger of its bytes over 3.35 TB/s and its
+operations over the peak rate of their type), and last ``{"ok": true,
+"device": {...}}``. Exits non-zero, with no result, when no CUDA card is
+present or any phase fails.
 """
 
 from __future__ import annotations
@@ -84,6 +112,29 @@ TRAIN_GRAD_NORM = 4e-2
 # batch, 6 steps per epoch, 2 epochs, 6 timed steps. lr 1e-4 diverged from
 # random init on the H100 (step-2 loss 15, then collapse to log 256); 1e-5 trains.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS_PER_EPOCH, TRAIN_LR, TRAIN_TIMED_STEPS = 12, 32, 6, 1e-5, 6
+# The H100 SXM's peaks (NVIDIA's data sheet, dense): device memory bytes/s and
+# operations/s by type. A kernel's bound is the larger of its bytes (each input
+# read once, each output written once) over the first and its operations over
+# the rate of their type.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# Scale phase: MS MARCO passage (8,841,823 passages) at bert-base width, added as
+# the trainer's evaluation path adds them (index_slab_rows' default), searched by
+# 1024 queries.
+SCALE_ROWS, SLAB_ROWS, SCALE_QUERIES = 8_841_823, 262_144, 1024
+# Recall@100 against the certified search of the same index, at 1M and at
+# MS MARCO's 8.8M rows. serve misses a row only where a block overflows its
+# Poisson J (~1e-6) or at an exact tie: it read 1.0 on every dtype at both
+# sizes. i8q adds query quantization, whose near-tie swaps read 0.98671 (1M)
+# and 0.98492 (8.8M); the bound keeps about 1.5 points of room.
+SERVE_RECALL, I8Q_RECALL = 0.999, 0.97
+# The int8 serving path on the main path's reps (bert-base, random weights):
+# kernels vs plain versions read top-100 overlap 0.99994-1.0 and no metric gap
+# (ties only); against the fp32 exact ranking, int8 rows read overlap 0.89514
+# (exact, serve) and 0.89451 (i8q, approx) and metric gaps 0.0117 / 0.0176:
+# random-weight CLS reps rank a flat tail that the row quantization reorders.
+INT8_VS_PLAIN, INT8_PLAIN_METRIC_GAP = 0.999, 0.004
+INT8_VS_FP32, INT8_METRIC_GAP = 0.87, 0.03
 
 
 def log(msg):
@@ -112,6 +163,17 @@ def certificate_counts(topk):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def bound(n_bytes, ops, kind):
+    """(bound_ms, bound_by): the least time the card could take for this work."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def overlap(a, b):
+    """Mean share of each row of ``a`` found in the same row of ``b``."""
+    return float(np.mean([len(set(x) & set(y)) / max(1, len(x)) for x, y in zip(a, b)]))
 
 
 def ragged_mask(gen, B, S, n_pad_rows):
@@ -229,13 +291,15 @@ def make_batches(rng, n, max_len, prefix, batch, pad_batch, docs=None):
 
 
 def phase_main_path(args, tmp):
-    from denseretrievaltoolkits_torch.evaluator.retrieval import (
-        get_metrics, search_queries, write_ranking)
+    from denseretrievaltoolkits_torch.evaluator.metrics import get_metrics
+    from denseretrievaltoolkits_torch.evaluator.retrieval import search_queries, write_ranking
     from denseretrievaltoolkits_torch.index.flat import FlatIPIndex
     from denseretrievaltoolkits_torch.models.bert import BertConfig, save_config
     from denseretrievaltoolkits_torch.models.biencoder import DRModelForInference
     from denseretrievaltoolkits_torch.ops import attn, topk
-    from denseretrievaltoolkits_torch.run_encode import ModelArguments, encode_batches, pad_batch
+    from denseretrievaltoolkits_torch.config import ModelArguments
+    from denseretrievaltoolkits_torch.data.collators import pad_batch
+    from denseretrievaltoolkits_torch.run_encode import encode_batches
 
     config = BertConfig(num_hidden_layers=args.layers)
     arch = os.path.join(tmp, "bert-base")
@@ -324,9 +388,6 @@ def phase_main_path(args, tmp):
         plain_search = run("plain search over the kernels' reps",
                            reps=(kern["p_reps"], kern["q_reps"]))
 
-    def overlap(a, b):
-        return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
-
     def cos(a, b):
         return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
 
@@ -361,7 +422,7 @@ def phase_main_path(args, tmp):
             "metric_gap": metric_gap, "k5_max_abs_err": rank_err.max().item(),
             "score_spread": spread, "score_shift": shift,
             "kernels": {k: v for k, v in kern.items() if k in keep},
-            "plain": {k: v for k, v in plain.items() if k in keep}}
+            "plain": {k: v for k, v in plain.items() if k in keep}}, kern
 
 
 def peak_mib(fn):
@@ -480,9 +541,11 @@ def phase_train(args, tmp):
     from denseretrievaltoolkits_torch.models.bert import BertConfig, save_config
     from denseretrievaltoolkits_torch.models.biencoder import DRModel, DRModelForInference
     from denseretrievaltoolkits_torch.ops import attn, contrastive as con
-    from denseretrievaltoolkits_torch.run_encode import ModelArguments, pad_batch
+    from denseretrievaltoolkits_torch.config import ModelArguments, TrainingArguments
+    from denseretrievaltoolkits_torch.data.collators import pad_batch
+    from denseretrievaltoolkits_torch.data.loaders import DataLoader
     from denseretrievaltoolkits_torch.train.losses import contrastive_loss
-    from denseretrievaltoolkits_torch.train.trainer import DataLoader, Trainer, TrainingArguments
+    from denseretrievaltoolkits_torch.train.trainer import Trainer
 
     config = BertConfig(num_hidden_layers=TRAIN_LAYERS)
     arch = os.path.join(tmp, "bert-base-train")
@@ -639,6 +702,367 @@ def phase_train(args, tmp):
             "plain_steps_per_s": plain_rate[0], "plain_tokens_per_s": plain_rate[1]}
 
 
+def phase_quant(gen, quant, n_rows, dim=768):
+    """K7 vs its plain version on the K5 phase's corpus size: bit for bit."""
+    x = torch.randn(n_rows, dim, generator=gen, device="cuda")
+    x[0] = 0  # a zero row: scale 1
+    v, s = quant.quantize_int8_device(x)
+    torch.cuda.synchronize()
+    rv, rs = quant._quantize_int8_reference(x)
+    err = max(float((v.int() - rv.int()).abs().max()), float((s - rs).abs().max()))
+    equal = bool(torch.equal(v, rv) and torch.equal(s, rs))
+    ms = cuda_ms(lambda: quant.quantize_int8_device(x))
+    plain_ms = cuda_ms(lambda: quant._quantize_int8_reference(x))
+    bound_ms, by = bound(n_rows * dim * (4 + 1) + n_rows * 4, n_rows * dim, "fp32")
+    log(f"K7 fp32 {n_rows}x{dim}: values and scales bit-equal to the plain version: {equal} "
+        f"(max abs diff {err:g}); kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+        f"{bound_ms:.3f} ms ({by})")
+    check(equal, "K7 disagrees with its plain version")
+    del x, rv, rs
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by}, (v, s)
+
+
+def rescore(q, corpus, ids, scales=None, query_dtype=None):
+    """fp64 scores of rows ``ids`` [Q, m] under the kernels' formula: queries in
+    the kernels' input type (bf16 for bf16 and int8 rows), int8 rows times
+    their scales."""
+    if query_dtype is None:
+        query_dtype = torch.float32 if corpus.dtype == torch.float32 else torch.bfloat16
+    qc = q.to(query_dtype).double()
+    idx = ids.long().clamp(min=0)
+    rows = corpus[idx].double()
+    if scales is not None:
+        rows = rows * scales[idx].double()[..., None]
+    return torch.einsum("qd,qkd->qk", qc, rows)
+
+
+def against_plain(q, corpus, scales, got, want, rel_tol):
+    """(rank-wise score error, rescored error of the ids, differing ids) of a
+    top-k against the plain versions' top-k: ids may differ only inside ties
+    within the tolerance."""
+    (vals, ids), (ref_vals, ref_ids) = got, want
+    tol = rel_tol * ref_vals.abs().clamp(min=1.0)
+    rank_err = (vals - ref_vals).abs()
+    rescored_err = (rescore(q, corpus, ids, scales) - ref_vals.double()).abs()
+    if corpus.dtype == torch.int8:
+        # the certificate's fallback scan scores fp32 queries (the reference's
+        # formula), so a query that fell back carries fp32-query scores
+        rescored_err = torch.minimum(rescored_err, (rescore(
+            q, corpus, ids, scales, torch.float32) - ref_vals.double()).abs())
+    ok = bool((rank_err <= tol).all()) and bool((rescored_err <= tol.double()).all())
+    return ok, rank_err.max().item(), rescored_err.max().item(), int((ids != ref_ids).sum())
+
+
+def blocks_against_plain(q, corpus, scales, got, want, rel_tol):
+    """(ok, max rank err, max rescored err, ids differing) of per-block top-J
+    lists [Q, nb, J] against the plain version's: scores rank-wise within
+    ``rel_tol``, each kernel id scoring its kernel score under the kernels'
+    formula (so an id may differ from the plain one only where the two tie),
+    empty slots alike, and no id twice in one list."""
+    (vals, ids), (ref_vals, ref_ids) = got, want
+    tol = rel_tol * ref_vals.abs().clamp(min=1.0)
+    rank_err = torch.where(vals == ref_vals, 0.0, (vals - ref_vals).abs())
+    rescored = rescore(q, corpus, ids.reshape(ids.shape[0], -1), scales).reshape(ids.shape)
+    own_err = torch.where(ids >= 0, (rescored - vals.double()).abs(), 0.0)
+    srt = ids.sort(dim=-1).values
+    repeated = ((srt[..., 1:] == srt[..., :-1]) & (srt[..., 1:] >= 0)).any()
+    ok = (bool((rank_err <= tol).all()) and bool((own_err <= tol.double()).all())
+          and bool(((ids < 0) == (ref_ids < 0)).all()) and not bool(repeated))
+    return ok, rank_err.max().item(), own_err.max().item(), int((ids != ref_ids).sum())
+
+
+def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=100, dim=768):
+    """K6, K8 and K12 vs their plain versions on the 1M-row corpus (int8 from
+    K7, and fp32 / bf16 forms from the same seed for K8)."""
+    values, scales = x_int8
+    n_rows = values.shape[0]
+    block = 4096  # FlatIPIndex's rule at this size
+    q = torch.randn(n_queries, dim, generator=gen, device="cuda")
+    results = {}
+    plain = {topk: {"block_topj": topk._block_topj_reference,
+                    "block_topj_serve": topk._block_topj_serve_reference,
+                    "block_topj_i8q": topk._block_topj_i8q_reference},
+             quant: {"quantize_int8_device": quant._quantize_int8_reference}}
+
+    @contextlib.contextmanager
+    def plain_versions():
+        with contextlib.ExitStack() as stack:
+            for mod, fns in plain.items():
+                for name, fn in fns.items():
+                    stack.enter_context(mock.patch.object(mod, name, fn))
+            yield
+
+    # K6: the certified int8 search
+    counts0 = certificate_counts(topk)
+    s, ids = topk.certified_topk(q, values, k, block, scales=scales)
+    torch.cuda.synchronize()
+    escalated, fallbacks = np.subtract(certificate_counts(topk), counts0).tolist()
+    with plain_versions():
+        ps, pids = topk.certified_topk(q, values, k, block, scales=scales)
+    ok, rank_err, res_err, differ = against_plain(q, values, scales, (s, ids), (ps, pids), 1e-5)
+    # against the exact scan on the int8 rows, which scores fp32 queries (the
+    # reference's fallback formula): the k-th best of two score functions differ
+    # by at most their largest gap over all rows, which is measured here
+    bs, bids = blockwise_topk(q, values, k, block, scales=scales)
+    gap = torch.zeros(n_queries, device="cuda")
+    qd = q - q.bfloat16().float()
+    for start in range(0, n_rows, 65536):
+        blk = values[start:start + 65536].float() * scales[start:start + 65536, None]
+        gap = torch.maximum(gap, (qd @ blk.T).abs().amax(1))
+    scan_err = (s - bs).abs()
+    scan_ok = bool((scan_err <= gap[:, None] + 1e-5 * bs.abs().clamp(min=1)).all())
+    scan_recall = overlap(ids.tolist(), bids.tolist())
+    qc = q.bfloat16()
+    J = max(4, min(k, 8))
+    kv, _ = topk.block_topj(qc, values, J, block, n_rows, scales)
+    pv, _ = topk._block_topj_reference(qc, values, J, block, n_rows, scales)
+    blk_err = (kv - pv).abs().max().item()
+    t = {"ms": cuda_ms(lambda: topk.block_topj(qc, values, J, block, n_rows, scales), iters=3),
+         "plain_ms": cuda_ms(lambda: topk._block_topj_reference(qc, values, J, block, n_rows,
+                                                                 scales), iters=3),
+         "search_ms": cuda_ms(lambda: topk.certified_topk(q, values, k, block, scales=scales),
+                              iters=3)}
+    ops = 2.0 * n_queries * n_rows * dim
+    t["bound_ms"], t["bound_by"] = bound(values.numel() + 4 * n_rows + 2 * q.numel(), ops, "bf16")
+    log(f"K6 int8 {n_rows}x{dim} Q={n_queries} k={k}: vs the plain-version certified search: "
+        f"ids differing {differ}, max rank err {rank_err:.3e}, max rescored err {res_err:.3e} "
+        f"(rel tol 1e-5); certificate escalated {escalated} fallbacks {fallbacks}; vs the exact "
+        f"scan on fp32 queries: max rank gap {scan_err.max().item():.3e} within the measured "
+        f"bf16-query gap (max {gap.max().item():.3e}): {scan_ok}, recall@{k} {scan_recall:.5f}; "
+        f"per-block max err {blk_err:.3e}; kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms "
+        f"bound {t['bound_ms']:.3f} ms, certified search {t['search_ms']:.3f} ms")
+    check(ok, "K6: the certified int8 search disagrees with its plain version")
+    check(scan_ok, "K6: the certified int8 search is not within the bf16-query gap of the scan")
+    results["K6"] = dict(t, max_abs_err=blk_err, escalated=escalated, fallbacks=fallbacks,
+                         ids_differing=differ, scan_recall=scan_recall)
+    exact = {"int8": ids}
+    del bs, bids, kv, pv
+
+    # K8 on fp32, bf16 and int8 rows; K12 on int8 rows
+    x = torch.randn(n_rows, dim, generator=gen, device="cuda")
+    forms = {"float32": (x, None), "bfloat16": (x.bfloat16(), None), "int8": (values, scales)}
+    for dtype in ("float32", "bfloat16"):
+        exact[dtype] = topk.certified_topk(q, forms[dtype][0], k, block)[1]
+    for name, dtype in (("K8", "float32"), ("K8", "bfloat16"), ("K8", "int8"), ("K12", "int8")):
+        corpus, sc = forms[dtype]
+        native = name == "K12"
+        got = topk.serve_topk(q, corpus, k, block, scales=sc, i8_native=native)
+        torch.cuda.synchronize()
+        with plain_versions():
+            want = topk.serve_topk(q, corpus, k, block, scales=sc, i8_native=native)
+        J = topk.serve_j(k, -(-n_rows // block), block)
+        if native:
+            qi, qs = quant.quantize_queries(q)
+            kern = lambda: topk.block_topj_i8q(qi, qs, corpus, sc, J, block, n_rows)  # noqa: E731
+            ref = lambda: topk._block_topj_i8q_reference(qi, qs, corpus, sc, J, block,  # noqa: E731
+                                                         n_rows)
+            ok = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+            rank_err, res_err = (got[0] - want[0]).abs().max().item(), 0.0
+            differ = int((got[1] != want[1]).sum())
+            kind, q_bytes = "int8", q.numel() + 4 * n_queries
+        else:
+            qc = q.to(torch.bfloat16 if dtype != "float32" else torch.float32)
+            kern = lambda: topk.block_topj_serve(qc, corpus, J, block, n_rows, sc)  # noqa: E731
+            ref = lambda: topk._block_topj_serve_reference(qc, corpus, J, block,  # noqa: E731
+                                                           n_rows, sc)
+            ok, rank_err, res_err, differ = against_plain(
+                q, corpus, sc, got, want, 1e-5 if dtype == "float32" else 1e-4)
+            kind = "fp32" if dtype == "float32" else "bf16"
+            q_bytes = qc.numel() * qc.element_size()
+        kv, _ = kern()
+        pv, _ = ref()
+        blk_err = (kv - pv).abs().max().item()
+        recall = overlap(got[1].tolist(), exact[dtype].tolist())
+        t = {"ms": cuda_ms(kern, iters=3), "plain_ms": cuda_ms(ref, iters=3),
+             "search_ms": cuda_ms(lambda: topk.serve_topk(q, corpus, k, block, scales=sc,
+                                                          i8_native=native), iters=3)}
+        n_bytes = corpus.numel() * corpus.element_size() + (0 if sc is None else 4 * n_rows)
+        t["bound_ms"], t["bound_by"] = bound(n_bytes + q_bytes, ops, kind)
+        label = f"{name} {dtype}"
+        log(f"{label} {n_rows}x{dim} Q={n_queries} k={k} J={J}: vs the plain versions: ids "
+            f"differing {differ}, max rank err {rank_err:.3e}, max rescored err {res_err:.3e}; "
+            f"per-block max err {blk_err:.3e}; recall@{k} vs the certified search "
+            f"{recall:.5f}; kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms bound "
+            f"{t['bound_ms']:.3f} ms ({t['bound_by']}), search {t['search_ms']:.3f} ms")
+        check(ok, f"{label}: the serve search disagrees with its plain version")
+        check(recall >= (I8Q_RECALL if native else SERVE_RECALL),
+              f"{label}: recall@{k} vs the certified search below its bound")
+        results[label] = dict(t, max_abs_err=blk_err, ids_differing=differ, recall=recall, J=J)
+        del kv, pv
+    del x, forms
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_int8_path(args, tmp, kern):
+    """The int8 serving path through the entry points, on the main path's reps."""
+    from denseretrievaltoolkits_torch.evaluator import retrieval
+    from denseretrievaltoolkits_torch.evaluator.metrics import get_metrics
+    from denseretrievaltoolkits_torch.index import flat
+    from denseretrievaltoolkits_torch.index.io import load_index
+    from denseretrievaltoolkits_torch.ops import quant, topk
+
+    (p_reps, p_lookup), (q_reps, q_lookup) = kern["p_reps"], kern["q_reps"]
+    modes = ("exact", "serve", "i8q", "approx")
+
+    def run(label):
+        index = flat.FlatIPIndex(p_reps.shape[1], dtype="int8", block_size=INDEX_BLOCK,
+                                 device="cuda")
+        index.add_device(torch.from_numpy(p_reps).cuda())
+        index.docid = list(p_lookup)
+        out = {}
+        for mode in modes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores, docids = retrieval.search_queries(index, q_reps, index.docid, args.k,
+                                                      batch_size=args.queries, mode=mode)
+            dt = time.perf_counter() - t0
+            ranking = os.path.join(tmp, f"ranking_int8_{label}_{mode}.tsv")
+            retrieval.write_ranking(docids, scores, q_lookup, ranking)
+            with open(ranking) as fh:
+                n_lines = sum(1 for _ in fh)
+            hits = np.array([[d == f"d{q}" for d in row] for q, row in enumerate(docids)])
+            metrics = {m: v / len(q_lookup)
+                       for m, v in get_metrics(hits, [1, 10, 100]).items()}
+            check(n_lines == args.queries * args.k, f"int8 {mode}: ranking file length")
+            check(np.isfinite(np.asarray(scores, np.float64)).all(), f"int8 {mode}: scores")
+            out[mode] = {"docids": np.asarray(docids), "metrics": metrics,
+                         "queries_per_s": len(q_lookup) / dt}
+        return index, out
+
+    counted = {"block_topj (K6)": (topk.block_topj, "launches_int8"),
+               "quantize_int8_device": (quant.quantize_int8_device, "launches"),
+               "block_topj_serve": (topk.block_topj_serve, "launches"),
+               "block_topj_i8q": (topk.block_topj_i8q, "launches")}
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    index, got = run("kernels")
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+    log(f"launches on the int8 path: {json.dumps(launches)}")
+    check(all(n > 0 for n in launches.values()), "a kernel of the int8 path never launched")
+
+    # the kernels against their plain versions on this path's own slab, queries,
+    # blocks and J: K6 at the certified search's J and its escalation's, K8 and
+    # K12 at the serve J
+    values, scales, n = index._device_slabs[0]
+    q = torch.from_numpy(q_reps).cuda()
+    qc = q.bfloat16()
+    qi, qs = quant.quantize_queries(q)
+    block = index.search_block(values.shape[0])
+    serve_block, serve_J = topk.serve_plan(args.k, values.shape[0], n, block)
+    J6 = max(4, min(args.k, 8))
+    blocks = {}
+    for name, kern_fn, plain_fn, J, blk, tol in (
+            ("K6", topk.block_topj, topk._block_topj_reference, J6, block, 1e-5),
+            ("K6 escalated", topk.block_topj, topk._block_topj_reference, min(4 * J6, args.k),
+             block, 1e-5),
+            ("K8", topk.block_topj_serve, topk._block_topj_serve_reference, serve_J, serve_block,
+             1e-4)):
+        ok, err, res_err, differ = blocks_against_plain(
+            q, values, scales, kern_fn(qc, values, J, blk, n, scales),
+            plain_fn(qc, values, J, blk, n, scales), tol)
+        log(f"int8 path {name} per block ({values.shape[0]} rows, Q={q.shape[0]}, block {blk}, "
+            f"J={J}) vs the plain version: ids differing {differ} (ties only), max rank err "
+            f"{err:.3e}, max rescored err {res_err:.3e} (rel tol {tol:g}): {ok}")
+        check(ok, f"int8 path: {name} per block disagrees with its plain version")
+        blocks[name] = {"J": J, "block": blk, "ids_differing": differ, "max_abs_err": err,
+                        "max_rescored_err": res_err}
+    kv, ki = topk.block_topj_i8q(qi, qs, values, scales, serve_J, serve_block, n)
+    pv, pi = topk._block_topj_i8q_reference(qi, qs, values, scales, serve_J, serve_block, n)
+    same = bool(torch.equal(kv, pv) and torch.equal(ki, pi))
+    log(f"int8 path K12 per block (block {serve_block}, J={serve_J}) vs the plain version: "
+        f"bit-equal {same}")
+    check(same, "int8 path: K12 per block differs from its plain version")
+    blocks["K12"] = {"J": serve_J, "block": serve_block, "bit_equal": same}
+    del q, qc, qi, qs, kv, ki, pv, pi
+    with mock.patch.object(topk, "block_topj", topk._block_topj_reference), \
+            mock.patch.object(topk, "block_topj_serve", topk._block_topj_serve_reference), \
+            mock.patch.object(topk, "block_topj_i8q", topk._block_topj_i8q_reference), \
+            mock.patch.object(quant, "quantize_int8_device", quant._quantize_int8_reference), \
+            mock.patch.object(flat, "quantize_int8_device", quant._quantize_int8_reference):
+        _, plain = run("plain")
+    fp32_docids, fp32_metrics = kern["docids"], kern["metrics"]
+    summary = {}
+    for mode in modes:
+        g, p = got[mode], plain[mode]
+        vs_plain = overlap(g["docids"], p["docids"])
+        vs_fp32 = overlap(g["docids"], fp32_docids)
+        gap = max(abs(g["metrics"][m] - fp32_metrics[m]) for m in fp32_metrics)
+        plain_gap = max(abs(g["metrics"][m] - p["metrics"][m]) for m in fp32_metrics)
+        log(f"int8 {mode}: {g['queries_per_s']:.1f} queries/s (plain {p['queries_per_s']:.1f}); "
+            f"top-{args.k} overlap vs plain {vs_plain:.5f} (>= {INT8_VS_PLAIN}), metric gap vs "
+            f"plain {plain_gap:.4f} (<= {INT8_PLAIN_METRIC_GAP}); vs the fp32 exact ranking: "
+            f"overlap {vs_fp32:.5f} (>= "
+            f"{INT8_VS_FP32}), largest metric gap {gap:.4f} (<= {INT8_METRIC_GAP}); "
+            f"metrics {json.dumps(g['metrics'])}")
+        check(vs_plain >= INT8_VS_PLAIN and plain_gap <= INT8_PLAIN_METRIC_GAP,
+              f"int8 {mode}: kernels disagree with the plain versions")
+        check(vs_fp32 >= INT8_VS_FP32, f"int8 {mode}: ranking too far from fp32 exact")
+        check(gap <= INT8_METRIC_GAP, f"int8 {mode}: metrics too far from fp32 exact")
+        summary[mode] = {"queries_per_s": g["queries_per_s"], "metrics": g["metrics"],
+                         "overlap_vs_plain": vs_plain, "overlap_vs_fp32": vs_fp32,
+                         "metric_gap_vs_fp32": gap, "plain_queries_per_s": p["queries_per_s"]}
+
+    # save, then the retrieval CLI serves the saved index on the card
+    path = os.path.join(tmp, "int8_index")
+    index.save(path)
+    qpath = os.path.join(tmp, "q_int8.pkl")
+    retrieval.pickle_save((q_reps, q_lookup), qpath)
+    out = os.path.join(tmp, "ranking_int8_cli.tsv")
+    retrieval.main(["--index_path", path, "--query_reps", qpath, "--search_mode", "serve",
+                    "--depth", str(args.k), "--batch_size", str(args.queries),
+                    "--save_ranking_to", out, "--save_text"])
+    with open(out) as fh:
+        n_lines = sum(1 for _ in fh)
+    saved = np.load(path + ".npz")
+    back = load_index(path)._native_int8_payload()
+    same = bool(np.array_equal(back[0], saved["values"]) and
+                np.array_equal(back[1], saved["scales"]))
+    log(f"int8 index saved and served by retrieval.main --search_mode serve: {n_lines} ranking "
+        f"lines ({args.queries} x {args.k}); reloaded payload bit-equal: {same}")
+    check(n_lines == args.queries * args.k, "retrieval.main: ranking file length")
+    check(same, "the reloaded int8 payload differs from the saved one")
+    return {"launches": launches, "blocks": blocks, "modes": summary}
+
+
+def phase_scale(gen, flat, topk, n_queries, k=100, dim=768):
+    """MS MARCO passage's row count in int8, built as the trainer's evaluation
+    path builds it: add_device of 262,144-row fp32 slabs, quantized by K7."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = flat.FlatIPIndex(dim, dtype="int8", device="cuda")
+    for start in range(0, SCALE_ROWS, SLAB_ROWS):
+        index.add_device(torch.randn(min(SLAB_ROWS, SCALE_ROWS - start), dim, generator=gen,
+                                     device="cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = torch.randn(n_queries, dim, generator=gen, device="cuda").cpu().numpy()
+    res, rates = {}, {}
+    for mode in ("exact", "serve", "i8q"):
+        index.search(q[:8], k, mode=mode)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[mode] = index.search(q, k, mode=mode)[1]
+        rates[mode] = n_queries / (time.perf_counter() - t0)
+    recall = {m: overlap(res[m].tolist(), res["exact"].tolist()) for m in ("serve", "i8q")}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_slabs = len(index._device_slabs)
+    log(f"scale: {SCALE_ROWS} x {dim} int8 rows in {n_slabs} slabs of {SLAB_ROWS} (built in "
+        f"{build_s:.1f} s); {n_queries} queries k={k}: queries/s "
+        f"{json.dumps({m: round(r, 1) for m, r in rates.items()})}; recall@{k} vs exact "
+        f"{json.dumps({m: round(r, 5) for m, r in recall.items()})} (serve >= {SERVE_RECALL}, "
+        f"i8q >= {I8Q_RECALL}); peak device memory {peak_gib:.2f} GiB")
+    check(recall["serve"] >= SERVE_RECALL, f"scale: serve recall@{k} below its bound")
+    check(recall["i8q"] >= I8Q_RECALL, f"scale: i8q recall@{k} below its bound")
+    del index
+    torch.cuda.empty_cache()
+    return {"rows": SCALE_ROWS, "slabs": n_slabs, "build_s": build_s, "queries": n_queries,
+            "queries_per_s": rates, "recall": recall, "peak_gib": peak_gib}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -655,8 +1079,9 @@ def main(argv=None):
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from denseretrievaltoolkits_torch.index import flat
     from denseretrievaltoolkits_torch.index.flat import blockwise_topk
-    from denseretrievaltoolkits_torch.ops import _native, attn, contrastive, topk
+    from denseretrievaltoolkits_torch.ops import _native, attn, contrastive, quant, topk
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain versions score in true fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -672,9 +1097,16 @@ def main(argv=None):
     blocks = phase_block_kernels(gen, attn)
     k5 = phase_topk(gen, topk, blockwise_topk, args.corpus_rows)
     k34 = phase_contrastive(gen, contrastive)
+    k7, x_int8 = phase_quant(gen, quant, args.corpus_rows)
+    int8_topk = phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8)
+    del x_int8
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        main_path = phase_main_path(args, tmp)
+        main_path, kern = phase_main_path(args, tmp)
+        int8_path = phase_int8_path(args, tmp, kern)
+        del kern
         train = phase_train(args, tmp)
+    scale = phase_scale(gen, flat, topk, SCALE_QUERIES)
 
     src = "denseretrievaltoolkits_torch/csrc/"
     rows = [
@@ -685,25 +1117,55 @@ def main(argv=None):
         ("block_topj", src + "block_topj.cu", "denseretrievaltoolkits_tpu/ops/topk.py:37",
          k5["float32"]),
     ]
+    # bounds at the shapes timed: K1/K2 bf16 B=64 S=156; K5 fp32 over the corpus
+    B, S, H, nh, hd, F = 64, 156, 768, 12, 64, 3072
+    bounds = {
+        "fused_attention_ln": bound(2 * B * S * 5 * H + 4 * B * S + 2 * (H * H + H) + 8 * H,
+                                    4 * B * nh * S * S * hd + 2 * B * S * H * H, "bf16"),
+        "fused_mlp_ln": bound(2 * 2 * B * S * H + 2 * (2 * H * F + F + H) + 8 * H,
+                              4 * B * S * H * F, "bf16"),
+        "block_topj": bound(4 * (args.corpus_rows + 1024) * H
+                            + 8 * 1024 * -(-args.corpus_rows // 4096) * 8,
+                            2 * 1024 * args.corpus_rows * H, "fp32")}
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": main_path["launches"][name], "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"]} for name, source, replaces, r in rows]
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": None}
+               for name, source, replaces, r in rows]
     big = k34["4096x32768"]
-    for name, line, err, ms in (
+    Q, P = 4096, 32768
+    for name, line, err, ms, out_rows, ops in (
             ("contrastive_fwd", 39, max(big["max_abs_err"]["lse"], big["max_abs_err"]["tgt"]),
-             "fwd"),
-            ("contrastive_bwd_dq", 121, big["max_abs_err"]["dq"], "dq"),
-            ("contrastive_bwd_dp", 150, big["max_abs_err"]["dp"], "dp")):
+             "fwd", 0, 2 * Q * P * H),
+            ("contrastive_bwd_dq", 121, big["max_abs_err"]["dq"], "dq", Q, 4 * Q * P * H),
+            ("contrastive_bwd_dp", 150, big["max_abs_err"]["dp"], "dp", P, 4 * Q * P * H)):
+        b_ms, b_by = bound(4 * ((Q + P + out_rows) * H + 2 * Q), ops, "fp32")
         kernels.append({"name": name, "route": "cuda", "source": src + "contrastive.cu",
                         "replaces": f"denseretrievaltoolkits_tpu/ops/contrastive.py:{line}",
                         "launches": train["launches"][name], "max_abs_err": err,
-                        "ms": big["ms"][ms], "plain_ms": big["ms"][ms + "_plain"]})
+                        "ms": big["ms"][ms], "plain_ms": big["ms"][ms + "_plain"],
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # this slice's kernels: times on the 1M-row corpus, launches on the int8 path
+    for name, source, replaces, r, counter in (
+            ("block_topj (K6, int8 rows)", "block_topj.cu", "ops/topk.py:65", int8_topk["K6"],
+             "block_topj (K6)"),
+            ("quantize_int8_device", "quant.cu", "ops/quant.py:20", k7, "quantize_int8_device"),
+            ("block_topj_serve", "block_topj.cu", "ops/topk.py:94", int8_topk["K8 int8"],
+             "block_topj_serve"),
+            ("block_topj_i8q", "block_topj.cu", "ops/topk.py:190", int8_topk["K12 int8"],
+             "block_topj_i8q")):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": "denseretrievaltoolkits_tpu/" + replaces,
+                        "launches": int8_path["launches"][counter],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "build_s": _native.build_seconds, "block_kernels": blocks,
-                       "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train}, fh,
-                      indent=1)
+                       "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
+                       "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
+                       "scale": scale, "kernels": kernels}, fh, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

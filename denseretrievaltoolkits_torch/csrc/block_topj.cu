@@ -1,34 +1,61 @@
-// K5: per-block exact top-J of inner-product scores, one kernel.
+// Per-block top-J of inner-product scores: one templated kernel family for K5, K6, K8
+// and K12.
 //
-// Replaces the TPU kernel `_block_topj_kernel` (denseretrievaltoolkits_tpu/ops/topk.py:37,
-// launched by `_pallas_block_topj`, topk.py:336). For each (query tile, corpus block):
-// scores q.c^T, rows >= n_valid masked, then the J best (score, id) pairs of the block
-// with ties to the smaller id. fp32 corpora score in true fp32 (FFMA, no TF32) to match
-// Precision.HIGHEST; bf16 corpora score bf16 values with fp32 accumulation.
-// Output layout [Q, n_blocks, J] (vals fp32, ids int32; an empty slot is (-inf, -1)),
-// which the merge reads as [Q, n_blocks * J] without a transpose.
+// Replaces these TPU kernels of denseretrievaltoolkits_tpu/ops/topk.py:
+//   K5  `_block_topj_kernel` (:37, launched by `_pallas_block_topj`, :336): exact top-J,
+//       fp32 / bf16 rows;
+//   K6  `_block_topj_kernel_scaled` (:65, `_pallas_block_topj_scaled`, :618): K5 over
+//       int8 rows times a per-row scale, bf16 queries;
+//   K8  `_packed_select` with `_block_topj_kernel_packed` / `_packed_scaled` (:94, :122,
+//       :148; `pallas_topk_serve*`, :373, :411): the serve selection over fp32, bf16 and
+//       int8 rows;
+//   K12 `_block_topj_kernel_packed_i8q` (:190, :481): int8 queries x int8 rows, s32
+//       products, times scale_row x scale_query, then the serve selection.
+// For each (query tile, corpus block): scores q.c^T (x the row scale, x the query scale),
+// rows >= n_valid masked, then the J best (score, id) pairs of the block with ties to
+// the smaller id. Output layout [Q, n_blocks, J] (vals fp32, ids int32; an empty slot
+// is (-inf, -1)), which the merge reads as [Q, n_blocks * J] without a transpose.
 //
-// What bounds it on the H100: the 2*Q*N*H products, and the corpus, which streams from
-// device memory once per query tile (the query tiles of one corpus block are adjacent
-// in the grid, so their re-reads hit L2). The [Q, N] score matrix never reaches device
-// memory.
+// Template parameters: the query element type QT (float, bf16, int8), the corpus
+// element type CT (float, bf16, int8 with a per-row scale) and the selection SERVE.
+// - Certified (K5, K6): the list is (score, id) pairs; the certificate and its
+//   escalation ladder run on the host side (ops/topk.py:certified_topk).
+// - Serve (K8, K12): one packed 64-bit key per candidate, order-preserving score bits
+//   high and the inverted row id low, so a merge step is one comparison and ties go to
+//   the smaller id. The TPU packs into 32 bits (Mosaic has no top_k) and rounds the
+//   score to 2^id_bits ulps; here the key keeps all 32 score bits, so scores come back
+//   exact.
+// fp32 rows score in true fp32 (FFMA, no TF32) to match Precision.HIGHEST; bf16 rows
+// score bf16 values with fp32 accumulation; int8 rows under bf16 queries convert to
+// bf16 (|v| <= 127 is exact) and score on the same bf16 path, the scale multiplying in
+// the score epilogue before selection; int8 x int8 (K12) runs the s8 tensor-core mma
+// with s32 accumulation and dequantizes as float(s32) * scale_row * scale_q, the
+// reference's order (topk.py:207-208).
+//
+// What bounds it on the H100: the 2*Q*N*H products (989 TFLOP/s bf16, 1979 TOP/s int8,
+// 67 TFLOP/s fp32 FFMA), and the corpus, which streams from device memory once per
+// query tile (the query tiles of one corpus block are adjacent in the grid, so their
+// re-reads hit L2). The [Q, N] score matrix never reaches device memory.
 //
 // Design: the TPU's J iterative masked maxes over a VMEM score block and its VMEM
 // block cap do not carry over. A block of 256 threads serves 64 queries and walks its
-// corpus block in sub-tiles of 128 rows; each sub-tile's scores
-// land in shared memory, and each warp then updates the running top-J of its queries.
-// A sub-tile that cannot beat a query's J-th score is skipped with one warp vote (new
-// rows always carry larger ids, so a tie never displaces an entry); otherwise J rounds
-// of warp argmax merge the list (one entry per lane) with the 128 new candidates.
+// corpus block in sub-tiles of 128 rows; each sub-tile's scores land in shared memory,
+// and each warp then updates the running top-J of its queries. A sub-tile that cannot
+// beat a query's J-th entry is skipped with one warp vote (new rows always carry larger
+// ids, so a tie never displaces an entry); otherwise J rounds of warp argmax merge the
+// list (one entry per lane) with the 128 new candidates.
 //
-// - bf16 with H % 64 == 0: the queries resident in shared memory, scores on tensor
-//   cores (mma.sync m16n8k16, fp32 accumulation), corpus k-slices of 64
-//   double-buffered by 16-byte cp.async, fragments by ldmatrix.
+// - Tensor cores (bf16 or int8 queries, H % 64 == 0, 16-byte aligned): the queries
+//   resident in shared memory, corpus k-slices of 64 elements double-buffered, fragments
+//   by ldmatrix; bf16 mma.sync m16n8k16 or s8 mma.sync m16n8k32. Slices that keep their
+//   type are staged by 16-byte cp.async; int8 rows under bf16 queries are loaded into
+//   registers one slice ahead and converted to bf16 as they are stored.
 // - fp32 (products must stay exact fp32), and other widths: register-tiled FFMA
 //   (8 queries x 4 rows per thread, fed by float4 shared loads), queries and corpus
 //   staged transposed in 32-wide K chunks.
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -36,15 +63,38 @@ using namespace drt;
 
 namespace {
 
+using i8 = signed char;
+using bf = __nv_bfloat16;
+using u64 = unsigned long long;
+
 constexpr int TN = 128;           // corpus rows per sub-tile
 constexpr int NT = 256;           // threads per block
 constexpr int JMAX = 32;          // one list entry per lane
 constexpr int CPL = TN / 32;      // candidates per lane in the selection
 constexpr size_t SMEM_MAX = 232448;
+constexpr size_t LIST_BYTES = 8;  // per list entry: (fp32, int32) or one u64 key
+
+// element type codes of the C interface
+enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2 };
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
+
+// The serve key: order-preserving score bits high, the inverted row id low, so a
+// larger key is a larger score or, on a tie, a smaller id. 0 is an empty slot (or a
+// masked row): every finite score maps above it.
+__device__ __forceinline__ u64 pack_key(float v, int row) {
+  if (v == -INFINITY) return 0ull;
+  const unsigned b = __float_as_uint(v);
+  const unsigned o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((u64)o << 32) | (u64)(~(unsigned)row);
+}
+__device__ __forceinline__ float key_score(u64 k) {
+  const unsigned o = (unsigned)(k >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+__device__ __forceinline__ int key_row(u64 k) { return (int)~(unsigned)(k & 0xffffffffu); }
 
 // One warp merges a sub-tile's TN scores of one query (sc, rows base..base+TN-1,
 // masked rows at -inf) into the query's sorted top-J list (qlv, qli).
@@ -96,45 +146,141 @@ __device__ __forceinline__ void merge_subtile(const float* sc, int base, float* 
   __syncwarp();
 }
 
-// lists of TQ queries -> out[Q, n_blocks, J]
-__device__ __forceinline__ void write_lists(const float* lv, const int* li, int TQ, int q0, int Q,
-                                            int blk, int n_blocks, int J, float* out_v,
-                                            int* out_i) {
-  for (int idx = threadIdx.x; idx < TQ * J; idx += NT) {
-    const int r = idx / J, j = idx - r * J;
-    if (q0 + r < Q) {
-      const float v = lv[r * JMAX + j];
-      const size_t o = ((size_t)(q0 + r) * n_blocks + blk) * J + j;
-      out_v[o] = v;
-      out_i[o] = v == -INFINITY ? -1 : li[r * JMAX + j];
+// The serve merge: the same rounds on packed keys, one comparison per step.
+__device__ __forceinline__ void merge_subtile_packed(const float* sc, int base, u64* qk, int J,
+                                                     int lane) {
+  const u64 thr = qk[J - 1];
+  u64 ck[CPL];
+  bool beat = false;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    ck[c] = pack_key(sc[lane + 32 * c], base + lane + 32 * c);
+    beat |= ck[c] > thr;
+  }
+  if (!__any_sync(0xffffffffu, beat)) return;
+  const u64 a = lane < J ? qk[lane] : 0ull;
+  bool a_taken = false;
+  bool c_taken[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) c_taken[c] = false;
+  u64 nk = 0ull;
+  for (int j = 0; j < J; ++j) {
+    u64 b = a_taken ? 0ull : a;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (!c_taken[c] && ck[c] > b) b = ck[c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const u64 ob = __shfl_xor_sync(0xffffffffu, b, o);
+      b = ob > b ? ob : b;
+    }
+    if (b == 0ull) break;  // only masked rows / empty slots remain
+    if (lane == j) nk = b;
+    // keys carry their row id, so exactly one lane owns the winner
+    if (!a_taken && a == b) a_taken = true;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (!c_taken[c] && ck[c] == b) c_taken[c] = true;
+  }
+  if (lane < J) qk[lane] = nk;
+  __syncwarp();
+}
+
+// The running top-J lists of a block's queries, in LIST_BYTES * JMAX bytes per query
+// of shared memory: (fp32 score, int32 id) pairs, or packed keys for the serve selection.
+template <bool SERVE>
+struct Lists {
+  unsigned char* p;
+  int n;  // queries
+  __device__ float* lv() const { return reinterpret_cast<float*>(p); }
+  __device__ int* li() const { return reinterpret_cast<int*>(p) + n * JMAX; }
+  __device__ u64* lk() const { return reinterpret_cast<u64*>(p); }
+
+  __device__ void init() const {
+    for (int idx = threadIdx.x; idx < n * JMAX; idx += NT) {
+      if constexpr (SERVE) {
+        lk()[idx] = 0ull;
+      } else {
+        lv()[idx] = -INFINITY;
+        li()[idx] = INT_MAX;
+      }
     }
   }
+  __device__ void merge(const float* sc, int base, int qi, int J, int lane) const {
+    if constexpr (SERVE)
+      merge_subtile_packed(sc, base, lk() + qi * JMAX, J, lane);
+    else
+      merge_subtile(sc, base, lv() + qi * JMAX, li() + qi * JMAX, J, lane);
+  }
+  // lists of the n queries q0.. -> out[Q, n_blocks, J]
+  __device__ void write(int q0, int Q, int blk, int n_blocks, int J, float* out_v,
+                        int* out_i) const {
+    for (int idx = threadIdx.x; idx < n * J; idx += NT) {
+      const int r = idx / J, j = idx - r * J;
+      if (q0 + r >= Q) continue;
+      const size_t o = ((size_t)(q0 + r) * n_blocks + blk) * J + j;
+      if constexpr (SERVE) {
+        const u64 k = lk()[r * JMAX + j];
+        out_v[o] = k == 0ull ? -INFINITY : key_score(k);
+        out_i[o] = k == 0ull ? -1 : key_row(k);
+      } else {
+        const float v = lv()[r * JMAX + j];
+        out_v[o] = v;
+        out_i[o] = v == -INFINITY ? -1 : li()[r * JMAX + j];
+      }
+    }
+  }
+};
+
+// a sub-tile score: the product, x the row scale, x the query scale (the reference's
+// order), or -inf for a masked row
+__device__ __forceinline__ float epilogue(float acc, int row, int q, int n_valid, int row_end,
+                                          const float* cscale, const float* qscale) {
+  if (row >= n_valid || row >= row_end) return -INFINITY;
+  float v = acc;
+  if (cscale != nullptr) v *= __ldg(cscale + row);
+  if (qscale != nullptr) v *= __ldg(qscale + q);
+  return v;
 }
 
-// ---- tensor-core path (bf16) --------------------------------------------------------
+// ---- tensor-core path (bf16 or int8 queries) ------------------------------------------
 
 constexpr int MQ = 64;  // queries per block
-constexpr int MK = 64;  // corpus k-slice staged per step
+constexpr int MK = 64;  // corpus k-slice (elements) staged per step
 
+// the element the mma consumes: int8 under int8 queries, else bf16
+template <typename QT>
+using MmaT = std::conditional_t<std::is_same_v<QT, i8>, i8, bf>;
+
+template <typename QT>
 size_t mma_smem_bytes(int H) {
-  return sizeof(__nv_bfloat16) * ((size_t)MQ * (H + 8) + 2 * (size_t)TN * (MK + 8)) +
-         sizeof(float) * ((size_t)MQ * (TN + 1) + (size_t)MQ * JMAX) + sizeof(int) * MQ * JMAX;
+  using ME = MmaT<QT>;
+  const size_t pad = 16 / sizeof(ME);  // 16-byte row pads keep ldmatrix conflict-free
+  return sizeof(QT) * (size_t)MQ * (H + pad) + sizeof(ME) * 2 * (size_t)TN * (MK + pad) +
+         sizeof(float) * (size_t)MQ * (TN + 1) + LIST_BYTES * MQ * JMAX;
 }
 
+template <typename QT, typename CT, bool SERVE>
 __global__ void __launch_bounds__(NT)
-block_topj_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ corpus,
+block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
+                      const float* __restrict__ cscale, const float* __restrict__ qscale,
                       float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
                       int n_valid, int block, int J) {
-  using bf = __nv_bfloat16;
-  constexpr int LDW = MK + 8;  // the 16-byte pads keep ldmatrix conflict-free
+  using ME = MmaT<QT>;
+  constexpr bool INT8 = std::is_same_v<QT, i8>;
+  constexpr bool CONVERT = !std::is_same_v<CT, ME>;  // int8 rows under bf16 queries
+  using Acc = std::conditional_t<INT8, int, float>;
+  constexpr int PAD = 16 / sizeof(ME);
+  constexpr int LDW = MK + PAD;            // corpus slice row, elements
+  constexpr int LDWB = LDW * sizeof(ME);   // ... bytes
+  constexpr int KSTEP = 32;                // bytes of k per mma
   constexpr int LDSC = TN + 1;
-  const int LDQ = H + 8;
+  const int LDQB = (H + 16 / (int)sizeof(QT)) * sizeof(QT);  // query row, bytes
   extern __shared__ __align__(16) unsigned char smem[];
-  bf* qs = reinterpret_cast<bf*>(smem);          // [MQ][LDQ]
-  bf* cs = qs + MQ * LDQ;                        // [2][TN][LDW]
-  float* sc = reinterpret_cast<float*>(cs + 2 * TN * LDW);  // [MQ][LDSC]
-  float* lv = sc + MQ * LDSC;                    // [MQ][JMAX]
-  int* li = reinterpret_cast<int*>(lv + MQ * JMAX);
+  unsigned char* qs = smem;                                      // [MQ][LDQB]
+  ME* cs = reinterpret_cast<ME*>(qs + (size_t)MQ * LDQB);        // [2][TN][LDW]
+  float* sc = reinterpret_cast<float*>(cs + 2 * TN * LDW);       // [MQ][LDSC]
+  const Lists<SERVE> lists{reinterpret_cast<unsigned char*>(sc + MQ * LDSC), MQ};
 
   const int q0 = blockIdx.x * MQ;
   const int blk = blockIdx.y;
@@ -145,55 +291,98 @@ block_topj_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int nb = (warp >> 2) * 8;    // and its eight n8 tiles of the sub-tile's rows
   const int row_end = min(N, (blk + 1) * block);
 
-  for (int idx = tid; idx < MQ * H / 8; idx += NT) {
-    const int r = idx / (H / 8), c = (idx - r * (H / 8)) * 8;
+  const int qrow_chunks = H * (int)sizeof(QT) / 16;
+  for (int idx = tid; idx < MQ * qrow_chunks; idx += NT) {
+    const int r = idx / qrow_chunks, c = (idx - r * qrow_chunks) * 16;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (q0 + r < Q) v = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * H + c);
-    *reinterpret_cast<uint4*>(qs + r * LDQ + c) = v;
+    if (q0 + r < Q)
+      v = *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(q) +
+                                          (size_t)(q0 + r) * H * sizeof(QT) + c);
+    *reinterpret_cast<uint4*>(qs + (size_t)r * LDQB + c) = v;
   }
-  for (int idx = tid; idx < MQ * JMAX; idx += NT) {
-    lv[idx] = -INFINITY;
-    li[idx] = INT_MAX;
-  }
-  auto load_slice = [&](int buf, int base, int k0) {
-    for (int idx = tid; idx < TN * MK / 8; idx += NT) {
-      const int r = idx / (MK / 8), c = (idx - r * (MK / 8)) * 8;
-      bf* dst = cs + (buf * TN + r) * LDW + c;
-      if (base + r < N)
-        cp_async16(dst, corpus + (size_t)(base + r) * H + k0 + c);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  lists.init();
+
+  // a slice: TN rows x MK elements of the corpus; CHUNKS 16-byte corpus loads per thread
+  constexpr int SLICE_CHUNKS = TN * MK * (int)sizeof(CT) / 16;
+  constexpr int CHUNKS = SLICE_CHUNKS / NT;
+  static_assert(SLICE_CHUNKS % NT == 0, "slice loads must divide evenly");
+  constexpr int PER_CHUNK = 16 / (int)sizeof(CT);  // corpus elements per 16-byte load
+  uint4 held[CONVERT ? CHUNKS : 1];                // int8 rows one slice ahead
+
+  auto fetch_slice = [&](int buf, int base, int k0) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int idx = tid + i * NT;
+      const int r = idx / (MK / PER_CHUNK), c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
+      const CT* src = corpus + (size_t)(base + r) * H + k0 + c;
+      if constexpr (CONVERT) {
+        held[i] = base + r < N ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+      } else {
+        ME* dst = cs + (buf * TN + r) * LDW + c;
+        if (base + r < N)
+          cp_async16(dst, src);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  // int8 -> bf16 (exact) into buffer buf
+  auto store_held = [&](int buf) {
+    if constexpr (CONVERT) {
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i) {
+        const int idx = tid + i * NT;
+        const int r = idx / (MK / PER_CHUNK), c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
+        const i8* v = reinterpret_cast<const i8*>(&held[i]);
+        __nv_bfloat162 o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          o[e] = __floats2bfloat162_rn((float)v[2 * e], (float)v[2 * e + 1]);
+        uint4* dst = reinterpret_cast<uint4*>(cs + (buf * TN + r) * LDW + c);
+        dst[0] = *reinterpret_cast<const uint4*>(&o[0]);
+        dst[1] = *reinterpret_cast<const uint4*>(&o[4]);
+      }
     }
   };
 
   const int ns = H / MK;
   for (int base = blk * block; base < row_end; base += TN) {
-    float acc[8][4];
+    Acc acc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    load_slice(0, base, 0);
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+    fetch_slice(0, base, 0);
+    if constexpr (CONVERT) store_held(0);
     cp_async_commit();
     for (int s = 0; s < ns; ++s) {
-      if (s + 1 < ns) load_slice((s + 1) & 1, base, (s + 1) * MK);
+      if (s + 1 < ns) fetch_slice((s + 1) & 1, base, (s + 1) * MK);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
-      const bf* cb = cs + (s & 1) * TN * LDW;
+      const unsigned char* cb = reinterpret_cast<const unsigned char*>(cs + (s & 1) * TN * LDW);
 #pragma unroll
-      for (int kk = 0; kk < MK; kk += 16) {
+      for (int kb = 0; kb < MK * (int)sizeof(ME); kb += KSTEP) {
         unsigned a[4];
-        ldmatrix_x4(a, qs + (mt * 16 + (lane & 15)) * LDQ + s * MK + kk + 8 * (lane >> 4));
+        ldmatrix_x4(a, qs + (size_t)(mt * 16 + (lane & 15)) * LDQB + s * MK * sizeof(QT) + kb +
+                           16 * (lane >> 4));
 #pragma unroll
         for (int j = 0; j < 8; j += 2) {
-          unsigned b[4];  // rows of tiles nb+j, nb+j+1; k halves kk, kk+8
-          ldmatrix_x4(b, cb + ((nb + j) * 8 + (lane & 7) + 8 * (lane >> 4)) * LDW + kk +
-                             8 * ((lane >> 3) & 1));
-          mma_bf16_16x8x16(acc[j], a, b[0], b[1]);
-          mma_bf16_16x8x16(acc[j + 1], a, b[2], b[3]);
+          unsigned b[4];  // rows of tiles nb+j, nb+j+1; k halves kb, kb+16 bytes
+          ldmatrix_x4(b, cb + ((nb + j) * 8 + (lane & 7) + 8 * (lane >> 4)) * LDWB + kb +
+                             16 * ((lane >> 3) & 1));
+          if constexpr (INT8) {
+            mma_s8_16x8x32(acc[j], a, b[0], b[1]);
+            mma_s8_16x8x32(acc[j + 1], a, b[2], b[3]);
+          } else {
+            mma_bf16_16x8x16(acc[j], a, b[0], b[1]);
+            mma_bf16_16x8x16(acc[j + 1], a, b[2], b[3]);
+          }
         }
       }
+      // int8 rows: the next slice's registers go to the buffer read one step ago
+      if constexpr (CONVERT)
+        if (s + 1 < ns) store_held((s + 1) & 1);
       __syncthreads();  // this slice's buffer is refilled two steps on
     }
 #pragma unroll
@@ -202,17 +391,17 @@ block_topj_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = mt * 16 + g + 8 * (e >> 1), c = n + (e & 1);
-        const int row = base + c;
-        sc[r * LDSC + c] = row < n_valid && row < row_end ? acc[j][e] : -INFINITY;
+        sc[r * LDSC + c] = epilogue((float)acc[j][e], base + c, q0 + r, n_valid, row_end,
+                                    cscale, qscale);
       }
     }
     __syncthreads();
     for (int qi = warp * (MQ / 8); qi < (warp + 1) * (MQ / 8); ++qi)
-      merge_subtile(sc + qi * LDSC, base, lv + qi * JMAX, li + qi * JMAX, J, lane);
+      lists.merge(sc + qi * LDSC, base, qi, J, lane);
     // the next sub-tile rewrites sc only after its first slice barrier
   }
   __syncthreads();
-  write_lists(lv, li, MQ, q0, Q, blk, gridDim.y, J, out_v, out_i);
+  lists.write(q0, Q, blk, gridDim.y, J, out_v, out_i);
 }
 
 // ---- CUDA-core path ------------------------------------------------------------------
@@ -223,9 +412,8 @@ constexpr int LDQT = TQ + 4;  // chunk rows: float4-aligned, conflict-free colum
 constexpr int LDCT = TN + 4;
 
 size_t smem_bytes() {
-  return sizeof(float) * ((size_t)KT * LDQT + (size_t)KT * LDCT + (size_t)TQ * (TN + 1) +
-                          (size_t)TQ * JMAX) +
-         sizeof(int) * (size_t)TQ * JMAX;
+  return sizeof(float) * ((size_t)KT * LDQT + (size_t)KT * LDCT + (size_t)TQ * (TN + 1)) +
+         LIST_BYTES * TQ * JMAX;
 }
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -237,13 +425,14 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
 // 4 consecutive k, else as single elements; consecutive threads read consecutive k of
 // one row, so global reads coalesce. Held in registers while the previous chunk is
 // scored, then stored transposed.
-template <typename T, bool VEC>
+template <typename QT, typename CT, bool VEC>
 struct Chunk {
   static constexpr int W = VEC ? 4 : 1;                // elements per load
   static constexpr int NC = KT * TN / (W * NT);        // corpus loads per thread
   static constexpr int NQ = KT * TQ / (W * NT);        // query loads per thread
   float cv[NC][W], qv[NQ][W];
 
+  template <typename T>
   __device__ __forceinline__ static void fetch_one(const T* src, int rows, int r, int k, int H,
                                                    float (&v)[W]) {
     if constexpr (VEC) {
@@ -254,7 +443,7 @@ struct Chunk {
       v[0] = r < rows && k < H ? to_float(src[(size_t)r * H + k]) : 0.f;
     }
   }
-  __device__ __forceinline__ void fetch(const T* corpus, const T* q, int base, int row_end,
+  __device__ __forceinline__ void fetch(const CT* corpus, const QT* q, int base, int row_end,
                                         int q0, int Q, int k0, int H) {
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
@@ -283,17 +472,17 @@ struct Chunk {
   }
 };
 
-template <typename T, bool VEC>
+template <typename QT, typename CT, bool VEC, bool SERVE>
 __global__ void __launch_bounds__(NT)
-block_topj_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
+block_topj_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
+                  const float* __restrict__ cscale, const float* __restrict__ qscale,
                   float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
                   int n_valid, int block, int J) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qt = reinterpret_cast<float*>(smem);  // [KT][LDQT]: a K chunk of the queries
   float* ct = qt + KT * LDQT;                  // [KT][LDCT]: a K chunk of the sub-tile rows
   float* sc = ct + KT * LDCT;                  // [TQ][TN+1]
-  float* lv = sc + TQ * (TN + 1);              // [TQ][JMAX]
-  int* li = reinterpret_cast<int*>(lv + TQ * JMAX);
+  const Lists<SERVE> lists{reinterpret_cast<unsigned char*>(sc + TQ * (TN + 1)), TQ};
 
   const int q0 = blockIdx.x * TQ;
   const int blk = blockIdx.y;
@@ -301,14 +490,11 @@ block_topj_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
   const int lane = tid & 31, warp = tid >> 5;
   // each thread scores queries 8*warp .. +7 against rows 4*lane .. +3 of the sub-tile:
   // one float4 of rows and two of queries per 32 FFMA
-  for (int idx = tid; idx < TQ * JMAX; idx += NT) {
-    lv[idx] = -INFINITY;
-    li[idx] = INT_MAX;
-  }
+  lists.init();
 
   const int row_end = min(N, (blk + 1) * block);
   const int nk = (H + KT - 1) / KT;
-  Chunk<T, VEC> next;
+  Chunk<QT, CT, VEC> next;
   next.fetch(corpus, q, blk * block, row_end, q0, Q, 0, H);
   for (int base = blk * block; base < row_end; base += TN) {
     float acc[8][4];
@@ -344,64 +530,96 @@ block_topj_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = base + 4 * lane + j;
+      for (int j = 0; j < 4; ++j)
         sc[(8 * warp + i) * (TN + 1) + 4 * lane + j] =
-            row < n_valid && row < row_end ? acc[i][j] : -INFINITY;
-      }
+            epilogue(acc[i][j], base + 4 * lane + j, q0 + 8 * warp + i, n_valid, row_end, cscale,
+                     qscale);
     __syncthreads();
     for (int qi = warp * (TQ / 8); qi < (warp + 1) * (TQ / 8); ++qi)
-      merge_subtile(sc + qi * (TN + 1), base, lv + qi * JMAX, li + qi * JMAX, J, lane);
+      lists.merge(sc + qi * (TN + 1), base, qi, J, lane);
   }
   __syncthreads();
-  write_lists(lv, li, TQ, q0, Q, blk, gridDim.y, J, out_v, out_i);
+  lists.write(q0, Q, blk, gridDim.y, J, out_v, out_i);
 }
 
-template <typename T, bool VEC>
-int launch(const void* q, const void* corpus, void* out_v, void* out_i, int Q, int N, int H,
-           int n_valid, int block, int J, cudaStream_t stream) {
+struct Args {
+  const void *q, *corpus, *cscale, *qscale;
+  void *out_v, *out_i;
+  int Q, N, H, n_valid, block, J;
+  cudaStream_t stream;
+};
+
+template <typename QT, typename CT, bool VEC, bool SERVE>
+int launch(const Args& a) {
   const size_t smem = smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(block_topj_kernel<T, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = block_topj_kernel<QT, CT, VEC, SERVE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // query tiles fastest: the tiles that read one corpus block run side by side (L2 reuse)
-  dim3 grid((Q + TQ - 1) / TQ, (N + block - 1) / block);
-  block_topj_kernel<T, VEC><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(corpus), static_cast<float*>(out_v),
-      static_cast<int*>(out_i), Q, N, H, n_valid, block, J);
+  dim3 grid((a.Q + TQ - 1) / TQ, (a.N + a.block - 1) / a.block);
+  kernel<<<grid, NT, smem, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const CT*>(a.corpus),
+      static_cast<const float*>(a.cscale), static_cast<const float*>(a.qscale),
+      static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), a.Q, a.N, a.H, a.n_valid, a.block,
+      a.J);
   return (int)cudaGetLastError();
 }
 
 // the tensor-core path, or -1 when the shape or alignment does not fit it
-int try_mma(const void* q, const void* corpus, void* out_v, void* out_i, int Q, int N, int H,
-            int n_valid, int block, int J, cudaStream_t stream) {
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(corpus);
-  const size_t smem = mma_smem_bytes(H);
-  if (H % MK != 0 || (ptrs & 15) != 0 || smem > SMEM_MAX) return -1;
-  cudaError_t err = cudaFuncSetAttribute(block_topj_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename QT, typename CT, bool SERVE>
+int try_mma(const Args& a) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.corpus);
+  const size_t smem = mma_smem_bytes<QT>(a.H);
+  if (a.H % MK != 0 || (ptrs & 15) != 0 || smem > SMEM_MAX) return -1;
+  auto kernel = block_topj_mma_kernel<QT, CT, SERVE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Q + MQ - 1) / MQ, (N + block - 1) / block);
-  block_topj_mma_kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(corpus),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), Q, N, H, n_valid, block, J);
+  dim3 grid((a.Q + MQ - 1) / MQ, (a.N + a.block - 1) / a.block);
+  kernel<<<grid, NT, smem, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const CT*>(a.corpus),
+      static_cast<const float*>(a.cscale), static_cast<const float*>(a.qscale),
+      static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), a.Q, a.N, a.H, a.n_valid, a.block,
+      a.J);
   return (int)cudaGetLastError();
+}
+
+template <bool SERVE>
+int dispatch(const Args& a, int qtype, int ctype) {
+  if (qtype == T_F32 && ctype == T_F32) {
+    const uintptr_t ptrs =
+        reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.corpus);
+    if (a.H % 4 == 0 && (ptrs & 15) == 0) return launch<float, float, true, SERVE>(a);
+    return launch<float, float, false, SERVE>(a);
+  }
+  if (qtype == T_BF16 && ctype == T_BF16) {
+    const int code = try_mma<bf, bf, SERVE>(a);
+    return code >= 0 ? code : launch<bf, bf, false, SERVE>(a);
+  }
+  if (qtype == T_BF16 && ctype == T_I8) {
+    const int code = try_mma<bf, i8, SERVE>(a);
+    return code >= 0 ? code : launch<bf, i8, false, SERVE>(a);
+  }
+  if (SERVE && qtype == T_I8 && ctype == T_I8) {
+    const int code = try_mma<i8, i8, true>(a);
+    return code >= 0 ? code : (int)cudaErrorInvalidValue;  // s8 products need the mma path
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int drt_block_topj(const void* q, const void* corpus, void* out_v, void* out_i,
-                              int Q, int N, int H, int n_valid, int block, int J, int is_bf16,
+// q [Q,H] (qtype), corpus [N,H] (ctype), cscales [N] fp32 or null, qscales [Q] fp32 or
+// null -> out_vals [Q, n_blocks, J] fp32, out_ids [Q, n_blocks, J] int32. Types: 0 fp32,
+// 1 bf16, 2 int8. Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8, and (serve only)
+// int8 x int8 at H % 64 == 0 with 16-byte aligned rows.
+extern "C" int drt_block_topj(const void* q, const void* corpus, const void* cscales,
+                              const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
+                              int n_valid, int block, int J, int qtype, int ctype, int serve,
                               void* stream) {
   if (J < 1 || J > JMAX || block < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) {
-    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(corpus);
-    if (H % 4 == 0 && (ptrs & 15) == 0)
-      return launch<float, true>(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, st);
-    return launch<float, false>(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, st);
-  }
-  const int code = try_mma(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, st);
-  if (code >= 0) return code;
-  return launch<__nv_bfloat16, false>(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, st);
+  const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
+               static_cast<cudaStream_t>(stream)};
+  return serve ? dispatch<true>(a, qtype, ctype) : dispatch<false>(a, qtype, ctype);
 }

@@ -14,6 +14,7 @@ namespace drt {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(signed char v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
@@ -50,6 +51,19 @@ __device__ __forceinline__ void mma_bf16_16x8x16(float (&d)[4], const unsigned (
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same tile product on int8 inputs with int32 accumulation (mma.sync m16n8k32):
+// A 16x32, B 32x8. Each register holds four consecutive k (the smallest in the low
+// byte): a[0] = A[g][4t..4t+3], a[1] = A[g+8][4t..], a[2] = A[g][4t+16..],
+// a[3] = A[g+8][4t+16..]; b0 = B[4t..4t+3][g], b1 = B[4t+16..4t+19][g]; d as above.
+__device__ __forceinline__ void mma_s8_16x8x32(int (&d)[4], const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -2,11 +2,14 @@
 
 Counterpart of ``denseretrievaltoolkits_tpu/evaluator/retrieval.py``, with the
 same flags and output: glob the passage shards (pickled ``(reps, lookup)``
-pairs), load them into one :class:`FlatIPIndex`, search the pickled query
-reps at depth, and save ``qid\\tdocid\\tscore`` text or a pickle. The small
-helpers are reimplemented here because the reference module imports its
-jax index. ``--search_mode`` and ``--index_dtype`` are validated by the index
-(exact search on fp32/bf16 rows; the rest raise until ported).
+pairs), load them into one :class:`FlatIPIndex` (or load a saved one with
+``--index_path``), search the pickled query reps at depth, and save
+``qid\\tdocid\\tscore`` text or a pickle. The index runs on the CUDA card:
+``--index_dtype`` float32 / bfloat16 / int8 (quantized on the card) and every
+flat ``--search_mode`` of ``index/modes.py``. :func:`run` takes
+``device='cpu'`` for callers that want the CPU (every mode then runs the exact
+scan). The small helpers are reimplemented here because the reference module
+imports its jax index.
 
     python -m denseretrievaltoolkits_torch.evaluator.retrieval \\
         --query_reps q.pkl --passage_reps 'p*.pkl' --depth 100 \\
@@ -21,9 +24,6 @@ import pickle
 from argparse import ArgumentParser
 
 import numpy as np
-
-# re-exported: the jax-free reference metrics that score a ranking made here
-from denseretrievaltoolkits_tpu.evaluator.metrics import get_metrics  # noqa: F401
 
 from ..index.flat import FlatIPIndex
 
@@ -73,11 +73,13 @@ def write_ranking(corpus_indices, corpus_scores, q_lookup, ranking_save_file: st
 def run(query_reps: str, passage_reps: str = "", save_ranking_to: str = "",
         depth: int = 1000, batch_size: int = 128, save_text: bool = False,
         quiet: bool = False, index_dtype: str = "float32",
-        search_mode: str = "exact", index_path: str = ""):
+        search_mode: str = "exact", index_path: str = "", device=None):
+    """Build or load the index on ``device`` (the card by default), search,
+    and save the ranking. Returns (scores, docids)."""
     if index_path:
         from ..index.io import load_index
 
-        retriever = load_index(index_path)
+        retriever = load_index(index_path, device=device)
         look_up = list(retriever.docid)
         if not look_up:
             raise ValueError(f"index at {index_path} carries no docids")
@@ -91,7 +93,7 @@ def run(query_reps: str, passage_reps: str = "", save_ranking_to: str = "",
         for path in index_files:
             p_reps, p_lookup = pickle_load(path)
             if retriever is None:
-                retriever = FlatIPIndex(p_reps.shape[1], dtype=index_dtype)
+                retriever = FlatIPIndex(p_reps.shape[1], dtype=index_dtype, device=device)
             retriever.add(p_reps)
             look_up += p_lookup
 
@@ -128,12 +130,15 @@ def main(argv=None):
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--index_dtype", default="float32",
                         choices=["float32", "bfloat16", "int8", "int4"],
-                        help="float32/bfloat16 are served; int8/int4 raise until ported")
+                        help="float32 / bfloat16 rows, or int8 rows with per-row scales "
+                        "(quantized on the card by K7); int4 raises until ported")
     parser.add_argument("--search_mode", default="exact",
                         choices=["exact", "serve", "partial", "i8q", "approx", "bulk", "probe"],
-                        help="exact: certified exact search (the K5 kernel on CUDA). The "
-                        "other modes keep the reference's contract (index/modes.py) and "
-                        "raise on CUDA until their kernels are ported")
+                        help="exact: certified exact search (K5, K6 on int8); serve: K8 "
+                        "candidates without the certificate; partial: K5 candidates "
+                        "without the certificate (fp32/bf16); i8q: int8 queries on K12 "
+                        "(int8 rows); approx: the per-dtype alias. Contract: "
+                        "index/modes.py. bulk/probe are IVF modes, not ported yet")
     args = parser.parse_args(argv)
     if bool(args.passage_reps) == bool(args.index_path):
         parser.error("give exactly one of --passage_reps / --index_path")

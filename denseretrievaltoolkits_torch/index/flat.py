@@ -1,22 +1,35 @@
-"""Device-resident flat inner-product index with exact top-k search.
+"""Device-resident flat inner-product index: fp32, bf16 and int8 rows.
 
-Counterpart of ``denseretrievaltoolkits_tpu/index/flat.py`` for fp32 and bf16
-rows:
+Counterpart of ``denseretrievaltoolkits_tpu/index/flat.py``:
 
 - :func:`blockwise_topk` is the exact scan, a running top-k merged block by
   block. It is the plain version of the whole search, the reference for the
-  K5 path, and the last rung of the certified search.
+  kernel paths, and the last rung of the certified search. int8 rows score
+  fp32 queries against the rows times their scales, as the reference does.
 - :class:`FlatIPIndex` stages rows on the host (``add``) or takes device
-  tensors (``add_device``). On CUDA, ``search(mode="exact")`` runs the K5
-  kernel through the certified search (``ops/topk.py:certified_topk``); on the
-  CPU every mode runs the exact scan, as the reference does off TPU
-  (index/modes.py:55-57). ``save``/``load`` use the reference's
-  ``path.npz`` + ``path.meta.json`` format, so indexes interchange.
+  tensors (``add_device``, one slab per call, searched on its own and
+  merged). int8 rows are quantized on the device by K7
+  (``ops/quant.py:quantize_int8_device``), per row with an absmax / 127 scale.
+  On CUDA the modes of ``index/modes.py`` run:
 
-Modes resolve through the reference's ``index.modes.resolve_mode``. On CUDA
-the approximate modes (``serve``/``partial``/``i8q``) and the int8/int4
-dtypes raise ``NotImplementedError`` until their kernels are ported; they
-never silently run ``exact``.
+  ======== ==============================================================
+  exact    certified exact top-k: K5 (fp32/bf16 rows) or K6 (int8) candidates
+           and the certificate ladder (``ops/topk.py:certified_topk``)
+  serve    K8 candidates, J from the Poisson rule, no certificate
+           (``ops/topk.py:serve_topk``), on every dtype
+  partial  K5 candidates without the certificate, fp32/bf16 rows
+  i8q      int8 rows: queries quantized by K7, scored by K12
+  approx   the per-dtype alias of ``index/modes.py``
+  ======== ==============================================================
+
+  On the CPU every mode runs the exact scan, as the reference does off the
+  TPU (index/modes.py). ``save``/``load`` use the reference's ``path.npz`` +
+  ``path.meta.json`` format, int8 indexes as their native ``values`` +
+  ``scales`` payload, so indexes interchange both ways.
+- :func:`index_factory` builds the flat kinds from FAISS-style strings.
+
+The int4 dtype and the trained index kinds raise ``NotImplementedError``
+naming their ROADMAP item; no dtype or mode silently runs another.
 """
 
 from __future__ import annotations
@@ -28,25 +41,27 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from denseretrievaltoolkits_tpu.index.modes import resolve_mode
-
-from ..ops.topk import _scores, certified_topk
+from ..device import resolve_device
+from ..ops.quant import quantize_int8_device
+from ..ops.topk import _scores, certified_topk, serve_topk
+from .modes import resolve_mode
 
 DEFAULT_BLOCK = 4096
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 def blockwise_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
-                   block_size: int = DEFAULT_BLOCK,
-                   valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   block_size: int = DEFAULT_BLOCK, valid: Optional[int] = None,
+                   scales: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner-product search, O(k + block) memory per query.
 
-    q_reps [Q,H] float; corpus [N,H] fp32/bf16; ``valid`` counts the real rows
-    (later rows are masked). Returns (scores [Q,k] fp32, ids [Q,k] int32) sorted
-    descending; ties keep the smaller id, as ``lax.top_k`` does. fp32 rows
-    score in true fp32, which on CUDA needs
+    q_reps [Q,H] float; corpus [N,H] fp32/bf16, or int8 with per-row
+    ``scales`` [N]; ``valid`` counts the real rows (later rows are masked).
+    Returns (scores [Q,k] fp32, ids [Q,k] int32) sorted descending; ties keep
+    the smaller id, as ``lax.top_k`` does. fp32 products (fp32 and int8 rows)
+    run in true fp32, which on CUDA needs
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default)."""
-    if corpus.is_cuda and corpus.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+    if corpus.is_cuda and corpus.dtype != torch.bfloat16 and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("blockwise_topk: fp32 scores must not use TF32; set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
     Q = q_reps.shape[0]
@@ -57,7 +72,7 @@ def blockwise_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
     run_i = torch.zeros((Q, k), dtype=torch.int32, device=corpus.device)
     for start in range(0, N, block_size):
         blk = corpus[start:start + block_size]
-        s = _scores(qf, blk)
+        s = _scores(qf, blk, None if scales is None else scales[start:start + block_size])
         ids = torch.arange(start, start + blk.shape[0], dtype=torch.int32, device=corpus.device)
         s = torch.where(ids[None, :] < n_valid, s, float("-inf"))
         cat_s = torch.cat([run_s, s], dim=1)
@@ -68,32 +83,29 @@ def blockwise_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
     return run_s, run_i
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to CUDA yet (ROADMAP queue 1, item 'Flat int8/int4 and the "
-        f"serve/partial/i8q modes'); use mode='exact' on a float32/bfloat16 index")
-
-
 class FlatIPIndex:
     """Device-resident flat IP index: add / add_device / search / batch_search /
-    save / load. ``device`` defaults to CUDA when a card is present."""
+    save / load. Runs on ``device``, CUDA by default: without a card it
+    raises unless ``device='cpu'`` is given."""
 
     def __init__(self, dim_or_reps, dtype: str = "float32",
                  block_size: int = DEFAULT_BLOCK, device=None):
-        if dtype in ("int8", "int4"):
-            raise _not_ported(f"the {dtype} index")
+        if dtype == "int4":
+            raise NotImplementedError(
+                "the int4 index is not ported yet: it waits for K9 (int4 quantization), K10, "
+                "K11 and K12's sq4 body (ROADMAP queue 1 item 11b, queue 2); use dtype='int8'")
         if dtype not in DTYPES:
             raise ValueError(f"unsupported index dtype {dtype!r}")
         reps = dim_or_reps if isinstance(dim_or_reps, np.ndarray) else None
         self.dim = int(reps.shape[1]) if reps is not None else int(dim_or_reps)
         self.dtype = dtype
         self.block_size = block_size
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "FlatIPIndex")
         self._chunks: List[np.ndarray] = []
-        self._device_slabs: List[torch.Tensor] = []
-        self._device_corpus: Optional[torch.Tensor] = None
+        # device slabs: (values, scales or None, real rows); int8 slabs are
+        # quantized on arrival and padded to a block multiple, as the reference
+        self._device_slabs: List[Tuple[torch.Tensor, Optional[torch.Tensor], int]] = []
+        self._device_corpus: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None
         self._n = 0
         self.docid: List = []
         if reps is not None:
@@ -115,48 +127,72 @@ class FlatIPIndex:
 
     def add_device(self, p_reps: torch.Tensor) -> None:
         """Append device-resident embeddings without a host round trip; each
-        call becomes one slab, searched on its own and merged."""
+        call becomes one slab. int8 slabs quantize on the device (K7) right
+        away, padded with zero rows of scale 1 to a block multiple, so the
+        float reps can be freed."""
         if self._chunks:
             raise ValueError("mixing add() and add_device() is not supported")
         if p_reps.ndim != 2 or p_reps.shape[1] != self.dim:
             raise ValueError(f"expected [n, {self.dim}] reps, got {tuple(p_reps.shape)}")
-        self._device_slabs.append(p_reps.to(self.device, DTYPES[self.dtype]).contiguous())
-        self._n += int(p_reps.shape[0])
+        n = int(p_reps.shape[0])
+        p_reps = p_reps.to(self.device)
+        if self.dtype == "int8":
+            rows = -(-n // self.block_size) * self.block_size
+            values, scales = quantize_int8_device(p_reps, rows=rows)
+            self._device_slabs.append((values, scales, n))
+        else:
+            self._device_slabs.append((p_reps.to(DTYPES[self.dtype]).contiguous(), None, n))
+        self._n += n
 
-    def _materialize(self) -> torch.Tensor:
+    def _materialize(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The staged rows on the device: (values, scales or None)."""
         if self._device_corpus is None:
             full = np.concatenate(self._chunks, axis=0) if len(self._chunks) != 1 \
                 else self._chunks[0]
-            self._device_corpus = torch.from_numpy(full).to(self.device, DTYPES[self.dtype])
+            reps = torch.from_numpy(full).to(self.device)
+            if self.dtype == "int8":
+                self._device_corpus = quantize_int8_device(reps)
+            else:
+                self._device_corpus = (reps.to(DTYPES[self.dtype]), None)
         return self._device_corpus
 
-    def _topk(self, q: torch.Tensor, corpus: torch.Tensor, k: int):
-        block = min(self.block_size, max(256, 1 << (corpus.shape[0] - 1).bit_length()))
-        if corpus.is_cuda:
-            return certified_topk(q, corpus, k, block)
-        return blockwise_topk(q, corpus, k, block)
+    def search_block(self, rows: int) -> int:
+        """The corpus block a search over ``rows`` rows (one slab) runs with."""
+        return min(self.block_size, max(256, 1 << (rows - 1).bit_length()))
+
+    def _topk(self, q: torch.Tensor, corpus: torch.Tensor, scales, n_valid: int, k: int,
+              mode: str):
+        block = self.search_block(corpus.shape[0])
+        if not corpus.is_cuda:
+            return blockwise_topk(q, corpus, k, block, valid=n_valid, scales=scales)
+        if mode in ("exact", "partial"):
+            return certified_topk(q, corpus, k, block, valid=n_valid, scales=scales,
+                                  certify=mode == "exact")
+        return serve_topk(q, corpus, k, block, scales=scales, valid=n_valid,
+                          i8_native=mode == "i8q")
 
     def search(self, q_reps, k: int = 1000,
                mode: str = "exact") -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k search. Returns (scores [Q,k], indices [Q,k]) sorted descending."""
+        """Top-k search. Returns (scores [Q,k], indices [Q,k]) sorted descending.
+        ``mode`` resolves through ``index/modes.py`` (see the module docstring)."""
         mode = resolve_mode(mode, self.dtype)
-        if self.device.type == "cuda" and mode != "exact":
-            raise _not_ported(f"mode={mode!r}")
         k = min(k, self._n)
         q = torch.as_tensor(q_reps, dtype=torch.float32, device=self.device)
         if self._device_slabs:
             parts_v, parts_i, offset = [], [], 0
-            for slab in self._device_slabs:
-                s, i = self._topk(q, slab, min(k, slab.shape[0]))
+            for values, scales, n in self._device_slabs:
+                s, i = self._topk(q, values, scales, n, min(k, n), mode)
                 parts_v.append(s)
                 parts_i.append(i + offset)
-                offset += slab.shape[0]
+                offset += n
             cat_v = torch.cat(parts_v, dim=1)
             cat_i = torch.cat(parts_i, dim=1)
+            # a stable sort keeps ties in slab order, i.e. to the smaller global id
             sv, pos = torch.sort(cat_v, dim=1, descending=True, stable=True)
             scores, ids = sv[:, :k], torch.gather(cat_i, 1, pos[:, :k])
         else:
-            scores, ids = self._topk(q, self._materialize(), k)
+            values, scales = self._materialize()
+            scores, ids = self._topk(q, values, scales, self._n, k, mode)
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def batch_search(self, q_reps, k: int, batch_size: int, quiet: bool = False,
@@ -169,27 +205,81 @@ class FlatIPIndex:
             all_indices.append(i)
         return np.concatenate(all_scores), np.concatenate(all_indices)
 
+    def _native_int8_payload(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """(values int8 [N,H], scales fp32 [N]): the index's own storage, saved
+        as it is, so a load restores it bit for bit without requantizing."""
+        if self.dtype != "int8":
+            return None
+        if self._device_slabs:
+            return (np.concatenate([v[:n].cpu().numpy() for v, _, n in self._device_slabs]),
+                    np.concatenate([s[:n].cpu().numpy() for _, s, n in self._device_slabs]))
+        if self._chunks:
+            values, scales = self._materialize()
+            return values.cpu().numpy(), scales.cpu().numpy()
+        return np.zeros((0, self.dim), np.int8), np.zeros((0,), np.float32)
+
     def save(self, path: str) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        if self._device_slabs:
-            full = torch.cat([s.float() for s in self._device_slabs]).cpu().numpy()
-        elif self._chunks:
-            full = np.concatenate(self._chunks, axis=0)
+        native = self._native_int8_payload()
+        if native is not None:
+            np.savez(path + ".npz", values=native[0], scales=native[1])
         else:
-            full = np.zeros((0, self.dim), np.float32)
-        np.savez(path + ".npz", reps=full)
+            if self._device_slabs:
+                # bf16/fp32 slabs: widen to fp32 (lossless) for the checkpoint
+                full = torch.cat([v[:n].float() for v, _, n in self._device_slabs]).cpu().numpy()
+            elif self._chunks:
+                full = np.concatenate(self._chunks, axis=0)
+            else:
+                full = np.zeros((0, self.dim), np.float32)
+            np.savez(path + ".npz", reps=full)
         with open(path + ".meta.json", "w") as fh:
             json.dump({"dim": self.dim, "dtype": self.dtype, "n": self._n,
                        "docid": self.docid}, fh)
 
     @classmethod
     def load(cls, path: str, device=None) -> "FlatIPIndex":
+        """Load ``path.npz`` + ``path.meta.json`` onto ``device`` (CUDA by
+        default). A native int8 payload becomes one device slab, as
+        ``add_device`` would have staged it, without requantizing."""
         with open(path + ".meta.json") as fh:
             meta = json.load(fh)
         idx = cls(meta["dim"], dtype=meta["dtype"], device=device)
         with np.load(path + ".npz") as z:
-            reps = z["reps"]
-        if reps.shape[0]:
-            idx.add(reps)
+            if "values" in z:
+                values, scales = z["values"], z["scales"]
+                if values.shape[0]:
+                    idx._device_slabs.append((torch.from_numpy(values).to(idx.device),
+                                              torch.from_numpy(scales).to(idx.device),
+                                              int(values.shape[0])))
+                    idx._n = int(values.shape[0])
+            elif z["reps"].shape[0]:
+                idx.add(z["reps"])
         idx.docid = meta.get("docid", [])
         return idx
+
+
+FLAT_FACTORY = {
+    "flat": "float32", "ip": "float32",
+    "bf16": "bfloat16", "flat16": "bfloat16",
+    "sq8": "int8", "sqint8": "int8",
+    "sq4": "int4", "sqint4": "int4",
+}
+
+
+def index_factory(dim: int, factory_str: str, block_size: int = DEFAULT_BLOCK,
+                  device=None) -> FlatIPIndex:
+    """FAISS ``index_factory``-style constructor for the flat kinds, as the
+    reference's (index/flat.py:533-662): "Flat" / "IP" fp32, "BF16" /
+    "Flat16" bf16, "SQ8" / "SQint8" int8 with per-row scales. "SQ4" (int4)
+    and the trained kinds (IVF, PQ, OPQ, PCA/PCAR chains) raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    key = factory_str.strip().lower()
+    if key in FLAT_FACTORY:
+        return FlatIPIndex(dim, dtype=FLAT_FACTORY[key], block_size=block_size, device=device)
+    if key.startswith(("ivf", "pq", "opq", "pca")):
+        raise NotImplementedError(
+            f"the trained index {factory_str!r} is not ported yet (ROADMAP queue 1 item 12, "
+            f"'Trained indexes'; kernels K13-K17 in queue 2)")
+    raise ValueError(
+        f"unsupported factory string {factory_str!r}; supported: Flat, IP, BF16, Flat16, SQ8, "
+        f"SQint8 (SQ4, IVF, PQ, OPQ and PCA strings are not ported yet)")

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..train.losses import contrastive_loss
 from . import bert, linear
 from .convert import (init_params_numpy, load_jax_params, params_from_jax, params_to_jax,
@@ -80,7 +81,7 @@ class DRModel(nn.Module):
     def __init__(self, spec: DRModelSpec, device=None, head_dims=None):
         super().__init__()
         self.spec = spec
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device, type(self).__name__)
         dtype = DTYPES[spec.dtype]
         param_dtype = dtype if self.serving else torch.float32
 
@@ -217,7 +218,9 @@ class DRModel(nn.Module):
         init from ``bert_config``. Random weights come from
         ``init_params_numpy(seed)``; random heads (``add_linear_head``) from
         ``linear.init_head`` seeded with (seed, 1, 0) and, untied, (seed, 1, 1),
-        as the reference folds its key (biencoder.py:351-359)."""
+        as the reference folds its key (biencoder.py:351-359). The model lives
+        on ``device``: the CUDA card unless the caller names another (without
+        a card that raises)."""
         path = model_args.model_name_or_path
         dtype = getattr(model_args, "dtype", "float32")
         attention = getattr(model_args, "attention", "xla")

@@ -42,8 +42,11 @@ SIGNATURES = {
     "drt_attn_ln": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _P],
     # x, wi, bi, wo, bo, ln_scale, ln_bias, out, rows, H, F, eps, is_bf16, stream
     "drt_mlp_ln": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
-    # q, corpus, out_vals, out_ids, Q, N, H, n_valid, block, J, is_bf16, stream
-    "drt_block_topj": [_P] * 4 + [_I] * 7 + [_P],
+    # q, corpus, corpus_scales, query_scales, out_vals, out_ids,
+    # Q, N, H, n_valid, block, J, qtype, ctype, serve, stream
+    "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P],
+    # x, values, scales, n_in, n_out, H, is_bf16, stream
+    "drt_quantize_int8": [_P] * 3 + [_I] * 4 + [_P],
     # nh, hd, is_bf16 -> the longest S drt_attn_ln takes (not a cudaError_t)
     "drt_attn_ln_max_seq": [_I, _I, _I],
     # q, p, lse, tgt, Q, P, H, stride, stream

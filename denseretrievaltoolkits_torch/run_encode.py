@@ -22,16 +22,8 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from denseretrievaltoolkits_tpu.config import (
-    DataArguments,
-    ModelArguments,
-    TrainingArguments,
-    parse_args,
-)
-# re-exported with ModelArguments: a caller that feeds pre-tokenised ids reaches
-# the jax-free reference names through the port
-from denseretrievaltoolkits_tpu.data.collators import pad_batch  # noqa: F401
-from denseretrievaltoolkits_tpu.data.loaders import pad_to_batch
+from .config import DataArguments, ModelArguments, TrainingArguments, parse_args
+from .data.loaders import pad_to_batch
 
 logger = logging.getLogger(__name__)
 
@@ -74,16 +66,14 @@ def main(argv=None):
     from datasets import load_dataset
     from transformers import AutoTokenizer
 
-    from denseretrievaltoolkits_tpu.data.collators import EncodeCollator
-    from denseretrievaltoolkits_tpu.data.loaders import DataLoader
-
+    from .data.collators import EncodeCollator
+    from .data.loaders import DataLoader
     from .models.biencoder import DRModelForInference
 
     tokenizer = AutoTokenizer.from_pretrained(
         model_args.tokenizer_name or model_args.model_name_or_path,
         cache_dir=model_args.cache_dir)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    model = DRModelForInference.build(model_args, device=device, seed=training_args.seed)
+    model = DRModelForInference.build(model_args, seed=training_args.seed)  # on the card
 
     ds = load_dataset("json", data_files=list(data_args.encode_in_path),
                       cache_dir=data_args.data_cache_dir)["train"].shard(

@@ -31,11 +31,7 @@ from typing import Any, Dict
 
 import torch
 
-# DataLoader and TrainingArguments are re-exported: a caller reaches the
-# jax-free reference names through the port
-from denseretrievaltoolkits_tpu.config import TrainingArguments  # noqa: F401
-from denseretrievaltoolkits_tpu.data.loaders import DataLoader, prefetch  # noqa: F401
-
+from ..data.loaders import prefetch
 from .optimizers import get_optimizer
 
 logger = logging.getLogger(__name__)

@@ -50,7 +50,8 @@ def test_port_serves_jax_checkpoint(jax_model, pooling, normalize, tmp_path):
     jmodel = jbi.DRModel(spec)
     jparams = {k: v for k, v in params.items() if linear_head or not k.startswith("head")}
     jmodel.save(jparams, str(tmp_path))
-    port = tbi.DRModelForInference.build(ModelArguments(model_name_or_path=str(tmp_path)))
+    port = tbi.DRModelForInference.build(ModelArguments(model_name_or_path=str(tmp_path)),
+                                         device="cpu")
     q, p = _batch(1), _batch(2)
     jq = np.asarray(jmodel.encode_query(jparams, jax.tree.map(jnp.asarray, q)))
     jp = np.asarray(jmodel.encode_passage(jparams, jax.tree.map(jnp.asarray, p)))
@@ -70,7 +71,7 @@ def test_fused_attention_build_matches_xla(jax_model, tmp_path):
     jparams = {k: v for k, v in params.items() if not k.startswith("head")}
     jbi.DRModel(spec).save(jparams, str(tmp_path))
     port = tbi.DRModel.build(ModelArguments(model_name_or_path=str(tmp_path),
-                                            attention="fused"))
+                                            attention="fused"), device="cpu")
     assert port.spec.attention == "fused"
     q = _batch(4)
     ref = np.asarray(jbi.DRModel(spec).encode_query(jparams, jax.tree.map(jnp.asarray, q)))
@@ -86,7 +87,8 @@ def test_manifest_and_unsupported_paths(tmp_path):
         tbi.DRModel.build(ModelArguments(model_name_or_path="bert-base-uncased"))
     # an architecture-only dir random-inits from its bert_config.json
     jbert.save_config(CFG, str(tmp_path))
-    model = tbi.DRModel.build(ModelArguments(model_name_or_path=str(tmp_path)), seed=1)
+    model = tbi.DRModel.build(ModelArguments(model_name_or_path=str(tmp_path)), seed=1,
+                              device="cpu")
     reps = model.encode_passage(_batch(5))
     assert reps.shape == (5, 64) and torch.isfinite(reps).all()
     assert not os.path.exists(os.path.join(str(tmp_path), tbi.MANIFEST))

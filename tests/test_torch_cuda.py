@@ -175,3 +175,130 @@ def test_block_kernel_gradients(gen, dtype):
         want = torch.autograd.grad(ref(*leaves), leaves, g)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _int8_rows(gen, N, H):
+    """A seeded corpus quantized per row by the plain K7, with a zero row."""
+    from denseretrievaltoolkits_torch.ops.quant import _quantize_int8_reference
+
+    x = _randn(gen, N, H)
+    x[3] = 0
+    return _quantize_int8_reference(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [768, 50])  # vector loads / scalar loads
+def test_quantize_int8_kernel(gen, dtype, H):
+    """K7 is bit-equal to its plain version: zero rows, exact .5 ties, padding."""
+    from denseretrievaltoolkits_torch.ops import quant
+
+    x = _randn(gen, 300, H, scale=3.0)
+    x[0] = 0
+    x[1, :3] = torch.tensor([127.0, 2.5, -3.5])  # scale 1: 2.5 -> 2, -3.5 -> -4
+    x[1, 3:] = 0
+    x = x.to(dtype)
+    n = quant.quantize_int8_device.launches
+    v, s = quant.quantize_int8_device(x, rows=320)
+    torch.cuda.synchronize()
+    assert quant.quantize_int8_device.launches == n + 1
+    rv, rs = quant._quantize_int8_reference(x, rows=320)
+    assert torch.equal(v, rv) and torch.equal(s, rs)
+    assert v[1, :3].tolist() == [127, 2, -4] and s[0] == 1 and (s[300:] == 1).all()
+
+
+@pytest.mark.parametrize("H", [64, 48])  # tensor-core path / CUDA-core path
+def test_block_topj_int8_kernel(gen, H):
+    """K6: int8 rows x bf16 queries x per-row scales, ids equal to the plain version."""
+    c, sc = _int8_rows(gen, 3000, H)
+    q = _randn(gen, 70, H).to(torch.bfloat16)
+    n = topk.block_topj.launches_int8
+    v, i = topk.block_topj(q, c, 8, 1024, 2990, sc)
+    torch.cuda.synchronize()
+    assert topk.block_topj.launches_int8 == n + 1
+    rv, ri = topk._block_topj_reference(q, c, 8, 1024, 2990, sc)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+    s, ids = topk.certified_topk(q.float(), c, 50, block_size=512, scales=sc)
+    cs, cids = topk.certified_topk(q.float().cpu(), c.cpu(), 50, block_size=512, scales=sc.cpu())
+    assert torch.equal(ids.cpu(), cids)
+    torch.testing.assert_close(s.cpu(), cs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("H", [64, 48])
+def test_block_topj_serve_kernel(gen, dtype, H):
+    """K8 on fp32, bf16 and int8 rows: the plain version's ids, exact scores."""
+    if dtype == torch.int8:
+        c, sc = _int8_rows(gen, 3000, H)
+        q = _randn(gen, 70, H).to(torch.bfloat16)
+    else:
+        c, sc = _randn(gen, 3000, H, dtype=dtype), None
+        c[700:710] = c[700]  # exact ties inside one block
+        q = _randn(gen, 70, H).to(dtype)
+    n = topk.block_topj_serve.launches
+    v, i = topk.block_topj_serve(q, c, 7, 1024, 2990, sc)
+    torch.cuda.synchronize()
+    assert topk.block_topj_serve.launches == n + 1
+    rv, ri = topk._block_topj_serve_reference(q, c, 7, 1024, 2990, sc)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("H", [64, 768])
+def test_block_topj_i8q_kernel(gen, H):
+    """K12: s32 products are exact, so scores and ids equal the plain version's."""
+    from denseretrievaltoolkits_torch.ops.quant import quantize_queries
+
+    c, sc = _int8_rows(gen, 3000, H)
+    qi, qs = quantize_queries(_randn(gen, 70, H))
+    n = topk.block_topj_i8q.launches
+    v, i = topk.block_topj_i8q(qi, qs, c, sc, 7, 1024, 2990)
+    torch.cuda.synchronize()
+    assert topk.block_topj_i8q.launches == n + 1
+    rv, ri = topk._block_topj_i8q_reference(qi, qs, c, sc, 7, 1024, 2990)
+    assert torch.equal(i, ri) and torch.equal(v, rv)
+    with pytest.raises(ValueError, match="H % 64"):
+        topk.block_topj_i8q(qi[:, :48].contiguous(), qs, c[:, :48].contiguous(), sc, 7, 1024,
+                            2990)
+
+
+def test_serve_topk_deep_k_runs_the_kernels(gen):
+    """k=1000 over 9000 int8 rows: the reference runs its kernel there with J
+    up to k; the port halves the block to keep J <= 32 and still launches K8
+    and K12, never the exact scan. i8q scores are exact, so its top-k equals
+    the plain version's; serve sums bf16 products in another order, so its
+    sets agree up to boundary ties (overlap >= 0.999)."""
+    c, sc = _int8_rows(gen, 9000, 64)
+    q = _randn(gen, 20, 64)
+    assert topk.serve_plan(1000, 9000, 9000, 2048) == (64, 22)
+    for native, fn in ((False, topk.block_topj_serve), (True, topk.block_topj_i8q)):
+        n = fn.launches
+        s, ids = topk.serve_topk(q, c, 1000, 2048, scales=sc, i8_native=native)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1 and ids.shape == (20, 1000)
+        rs, rids = topk.serve_topk(q.cpu(), c.cpu(), 1000, 2048, scales=sc.cpu(),
+                                   i8_native=native)
+        if native:
+            assert torch.equal(ids.cpu(), rids) and torch.equal(s.cpu(), rs)
+        else:
+            overlap = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids.cpu(), rids))
+            assert overlap >= 0.999 * rids.numel()
+            torch.testing.assert_close(s.cpu(), rs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flat_index_modes_on_card(gen, dtype):
+    """Every flat mode of a CUDA index against the same index on the CPU
+    (the exact scan): exact ids equal; serve / partial / i8q recall."""
+    from denseretrievaltoolkits_torch.index.flat import FlatIPIndex
+
+    c = _randn(gen, 20000, 64).cpu().numpy()
+    q = _randn(gen, 40, 64).cpu().numpy()
+    idx = FlatIPIndex(c, dtype=dtype, block_size=1024)
+    ref = FlatIPIndex(c, dtype=dtype, block_size=1024, device="cpu")
+    _, want = ref.search(q, 50)
+    modes = ("exact", "serve", "partial") if dtype != "int8" else ("exact", "serve", "i8q")
+    for mode in modes + ("approx",):
+        _, got = idx.search(q, 50, mode=mode)
+        recall = sum(len(set(a) & set(b)) for a, b in zip(got, want)) / want.size
+        assert recall >= (0.99 if mode in ("exact", "serve", "partial") else 0.9), (mode, recall)

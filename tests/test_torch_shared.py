@@ -1,0 +1,163 @@
+"""The port's own copies of the modules it shares with the JAX package, held
+to their originals: ``config``, ``data.collators``, ``data.loaders``,
+``evaluator.metrics`` and ``index.modes``. Same fields and defaults, the same
+parse of the same argv, the same batches, loader order, metrics and mode
+resolution (raises included). Inputs are seeded numpy; everything compares
+exactly."""
+
+import dataclasses
+import itertools
+import json
+
+import numpy as np
+import pytest
+
+from denseretrievaltoolkits_tpu import config as jconfig
+from denseretrievaltoolkits_tpu.data import collators as jcol
+from denseretrievaltoolkits_tpu.data import loaders as jload
+from denseretrievaltoolkits_tpu.evaluator import metrics as jmet
+from denseretrievaltoolkits_tpu.index import modes as jmodes
+from denseretrievaltoolkits_torch import config as tconfig
+from denseretrievaltoolkits_torch.data import collators as tcol
+from denseretrievaltoolkits_torch.data import loaders as tload
+from denseretrievaltoolkits_torch.evaluator import metrics as tmet
+from denseretrievaltoolkits_torch.index import modes as tmodes
+
+CLASSES = ["ModelArguments", "DataArguments", "TrainingArguments", "RRTrainingArguments"]
+
+
+def _defaults(dc):
+    out = []
+    for f in dataclasses.fields(dc):
+        default = f.default if f.default is not dataclasses.MISSING else f.default_factory()
+        out.append((f.name, str(f.type), default))
+    return out
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_config_fields_and_defaults(name):
+    assert _defaults(getattr(tconfig, name)) == _defaults(getattr(jconfig, name))
+
+
+def _parsed(module, argv):
+    triple = (module.ModelArguments, module.DataArguments, module.TrainingArguments)
+    return [dataclasses.asdict(x) for x in module.parse_args(triple, args=argv)]
+
+
+def test_parse_args_same_argv(tmp_path):
+    argv = ["--model_name_or_path", "m", "--dtype", "bfloat16", "--attention", "fused",
+            "--fused_loss", "--no_negatives_x_device", "--encode_in_path", "a.jsonl", "b.jsonl",
+            "--q_max_len", "16", "--optimizer_kwargs", '{"eps": 1e-6}', "--index_dtype", "int8",
+            "--search_mode", "serve", "--index_slab_rows", "1024", "--topk", "1,5",
+            "--cache_train_dir", str(tmp_path / "cache"), "--output_dir", str(tmp_path / "out")]
+    assert _parsed(tconfig, argv) == _parsed(jconfig, argv)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"pooling": "mean", "train_n_passages": 4, "learning_rate": 3e-5,
+                               "cache_train_dir": str(tmp_path / "cache2")}))
+    assert _parsed(tconfig, [str(cfg)]) == _parsed(jconfig, [str(cfg)])
+
+
+class _Tokenizer:
+    """prepare_for_model as a BERT tokenizer does it: [CLS] a [SEP] (b [SEP]),
+    the first text truncated."""
+
+    pad_token_id = 0
+
+    def prepare_for_model(self, a, b=None, truncation=None, max_length=None, padding=False,
+                          return_attention_mask=False, return_token_type_ids=False):
+        extra = 3 + len(b) if b is not None else 2
+        a = list(a)[:max(0, max_length - extra)]
+        ids = [101] + a + [102] + (list(b) + [102] if b is not None else [])
+        return {"input_ids": ids}
+
+
+def _seqs(seed, n=23, max_len=40):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1000, 2000, int(L)).tolist()
+            for L in rng.integers(1, max_len, n)]
+
+
+def _same(a, b):
+    assert type(a) is type(b) or (isinstance(a, tuple) and isinstance(b, tuple))
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("bucket_step", [0, 8])
+def test_pad_batch_and_collators(bucket_step):
+    seqs = _seqs(0)
+    _same(tcol.pad_batch(seqs, 32, 0, bucket_step), jcol.pad_batch(seqs, 32, 0, bucket_step))
+    padded = jcol.pad_batch(seqs[:5], 32, 0)
+    _same(tload.pad_to_batch(padded, 8), jload.pad_to_batch(padded, 8))
+    assert tcol.bucket_length(13, 40, 8) == jcol.bucket_length(13, 40, 8)
+    tok = _Tokenizer()
+    docs = [{"doc_id": f"d{i}", "text": s} for i, s in enumerate(seqs)]
+    queries = [{"query_id": f"q{i}", "query": s} for i, s in enumerate(seqs)]
+    for feats, kw in ((docs, dict(p_max_len=24)), (queries, dict(q_max_len=12))):
+        _same(tcol.EncodeCollator(tok, bucket_step=bucket_step, **kw)(feats),
+              jcol.EncodeCollator(tok, bucket_step=bucket_step, **kw)(feats))
+
+
+@pytest.mark.parametrize("kw", [dict(shuffle=True, seed=3), dict(shuffle=False),
+                                dict(shuffle=False, drop_last=True),
+                                dict(shuffle=True, seed=1, shard_num=3, shard_idx=2),
+                                dict(shuffle=False, sort_by_length=len)])
+def test_dataloader_order(kw):
+    """The same batches in the same order, for two epochs, and through prefetch."""
+    data = _seqs(1, n=47)
+
+    def collate(rows):
+        return jcol.pad_batch(rows, 40, 0)
+
+    t = tload.DataLoader(data, 8, collate, **kw)
+    j = jload.DataLoader(data, 8, collate, **kw)
+    assert len(t) == len(j)
+    for ep in (0, 1):
+        t.set_epoch(ep)
+        j.set_epoch(ep)
+        _same(list(tload.prefetch(t)), list(j))
+
+
+def test_get_metrics():
+    rng = np.random.default_rng(2)
+    hits = (rng.random((40, 30)) < 0.08).astype(np.int64)
+    hits[0] = 0  # a query without a hit
+    assert tmet.get_metrics(hits, [1, 5, 30]) == jmet.get_metrics(hits, [1, 5, 30])
+
+
+def _outcome(fn, *args):
+    try:
+        return "ok", fn(*args)
+    except ValueError as e:
+        return "ValueError", str(e).split("(")[0].split(";")[0][:20]
+
+
+def test_resolve_mode_every_pair():
+    assert tmodes.FLAT_MODES == jmodes.FLAT_MODES
+    assert tmodes.APPROX_ALIAS == jmodes.APPROX_ALIAS
+    assert (tmodes.IVF_MODES, tmodes.PQ_MODES, tmodes.IVFPQ_MODES) == \
+        (jmodes.IVF_MODES, jmodes.PQ_MODES, jmodes.IVFPQ_MODES)
+    dtypes = ("float32", "bfloat16", "int8", "int4")
+    modes = ("exact", "serve", "partial", "i8q", "approx", "bulk", "probe", "nope")
+    for mode, dtype in itertools.product(modes, dtypes):
+        for name in ("resolve_mode", "resolve_ivf_mode"):
+            got = _outcome(getattr(tmodes, name), mode, dtype)
+            want = _outcome(getattr(jmodes, name), mode, dtype)
+            assert got[0] == want[0], (name, mode, dtype, got, want)
+            if got[0] == "ok":
+                assert got == want
+    for mode in modes:
+        for name in ("resolve_pq_mode", "resolve_ivfpq_mode"):
+            got, want = (_outcome(getattr(m, name), mode) for m in (tmodes, jmodes))
+            assert got[0] == want[0] and (got[0] != "ok" or got == want), (name, mode)

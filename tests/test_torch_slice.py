@@ -14,6 +14,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from denseretrievaltoolkits_tpu.config import ModelArguments
 from denseretrievaltoolkits_tpu.data.collators import pad_batch
@@ -58,7 +59,8 @@ def slice_run(tmp_path_factory):
             out.append(np.asarray(fn(params, jax.tree.map(jnp.asarray, padded)))[:valid])
         return np.concatenate(out)
 
-    port = DRModelForInference.build(ModelArguments(model_name_or_path=ckpt, attention="fused"))
+    port = DRModelForInference.build(ModelArguments(model_name_or_path=ckpt, attention="fused"),
+                                     device="cpu")
     jp, jq = jax_encode(p_batches, jmodel.encode_passage), jax_encode(q_batches, jmodel.encode_query)
     tp, p_lookup = encode_batches(port, p_batches, "passage", BS)
     tq, q_lookup = encode_batches(port, q_batches, "query", BS)
@@ -120,9 +122,8 @@ def test_retrieval_cli_writes_same_ranking(slice_run, tmp_path):
     assert len(glob.glob(shards)) == 2
     jret.run(str(tmp_path / "q.pkl"), shards, str(tmp_path / "jax.tsv"), depth=15,
              batch_size=8, save_text=True)
-    tret.main(["--query_reps", str(tmp_path / "q.pkl"), "--passage_reps", shards,
-               "--save_ranking_to", str(tmp_path / "port.tsv"), "--depth", "15",
-               "--batch_size", "8", "--save_text"])
+    tret.run(str(tmp_path / "q.pkl"), shards, str(tmp_path / "port.tsv"), depth=15,
+             batch_size=8, save_text=True, device="cpu")
 
     def read(name):
         with open(os.path.join(str(tmp_path), name)) as fh:
@@ -132,3 +133,69 @@ def test_retrieval_cli_writes_same_ranking(slice_run, tmp_path):
     (jpairs, jscores), (tpairs, tscores) = read("jax.tsv"), read("port.tsv")
     assert tpairs == jpairs and len(tpairs) == 20 * 15
     np.testing.assert_allclose(tscores, jscores, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["exact", "serve", "i8q", "approx"])
+def test_int8_search_and_metrics_match(slice_run, mode):
+    """The slice's reps into an int8 index on both packages, every mode (the
+    exact scan on the CPU): ids equal, scores within 1e-5, same metrics."""
+    r = slice_run
+    js, ji = jflat.FlatIPIndex(r["jp"], dtype="int8").search(r["jq"], k=20, mode=mode)
+    ts, ti = tflat.FlatIPIndex(r["tp"], dtype="int8", device="cpu").search(r["tq"], k=20,
+                                                                          mode=mode)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-5)
+    hits = np.array([[int(d) % 7 == q % 7 for d in row] for q, row in enumerate(ti)])
+    jhits = np.array([[int(d) % 7 == q % 7 for d in row] for q, row in enumerate(ji)])
+    assert get_metrics(hits, [1, 5, 20]) == get_metrics(jhits, [1, 5, 20])
+
+
+def _write_shards(r, tmp_path):
+    for i, (lo, hi) in enumerate([(0, 90), (90, 150)]):
+        with open(tmp_path / f"p{i}.pkl", "wb") as fh:
+            pickle.dump((r["tp"][lo:hi], r["p_lookup"][lo:hi]), fh)
+    with open(tmp_path / "q.pkl", "wb") as fh:
+        pickle.dump((r["tq"], r["q_lookup"]), fh)
+    return str(tmp_path / "q.pkl"), str(tmp_path / "p*.pkl")
+
+
+def _read(path):
+    with open(path) as fh:
+        rows = [line.split("\t") for line in fh.read().splitlines()]
+    return [(q, d) for q, d, _ in rows], np.array([float(s) for _, _, s in rows])
+
+
+@pytest.mark.parametrize("mode", ["serve", "i8q", "exact"])
+def test_retrieval_cli_int8_same_ranking(slice_run, tmp_path, mode):
+    """``--index_dtype int8 --search_mode serve|i8q|exact`` on both packages, and
+    the port serving a saved int8 index through ``--index_path``."""
+    r = slice_run
+    qpath, shards = _write_shards(r, tmp_path)
+    jret.run(qpath, shards, str(tmp_path / "jax.tsv"), depth=15, batch_size=8, save_text=True,
+             index_dtype="int8", search_mode=mode)
+    tret.run(qpath, shards, str(tmp_path / "port.tsv"), depth=15, batch_size=8, save_text=True,
+             index_dtype="int8", search_mode=mode, device="cpu")
+    (jpairs, jscores), (tpairs, tscores) = _read(tmp_path / "jax.tsv"), _read(tmp_path / "port.tsv")
+    assert tpairs == jpairs and len(tpairs) == 20 * 15
+    np.testing.assert_allclose(tscores, jscores, rtol=1e-5, atol=1e-5)
+
+    idx = tflat.FlatIPIndex(64, dtype="int8", device="cpu")
+    idx.add_device(torch.from_numpy(r["tp"]))
+    idx.docid = list(r["p_lookup"])
+    idx.save(str(tmp_path / "int8_index"))
+    tret.run(qpath, save_ranking_to=str(tmp_path / "saved.tsv"), depth=15, batch_size=8,
+             save_text=True, search_mode=mode, index_path=str(tmp_path / "int8_index"),
+             device="cpu")
+    assert _read(tmp_path / "saved.tsv")[0] == jpairs
+
+
+def test_retrieval_cli_runs_on_the_card(slice_run, tmp_path):
+    """``main`` builds its index on the card: without one it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: main runs there")
+    qpath, shards = _write_shards(slice_run, tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tret.main(["--query_reps", qpath, "--passage_reps", shards, "--save_ranking_to",
+                   str(tmp_path / "port.tsv"), "--index_dtype", "int8"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DRModelForInference.build(ModelArguments())

@@ -86,7 +86,7 @@ def _jax_model(port):
 
 def _build(seed=5, **kw):
     args = ModelArguments(projection_in_dim=32, projection_out_dim=24, **kw)
-    return tbi.DRModel.build(args, bert_config=tbert.BertConfig(**CFG), seed=seed)
+    return tbi.DRModel.build(args, bert_config=tbert.BertConfig(**CFG), seed=seed, device="cpu")
 
 
 # --- schedules and optimizers -------------------------------------------------------------
@@ -257,7 +257,8 @@ def test_forward_loss_and_grads_match_jax(attention, fused_loss, untied):
 def test_params_are_fp32_masters_and_serving_stores_compute_dtype():
     train = _build(dtype="bfloat16")
     serve = tbi.DRModelForInference.build(
-        ModelArguments(dtype="bfloat16"), bert_config=tbert.BertConfig(**CFG), seed=5)
+        ModelArguments(dtype="bfloat16"), bert_config=tbert.BertConfig(**CFG), seed=5,
+        device="cpu")
     layer_t, layer_s = train.lm_q.layers[0], serve.lm_q.layers[0]
     assert layer_t.qkv_kernel.dtype == torch.float32 and layer_t.qkv_kernel.requires_grad
     assert layer_s.qkv_kernel.dtype == torch.bfloat16
@@ -367,7 +368,8 @@ def test_jax_loads_the_deploy_format(trained):
     q = _batch(5, 8, 11)
     ref = np.asarray(jmodel.encode_query(jparams, jax.tree.map(jnp.asarray, q)))
     np.testing.assert_allclose(trainer.model.encode_query(q).numpy(), ref, atol=1e-5)
-    served = tbi.DRModelForInference.build(ModelArguments(model_name_or_path=result))
+    served = tbi.DRModelForInference.build(ModelArguments(model_name_or_path=result),
+                                           device="cpu")
     torch.testing.assert_close(served.encode_query(q), trainer.model.encode_query(q),
                                rtol=0, atol=0)
 
