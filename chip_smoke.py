@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's serving and training paths once on one CUDA card, and check them.
+"""Drive the torch port's serving, training and evaluation paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json]
 
@@ -63,10 +63,32 @@ Phases, each of which fails the run on error:
    path with the plain versions must agree. Then ``save`` and
    ``evaluator.retrieval.main --index_path ... --search_mode serve`` on the
    card, the reloaded payload bit-equal.
-9. Scale: 8,841,823 x 768 int8 rows (MS MARCO passage) built by
+9. K9 (int4 quantization) on a seeded 1,000,000 x 768 fp32 corpus: packed
+   values and scales bit-equal to the plain version; kernel / plain ms.
+10. K10, K11 and K12's sq4 body on that corpus packed by K9, 1024 queries,
+   k=100: through ``certified_topk(int4=True)`` and ``serve_topk(int4=True)``
+   against the same searches on the plain versions, and block by block at
+   the searches' J (ids equal up to ties, rescored in fp64 under the kernel's
+   formula; K12 sq4 bit-equal); recall@100 of serve and i8q vs the certified
+   search; kernel, plain and search ms.
+11. The evaluation path through the entry points: bert-base (12 layers,
+   bf16, fused attention and loss) built by ``DRModel.build``, one short
+   epoch of ``Trainer.train`` with an ``eval_loader`` that evaluates into an
+   int4 index (8192 synthetic passages with planted answers, 512 queries,
+   ``AnswerMatcher`` labels, metrics json, retrieval dump), then
+   ``evaluate`` on the same index in ``serve`` and ``i8q``. Launch counters
+   of K1, K2, K9, K10, K11 and K12 sq4 are zeroed before and read after. The
+   plain versions of K9-K12 on the same reps must agree; the int4 rankings
+   are compared with a float32 evaluation of the same model; the saved index
+   reloads bit-equal through ``_load_index``; ``retrieval.main --index_dtype
+   int4`` ranks as the trainer did.
+12. Scale: 8,841,823 x 768 int8 rows (MS MARCO passage) built by
    ``add_device`` in 262,144-row slabs of seeded fp32 quantized by K7 (the
    trainer's evaluation path); queries/s of ``serve``, ``i8q`` and
    ``exact`` at k=100, recall@100 of serve / i8q vs exact, peak memory.
+13. Scale int4: 138,364,198 x 768 rows (MS MARCO v2 passage, which int8
+   cannot hold on one card) in 528 slabs packed by K9; the same searches and
+   numbers, plus the resident size.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -135,6 +157,24 @@ SERVE_RECALL, I8Q_RECALL = 0.999, 0.97
 # random-weight CLS reps rank a flat tail that the row quantization reorders.
 INT8_VS_PLAIN, INT8_PLAIN_METRIC_GAP = 0.999, 0.004
 INT8_VS_FP32, INT8_METRIC_GAP = 0.87, 0.03
+# The evaluation path (Trainer.train, then evaluate into an int4 index): its
+# training epoch, and its bounds. Kernels vs plain versions over the same reps
+# take the int8 path's bars. int4 vs the float32 ranking of the same model read
+# top-100 overlap 0.13061 and a metric gap of 0.5156 (exact, on the H100): the
+# near-random weights give CLS reps whose differences sit below int4's step
+# (absmax / 7), so the rows' quantization reorders almost the whole top-100.
+# The bounds keep a little room on that reading.
+EVAL_TRAIN_STEPS = 4
+INT4_VS_PLAIN, INT4_PLAIN_METRIC_GAP = 0.999, 0.004
+INT4_VS_FP32, INT4_METRIC_GAP = 0.10, 0.56
+# K11 takes bf16 queries, the certified int4 search fp32 ones (the reference's
+# formulas), so near ties at the k-th place swap with the query's bf16
+# rounding: provisional until the first reading on the card. Against the
+# certified search over the same bf16 queries serve keeps SERVE_RECALL.
+INT4_SERVE_FP32_RECALL = 0.99
+# int4 at scale: MS MARCO v2 passage (138,364,198 passages), 53.1 GB of packed
+# rows at 768-d, which int8 (106 GB) cannot hold on one card.
+SCALE4_ROWS, SCALE4_QUERIES = 138_364_198, 1024
 
 
 def log(msg):
@@ -723,29 +763,36 @@ def phase_quant(gen, quant, n_rows, dim=768):
             "bound_by": by}, (v, s)
 
 
-def rescore(q, corpus, ids, scales=None, query_dtype=None):
+def rescore(q, corpus, ids, scales=None, query_dtype=None, int4=False):
     """fp64 scores of rows ``ids`` [Q, m] under the kernels' formula: queries in
-    the kernels' input type (bf16 for bf16 and int8 rows), int8 rows times
-    their scales."""
+    the kernels' input type (bf16 for bf16 and int8 rows; given for int4 rows),
+    int8 rows and unpacked int4 rows times their scales."""
+    from denseretrievaltoolkits_torch.ops.quant import unpack_int4
+
     if query_dtype is None:
         query_dtype = torch.float32 if corpus.dtype == torch.float32 else torch.bfloat16
     qc = q.to(query_dtype).double()
     idx = ids.long().clamp(min=0)
-    rows = corpus[idx].double()
+    rows = corpus[idx]
+    if int4:
+        rows = unpack_int4(rows.reshape(-1, rows.shape[-1])).reshape(*idx.shape, -1)
+    rows = rows.double()
     if scales is not None:
         rows = rows * scales[idx].double()[..., None]
     return torch.einsum("qd,qkd->qk", qc, rows)
 
 
-def against_plain(q, corpus, scales, got, want, rel_tol):
+def against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None):
     """(rank-wise score error, rescored error of the ids, differing ids) of a
     top-k against the plain versions' top-k: ids may differ only inside ties
-    within the tolerance."""
+    within the tolerance. ``int4_query``: the rows are packed int4, scored
+    under queries of that dtype."""
     (vals, ids), (ref_vals, ref_ids) = got, want
     tol = rel_tol * ref_vals.abs().clamp(min=1.0)
     rank_err = (vals - ref_vals).abs()
-    rescored_err = (rescore(q, corpus, ids, scales) - ref_vals.double()).abs()
-    if corpus.dtype == torch.int8:
+    rescored_err = (rescore(q, corpus, ids, scales, int4_query, int4_query is not None)
+                    - ref_vals.double()).abs()
+    if corpus.dtype == torch.int8 and int4_query is None:
         # the certificate's fallback scan scores fp32 queries (the reference's
         # formula), so a query that fell back carries fp32-query scores
         rescored_err = torch.minimum(rescored_err, (rescore(
@@ -754,22 +801,39 @@ def against_plain(q, corpus, scales, got, want, rel_tol):
     return ok, rank_err.max().item(), rescored_err.max().item(), int((ids != ref_ids).sum())
 
 
-def blocks_against_plain(q, corpus, scales, got, want, rel_tol):
+def blocks_against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None, chunk=64):
     """(ok, max rank err, max rescored err, ids differing) of per-block top-J
     lists [Q, nb, J] against the plain version's: scores rank-wise within
     ``rel_tol``, each kernel id scoring its kernel score under the kernels'
     formula (so an id may differ from the plain one only where the two tie),
-    empty slots alike, and no id twice in one list."""
+    empty slots alike, and no id twice in one list. Rescored ``chunk``
+    queries at a time (fp64 rows of every candidate); ``int4_query`` as in
+    ``against_plain``."""
     (vals, ids), (ref_vals, ref_ids) = got, want
     tol = rel_tol * ref_vals.abs().clamp(min=1.0)
     rank_err = torch.where(vals == ref_vals, 0.0, (vals - ref_vals).abs())
-    rescored = rescore(q, corpus, ids.reshape(ids.shape[0], -1), scales).reshape(ids.shape)
-    own_err = torch.where(ids >= 0, (rescored - vals.double()).abs(), 0.0)
+    own_err = torch.zeros_like(vals, dtype=torch.float64)
+    for a in range(0, ids.shape[0], chunk):
+        part = ids[a:a + chunk]
+        rescored = rescore(q[a:a + chunk], corpus, part.reshape(part.shape[0], -1), scales,
+                           int4_query, int4_query is not None).reshape(part.shape)
+        own_err[a:a + chunk] = torch.where(part >= 0, (rescored - vals[a:a + chunk].double()).abs(),
+                                           0.0)
     srt = ids.sort(dim=-1).values
     repeated = ((srt[..., 1:] == srt[..., :-1]) & (srt[..., 1:] >= 0)).any()
     ok = (bool((rank_err <= tol).all()) and bool((own_err <= tol.double()).all())
           and bool(((ids < 0) == (ref_ids < 0)).all()) and not bool(repeated))
     return ok, rank_err.max().item(), own_err.max().item(), int((ids != ref_ids).sum())
+
+
+@contextlib.contextmanager
+def plain_versions_of(table):
+    """{module: {name: plain function}} patched in for the duration."""
+    with contextlib.ExitStack() as stack:
+        for mod, fns in table.items():
+            for name, fn in fns.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+        yield
 
 
 def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=100, dim=768):
@@ -785,20 +849,12 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
                     "block_topj_i8q": topk._block_topj_i8q_reference},
              quant: {"quantize_int8_device": quant._quantize_int8_reference}}
 
-    @contextlib.contextmanager
-    def plain_versions():
-        with contextlib.ExitStack() as stack:
-            for mod, fns in plain.items():
-                for name, fn in fns.items():
-                    stack.enter_context(mock.patch.object(mod, name, fn))
-            yield
-
     # K6: the certified int8 search
     counts0 = certificate_counts(topk)
     s, ids = topk.certified_topk(q, values, k, block, scales=scales)
     torch.cuda.synchronize()
     escalated, fallbacks = np.subtract(certificate_counts(topk), counts0).tolist()
-    with plain_versions():
+    with plain_versions_of(plain):
         ps, pids = topk.certified_topk(q, values, k, block, scales=scales)
     ok, rank_err, res_err, differ = against_plain(q, values, scales, (s, ids), (ps, pids), 1e-5)
     # against the exact scan on the int8 rows, which scores fp32 queries (the
@@ -849,7 +905,7 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
         native = name == "K12"
         got = topk.serve_topk(q, corpus, k, block, scales=sc, i8_native=native)
         torch.cuda.synchronize()
-        with plain_versions():
+        with plain_versions_of(plain):
             want = topk.serve_topk(q, corpus, k, block, scales=sc, i8_native=native)
         J = topk.serve_j(k, -(-n_rows // block), block)
         if native:
@@ -1063,6 +1119,427 @@ def phase_scale(gen, flat, topk, n_queries, k=100, dim=768):
             "queries_per_s": rates, "recall": recall, "peak_gib": peak_gib}
 
 
+def phase_quant4(gen, quant, n_rows, dim=768):
+    """K9 vs its plain version on a seeded fp32 corpus of the K5 phase's size:
+    bit for bit. Returns the packed corpus for the int4 search phase."""
+    x = torch.randn(n_rows, dim, generator=gen, device="cuda")
+    x[0] = 0  # a zero row: scale 1
+    v, s = quant.quantize_int4_device(x)
+    torch.cuda.synchronize()
+    rv, rs = quant._quantize_int4_reference(x)
+    err = max(float((quant.unpack_int4(v).int() - quant.unpack_int4(rv).int()).abs().max()),
+              float((s - rs).abs().max()))
+    equal = bool(torch.equal(v, rv) and torch.equal(s, rs))
+    ms = cuda_ms(lambda: quant.quantize_int4_device(x))
+    plain_ms = cuda_ms(lambda: quant._quantize_int4_reference(x))
+    bound_ms, by = bound(n_rows * dim * 4 + n_rows * dim // 2 + n_rows * 4, n_rows * dim, "fp32")
+    log(f"K9 fp32 {n_rows}x{dim} -> {tuple(v.shape)} packed: values and scales bit-equal to the "
+        f"plain version: {equal} (max abs diff {err:g}); kernel {ms:.3f} ms plain {plain_ms:.3f} "
+        f"ms bound {bound_ms:.3f} ms ({by})")
+    check(equal, "K9 disagrees with its plain version")
+    del x, rv, rs
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by}, (v, s)
+
+
+def phase_int4_topk(gen, topk, quant, blockwise_topk, x_int4, n_queries=1024, k=100, dim=768):
+    """K10, K11 and K12's sq4 body vs their plain versions on the 1M-row int4
+    corpus (packed by K9), through the searches that run them and block by
+    block at the searches' J."""
+    values, scales = x_int4
+    n_rows = values.shape[0]
+    block = 4096  # FlatIPIndex's rule at this size
+    q = torch.randn(n_queries, dim, generator=gen, device="cuda")
+    qb = q.bfloat16()
+    qi, qs = quant.quantize_queries(q)
+    plain = {topk: {"block_topj": topk._block_topj_reference,
+                    "block_topj_serve": topk._block_topj_serve_reference,
+                    "block_topj_i8q": topk._block_topj_i8q_reference}}
+    ops = 2.0 * n_queries * n_rows * dim
+    nb = -(-n_rows // block)
+    results = {}
+
+    # K10: the certified int4 search (fp32 queries in the kernel and the scan)
+    counts0 = certificate_counts(topk)
+    s, ids = topk.certified_topk(q, values, k, block, scales=scales, int4=True)
+    torch.cuda.synchronize()
+    escalated, fallbacks = np.subtract(certificate_counts(topk), counts0).tolist()
+    with plain_versions_of(plain):
+        want = topk.certified_topk(q, values, k, block, scales=scales, int4=True)
+    ok, rank_err, res_err, differ = against_plain(q, values, scales, (s, ids), want, 1e-5,
+                                                  int4_query=torch.float32)
+    bs, bids = blockwise_topk(q, values, k, block, scales=scales, int4=True)
+    scan_ok = against_plain(q, values, scales, (s, ids), (bs, bids), 1e-5,
+                            int4_query=torch.float32)[0]
+    J = max(4, min(k, 8))
+    blk_ok, blk_err, blk_res, blk_differ = blocks_against_plain(
+        q, values, scales, topk.block_topj(q, values, J, block, n_rows, scales, int4=True),
+        topk._block_topj_reference(q, values, J, block, n_rows, scales, int4=True), 1e-5,
+        int4_query=torch.float32)
+    t = {"ms": cuda_ms(lambda: topk.block_topj(q, values, J, block, n_rows, scales, int4=True),
+                       iters=3),
+         "plain_ms": cuda_ms(lambda: topk._block_topj_reference(q, values, J, block, n_rows,
+                                                                 scales, int4=True), iters=3),
+         "search_ms": cuda_ms(lambda: topk.certified_topk(q, values, k, block, scales=scales,
+                                                          int4=True), iters=3)}
+    out_bytes = 8 * n_queries * nb * J
+    t["bound_ms"], t["bound_by"] = bound(values.numel() + 4 * n_rows + 4 * q.numel() + out_bytes,
+                                         ops, "fp32")
+    log(f"K10 int4 {n_rows}x{dim} Q={n_queries} k={k}: vs the plain-version certified search: "
+        f"ids differing {differ}, max rank err {rank_err:.3e}, max rescored err {res_err:.3e} "
+        f"(rel tol 1e-5), vs the int4 exact scan: {scan_ok}; certificate escalated {escalated} "
+        f"fallbacks {fallbacks}; per block (J={J}): {blk_ok}, ids differing {blk_differ} (ties "
+        f"only), max err {blk_err:.3e}, rescored {blk_res:.3e}; kernel {t['ms']:.3f} ms plain "
+        f"{t['plain_ms']:.3f} ms bound {t['bound_ms']:.3f} ms ({t['bound_by']}), certified "
+        f"search {t['search_ms']:.3f} ms")
+    check(ok and scan_ok, "K10: the certified int4 search disagrees with its plain version")
+    check(blk_ok, "K10 per block disagrees with its plain version")
+    results["K10"] = dict(t, max_abs_err=blk_err, escalated=escalated, fallbacks=fallbacks,
+                          ids_differing=differ, block_ids_differing=blk_differ)
+    exact = ids
+    # the certified search over bf16-rounded queries scores exactly as K11 does
+    # (bf16 x int4 products are exact in fp32): serve's recall against it is
+    # its selection's, as the int8 path measures it (K6 takes bf16 queries too)
+    exact_bf16 = topk.certified_topk(qb.float(), values, k, block, scales=scales, int4=True)[1]
+    del bs, bids
+
+    # K11 (bf16 queries) and K12's sq4 body (int8 queries) through serve_topk
+    for name, native in (("K11", False), ("K12 sq4", True)):
+        got = topk.serve_topk(q, values, k, block, scales=scales, i8_native=native, int4=True)
+        torch.cuda.synchronize()
+        with plain_versions_of(plain):
+            want = topk.serve_topk(q, values, k, block, scales=scales, i8_native=native,
+                                   int4=True)
+        sblock, sJ = topk.serve_plan(k, n_rows, n_rows, block)
+        if native:
+            kern = lambda: topk.block_topj_i8q(qi, qs, values, scales, sJ, sblock, n_rows,  # noqa
+                                               int4=True)
+            ref = lambda: topk._block_topj_i8q_reference(qi, qs, values, scales, sJ,  # noqa
+                                                         sblock, n_rows, int4=True)
+            kv, ki = kern()
+            pv, pi = ref()
+            ok = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+            blk_ok = bool(torch.equal(kv, pv) and torch.equal(ki, pi))
+            rank_err, res_err = (got[0] - want[0]).abs().max().item(), 0.0
+            blk_err, blk_differ = (kv - pv).abs().max().item(), int((ki != pi).sum())
+            kind, q_bytes = "int8", qi.numel() + 4 * n_queries
+        else:
+            kern = lambda: topk.block_topj_serve(qb, values, sJ, sblock, n_rows, scales,  # noqa
+                                                 int4=True)
+            ref = lambda: topk._block_topj_serve_reference(qb, values, sJ, sblock,  # noqa
+                                                           n_rows, scales, int4=True)
+            ok, rank_err, res_err, _ = against_plain(q, values, scales, got, want, 1e-4,
+                                                     int4_query=torch.bfloat16)
+            blk_ok, blk_err, _, blk_differ = blocks_against_plain(
+                q, values, scales, kern(), ref(), 1e-4, int4_query=torch.bfloat16)
+            kind, q_bytes = "bf16", 2 * q.numel()
+        differ = int((got[1] != want[1]).sum())
+        recall = overlap(got[1].tolist(), exact.tolist())
+        # serve: its selection against the same formula; i8q: against fp32 queries
+        selection = overlap(got[1].tolist(), exact_bf16.tolist()) if not native else recall
+        t = {"ms": cuda_ms(kern, iters=3), "plain_ms": cuda_ms(ref, iters=3),
+             "search_ms": cuda_ms(lambda: topk.serve_topk(q, values, k, block, scales=scales,
+                                                          i8_native=native, int4=True),
+                                  iters=3)}
+        out_bytes = 8 * n_queries * -(-n_rows // sblock) * sJ
+        t["bound_ms"], t["bound_by"] = bound(values.numel() + 4 * n_rows + q_bytes + out_bytes,
+                                             ops, kind)
+        log(f"{name} int4 {n_rows}x{dim} Q={n_queries} k={k} block {sblock} J={sJ}: vs the "
+            f"plain versions: {'bit-equal ' if native else ''}{ok}, ids differing {differ}, max "
+            f"rank err {rank_err:.3e}, max rescored err {res_err:.3e}; per block "
+            f"{'bit-equal ' if native else ''}{blk_ok} (ids differing {blk_differ}, max err "
+            f"{blk_err:.3e}); recall@{k} vs the certified int4 search {recall:.5f}"
+            f"{'' if native else f', over the same bf16 queries {selection:.5f}'}; kernel "
+            f"{t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}), search {t['search_ms']:.3f} ms")
+        check(ok and blk_ok, f"{name}: the int4 serve search disagrees with its plain version")
+        check(recall >= (I8Q_RECALL if native else INT4_SERVE_FP32_RECALL),
+              f"{name}: recall@{k} vs the certified int4 search below its bound")
+        check(selection >= (I8Q_RECALL if native else SERVE_RECALL),
+              f"{name}: recall@{k} of the selection below its bound")
+        results[name] = dict(t, max_abs_err=blk_err, ids_differing=differ, recall=recall,
+                             recall_same_queries=selection, J=sJ, block=sblock)
+    del q, qb, qi, qs
+    torch.cuda.empty_cache()
+    return results
+
+
+def synthetic_qa(rng, n_passages, n_queries, p_len, q_len):
+    """Passages of seeded random words ("w<token id>", lognormal lengths up to
+    p_len tokens with [CLS]/[SEP]) and queries that are a prefix of their
+    passage. Query j's answer is a word of its own, planted in passage j and
+    in 2 other random passages, so ``AnswerMatcher`` finds hits."""
+    first_answer = 30522 - n_queries  # answer words are token ids no passage draws
+    bodies = [rng.integers(1000, first_answer, int(np.clip(rng.lognormal(math.log(60), 0.5), 8,
+                                                           p_len)) - 2).tolist()
+              for _ in range(n_passages)]
+    answers = list(range(first_answer, 30522))
+    for j, a in enumerate(answers):
+        for i in [j] + rng.integers(0, n_passages, 2).tolist():
+            bodies[i][int(rng.integers(0, len(bodies[i])))] = a
+    corpus = [{"id": f"d{i}", "original": " ".join(f"w{t}" for t in b),
+               "tokens": [101] + b + [102]} for i, b in enumerate(bodies)]
+    queries = []
+    for j, a in enumerate(answers):
+        L = int(np.clip(rng.lognormal(math.log(10), 0.4), 4, q_len - 1))
+        body = bodies[j][:L - 2]
+        queries.append({"query_id": f"q{j}", "answers": [f"w{a}"], "tokens": [101] + body + [102],
+                        "original": " ".join(f"w{t}" for t in body)})
+    return corpus, queries
+
+
+def read_dump(args, ep):
+    """{query_id: [doc_id, ...]} of the retrieval dump, in rank order, and its rows."""
+    ranked, n = {}, 0
+    with open(os.path.join(args.retrieve_dir, f"{ep}.0.json")) as fh:
+        for line in fh:
+            row = json.loads(line)
+            ranked.setdefault(row["query_id"], []).append(row["doc_id"])
+            n += 1
+    return ranked, n
+
+
+def phase_eval_path(args, tmp):
+    """The trainer's retrieval evaluation through the entry points: bert-base
+    trained for one short epoch by ``Trainer.train`` with an ``eval_loader``,
+    which evaluates into an int4 index (K9 quantizes, K10 searches); then
+    ``evaluate`` on the same index in ``serve`` (K11) and ``i8q`` (K12 sq4)."""
+    from denseretrievaltoolkits_torch.config import ModelArguments, TrainingArguments
+    from denseretrievaltoolkits_torch.data.collators import pad_batch
+    from denseretrievaltoolkits_torch.data.loaders import DataLoader
+    from denseretrievaltoolkits_torch.evaluator import retrieval
+    from denseretrievaltoolkits_torch.index import flat
+    from denseretrievaltoolkits_torch.models.bert import BertConfig, save_config
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+    from denseretrievaltoolkits_torch.ops import attn, quant, topk
+    from denseretrievaltoolkits_torch.train.trainer import Trainer
+
+    class EvalTrainer(Trainer):
+        """The Trainer with its evaluation index at INDEX_BLOCK-row blocks. At
+        the index's default 4096 rows, 8192 passages make 2 blocks whose 2 x
+        J=8 candidates cannot hold k=100: the certified search would scan, as
+        the reference's does at this size (its safe_block caps int4 at 2048)."""
+
+        def _make_index(self, dim):
+            index = super()._make_index(dim)
+            index.block_size = INDEX_BLOCK
+            return index
+
+    config = BertConfig(num_hidden_layers=TRAIN_LAYERS)
+    arch = os.path.join(tmp, "bert-base-eval")
+    save_config(config, arch)
+    model = DRModel.build(ModelArguments(model_name_or_path=arch, dtype="bfloat16",
+                                         attention="fused", fused_loss=True, pooling="first"),
+                          device="cuda", seed=args.seed)
+    rng = np.random.default_rng(args.seed + 1)
+    corpus, queries = synthetic_qa(rng, args.passages, args.queries, 156, 32)
+    rows = make_train_rows(rng, EVAL_TRAIN_STEPS * TRAIN_BATCH, 8, 128, 32)
+    train_loader = DataLoader(
+        rows, TRAIN_BATCH, lambda b: (pad_batch([q for q, _ in b], 32, 0),
+                                      pad_batch([p for _, ps in b for p in ps], 128, 0)),
+        shuffle=True, seed=args.seed)
+    corpus_loader = DataLoader(corpus, args.batch, lambda b: (
+        [r["id"] for r in b], pad_batch([r["tokens"] for r in b], 156, 0)))
+    query_loader = DataLoader(queries, args.batch, lambda b: (
+        [r["query_id"] for r in b], pad_batch([r["tokens"] for r in b], 32, 0),
+        [r["answers"] for r in b], [r["original"] for r in b]))
+    targs = TrainingArguments(
+        output_dir=os.path.join(tmp, "eval", "out"), cache_train_dir=os.path.join(
+            tmp, "eval", "cache"), train_batch_size=TRAIN_BATCH, max_epochs=1,
+        learning_rate=TRAIN_LR, optimizer="adamw", scheduler="linear", warmup_ratio=0.1,
+        log_every=1, save_per_train=1, eval_per_train=1, index_dtype="int4",
+        search_mode="exact", retrieve_num=args.k, topk="1,10,100")
+    trainer = EvalTrainer(targs, model, corpus_dataloader=corpus_loader,
+                          train_loader=train_loader, eval_loader=query_loader)
+    log(f"evaluation path: bert-base L={config.num_hidden_layers} bf16 fused + fused loss, "
+        f"{EVAL_TRAIN_STEPS} train steps at {TRAIN_BATCH} x 8, then Trainer.evaluate: "
+        f"{args.passages} passages (answers planted in {args.queries * 3} draws), "
+        f"{args.queries} queries, int4 index ({INDEX_BLOCK}-row blocks), k={args.k}")
+
+    counted = {"fused_attention_ln": (attn.fused_attention_ln, "launches"),
+               "fused_mlp_ln": (attn.fused_mlp_ln, "launches"),
+               "quantize_int4_device": (quant.quantize_int4_device, "launches"),
+               "block_topj (K10)": (topk.block_topj, "launches_int4"),
+               "block_topj_serve (K11)": (topk.block_topj_serve, "launches_int4"),
+               "block_topj_i8q (K12 sq4)": (topk.block_topj_i8q, "launches_int4")}
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    runs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()  # the epoch, then evaluate(eval_loader, 1) in exact
+    torch.cuda.synchronize()
+    train_eval_s = time.perf_counter() - t0
+    runs["exact"] = (_metrics_of(targs, 1), *read_dump(targs, 1), train_eval_s)
+    for mode in ("serve", "i8q"):
+        targs.search_mode = mode
+        t0 = time.perf_counter()
+        m = trainer.evaluate(query_loader, 1)
+        runs[mode] = (m, *read_dump(targs, 1), time.perf_counter() - t0)
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+    log(f"launches on the evaluation path: {json.dumps(launches)}")
+    check(all(n > 0 for n in launches.values()), "a kernel of the evaluation path never launched")
+    for mode, (m, ranked, n_rows, secs) in runs.items():
+        log(f"int4 {mode}: {secs:.2f} s{' (with the training epoch)' if mode == 'exact' else ''}"
+            f"; dump {n_rows} rows; metrics {json.dumps({k: round(v, 5) for k, v in m.items()})}")
+        check(n_rows == args.queries * args.k and len(ranked) == args.queries,
+              f"int4 {mode}: retrieval dump length")
+        check(m["query_num"] == args.queries and all(math.isfinite(v) for v in m.values()),
+              f"int4 {mode}: metrics")
+    check(os.path.exists(os.path.join(targs.cache_train_dir, "1.0_metrics")),
+          "the metrics json was not written")
+    check(runs["exact"][0]["Recall@100"] > 0, "AnswerMatcher found no planted answer")
+
+    # the saved index reloads bit for bit
+    index = trainer.index
+    saved = index._native_int8_payload()
+    trainer._load_index(1)
+    back = trainer.index._native_int8_payload()
+    reloaded = bool(np.array_equal(saved[0], back[0]) and np.array_equal(saved[1], back[1]))
+    log(f"_load_index(1) after _index_corpus: payload {saved[0].shape} bit-equal {reloaded}")
+    check(reloaded and trainer.idx == index.docid, "the reloaded int4 index differs")
+
+    # the plain versions of K9-K12 on the same reps (K1 / K2 encode alike): an
+    # index rebuilt from the encoded corpus by the plain K9, searched by plain
+    # K10 / K11 / K12 through the same evaluate
+    reps = torch.from_numpy(np.load(os.path.join(targs.encode_corpus_dir, "1.0.npy"))).cuda()
+    plain = {topk: {"block_topj": topk._block_topj_reference,
+                    "block_topj_serve": topk._block_topj_serve_reference,
+                    "block_topj_i8q": topk._block_topj_i8q_reference},
+             quant: {"quantize_int4_device": quant._quantize_int4_reference},
+             flat: {"quantize_int4_device": quant._quantize_int4_reference}}
+    summary = {}
+    with plain_versions_of(plain):
+        plain_index = flat.FlatIPIndex(reps.shape[1], dtype="int4", block_size=INDEX_BLOCK,
+                                       device="cuda")
+        plain_index.add_device(reps)
+        plain_index.docid = index.docid
+        same_payload = bool(np.array_equal(plain_index._native_int8_payload()[0], saved[0]))
+        trainer.index, trainer._indexed_ep = plain_index, 101
+        for mode in ("exact", "serve", "i8q"):
+            targs.search_mode = mode
+            m = trainer.evaluate(query_loader, 101)
+            ranked = read_dump(targs, 101)[0]
+            km, kranked = runs[mode][0], runs[mode][1]
+            vs_plain = overlap([kranked[q] for q in sorted(kranked)],
+                               [ranked[q] for q in sorted(kranked)])
+            gap = max(abs(km[x] - m[x]) for x in m if x != "query_num")
+            log(f"int4 {mode}, kernels vs plain versions over the same reps: top-{args.k} "
+                f"overlap {vs_plain:.5f} (>= {INT4_VS_PLAIN}), largest metric gap {gap:.4f} "
+                f"(<= {INT4_PLAIN_METRIC_GAP})")
+            check(vs_plain >= INT4_VS_PLAIN and gap <= INT4_PLAIN_METRIC_GAP,
+                  f"int4 {mode}: the kernels disagree with their plain versions")
+            summary[mode] = {"metrics": km, "seconds": runs[mode][3], "overlap_vs_plain": vs_plain,
+                             "metric_gap_vs_plain": gap}
+    check(same_payload, "the plain K9 packs the evaluation corpus differently from K9")
+    del plain_index
+
+    # against the float32 ranking of the same model, and why they part: how far
+    # apart the top-k scores lie, against the score error int4 rows make
+    targs.index_dtype, targs.search_mode = "float32", "exact"
+    fm = trainer.evaluate(query_loader, 102)
+    franked = read_dump(targs, 102)[0]
+    q_reps = torch.cat([model.encode_query(b) for _, b, _, _ in query_loader])
+    s32 = q_reps @ reps.T
+    top = s32.topk(args.k, dim=1).values
+    spread = float((top[:, 0] - top[:, -1]).median())
+    deq = quant.dequantize_int4(*(torch.from_numpy(a).cuda() for a in saved))
+    int4_err = float((q_reps @ deq.T - s32).abs().median())
+    unit = torch.nn.functional.normalize(reps[:1024], dim=1)
+    cos = float(((unit @ unit.T).sum() - 1024) / (1024 * 1023))
+    log(f"float32 exact: metrics {json.dumps({k: round(v, 5) for k, v in fm.items()})}; median "
+        f"top-{args.k} score spread {spread:.4g}, median int4 score error {int4_err:.4g}, mean "
+        f"cosine between passage reps {cos:.5f}")
+    del s32, deq, unit
+    for mode in ("exact", "serve", "i8q"):
+        kranked, km = runs[mode][1], runs[mode][0]
+        vs_fp32 = overlap([kranked[q] for q in sorted(kranked)],
+                          [franked[q] for q in sorted(kranked)])
+        gap = max(abs(km[x] - fm[x]) for x in fm if x != "query_num")
+        log(f"int4 {mode} vs the float32 exact ranking: top-{args.k} overlap {vs_fp32:.5f} (>= "
+            f"{INT4_VS_FP32}), largest metric gap {gap:.4f} (<= {INT4_METRIC_GAP})")
+        summary[mode].update(overlap_vs_fp32=vs_fp32, metric_gap_vs_fp32=gap)
+    for mode in ("exact", "serve", "i8q"):
+        check(summary[mode]["overlap_vs_fp32"] >= INT4_VS_FP32,
+              f"int4 {mode}: ranking too far from float32 exact")
+        check(summary[mode]["metric_gap_vs_fp32"] <= INT4_METRIC_GAP,
+              f"int4 {mode}: metrics too far from float32 exact")
+
+    # the retrieval CLI over the encoded corpus at --index_dtype int4
+    q_reps = q_reps.cpu().numpy()
+    p_path, q_path = os.path.join(tmp, "eval_p.pkl"), os.path.join(tmp, "eval_q.pkl")
+    retrieval.pickle_save((reps.cpu().numpy(), index.docid), p_path)
+    retrieval.pickle_save((q_reps, [q["query_id"] for q in queries]), q_path)
+    out = os.path.join(tmp, "ranking_int4_cli.tsv")
+    retrieval.main(["--passage_reps", p_path, "--query_reps", q_path, "--index_dtype", "int4",
+                    "--depth", str(args.k), "--batch_size", str(args.queries),
+                    "--save_ranking_to", out, "--save_text"])
+    cli = {}
+    with open(out) as fh:
+        for line in fh:
+            qid, did, _ = line.split("\t")
+            cli.setdefault(qid, []).append(did)
+    kranked = runs["exact"][1]
+    vs_cli = overlap([kranked[q] for q in sorted(kranked)], [cli[q] for q in sorted(kranked)])
+    log(f"retrieval.main --index_dtype int4: {sum(map(len, cli.values()))} ranking lines; top-"
+        f"{args.k} overlap with the trainer's int4 exact ranking {vs_cli:.5f} (>= 0.999)")
+    check(sum(map(len, cli.values())) == args.queries * args.k, "retrieval.main: ranking length")
+    check(vs_cli >= 0.999, "retrieval.main --index_dtype int4 disagrees with the trainer")
+    del trainer, model, reps, index
+    torch.cuda.empty_cache()
+    return {"launches": launches, "modes": summary, "float32_metrics": fm,
+            "score_spread": spread, "int4_score_error": int4_err, "reps_cosine": cos,
+            "reloaded_bit_equal": reloaded, "cli_overlap": vs_cli}
+
+
+def _metrics_of(targs, ep):
+    with open(os.path.join(targs.cache_train_dir, f"{ep}.0_metrics")) as fh:
+        return json.load(fh)
+
+
+def phase_scale4(gen, flat, n_queries, k=100, dim=768):
+    """MS MARCO v2 passage's row count in int4, which int8 cannot hold on one
+    card: add_device of 262,144-row fp32 slabs, packed by K9 on arrival."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = flat.FlatIPIndex(dim, dtype="int4", device="cuda")
+    for start in range(0, SCALE4_ROWS, SLAB_ROWS):
+        index.add_device(torch.randn(min(SLAB_ROWS, SCALE4_ROWS - start), dim, generator=gen,
+                                     device="cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    # bf16-representable queries: exact (fp32) and serve (bf16) then score
+    # them alike, so serve's recall is its selection's (phase_int4_topk)
+    q = torch.randn(n_queries, dim, generator=gen, device="cuda").bfloat16().float().cpu().numpy()
+    res, rates, secs = {}, {}, {}
+    for mode in ("exact", "serve", "i8q"):
+        index.search(q[:8], k, mode=mode)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[mode] = index.search(q, k, mode=mode)[1]
+        secs[mode] = time.perf_counter() - t0
+        rates[mode] = n_queries / secs[mode]
+    recall = {m: overlap(res[m].tolist(), res["exact"].tolist()) for m in ("serve", "i8q")}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_slabs = len(index._device_slabs)
+    log(f"scale int4: {SCALE4_ROWS} x {dim} rows packed to {dim // 2} bytes in {n_slabs} slabs of "
+        f"{SLAB_ROWS} (built in {build_s:.1f} s, {resident_gib:.2f} GiB resident); {n_queries} "
+        f"queries k={k}: seconds {json.dumps({m: round(x, 3) for m, x in secs.items()})}, "
+        f"queries/s {json.dumps({m: round(r, 1) for m, r in rates.items()})}; recall@{k} vs exact "
+        f"{json.dumps({m: round(r, 5) for m, r in recall.items()})} (serve >= {SERVE_RECALL}, "
+        f"i8q >= {I8Q_RECALL}); peak device memory {peak_gib:.2f} GiB")
+    check(recall["serve"] >= SERVE_RECALL, f"scale int4: serve recall@{k} below its bound")
+    check(recall["i8q"] >= I8Q_RECALL, f"scale int4: i8q recall@{k} below its bound")
+    del index
+    torch.cuda.empty_cache()
+    return {"rows": SCALE4_ROWS, "slabs": n_slabs, "build_s": build_s, "queries": n_queries,
+            "seconds": secs, "queries_per_s": rates, "recall": recall,
+            "resident_gib": resident_gib, "peak_gib": peak_gib}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1101,12 +1578,18 @@ def main(argv=None):
     int8_topk = phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8)
     del x_int8
     torch.cuda.empty_cache()
+    k9, x_int4 = phase_quant4(gen, quant, args.corpus_rows)
+    int4_topk = phase_int4_topk(gen, topk, quant, blockwise_topk, x_int4)
+    del x_int4
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         main_path, kern = phase_main_path(args, tmp)
         int8_path = phase_int8_path(args, tmp, kern)
         del kern
         train = phase_train(args, tmp)
+        eval_path = phase_eval_path(args, tmp)
     scale = phase_scale(gen, flat, topk, SCALE_QUERIES)
+    scale4 = phase_scale4(gen, flat, SCALE4_QUERIES)
 
     src = "denseretrievaltoolkits_torch/csrc/"
     rows = [
@@ -1159,13 +1642,29 @@ def main(argv=None):
                         "launches": int8_path["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    # the int4 kernels: times on the 1M-row corpus, launches on the evaluation path
+    for name, source, replaces, r, counter in (
+            ("quantize_int4_device", "quant.cu", "ops/quant.py:64", k9, "quantize_int4_device"),
+            ("block_topj (K10, int4 rows)", "block_topj.cu", "ops/topk.py:237", int4_topk["K10"],
+             "block_topj (K10)"),
+            ("block_topj_serve (K11, int4 rows)", "block_topj.cu", "ops/topk.py:166",
+             int4_topk["K11"], "block_topj_serve (K11)"),
+            ("block_topj_i8q (K12 sq4, int4 rows)", "block_topj.cu", "ops/topk.py:213",
+             int4_topk["K12 sq4"], "block_topj_i8q (K12 sq4)")):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": "denseretrievaltoolkits_tpu/" + replaces,
+                        "launches": eval_path["launches"][counter],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "build_s": _native.build_seconds, "block_kernels": blocks,
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
-                       "scale": scale, "kernels": kernels}, fh, indent=1)
+                       "scale": scale, "k9": k9, "int4_topk": int4_topk,
+                       "eval_path": eval_path, "scale4": scale4, "kernels": kernels}, fh,
+                      indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

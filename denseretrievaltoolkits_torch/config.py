@@ -277,7 +277,7 @@ class TrainingArguments:
         default="float32",
         metadata={"help": "Device index dtype: float32 | bfloat16 | int8 "
                   "(per-row scales, quantized on the card by K7) | int4 "
-                  "(not ported yet: raises)"},
+                  "(nibble-packed, per-row scales, quantized on the card by K9)"},
     )
     use_pallas: bool = field(
         default=True,
@@ -322,12 +322,12 @@ class TrainingArguments:
     )
     search_mode: str = field(
         default="exact",
-        metadata={"help": "Retrieval search mode: exact (certified, K5/K6) | "
-                  "serve (K8 candidates, Poisson J, no certificate) | partial "
+        metadata={"help": "Retrieval search mode: exact (certified, K5/K6/K10) | "
+                  "serve (K8/K11 candidates, Poisson J, no certificate) | partial "
                   "(K5 candidates without the certificate, fp32/bf16 only) | "
                   "i8q (K7-quantized queries on the s8 tensor-core kernel "
-                  "K12, int8 only) | approx (per-dtype alias: fp32/bf16->"
-                  "partial, int8->i8q) | bulk/probe (IVF factory indexes, "
+                  "K12, int8/int4 only) | approx (per-dtype alias: fp32/bf16->"
+                  "partial, int8/int4->i8q) | bulk/probe (IVF factory indexes, "
                   "not ported yet). Contract table: index/modes.py"},
     )
     profile_dir: Optional[str] = field(

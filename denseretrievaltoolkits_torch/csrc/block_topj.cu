@@ -1,5 +1,5 @@
-// Per-block top-J of inner-product scores: one templated kernel family for K5, K6, K8
-// and K12.
+// Per-block top-J of inner-product scores: one templated kernel family for K5, K6, K8,
+// K10, K11 and K12.
 //
 // Replaces these TPU kernels of denseretrievaltoolkits_tpu/ops/topk.py:
 //   K5  `_block_topj_kernel` (:37, launched by `_pallas_block_topj`, :336): exact top-J,
@@ -10,14 +10,25 @@
 //       :148; `pallas_topk_serve*`, :373, :411): the serve selection over fp32, bf16 and
 //       int8 rows;
 //   K12 `_block_topj_kernel_packed_i8q` (:190, :481): int8 queries x int8 rows, s32
-//       products, times scale_row x scale_query, then the serve selection.
+//       products, times scale_row x scale_query, then the serve selection; and its sq4
+//       body `_block_topj_kernel_packed_sq4_i8q` (:213, :517) over int4 rows;
+//   K10 `_block_topj_kernel_sq4` (:237, `_pallas_block_topj_sq4`, :288): exact top-J over
+//       int4 rows, fp32 queries, true-fp32 scores times the row scale;
+//   K11 `_block_topj_kernel_packed_sq4` (:166, `_pallas_block_topj_packed_sq4`, :445): the
+//       serve selection over int4 rows, bf16 queries.
+// int4 rows are nibble-packed [N, H/2] in the column-half layout of ops/quant.py (K9):
+// byte j of a row holds dim j in its low nibble and dim j + H/2 in its high nibble. The
+// TPU scores them as two half-dim products; here the rows are unpacked while they are
+// staged (a sign extension per nibble, exact in every compute type) and scored over the
+// full H by the same product loops as the other rows.
 // For each (query tile, corpus block): scores q.c^T (x the row scale, x the query scale),
 // rows >= n_valid masked, then the J best (score, id) pairs of the block with ties to
 // the smaller id. Output layout [Q, n_blocks, J] (vals fp32, ids int32; an empty slot
 // is (-inf, -1)), which the merge reads as [Q, n_blocks * J] without a transpose.
 //
 // Template parameters: the query element type QT (float, bf16, int8), the corpus
-// element type CT (float, bf16, int8 with a per-row scale) and the selection SERVE.
+// element type CT (float, bf16, int8 or packed int4 with a per-row scale) and the
+// selection SERVE.
 // - Certified (K5, K6): the list is (score, id) pairs; the certificate and its
 //   escalation ladder run on the host side (ops/topk.py:certified_topk).
 // - Serve (K8, K12): one packed 64-bit key per candidate, order-preserving score bits
@@ -30,7 +41,9 @@
 // bf16 (|v| <= 127 is exact) and score on the same bf16 path, the scale multiplying in
 // the score epilogue before selection; int8 x int8 (K12) runs the s8 tensor-core mma
 // with s32 accumulation and dequantizes as float(s32) * scale_row * scale_q, the
-// reference's order (topk.py:207-208).
+// reference's order (topk.py:207-208). int4 rows unpack to fp32 under fp32 queries (K10,
+// the FFMA path), to bf16 under bf16 queries (K11) and to int8 under int8 queries (K12
+// sq4, whose s32 sums are exact in any order).
 //
 // What bounds it on the H100: the 2*Q*N*H products (989 TFLOP/s bf16, 1979 TOP/s int8,
 // 67 TFLOP/s fp32 FFMA), and the corpus, which streams from device memory once per
@@ -48,11 +61,12 @@
 // - Tensor cores (bf16 or int8 queries, H % 64 == 0, 16-byte aligned): the queries
 //   resident in shared memory, corpus k-slices of 64 elements double-buffered, fragments
 //   by ldmatrix; bf16 mma.sync m16n8k16 or s8 mma.sync m16n8k32. Slices that keep their
-//   type are staged by 16-byte cp.async; int8 rows under bf16 queries are loaded into
-//   registers one slice ahead and converted to bf16 as they are stored.
+//   type are staged by 16-byte cp.async; int8 rows under bf16 queries, and int4 rows, are
+//   loaded into registers one slice ahead (16 packed bytes hold 16 dims of one half) and
+//   converted as they are stored.
 // - fp32 (products must stay exact fp32), and other widths: register-tiled FFMA
 //   (8 queries x 4 rows per thread, fed by float4 shared loads), queries and corpus
-//   staged transposed in 32-wide K chunks.
+//   staged transposed in 32-wide K chunks (int4 rows: 4 packed bytes per 4 dims).
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -75,7 +89,30 @@ constexpr size_t SMEM_MAX = 232448;
 constexpr size_t LIST_BYTES = 8;  // per list entry: (fp32, int32) or one u64 key
 
 // element type codes of the C interface
-enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2 };
+enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2, T_I4 = 3 };
+
+// the corpus element of int4 rows: one byte packs two dims, H/2 apart
+struct nib {
+  unsigned char b;
+};
+
+// Four packed bytes -> their four low nibbles (dims j) or high nibbles (dims j + H/2),
+// sign-extended, as four int8 in one word: (n ^ 8) - 8 per byte, no borrow across bytes.
+__device__ __forceinline__ unsigned nibbles(unsigned w, bool high) {
+  const unsigned n = (high ? w >> 4 : w) & 0x0F0F0F0Fu;
+  return __vsub4(n ^ 0x08080808u, 0x08080808u);
+}
+
+// The address of corpus element (row, k); for int4 rows the byte that holds dim k.
+template <typename CT>
+__device__ __forceinline__ const void* corpus_at(const CT* corpus, size_t row, int k, int H) {
+  if constexpr (std::is_same_v<CT, nib>) {
+    const int half = H >> 1;
+    return reinterpret_cast<const unsigned char*>(corpus) + row * half + (k < half ? k : k - half);
+  } else {
+    return corpus + row * H + k;
+  }
+}
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
@@ -268,7 +305,8 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
                       int n_valid, int block, int J) {
   using ME = MmaT<QT>;
   constexpr bool INT8 = std::is_same_v<QT, i8>;
-  constexpr bool CONVERT = !std::is_same_v<CT, ME>;  // int8 rows under bf16 queries
+  constexpr bool NIB = std::is_same_v<CT, nib>;
+  constexpr bool CONVERT = !std::is_same_v<CT, ME>;  // int8 rows under bf16 queries, int4
   using Acc = std::conditional_t<INT8, int, float>;
   constexpr int PAD = 16 / sizeof(ME);
   constexpr int LDW = MK + PAD;            // corpus slice row, elements
@@ -306,15 +344,17 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
   constexpr int SLICE_CHUNKS = TN * MK * (int)sizeof(CT) / 16;
   constexpr int CHUNKS = SLICE_CHUNKS / NT;
   static_assert(SLICE_CHUNKS % NT == 0, "slice loads must divide evenly");
-  constexpr int PER_CHUNK = 16 / (int)sizeof(CT);  // corpus elements per 16-byte load
-  uint4 held[CONVERT ? CHUNKS : 1];                // int8 rows one slice ahead
+  // corpus elements per 16-byte load: 16 int8, 8 bf16, or the 16 dims of one half that
+  // 16 packed int4 bytes hold (H % 64 == 0, so a load never straddles the halves)
+  constexpr int PER_CHUNK = 16 / (int)sizeof(CT);
+  uint4 held[CONVERT ? CHUNKS : 1];                // converted rows one slice ahead
 
   auto fetch_slice = [&](int buf, int base, int k0) {
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const int idx = tid + i * NT;
       const int r = idx / (MK / PER_CHUNK), c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
-      const CT* src = corpus + (size_t)(base + r) * H + k0 + c;
+      const void* src = corpus_at(corpus, (size_t)(base + r), k0 + c, H);
       if constexpr (CONVERT) {
         held[i] = base + r < N ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
       } else {
@@ -326,21 +366,32 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
       }
     }
   };
-  // int8 -> bf16 (exact) into buffer buf
-  auto store_held = [&](int buf) {
+  // the held slice k0.. into buffer buf: int4 nibbles sign-extended to int8, then int8
+  // -> bf16 under bf16 queries (both exact)
+  auto store_held = [&](int buf, int k0) {
     if constexpr (CONVERT) {
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
         const int idx = tid + i * NT;
         const int r = idx / (MK / PER_CHUNK), c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
-        const i8* v = reinterpret_cast<const i8*>(&held[i]);
-        __nv_bfloat162 o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o[e] = __floats2bfloat162_rn((float)v[2 * e], (float)v[2 * e + 1]);
+        uint4 u = held[i];
+        if constexpr (NIB) {
+          const bool high = k0 + c >= (H >> 1);
+          u = make_uint4(nibbles(u.x, high), nibbles(u.y, high), nibbles(u.z, high),
+                         nibbles(u.w, high));
+        }
         uint4* dst = reinterpret_cast<uint4*>(cs + (buf * TN + r) * LDW + c);
-        dst[0] = *reinterpret_cast<const uint4*>(&o[0]);
-        dst[1] = *reinterpret_cast<const uint4*>(&o[4]);
+        if constexpr (INT8) {
+          dst[0] = u;
+        } else {
+          const i8* v = reinterpret_cast<const i8*>(&u);
+          __nv_bfloat162 o[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            o[e] = __floats2bfloat162_rn((float)v[2 * e], (float)v[2 * e + 1]);
+          dst[0] = *reinterpret_cast<const uint4*>(&o[0]);
+          dst[1] = *reinterpret_cast<const uint4*>(&o[4]);
+        }
       }
     }
   };
@@ -353,7 +404,7 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0;
     fetch_slice(0, base, 0);
-    if constexpr (CONVERT) store_held(0);
+    if constexpr (CONVERT) store_held(0, 0);
     cp_async_commit();
     for (int s = 0; s < ns; ++s) {
       if (s + 1 < ns) fetch_slice((s + 1) & 1, base, (s + 1) * MK);
@@ -380,9 +431,9 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
           }
         }
       }
-      // int8 rows: the next slice's registers go to the buffer read one step ago
+      // converted rows: the next slice's registers go to the buffer read one step ago
       if constexpr (CONVERT)
-        if (s + 1 < ns) store_held((s + 1) & 1);
+        if (s + 1 < ns) store_held((s + 1) & 1, (s + 1) * MK);
       __syncthreads();  // this slice's buffer is refilled two steps on
     }
 #pragma unroll
@@ -443,12 +494,27 @@ struct Chunk {
       v[0] = r < rows && k < H ? to_float(src[(size_t)r * H + k]) : 0.f;
     }
   }
+  // int4 rows: W dims of one half (VEC: H % 8 == 0, so W = 4 never straddles them), W
+  // consecutive packed bytes
+  __device__ __forceinline__ static void fetch_nib(const nib* corpus, size_t row, bool in, int k,
+                                                   int H, float (&v)[W]) {
+    const unsigned char* p = static_cast<const unsigned char*>(corpus_at(corpus, row, k, H));
+    unsigned w = 0u;
+    if (in) w = VEC ? *reinterpret_cast<const unsigned*>(p) : (unsigned)*p;
+    w = nibbles(w, k >= (H >> 1));
+    const i8* e = reinterpret_cast<const i8*>(&w);
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = (float)e[j];
+  }
   __device__ __forceinline__ void fetch(const CT* corpus, const QT* q, int base, int row_end,
                                         int q0, int Q, int k0, int H) {
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int idx = threadIdx.x + i * NT, r = idx / (KT / W), k = (idx % (KT / W)) * W;
-      fetch_one(corpus + (size_t)base * H, row_end - base, r, k0 + k, H, cv[i]);
+      if constexpr (std::is_same_v<CT, nib>)
+        fetch_nib(corpus, (size_t)(base + r), r < row_end - base && k0 + k < H, k0 + k, H, cv[i]);
+      else
+        fetch_one(corpus + (size_t)base * H, row_end - base, r, k0 + k, H, cv[i]);
     }
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
@@ -605,20 +671,38 @@ int dispatch(const Args& a, int qtype, int ctype) {
     const int code = try_mma<i8, i8, true>(a);
     return code >= 0 ? code : (int)cudaErrorInvalidValue;  // s8 products need the mma path
   }
+  if constexpr (SERVE) {
+    if (qtype == T_BF16 && ctype == T_I4) {  // K11
+      const int code = try_mma<bf, nib, true>(a);
+      return code >= 0 ? code : launch<bf, nib, false, true>(a);
+    }
+    if (qtype == T_I8 && ctype == T_I4) {  // K12 sq4
+      const int code = try_mma<i8, nib, true>(a);
+      return code >= 0 ? code : (int)cudaErrorInvalidValue;
+    }
+  } else if (qtype == T_F32 && ctype == T_I4) {  // K10
+    const uintptr_t q16 = reinterpret_cast<uintptr_t>(a.q) & 15;
+    const uintptr_t c4 = reinterpret_cast<uintptr_t>(a.corpus) & 3;
+    if (a.H % 8 == 0 && q16 == 0 && c4 == 0) return launch<float, nib, true, false>(a);
+    return launch<float, nib, false, false>(a);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [Q,H] (qtype), corpus [N,H] (ctype), cscales [N] fp32 or null, qscales [Q] fp32 or
-// null -> out_vals [Q, n_blocks, J] fp32, out_ids [Q, n_blocks, J] int32. Types: 0 fp32,
-// 1 bf16, 2 int8. Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8, and (serve only)
-// int8 x int8 at H % 64 == 0 with 16-byte aligned rows.
+// q [Q,H] (qtype), corpus [N,H] (ctype) or [N,H/2] (int4), cscales [N] fp32 or null,
+// qscales [Q] fp32 or null -> out_vals [Q, n_blocks, J] fp32, out_ids [Q, n_blocks, J]
+// int32. Types: 0 fp32, 1 bf16, 2 int8, 3 int4 (nibble-packed, column halves, H even).
+// Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8, fp32 x int4 (certified only), and
+// (serve only) bf16 x int4, and int8 x int8 / int8 x int4 at H % 64 == 0 with 16-byte
+// aligned rows.
 extern "C" int drt_block_topj(const void* q, const void* corpus, const void* cscales,
                               const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
                               int n_valid, int block, int J, int qtype, int ctype, int serve,
                               void* stream) {
-  if (J < 1 || J > JMAX || block < 1) return (int)cudaErrorInvalidValue;
+  if (J < 1 || J > JMAX || block < 1 || (ctype == T_I4 && H % 2))
+    return (int)cudaErrorInvalidValue;
   const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
                static_cast<cudaStream_t>(stream)};
   return serve ? dispatch<true>(a, qtype, ctype) : dispatch<false>(a, qtype, ctype);

@@ -5,8 +5,8 @@ same flags and output: glob the passage shards (pickled ``(reps, lookup)``
 pairs), load them into one :class:`FlatIPIndex` (or load a saved one with
 ``--index_path``), search the pickled query reps at depth, and save
 ``qid\\tdocid\\tscore`` text or a pickle. The index runs on the CUDA card:
-``--index_dtype`` float32 / bfloat16 / int8 (quantized on the card) and every
-flat ``--search_mode`` of ``index/modes.py``. :func:`run` takes
+``--index_dtype`` float32 / bfloat16 / int8 / int4 (both quantized on the
+card) and every flat ``--search_mode`` of ``index/modes.py``. :func:`run` takes
 ``device='cpu'`` for callers that want the CPU (every mode then runs the exact
 scan). The small helpers are reimplemented here because the reference module
 imports its jax index.
@@ -130,15 +130,17 @@ def main(argv=None):
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--index_dtype", default="float32",
                         choices=["float32", "bfloat16", "int8", "int4"],
-                        help="float32 / bfloat16 rows, or int8 rows with per-row scales "
-                        "(quantized on the card by K7); int4 raises until ported")
+                        help="float32 / bfloat16 rows, or int8 / int4 rows with per-row "
+                        "scales (quantized on the card by K7 / K9; int4 packs two dims to a "
+                        "byte, half the memory of int8)")
     parser.add_argument("--search_mode", default="exact",
                         choices=["exact", "serve", "partial", "i8q", "approx", "bulk", "probe"],
-                        help="exact: certified exact search (K5, K6 on int8); serve: K8 "
-                        "candidates without the certificate; partial: K5 candidates "
-                        "without the certificate (fp32/bf16); i8q: int8 queries on K12 "
-                        "(int8 rows); approx: the per-dtype alias. Contract: "
-                        "index/modes.py. bulk/probe are IVF modes, not ported yet")
+                        help="exact: certified exact search (K5; K6 on int8, K10 on int4); "
+                        "serve: K8 (K11 on int4) candidates without the certificate; "
+                        "partial: K5 candidates without the certificate (fp32/bf16); i8q: "
+                        "int8 queries on K12 (int8 / int4 rows); approx: the per-dtype "
+                        "alias. Contract: index/modes.py. bulk/probe are IVF modes, not "
+                        "ported yet")
     args = parser.parse_args(argv)
     if bool(args.passage_reps) == bool(args.index_path):
         parser.error("give exactly one of --passage_reps / --index_path")

@@ -1,35 +1,39 @@
-"""Device-resident flat inner-product index: fp32, bf16 and int8 rows.
+"""Device-resident flat inner-product index: fp32, bf16, int8 and int4 rows.
 
 Counterpart of ``denseretrievaltoolkits_tpu/index/flat.py``:
 
 - :func:`blockwise_topk` is the exact scan, a running top-k merged block by
   block. It is the plain version of the whole search, the reference for the
-  kernel paths, and the last rung of the certified search. int8 rows score
-  fp32 queries against the rows times their scales, as the reference does.
+  kernel paths, and the last rung of the certified search. int8 and int4
+  rows score fp32 queries against the rows times their scales, as the
+  reference does (int4: two half-dim products, index/flat.py:108-120 there).
 - :class:`FlatIPIndex` stages rows on the host (``add``) or takes device
   tensors (``add_device``, one slab per call, searched on its own and
   merged). int8 rows are quantized on the device by K7
-  (``ops/quant.py:quantize_int8_device``), per row with an absmax / 127 scale.
-  On CUDA the modes of ``index/modes.py`` run:
+  (``ops/quant.py:quantize_int8_device``), per row with an absmax / 127
+  scale; int4 rows by K9 (``quantize_int4_device``), absmax / 7, two dims
+  to a byte in column halves, half the memory of int8. On CUDA the modes of
+  ``index/modes.py`` run:
 
   ======== ==============================================================
-  exact    certified exact top-k: K5 (fp32/bf16 rows) or K6 (int8) candidates
-           and the certificate ladder (``ops/topk.py:certified_topk``)
-  serve    K8 candidates, J from the Poisson rule, no certificate
-           (``ops/topk.py:serve_topk``), on every dtype
+  exact    certified exact top-k: K5 (fp32/bf16 rows), K6 (int8) or K10
+           (int4) candidates and the certificate ladder
+           (``ops/topk.py:certified_topk``)
+  serve    K8 (K11 on int4) candidates, J from the Poisson rule, no
+           certificate (``ops/topk.py:serve_topk``), on every dtype
   partial  K5 candidates without the certificate, fp32/bf16 rows
-  i8q      int8 rows: queries quantized by K7, scored by K12
+  i8q      int8 / int4 rows: queries quantized by K7, scored by K12
   approx   the per-dtype alias of ``index/modes.py``
   ======== ==============================================================
 
   On the CPU every mode runs the exact scan, as the reference does off the
   TPU (index/modes.py). ``save``/``load`` use the reference's ``path.npz`` +
-  ``path.meta.json`` format, int8 indexes as their native ``values`` +
-  ``scales`` payload, so indexes interchange both ways.
+  ``path.meta.json`` format, int8 and int4 indexes as their native
+  ``values`` + ``scales`` payload, so indexes interchange both ways.
 - :func:`index_factory` builds the flat kinds from FAISS-style strings.
 
-The int4 dtype and the trained index kinds raise ``NotImplementedError``
-naming their ROADMAP item; no dtype or mode silently runs another.
+The trained index kinds raise ``NotImplementedError`` naming their ROADMAP
+item; no dtype or mode silently runs another.
 """
 
 from __future__ import annotations
@@ -42,21 +46,25 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.quant import quantize_int8_device
+from ..ops.quant import quantize_int4_device, quantize_int8_device
 from ..ops.topk import _scores, certified_topk, serve_topk
-from .modes import resolve_mode
+from .modes import QUANTIZED, resolve_mode
 
 DEFAULT_BLOCK = 4096
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+# storage dtypes; int4 rows are nibble-packed into int8 [N, H/2]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8,
+          "int4": torch.int8}
 
 
 def blockwise_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
                    block_size: int = DEFAULT_BLOCK, valid: Optional[int] = None,
-                   scales: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   scales: Optional[torch.Tensor] = None,
+                   int4: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner-product search, O(k + block) memory per query.
 
     q_reps [Q,H] float; corpus [N,H] fp32/bf16, or int8 with per-row
-    ``scales`` [N]; ``valid`` counts the real rows (later rows are masked).
+    ``scales`` [N], or (``int4``) packed int4 [N, H/2] with ``scales``;
+    ``valid`` counts the real rows (later rows are masked).
     Returns (scores [Q,k] fp32, ids [Q,k] int32) sorted descending; ties keep
     the smaller id, as ``lax.top_k`` does. fp32 products (fp32 and int8 rows)
     run in true fp32, which on CUDA needs
@@ -72,7 +80,7 @@ def blockwise_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
     run_i = torch.zeros((Q, k), dtype=torch.int32, device=corpus.device)
     for start in range(0, N, block_size):
         blk = corpus[start:start + block_size]
-        s = _scores(qf, blk, None if scales is None else scales[start:start + block_size])
+        s = _scores(qf, blk, None if scales is None else scales[start:start + block_size], int4)
         ids = torch.arange(start, start + blk.shape[0], dtype=torch.int32, device=corpus.device)
         s = torch.where(ids[None, :] < n_valid, s, float("-inf"))
         cat_s = torch.cat([run_s, s], dim=1)
@@ -90,20 +98,18 @@ class FlatIPIndex:
 
     def __init__(self, dim_or_reps, dtype: str = "float32",
                  block_size: int = DEFAULT_BLOCK, device=None):
-        if dtype == "int4":
-            raise NotImplementedError(
-                "the int4 index is not ported yet: it waits for K9 (int4 quantization), K10, "
-                "K11 and K12's sq4 body (ROADMAP queue 1 item 11b, queue 2); use dtype='int8'")
         if dtype not in DTYPES:
             raise ValueError(f"unsupported index dtype {dtype!r}")
         reps = dim_or_reps if isinstance(dim_or_reps, np.ndarray) else None
         self.dim = int(reps.shape[1]) if reps is not None else int(dim_or_reps)
+        if dtype == "int4" and self.dim % 2:
+            raise ValueError(f"int4 packing needs an even dim, got {self.dim}")
         self.dtype = dtype
         self.block_size = block_size
         self.device = resolve_device(device, "FlatIPIndex")
         self._chunks: List[np.ndarray] = []
-        # device slabs: (values, scales or None, real rows); int8 slabs are
-        # quantized on arrival and padded to a block multiple, as the reference
+        # device slabs: (values, scales or None, real rows); int8 / int4 slabs
+        # are quantized on arrival and padded to a block multiple, as the reference
         self._device_slabs: List[Tuple[torch.Tensor, Optional[torch.Tensor], int]] = []
         self._device_corpus: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None
         self._n = 0
@@ -125,20 +131,25 @@ class FlatIPIndex:
         self._n += p_reps.shape[0]
         self._device_corpus = None
 
+    def _quantize(self, reps: torch.Tensor, rows: Optional[int] = None):
+        """(values, scales) of int8 (K7) or int4 (K9) rows; ``rows`` pads."""
+        quantize = quantize_int8_device if self.dtype == "int8" else quantize_int4_device
+        return quantize(reps, rows=rows)
+
     def add_device(self, p_reps: torch.Tensor) -> None:
         """Append device-resident embeddings without a host round trip; each
-        call becomes one slab. int8 slabs quantize on the device (K7) right
-        away, padded with zero rows of scale 1 to a block multiple, so the
-        float reps can be freed."""
+        call becomes one slab. int8 / int4 slabs quantize on the device (K7 /
+        K9) right away, padded with zero rows of scale 1 to a block multiple,
+        so the float reps can be freed."""
         if self._chunks:
             raise ValueError("mixing add() and add_device() is not supported")
         if p_reps.ndim != 2 or p_reps.shape[1] != self.dim:
             raise ValueError(f"expected [n, {self.dim}] reps, got {tuple(p_reps.shape)}")
         n = int(p_reps.shape[0])
         p_reps = p_reps.to(self.device)
-        if self.dtype == "int8":
+        if self.dtype in QUANTIZED:
             rows = -(-n // self.block_size) * self.block_size
-            values, scales = quantize_int8_device(p_reps, rows=rows)
+            values, scales = self._quantize(p_reps, rows)
             self._device_slabs.append((values, scales, n))
         else:
             self._device_slabs.append((p_reps.to(DTYPES[self.dtype]).contiguous(), None, n))
@@ -150,8 +161,8 @@ class FlatIPIndex:
             full = np.concatenate(self._chunks, axis=0) if len(self._chunks) != 1 \
                 else self._chunks[0]
             reps = torch.from_numpy(full).to(self.device)
-            if self.dtype == "int8":
-                self._device_corpus = quantize_int8_device(reps)
+            if self.dtype in QUANTIZED:
+                self._device_corpus = self._quantize(reps)
             else:
                 self._device_corpus = (reps.to(DTYPES[self.dtype]), None)
         return self._device_corpus
@@ -163,13 +174,14 @@ class FlatIPIndex:
     def _topk(self, q: torch.Tensor, corpus: torch.Tensor, scales, n_valid: int, k: int,
               mode: str):
         block = self.search_block(corpus.shape[0])
+        int4 = self.dtype == "int4"
         if not corpus.is_cuda:
-            return blockwise_topk(q, corpus, k, block, valid=n_valid, scales=scales)
+            return blockwise_topk(q, corpus, k, block, valid=n_valid, scales=scales, int4=int4)
         if mode in ("exact", "partial"):
             return certified_topk(q, corpus, k, block, valid=n_valid, scales=scales,
-                                  certify=mode == "exact")
+                                  certify=mode == "exact", int4=int4)
         return serve_topk(q, corpus, k, block, scales=scales, valid=n_valid,
-                          i8_native=mode == "i8q")
+                          i8_native=mode == "i8q", int4=int4)
 
     def search(self, q_reps, k: int = 1000,
                mode: str = "exact") -> Tuple[np.ndarray, np.ndarray]:
@@ -205,10 +217,15 @@ class FlatIPIndex:
             all_indices.append(i)
         return np.concatenate(all_scores), np.concatenate(all_indices)
 
+    def _width(self) -> int:
+        """Columns of the stored rows: H, or H/2 packed int4 bytes."""
+        return self.dim // 2 if self.dtype == "int4" else self.dim
+
     def _native_int8_payload(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-        """(values int8 [N,H], scales fp32 [N]): the index's own storage, saved
-        as it is, so a load restores it bit for bit without requantizing."""
-        if self.dtype != "int8":
+        """(values int8 [N,H] (int4: packed [N,H/2]), scales fp32 [N]): the
+        index's own storage, saved as it is, so a load restores it bit for bit
+        without requantizing."""
+        if self.dtype not in QUANTIZED:
             return None
         if self._device_slabs:
             return (np.concatenate([v[:n].cpu().numpy() for v, _, n in self._device_slabs]),
@@ -216,7 +233,7 @@ class FlatIPIndex:
         if self._chunks:
             values, scales = self._materialize()
             return values.cpu().numpy(), scales.cpu().numpy()
-        return np.zeros((0, self.dim), np.int8), np.zeros((0,), np.float32)
+        return np.zeros((0, self._width()), np.int8), np.zeros((0,), np.float32)
 
     def save(self, path: str) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -239,7 +256,7 @@ class FlatIPIndex:
     @classmethod
     def load(cls, path: str, device=None) -> "FlatIPIndex":
         """Load ``path.npz`` + ``path.meta.json`` onto ``device`` (CUDA by
-        default). A native int8 payload becomes one device slab, as
+        default). A native int8 / int4 payload becomes one device slab, as
         ``add_device`` would have staged it, without requantizing."""
         with open(path + ".meta.json") as fh:
             meta = json.load(fh)
@@ -247,6 +264,9 @@ class FlatIPIndex:
         with np.load(path + ".npz") as z:
             if "values" in z:
                 values, scales = z["values"], z["scales"]
+                if values.ndim != 2 or values.shape[1] != idx._width():
+                    raise ValueError(f"{path}.npz: {meta['dtype']} values of dim {idx.dim} "
+                                     f"must be [n, {idx._width()}], got {values.shape}")
                 if values.shape[0]:
                     idx._device_slabs.append((torch.from_numpy(values).to(idx.device),
                                               torch.from_numpy(scales).to(idx.device),
@@ -270,16 +290,21 @@ def index_factory(dim: int, factory_str: str, block_size: int = DEFAULT_BLOCK,
                   device=None) -> FlatIPIndex:
     """FAISS ``index_factory``-style constructor for the flat kinds, as the
     reference's (index/flat.py:533-662): "Flat" / "IP" fp32, "BF16" /
-    "Flat16" bf16, "SQ8" / "SQint8" int8 with per-row scales. "SQ4" (int4)
-    and the trained kinds (IVF, PQ, OPQ, PCA/PCAR chains) raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    "Flat16" bf16, "SQ8" / "SQint8" int8 and "SQ4" / "SQint4" int4 with
+    per-row scales. "IVF{n},SQ4" raises the reference's ``ValueError`` (the
+    sq4 kernels are flat-corpus kernels); the trained kinds (IVF, PQ, OPQ,
+    PCA/PCAR chains) raise ``NotImplementedError`` naming their ROADMAP item."""
     key = factory_str.strip().lower()
     if key in FLAT_FACTORY:
         return FlatIPIndex(dim, dtype=FLAT_FACTORY[key], block_size=block_size, device=device)
+    if key.startswith("ivf") and FLAT_FACTORY.get(key.partition(",")[2]) == "int4":
+        raise ValueError(
+            "IVF cells support Flat/BF16/SQ8; for 4-bit storage use a flat SQ4 index "
+            "(optionally behind PCAR) — the sq4 kernels are flat-corpus kernels")
     if key.startswith(("ivf", "pq", "opq", "pca")):
         raise NotImplementedError(
             f"the trained index {factory_str!r} is not ported yet (ROADMAP queue 1 item 12, "
             f"'Trained indexes'; kernels K13-K17 in queue 2)")
     raise ValueError(
         f"unsupported factory string {factory_str!r}; supported: Flat, IP, BF16, Flat16, SQ8, "
-        f"SQint8 (SQ4, IVF, PQ, OPQ and PCA strings are not ported yet)")
+        f"SQint8, SQ4, SQint4 (IVF, PQ, OPQ and PCA strings are not ported yet)")

@@ -14,8 +14,8 @@ from .flat import FlatIPIndex
 
 def load_index(path: str, device=None) -> FlatIPIndex:
     """Load a saved flat index (``path.npz`` + ``path.meta.json``, fp32,
-    bf16 or the native int8 payload) onto ``device``: the CUDA card unless
-    the caller names another."""
+    bf16 or the native int8 / packed int4 payload) onto ``device``: the CUDA
+    card unless the caller names another."""
     if os.path.isdir(path) and os.path.exists(os.path.join(path, "transformed_meta.json")):
         raise NotImplementedError(
             "transformed indexes (PCA/OPQ chains) are not ported yet "

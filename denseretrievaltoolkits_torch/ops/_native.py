@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 At first use every ``csrc/*.cu`` is compiled with ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is then
+(``sm_90a``), one ``nvcc`` per source, all started together, and the objects
+are linked into ONE shared library with a plain C interface, which is then
 loaded with ``ctypes``. The library lands in ``_build/`` next to this package
 (git-ignored), named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused.
@@ -28,8 +29,9 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,8 @@ SIGNATURES = {
     "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P],
     # x, values, scales, n_in, n_out, H, is_bf16, stream
     "drt_quantize_int8": [_P] * 3 + [_I] * 4 + [_P],
+    # x, packed, scales, n_in, n_out, H, is_bf16, stream
+    "drt_quantize_int4": [_P] * 3 + [_I] * 4 + [_P],
     # nh, hd, is_bf16 -> the longest S drt_attn_ln takes (not a cudaError_t)
     "drt_attn_ln_max_seq": [_I, _I, _I],
     # q, p, lse, tgt, Q, P, H, stride, stream
@@ -78,7 +82,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + ["|"] + LINK_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + fh.read())
@@ -87,7 +91,8 @@ def _digest() -> str:
 
 def build() -> str:
     """Compile ``csrc/*.cu`` into ``_build/libdrt_kernels_<hash>.so`` unless it
-    exists. Returns the library path; raises with nvcc's output on failure."""
+    exists: one ``nvcc -c`` per source, run in parallel, then one link.
+    Returns the library path; raises with nvcc's output on failure."""
     global build_seconds
     target = os.path.join(BUILD_DIR, f"libdrt_kernels_{_digest()}.so")
     if os.path.exists(target):
@@ -95,18 +100,32 @@ def build() -> str:
         return target
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *_sources()]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent build never sees a partial .so
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for cmd, _, proc in jobs:  # wait for every compile, failed or not
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, target)  # atomic: a concurrent build never sees a partial .so
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return target
 
 

@@ -1,9 +1,18 @@
-"""Block top-J kernels K5, K6, K8 and K12, the certified search and the serve search.
+"""Block top-J kernels K5, K6, K8, K10, K11 and K12, the certified search and the serve search.
 
-Counterparts of ``denseretrievaltoolkits_tpu/ops/topk.py``. The four kernels
-are instantiations of one templated CUDA family (``csrc/block_topj.cu``); each
+Counterparts of ``denseretrievaltoolkits_tpu/ops/topk.py``. The kernels are
+instantiations of one templated CUDA family (``csrc/block_topj.cu``); each
 has its own entry point, launch counter and plain version. CPU tensors take
 the plain version; CUDA tensors launch the kernel or raise.
+
+``int4=True`` selects the nibble-packed int4 rows of ``ops/quant.py`` (K9):
+corpus [N, H/2] int8 in column halves with per-row ``scales``, queries [Q, H].
+Each entry point then runs its sq4 twin: ``block_topj`` K10 (fp32 queries,
+true-fp32 scores, ``block_topj.launches_int4``), ``block_topj_serve`` K11
+(bf16 queries, ``block_topj_serve.launches_int4``) and ``block_topj_i8q``
+K12's sq4 body (int8 queries, exact s32 products,
+``block_topj_i8q.launches_int4``). The plain versions score the reference's
+two half-dim products (topk.py:166-258), then the scale.
 
 - :func:`block_topj` ports ``_pallas_block_topj`` (K5, fp32 / bf16 rows) and,
   given per-row ``scales`` for int8 rows, ``_pallas_block_topj_scaled`` (K6,
@@ -20,7 +29,7 @@ the plain version; CUDA tensors launch the kernel or raise.
   scale_query, then the serve selection. Plain version
   :func:`_block_topj_i8q_reference`; launches in ``block_topj_i8q.launches``.
 - :func:`certified_topk` ports ``pallas_topk`` (topk.py:638-770): candidates
-  from K5 / K6, a merge, the exactness certificate, J x4 escalation for
+  from K5 / K6 / K10, a merge, the exactness certificate, J x4 escalation for
   flagged queries, and the exact blockwise scan for whatever is still
   flagged. The scan is part of the algorithm's contract, not a device
   fallback; the queries that take it are counted in
@@ -28,13 +37,14 @@ the plain version; CUDA tensors launch the kernel or raise.
   ``certified_topk.escalated_queries``). ``certify=False`` returns the merged
   candidates as they are (the ``partial`` mode).
 - :func:`serve_topk` ports ``pallas_topk_fast`` (topk.py:863-971): J from the
-  Poisson rule, no certificate, K8 (or K12 with ``i8_native``), and the exact
-  scan for tiny corpora only (:func:`serve_plan`).
+  Poisson rule, no certificate, K8 / K11 (or K12 with ``i8_native``), and the
+  exact scan for tiny corpora only (:func:`serve_plan`).
 
 As in the reference, int8 rows score bf16 queries in the kernels (topk.py:695,
 :951) while the exact scan scores fp32 queries (``blockwise_topk``, as
-index/flat.py:121-126 of the JAX package). The scan itself lives in
-``index/flat.py``.
+index/flat.py:121-126 of the JAX package); int4 rows score fp32 queries in
+both the certified kernel and the scan (topk.py:687-690). The scan itself
+lives in ``index/flat.py``.
 """
 
 from __future__ import annotations
@@ -45,21 +55,37 @@ from typing import Optional, Tuple
 import torch
 
 from . import _native
-from .quant import quantize_queries
+from .quant import quantize_queries, unpack_int4
 
 JMAX = 32     # the kernels keep one list entry per lane
 SERVE_J = 4   # the reference's floor for the serve J (topk.py:843)
 TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+INT4_CODE = 3  # nibble-packed int4 rows, stored as int8 [N, H/2]
+
+
+def _half_products(q: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """q [Q, H] against int4 rows [n, H/2]: the reference's two half-dim
+    products (dims below H/2 against the low nibbles, the rest against the
+    high ones), summed, in q's float type."""
+    codes = unpack_int4(packed).to(q.dtype)
+    half = codes.shape[1] // 2
+    return (torch.matmul(q[:, :half], codes[:, :half].T)
+            + torch.matmul(q[:, half:], codes[:, half:].T))
 
 
 def _scores(q: torch.Tensor, block: torch.Tensor,
-            scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+            scales: Optional[torch.Tensor] = None, int4: bool = False) -> torch.Tensor:
     """fp32 scores of q against a corpus block: bf16 rows score bf16 queries
     (exact products, fp32 sums); fp32 rows score in true fp32; int8 rows score
-    the queries as given (the caller casts) times the per-row ``scales``."""
-    if block.dtype == torch.bfloat16:
-        q = q.to(torch.bfloat16)
-    s = torch.matmul(q.float(), block.float().T)
+    the queries as given (the caller casts) times the per-row ``scales``;
+    int4 rows (``int4``) the two half-dim products of the queries as given,
+    times the ``scales``."""
+    if int4:
+        s = _half_products(q.float(), block)
+    else:
+        if block.dtype == torch.bfloat16:
+            q = q.to(torch.bfloat16)
+        s = torch.matmul(q.float(), block.float().T)
     return s if scales is None else s * scales[None, :]
 
 
@@ -102,33 +128,40 @@ def _select_packed(s, rows, j):
     return s.gather(1, pos), pos
 
 
-def _rows_scorer(q, corpus, scales):
+def _rows_scorer(q, corpus, scales, int4=False):
     """score(start, stop) of q against corpus rows start..stop-1."""
-    return lambda a, b: _scores(q, corpus[a:b], None if scales is None else scales[a:b])
+    return lambda a, b: _scores(q, corpus[a:b], None if scales is None else scales[a:b], int4)
 
 
-def _block_topj_reference(q, corpus, J: int, block_size: int, n_valid: int, scales=None):
-    """Plain version of K5 and, with ``scales``, of K6."""
-    return _per_block(_rows_scorer(q, corpus, scales), _select_pairs, q.shape[0],
+def _block_topj_reference(q, corpus, J: int, block_size: int, n_valid: int, scales=None,
+                          int4: bool = False):
+    """Plain version of K5, with ``scales`` of K6, and with ``int4`` of K10."""
+    return _per_block(_rows_scorer(q, corpus, scales, int4), _select_pairs, q.shape[0],
                       corpus.shape[0], J, block_size, n_valid, q.device)
 
 
 def _block_topj_serve_reference(q, corpus, J: int, block_size: int, n_valid: int,
-                                scales=None):
-    """Plain version of K8: the same scores as K5 / K6, the packed-key selection."""
-    return _per_block(_rows_scorer(q, corpus, scales), _select_packed, q.shape[0],
+                                scales=None, int4: bool = False):
+    """Plain version of K8 and, with ``int4``, of K11: the same scores as K5 /
+    K6 / K10, the packed-key selection."""
+    return _per_block(_rows_scorer(q, corpus, scales, int4), _select_packed, q.shape[0],
                       corpus.shape[0], J, block_size, n_valid, q.device)
 
 
 def _block_topj_i8q_reference(qi, qscales, corpus, scales, J: int, block_size: int,
-                              n_valid: int):
-    """Plain version of K12: s32 products (exact in fp32 while H * 127^2 <
-    2^24, else in fp64), dequantized as float(s32) * scale_row * scale_q."""
-    wide = torch.float32 if qi.shape[1] * 127 * 127 < 2 ** 24 else torch.float64
+                              n_valid: int, int4: bool = False):
+    """Plain version of K12 (and, with ``int4``, of its sq4 body): s32
+    products (exact in fp32 while H * 127 * 127 (int4: 127 * 7) < 2^24, else
+    in fp64), dequantized as float(s32) * scale_row * scale_q."""
+    wide = torch.float32 if qi.shape[1] * 127 * (7 if int4 else 127) < 2 ** 24 \
+        else torch.float64
     qf = qi.to(wide)
 
     def score(a, b):
-        s32 = torch.matmul(qf, corpus[a:b].to(wide).T).float()
+        if int4:
+            s32 = _half_products(qf, corpus[a:b]).float()
+        else:
+            s32 = torch.matmul(qf, corpus[a:b].to(wide).T).float()
         return s32 * scales[None, a:b] * qscales[:, None]
 
     return _per_block(score, _select_packed, qi.shape[0], corpus.shape[0], J, block_size,
@@ -136,7 +169,7 @@ def _block_topj_i8q_reference(qi, qscales, corpus, scales, J: int, block_size: i
 
 
 def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qscales=None,
-            serve=False):
+            serve=False, int4=False):
     """Check the operands and launch ``drt_block_topj``; returns (vals, ids).
     A launch adds one to ``wrapper.<counter>``."""
     name = wrapper.__name__
@@ -145,9 +178,12 @@ def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qs
     if corpus.dtype not in TYPE_CODES or q.dtype not in TYPE_CODES:
         raise TypeError(f"{name}: the CUDA kernels take float32, bfloat16 or int8, got "
                         f"q {q.dtype}, corpus {corpus.dtype}")
-    if q.device != corpus.device or corpus.ndim != 2 or corpus.shape[1] != H:
-        raise ValueError(f"{name}: q {tuple(q.shape)} on {q.device} does not match corpus "
-                         f"{tuple(corpus.shape)} on {corpus.device}")
+    width = H // 2 if int4 else H
+    if (q.device != corpus.device or corpus.ndim != 2 or corpus.shape[1] != width
+            or (int4 and H % 2)):
+        raise ValueError(f"{name}: q {tuple(q.shape)} on {q.device} does not match "
+                         f"{'int4 ' if int4 else ''}corpus {tuple(corpus.shape)} on "
+                         f"{corpus.device}")
     for what, s, n in (("scales", scales, N), ("query scales", qscales, Q)):
         if s is not None and (s.dtype != torch.float32 or s.shape != (n,) or
                               s.device != corpus.device):
@@ -170,19 +206,27 @@ def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qs
         q.data_ptr(), corpus.data_ptr(), 0 if scales is None else scales.data_ptr(),
         0 if qscales is None else qscales.data_ptr(), vals.data_ptr(), ids.data_ptr(),
         Q, N, H, int(n_valid), int(block_size), int(J), TYPE_CODES[q.dtype],
-        TYPE_CODES[corpus.dtype], int(serve), _native.stream_ptr(q)), "drt_block_topj")
+        INT4_CODE if int4 else TYPE_CODES[corpus.dtype], int(serve), _native.stream_ptr(q)),
+        "drt_block_topj")
     return vals, ids
 
 
 def block_topj(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,
-               n_valid: int, scales: Optional[torch.Tensor] = None
+               n_valid: int, scales: Optional[torch.Tensor] = None, int4: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-block top-J candidates. K5: q [Q,H] and corpus [N,H] share a dtype
     (float32 or bfloat16). K6: corpus int8 with ``scales`` [N] fp32, q
-    bfloat16. Rows >= n_valid are masked. Returns (vals [Q, n_blocks, J] fp32,
+    bfloat16. K10 (``int4``): corpus packed int4 [N, H/2] with ``scales``, q
+    float32. Rows >= n_valid are masked. Returns (vals [Q, n_blocks, J] fp32,
     ids [Q, n_blocks, J] int32), n_blocks = ceil(N / block_size)."""
     if not corpus.is_cuda:
-        return _block_topj_reference(q, corpus, J, block_size, n_valid, scales)
+        return _block_topj_reference(q, corpus, J, block_size, n_valid, scales, int4)
+    if int4:
+        if scales is None or q.dtype != torch.float32 or corpus.dtype != torch.int8:
+            raise ValueError("block_topj: int4 rows (packed int8) take per-row scales and "
+                             "float32 queries")
+        return _launch(block_topj, "launches_int4", q, corpus, J, block_size, n_valid, scales,
+                       int4=True)
     if corpus.dtype == torch.int8:
         if scales is None or q.dtype != torch.bfloat16:
             raise ValueError("block_topj: int8 rows take per-row scales and bfloat16 queries")
@@ -197,36 +241,42 @@ def block_topj(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,
 
 block_topj.launches = 0
 block_topj.launches_int8 = 0
+block_topj.launches_int4 = 0
 
 
 def block_topj_serve(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,
-                     n_valid: int, scales: Optional[torch.Tensor] = None
+                     n_valid: int, scales: Optional[torch.Tensor] = None, int4: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Serve-mode per-block top-J (K8): the J best rows of each block, ties to
-    the smaller id, exact scores. Rows fp32 or bf16 with queries of their
-    dtype, or int8 with ``scales`` and bf16 queries. Layout as ``block_topj``."""
+    """Serve-mode per-block top-J (K8; K11 with ``int4``): the J best rows of
+    each block, ties to the smaller id, exact scores. Rows fp32 or bf16 with
+    queries of their dtype, or int8 (or packed int4 [N, H/2]) with ``scales``
+    and bf16 queries. Layout as ``block_topj``."""
     if not corpus.is_cuda:
-        return _block_topj_serve_reference(q, corpus, J, block_size, n_valid, scales)
-    want = torch.bfloat16 if corpus.dtype == torch.int8 else corpus.dtype
-    if q.dtype != want or (scales is None) != (corpus.dtype != torch.int8):
-        raise ValueError(f"block_topj_serve: {corpus.dtype} rows take {want} queries"
-                         f"{' and per-row scales' if corpus.dtype == torch.int8 else ''}; "
+        return _block_topj_serve_reference(q, corpus, J, block_size, n_valid, scales, int4)
+    quantized = corpus.dtype == torch.int8
+    want = torch.bfloat16 if quantized else corpus.dtype
+    if q.dtype != want or (scales is None) != (not quantized) or (int4 and not quantized):
+        raise ValueError(f"block_topj_serve: {'int4' if int4 else corpus.dtype} rows take "
+                         f"{want} queries{' and per-row scales' if quantized else ''}; "
                          f"got q {q.dtype}, scales {scales is not None}")
-    return _launch(block_topj_serve, "launches", q, corpus, J, block_size, n_valid, scales,
-                   serve=True)
+    return _launch(block_topj_serve, "launches_int4" if int4 else "launches", q, corpus, J,
+                   block_size, n_valid, scales, serve=True, int4=int4)
 
 
 block_topj_serve.launches = 0
+block_topj_serve.launches_int4 = 0
 
 
 def block_topj_i8q(qi: torch.Tensor, qscales: torch.Tensor, corpus: torch.Tensor,
-                   scales: torch.Tensor, J: int, block_size: int, n_valid: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Native-int8 per-block top-J (K12): qi [Q,H] int8 with ``qscales`` [Q],
-    corpus [N,H] int8 with ``scales`` [N]; the serve selection. The kernel
-    takes H % 64 == 0 with 16-byte aligned rows."""
+                   scales: torch.Tensor, J: int, block_size: int, n_valid: int,
+                   int4: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Native-int8 per-block top-J (K12; its sq4 body with ``int4``): qi [Q,H]
+    int8 with ``qscales`` [Q], corpus [N,H] int8 (or packed int4 [N, H/2])
+    with ``scales`` [N]; the serve selection. The kernel takes H % 64 == 0
+    with 16-byte aligned rows."""
     if not corpus.is_cuda:
-        return _block_topj_i8q_reference(qi, qscales, corpus, scales, J, block_size, n_valid)
+        return _block_topj_i8q_reference(qi, qscales, corpus, scales, J, block_size, n_valid,
+                                         int4)
     if qi.dtype != torch.int8 or corpus.dtype != torch.int8:
         raise TypeError(f"block_topj_i8q: takes int8 queries and rows, got {qi.dtype}, "
                         f"{corpus.dtype}")
@@ -236,11 +286,12 @@ def block_topj_i8q(qi: torch.Tensor, qscales: torch.Tensor, corpus: torch.Tensor
                          f"H={H}")
     if qi.data_ptr() % 16 or corpus.data_ptr() % 16:
         raise ValueError("block_topj_i8q: the kernel takes 16-byte aligned rows")
-    return _launch(block_topj_i8q, "launches", qi, corpus, J, block_size, n_valid, scales,
-                   qscales, serve=True)
+    return _launch(block_topj_i8q, "launches_int4" if int4 else "launches", qi, corpus, J,
+                   block_size, n_valid, scales, qscales, serve=True, int4=int4)
 
 
 block_topj_i8q.launches = 0
+block_topj_i8q.launches_int4 = 0
 
 
 def _top(vals: torch.Tensor, ids: torch.Tensor, k: int):
@@ -263,22 +314,31 @@ def _merge(vals: torch.Tensor, ids: torch.Tensor, k: int):
     return top_v, top_i, flagged, top_v.shape[1]
 
 
+def _check_quantized(name, corpus, scales, int4):
+    if (corpus.dtype == torch.int8) != (scales is not None):
+        raise ValueError(f"{name}: int8 / int4 rows, and only they, take per-row scales")
+    if int4 and corpus.dtype != torch.int8:
+        raise ValueError(f"{name}: int4 rows are packed into int8 [N, H/2], got {corpus.dtype}")
+
+
 def certified_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
                    block_size: int = 2048, J: Optional[int] = None,
                    valid: Optional[int] = None, scales: Optional[torch.Tensor] = None,
-                   certify: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k through K5 (K6 for int8 rows with ``scales``) candidates
-    and the certificate ladder; ``certify=False`` stops after the merge.
+                   certify: bool = True, int4: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k through K5 (K6 for int8 rows with ``scales``, K10 for
+    packed int4 rows with ``int4``) candidates and the certificate ladder;
+    ``certify=False`` stops after the merge.
 
-    q_reps [Q,H] float; corpus [N,H] float32/bfloat16/int8 on the same device.
-    Returns (scores [Q,k'] fp32, ids [Q,k'] int32) sorted descending, with
-    k' = min(k, rows). Counterpart of ``pallas_topk`` (topk.py:638-770)."""
+    q_reps [Q,H] float; corpus [N,H] float32/bfloat16/int8 (int4: [N, H/2])
+    on the same device. Returns (scores [Q,k'] fp32, ids [Q,k'] int32) sorted
+    descending, with k' = min(k, rows). Counterpart of ``pallas_topk``
+    (topk.py:638-770)."""
     from ..index.flat import blockwise_topk
 
     N = corpus.shape[0]
     n_valid = int(N if valid is None else valid)
-    if (corpus.dtype == torch.int8) != (scales is not None):
-        raise ValueError("certified_topk: int8 rows, and only they, take per-row scales")
+    _check_quantized("certified_topk", corpus, scales, int4)
     if J is None:
         J = max(4, min(k, 8))
     J = min(J, k)
@@ -287,17 +347,21 @@ def certified_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
     # small corpora: fewer candidate slots than k can represent — scan instead
     if -(-N // block_size) * J < min(k, n_valid):
         return blockwise_topk(q32, corpus, min(k, n_valid), min(block_size, N), valid=n_valid,
-                              scales=scales)
+                              scales=scales, int4=int4)
 
-    qc = q32.to(torch.bfloat16 if corpus.dtype == torch.int8 else corpus.dtype)
-    vals, ids = block_topj(qc, corpus, J, block_size, n_valid, scales)
+    # int4 rows score fp32 queries (topk.py:690), int8 rows bf16 ones (:695)
+    if int4:
+        qc = q32
+    else:
+        qc = q32.to(torch.bfloat16 if corpus.dtype == torch.int8 else corpus.dtype)
+    vals, ids = block_topj(qc, corpus, J, block_size, n_valid, scales, int4)
     top_v, top_i, flagged, kk = _merge(vals, ids, k)
     if not certify:
         return top_v, top_i
     if bool(flagged.any()) and 4 * J < k:
         idx = torch.nonzero(flagged).squeeze(1)
         certified_topk.escalated_queries += int(idx.numel())
-        v2, i2 = block_topj(qc[idx], corpus, min(4 * J, k), block_size, n_valid, scales)
+        v2, i2 = block_topj(qc[idx], corpus, min(4 * J, k), block_size, n_valid, scales, int4)
         tv, ti, still, _ = _merge(v2, i2, kk)
         top_v[idx] = tv
         top_i[idx] = ti
@@ -306,7 +370,8 @@ def certified_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int,
     if bool(flagged.any()):
         idx = torch.nonzero(flagged).squeeze(1)
         certified_topk.fallback_queries += int(idx.numel())
-        s, i = blockwise_topk(q32[idx], corpus, kk, min(65536, N), valid=n_valid, scales=scales)
+        s, i = blockwise_topk(q32[idx], corpus, kk, min(65536, N), valid=n_valid, scales=scales,
+                              int4=int4)
         top_v[idx] = s
         top_i[idx] = i
     return top_v, top_i
@@ -346,29 +411,29 @@ def serve_plan(k: int, N: int, n_valid: int, block_size: int) -> Optional[Tuple[
 
 def serve_topk(q_reps: torch.Tensor, corpus: torch.Tensor, k: int, block_size: int = 2048,
                scales: Optional[torch.Tensor] = None, valid: Optional[int] = None,
-               i8_native: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+               i8_native: bool = False, int4: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Near-exact serving search, the counterpart of ``pallas_topk_fast``: K8
-    candidates with J from the Poisson rule and a merge, no certificate.
-    ``i8_native`` (int8 rows): queries quantize with K7 and score on K12.
+    (K11 for packed int4 rows with ``int4``) candidates with J from the
+    Poisson rule and a merge, no certificate. ``i8_native`` (int8 / int4
+    rows): queries quantize with K7 and score on K12 (its sq4 body for int4).
     Block and J as :func:`serve_plan`. Returns (scores [Q,k'], ids [Q,k'])."""
     from ..index.flat import blockwise_topk
 
     N = corpus.shape[0]
     n_valid = int(N if valid is None else valid)
-    if (corpus.dtype == torch.int8) != (scales is not None):
-        raise ValueError("serve_topk: int8 rows, and only they, take per-row scales")
+    _check_quantized("serve_topk", corpus, scales, int4)
     if i8_native and corpus.dtype != torch.int8:
-        raise ValueError(f"serve_topk: i8_native needs int8 rows, got {corpus.dtype}")
+        raise ValueError(f"serve_topk: i8_native needs int8 or int4 rows, got {corpus.dtype}")
     q32 = q_reps.to(device=corpus.device, dtype=torch.float32)
     plan = serve_plan(k, N, n_valid, block_size)
     if plan is None:
         return blockwise_topk(q32, corpus, min(k, n_valid), max(1, min(block_size, N)),
-                              valid=n_valid, scales=scales)
+                              valid=n_valid, scales=scales, int4=int4)
     block, J = plan
     if i8_native:
         qi, qs = quantize_queries(q32)
-        vals, ids = block_topj_i8q(qi, qs, corpus, scales, J, block, n_valid)
+        vals, ids = block_topj_i8q(qi, qs, corpus, scales, J, block, n_valid, int4)
     else:
         qc = q32.to(torch.bfloat16 if corpus.dtype == torch.int8 else corpus.dtype)
-        vals, ids = block_topj_serve(qc, corpus, J, block, n_valid, scales)
+        vals, ids = block_topj_serve(qc, corpus, J, block, n_valid, scales, int4)
     return _top(vals, ids, min(k, n_valid))

@@ -286,7 +286,7 @@ def test_serve_topk_deep_k_runs_the_kernels(gen):
             torch.testing.assert_close(s.cpu(), rs, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
 def test_flat_index_modes_on_card(gen, dtype):
     """Every flat mode of a CUDA index against the same index on the CPU
     (the exact scan): exact ids equal; serve / partial / i8q recall."""
@@ -297,8 +297,119 @@ def test_flat_index_modes_on_card(gen, dtype):
     idx = FlatIPIndex(c, dtype=dtype, block_size=1024)
     ref = FlatIPIndex(c, dtype=dtype, block_size=1024, device="cpu")
     _, want = ref.search(q, 50)
-    modes = ("exact", "serve", "partial") if dtype != "int8" else ("exact", "serve", "i8q")
+    modes = ("exact", "serve", "i8q") if dtype in ("int8", "int4") else ("exact", "serve", "partial")
     for mode in modes + ("approx",):
         _, got = idx.search(q, 50, mode=mode)
         recall = sum(len(set(a) & set(b)) for a, b in zip(got, want)) / want.size
         assert recall >= (0.99 if mode in ("exact", "serve", "partial") else 0.9), (mode, recall)
+
+
+# --- int4 rows: K9, K10, K11 and K12's sq4 body ------------------------------------------------
+
+def _int4_rows(gen, N, H):
+    """A seeded corpus packed per row by the plain K9, with a zero row."""
+    from denseretrievaltoolkits_torch.ops.quant import _quantize_int4_reference
+
+    x = _randn(gen, N, H)
+    x[3] = 0
+    return _quantize_int4_reference(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [768, 50])  # vector loads (H % 8 == 0) / scalar loads
+def test_quantize_int4_kernel(gen, dtype, H):
+    """K9 is bit-equal to its plain version: zero rows, exact .5 ties, padding."""
+    from denseretrievaltoolkits_torch.ops import quant
+
+    x = _randn(gen, 300, H, scale=3.0)
+    x[0] = 0
+    x[1] = 0
+    x[1, :3] = torch.tensor([7.0, 2.5, -3.5])  # scale 1: 2.5 -> 2, -3.5 -> -4
+    x[1, H // 2] = 1.5
+    x = x.to(dtype)
+    n = quant.quantize_int4_device.launches
+    v, s = quant.quantize_int4_device(x, rows=320)
+    torch.cuda.synchronize()
+    assert quant.quantize_int4_device.launches == n + 1
+    rv, rs = quant._quantize_int4_reference(x, rows=320)
+    assert v.shape == (320, H // 2) and torch.equal(v, rv) and torch.equal(s, rs)
+    codes = quant.unpack_int4(v)
+    assert codes[1, :3].tolist() == [7, 2, -4] and codes[1, H // 2] == 2
+    assert s[0] == 1 and (s[300:] == 1).all() and (v[300:] == 0).all()
+
+
+@pytest.mark.parametrize("H", [64, 50])  # float4 / packed-word loads, or scalar loads
+def test_block_topj_int4_kernel(gen, H):
+    """K10: fp32 queries x int4 rows x per-row scales, true fp32: ids equal to
+    the plain version's, scores within 1e-5; the certified search on the card
+    equals the one on the CPU."""
+    c, sc = _int4_rows(gen, 3000, H)
+    c[700:710] = c[700]  # exact ties inside one block
+    sc[700:710] = sc[700]
+    q = _randn(gen, 70, H)
+    n = topk.block_topj.launches_int4
+    v, i = topk.block_topj(q, c, 8, 1024, 2990, sc, int4=True)
+    torch.cuda.synchronize()
+    assert topk.block_topj.launches_int4 == n + 1
+    rv, ri = topk._block_topj_reference(q, c, 8, 1024, 2990, sc, int4=True)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+    s, ids = topk.certified_topk(q, c, 50, block_size=512, scales=sc, int4=True)
+    cs, cids = topk.certified_topk(q.cpu(), c.cpu(), 50, block_size=512, scales=sc.cpu(),
+                                   int4=True)
+    assert torch.equal(ids.cpu(), cids)
+    torch.testing.assert_close(s.cpu(), cs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("H", [64, 48])  # tensor-core path / CUDA-core path
+def test_block_topj_serve_int4_kernel(gen, H):
+    """K11: bf16 queries x int4 rows: the plain version's ids, exact scores."""
+    c, sc = _int4_rows(gen, 3000, H)
+    q = _randn(gen, 70, H).to(torch.bfloat16)
+    n = topk.block_topj_serve.launches_int4
+    v, i = topk.block_topj_serve(q, c, 7, 1024, 2990, sc, int4=True)
+    torch.cuda.synchronize()
+    assert topk.block_topj_serve.launches_int4 == n + 1
+    rv, ri = topk._block_topj_serve_reference(q, c, 7, 1024, 2990, sc, int4=True)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("H", [64, 768])
+def test_block_topj_i8q_int4_kernel(gen, H):
+    """K12's sq4 body: s32 products are exact, so scores and ids equal the
+    plain version's bit for bit."""
+    from denseretrievaltoolkits_torch.ops.quant import quantize_queries
+
+    c, sc = _int4_rows(gen, 3000, H)
+    qi, qs = quantize_queries(_randn(gen, 70, H))
+    n = topk.block_topj_i8q.launches_int4
+    v, i = topk.block_topj_i8q(qi, qs, c, sc, 7, 1024, 2990, int4=True)
+    torch.cuda.synchronize()
+    assert topk.block_topj_i8q.launches_int4 == n + 1
+    rv, ri = topk._block_topj_i8q_reference(qi, qs, c, sc, 7, 1024, 2990, int4=True)
+    assert torch.equal(i, ri) and torch.equal(v, rv)
+    with pytest.raises(ValueError, match="H % 64"):
+        topk.block_topj_i8q(qi[:, :48].contiguous(), qs, c[:, :24].contiguous(), sc, 7, 1024,
+                            2990, int4=True)
+
+
+def test_serve_topk_int4_deep_k_runs_the_kernels(gen):
+    """k=1000 over 9000 int4 rows: block 64, J=22; K11 and K12's sq4 body
+    launch, never the exact scan. i8q equals the plain version; serve agrees
+    up to boundary ties (overlap >= 0.999)."""
+    c, sc = _int4_rows(gen, 9000, 64)
+    q = _randn(gen, 20, 64)
+    for native, fn in ((False, topk.block_topj_serve), (True, topk.block_topj_i8q)):
+        n = fn.launches_int4
+        s, ids = topk.serve_topk(q, c, 1000, 2048, scales=sc, i8_native=native, int4=True)
+        torch.cuda.synchronize()
+        assert fn.launches_int4 == n + 1 and ids.shape == (20, 1000)
+        rs, rids = topk.serve_topk(q.cpu(), c.cpu(), 1000, 2048, scales=sc.cpu(),
+                                   i8_native=native, int4=True)
+        if native:
+            assert torch.equal(ids.cpu(), rids) and torch.equal(s.cpu(), rs)
+        else:
+            overlap = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids.cpu(), rids))
+            assert overlap >= 0.999 * rids.numel()
+            torch.testing.assert_close(s.cpu(), rs, rtol=1e-5, atol=1e-5)

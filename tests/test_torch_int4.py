@@ -1,0 +1,360 @@
+"""The torch port's int4 (SQ4) flat index vs the JAX package, on the CPU.
+
+K9 (``quantize_int4_device``), K10 (``block_topj(int4=True)``), K11
+(``block_topj_serve(int4=True)``) and K12's sq4 body
+(``block_topj_i8q(int4=True)``) run their plain versions here; the JAX side
+runs its Pallas kernels in interpret mode (``_pallas_block_topj_sq4``,
+``_pallas_block_topj_packed_sq4``, ``_pallas_block_topj_packed_sq4_i8q``,
+``quantize_int4_device``). The searches (``certified_topk``, ``serve_topk``)
+and ``FlatIPIndex(dtype="int4")`` are held to ``pallas_topk``,
+``pallas_topk_fast`` and the JAX index. Inputs are numpy arrays from a seed."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from denseretrievaltoolkits_tpu.index import flat as jflat
+from denseretrievaltoolkits_tpu.ops import quant as jquant
+from denseretrievaltoolkits_tpu.ops import topk as jtopk
+from denseretrievaltoolkits_torch.index import flat as tflat
+from denseretrievaltoolkits_torch.ops import quant as tquant
+from denseretrievaltoolkits_torch.ops import topk as ttopk
+
+
+def _rows(n=301, h=64, seed=21):
+    """An odd row count, per-row magnitudes over three decades, two zero rows
+    and rows whose x / scale lands on .5 ties."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, h)) * rng.uniform(0.01, 10, size=(n, 1))).astype(np.float32)
+    x[0] = 0
+    x[5] = 0
+    x[1] = 0
+    x[1, :4] = [7.0, 2.5, -3.5, 0.5]  # scale exactly 1: ties round half to even
+    x[1, h // 2:h // 2 + 2] = [-7.0, 1.5]
+    return x
+
+
+def _pallas_int4(x, block_rows):
+    v, s = jquant.quantize_int4_device(jnp.asarray(x), block_rows=block_rows)
+    return np.asarray(v), np.asarray(s)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_int4_matches_pallas(dtype):
+    """K9's plain version divides in IEEE fp32 (absmax / 7, then x / scale)
+    and rounds half to even. The JAX kernel, run by XLA on the CPU, takes
+    absmax x fl(1/7) for the scale: about half of its scales sit one ulp off
+    the IEEE quotient, and a code differs only where x / scale falls on a
+    rounding boundary under one scale and not the other. Pinned on this
+    input: the JAX scales are absmax x fl(1/7) exactly and within one ulp of
+    the port's (30-70% of them differ); each side's codes are round(x / its
+    own scale); and the count of codes that differ."""
+    x = _rows()
+    xt = torch.from_numpy(x)
+    if dtype == "bfloat16":
+        xt = xt.bfloat16()
+        x = xt.float().numpy()
+    packed, scales = tquant.quantize_int4_device(xt)
+    assert packed.shape == (301, 32) and packed.dtype == torch.int8
+    jv, js = _pallas_int4(x, 64)
+    ts = scales.numpy()
+    absmax = np.abs(x).max(axis=1)
+    np.testing.assert_array_equal(js, np.where(absmax == 0, 1, absmax * np.float32(1 / 7.0)))
+    np.testing.assert_array_equal(ts, np.where(absmax == 0, 1, absmax / np.float32(7.0)))
+    np.testing.assert_array_max_ulp(ts, js, maxulp=1)
+    ulp_share = float(np.mean(ts != js))
+    assert 0.3 < ulp_share < 0.7, ulp_share
+    codes = tquant.unpack_int4(packed).numpy()
+    jcodes = tquant.unpack_int4(torch.from_numpy(jv)).numpy()
+    np.testing.assert_array_equal(codes, np.clip(np.round(x / ts[:, None]), -7, 7))
+    np.testing.assert_array_equal(jcodes, np.clip(np.round(x / js[:, None]), -7, 7))
+    # bf16 inputs have 8-bit mantissas, so x / scale hits exact .5 ties often
+    # and the one-ulp scale difference moves them: 41 of 19,264 codes
+    assert int((codes != jcodes).sum()) == {"float32": 0, "bfloat16": 41}[dtype]
+    assert codes[1, :4].tolist() == [7, 2, -4, 0] and codes[1, 32:34].tolist() == [-7, 2]
+    assert (packed[0] == 0).all() and ts[0] == 1 and ts[5] == 1
+
+
+def test_quantize_int4_padding_rows_and_layout():
+    """Padding rows are zero bytes at scale 1, as ``jnp.pad`` then quantize;
+    byte j packs dim j low and dim j + H/2 high (the column-half layout)."""
+    x = _rows(n=37, h=16)
+    packed, scales = tquant.quantize_int4_device(torch.from_numpy(x), rows=64)
+    padded = np.zeros((64, 16), np.float32)
+    padded[:37] = x
+    jv, js = _pallas_int4(padded, 64)
+    np.testing.assert_array_equal(packed.numpy()[37:], jv[37:])
+    assert (packed.numpy()[37:] == 0).all() and (scales.numpy()[37:] == 1).all()
+    b = packed.numpy().astype(np.int32) & 0xFF
+    lo, hi = ((b & 0xF) ^ 8) - 8, (((b >> 4) & 0xF) ^ 8) - 8
+    np.testing.assert_array_equal(np.concatenate([lo, hi], 1),
+                                  tquant.unpack_int4(packed).numpy())
+    with pytest.raises(ValueError, match="rows"):
+        tquant.quantize_int4_device(torch.from_numpy(x), rows=10)
+    with pytest.raises(ValueError, match="even feature dim"):
+        tquant.quantize_int4_device(torch.zeros(3, 7))
+
+
+def test_dequantize_int4_roundtrip():
+    """The round trip is within absmax / 14 per element (tests/test_int4.py:32),
+    and dequantizes as the JAX package's ``dequantize_int4``."""
+    x = _rows(n=100, h=64, seed=3)
+    packed, scales = tquant.quantize_int4_device(torch.from_numpy(x))
+    d = tquant.dequantize_int4(packed, scales).numpy()
+    absmax = np.abs(x).max(axis=1, keepdims=True)
+    assert (np.abs(d - x) <= absmax / 14 + 1e-6).all()
+    np.testing.assert_array_equal(
+        d, np.asarray(jquant.dequantize_int4(jnp.asarray(packed.numpy()),
+                                             jnp.asarray(scales.numpy()))))
+
+
+def _int4_corpus(seed, n=1024, h=64):
+    """An int4 corpus with a negative-score region (tests/test_int4.py:55),
+    quantized by the port's plain K9."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(n, h)).astype(np.float32)
+    c[:n // 4] -= 2.0
+    packed, scales = tquant.quantize_int4_device(torch.from_numpy(c))
+    return rng, c, packed.numpy(), scales.numpy()
+
+
+def _per_block(v):
+    """[n_blocks, J, Q] -> [Q, n_blocks, J]."""
+    return np.transpose(np.asarray(v), (2, 0, 1))
+
+
+def _packed_quantum(block_size):
+    """The JAX serve kernels round a score to 2^id_bits ulps (topk.py:96-100)."""
+    return 2.0 ** ((block_size - 1).bit_length() - 23)
+
+
+def test_block_topj_sq4_plain_matches_pallas_kernel():
+    """K10: fp32 queries, two half-dim fp32 products times the row scale, J
+    masked maxes with ties to the smaller id; scores within 1e-5 relative
+    (fp32 sums in another order), ids equal."""
+    rng, _, packed, scales = _int4_corpus(31)
+    packed[300:310] = packed[300]  # exact ties inside one block
+    scales[300:310] = scales[300]
+    q = rng.normal(size=(8, 64)).astype(np.float32)
+    jv, ji = jtopk._pallas_block_topj_sq4(jnp.asarray(q), jnp.asarray(packed),
+                                          jnp.asarray(scales), 6, 256, 1000)
+    tv, ti = ttopk.block_topj(torch.from_numpy(q), torch.from_numpy(packed), 6, 256, 1000,
+                              torch.from_numpy(scales), int4=True)
+    np.testing.assert_array_equal(ti.numpy(), _per_block(ji))
+    np.testing.assert_allclose(tv.numpy(), _per_block(jv), rtol=1e-5, atol=1e-5)
+    assert ti.numpy().max() < 1000
+
+
+def test_block_topj_serve_sq4_plain_matches_packed_kernel():
+    """K11: bf16 queries over int4 rows, the packed selection. The per-block
+    id sets are the Pallas kernel's; the port's exact scores sit within the
+    TPU's rounding quantum of its packed ones."""
+    rng, _, packed, scales = _int4_corpus(32)
+    q = jnp.asarray(rng.normal(size=(8, 64)).astype(np.float32), jnp.bfloat16)
+    jv, ji = jtopk._pallas_block_topj_packed_sq4(q, jnp.asarray(packed), jnp.asarray(scales), 6,
+                                                 256, 1000)
+    tq = torch.from_numpy(np.asarray(q.astype(jnp.float32))).bfloat16()
+    tv, ti = ttopk.block_topj_serve(tq, torch.from_numpy(packed), 6, 256, 1000,
+                                    torch.from_numpy(scales), int4=True)
+    jv, ji = _per_block(jv), _per_block(ji)
+    assert [set(r) for r in ti.numpy().reshape(-1, 6)] == [set(r) for r in ji.reshape(-1, 6)]
+    np.testing.assert_allclose(np.sort(tv.numpy(), -1), np.sort(jv, -1),
+                               rtol=2 * _packed_quantum(256), atol=1e-6)
+
+
+def test_block_topj_i8q_sq4_plain_matches_packed_kernel():
+    """K12's sq4 body: int8 queries x int4 rows in exact s32, times
+    scale_row x scale_q. Queries are losslessly quantizable, so the two
+    packages' query quantizers agree; scores equal within the TPU's packed
+    rounding quantum, id sets equal."""
+    rng, _, packed, scales = _int4_corpus(33)
+    q_int = rng.integers(-127, 128, size=(8, 64)).astype(np.float32)
+    q_int[:, 0] = 127.0
+    q = q_int * 0.037
+    jqi, jqs = jtopk.quantize_queries(jnp.asarray(q))
+    qi, qs = ttopk.quantize_queries(torch.from_numpy(q))
+    np.testing.assert_array_equal(qi.numpy(), np.asarray(jqi))
+    jv, ji = jtopk._pallas_block_topj_packed_sq4_i8q(jqi, jnp.asarray(packed),
+                                                     jnp.asarray(scales), jqs, 6, 256, 1000)
+    tv, ti = ttopk.block_topj_i8q(qi, qs, torch.from_numpy(packed), torch.from_numpy(scales),
+                                  6, 256, 1000, int4=True)
+    jv, ji = _per_block(jv), _per_block(ji)
+    assert [set(r) for r in ti.numpy().reshape(-1, 6)] == [set(r) for r in ji.reshape(-1, 6)]
+    np.testing.assert_allclose(np.sort(tv.numpy(), -1), np.sort(jv, -1),
+                               rtol=2 * _packed_quantum(256), atol=1e-6)
+
+
+def _search_corpus(case, rng):
+    """2000 x 64 corpora after tests/test_torch_topk.py, quantized to int4."""
+    c = rng.normal(size=(2000, 64)).astype(np.float32)
+    if case == "clustered":  # a block holds many top-k rows: escalation / fallback
+        strong = rng.normal(size=(1, 64)).astype(np.float32) * 3
+        c[100:130] = strong + 0.01 * rng.normal(size=(30, 64)).astype(np.float32)
+        q = (strong + 0.05 * rng.normal(size=(5, 64))).astype(np.float32)
+    else:
+        q = rng.normal(size=(9, 64)).astype(np.float32)
+    packed, scales = tquant.quantize_int4_device(torch.from_numpy(c))
+    return q, packed, scales
+
+
+@pytest.mark.parametrize("case", ["random", "clustered"])
+@pytest.mark.parametrize("k", [30, 64])
+def test_certified_topk_int4_matches_pallas_topk(case, k):
+    """``certified_topk(int4=True)`` (K10 plain candidates, the certificate,
+    escalation, the int4 scan) vs ``pallas_topk(int4=True)``: ids equal,
+    scores within 1e-5."""
+    q, packed, scales = _search_corpus(case, np.random.default_rng(41))
+    js, ji = jtopk.pallas_topk(q, jnp.asarray(packed.numpy()), k=k, block_size=512,
+                               scales=jnp.asarray(scales.numpy()), int4=True)
+    before = ttopk.block_topj.launches_int4
+    ts, ti = ttopk.certified_topk(torch.from_numpy(q), packed, k, block_size=512, scales=scales,
+                                  int4=True)
+    assert ttopk.block_topj.launches_int4 == before  # CPU tensors never launch the kernel
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_allclose(ts.numpy(), js, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["serve", "i8q"])
+def test_serve_topk_int4_matches_pallas_topk_fast(native):
+    """``serve_topk(int4=True)`` vs ``pallas_topk_fast(int4=True)``: the same
+    ids per query (sets: the TPU's scores are rounded), scores within the
+    rounding quantum."""
+    rng = np.random.default_rng(42)
+    c = rng.normal(size=(777, 48)).astype(np.float32)  # not a block multiple
+    q = rng.normal(size=(5, 48)).astype(np.float32)
+    packed, scales = tquant.quantize_int4_device(torch.from_numpy(c))
+    js, ji = jtopk.pallas_topk_fast(q, jnp.asarray(packed.numpy()), 20, block_size=256,
+                                    scales=jnp.asarray(scales.numpy()), int4=True,
+                                    i8_native=native)
+    counter = ttopk.block_topj_i8q if native else ttopk.block_topj_serve
+    before = counter.launches_int4
+    ts, ti = ttopk.serve_topk(torch.from_numpy(q), packed, 20, 256, scales=scales,
+                              i8_native=native, int4=True)
+    assert counter.launches_int4 == before
+    assert ti.shape == (5, 20)
+    assert [set(r) for r in ti.numpy()] == [set(r) for r in np.asarray(ji)]
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=2 * _packed_quantum(256),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["exact", "serve", "i8q", "approx"])
+def test_flat_index_int4_cpu_modes_match_jax(mode):
+    """int4 FlatIPIndex on the CPU in every mode vs the JAX index (both run
+    the exact int4 scan there): ids equal, scores within 1e-5."""
+    rng = np.random.default_rng(43)
+    c = rng.normal(size=(1300, 32)).astype(np.float32)
+    q = rng.normal(size=(6, 32)).astype(np.float32)
+    js, ji = jflat.FlatIPIndex(c, dtype="int4").search(q, 25, mode=mode)
+    ts, ti = tflat.FlatIPIndex(c, dtype="int4", device="cpu").search(q, 25, mode=mode)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-5)
+
+
+def test_blockwise_topk_int4_matches_jax():
+    rng = np.random.default_rng(44)
+    c = rng.normal(size=(1500, 48)).astype(np.float32)
+    q = rng.normal(size=(6, 48)).astype(np.float32)
+    packed, scales = tquant.quantize_int4_device(torch.from_numpy(c))
+    js, ji = jflat.blockwise_topk(jnp.asarray(q), jnp.asarray(packed.numpy()), 20, 256,
+                                  scales=jnp.asarray(scales.numpy()), valid=1400, int4=True)
+    ts, ti = tflat.blockwise_topk(torch.from_numpy(q), packed, 20, 256, valid=1400,
+                                  scales=scales, int4=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+
+
+def test_flat_index_int4_device_slabs():
+    """Three add_device slabs (each quantized by K9 and padded to the block)
+    give the host add's results in every mode, and the JAX index's slabs'."""
+    rng = np.random.default_rng(45)
+    c = rng.normal(size=(900, 32)).astype(np.float32)
+    q = rng.normal(size=(4, 32)).astype(np.float32)
+    host = tflat.FlatIPIndex(c, dtype="int4", block_size=128, device="cpu")
+    slabs = tflat.FlatIPIndex(32, dtype="int4", block_size=128, device="cpu")
+    jslabs = jflat.FlatIPIndex(32, dtype="int4", block_size=128)
+    for lo, hi in ((0, 300), (300, 700), (700, 900)):
+        slabs.add_device(torch.from_numpy(c[lo:hi]))
+        jslabs.add_device(jnp.asarray(c[lo:hi]))
+    assert [v.shape for v, _, _ in slabs._device_slabs] == [(384, 16), (512, 16), (256, 16)]
+    hs, hi_ = host.search(q, 40)
+    for mode in ("exact", "serve", "i8q", "approx"):
+        ss, si = slabs.search(q, 40, mode=mode)
+        np.testing.assert_array_equal(si, hi_)
+        np.testing.assert_allclose(ss, hs, rtol=1e-6)
+    js, ji = jslabs.search(q, 40)
+    np.testing.assert_array_equal(si, ji)
+    np.testing.assert_allclose(ss, js, rtol=1e-5, atol=1e-5)
+
+
+def test_flat_index_int4_save_load_interchange(tmp_path):
+    """The native int4 payload (packed values [N, H/2], scales, meta dtype
+    "int4") loads bit for bit in both directions, and a reload searches as
+    the saved index did."""
+    rng = np.random.default_rng(46)
+    c = rng.normal(size=(700, 32)).astype(np.float32)
+    q = rng.normal(size=(3, 32)).astype(np.float32)
+    port = tflat.FlatIPIndex(32, dtype="int4", block_size=256, device="cpu")
+    port.add_device(torch.from_numpy(c[:400]))
+    port.add_device(torch.from_numpy(c[400:]))
+    port.docid = [f"d{i}" for i in range(700)]
+    port.save(str(tmp_path / "port"))
+    with np.load(str(tmp_path / "port") + ".npz") as z:
+        assert z["values"].shape == (700, 16) and z["values"].dtype == np.int8
+    back = jflat.FlatIPIndex.load(str(tmp_path / "port"))
+    assert back.dtype == "int4" and back.docid == port.docid
+    pv, ps = port._native_int8_payload()
+    bv, bs = back._native_int8_payload()
+    np.testing.assert_array_equal(bv, pv)
+    np.testing.assert_array_equal(bs, ps)
+    np.testing.assert_array_equal(back.search(q, 10)[1], port.search(q, 10)[1])
+    again = tflat.FlatIPIndex.load(str(tmp_path / "port"), device="cpu")
+    np.testing.assert_array_equal(again.search(q, 10)[1], port.search(q, 10)[1])
+
+    jidx = jflat.FlatIPIndex(c, dtype="int4")
+    jidx.docid = port.docid
+    jidx.save(str(tmp_path / "jax"))
+    from denseretrievaltoolkits_torch.index.io import load_index
+
+    tidx = load_index(str(tmp_path / "jax"), device="cpu")
+    assert tidx.dtype == "int4" and len(tidx._device_slabs) == 1 and len(tidx) == 700
+    tv, ts = tidx._native_int8_payload()
+    with np.load(str(tmp_path / "jax") + ".npz") as z:
+        np.testing.assert_array_equal(tv, z["values"])
+        np.testing.assert_array_equal(ts, z["scales"])
+    np.testing.assert_array_equal(tidx.search(q, 10, mode="serve")[1], jidx.search(q, 10)[1])
+    assert tidx.docid == port.docid
+
+
+def test_index_factory_sq4_builds_and_searches():
+    """``index_factory("SQ4")`` builds an int4 index that searches as the
+    reference's (tests/test_int4.py:68-80); "IVF64,SQ4" raises in both."""
+    rng = np.random.default_rng(47)
+    c = rng.normal(size=(600, 64)).astype(np.float32)
+    q = rng.normal(size=(5, 64)).astype(np.float32)
+    idx = tflat.index_factory(64, "SQ4", block_size=128, device="cpu")
+    jidx = jflat.index_factory(64, "SQ4", block_size=128)
+    idx.add(c)
+    jidx.add(c)
+    assert idx.dtype == "int4" and len(idx) == 600
+    np.testing.assert_array_equal(idx.search(q, 20)[1], jidx.search(q, 20)[1])
+    for spec in ("IVF64,SQ4", "IVF8,SQint4"):
+        with pytest.raises(ValueError, match="flat SQ4"):
+            tflat.index_factory(64, spec, device="cpu")
+        with pytest.raises(ValueError, match="flat SQ4"):
+            jflat.index_factory(64, spec)
+
+
+def test_cpu_tensors_never_launch_int4():
+    counts = (tquant.quantize_int4_device.launches, ttopk.block_topj.launches_int4,
+              ttopk.block_topj_serve.launches_int4, ttopk.block_topj_i8q.launches_int4)
+    rng, _, packed, scales = _int4_corpus(48, n=300)
+    q = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    p, s = torch.from_numpy(packed), torch.from_numpy(scales)
+    for mode in ("exact", "serve", "i8q"):
+        idx = tflat.FlatIPIndex(64, dtype="int4", block_size=64, device="cpu")
+        idx.add_device(torch.from_numpy(rng.normal(size=(300, 64)).astype(np.float32)))
+        idx.search(q.numpy(), 10, mode=mode)
+    ttopk.block_topj_serve(q.bfloat16(), p, 4, 64, 300, s, int4=True)
+    assert counts == (tquant.quantize_int4_device.launches, ttopk.block_topj.launches_int4,
+                      ttopk.block_topj_serve.launches_int4, ttopk.block_topj_i8q.launches_int4)

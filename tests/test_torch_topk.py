@@ -117,16 +117,19 @@ def test_flat_index_device_slabs_match_host_add():
 
 
 def test_unported_modes_and_dtypes_raise():
-    """int4 waits for its kernels (K9-K11, K12's sq4 body); the reference's
-    mode contract still refuses i8q on float rows and partial on int8 rows."""
-    for device in (None, "cpu"):
-        with pytest.raises(NotImplementedError, match="K9.*ROADMAP"):
-            tflat.FlatIPIndex(32, dtype="int4", device=device)
+    """int4 rows are ported (K9-K11, K12's sq4 body) and build on the CPU;
+    the reference's mode contract still refuses i8q on float rows and partial
+    on int8 and int4 rows, and an odd dim cannot pack into int4."""
+    idx = tflat.FlatIPIndex(32, dtype="int4", device="cpu")
+    assert idx.dtype == "int4" and len(idx) == 0
+    with pytest.raises(ValueError, match="even dim"):
+        tflat.FlatIPIndex(33, dtype="int4", device="cpu")
     q = np.zeros((1, 32), np.float32)
     with pytest.raises(ValueError, match="i8q"):
         tflat.FlatIPIndex(32, device="cpu").search(q, 1, mode="i8q")
-    with pytest.raises(ValueError, match="partial"):
-        tflat.FlatIPIndex(32, dtype="int8", device="cpu").search(q, 1, mode="partial")
+    for dtype in ("int8", "int4"):
+        with pytest.raises(ValueError, match="partial"):
+            tflat.FlatIPIndex(32, dtype=dtype, device="cpu").search(q, 1, mode="partial")
 
 
 def _int8_corpus(seed, n=1024, h=64):
@@ -336,7 +339,8 @@ def test_flat_index_int8_save_load_interchange(tmp_path):
 
 @pytest.mark.parametrize("spec,dtype", [("Flat", "float32"), ("IP", "float32"),
                                         ("BF16", "bfloat16"), ("flat16", "bfloat16"),
-                                        ("SQ8", "int8"), (" SQint8 ", "int8")])
+                                        ("SQ8", "int8"), (" SQint8 ", "int8"),
+                                        ("SQ4", "int4"), ("SQint4", "int4")])
 def test_index_factory_flat_strings(spec, dtype):
     idx = tflat.index_factory(16, spec, block_size=512, device="cpu")
     assert isinstance(idx, tflat.FlatIPIndex) and idx.dtype == dtype and idx.block_size == 512
@@ -344,10 +348,17 @@ def test_index_factory_flat_strings(spec, dtype):
 
 
 def test_index_factory_unported_kinds_raise():
-    for spec in ("SQ4", "SQint4", "IVF64,Flat", "IVF64,SQ8", "IVFR64,SQ8", "PQ8", "PQ16x4",
+    """The trained kinds wait for their ROADMAP item; int4 IVF cells raise the
+    reference's ValueError (the sq4 kernels are flat-corpus kernels)."""
+    for spec in ("IVF64,Flat", "IVF64,SQ8", "IVFR64,SQ8", "PQ8", "PQ16x4",
                  "OPQ8,PQ8", "PCAR8,Flat", "IVF16,PQ8x4"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tflat.index_factory(16, spec, device="cpu")
+    for spec in ("IVF64,SQ4", "IVFR64,SQint4"):
+        with pytest.raises(ValueError, match="flat SQ4"):
+            tflat.index_factory(16, spec, device="cpu")
+        with pytest.raises(ValueError, match="flat SQ4"):
+            jflat.index_factory(16, spec)
     with pytest.raises(ValueError, match="unsupported factory"):
         tflat.index_factory(16, "HNSW32", device="cpu")
 
