@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's serving, training and evaluation paths once on one CUDA card, and check them.
+"""Drive the torch port's paths (serving, training, evaluation, IVF) once on a card; check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json]
 
@@ -89,6 +89,30 @@ Phases, each of which fails the run on error:
 13. Scale int4: 138,364,198 x 768 rows (MS MARCO v2 passage, which int8
    cannot hold on one card) in 528 slabs packed by K9; the same searches and
    numbers, plus the resident size.
+14. K13 and K14 (the IVF cell kernels) through the entry points: 1,000,000
+   x 768 rows of the JAX package's IVF benchmark mixture (4096 centres,
+   sigma 0.5), 2048 queries of it, ``IVF1024`` (fixed capacity, K13) and
+   ``IVFR1024`` (ragged, 512-row blocks, K14) trained on 262,144 rows,
+   nprobe 32, k=100; fp32, bf16 and int8 cells in ``bulk``, int8 in
+   ``i8q``. Each body then meets its plain version block by block on the
+   search's own slab, blocks and J (ids equal up to ties, scores within
+   1e-5 fp32 / 1e-4 others, i8q bit-equal); kernel, plain and bound ms (the
+   bound on the data's own work: the stored rows of the probed cells against
+   their real query slots; the launched, padded shape's beside it),
+   queries/s, recall@100 against the certified flat search of the same rows
+   and dtype. Then ``PCAR384,SQ4`` through ``train`` and ``add_chunks``.
+   (Runs before phase 3.)
+15. The evaluation path into a trained index: phase 11's model evaluated
+   with ``index_factory="IVF16,SQ8"`` (nprobe 4) in ``bulk`` and ``i8q``:
+   spill, k-means, ``add_chunks`` (K7), K13, the side slab on K8 / K12.
+   Counters zeroed before; the plain versions over the same reps, the
+   float32 ranking, and ``retrieval.main --index_path`` on the saved index.
+16. Scale IVF: 8,841,823 x 768 mixture rows in ``IVFR256,SQ8`` (nprobe 8,
+   2048-row blocks), trained on 262,144 rows, ``add_chunks`` in 500,000-row
+   chunks; ``bulk`` and ``i8q`` at steady state after the tuning call (the
+   learned Qcap, hot set, drops, K14's time), recall@100 against the
+   certified search of a flat int8 index of the same rows, build seconds,
+   resident and peak memory.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -175,6 +199,37 @@ INT4_SERVE_FP32_RECALL = 0.99
 # int4 at scale: MS MARCO v2 passage (138,364,198 passages), 53.1 GB of packed
 # rows at 768-d, which int8 (106 GB) cannot hold on one card.
 SCALE4_ROWS, SCALE4_QUERIES = 138_364_198, 1024
+# The trained IVF index. Data: the JAX package's IVF benchmark mixture
+# (bench.py:271-272), IVF_CENTRES N(0, 1) centres in 768-d, rows centre +
+# IVF_SIGMA * N(0, 1), made in MIX_UNIT-row units so any chunking gives the same
+# rows. K13 / K14 run on IVF1024 / IVFR1024 (512-row blocks), nprobe 32, trained
+# on IVF_TRAIN_ROWS rows; searches are timed over IVF_TIMED_SEARCHES calls after
+# the tuning call.
+IVF_CENTRES, IVF_SIGMA, MIX_UNIT = 4096, 0.5, 65_536
+IVF_NLIST, IVF_NPROBE, IVF_RAGGED_BLOCK, IVF_TRAIN_ROWS = 1024, 32, 512, 262_144
+IVF_TIMED_SEARCHES = 3
+# recall@100 of the bulk / i8q search against the certified flat search of the
+# same rows and dtype, per layout: about 3 points under the readings on the H100
+# (IVF1024 0.78526-0.78668, IVFR1024 0.93498-0.93840 over every body). Both lose
+# rows where the reference's J assumptions break (hot cells' rows in the side
+# slab, and for IVF J sized from a capacity the rows fill a quarter of); the JAX
+# package measured 0.64-0.69 for 4-centre cells of this mixture (BASELINE.md:345).
+IVF_RECALL = {"IVF": 0.76, "IVFR": 0.91}
+# The evaluation path into a trained index: 16 cells of the 8192 passages,
+# 4 probed. Kernels vs plain versions over the same reps take the int8 path's
+# bars; against the float32 flat ranking of the same model it read top-100
+# overlap 0.64334 / 0.64318 and metric gaps 0.3848 / 0.3828 (bulk / i8q, on the
+# H100): 4 of 16 cells over near-parallel random-weight reps. The bounds keep a
+# little room on that reading.
+EVAL_IVF_FACTORY, EVAL_IVF_NPROBE = "IVF16,SQ8", 4
+IVF_VS_PLAIN, IVF_PLAIN_METRIC_GAP = 0.999, 0.004
+IVF_VS_FP32, IVF_METRIC_GAP = 0.60, 0.42
+# Scale: MS MARCO passage's count from the mixture in IVFR256,SQ8, nprobe 8,
+# 2048-row blocks, add_chunks in 500,000-row chunks (bench.py:475-642). The
+# JAX package read recall@100 0.984 for this algorithm at the default J
+# (BASELINE.md:344); the port read 0.97900 (bulk) and 0.97204 (i8q) on the H100.
+SCALE_IVF_NLIST, SCALE_IVF_NPROBE, SCALE_IVF_BLOCK, SCALE_IVF_CHUNK = 256, 8, 2048, 500_000
+SCALE_IVF_RECALL = 0.95
 
 
 def log(msg):
@@ -763,10 +818,11 @@ def phase_quant(gen, quant, n_rows, dim=768):
             "bound_by": by}, (v, s)
 
 
-def rescore(q, corpus, ids, scales=None, query_dtype=None, int4=False):
+def rescore(q, corpus, ids, scales=None, query_dtype=None, int4=False, magnitude=False):
     """fp64 scores of rows ``ids`` [Q, m] under the kernels' formula: queries in
     the kernels' input type (bf16 for bf16 and int8 rows; given for int4 rows),
-    int8 rows and unpacked int4 rows times their scales."""
+    int8 rows and unpacked int4 rows times their scales. ``magnitude``: also
+    the sums of the terms' magnitudes, sum_d |q_d x_d|."""
     from denseretrievaltoolkits_torch.ops.quant import unpack_int4
 
     if query_dtype is None:
@@ -779,7 +835,8 @@ def rescore(q, corpus, ids, scales=None, query_dtype=None, int4=False):
     rows = rows.double()
     if scales is not None:
         rows = rows * scales[idx].double()[..., None]
-    return torch.einsum("qd,qkd->qk", qc, rows)
+    s = torch.einsum("qd,qkd->qk", qc, rows)
+    return (s, torch.einsum("qd,qkd->qk", qc.abs(), rows.abs())) if magnitude else s
 
 
 def against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None):
@@ -801,28 +858,41 @@ def against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None):
     return ok, rank_err.max().item(), rescored_err.max().item(), int((ids != ref_ids).sum())
 
 
-def blocks_against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None, chunk=64):
+def blocks_against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None, chunk=64,
+                         list_q=None, stored=None):
     """(ok, max rank err, max rescored err, ids differing) of per-block top-J
-    lists [Q, nb, J] against the plain version's: scores rank-wise within
+    lists [L, nb, J] against the plain version's: scores rank-wise within
     ``rel_tol``, each kernel id scoring its kernel score under the kernels'
-    formula (so an id may differ from the plain one only where the two tie),
-    empty slots alike, and no id twice in one list. Rescored ``chunk``
-    queries at a time (fp64 rows of every candidate); ``int4_query`` as in
-    ``against_plain``."""
+    formula within ``rel_tol`` of the magnitude of its terms (sum_d |q_d x_d|,
+    which bounds a sum's rounding where the terms cancel: a score near 0 is as
+    rounded as the partial sums it passed through), so an id may differ from
+    the plain one only where the two tie; empty slots alike, and no id twice
+    in one list. Lists ``a`` score query row ``list_q[a]`` of q (default row
+    a); ``stored`` [N] bool, where given, must hold for every id. Rescored
+    ``chunk`` lists at a time (fp64 rows of every candidate); ``int4_query``
+    as in ``against_plain``."""
     (vals, ids), (ref_vals, ref_ids) = got, want
     tol = rel_tol * ref_vals.abs().clamp(min=1.0)
     rank_err = torch.where(vals == ref_vals, 0.0, (vals - ref_vals).abs())
     own_err = torch.zeros_like(vals, dtype=torch.float64)
-    for a in range(0, ids.shape[0], chunk):
-        part = ids[a:a + chunk]
-        rescored = rescore(q[a:a + chunk], corpus, part.reshape(part.shape[0], -1), scales,
-                           int4_query, int4_query is not None).reshape(part.shape)
-        own_err[a:a + chunk] = torch.where(part >= 0, (rescored - vals[a:a + chunk].double()).abs(),
-                                           0.0)
+    own_ok = True
+    live = (ids >= 0).reshape(ids.shape[0], -1).any(1).nonzero().squeeze(1)  # lists with a row
+    for a in range(0, live.numel(), chunk):
+        at = live[a:a + chunk]
+        part = ids[at]
+        rescored, mag = rescore(q[at if list_q is None else list_q[at]], corpus,
+                                part.reshape(part.shape[0], -1), scales, int4_query,
+                                int4_query is not None, magnitude=True)
+        err = torch.where(part >= 0, (rescored.reshape(part.shape) - vals[at].double()).abs(),
+                          0.0)
+        own_ok = own_ok and bool((err <= rel_tol * mag.reshape(part.shape).clamp(min=1.0)).all())
+        own_err[at] = err
     srt = ids.sort(dim=-1).values
     repeated = ((srt[..., 1:] == srt[..., :-1]) & (srt[..., 1:] >= 0)).any()
-    ok = (bool((rank_err <= tol).all()) and bool((own_err <= tol.double()).all())
+    ok = (bool((rank_err <= tol).all()) and own_ok
           and bool(((ids < 0) == (ref_ids < 0)).all()) and not bool(repeated))
+    if stored is not None:
+        ok = ok and bool((stored[ids.clamp(min=0).long()] | (ids < 0)).all())
     return ok, rank_err.max().item(), own_err.max().item(), int((ids != ref_ids).sum())
 
 
@@ -1485,11 +1555,15 @@ def phase_eval_path(args, tmp):
         f"{args.k} overlap with the trainer's int4 exact ranking {vs_cli:.5f} (>= 0.999)")
     check(sum(map(len, cli.values())) == args.queries * args.k, "retrieval.main: ranking length")
     check(vs_cli >= 0.999, "retrieval.main --index_dtype int4 disagrees with the trainer")
-    del trainer, model, reps, index
+    del reps, index
+    trainer.index = None
     torch.cuda.empty_cache()
+    # the trained model and its float32 ranking, for the IVF evaluation path
+    ctx = {"trainer": trainer, "targs": targs, "query_loader": query_loader, "q_path": q_path,
+           "float32_metrics": fm, "float32_ranked": franked}
     return {"launches": launches, "modes": summary, "float32_metrics": fm,
             "score_spread": spread, "int4_score_error": int4_err, "reps_cosine": cos,
-            "reloaded_bit_equal": reloaded, "cli_overlap": vs_cli}
+            "reloaded_bit_equal": reloaded, "cli_overlap": vs_cli}, ctx
 
 
 def _metrics_of(targs, ep):
@@ -1540,6 +1614,422 @@ def phase_scale4(gen, flat, n_queries, k=100, dim=768):
             "resident_gib": resident_gib, "peak_gib": peak_gib}
 
 
+# -- the trained IVF index: K13 and K14 ------------------------------------------------------------
+
+
+def mixture(seed, dim=768):
+    """The JAX package's IVF benchmark data (bench.py:271-272, 316-350) made on
+    the card: IVF_CENTRES N(0, 1) centres and rows ``centre + IVF_SIGMA * N(0,
+    1)``. Returns ``rows(start, n, stream=0)``: rows are made in MIX_UNIT-row
+    units, each from its own generator, so a row's value does not depend on
+    the chunking; stream 1 holds the queries."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.randn(IVF_CENTRES, dim, generator=g, device="cuda")
+
+    def rows(start, n, stream=0):
+        out = torch.empty(n, dim, device="cuda")
+        for u in range(start // MIX_UNIT, -(-(start + n) // MIX_UNIT)):
+            gu = torch.Generator(device="cuda").manual_seed(
+                (seed * 1_000_003 + stream) * 1_000_003 + u)
+            which = torch.randint(0, IVF_CENTRES, (MIX_UNIT,), generator=gu, device="cuda")
+            unit = centres[which] + IVF_SIGMA * torch.randn(MIX_UNIT, dim, generator=gu,
+                                                            device="cuda")
+            lo, hi = max(start, u * MIX_UNIT), min(start + n, (u + 1) * MIX_UNIT)
+            out[lo - start:hi - start] = unit[lo - u * MIX_UNIT:hi - u * MIX_UNIT]
+        return out
+
+    return rows
+
+
+def ivf_cell_call(ivf_bulk, idx, q, k, mode):
+    """The cell kernel call of ``idx``'s last bulk search of q (its learned
+    Qcap, hot set and the index's own plan), the same call on the plain
+    version, the query row of each of its lists and the work it does."""
+    nlist, state = idx.nlist, idx._bulk_state
+    qcap = state["qcap"]
+    qd, B0 = idx._pad_queries(q)
+    ps = ivf_bulk.probe_slab(qd, idx.centroids, idx._values.dtype, nlist,
+                             min(idx.nprobe, nlist - int(state["hot"].size)), qcap,
+                             state["hp"], B0, mode == "i8q")
+    dim = idx.dim
+    values = idx._values.reshape(-1, dim)
+    row_ids = idx._row_ids.reshape(-1)
+    scales = None if idx._scales is None else idx._scales.reshape(-1)
+    block, sel, J = idx._cell_plan(qcap, k)
+    if idx._values.dim() == 3:  # the fixed-capacity layout, K13
+        block_cell, cell_blocks = None, int(idx._values.shape[1]) // block
+
+        def kernel():
+            return ivf_bulk.cell_topj(ps.qslab, idx._values, idx._row_ids, idx._scales, J, block,
+                                      sel, ps.qscales)
+        block_of = torch.arange(values.shape[0] // block, device="cuda") // cell_blocks
+    else:  # the ragged layout, K14
+        block_cell, cell_blocks = idx._block_cell, 1
+
+        def kernel():
+            return ivf_bulk.ragged_topj(idx._block_cell, ps.qslab, idx._values, idx._row_ids,
+                                        idx._scales, J, block, sel, ps.qscales)
+        block_of = idx._block_cell.long()
+
+    def plain():
+        return ivf_bulk._ivf_topj_reference(ps.qslab, values, row_ids, scales, ps.qscales,
+                                            block_cell, cell_blocks, J, block, sel)
+    per = -(-block // sel)
+    # list (selection block sb, slot s) scores query row cell(sb) * Qcap + s of the slab
+    list_q = ((block_of.repeat_interleave(per) * qcap)[:, None]
+              + torch.arange(qcap, device="cuda")).reshape(-1)
+    # the work this data needs: each probed cell's real query slots x its stored rows (a
+    # cell's rows fill its first slots, so ceil(rows / sel) selection lists per slot),
+    # inputs read once, outputs written once
+    slots = torch.bincount(ps.sc[ps.in_cap], minlength=nlist).double()
+    rows = torch.bincount(block_of.repeat_interleave(block)[row_ids >= 0], minlength=nlist)
+    rows = rows.double() * (slots > 0)
+    row_bytes = dim * values.element_size() + 4 + (0 if scales is None else 4)
+    slot_bytes = dim * ps.qslab.element_size() + (0 if ps.qscales is None else 4)
+    lists = float((slots * torch.ceil(rows / sel)).sum())
+    n_bytes = (float(rows.sum()) * row_bytes + float(slots.sum()) * slot_bytes
+               + (0 if block_cell is None else 4 * block_cell.numel()) + 8 * J * lists)
+    # the launched shape: every slot of every cell against every row of the layout
+    n_sel = values.shape[0] // block * per
+    launched_bytes = (ps.qslab.numel() * ps.qslab.element_size() + values.shape[0] * row_bytes
+                      + (0 if ps.qscales is None else 4 * ps.qscales.numel())
+                      + (0 if block_cell is None else 4 * block_cell.numel())
+                      + 8 * n_sel * qcap * J)
+    kind = "int8" if mode == "i8q" else ("fp32" if idx.dtype == "float32" else "bf16")
+    return {"kernel": kernel, "plain": plain, "ps": ps, "values": values, "row_ids": row_ids,
+            "scales": scales, "list_q": list_q, "block": block, "sel": sel, "J": J,
+            "bound": bound(n_bytes, 2 * dim * float((slots * rows).sum()), kind),
+            "launched_bound": bound(launched_bytes, 2 * dim * values.shape[0] * qcap, kind)}
+
+
+def phase_ivf_kernels(seed, flat, ivf, ivf_bulk, n_rows, n_queries=2048, k=100, dim=768):
+    """K13 and K14 through the entry points, and block by block against their
+    plain versions: IVF1024 (fixed capacity) and IVFR1024 (ragged, 512-row
+    blocks) over n_rows rows of the seeded mixture, trained on IVF_TRAIN_ROWS,
+    nprobe 32, k=100; fp32, bf16 and int8 cells in bulk, int8 in i8q. Recall
+    against the certified flat search of the same rows and dtype. Then
+    ``PCAR384,SQ4`` (at 768-d) through train and add_chunks."""
+    rows = mixture(seed, dim)
+    x = rows(0, n_rows)
+    q = rows(0, n_queries, stream=1).cpu().numpy()
+    t0 = time.perf_counter()
+    trained = ivf.IVFFlatIndex(dim, nlist=IVF_NLIST, nprobe=IVF_NPROBE, device="cuda")
+    trained.train(x[:IVF_TRAIN_ROWS])  # the first rows: i.i.d. draws of the mixture
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    exact = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        ref = flat.FlatIPIndex(dim, dtype=dtype, device="cuda")
+        ref.add_device(x)
+        exact[dtype] = ref.search(q, k, mode="exact")[1]
+        del ref
+    fp32_exact = exact["float32"]
+    log(f"IVF kernels: {n_rows} x {dim} rows of a {IVF_CENTRES}-centre mixture (sigma "
+        f"{IVF_SIGMA}), {n_queries} queries, k={k}; k-means of {IVF_NLIST} cells on "
+        f"{IVF_TRAIN_ROWS} rows in {train_s:.1f} s")
+    out = {"train_s": train_s}
+    counters = ("launches", "launches_int8", "launches_i8q")
+    for layout, cls, fn in (("IVF", ivf.IVFFlatIndex, ivf_bulk.cell_topj),
+                            ("IVFR", ivf.IVFRaggedIndex, ivf_bulk.ragged_topj)):
+        for dtype, mode in (("float32", "bulk"), ("bfloat16", "bulk"), ("int8", "bulk"),
+                            ("int8", "i8q")):
+            name = f"{layout}{IVF_NLIST} {dtype} {mode}"
+            kw = {"block": IVF_RAGGED_BLOCK} if layout == "IVFR" else {}
+            if mode == "bulk":
+                idx = cls(dim, nlist=IVF_NLIST, nprobe=IVF_NPROBE, dtype=dtype, device="cuda",
+                          **kw)
+                idx.centroids = trained.centroids
+                t0 = time.perf_counter()
+                idx.add_device(x)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+            for c in counters:
+                setattr(fn, c, 0)
+            idx.search(q, k, mode=mode)  # the tuning call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(IVF_TIMED_SEARCHES):
+                _, ids = idx.search(q, k, mode=mode)
+            qps = IVF_TIMED_SEARCHES * n_queries / (time.perf_counter() - t0)
+            launches = {c: getattr(fn, c) for c in counters}
+            body = "launches_i8q" if mode == "i8q" else (
+                "launches_int8" if dtype == "int8" else "launches")
+            check(launches[body] > 0, f"{name}: the cell kernel never launched")
+            recall = overlap(ids.tolist(), exact[dtype].tolist())
+            call = ivf_cell_call(ivf_bulk, idx, q, k, mode)
+            got, want = call["kernel"](), call["plain"]()
+            if mode == "i8q":  # s32 products: bit-equal
+                ok = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+                err = (0.0, 0.0, int((got[1] != want[1]).sum()))
+            else:
+                # each list (selection block, slot) against its slot of its cell's slab
+                n_lists, J = got[0].shape[0] * got[0].shape[1], got[0].shape[2]
+                ok, *err = blocks_against_plain(
+                    call["ps"].qslab.reshape(-1, dim), call["values"], call["scales"],
+                    tuple(t.reshape(n_lists, 1, J) for t in got),
+                    tuple(t.reshape(n_lists, 1, J) for t in want),
+                    1e-5 if dtype == "float32" else 1e-4, chunk=8192, list_q=call["list_q"],
+                    stored=call["row_ids"] >= 0)
+            fin = want[1] >= 0
+            max_abs = float((got[0] - want[0]).abs()[fin].max()) if fin.any() else 0.0
+            ms, plain_ms = cuda_ms(call["kernel"]), cuda_ms(call["plain"], iters=2)
+            state = idx._bulk_state
+            out[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs,
+                         "bound_ms": call["bound"][0], "bound_by": call["bound"][1],
+                         "launched_bound_ms": call["launched_bound"][0],
+                         "queries_per_s": qps, "recall": recall,
+                         "recall_vs_fp32": overlap(ids.tolist(), fp32_exact.tolist()),
+                         "qcap": state["qcap"], "hot": int(state["hot"].size),
+                         "side_rows": state["side"][3], "dropped": idx.last_dropped,
+                         "block": call["block"], "sel": call["sel"], "J": call["J"],
+                         "launches": launches[body], "build_s": build_s}
+            log(f"{name}: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (bound "
+                f"{call['bound'][0]:.3f} ms by {call['bound'][1]}; {call['launched_bound'][0]:.3f}"
+                f" ms at the launched shape), block {call['block']} in selection blocks of "
+                f"{call['sel']}, J={call['J']}; rank err {err[0]:.3g}, rescored err {err[1]:.3g}, "
+                f"{err[2]} ids differing; {qps:.1f} queries/s; recall@{k} vs exact {dtype} "
+                f"{recall:.5f} (vs fp32 {out[name]['recall_vs_fp32']:.5f}); Qcap {state['qcap']}, "
+                f"{state['hot'].size} hot cells, side slab {state['side'][3]} rows, "
+                f"{idx.last_dropped} pairs dropped; built in {build_s:.2f} s")
+            check(ok, f"{name}: the cell kernel disagrees with its plain version")
+            check(recall >= IVF_RECALL[layout],
+                  f"{name}: recall@{k} below {IVF_RECALL[layout]}")
+            if mode == "i8q" or dtype != "int8":
+                del idx
+                torch.cuda.empty_cache()
+    del trained
+    # PCAR{dim/2},SQ4: the transform and the int4 rows (K9 / K10) through add_chunks
+    spec = f"PCAR{dim // 2},SQ4"
+    t0 = time.perf_counter()
+    pcar = flat.index_factory(dim, spec, device="cuda")
+    pcar.train(x[:IVF_TRAIN_ROWS])
+    pcar.add_chunks(lambda s, r: x[s:s + r], n_rows, chunk_rows=SLAB_ROWS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s, ids = pcar.search(q, k)
+    recall = overlap(ids.tolist(), fp32_exact.tolist())
+    log(f"{spec}: built in {build_s:.2f} s through train + add_chunks; exact search "
+        f"recall@{k} vs the fp32 flat exact {recall:.5f}")
+    check(np.isfinite(s).all() and ids.shape == (n_queries, k) and (ids >= 0).all(),
+          f"{spec}: search output")
+    out[spec] = {"build_s": build_s, "recall_vs_fp32": recall}
+    del pcar, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ivf_eval_path(args, tmp, ctx):
+    """The evaluation path into a trained index: the evaluation phase's
+    bert-base, ``Trainer.evaluate`` with ``index_factory`` EVAL_IVF_FACTORY
+    (nprobe EVAL_IVF_NPROBE) in bulk, then i8q on the same index. It encodes
+    (K1, K2), spills the reps to the memmap, trains k-means, builds through
+    add_chunks (K7) and searches on K13, the side slab on K8 / K12. The plain
+    versions over the same reps must agree; the ranking is compared with the
+    float32 one of the same model; ``retrieval.main --index_path`` on the
+    saved index must rank as the trainer did."""
+    from denseretrievaltoolkits_torch.evaluator import retrieval
+    from denseretrievaltoolkits_torch.index import ivf
+    from denseretrievaltoolkits_torch.ops import attn, ivf_bulk, quant, topk
+
+    trainer, targs, query_loader = ctx["trainer"], ctx["targs"], ctx["query_loader"]
+    targs.index_factory, targs.nprobe = EVAL_IVF_FACTORY, EVAL_IVF_NPROBE
+    ep = 201
+    counted = {"fused_attention_ln": (attn.fused_attention_ln, "launches"),
+               "fused_mlp_ln": (attn.fused_mlp_ln, "launches"),
+               "quantize_int8_device": (quant.quantize_int8_device, "launches"),
+               "cell_topj (K13 int8)": (ivf_bulk.cell_topj, "launches_int8"),
+               "cell_topj (K13 i8q)": (ivf_bulk.cell_topj, "launches_i8q"),
+               "block_topj_serve": (topk.block_topj_serve, "launches"),
+               "block_topj_i8q": (topk.block_topj_i8q, "launches")}
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    runs = {}
+    for mode in ("bulk", "i8q"):
+        targs.search_mode = mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.evaluate(query_loader, ep)  # bulk encodes, trains and builds first
+        torch.cuda.synchronize()
+        runs[mode] = (m, *read_dump(targs, ep), time.perf_counter() - t0)
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+    index = trainer.index
+    state = index._bulk_state
+    side_rows = state["side"][3]
+    n_ovf = 0 if index._ovf_ids is None else int(index._ovf_ids.numel())
+    log(f"IVF evaluation path: {EVAL_IVF_FACTORY}, nprobe {EVAL_IVF_NPROBE}, {len(index)} "
+        f"passages in cells of C={index._values.shape[1]}; Qcap {state['qcap']}, hot cells "
+        f"{state['hot'].tolist()}, overflow {n_ovf} rows, side slab {side_rows} rows; launches "
+        f"{json.dumps(launches)}")
+    for name in ("fused_attention_ln", "fused_mlp_ln", "quantize_int8_device",
+                 "cell_topj (K13 int8)", "cell_topj (K13 i8q)"):
+        check(launches[name] > 0, f"IVF evaluation path: {name} never launched")
+    if side_rows:
+        check(launches["block_topj_serve"] > 0 and launches["block_topj_i8q"] > 0,
+              "IVF evaluation path: the side slab was not scanned by K8 / K12")
+    for mode, (m, ranked, n_rows, secs) in runs.items():
+        built = " (encode, train and build included)" if mode == "bulk" else ""
+        log(f"IVF {mode}: {secs:.2f} s{built}; dump {n_rows} rows; metrics "
+            f"{json.dumps({k: round(v, 5) for k, v in m.items()})}")
+        check(m["query_num"] == args.queries and all(math.isfinite(v) for v in m.values()),
+              f"IVF {mode}: metrics")
+        check(len(ranked) == args.queries and n_rows >= 0.99 * args.queries * args.k,
+              f"IVF {mode}: retrieval dump length")
+
+    # the plain versions of K7, K13, K8 and K12 over the same reps: the index
+    # rebuilt from the spilled corpus on the same centroids, searched by the
+    # same evaluate
+    reps = torch.from_numpy(np.load(os.path.join(targs.encode_corpus_dir, f"{ep}.0.npy"))).cuda()
+    plain = {ivf: {"quantize_int8_device": quant._quantize_int8_reference},
+             quant: {"quantize_int8_device": quant._quantize_int8_reference},
+             ivf_bulk: {"_launch": lambda wrapper, *a: ivf_bulk._ivf_topj_reference(*a),
+                        "block_topj_serve": topk._block_topj_serve_reference,
+                        "block_topj_i8q": topk._block_topj_i8q_reference}}
+    summary = {}
+    with plain_versions_of(plain):
+        plain_index = ivf.IVFFlatIndex(reps.shape[1], nlist=index.nlist, nprobe=index.nprobe,
+                                       dtype="int8", device="cuda")
+        plain_index.centroids = index.centroids
+        plain_index.add_chunks(lambda s, r: reps[s:s + r], reps.shape[0],
+                               chunk_rows=max(1, min(reps.shape[0], targs.index_slab_rows)))
+        same_layout = all(torch.equal(getattr(plain_index, a), getattr(index, a))
+                          for a in ("_values", "_scales", "_row_ids"))
+        plain_index.docid = index.docid
+        trainer.index, trainer._indexed_ep = plain_index, ep + 100
+        for mode in ("bulk", "i8q"):
+            targs.search_mode = mode
+            m = trainer.evaluate(query_loader, ep + 100)
+            ranked = read_dump(targs, ep + 100)[0]
+            km, kranked = runs[mode][0], runs[mode][1]
+            vs_plain = overlap([kranked[q] for q in sorted(kranked)],
+                               [ranked[q] for q in sorted(kranked)])
+            gap = max(abs(km[x] - m[x]) for x in m if x != "query_num")
+            log(f"IVF {mode}, kernels vs plain versions over the same reps: top-{args.k} overlap "
+                f"{vs_plain:.5f} (>= {IVF_VS_PLAIN}), largest metric gap {gap:.4f} (<= "
+                f"{IVF_PLAIN_METRIC_GAP})")
+            check(vs_plain >= IVF_VS_PLAIN and gap <= IVF_PLAIN_METRIC_GAP,
+                  f"IVF {mode}: the kernels disagree with their plain versions")
+            summary[mode] = {"metrics": km, "seconds": runs[mode][3],
+                             "overlap_vs_plain": vs_plain, "metric_gap_vs_plain": gap}
+    log(f"plain K7 through add_chunks: the same cells, row ids and scales: {same_layout}")
+    check(same_layout, "the plain K7 builds another IVF layout than K7")
+    del plain_index, reps
+
+    # against the float32 flat ranking of the same model (the evaluation phase's)
+    fm, franked = ctx["float32_metrics"], ctx["float32_ranked"]
+    for mode in ("bulk", "i8q"):
+        kranked, km = runs[mode][1], runs[mode][0]
+        vs_fp32 = overlap([kranked[q] for q in sorted(kranked)],
+                          [franked[q] for q in sorted(kranked)])
+        gap = max(abs(km[x] - fm[x]) for x in fm if x != "query_num")
+        log(f"IVF {mode} vs the float32 flat exact ranking: top-{args.k} overlap {vs_fp32:.5f} "
+            f"(>= {IVF_VS_FP32}), largest metric gap {gap:.4f} (<= {IVF_METRIC_GAP})")
+        summary[mode].update(overlap_vs_fp32=vs_fp32, metric_gap_vs_fp32=gap)
+    for mode in ("bulk", "i8q"):
+        check(summary[mode]["overlap_vs_fp32"] >= IVF_VS_FP32,
+              f"IVF {mode}: ranking too far from float32 exact")
+        check(summary[mode]["metric_gap_vs_fp32"] <= IVF_METRIC_GAP,
+              f"IVF {mode}: metrics too far from float32 exact")
+
+    # the retrieval CLI on the saved index, in the trainer's query batches
+    out = os.path.join(tmp, "ranking_ivf_cli.tsv")
+    retrieval.main(["--index_path", targs.index_file + str(ep), "--query_reps", ctx["q_path"],
+                    "--search_mode", "bulk", "--depth", str(args.k), "--batch_size",
+                    str(args.batch), "--save_ranking_to", out, "--save_text"])
+    cli = {}
+    with open(out) as fh:
+        for line in fh:
+            qid, did, _ = line.split("\t")
+            cli.setdefault(qid, []).append(did)
+    kranked = runs["bulk"][1]
+    vs_cli = overlap([kranked[q] for q in sorted(kranked)], [cli[q] for q in sorted(kranked)])
+    log(f"retrieval.main --index_path <IVF index> --search_mode bulk: "
+        f"{sum(map(len, cli.values()))} ranking lines; top-{args.k} overlap with the trainer's "
+        f"bulk ranking {vs_cli:.5f} (>= 0.999)")
+    check(vs_cli >= 0.999, "retrieval.main on the saved IVF index disagrees with the trainer")
+    trainer.index = None
+    torch.cuda.empty_cache()
+    return {"launches": launches, "modes": summary, "qcap": state["qcap"],
+            "hot": state["hot"].tolist(), "overflow_rows": n_ovf, "side_rows": side_rows,
+            "cli_overlap": vs_cli}
+
+
+def phase_ivf_scale(seed, flat, ivf_bulk, n_queries=2048, k=100, dim=768):
+    """MS MARCO passage's row count from the mixture in ``IVFR256,SQ8`` (nprobe
+    8, 2048-row blocks: the JAX package's IVF benchmark, bench.py:475-642),
+    trained on IVF_TRAIN_ROWS rows and built by add_chunks in 500,000-row
+    chunks; bulk and i8q at steady state after the tuning call, recall
+    against the certified search of a flat int8 index over the same rows."""
+    rows = mixture(seed, dim)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    index = flat.index_factory(dim, f"IVFR{SCALE_IVF_NLIST},SQ8", nprobe=SCALE_IVF_NPROBE,
+                               device="cuda")
+    index.block = SCALE_IVF_BLOCK
+    index.train(rows(0, IVF_TRAIN_ROWS))  # the first rows: i.i.d. draws of the mixture
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.add_chunks(rows, SCALE_ROWS, chunk_rows=SCALE_IVF_CHUNK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ivf_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    t0 = time.perf_counter()
+    ref = flat.FlatIPIndex(dim, dtype="int8", device="cuda")
+    for start in range(0, SCALE_ROWS, SLAB_ROWS):
+        ref.add_device(rows(start, min(SLAB_ROWS, SCALE_ROWS - start)))
+    torch.cuda.synchronize()
+    ref_build_s = time.perf_counter() - t0
+    resident_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    q = rows(0, n_queries, stream=1).cpu().numpy()
+    exact = ref.search(q, k, mode="exact")[1]
+    counters = ("launches_int8", "launches_i8q")
+    res = {}
+    for mode in ("bulk", "i8q"):
+        for c in counters:
+            setattr(ivf_bulk.ragged_topj, c, 0)
+        _, ids = index.search(q, k, mode=mode)  # the tuning call
+        state = index._bulk_state
+        tuned = {"qcap": state["qcap"], "hot": state["hot"].tolist(),
+                 "side_rows": state["side"][3], "dropped": index.last_dropped}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IVF_TIMED_SEARCHES):
+            _, ids = index.search(q, k, mode=mode)
+        secs = (time.perf_counter() - t0) / IVF_TIMED_SEARCHES
+        launches = {c: getattr(ivf_bulk.ragged_topj, c) for c in counters}
+        recall = overlap(ids.tolist(), exact.tolist())
+        call = ivf_cell_call(ivf_bulk, index, q, k, mode)
+        kernel_ms = cuda_ms(call["kernel"], iters=3)
+        res[mode] = dict(tuned, seconds=secs, queries_per_s=n_queries / secs, recall=recall,
+                         launches=launches["launches_i8q" if mode == "i8q" else "launches_int8"],
+                         steady_dropped=index.last_dropped, kernel_ms=kernel_ms,
+                         bound_ms=call["bound"][0], J=call["J"])
+        log(f"scale IVF {mode}: {n_queries} queries k={k} in {secs:.4f} s ({n_queries / secs:.1f} "
+            f"queries/s), of which K14 {kernel_ms:.3f} ms (J={call['J']}, bound "
+            f"{call['bound'][0]:.3f} ms by {call['bound'][1]}, "
+            f"{call['launched_bound'][0]:.3f} ms at the launched shape); recall@{k} vs the "
+            f"certified int8 flat search {recall:.5f} (>= "
+            f"{SCALE_IVF_RECALL}); Qcap {tuned['qcap']}, hot cells {tuned['hot']}, side slab "
+            f"{tuned['side_rows']} rows, pairs dropped {tuned['dropped']} (tuning) / "
+            f"{index.last_dropped} (steady); K14 launches {json.dumps(launches)}")
+        check(res[mode]["launches"] > 0, f"scale IVF {mode}: K14 never launched")
+        check(recall >= SCALE_IVF_RECALL, f"scale IVF {mode}: recall@{k} below its bound")
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    pad = index._block_cell.numel() * index.block / SCALE_ROWS - 1
+    log(f"scale IVF: {SCALE_ROWS} x {dim} rows in IVFR{SCALE_IVF_NLIST},SQ8 (block "
+        f"{index.block}, {index._block_cell.numel()} blocks, padding {pad:.4f}, largest cell "
+        f"{index._nb_max} blocks): k-means {train_s:.1f} s, add_chunks {build_s:.1f} s in "
+        f"{SCALE_IVF_CHUNK}-row chunks, {ivf_gib:.2f} GiB; with the flat int8 reference (built in "
+        f"{ref_build_s:.1f} s) {resident_gib:.2f} GiB resident, peak {peak_gib:.2f} GiB")
+    del index, ref
+    torch.cuda.empty_cache()
+    return {"rows": SCALE_ROWS, "train_s": train_s, "build_s": build_s, "ivf_gib": ivf_gib,
+            "resident_gib": resident_gib, "peak_gib": peak_gib, "padding": pad, "modes": res}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1556,9 +2046,9 @@ def main(argv=None):
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from denseretrievaltoolkits_torch.index import flat
+    from denseretrievaltoolkits_torch.index import flat, ivf
     from denseretrievaltoolkits_torch.index.flat import blockwise_topk
-    from denseretrievaltoolkits_torch.ops import _native, attn, contrastive, quant, topk
+    from denseretrievaltoolkits_torch.ops import _native, attn, contrastive, ivf_bulk, quant, topk
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain versions score in true fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1582,14 +2072,18 @@ def main(argv=None):
     int4_topk = phase_int4_topk(gen, topk, quant, blockwise_topk, x_int4)
     del x_int4
     torch.cuda.empty_cache()
+    ivf_kernels = phase_ivf_kernels(args.seed + 7, flat, ivf, ivf_bulk, args.corpus_rows)
     with tempfile.TemporaryDirectory() as tmp:
         main_path, kern = phase_main_path(args, tmp)
         int8_path = phase_int8_path(args, tmp, kern)
         del kern
         train = phase_train(args, tmp)
-        eval_path = phase_eval_path(args, tmp)
+        eval_path, ctx = phase_eval_path(args, tmp)
+        ivf_eval = phase_ivf_eval_path(args, tmp, ctx)
+        del ctx
     scale = phase_scale(gen, flat, topk, SCALE_QUERIES)
     scale4 = phase_scale4(gen, flat, SCALE4_QUERIES)
+    ivf_scale = phase_ivf_scale(args.seed + 11, flat, ivf_bulk)
 
     src = "denseretrievaltoolkits_torch/csrc/"
     rows = [
@@ -1656,6 +2150,29 @@ def main(argv=None):
                         "launches": eval_path["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    # the IVF cell kernels: times at the 1M-row phase, one row per body; launches on
+    # the path that runs the body (the 1M-row searches for fp32 / bf16 cells, the
+    # evaluation path for K13's int8 bodies, the 8.8M-row phase for K14's)
+    for name, line, layout, body, launches in (
+            ("cell_topj (K13, fp32 cells)", 44, "IVF", "float32 bulk", None),
+            ("cell_topj (K13, bf16 cells)", 44, "IVF", "bfloat16 bulk", None),
+            ("cell_topj (K13, int8 cells)", 61, "IVF", "int8 bulk",
+             ivf_eval["launches"]["cell_topj (K13 int8)"]),
+            ("cell_topj (K13, i8q)", 143, "IVF", "int8 i8q",
+             ivf_eval["launches"]["cell_topj (K13 i8q)"]),
+            ("ragged_topj (K14, fp32 cells)", 165, "IVFR", "float32 bulk", None),
+            ("ragged_topj (K14, bf16 cells)", 165, "IVFR", "bfloat16 bulk", None),
+            ("ragged_topj (K14, int8 cells)", 184, "IVFR", "int8 bulk",
+             ivf_scale["modes"]["bulk"]["launches"]),
+            ("ragged_topj (K14, i8q)", 202, "IVFR", "int8 i8q",
+             ivf_scale["modes"]["i8q"]["launches"])):
+        r = ivf_kernels[f"{layout}{IVF_NLIST} {body}"]
+        kernels.append({"name": name, "route": "cuda", "source": src + "block_topj.cu",
+                        "replaces": f"denseretrievaltoolkits_tpu/ops/ivf_bulk.py:{line}",
+                        "launches": r["launches"] if launches is None else launches,
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                        "launched_bound_ms": r["launched_bound_ms"]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -1663,7 +2180,8 @@ def main(argv=None):
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
-                       "eval_path": eval_path, "scale4": scale4, "kernels": kernels}, fh,
+                       "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,
+                       "ivf_eval": ivf_eval, "ivf_scale": ivf_scale, "kernels": kernels}, fh,
                       indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

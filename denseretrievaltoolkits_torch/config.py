@@ -327,8 +327,10 @@ class TrainingArguments:
                   "(K5 candidates without the certificate, fp32/bf16 only) | "
                   "i8q (K7-quantized queries on the s8 tensor-core kernel "
                   "K12, int8/int4 only) | approx (per-dtype alias: fp32/bf16->"
-                  "partial, int8/int4->i8q) | bulk/probe (IVF factory indexes, "
-                  "not ported yet). Contract table: index/modes.py"},
+                  "partial, int8/int4->i8q). IVF factory indexes: bulk (K13 / "
+                  "K14 cell-major search) | probe (per-query gathered cells) | "
+                  "i8q (bulk with int8 queries, int8 cells) | approx | exact. "
+                  "Contract table: index/modes.py"},
     )
     profile_dir: Optional[str] = field(
         default=None, metadata={"help": "If set, write a torch.profiler trace of a train step here"}

@@ -16,6 +16,21 @@
 //       int4 rows, fp32 queries, true-fp32 scores times the row scale;
 //   K11 `_block_topj_kernel_packed_sq4` (:166, `_pallas_block_topj_packed_sq4`, :445): the
 //       serve selection over int4 rows, bf16 queries.
+// and these of denseretrievaltoolkits_tpu/ops/ivf_bulk.py (the IVF cell kernels, all with
+// the serve selection):
+//   K13 `_cell_topj_kernel` / `_scaled` / `_i8q` (:44, :61, :143; `_ivf_cell_topj`, :122):
+//       per (cell, cell block) the cell's probing-query slab [Qcap, H] against the block's
+//       rows of the fixed-capacity layout [nlist * C, H], empty slots (row id < 0) masked;
+//   K14 `_ragged_kernel` / `_scaled` / `_i8q` (:165, :184, :202; `_ivf_ragged_topj`,
+//       :272): the same over the ragged padded-flat block list, whose block -> cell map
+//       picks the slab.
+// The IVF kernels are this family with a per-block query base: a block reads its cell
+// (block_cell[blk] for K14, blk / blocks-per-cell for K13; the TPU scalar-prefetches it)
+// and stages its tile of that cell's slots, and the row mask reads the row ids. Their
+// selection block may be narrower than the storage block: where the reference's Poisson
+// J exceeds JMAX, the wrapper halves the selection block (never across a cell) until it
+// fits, and a block then writes one list per selection block. Ids are flat row positions
+// in the cell layout; the output is cell-major [n_selection_blocks, Qcap, J].
 // int4 rows are nibble-packed [N, H/2] in the column-half layout of ops/quant.py (K9):
 // byte j of a row holds dim j in its low nibble and dim j + H/2 in its high nibble. The
 // TPU scores them as two half-dim products; here the rows are unpacked while they are
@@ -249,13 +264,15 @@ struct Lists {
     else
       merge_subtile(sc, base, lv() + qi * JMAX, li() + qi * JMAX, J, lane);
   }
-  // lists of the n queries q0.. -> out[Q, n_blocks, J]
-  __device__ void write(int q0, int Q, int blk, int n_blocks, int J, float* out_v,
+  // lists of the n queries q0.. of selection block sb -> out[Q, n_sel, J], or
+  // cell-major out[n_sel, Q, J]
+  __device__ void write(int q0, int Q, int sb, int n_sel, int J, bool cell_major, float* out_v,
                         int* out_i) const {
     for (int idx = threadIdx.x; idx < n * J; idx += NT) {
       const int r = idx / J, j = idx - r * J;
       if (q0 + r >= Q) continue;
-      const size_t o = ((size_t)(q0 + r) * n_blocks + blk) * J + j;
+      const size_t o = cell_major ? ((size_t)sb * Q + q0 + r) * J + j
+                                  : ((size_t)(q0 + r) * n_sel + sb) * J + j;
       if constexpr (SERVE) {
         const u64 k = lk()[r * JMAX + j];
         out_v[o] = k == 0ull ? -INFINITY : key_score(k);
@@ -269,11 +286,32 @@ struct Lists {
   }
 };
 
+// Where a block's rows and queries come from. The flat family: one query matrix, rows
+// < n_valid, selection block = storage block. The IVF kernels (row_ids set): the queries
+// of the block's cell, rows whose id is >= 0, selection blocks of `sel` rows.
+struct Cells {
+  const int* row_ids;     // IVF: [N] flat row -> corpus id, -1 = empty; null: flat family
+  const int* block_cell;  // K14: [n_blocks] storage block -> cell; null: blk / cell_blocks
+  int cell_blocks;        // K13: storage blocks per cell
+  int sel;                // rows per selection block (the storage block for the flat family)
+  int n_sel;              // selection blocks in all (the output's block extent)
+};
+
+// the cell of storage block blk, whose slab of Q query slots the block scores (0 for the
+// flat family's one query matrix)
+__device__ __forceinline__ size_t cell_of(const Cells& cells, int blk) {
+  if (cells.row_ids == nullptr) return 0;
+  return cells.block_cell != nullptr ? __ldg(cells.block_cell + blk) : blk / cells.cell_blocks;
+}
+
 // a sub-tile score: the product, x the row scale, x the query scale (the reference's
-// order), or -inf for a masked row
+// order), or -inf for a masked row (past n_valid or the selection block, or an empty IVF
+// slot)
 __device__ __forceinline__ float epilogue(float acc, int row, int q, int n_valid, int row_end,
-                                          const float* cscale, const float* qscale) {
+                                          const float* cscale, const float* qscale,
+                                          const int* row_ids) {
   if (row >= n_valid || row >= row_end) return -INFINITY;
+  if (row_ids != nullptr && __ldg(row_ids + row) < 0) return -INFINITY;
   float v = acc;
   if (cscale != nullptr) v *= __ldg(cscale + row);
   if (qscale != nullptr) v *= __ldg(qscale + q);
@@ -302,7 +340,7 @@ __global__ void __launch_bounds__(NT)
 block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
                       const float* __restrict__ cscale, const float* __restrict__ qscale,
                       float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
-                      int n_valid, int block, int J) {
+                      int n_valid, int block, int J, Cells cells) {
   using ME = MmaT<QT>;
   constexpr bool INT8 = std::is_same_v<QT, i8>;
   constexpr bool NIB = std::is_same_v<CT, nib>;
@@ -327,7 +365,12 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
   const int g = lane >> 2, t = lane & 3;
   const int mt = warp & 3;           // this warp's m16 tile of queries
   const int nb = (warp >> 2) * 8;    // and its eight n8 tiles of the sub-tile's rows
-  const int row_end = min(N, (blk + 1) * block);
+  const int blk_start = blk * block;
+  const int row_end = min(N, blk_start + block);
+  const int per = (block + cells.sel - 1) / cells.sel;  // selection blocks per storage block
+  const size_t cell = cell_of(cells, blk);
+  q += cell * Q * H;
+  if (qscale != nullptr) qscale += cell * Q;
 
   const int qrow_chunks = H * (int)sizeof(QT) / 16;
   for (int idx = tid; idx < MQ * qrow_chunks; idx += NT) {
@@ -397,7 +440,9 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
   };
 
   const int ns = H / MK;
-  for (int base = blk * block; base < row_end; base += TN) {
+  // one sub-tile: TN rows from base scored against the query tile into sc, rows at or
+  // past s_end masked, then merged into the lists
+  auto subtile = [&](int base, int s_end) {
     Acc acc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -442,17 +487,26 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = mt * 16 + g + 8 * (e >> 1), c = n + (e & 1);
-        sc[r * LDSC + c] = epilogue((float)acc[j][e], base + c, q0 + r, n_valid, row_end,
-                                    cscale, qscale);
+        sc[r * LDSC + c] = epilogue((float)acc[j][e], base + c, q0 + r, n_valid, s_end,
+                                    cscale, qscale, cells.row_ids);
       }
     }
     __syncthreads();
     for (int qi = warp * (MQ / 8); qi < (warp + 1) * (MQ / 8); ++qi)
       lists.merge(sc + qi * LDSC, base, qi, J, lane);
     // the next sub-tile rewrites sc only after its first slice barrier
+  };
+  for (int sb = 0; sb < per; ++sb) {  // selection blocks: one top-J list each
+    const int s0 = blk_start + sb * cells.sel;
+    const int s_end = min(row_end, s0 + cells.sel);
+    if (sb > 0) {
+      __syncthreads();  // the previous selection block's lists are written
+      lists.init();
+    }
+    for (int base = s0; base < s_end; base += TN) subtile(base, s_end);
+    __syncthreads();
+    lists.write(q0, Q, blk * per + sb, cells.n_sel, J, cells.row_ids != nullptr, out_v, out_i);
   }
-  __syncthreads();
-  lists.write(q0, Q, blk, gridDim.y, J, out_v, out_i);
 }
 
 // ---- CUDA-core path ------------------------------------------------------------------
@@ -543,7 +597,7 @@ __global__ void __launch_bounds__(NT)
 block_topj_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
                   const float* __restrict__ cscale, const float* __restrict__ qscale,
                   float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
-                  int n_valid, int block, int J) {
+                  int n_valid, int block, int J, Cells cells) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qt = reinterpret_cast<float*>(smem);  // [KT][LDQT]: a K chunk of the queries
   float* ct = qt + KT * LDQT;                  // [KT][LDCT]: a K chunk of the sub-tile rows
@@ -554,15 +608,23 @@ block_topj_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
   const int blk = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const size_t cell = cell_of(cells, blk);
+  q += cell * Q * H;
+  if (qscale != nullptr) qscale += cell * Q;
   // each thread scores queries 8*warp .. +7 against rows 4*lane .. +3 of the sub-tile:
   // one float4 of rows and two of queries per 32 FFMA
   lists.init();
 
-  const int row_end = min(N, (blk + 1) * block);
+  const int blk_start = blk * block;
+  const int row_end = min(N, blk_start + block);
+  const int per = (block + cells.sel - 1) / cells.sel;  // selection blocks per storage block
   const int nk = (H + KT - 1) / KT;
   Chunk<QT, CT, VEC> next;
-  next.fetch(corpus, q, blk * block, row_end, q0, Q, 0, H);
-  for (int base = blk * block; base < row_end; base += TN) {
+  next.fetch(corpus, q, blk_start, row_end, q0, Q, 0, H);
+  // one sub-tile: TN rows from base scored into sc, rows at or past s_end masked, then
+  // merged into the lists; the chunks of the sub-tile that starts at `following` are
+  // prefetched meanwhile
+  auto subtile = [&](int base, int s_end, int following) {
     float acc[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -575,8 +637,8 @@ block_topj_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
       // prefetch the next chunk (or the next sub-tile's first) while this one is scored
       if (kc + 1 < nk)
         next.fetch(corpus, q, base, row_end, q0, Q, (kc + 1) * KT, H);
-      else if (base + TN < row_end)
-        next.fetch(corpus, q, base + TN, row_end, q0, Q, 0, H);
+      else if (following < row_end)
+        next.fetch(corpus, q, following, row_end, q0, Q, 0, H);
       const int kmax = min(KT, H - kc * KT);
       for (int kk = 0; kk < kmax; ++kk) {
         float c[4], qa[4], qb[4];
@@ -598,38 +660,57 @@ block_topj_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         sc[(8 * warp + i) * (TN + 1) + 4 * lane + j] =
-            epilogue(acc[i][j], base + 4 * lane + j, q0 + 8 * warp + i, n_valid, row_end, cscale,
-                     qscale);
+            epilogue(acc[i][j], base + 4 * lane + j, q0 + 8 * warp + i, n_valid, s_end, cscale,
+                     qscale, cells.row_ids);
     __syncthreads();
     for (int qi = warp * (TQ / 8); qi < (warp + 1) * (TQ / 8); ++qi)
       lists.merge(sc + qi * (TN + 1), base, qi, J, lane);
+  };
+  for (int sb = 0; sb < per; ++sb) {  // selection blocks: one top-J list each
+    const int s0 = blk_start + sb * cells.sel;
+    const int s_end = min(row_end, s0 + cells.sel);
+    if (sb > 0) {
+      __syncthreads();  // the previous selection block's lists are written
+      lists.init();
+    }
+    // sub-tiles in row order; the next selection block starts at s_end
+    for (int base = s0; base < s_end; base += TN)
+      subtile(base, s_end, base + TN < s_end ? base + TN : s_end);
+    __syncthreads();
+    lists.write(q0, Q, blk * per + sb, cells.n_sel, J, cells.row_ids != nullptr, out_v, out_i);
   }
-  __syncthreads();
-  lists.write(q0, Q, blk, gridDim.y, J, out_v, out_i);
 }
 
 struct Args {
   const void *q, *corpus, *cscale, *qscale;
   void *out_v, *out_i;
   int Q, N, H, n_valid, block, J;
+  Cells cells;
   cudaStream_t stream;
 };
 
-template <typename QT, typename CT, bool VEC, bool SERVE>
-int launch(const Args& a) {
-  const size_t smem = smem_bytes();
-  auto kernel = block_topj_kernel<QT, CT, VEC, SERVE>;
+// One kernel over every storage block, one grid row each (the grid's y extent takes at
+// most 65535 of them; callers pass slabs or cell layouts far below that). Query tiles run
+// fastest: the tiles that read one corpus block run side by side (L2 reuse).
+template <typename QT, typename CT, typename K>
+int launch_blocks(K kernel, int tile, size_t smem, const Args& a) {
+  const int n_blocks = (a.N + a.block - 1) / a.block;
+  if (n_blocks > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // query tiles fastest: the tiles that read one corpus block run side by side (L2 reuse)
-  dim3 grid((a.Q + TQ - 1) / TQ, (a.N + a.block - 1) / a.block);
+  dim3 grid((a.Q + tile - 1) / tile, n_blocks);
   kernel<<<grid, NT, smem, a.stream>>>(
       static_cast<const QT*>(a.q), static_cast<const CT*>(a.corpus),
       static_cast<const float*>(a.cscale), static_cast<const float*>(a.qscale),
-      static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), a.Q, a.N, a.H, a.n_valid, a.block,
-      a.J);
+      static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), a.Q, a.N, a.H, a.n_valid,
+      a.block, a.J, a.cells);
   return (int)cudaGetLastError();
+}
+
+template <typename QT, typename CT, bool VEC, bool SERVE>
+int launch(const Args& a) {
+  return launch_blocks<QT, CT>(block_topj_kernel<QT, CT, VEC, SERVE>, TQ, smem_bytes(), a);
 }
 
 // the tensor-core path, or -1 when the shape or alignment does not fit it
@@ -638,17 +719,7 @@ int try_mma(const Args& a) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.corpus);
   const size_t smem = mma_smem_bytes<QT>(a.H);
   if (a.H % MK != 0 || (ptrs & 15) != 0 || smem > SMEM_MAX) return -1;
-  auto kernel = block_topj_mma_kernel<QT, CT, SERVE>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Q + MQ - 1) / MQ, (a.N + a.block - 1) / a.block);
-  kernel<<<grid, NT, smem, a.stream>>>(
-      static_cast<const QT*>(a.q), static_cast<const CT*>(a.corpus),
-      static_cast<const float*>(a.cscale), static_cast<const float*>(a.qscale),
-      static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), a.Q, a.N, a.H, a.n_valid, a.block,
-      a.J);
-  return (int)cudaGetLastError();
+  return launch_blocks<QT, CT>(block_topj_mma_kernel<QT, CT, SERVE>, MQ, smem, a);
 }
 
 template <bool SERVE>
@@ -703,7 +774,33 @@ extern "C" int drt_block_topj(const void* q, const void* corpus, const void* csc
                               void* stream) {
   if (J < 1 || J > JMAX || block < 1 || (ctype == T_I4 && H % 2))
     return (int)cudaErrorInvalidValue;
+  const int n_blocks = (N + block - 1) / block;
   const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
-               static_cast<cudaStream_t>(stream)};
+               Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream)};
   return serve ? dispatch<true>(a, qtype, ctype) : dispatch<false>(a, qtype, ctype);
+}
+
+// The IVF cell kernels (K13, K14), serve selection. qslab [nlist, Qcap, H] (qtype), the
+// probing-query slots of each cell; values [N, H] (ctype) in N / block storage blocks,
+// each inside one cell; row_ids [N] (-1 = empty slot, masked); cscales [N] fp32 for int8
+// cells, else null; qscales [nlist, Qcap] fp32 for int8 queries, else null. block_cell
+// [N / block] int32 gives each block's cell (K14); null, the cell is blk / cell_blocks
+// (K13: C = cell_blocks * block rows per cell). Each storage block is cut into selection
+// blocks of `sel` rows (the last one shorter where sel does not divide block) ->
+// out_vals / out_ids [N / block * ceil(block / sel), Qcap, J], ids flat row positions.
+// Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8 and, at H % 64 == 0 with 16-byte
+// aligned rows, int8 x int8.
+extern "C" int drt_ivf_topj(const void* qslab, const void* values, const void* cscales,
+                            const void* qscales, const void* row_ids, const void* block_cell,
+                            void* out_v, void* out_i, int Qcap, int N, int H, int block, int sel,
+                            int J, int cell_blocks, int qtype, int ctype, void* stream) {
+  if (J < 1 || J > JMAX || block < 1 || sel < 1 || sel > block || N % block != 0 ||
+      row_ids == nullptr || ctype == T_I4 || (block_cell == nullptr && cell_blocks < 1))
+    return (int)cudaErrorInvalidValue;
+  const int n_sel = N / block * ((block + sel - 1) / sel);
+  const Args a{qslab, values, cscales, qscales, out_v, out_i, Qcap, N, H, INT_MAX, block, J,
+               Cells{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell),
+                     cell_blocks, sel, n_sel},
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(a, qtype, ctype);
 }

@@ -2,14 +2,16 @@
 
 Counterpart of ``denseretrievaltoolkits_tpu/evaluator/retrieval.py``, with the
 same flags and output: glob the passage shards (pickled ``(reps, lookup)``
-pairs), load them into one :class:`FlatIPIndex` (or load a saved one with
-``--index_path``), search the pickled query reps at depth, and save
-``qid\\tdocid\\tscore`` text or a pickle. The index runs on the CUDA card:
-``--index_dtype`` float32 / bfloat16 / int8 / int4 (both quantized on the
-card) and every flat ``--search_mode`` of ``index/modes.py``. :func:`run` takes
-``device='cpu'`` for callers that want the CPU (every mode then runs the exact
-scan). The small helpers are reimplemented here because the reference module
-imports its jax index.
+pairs), load them into one :class:`FlatIPIndex` (or load a saved index of any
+ported kind with ``--index_path``: flat, IVF, IVFR or a PCA/PCAR chain),
+search the pickled query reps at depth, and save ``qid\\tdocid\\tscore`` text
+or a pickle. The index runs on the CUDA card: ``--index_dtype`` float32 /
+bfloat16 / int8 / int4 (both quantized on the card) and the ``--search_mode``
+of ``index/modes.py`` for the index's kind (flat: exact, serve, partial, i8q,
+approx; IVF: bulk, probe, i8q, approx, exact). :func:`run` takes
+``device='cpu'`` for callers that want the CPU (flat modes then run the exact
+scan, IVF modes the kernels' plain versions). The small helpers are
+reimplemented here because the reference module imports its jax index.
 
     python -m denseretrievaltoolkits_torch.evaluator.retrieval \\
         --query_reps q.pkl --passage_reps 'p*.pkl' --depth 100 \\
@@ -122,7 +124,8 @@ def main(argv=None):
                         help="glob of pickled (reps, lookup) shards to build a flat index "
                         "from (mutually exclusive with --index_path)")
     parser.add_argument("--index_path", default="",
-                        help="serve a SAVED flat index instead")
+                        help="serve a SAVED index instead: flat, IVF, IVFR or a PCA/PCAR chain "
+                        "(index.io.load_index)")
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--depth", type=int, default=1000)
     parser.add_argument("--save_ranking_to", required=True)
@@ -135,12 +138,14 @@ def main(argv=None):
                         "byte, half the memory of int8)")
     parser.add_argument("--search_mode", default="exact",
                         choices=["exact", "serve", "partial", "i8q", "approx", "bulk", "probe"],
-                        help="exact: certified exact search (K5; K6 on int8, K10 on int4); "
-                        "serve: K8 (K11 on int4) candidates without the certificate; "
-                        "partial: K5 candidates without the certificate (fp32/bf16); i8q: "
-                        "int8 queries on K12 (int8 / int4 rows); approx: the per-dtype "
-                        "alias. Contract: index/modes.py. bulk/probe are IVF modes, not "
-                        "ported yet")
+                        help="flat indexes: exact, certified exact search (K5; K6 on int8, "
+                        "K10 on int4); serve: K8 (K11 on int4) candidates without the "
+                        "certificate; partial: K5 candidates without the certificate "
+                        "(fp32/bf16); i8q: int8 queries on K12 (int8 / int4 rows); approx: the "
+                        "per-dtype alias. IVF indexes (--index_path): bulk (alias serve), the "
+                        "cell-major search on K13 / K14; probe, the per-query gathered "
+                        "path; i8q, bulk with int8 queries (int8 cells); approx, i8q on int8 "
+                        "cells, else bulk; exact, the flat scan. Contract: index/modes.py")
     args = parser.parse_args(argv)
     if bool(args.passage_reps) == bool(args.index_path):
         parser.error("give exactly one of --passage_reps / --index_path")

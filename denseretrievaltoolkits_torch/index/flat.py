@@ -30,10 +30,11 @@ Counterpart of ``denseretrievaltoolkits_tpu/index/flat.py``:
   TPU (index/modes.py). ``save``/``load`` use the reference's ``path.npz`` +
   ``path.meta.json`` format, int8 and int4 indexes as their native
   ``values`` + ``scales`` payload, so indexes interchange both ways.
-- :func:`index_factory` builds the flat kinds from FAISS-style strings.
-
-The trained index kinds raise ``NotImplementedError`` naming their ROADMAP
-item; no dtype or mode silently runs another.
+- :func:`index_factory` builds the flat kinds, the trained IVF kinds of
+  ``index/ivf.py`` and the PCA / PCAR chains of ``index/transforms.py`` from
+  FAISS-style strings. The product-quantized kinds (PQ, OPQ, IVF-PQ) raise
+  ``NotImplementedError`` naming their ROADMAP item; no dtype or mode
+  silently runs another.
 """
 
 from __future__ import annotations
@@ -284,27 +285,69 @@ FLAT_FACTORY = {
     "sq8": "int8", "sqint8": "int8",
     "sq4": "int4", "sqint4": "int4",
 }
+PQ_ITEM = ("is not ported yet (ROADMAP queue 1 item 12b, 'Trained indexes': PQ, IVF-PQ and "
+           "OPQ; kernels K15-K17 in queue 2)")
 
 
-def index_factory(dim: int, factory_str: str, block_size: int = DEFAULT_BLOCK,
-                  device=None) -> FlatIPIndex:
-    """FAISS ``index_factory``-style constructor for the flat kinds, as the
-    reference's (index/flat.py:533-662): "Flat" / "IP" fp32, "BF16" /
-    "Flat16" bf16, "SQ8" / "SQint8" int8 and "SQ4" / "SQint4" int4 with
-    per-row scales. "IVF{n},SQ4" raises the reference's ``ValueError`` (the
-    sq4 kernels are flat-corpus kernels); the trained kinds (IVF, PQ, OPQ,
-    PCA/PCAR chains) raise ``NotImplementedError`` naming their ROADMAP item."""
+def _count(text: str) -> int:
+    """The count in a factory token ("IVF1024" -> 1024), 0 if there is none."""
+    try:
+        return int(text)
+    except ValueError:
+        return 0
+
+
+def index_factory(dim: int, factory_str: str, block_size: int = DEFAULT_BLOCK, nprobe: int = 32,
+                  device=None):
+    """FAISS ``index_factory``-style constructor, as the reference's
+    (index/flat.py:533-662), on ``device``:
+
+    - "Flat" / "IP" fp32, "BF16" / "Flat16" bf16, "SQ8" / "SQint8" int8 and
+      "SQ4" / "SQint4" int4 rows with per-row scales: :class:`FlatIPIndex`;
+    - "IVF{n},Flat|BF16|SQ8": the fixed-capacity :class:`IVFFlatIndex`;
+      "IVFR{n},Flat|BF16|SQ8" (default SQ8): the ragged
+      :class:`IVFRaggedIndex`, both probing ``nprobe`` cells;
+    - "PCA{d},<any of these>" / "PCAR{d},<...>": a :class:`PCATransform` to d
+      dims (PCAR rotated) in front of the inner index.
+
+    "IVF{n},SQ4" raises the reference's ``ValueError`` (the sq4 kernels are
+    flat-corpus kernels); the product-quantized kinds ("PQ{M}", "OPQ{M},...",
+    "IVF{n},PQ{M}") raise ``NotImplementedError`` naming their ROADMAP item."""
     key = factory_str.strip().lower()
+    head, _, tail = key.partition(",")
+    if key.startswith(("pq", "opq")) or (key.startswith("ivf") and tail.startswith("pq")):
+        raise NotImplementedError(f"the product-quantized index {factory_str!r} {PQ_ITEM}")
+    if key.startswith("pca"):
+        rotate = head.startswith("pcar")
+        d_out = _count(head[4 if rotate else 3:])
+        if d_out > 0 and tail:
+            from .transforms import PCATransform, TransformedIndex
+
+            inner = index_factory(d_out, tail, block_size=block_size, nprobe=nprobe,
+                                  device=device)
+            return TransformedIndex(PCATransform(dim, d_out, rotate=rotate, device=device),
+                                    inner)
     if key in FLAT_FACTORY:
         return FlatIPIndex(dim, dtype=FLAT_FACTORY[key], block_size=block_size, device=device)
-    if key.startswith("ivf") and FLAT_FACTORY.get(key.partition(",")[2]) == "int4":
-        raise ValueError(
-            "IVF cells support Flat/BF16/SQ8; for 4-bit storage use a flat SQ4 index "
-            "(optionally behind PCAR) — the sq4 kernels are flat-corpus kernels")
-    if key.startswith(("ivf", "pq", "opq", "pca")):
-        raise NotImplementedError(
-            f"the trained index {factory_str!r} is not ported yet (ROADMAP queue 1 item 12, "
-            f"'Trained indexes'; kernels K13-K17 in queue 2)")
+    if key.startswith("ivfr"):
+        cell_dtype = FLAT_FACTORY.get(tail or "sq8")
+        if _count(head[4:]) > 0 and cell_dtype in ("float32", "bfloat16", "int8"):
+            from .ivf import IVFRaggedIndex
+
+            return IVFRaggedIndex(dim, nlist=_count(head[4:]), nprobe=nprobe, dtype=cell_dtype,
+                                  device=device)
+    if key.startswith("ivf"):
+        cell_dtype = FLAT_FACTORY.get(tail or "flat")
+        if cell_dtype == "int4":
+            raise ValueError(
+                "IVF cells support Flat/BF16/SQ8; for 4-bit storage use a flat SQ4 index "
+                "(optionally behind PCAR) — the sq4 kernels are flat-corpus kernels")
+        if _count(head[3:]) > 0 and cell_dtype is not None:
+            from .ivf import IVFFlatIndex
+
+            return IVFFlatIndex(dim, nlist=_count(head[3:]), nprobe=nprobe, dtype=cell_dtype,
+                                device=device)
     raise ValueError(
         f"unsupported factory string {factory_str!r}; supported: Flat, IP, BF16, Flat16, SQ8, "
-        f"SQint8, SQ4, SQint4 (IVF, PQ, OPQ and PCA strings are not ported yet)")
+        f"SQint8, SQ4, SQint4, IVF{{n}},Flat|BF16|SQ8, IVFR{{n}},Flat|BF16|SQ8, and PCA{{d}} / "
+        f"PCAR{{d}} in front of any of them (PQ, OPQ and IVF-PQ strings are not ported yet)")

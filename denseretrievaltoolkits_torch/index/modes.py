@@ -39,15 +39,18 @@ int8      i8q
 int4      i8q
 ========= ===================
 
-IVF indexes (not ported yet) have no flat scan, so their mode set is:
+IVF indexes (``index/ivf.py``) have no flat scan, so their mode set is:
 ``exact`` (flat parity scan), ``bulk`` (default; alias ``serve``) — the
-cell-major kernel, ``probe`` — the per-query-tile gathered path, ``i8q`` —
-bulk with int8-quantized queries (int8 rows only), and ``approx`` — alias for
-``i8q`` on int8 rows, else ``bulk``.  ``partial`` raises.
+cell-major search on K13 (fixed-capacity cells) or K14 (ragged), ``probe`` —
+the per-query-tile gathered path, ``i8q`` — bulk with int8-quantized queries
+(int8 rows only), and ``approx`` — alias for ``i8q`` on int8 rows, else
+``bulk``.  ``partial`` raises.
 
-On the CPU every mode runs the exact blockwise scan (the kernels run only on
-the card); the mode/dtype VALIDATION here still applies so code paths fail the
-same way everywhere.
+On the CPU every flat-index mode runs the exact blockwise scan (the kernels
+run only on the card), and the IVF modes run their algorithm on the kernels'
+plain versions, as the reference runs its IVF kernels in interpret mode there;
+the mode/dtype VALIDATION here still applies so code paths fail the same way
+everywhere.
 """
 
 from __future__ import annotations

@@ -47,6 +47,9 @@ SIGNATURES = {
     # q, corpus, corpus_scales, query_scales, out_vals, out_ids,
     # Q, N, H, n_valid, block, J, qtype, ctype, serve, stream
     "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P],
+    # qslab, values, cell_scales, slot_scales, row_ids, block_cell, out_vals, out_ids,
+    # Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream
+    "drt_ivf_topj": [_P] * 8 + [_I] * 9 + [_P],
     # x, values, scales, n_in, n_out, H, is_bf16, stream
     "drt_quantize_int8": [_P] * 3 + [_I] * 4 + [_P],
     # x, packed, scales, n_in, n_out, H, is_bf16, stream

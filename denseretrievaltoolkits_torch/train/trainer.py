@@ -12,11 +12,16 @@ cadences: ``eval_loader`` every ``eval_per_train`` epochs, ``test_loader``
 once at the end (as epoch -1).
 
 Evaluation (trainer.py:290-594 there) encodes the corpus loader's passages
-on the model's device into a :class:`FlatIPIndex` at ``index_dtype`` (or a
-flat ``index_factory`` string) through ``add_device`` in slabs of
-``index_slab_rows`` (int8 / int4 slabs quantize on the card, K7 / K9), saves
-the index and its docid order, searches each query batch in ``search_mode``
-(K5/K6/K10 exact, K8/K11 serve, K12 i8q), labels the hits with
+on the model's device into a :class:`FlatIPIndex` at ``index_dtype`` through
+``add_device`` in slabs of ``index_slab_rows`` (int8 / int4 slabs quantize on
+the card, K7 / K9), or into an ``index_factory`` index: a trained one (IVF,
+IVFR, PCA/PCAR chains) cannot take rows before it is fit, so the encoded
+batches stream to the ``{encode_corpus_dir}/{ep}.0.npy`` memmap instead, the
+index trains on a strided sample of at most ``index_train_rows`` of them and
+is built by ``add_chunks`` in ``index_slab_rows`` chunks (the memmap is
+removed after unless ``save_corpus_artifacts``). It then saves the index and
+its docid order, searches each query batch in ``search_mode`` (flat: K5/K6/K10
+exact, K8/K11 serve, K12 i8q; IVF: K13/K14 bulk, i8q, probe), labels the hits with
 ``evaluator/nq_eval.py``'s ``AnswerMatcher`` (or docid relevance with
 ``label_kind="docids"``) and writes the retrieval dump
 ``{retrieve_dir}/{ep}.0.json`` and the metrics ``{cache_train_dir}/{ep}.0_metrics``.
@@ -25,7 +30,8 @@ dataset has no fancy indexing (a plain list of dicts).
 
 The model holds its parameters, so there is no ``params`` argument. The
 miner (ROADMAP queue 1 item 9) and a mesh (item 13) are later slices: given
-either, the constructor raises; so do trained factory indexes (item 12).
+either, the constructor raises; so do product-quantized factory strings
+(item 12b) when the index is made.
 
 Resume differs from the reference on purpose. The reference saves ``ep + 1``
 (the epochs done) and ``load`` starts at ``epoch + 1``, so a resumed run skips
@@ -76,7 +82,7 @@ class Trainer:
         self.topk = training_args.topk_list
         self.start_epoch = 0
         self.idx: List = []  # docid order of the corpus index
-        self.index: Optional[FlatIPIndex] = None
+        self.index = None  # FlatIPIndex, or an index_factory index
         self._indexed_ep = None
         self._row2ds = None
         self._matcher = AnswerMatcher()  # memoized tokenization, renewed per evaluate
@@ -172,16 +178,16 @@ class Trainer:
 
     # -- retrieval evaluation -------------------------------------------------
 
-    def _make_index(self, dim: int) -> FlatIPIndex:
-        """A flat index on the model's device at ``index_dtype``, or from a
-        flat ``index_factory`` string (trainer.py:290-323; a trained factory
-        string raises, naming ROADMAP queue 1 item 12)."""
+    def _make_index(self, dim: int):
+        """A flat index on the model's device at ``index_dtype``, or the
+        ``index_factory`` string's, probing ``nprobe`` cells (trainer.py:290-323)."""
         args = self.training_args
         factory = getattr(args, "index_factory", "")
         if factory:
             from ..index.flat import index_factory
 
-            return index_factory(dim, factory, device=self.model.device)
+            return index_factory(dim, factory, nprobe=getattr(args, "nprobe", 32),
+                                 device=self.model.device)
         return FlatIPIndex(dim, dtype=args.index_dtype, device=self.model.device)
 
     def _encoding_corpus(self, ep: int) -> None:
@@ -190,7 +196,10 @@ class Trainer:
         slabs of ``index_slab_rows``, so int8 / int4 rows quantize on the card
         and the float reps are freed. With ``save_corpus_artifacts`` the reps
         also stream to ``{encode_corpus_dir}/{ep}.0.npy`` (a memmap) and the
-        docids to ``{ep}.0.json``."""
+        docids to ``{ep}.0.json``. An index that is not trained yet takes no
+        rows: the reps go to the memmap only (made whatever
+        ``save_corpus_artifacts`` says, removed after unless it is set), and
+        :meth:`_build_trained_index` fits and fills the index from there."""
         args = self.training_args
         loader = self.corpus_dataloader
         slab_rows = max(loader.batch_size, getattr(args, "index_slab_rows", 262144))
@@ -200,7 +209,9 @@ class Trainer:
         buf: List[torch.Tensor] = []
         buf_rows = 0
         mmap = None
+        spill = False  # a trained factory index: rows go to the memmap, not the device
         row = 0
+        mmap_path = os.path.join(args.encode_corpus_dir, f"{ep}.0.npy")
 
         def flush():
             nonlocal buf, buf_rows
@@ -214,23 +225,29 @@ class Trainer:
             valid = int(out.shape[0])
             if self.index is None:
                 self.index = self._make_index(int(out.shape[1]))
-            if save:
+                spill = not getattr(self.index, "is_trained", True)
+            if save or spill:
                 if mmap is None:
                     os.makedirs(args.encode_corpus_dir, exist_ok=True)
                     mmap = np.lib.format.open_memmap(
-                        os.path.join(args.encode_corpus_dir, f"{ep}.0.npy"), mode="w+",
-                        dtype=np.float32, shape=(len(loader._indices()), int(out.shape[1])))
-                mmap[row:row + valid] = out.cpu().numpy()
-            buf.append(out)
-            buf_rows += valid
-            if buf_rows >= slab_rows:
-                flush()
+                        mmap_path, mode="w+", dtype=np.float32,
+                        shape=(len(loader._indices()), int(out.shape[1])))
+                mmap[row:row + valid] = out.float().cpu().numpy()
+            if not spill:
+                buf.append(out)
+                buf_rows += valid
+                if buf_rows >= slab_rows:
+                    flush()
             row += valid
             ids.extend(batch_ids)
         flush()
         if mmap is not None:
             mmap.flush()
+            if spill:
+                self._build_trained_index(mmap, row, slab_rows)
             del mmap
+            if spill and not save:
+                os.remove(mmap_path)
         self.idx = ids
         self.index.docid = self.idx
         # a length-sorted encode iterates out of dataset order: index row r
@@ -241,6 +258,19 @@ class Trainer:
             with open(os.path.join(args.encode_corpus_dir, f"{ep}.0.json"), "w",
                       encoding="utf-8") as fh:
                 json.dump({"id": ids}, fh, ensure_ascii=False)
+
+    def _build_trained_index(self, mmap, n_rows: int, chunk_rows: int) -> None:
+        """Fit the index on a strided sample of the encoded corpus (at most
+        ``index_train_rows`` rows; the reference trains faiss on what fits,
+        index.py:52), then build it through ``add_chunks`` a chunk of the
+        memmap at a time (trainer.py:430-453), so the device holds the index
+        and one chunk, never the encoded corpus."""
+        n_rows = int(n_rows)
+        n_train = max(1, min(n_rows, getattr(self.training_args, "index_train_rows", 262144)))
+        step = max(1, n_rows // n_train)
+        self.index.train(np.ascontiguousarray(mmap[::step][:n_train]))
+        self.index.add_chunks(lambda s, r: torch.from_numpy(np.asarray(mmap[s:s + r])), n_rows,
+                              chunk_rows=int(max(1, min(n_rows, chunk_rows))))
 
     def _index_corpus(self, ep: int) -> None:
         """Save the index and its docid order (trainer.py:455-468)."""

@@ -5,6 +5,7 @@ CUDA kernel has no interpret mode). On a machine with an H100 run them with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``; ``chip_smoke.py``
 makes the same comparisons at the main path's full shapes."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -413,3 +414,173 @@ def test_serve_topk_int4_deep_k_runs_the_kernels(gen):
             overlap = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids.cpu(), rids))
             assert overlap >= 0.999 * rids.numel()
             torch.testing.assert_close(s.cpu(), rs, rtol=1e-5, atol=1e-5)
+
+
+# --- the IVF cell kernels: K13 (fixed-capacity cells) and K14 (ragged block list) --------------
+
+def _ivf_case(gen, body, H, nlist=6, Qcap=72, N=1152):
+    """A query slab (72 slots: two tiles of 64), N rows with empty slots, the
+    scales of int8 rows and the slot scales of i8q, for one body."""
+    from denseretrievaltoolkits_torch.ops.quant import quantize_queries
+
+    x = _randn(gen, N, H)
+    row_ids = torch.arange(N, dtype=torch.int32, device="cuda")
+    row_ids[100:128] = -1   # a tail of empty slots
+    row_ids[600:650] = -1
+    q = _randn(gen, nlist * Qcap, H)
+    scales = qscales = None
+    if body in ("int8", "i8q"):
+        values, scales = _int8_rows(gen, N, H)
+        if body == "i8q":
+            slab, qscales = quantize_queries(q)
+            slab, qscales = slab.reshape(nlist, Qcap, H), qscales.reshape(nlist, Qcap)
+        else:
+            slab = q.to(torch.bfloat16).reshape(nlist, Qcap, H)
+    else:
+        dtype = torch.float32 if body == "float32" else torch.bfloat16
+        values, slab = x.to(dtype), q.to(dtype).reshape(nlist, Qcap, H)
+        values[300:305] = values[300]  # exact ties inside one block
+    return slab, values, row_ids, scales, qscales
+
+
+def _assert_ivf_lists(got, want, slab, values, row_ids, scales, qscales, cells_of_sel, rel):
+    """Kernel lists vs the plain version's [n_sel, Qcap, J]: scores within
+    ``rel``, ids equal except where two rows tie (every kernel id rescored in
+    fp64 under the kernel's formula gives its score), -1 exactly where the
+    plain version has no row."""
+    (v, i), (rv, ri) = got, want
+    assert v.shape == rv.shape and i.dtype == torch.int32
+    assert torch.equal(i < 0, ri < 0)
+    fin = ri >= 0
+    torch.testing.assert_close(v[fin], rv[fin], rtol=rel, atol=1e-5)
+    n_sel, Qcap, J = i.shape
+    rows = i.clamp(min=0).long()
+    cell = cells_of_sel.long()[:, None, None].expand(n_sel, Qcap, J)
+    slot = torch.arange(Qcap, device="cuda")[None, :, None].expand(n_sel, Qcap, J)
+    q = slab.double()[cell, slot]
+    s = (q * values.double()[rows]).sum(-1)
+    if scales is not None:
+        s = s * scales.double()[rows]
+    if qscales is not None:
+        s = s * qscales.double()[cell, slot]
+    torch.testing.assert_close(s[fin], v[fin].double(), rtol=rel, atol=1e-4)
+    assert (row_ids[rows][fin] >= 0).all()
+    differ = (i != ri) & fin
+    assert differ.float().mean() < 0.01, "ids differ beyond ties"
+
+
+@pytest.mark.parametrize("body,H", [("float32", 64), ("float32", 48), ("bfloat16", 64),
+                                    ("bfloat16", 48), ("int8", 64), ("int8", 48), ("i8q", 64),
+                                    ("i8q", 768)])
+@pytest.mark.parametrize("J,sel", [(7, None), (32, None), (5, 40)])
+def test_cell_topj_kernel(gen, body, H, J, sel):
+    """K13 over 6 cells of C=192 rows in 96-row blocks: the plain version's
+    lists (fp32 / bf16 / int8 / i8q bodies, tensor-core and
+    CUDA-core paths, selection blocks narrower than the storage block)."""
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+
+    slab, values, row_ids, scales, qscales = _ivf_case(gen, body, H)
+    nlist, C, block = 6, 192, 96
+    counter = {"i8q": "launches_i8q", "int8": "launches_int8"}.get(body, "launches")
+    n = getattr(ivf_bulk.cell_topj, counter)
+    args = (slab, values.reshape(nlist, C, H), row_ids.reshape(nlist, C),
+            None if scales is None else scales.reshape(nlist, C), J, block)
+    got = ivf_bulk.cell_topj(*args, sel=sel, qscales=qscales)
+    torch.cuda.synchronize()
+    assert getattr(ivf_bulk.cell_topj, counter) == n + 1
+    want = ivf_bulk._ivf_topj_reference(slab, values, row_ids, scales, qscales, None, C // block,
+                                        J, block, block if sel is None else sel)
+    per = -(-block // (block if sel is None else sel))
+    cells = torch.arange(nlist * C // block, device="cuda").repeat_interleave(per) // (C // block)
+    _assert_ivf_lists(got, want, slab, values, row_ids, scales, qscales, cells,
+                      0 if body == "i8q" else 1e-5)
+    if body == "i8q":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("body,H", [("float32", 64), ("bfloat16", 64), ("bfloat16", 48),
+                                    ("int8", 64), ("i8q", 64)])
+@pytest.mark.parametrize("J,sel", [(9, None), (3, 50)])
+def test_ragged_topj_kernel(gen, body, H, J, sel):
+    """K14 over 9 blocks of 128 rows whose block -> cell map skips cell 2
+    (empty) and gives cell 3 three blocks: the plain version's lists."""
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+
+    slab, values, row_ids, scales, qscales = _ivf_case(gen, body, H)
+    block_cell = torch.tensor([0, 0, 1, 3, 3, 3, 4, 5, 5], dtype=torch.int32, device="cuda")
+    counter = {"i8q": "launches_i8q", "int8": "launches_int8"}.get(body, "launches")
+    n = getattr(ivf_bulk.ragged_topj, counter)
+    got = ivf_bulk.ragged_topj(block_cell, slab, values, row_ids, scales, J, 128, sel=sel,
+                               qscales=qscales)
+    torch.cuda.synchronize()
+    assert getattr(ivf_bulk.ragged_topj, counter) == n + 1
+    s = 128 if sel is None else sel
+    want = ivf_bulk._ivf_topj_reference(slab, values, row_ids, scales, qscales, block_cell, 1, J,
+                                        128, s)
+    cells = block_cell.repeat_interleave(-(-128 // s))
+    _assert_ivf_lists(got, want, slab, values, row_ids, scales, qscales, cells,
+                      0 if body == "i8q" else 1e-5)
+
+
+def test_ivf_kernels_refuse_what_they_cannot_run(gen):
+    """J past 32 or the selection block, int8 slots at H % 64, or a bf16 slab
+    over fp32 cells raise before any launch."""
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+
+    slab, values, row_ids, scales, qscales = _ivf_case(gen, "i8q", 64)
+    n = ivf_bulk.ragged_topj.launches_i8q
+    bc = torch.zeros(9, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="J"):
+        ivf_bulk.ragged_topj(bc, slab, values, row_ids, scales, 33, 128, qscales=qscales)
+    with pytest.raises(ValueError, match="H % 64"):
+        ivf_bulk.ragged_topj(bc, slab[:, :, :48].contiguous(), values[:, :48].contiguous(),
+                             row_ids, scales, 8, 128, qscales=qscales)
+    with pytest.raises(TypeError):
+        ivf_bulk.ragged_topj(bc, slab.float(), values.float(), row_ids, None, 8, 128,
+                             qscales=qscales)
+    assert ivf_bulk.ragged_topj.launches_i8q == n
+
+
+@pytest.mark.parametrize("kind,dtype", [("fixed", "float32"), ("fixed", "bfloat16"),
+                                        ("fixed", "int8"), ("ragged", "int8"),
+                                        ("ragged", "bfloat16")])
+def test_ivf_index_modes_on_card(gen, tmp_path, kind, dtype):
+    """An IVF index built on the CPU, saved and loaded onto the card, searches
+    as on the CPU (the plain versions) in every mode: the same tuned Qcap, hot
+    set and drops, ids equal up to ties; K13 / K14 launch."""
+    from denseretrievaltoolkits_torch.index import ivf
+    from denseretrievaltoolkits_torch.index.io import load_index
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+
+    centres = _randn(gen, 48, 64)
+    rows = centres[torch.randint(0, 48, (6000,), generator=gen, device="cuda")]
+    x = (rows + 0.4 * _randn(gen, 6000, 64)).cpu().numpy()
+    q = (centres[torch.randint(0, 48, (300,), generator=gen, device="cuda")]
+         + 0.4 * _randn(gen, 300, 64)).cpu().numpy()
+    if kind == "ragged":
+        cpu = ivf.IVFRaggedIndex(64, nlist=32, nprobe=6, dtype=dtype, block=64, device="cpu")
+        fn = ivf_bulk.ragged_topj
+    else:
+        cpu = ivf.IVFFlatIndex(64, nlist=32, nprobe=6, dtype=dtype, device="cpu")
+        fn = ivf_bulk.cell_topj
+    cpu.train(x, iters=5)
+    cpu.add(x)
+    cpu.save(str(tmp_path / "i"))
+    card = load_index(str(tmp_path / "i"))
+    assert card.device.type == "cuda" and card._values.is_cuda
+    modes = ("bulk", "i8q", "probe", "exact") if dtype == "int8" else ("bulk", "probe", "exact")
+    for mode in modes:
+        counter = "launches_i8q" if mode == "i8q" else (
+            "launches_int8" if dtype == "int8" else "launches")
+        n = getattr(fn, counter)
+        s, d = card.search(q, 50, mode=mode)
+        rs, rd = cpu.search(q, 50, mode=mode)
+        if mode in ("bulk", "i8q"):
+            assert getattr(fn, counter) > n
+            assert card._bulk_state["qcap"] == cpu._bulk_state["qcap"]
+            assert card.last_dropped == cpu.last_dropped
+            assert sorted(card._bulk_state["hot"].tolist()) == sorted(
+                cpu._bulk_state["hot"].tolist())
+        recall = sum(len(set(a) & set(b)) for a, b in zip(d, rd)) / rd.size
+        assert recall >= 0.99, (mode, recall)
+        np.testing.assert_allclose(s, rs, rtol=1e-4, atol=1e-4)

@@ -208,9 +208,9 @@ def _metrics(args, ep):
         return json.load(fh)
 
 
-def _assert_same_evaluation(jargs, targs, ep):
+def _assert_same_evaluation(jargs, targs, ep, rel=1e-5):
     """Metrics within 1e-6; the dumps row for row: the same queries, answers
-    and texts, docids equal except where the two scores tie."""
+    and texts, docids equal except where the two scores tie (within ``rel``)."""
     want, got = _metrics(jargs, ep), _metrics(targs, ep)
     assert want.keys() == got.keys() and want["query_num"] == got["query_num"] == 8
     for key in want:
@@ -219,7 +219,7 @@ def _assert_same_evaluation(jargs, targs, ep):
     assert len(jd) == len(td) == 8 * 10
 
     def tie(x, y):
-        return abs(x - y) <= 1e-5 * max(1.0, abs(x))
+        return abs(x - y) <= rel * max(1.0, abs(x))
 
     for rank, (a, b) in enumerate(zip(jd, td)):
         assert (a["query_id"], a["query"], a["answers"]) == (b["query_id"], b["query"],

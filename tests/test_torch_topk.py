@@ -348,10 +348,31 @@ def test_index_factory_flat_strings(spec, dtype):
 
 
 def test_index_factory_unported_kinds_raise():
-    """The trained kinds wait for their ROADMAP item; int4 IVF cells raise the
-    reference's ValueError (the sq4 kernels are flat-corpus kernels)."""
-    for spec in ("IVF64,Flat", "IVF64,SQ8", "IVFR64,SQ8", "PQ8", "PQ16x4",
-                 "OPQ8,PQ8", "PCAR8,Flat", "IVF16,PQ8x4"):
+    """The IVF, IVFR and PCA/PCAR strings build the classes the reference's
+    build; the product-quantized kinds wait for their ROADMAP item; int4 IVF
+    cells raise the reference's ValueError (the sq4 kernels are flat-corpus
+    kernels)."""
+    from denseretrievaltoolkits_torch.index import ivf, transforms
+
+    for spec, cls, dtype, nlist in (("IVF64,Flat", ivf.IVFFlatIndex, "float32", 64),
+                                    ("IVF64,BF16", ivf.IVFFlatIndex, "bfloat16", 64),
+                                    ("IVF64,SQ8", ivf.IVFFlatIndex, "int8", 64),
+                                    ("IVFR64,SQ8", ivf.IVFRaggedIndex, "int8", 64),
+                                    ("IVFR32", ivf.IVFRaggedIndex, "int8", 32),
+                                    ("IVFR64,Flat", ivf.IVFRaggedIndex, "float32", 64)):
+        idx = tflat.index_factory(16, spec, nprobe=8, device="cpu")
+        want = jflat.index_factory(16, spec, nprobe=8)
+        assert type(idx) is cls and type(want).__name__ == cls.__name__
+        assert (idx.dtype, idx.nlist, idx.nprobe) == (dtype, nlist, 8) == \
+            (want.dtype, want.nlist, want.nprobe)
+    for spec, inner, d_out, rotate in (("PCAR8,Flat", tflat.FlatIPIndex, 8, True),
+                                       ("PCA8,SQ4", tflat.FlatIPIndex, 8, False),
+                                       ("PCAR12,IVF4,SQ8", ivf.IVFFlatIndex, 12, True)):
+        idx = tflat.index_factory(16, spec, device="cpu")
+        assert isinstance(idx, transforms.TransformedIndex) and type(idx.inner) is inner
+        assert (idx.transform.d_out, idx.transform.rotate, idx.inner.dim) == (d_out, rotate,
+                                                                             d_out)
+    for spec in ("PQ8", "PQ16x4", "OPQ8,PQ8", "IVF16,PQ8x4", "IVFR16,PQ8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tflat.index_factory(16, spec, device="cpu")
     for spec in ("IVF64,SQ4", "IVFR64,SQint4"):
