@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's paths (serving, training, evaluation, IVF) once on a card; check them.
+"""Drive the torch port's paths (serving, training, evaluation, IVF, PQ) once on a card; check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json]
 
@@ -113,6 +113,26 @@ Phases, each of which fails the run on error:
    learned Qcap, hot set, drops, K14's time), recall@100 against the
    certified search of a flat int8 index of the same rows, build seconds,
    resident and peak memory.
+17. K15 and K16 (the PQ serve kernels) through the entry points: 1,000,000 x
+   768 rows of the JAX package's PQ benchmark data (the IVF mixture times
+   the spectrum (d + 1)^-0.35), 2048 queries, k=100; ``PQ96`` trained on
+   262,144 rows, searched by ``PQIndex.search(mode="serve")`` (K16, the int8
+   codebook) and by ``pq_serve_topk`` with the bf16 table (K15, 8-bit codes);
+   ``PQ192x4`` (K15, 4-bit codes). Each meets its plain version block by block
+   on the search's own codes, blocks and J (ids equal up to ties, rescored in
+   fp64 under the kernel's formula; scores within 1e-4); recall@100 of serve
+   against exact ADC of the same codes, recall10@100 against the certified
+   fp32 flat search; kernel, plain, search and bound ms. (Runs before phase 3.)
+18. The evaluation path into the PQ indexes: phase 11's model evaluated into
+   ``PQ96`` (serve on K16, exact ADC) and ``IVF16,PQ96x4`` (nprobe 4, bulk on
+   K17, hot cells on K7 / K8); counters zeroed before; the plain versions over
+   the same reps; ``retrieval.main --index_path`` on each saved index.
+19. Scale PQ: 8,841,823 spectrumed rows in ``OPQ96,PQ96`` (serve) and
+   ``OPQ192x4,IVF256,PQ192x4`` (nprobe 8, 2048-row blocks, bulk_j 8, max_hot
+   16; bulk), trained on 262,144 rows, ``add_chunks`` in 500,000-row chunks;
+   queries/s, recall10@100 against the certified int8 flat search of the same
+   rows, serve recall@100 against exact ADC, K17 against its plain version on
+   the search's own slab, build seconds, resident and peak memory.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -230,6 +250,39 @@ IVF_VS_FP32, IVF_METRIC_GAP = 0.60, 0.42
 # (BASELINE.md:344); the port read 0.97900 (bulk) and 0.97204 (i8q) on the H100.
 SCALE_IVF_NLIST, SCALE_IVF_NPROBE, SCALE_IVF_BLOCK, SCALE_IVF_CHUNK = 256, 8, 2048, 500_000
 SCALE_IVF_RECALL = 0.95
+# The product-quantized indexes (K15-K17). Data: the IVF mixture times the
+# spectrum lambda_d = (d + 1) ** -PQ_SPECTRUM of the JAX package's PQ benchmark
+# (bench.py:790-800); codebooks trained on PQ_TRAIN_ROWS rows (its sample), 2048
+# queries, serve times over PQ_TIMED_SEARCHES calls after a warm-up.
+PQ_SPECTRUM, PQ_TRAIN_ROWS, PQ_QUERIES, PQ_TIMED_SEARCHES = 0.35, 262_144, 2048, 3
+# recall@100 of the serve search against exact ADC over the same codes: serve
+# scores bf16 queries against bf16 decoded rows (K16: int8 entries), exact ADC
+# fp32 ones, so near ties at the 100th place swap. It read 0.99390 (K16),
+# 0.99784 (K15 8-bit) and 0.99831 (K15 4-bit) at 1M rows and 0.99111 (OPQ96,
+# K16) at 8.8M on the H100; the bound keeps about a point of room. recall10@100
+# against the certified fp32 flat search at 1M read 0.79902 (PQ96; the JAX
+# package read 0.799, BASELINE.md:108) and 0.75166 (PQ192x4): bounds 3 points
+# under.
+PQ_SERVE_RECALL = 0.98
+PQ_RECALL10 = {"PQ96": 0.77, "PQ192x4": 0.72}
+# Scale: the JAX package's PQ benchmark strings at MS MARCO passage's count
+# (bench.py:1051-1059): nprobe 8 (nlist / 32), 2048-row blocks (SCALE_IVF_BLOCK),
+# bulk_j 8, max_hot 16; recall10@100 against the certified int8 flat search read
+# 0.75200 (OPQ96,PQ96; JAX 0.760, BASELINE.md:109) and 0.71997 (IVF-PQ; JAX
+# 0.731, BASELINE.md:147) on the H100: bounds 3 points under.
+SCALE_PQ_SPECS = (("OPQ96,PQ96", "serve"), ("OPQ192x4,IVF256,PQ192x4", "bulk"))
+SCALE_PQ_NPROBE, SCALE_PQ_BULK_J, SCALE_PQ_MAX_HOT = 8, 8, 16
+SCALE_PQ_RECALL10 = {"OPQ96,PQ96": 0.72, "OPQ192x4,IVF256,PQ192x4": 0.69}
+# The evaluation path into the PQ indexes: (factory, nprobe, modes, epoch).
+# Kernels vs plain versions over the same reps take the int8 path's bars.
+# Against the float32 flat ranking of the same random-weight model it read
+# top-100 overlap 0.28184 / 0.28498 (PQ96 serve / exact) and 0.15318
+# (IVF16,PQ96x4), metric gaps 0.3088 / 0.3066 and 0.6016, on the H100; the
+# bounds keep a little room on those readings.
+EVAL_PQ_CASES = (("PQ96", 32, ("serve", "exact"), 301), ("IVF16,PQ96x4", 4, ("bulk",), 302))
+PQ_VS_PLAIN, PQ_PLAIN_METRIC_GAP = 0.999, 0.004
+PQ_VS_FP32 = {"PQ96": 0.25, "IVF16,PQ96x4": 0.12}
+PQ_METRIC_GAP = {"PQ96": 0.34, "IVF16,PQ96x4": 0.64}
 
 
 def log(msg):
@@ -859,7 +912,7 @@ def against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None):
 
 
 def blocks_against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None, chunk=64,
-                         list_q=None, stored=None):
+                         list_q=None, stored=None, list_off=None):
     """(ok, max rank err, max rescored err, ids differing) of per-block top-J
     lists [L, nb, J] against the plain version's: scores rank-wise within
     ``rel_tol``, each kernel id scoring its kernel score under the kernels'
@@ -868,9 +921,10 @@ def blocks_against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None,
     rounded as the partial sums it passed through), so an id may differ from
     the plain one only where the two tie; empty slots alike, and no id twice
     in one list. Lists ``a`` score query row ``list_q[a]`` of q (default row
-    a); ``stored`` [N] bool, where given, must hold for every id. Rescored
-    ``chunk`` lists at a time (fp64 rows of every candidate); ``int4_query``
-    as in ``against_plain``."""
+    a); ``stored`` [N] bool, where given, must hold for every id;
+    ``list_off`` [L], where given, is added to every score of list a (K17's
+    slot offsets). Rescored ``chunk`` lists at a time (fp64 rows of every
+    candidate); ``int4_query`` as in ``against_plain``."""
     (vals, ids), (ref_vals, ref_ids) = got, want
     tol = rel_tol * ref_vals.abs().clamp(min=1.0)
     rank_err = torch.where(vals == ref_vals, 0.0, (vals - ref_vals).abs())
@@ -883,6 +937,9 @@ def blocks_against_plain(q, corpus, scales, got, want, rel_tol, int4_query=None,
         rescored, mag = rescore(q[at if list_q is None else list_q[at]], corpus,
                                 part.reshape(part.shape[0], -1), scales, int4_query,
                                 int4_query is not None, magnitude=True)
+        if list_off is not None:
+            off = list_off[at].double()[:, None]
+            rescored, mag = rescored + off, mag + off.abs()
         err = torch.where(part >= 0, (rescored.reshape(part.shape) - vals[at].double()).abs(),
                           0.0)
         own_ok = own_ok and bool((err <= rel_tol * mag.reshape(part.shape).clamp(min=1.0)).all())
@@ -1392,7 +1449,8 @@ def phase_eval_path(args, tmp):
 
         def _make_index(self, dim):
             index = super()._make_index(dim)
-            index.block_size = INDEX_BLOCK
+            if isinstance(index, flat.FlatIPIndex):
+                index.block_size = INDEX_BLOCK
             return index
 
     config = BertConfig(num_hidden_layers=TRAIN_LAYERS)
@@ -2030,6 +2088,448 @@ def phase_ivf_scale(seed, flat, ivf_bulk, n_queries=2048, k=100, dim=768):
             "resident_gib": resident_gib, "peak_gib": peak_gib, "padding": pad, "modes": res}
 
 
+
+# -- the product-quantized indexes: K15, K16 and K17 ----------------------------------------------
+
+
+def spectrumed(seed, dim=768):
+    """The JAX package's PQ benchmark data (bench.py:790-800, 941-968): the
+    IVF mixture of :func:`mixture` times the spectrum ``(d + 1) ** -0.35``
+    over the dims d, so a few directions carry most of the variance, as in
+    trained embeddings. ``rows(start, n, stream=0)``, stream 1 the queries."""
+    rows = mixture(seed, dim)
+    lam = (torch.arange(dim, device="cuda", dtype=torch.float32) + 1.0) ** -PQ_SPECTRUM
+
+    def spec(start, n, stream=0):
+        return rows(start, n, stream) * lam
+
+    return spec
+
+
+def recall10_at(ids, truth, k):
+    """recall10@k: the share of the reference's top-10 found in the top-k."""
+    return float(np.mean([len(set(a[:k]) & set(t[:10])) / 10 for a, t in zip(ids, truth)]))
+
+
+def decoded_corpus(pq_ops, codes, table, scale, nbits, chunk=262_144):
+    """The rows the PQ kernels score, [N, H] bf16: each code column decoded
+    through the kernels' table (K16: bf16(entry x scale[dim]))."""
+    tab = pq_ops._decoded_table(table, scale)
+    M, _, d = tab.shape
+    m_idx = torch.arange(M, device=codes.device)[:, None]
+    out = torch.empty(codes.shape[1], M * d, dtype=torch.bfloat16, device=codes.device)
+    for s in range(0, codes.shape[1], chunk):
+        idx = pq_ops._code_ids(codes[:, s:s + chunk], 1 << nbits)
+        out[s:s + chunk] = tab[m_idx, idx].permute(1, 0, 2).reshape(-1, M * d)
+    return out
+
+
+def pq_blocks_check(name, pq_ops, q, codes, table, scale, nbits, k, block_size, n_valid):
+    """K15 / K16 against its plain version block by block, on the search's own
+    codes, queries, block and J: scores rank-wise within 1e-4 relative, each
+    kernel id rescored in fp64 under the kernel's formula (bf16 q x the
+    decoded bf16 row), so ids differ only at ties. Returns the result row."""
+    from denseretrievaltoolkits_torch.ops.topk import serve_plan
+
+    N = codes.shape[1]
+    block, J = serve_plan(k, N, n_valid, block_size)
+    qb = q.to(torch.bfloat16)
+
+    def kernel():
+        return pq_ops.pq_topj_blocks(qb, codes, table, J, block, n_valid, scale, nbits)
+
+    def plain():
+        return pq_ops._pq_topj_reference(qb, codes, table, J, block, n_valid, scale, nbits)
+
+    got, want = kernel(), plain()
+    dec = decoded_corpus(pq_ops, codes, table, scale, nbits)
+    ok, *err = blocks_against_plain(qb, dec, None, got, want, 1e-4, chunk=16)
+    del dec
+    fin = want[1] >= 0
+    max_abs = float((got[0] - want[0]).abs()[fin].max())
+    ms, plain_ms = cuda_ms(kernel, iters=3), cuda_ms(plain, iters=1, warmup=0)
+    # the least time: 2 Q N H bf16 products, or the codes, queries and table
+    # read once and the lists written once
+    Q, H = q.shape
+    b_ms, b_by = bound(codes.numel() + 2 * Q * H + table.numel() * table.element_size()
+                       + 8 * Q * -(-N // block) * J, 2 * Q * N * H, "bf16")
+    log(f"{name}: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}); "
+        f"block {block}, J={J}; rank err {err[0]:.3g}, rescored err {err[1]:.3g}, {err[2]} ids "
+        f"differing")
+    check(ok, f"{name}: the kernel disagrees with its plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs, "bound_ms": b_ms,
+            "bound_by": b_by, "block": block, "J": J, "ids_differing": err[2]}
+
+
+def phase_pq_kernels(seed, flat, pq_ops, n_rows, n_queries=PQ_QUERIES, k=100, dim=768):
+    """K15 (8- and 4-bit codes) and K16 through the entry points and block by
+    block against their plain versions: ``PQ96`` (8-bit codes, K16 in
+    ``PQIndex.search(mode="serve")``, and K15's 8-bit body through
+    ``pq_serve_topk`` with the bf16 table) and ``PQ192x4`` (K15 4-bit) over
+    n_rows spectrumed mixture rows, trained on PQ_TRAIN_ROWS, 2048 queries,
+    k=100. Recall@100 of serve against exact ADC of the same codes, and
+    recall10@100 against the certified fp32 flat search of the same rows."""
+    rows = spectrumed(seed, dim)
+    x = rows(0, n_rows)
+    q = rows(0, n_queries, stream=1)
+    qn = q.cpu().numpy()
+    ref = flat.FlatIPIndex(dim, dtype="float32", device="cuda")
+    ref.add_device(x)
+    fp32_exact = ref.search(qn, k, mode="exact")[1]
+    del ref
+    torch.cuda.empty_cache()
+    log(f"PQ kernels: {n_rows} x {dim} spectrumed mixture rows (lambda_d = (d + 1)^-"
+        f"{PQ_SPECTRUM}), {n_queries} queries, k={k}; codebooks on {PQ_TRAIN_ROWS} rows")
+    out = {}
+    counters = ("launches", "launches_4bit", "launches_i8dec")
+    for spec, runs in (("PQ96", (("K16", "launches_i8dec"), ("K15 8-bit", "launches"))),
+                       ("PQ192x4", (("K15 4-bit", "launches_4bit"),))):
+        idx = flat.index_factory(dim, spec, device="cuda")
+        t0 = time.perf_counter()
+        idx.train(x[:PQ_TRAIN_ROWS])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx.add_device(x)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        codes = idx._materialize()
+        _, adc = pq_ops.pq_blockwise_topk(q, codes, idx._cb_dev, k, block_size=65536)
+        adc = adc.cpu().numpy()
+        for name, counter in runs:
+            if name == "K15 8-bit":  # the bf16 table through the serve search
+                table, scale = pq_ops.bdcb_table(pq_ops.build_bdcb(idx.codebooks))
+                table = table.cuda()
+
+                def search():
+                    s, i = pq_ops.pq_serve_topk(q, codes, idx._cb_dev, table, k, idx.block_size,
+                                                valid=len(idx))
+                    return s.cpu().numpy(), i.cpu().numpy()
+            else:
+                table, scale = idx._table, idx._table_scale
+
+                def search():
+                    return idx.search(qn, k, mode="serve")
+            for c in counters:
+                setattr(pq_ops.pq_topj_blocks, c, 0)
+            scans = pq_ops.pq_serve_topk.exact_scans
+            search()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PQ_TIMED_SEARCHES):
+                _, ids = search()
+            search_s = (time.perf_counter() - t0) / PQ_TIMED_SEARCHES
+            launches = getattr(pq_ops.pq_topj_blocks, counter)
+            check(launches > 0, f"{spec} {name}: the kernel never launched")
+            check(pq_ops.pq_serve_topk.exact_scans == scans,
+                  f"{spec} {name}: the serve search took the exact scan")
+            r = pq_blocks_check(f"{spec} {name}", pq_ops, q, codes, table, scale, idx.nbits, k,
+                                idx.block_size, len(idx))
+            r.update(launches=launches, search_ms=search_s * 1e3,
+                     queries_per_s=n_queries / search_s,
+                     recall_vs_adc=overlap(ids.tolist(), adc.tolist()),
+                     recall10_vs_fp32=recall10_at(ids, fp32_exact, k), train_s=train_s,
+                     build_s=build_s)
+            log(f"{spec} {name} serve: {search_s * 1e3:.2f} ms per search "
+                f"({r['queries_per_s']:.1f} queries/s); recall@{k} vs exact ADC "
+                f"{r['recall_vs_adc']:.5f} (>= {PQ_SERVE_RECALL}); recall10@{k} vs the certified "
+                f"fp32 flat search {r['recall10_vs_fp32']:.5f} (>= {PQ_RECALL10[spec]}); trained "
+                f"in {train_s:.1f} s, encoded in {build_s:.2f} s; {launches} launches")
+            check(r["recall_vs_adc"] >= PQ_SERVE_RECALL, f"{spec} {name}: serve recall@{k} "
+                                                         f"vs exact ADC below its bound")
+            check(r["recall10_vs_fp32"] >= PQ_RECALL10[spec],
+                  f"{spec} {name}: recall10@{k} vs the fp32 flat search below its bound")
+            out[name] = r
+        out[spec] = {"recall10_vs_fp32_exact_adc": recall10_at(adc, fp32_exact, k)}
+        del idx, codes
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def pq_cell_call(ivf_pq_ops, inner, q, k):
+    """K17's call of ``inner``'s (an IVFPQIndex) last bulk search of q (its
+    learned Qcap, hot set and plan), the plain version's, the offset and query
+    row of each list, and the data's work."""
+    nlist, state = inner.nlist, inner._bulk_state
+    qcap = state["qcap"]
+    qd, B0 = inner._pad_queries(q)
+    ps, poff = ivf_pq_ops.pq_probe_slab(qd, inner.centroids, nlist,
+                                        min(inner.nprobe, nlist - int(state["hot"].size)), qcap,
+                                        state["hp"], B0)
+    block, sel, J = inner._cell_plan(qcap, k)
+    args = (inner._block_cell, ps.qslab, inner._values, inner._row_ids, poff, inner._table, J,
+            block, sel, inner.nbits)
+
+    def kernel():
+        return ivf_pq_ops.ragged_topj_pq(*args)
+
+    def plain():
+        return ivf_pq_ops._ivf_pq_topj_reference(ps.qslab, inner._values, inner._row_ids, poff,
+                                                 inner._table, inner._block_cell, J, block, sel,
+                                                 inner.nbits)
+    per = -(-block // sel)
+    block_of = inner._block_cell.long()
+    list_cell = block_of.repeat_interleave(per)[:, None]
+    list_q = (list_cell * qcap + torch.arange(qcap, device="cuda")).reshape(-1)
+    slots = torch.bincount(ps.sc[ps.in_cap], minlength=nlist).double()
+    rows = torch.bincount(block_of.repeat_interleave(block)[inner._row_ids >= 0], minlength=nlist)
+    rows = rows.double() * (slots > 0)
+    dim = inner.dim
+    lists = float((slots * torch.ceil(rows / sel)).sum())
+    n_bytes = (float(rows.sum()) * (inner._values.shape[0] + 4) + float(slots.sum()) * (2 * dim + 4)
+               + 4 * block_of.numel() + inner._table.numel() * 2 + 8 * J * lists)
+    return {"kernel": kernel, "plain": plain, "ps": ps, "poff": poff.reshape(-1)[list_q],
+            "list_q": list_q, "block": block, "sel": sel, "J": J,
+            "bound": bound(n_bytes, 2 * dim * float((slots * rows).sum()), "bf16")}
+
+
+def phase_pq_scale(seed, flat, pq_ops, ivf_pq_ops, n_queries=PQ_QUERIES, k=100, dim=768):
+    """MS MARCO passage's row count of the spectrumed mixture in the JAX
+    package's PQ benchmark configurations (bench.py:1051-1059): ``OPQ96,PQ96``
+    (serve, K16) and ``OPQ192x4,IVF256,PQ192x4`` (nprobe 8, 2048-row blocks,
+    bulk_j 8, max_hot 16; bulk, K17), trained on PQ_TRAIN_ROWS rows and built
+    by add_chunks in 500,000-row chunks; queries/s at steady state, recall10@100
+    against the certified search of a flat int8 index of the same rows, serve
+    recall@100 against exact ADC (flat PQ), K17 against its plain version on
+    the search's own slab, build seconds, resident and peak memory."""
+    rows = spectrumed(seed, dim)
+    q = rows(0, n_queries, stream=1)
+    qn = q.cpu().numpy()
+    t0 = time.perf_counter()
+    ref = flat.FlatIPIndex(dim, dtype="int8", device="cuda")
+    for start in range(0, SCALE_ROWS, SLAB_ROWS):
+        ref.add_device(rows(start, min(SLAB_ROWS, SCALE_ROWS - start)))
+    truth = ref.search(qn, k, mode="exact")[1]
+    ref_s = time.perf_counter() - t0
+    del ref
+    torch.cuda.empty_cache()
+    log(f"scale PQ: {SCALE_ROWS} x {dim} spectrumed mixture rows; the certified int8 flat "
+        f"reference built and searched in {ref_s:.1f} s")
+    res = {}
+    for spec, mode in SCALE_PQ_SPECS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        index = flat.index_factory(dim, spec, nprobe=SCALE_PQ_NPROBE, device="cuda")
+        inner = index.inner
+        ivfpq = mode == "bulk"
+        if ivfpq:
+            inner.block, inner.bulk_j = SCALE_IVF_BLOCK, SCALE_PQ_BULK_J
+            inner.max_hot = SCALE_PQ_MAX_HOT
+        t0 = time.perf_counter()
+        index.train(rows(0, PQ_TRAIN_ROWS))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index.add_chunks(rows, SCALE_ROWS, chunk_rows=SCALE_IVF_CHUNK)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        resident_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+        fn, counter = ((ivf_pq_ops.ragged_topj_pq, "launches") if ivfpq else
+                       (pq_ops.pq_topj_blocks, "launches_i8dec" if inner.nbits == 8
+                        else "launches_4bit"))
+        setattr(fn, counter, 0)
+        scans = pq_ops.pq_serve_topk.exact_scans
+        index.search(qn, k, mode=mode)  # the tuning call (IVF-PQ: Qcap, hot set)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IVF_TIMED_SEARCHES):
+            _, ids = index.search(qn, k, mode=mode)
+        secs = (time.perf_counter() - t0) / IVF_TIMED_SEARCHES
+        launches = getattr(fn, counter)
+        check(launches > 0, f"scale {spec}: its kernel never launched")
+        check(pq_ops.pq_serve_topk.exact_scans == scans, f"scale {spec}: took the exact scan")
+        r = {"train_s": train_s, "build_s": build_s, "resident_gib": resident_gib,
+             "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+             "seconds": secs, "queries_per_s": n_queries / secs, "launches": launches,
+             "recall10_vs_int8_flat": recall10_at(ids, truth, k)}
+        qt = index.transform.apply(q)
+        if ivfpq:
+            state = inner._bulk_state
+            r.update(qcap=state["qcap"], hot=state["hot"].tolist(), side_rows=state["side"][3],
+                     dropped=inner.last_dropped)
+            call = pq_cell_call(ivf_pq_ops, inner, qt, k)
+            got, want = call["kernel"](), call["plain"]()
+            dec = decoded_corpus(pq_ops, inner._values, inner._table, None, inner.nbits)
+            n_lists, J = got[0].shape[0] * got[0].shape[1], got[0].shape[2]
+            ok, *err = blocks_against_plain(
+                call["ps"].qslab.reshape(-1, dim), dec, None,
+                tuple(t.reshape(n_lists, 1, J) for t in got),
+                tuple(t.reshape(n_lists, 1, J) for t in want), 1e-4, chunk=8192,
+                list_q=call["list_q"], stored=inner._row_ids >= 0, list_off=call["poff"])
+            del dec
+            fin = want[1] >= 0
+            r.update(kernel_ms=cuda_ms(call["kernel"], iters=3),
+                     plain_ms=cuda_ms(call["plain"], iters=1, warmup=0),
+                     max_abs_err=float((got[0] - want[0]).abs()[fin].max()),
+                     bound_ms=call["bound"][0], bound_by=call["bound"][1], J=call["J"],
+                     sel=call["sel"], ids_differing=err[2])
+            log(f"scale {spec} K17: kernel {r['kernel_ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
+                f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}), J={call['J']} over selection "
+                f"blocks of {call['sel']}; rank err {err[0]:.3g}, rescored err {err[1]:.3g}, "
+                f"{err[2]} ids differing; Qcap {state['qcap']}, hot cells {state['hot'].tolist()}, "
+                f"side slab {state['side'][3]} rows, {inner.last_dropped} pairs dropped")
+            check(ok, f"scale {spec}: K17 disagrees with its plain version")
+        else:
+            _, adc = pq_ops.pq_blockwise_topk(qt, inner._materialize(), inner._cb_dev, k,
+                                              block_size=65536)
+            r["recall_vs_adc"] = overlap(ids.tolist(), adc.cpu().numpy().tolist())
+            check(r["recall_vs_adc"] >= PQ_SERVE_RECALL,
+                  f"scale {spec}: serve recall@{k} vs exact ADC below its bound")
+        log(f"scale {spec} {mode}: {n_queries} queries k={k} in {secs:.4f} s "
+            f"({r['queries_per_s']:.1f} queries/s); recall10@{k} vs the certified int8 flat search "
+            f"{r['recall10_vs_int8_flat']:.5f}"
+            + (f", recall@{k} vs exact ADC {r['recall_vs_adc']:.5f}" if not ivfpq else "")
+            + f"; trained in {train_s:.1f} s, add_chunks {build_s:.1f} s; {resident_gib:.2f} GiB "
+              f"resident, peak {r['peak_gib']:.2f} GiB (build and search); {launches} launches")
+        check(r["recall10_vs_int8_flat"] >= SCALE_PQ_RECALL10[spec],
+              f"scale {spec}: recall10@{k} below {SCALE_PQ_RECALL10[spec]}")
+        res[spec] = r
+        del index, inner
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_pq_eval_path(args, tmp, ctx):
+    """The evaluation path into the product-quantized indexes: the evaluation
+    phase's bert-base, ``Trainer.evaluate`` with ``index_factory`` "PQ96" in
+    serve (K16) and exact, then "IVF16,PQ96x4" (nprobe 4) in bulk (K17, and
+    the side slab of hot cells on K7 / K8). Each encodes (K1, K2), spills,
+    trains, builds through add_chunks and searches. The plain versions over
+    the same reps must agree; ``retrieval.main --index_path`` on each saved
+    index must rank as the trainer did."""
+    from denseretrievaltoolkits_torch.evaluator import retrieval
+    from denseretrievaltoolkits_torch.index import ivf_pq as ivf_pq_index
+    from denseretrievaltoolkits_torch.index import pq as pq_index
+    from denseretrievaltoolkits_torch.ops import attn, ivf_bulk, ivf_pq, pq, quant, topk
+
+    trainer, targs, query_loader = ctx["trainer"], ctx["targs"], ctx["query_loader"]
+    counted = {"fused_attention_ln": (attn.fused_attention_ln, "launches"),
+               "fused_mlp_ln": (attn.fused_mlp_ln, "launches"),
+               "pq_topj_blocks (K16)": (pq.pq_topj_blocks, "launches_i8dec"),
+               "ragged_topj_pq (K17)": (ivf_pq.ragged_topj_pq, "launches"),
+               "quantize_int8_device": (quant.quantize_int8_device, "launches"),
+               "block_topj_serve": (topk.block_topj_serve, "launches")}
+    fm, franked = ctx["float32_metrics"], ctx["float32_ranked"]
+    out = {}
+    for factory, nprobe, modes, ep in EVAL_PQ_CASES:
+        targs.index_factory, targs.nprobe = factory, nprobe
+        for fn, attr in counted.values():
+            setattr(fn, attr, 0)
+        scans = pq.pq_serve_topk.exact_scans
+        runs = {}
+        for mode in modes:
+            targs.search_mode = mode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.evaluate(query_loader, ep)  # the first encodes, trains and builds
+            torch.cuda.synchronize()
+            runs[mode] = (m, *read_dump(targs, ep), time.perf_counter() - t0)
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+        index = trainer.index
+        ivfpq = factory.startswith("IVF")
+        side_rows = index._bulk_state["side"][3] if ivfpq else 0
+        log(f"PQ evaluation path: {factory}{f', nprobe {nprobe}' if ivfpq else ''}, {len(index)} "
+            f"passages; " + (f"Qcap {index._bulk_state['qcap']}, hot cells "
+                             f"{index._bulk_state['hot'].tolist()}, side slab {side_rows} rows; "
+                             if ivfpq else "") + f"launches {json.dumps(launches)}")
+        need = ["fused_attention_ln", "fused_mlp_ln"] + (
+            ["ragged_topj_pq (K17)"] + (["quantize_int8_device", "block_topj_serve"]
+                                        if side_rows else []) if ivfpq
+            else ["pq_topj_blocks (K16)"])
+        for name in need:
+            check(launches[name] > 0, f"PQ evaluation path {factory}: {name} never launched")
+        check(pq.pq_serve_topk.exact_scans == scans, f"{factory}: the serve search took the scan")
+        for mode, (m, ranked, n_rows, secs) in runs.items():
+            log(f"{factory} {mode}: {secs:.2f} s; dump {n_rows} rows; metrics "
+                f"{json.dumps({x: round(v, 5) for x, v in m.items()})}")
+            check(m["query_num"] == args.queries and all(math.isfinite(v) for v in m.values()),
+                  f"{factory} {mode}: metrics")
+            check(len(ranked) == args.queries and n_rows >= 0.99 * args.queries * args.k,
+                  f"{factory} {mode}: retrieval dump length")
+
+        # the plain versions over the same reps: the index rebuilt from the
+        # spilled corpus on the same trained state, searched by the same evaluate
+        reps = torch.from_numpy(np.load(os.path.join(targs.encode_corpus_dir,
+                                                     f"{ep}.0.npy"))).cuda()
+        if ivfpq:
+            plain = {ivf_pq: {"ragged_topj_pq": lambda bc, qs, c, rid, po, tab, J, blk, sel, nb:
+                              ivf_pq._ivf_pq_topj_reference(qs, c, rid, po, tab, bc, J, blk, sel,
+                                                            nb)},
+                     ivf_pq_index: {"quantize_int8_device": quant._quantize_int8_reference},
+                     ivf_bulk: {"block_topj_serve": topk._block_topj_serve_reference}}
+            plain_index = ivf_pq_index.IVFPQIndex(reps.shape[1], nlist=index.nlist,
+                                                  nprobe=index.nprobe, M=index.M,
+                                                  nbits=index.nbits, block=index.block,
+                                                  device="cuda")
+            plain_index.centroids = index.centroids
+        else:
+            plain = {pq: {"pq_topj_blocks": pq._pq_topj_reference}}
+            plain_index = pq_index.PQIndex(reps.shape[1], M=index.M, nbits=index.nbits,
+                                           block_size=index.block_size, device="cuda")
+        summary = {}
+        with plain_versions_of(plain):
+            plain_index.codebooks = index.codebooks
+            plain_index._set_codebooks()
+            plain_index.add_chunks(lambda s, r: reps[s:s + r], reps.shape[0],
+                                   chunk_rows=max(1, min(reps.shape[0], targs.index_slab_rows)))
+            stored = index._values if ivfpq else index._materialize()
+            same = bool(torch.equal(plain_index._values if ivfpq
+                                    else plain_index._materialize(), stored))
+            plain_index.docid = index.docid
+            trainer.index, trainer._indexed_ep = plain_index, ep + 100
+            for mode in modes:
+                targs.search_mode = mode
+                m = trainer.evaluate(query_loader, ep + 100)
+                ranked = read_dump(targs, ep + 100)[0]
+                km, kranked = runs[mode][0], runs[mode][1]
+                vs_plain = overlap([kranked[x] for x in sorted(kranked)],
+                                   [ranked[x] for x in sorted(kranked)])
+                gap = max(abs(km[x] - m[x]) for x in m if x != "query_num")
+                vs_fp32 = overlap([kranked[x] for x in sorted(kranked)],
+                                  [franked[x] for x in sorted(kranked)])
+                gap32 = max(abs(km[x] - fm[x]) for x in fm if x != "query_num")
+                log(f"{factory} {mode}, kernels vs plain versions over the same reps: top-{args.k} "
+                    f"overlap {vs_plain:.5f} (>= {PQ_VS_PLAIN}), largest metric gap {gap:.4f} (<= "
+                    f"{PQ_PLAIN_METRIC_GAP}); vs the float32 flat exact ranking: overlap "
+                    f"{vs_fp32:.5f} (>= {PQ_VS_FP32[factory]}), largest metric gap {gap32:.4f} "
+                    f"(<= {PQ_METRIC_GAP[factory]})")
+                check(vs_plain >= PQ_VS_PLAIN and gap <= PQ_PLAIN_METRIC_GAP,
+                      f"{factory} {mode}: the kernels disagree with their plain versions")
+                check(vs_fp32 >= PQ_VS_FP32[factory] and gap32 <= PQ_METRIC_GAP[factory],
+                      f"{factory} {mode}: ranking too far from float32")
+                summary[mode] = {"metrics": km, "seconds": runs[mode][3],
+                                 "overlap_vs_plain": vs_plain, "metric_gap_vs_plain": gap,
+                                 "overlap_vs_fp32": vs_fp32, "metric_gap_vs_fp32": gap32}
+        log(f"{factory}: the codes the plain build stores equal the kernel path's: {same}")
+        check(same, f"{factory}: the plain build stores other codes")
+        del plain_index, reps
+
+        # the retrieval CLI on the saved index
+        cli_path = os.path.join(tmp, f"ranking_{ep}_cli.tsv")
+        retrieval.main(["--index_path", targs.index_file + str(ep), "--query_reps",
+                        ctx["q_path"], "--search_mode", modes[0], "--depth", str(args.k),
+                        "--batch_size", str(args.batch), "--save_ranking_to", cli_path,
+                        "--save_text"])
+        cli = {}
+        with open(cli_path) as fh:
+            for line in fh:
+                qid, did, _ = line.split("\t")
+                cli.setdefault(qid, []).append(did)
+        kranked = runs[modes[0]][1]
+        vs_cli = overlap([kranked[x] for x in sorted(kranked)], [cli[x] for x in sorted(kranked)])
+        log(f"retrieval.main --index_path <{factory}> --search_mode {modes[0]}: top-{args.k} "
+            f"overlap with the trainer's ranking {vs_cli:.5f} (>= 0.999)")
+        check(vs_cli >= 0.999, f"retrieval.main on the saved {factory} index disagrees")
+        out[factory] = {"launches": launches, "modes": summary, "side_rows": side_rows,
+                        "cli_overlap": vs_cli}
+        trainer.index = None
+        torch.cuda.empty_cache()
+    return out
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2048,7 +2548,8 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     from denseretrievaltoolkits_torch.index import flat, ivf
     from denseretrievaltoolkits_torch.index.flat import blockwise_topk
-    from denseretrievaltoolkits_torch.ops import _native, attn, contrastive, ivf_bulk, quant, topk
+    from denseretrievaltoolkits_torch.ops import (_native, attn, contrastive, ivf_bulk, ivf_pq,
+                                                  pq, quant, topk)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain versions score in true fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -2073,6 +2574,7 @@ def main(argv=None):
     del x_int4
     torch.cuda.empty_cache()
     ivf_kernels = phase_ivf_kernels(args.seed + 7, flat, ivf, ivf_bulk, args.corpus_rows)
+    pq_kernels = phase_pq_kernels(args.seed + 13, flat, pq, args.corpus_rows)
     with tempfile.TemporaryDirectory() as tmp:
         main_path, kern = phase_main_path(args, tmp)
         int8_path = phase_int8_path(args, tmp, kern)
@@ -2080,10 +2582,12 @@ def main(argv=None):
         train = phase_train(args, tmp)
         eval_path, ctx = phase_eval_path(args, tmp)
         ivf_eval = phase_ivf_eval_path(args, tmp, ctx)
+        pq_eval = phase_pq_eval_path(args, tmp, ctx)
         del ctx
     scale = phase_scale(gen, flat, topk, SCALE_QUERIES)
     scale4 = phase_scale4(gen, flat, SCALE4_QUERIES)
     ivf_scale = phase_ivf_scale(args.seed + 11, flat, ivf_bulk)
+    pq_scale = phase_pq_scale(args.seed + 17, flat, pq, ivf_pq)
 
     src = "denseretrievaltoolkits_torch/csrc/"
     rows = [
@@ -2173,6 +2677,24 @@ def main(argv=None):
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                         "launched_bound_ms": r["launched_bound_ms"]})
+    # the PQ kernels: K15 / K16 times at the 1M-row phase, launches on the path that
+    # runs each (K16 the PQ96 evaluation, K15 the 1M-row serve searches); K17 times at
+    # the 8.8M-row IVF-PQ search's own slab, launches on the IVF16,PQ96x4 evaluation
+    k17 = pq_scale["OPQ192x4,IVF256,PQ192x4"]
+    for name, line, r, launches in (
+            ("pq_topj_blocks (K15, 8-bit codes)", "pq.py:349", pq_kernels["K15 8-bit"],
+             pq_kernels["K15 8-bit"]["launches"]),
+            ("pq_topj_blocks (K15, 4-bit codes)", "pq.py:409", pq_kernels["K15 4-bit"],
+             pq_kernels["K15 4-bit"]["launches"]),
+            ("pq_topj_blocks (K16, int8 codebook)", "pq.py:293", pq_kernels["K16"],
+             pq_eval["PQ96"]["launches"]["pq_topj_blocks (K16)"]),
+            ("ragged_topj_pq (K17)", "ivf_pq.py:58", dict(k17, ms=k17["kernel_ms"]),
+             pq_eval["IVF16,PQ96x4"]["launches"]["ragged_topj_pq (K17)"])):
+        kernels.append({"name": name, "route": "cuda", "source": src + "block_topj.cu",
+                        "replaces": f"denseretrievaltoolkits_tpu/ops/{line}",
+                        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -2181,7 +2703,8 @@ def main(argv=None):
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
                        "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,
-                       "ivf_eval": ivf_eval, "ivf_scale": ivf_scale, "kernels": kernels}, fh,
+                       "ivf_eval": ivf_eval, "ivf_scale": ivf_scale, "pq_kernels": pq_kernels,
+                       "pq_eval": pq_eval, "pq_scale": pq_scale, "kernels": kernels}, fh,
                       indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 // Per-block top-J of inner-product scores: one templated kernel family for K5, K6, K8,
-// K10, K11 and K12.
+// K10-K17.
 //
 // Replaces these TPU kernels of denseretrievaltoolkits_tpu/ops/topk.py:
 //   K5  `_block_topj_kernel` (:37, launched by `_pallas_block_topj`, :336): exact top-J,
@@ -24,6 +24,15 @@
 //   K14 `_ragged_kernel` / `_scaled` / `_i8q` (:165, :184, :202; `_ivf_ragged_topj`,
 //       :272): the same over the ragged padded-flat block list, whose block -> cell map
 //       picks the slab.
+// and these of denseretrievaltoolkits_tpu/ops/pq.py and ops/ivf_pq.py (the PQ kernels, all
+// with the serve selection):
+//   K15 `_pq_serve_kernel` / `_pq4_serve_kernel` (:349, :409; `pq_topj_blocks`, :499): per
+//       (query tile, corpus block) the block's PQ codes decoded to bf16 rows, scored against
+//       bf16 queries, rows >= n_valid masked;
+//   K16 `_pq_serve_kernel_i8dec` (:293, the same call with `scale`): K15 through an int8
+//       codebook with one scale per output dim;
+//   K17 `_ragged_pq_kernel` (ivf_pq.py:58; `_ivf_ragged_topj_pq`, :167): K14 over PQ codes
+//       of cell residuals, each slot's probe score added to its scores before the mask.
 // The IVF kernels are this family with a per-block query base: a block reads its cell
 // (block_cell[blk] for K14, blk / blocks-per-cell for K13; the TPU scalar-prefetches it)
 // and stages its tile of that cell's slots, and the row mask reads the row ids. Their
@@ -41,9 +50,20 @@
 // the smaller id. Output layout [Q, n_blocks, J] (vals fp32, ids int32; an empty slot
 // is (-inf, -1)), which the merge reads as [Q, n_blocks * J] without a transpose.
 //
+// PQ corpora (K15-K17) are code-major: codes [M, N] int8 (code - 128) or [M/2, N]
+// nibble-packed (subspace 2i low, 2i+1 high), M = H / d_sub. The TPU decodes a block with
+// one-hot matmuls against a block-diagonal codebook, whose every output is one codebook
+// entry; here the rows are decoded while they are staged: each code byte gathers that
+// subspace's d_sub entries of a compact table [M, k, d_sub] into the bf16 k-slices the
+// tensor-core body consumes. The 4-bit table (32 H bytes) is copied to shared memory, the
+// 8-bit one (512 H bytes, more than a CTA holds at H = 768) is read through L2. K16's table
+// is int8 with a per-dim scale: the staged value is bf16(float(entry) x scale[dim]), the
+// TPU's s32 one-hot sum times the scale, rounded once. A block decodes its rows once per
+// query tile (Q / 64 times in all).
+//
 // Template parameters: the query element type QT (float, bf16, int8), the corpus
-// element type CT (float, bf16, int8 or packed int4 with a per-row scale) and the
-// selection SERVE.
+// element type CT (float, bf16, int8 or packed int4 with a per-row scale, or PQ codes)
+// and the selection SERVE.
 // - Certified (K5, K6): the list is (score, id) pairs; the certificate and its
 //   escalation ladder run on the host side (ops/topk.py:certified_topk).
 // - Serve (K8, K12): one packed 64-bit key per candidate, order-preserving score bits
@@ -110,6 +130,73 @@ enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2, T_I4 = 3 };
 struct nib {
   unsigned char b;
 };
+// PQ codes (corpus elements the tensor-core body decodes while staging): 8-bit codes over a
+// bf16 table (K15, K17), over an int8 table x per-dim scale (K16), 4-bit codes (K15, K17)
+struct pq8 {
+  unsigned char b;
+};
+struct pq8i8 {
+  unsigned char b;
+};
+struct pq4 {
+  unsigned char b;
+};
+template <typename CT>
+constexpr bool is_pq = std::is_same_v<CT, pq8> || std::is_same_v<CT, pq8i8> ||
+                       std::is_same_v<CT, pq4>;
+
+// The decode operands of a PQ corpus, and the per-slot score offsets of K17.
+struct Decode {
+  const void* table;    // [M, k, d_sub]: bf16, or int8 for K16; k = 256 (8-bit) or 16 (4-bit)
+  const float* dscale;  // K16: [H] fp32 scale of output dim d; else null
+  const float* qoff;    // K17: [n_cells, Q] fp32 added to each slot's scores; else null
+  int d_sub;            // dims per subspace (divides 128)
+  int table_smem;       // copy the table to shared memory (the 4-bit table, where it fits)
+};
+
+// Eight consecutive output dims k..k+7 (k % 8 == 0) of row `row` of a PQ corpus, decoded to
+// bf16: code of subspace m = dim / d_sub at codes[m * N + row] (4-bit: nibble m & 1 of
+// packed row m / 2), entry (m, code, dim % d_sub) of the table.
+template <typename CT>
+__device__ __forceinline__ uint4 pq_decode8(const unsigned char* __restrict__ codes, int N,
+                                            size_t row, int k, const void* table,
+                                            const float* __restrict__ dscale, int d) {
+  constexpr bool FOUR = std::is_same_v<CT, pq4>;
+  constexpr int KC = FOUR ? 16 : 256;
+  auto code_of = [&](int m) -> int {
+    if constexpr (FOUR) {
+      const unsigned b = __ldg(codes + (size_t)(m >> 1) * N + row);
+      return (m & 1) ? (int)(b >> 4) : (int)(b & 15u);
+    } else {
+      return (int)(__ldg(codes + (size_t)m * N + row) ^ 0x80u);  // centered int8 -> id
+    }
+  };
+  if constexpr (!std::is_same_v<CT, pq8i8>) {
+    const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
+    if (d >= 8) {  // 8 dims of one subspace: one 16-byte load (d % 8 == 0)
+      const int m = k / d;
+      return *reinterpret_cast<const uint4*>(t + ((size_t)m * KC + code_of(m)) * d + (k - m * d));
+    }
+  }
+  __align__(16) __nv_bfloat16 o[8];
+  int mc = -1;
+  size_t at = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int kk = k + e, m = kk / d;
+    if (m != mc) {
+      mc = m;
+      at = ((size_t)m * KC + code_of(m)) * d - (size_t)m * d;
+    }
+    if constexpr (std::is_same_v<CT, pq8i8>) {
+      const signed char v = static_cast<const signed char*>(table)[at + kk];
+      o[e] = __float2bfloat16_rn((float)v * __ldg(dscale + kk));
+    } else {
+      o[e] = static_cast<const __nv_bfloat16*>(table)[at + kk];
+    }
+  }
+  return *reinterpret_cast<const uint4*>(o);
+}
 
 // Four packed bytes -> their four low nibbles (dims j) or high nibbles (dims j + H/2),
 // sign-extended, as four int8 in one word: (n ^ 8) - 8 per byte, no borrow across bytes.
@@ -305,16 +392,17 @@ __device__ __forceinline__ size_t cell_of(const Cells& cells, int blk) {
 }
 
 // a sub-tile score: the product, x the row scale, x the query scale (the reference's
-// order), or -inf for a masked row (past n_valid or the selection block, or an empty IVF
-// slot)
+// order), + the slot's offset (K17), or -inf for a masked row (past n_valid or the
+// selection block, or an empty IVF slot)
 __device__ __forceinline__ float epilogue(float acc, int row, int q, int n_valid, int row_end,
                                           const float* cscale, const float* qscale,
-                                          const int* row_ids) {
+                                          const int* row_ids, const float* qoff = nullptr) {
   if (row >= n_valid || row >= row_end) return -INFINITY;
   if (row_ids != nullptr && __ldg(row_ids + row) < 0) return -INFINITY;
   float v = acc;
   if (cscale != nullptr) v *= __ldg(cscale + row);
   if (qscale != nullptr) v *= __ldg(qscale + q);
+  if (qoff != nullptr) v += __ldg(qoff + q);
   return v;
 }
 
@@ -334,17 +422,23 @@ size_t mma_smem_bytes(int H) {
   return sizeof(QT) * (size_t)MQ * (H + pad) + sizeof(ME) * 2 * (size_t)TN * (MK + pad) +
          sizeof(float) * (size_t)MQ * (TN + 1) + LIST_BYTES * MQ * JMAX;
 }
+// bytes of the 4-bit PQ table [H / d_sub, 16, d_sub] bf16, which follows the lists
+__host__ __device__ inline size_t pq4_table_bytes(int H) {
+  return sizeof(__nv_bfloat16) * 16 * (size_t)H;
+}
 
 template <typename QT, typename CT, bool SERVE>
 __global__ void __launch_bounds__(NT)
 block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
                       const float* __restrict__ cscale, const float* __restrict__ qscale,
                       float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
-                      int n_valid, int block, int J, Cells cells) {
+                      int n_valid, int block, int J, Cells cells, Decode dec) {
   using ME = MmaT<QT>;
   constexpr bool INT8 = std::is_same_v<QT, i8>;
   constexpr bool NIB = std::is_same_v<CT, nib>;
-  constexpr bool CONVERT = !std::is_same_v<CT, ME>;  // int8 rows under bf16 queries, int4
+  constexpr bool PQ = is_pq<CT>;
+  // int8 rows under bf16 queries, int4 rows, PQ codes: converted while staged
+  constexpr bool CONVERT = !std::is_same_v<CT, ME>;
   using Acc = std::conditional_t<INT8, int, float>;
   constexpr int PAD = 16 / sizeof(ME);
   constexpr int LDW = MK + PAD;            // corpus slice row, elements
@@ -371,6 +465,17 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
   const size_t cell = cell_of(cells, blk);
   q += cell * Q * H;
   if (qscale != nullptr) qscale += cell * Q;
+  const float* qoff = dec.qoff != nullptr ? dec.qoff + cell * Q : nullptr;
+  const void* table = dec.table;
+  if constexpr (std::is_same_v<CT, pq4>) {
+    if (dec.table_smem) {  // the 4-bit table, 16 B at a time, after the lists
+      unsigned char* ts = reinterpret_cast<unsigned char*>(sc + MQ * LDSC) + LIST_BYTES * MQ * JMAX;
+      const int n16 = (int)(pq4_table_bytes(H) / 16);
+      for (int idx = tid; idx < n16; idx += NT)
+        reinterpret_cast<uint4*>(ts)[idx] = __ldg(reinterpret_cast<const uint4*>(dec.table) + idx);
+      table = ts;  // read after the first slice barrier
+    }
+  }
 
   const int qrow_chunks = H * (int)sizeof(QT) / 16;
   for (int idx = tid; idx < MQ * qrow_chunks; idx += NT) {
@@ -383,24 +488,43 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
   }
   lists.init();
 
-  // a slice: TN rows x MK elements of the corpus; CHUNKS 16-byte corpus loads per thread
-  constexpr int SLICE_CHUNKS = TN * MK * (int)sizeof(CT) / 16;
+  // corpus elements per chunk: 16 int8, 8 bf16, or the 16 dims of one half that 16 packed
+  // int4 bytes hold (H % 64 == 0, so a load never straddles the halves), each one 16-byte
+  // load; for PQ codes the 8 dims one decoded uint4 holds
+  constexpr int PER_CHUNK = PQ ? 8 : 16 / (int)sizeof(CT);
+  // a slice: TN rows x MK elements of the corpus; CHUNKS chunks per thread
+  constexpr int SLICE_CHUNKS = TN * MK / PER_CHUNK;
   constexpr int CHUNKS = SLICE_CHUNKS / NT;
   static_assert(SLICE_CHUNKS % NT == 0, "slice loads must divide evenly");
-  // corpus elements per 16-byte load: 16 int8, 8 bf16, or the 16 dims of one half that
-  // 16 packed int4 bytes hold (H % 64 == 0, so a load never straddles the halves)
-  constexpr int PER_CHUNK = 16 / (int)sizeof(CT);
   uint4 held[CONVERT ? CHUNKS : 1];                // converted rows one slice ahead
+  // (row, column) of a thread's chunk i: along the row, so a row's bytes coalesce; PQ codes
+  // along the column, so a warp reads 32 consecutive code bytes of one subspace
+  auto chunk_rc = [&](int i, int& r, int& c) {
+    const int idx = tid + i * NT;
+    if constexpr (PQ) {
+      r = idx % TN;
+      c = (idx / TN) * PER_CHUNK;
+    } else {
+      r = idx / (MK / PER_CHUNK);
+      c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
+    }
+  };
 
   auto fetch_slice = [&](int buf, int base, int k0) {
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
-      const int idx = tid + i * NT;
-      const int r = idx / (MK / PER_CHUNK), c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
-      const void* src = corpus_at(corpus, (size_t)(base + r), k0 + c, H);
-      if constexpr (CONVERT) {
+      int r, c;
+      chunk_rc(i, r, c);
+      if constexpr (PQ) {
+        held[i] = base + r < N ? pq_decode8<CT>(reinterpret_cast<const unsigned char*>(corpus), N,
+                                                (size_t)(base + r), k0 + c, table, dec.dscale,
+                                                dec.d_sub)
+                               : make_uint4(0, 0, 0, 0);
+      } else if constexpr (CONVERT) {
+        const void* src = corpus_at(corpus, (size_t)(base + r), k0 + c, H);
         held[i] = base + r < N ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
       } else {
+        const void* src = corpus_at(corpus, (size_t)(base + r), k0 + c, H);
         ME* dst = cs + (buf * TN + r) * LDW + c;
         if (base + r < N)
           cp_async16(dst, src);
@@ -409,14 +533,21 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
       }
     }
   };
-  // the held slice k0.. into buffer buf: int4 nibbles sign-extended to int8, then int8
-  // -> bf16 under bf16 queries (both exact)
+  // the held slice k0.. into buffer buf: decoded PQ rows as they are; int4 nibbles
+  // sign-extended to int8, then int8 -> bf16 under bf16 queries (both exact)
   auto store_held = [&](int buf, int k0) {
-    if constexpr (CONVERT) {
+    if constexpr (PQ) {
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
-        const int idx = tid + i * NT;
-        const int r = idx / (MK / PER_CHUNK), c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
+        int r, c;
+        chunk_rc(i, r, c);
+        *reinterpret_cast<uint4*>(cs + (buf * TN + r) * LDW + c) = held[i];
+      }
+    } else if constexpr (CONVERT) {
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i) {
+        int r, c;
+        chunk_rc(i, r, c);
         uint4 u = held[i];
         if constexpr (NIB) {
           const bool high = k0 + c >= (H >> 1);
@@ -448,6 +579,7 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+    if constexpr (PQ) __syncthreads();  // the 4-bit table is in shared memory
     fetch_slice(0, base, 0);
     if constexpr (CONVERT) store_held(0, 0);
     cp_async_commit();
@@ -488,7 +620,7 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
       for (int e = 0; e < 4; ++e) {
         const int r = mt * 16 + g + 8 * (e >> 1), c = n + (e & 1);
         sc[r * LDSC + c] = epilogue((float)acc[j][e], base + c, q0 + r, n_valid, s_end,
-                                    cscale, qscale, cells.row_ids);
+                                    cscale, qscale, cells.row_ids, qoff);
       }
     }
     __syncthreads();
@@ -597,7 +729,7 @@ __global__ void __launch_bounds__(NT)
 block_topj_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
                   const float* __restrict__ cscale, const float* __restrict__ qscale,
                   float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
-                  int n_valid, int block, int J, Cells cells) {
+                  int n_valid, int block, int J, Cells cells, Decode /* PQ only */) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qt = reinterpret_cast<float*>(smem);  // [KT][LDQT]: a K chunk of the queries
   float* ct = qt + KT * LDQT;                  // [KT][LDCT]: a K chunk of the sub-tile rows
@@ -687,6 +819,7 @@ struct Args {
   int Q, N, H, n_valid, block, J;
   Cells cells;
   cudaStream_t stream;
+  Decode dec;
 };
 
 // One kernel over every storage block, one grid row each (the grid's y extent takes at
@@ -704,7 +837,7 @@ int launch_blocks(K kernel, int tile, size_t smem, const Args& a) {
       static_cast<const QT*>(a.q), static_cast<const CT*>(a.corpus),
       static_cast<const float*>(a.cscale), static_cast<const float*>(a.qscale),
       static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), a.Q, a.N, a.H, a.n_valid,
-      a.block, a.J, a.cells);
+      a.block, a.J, a.cells, a.dec);
   return (int)cudaGetLastError();
 }
 
@@ -720,6 +853,26 @@ int try_mma(const Args& a) {
   const size_t smem = mma_smem_bytes<QT>(a.H);
   if (a.H % MK != 0 || (ptrs & 15) != 0 || smem > SMEM_MAX) return -1;
   return launch_blocks<QT, CT>(block_topj_mma_kernel<QT, CT, SERVE>, MQ, smem, a);
+}
+
+// the PQ corpora (bf16 queries, the tensor-core body only): 8-bit codes over a bf16 or an
+// int8 table, 4-bit codes with their table in shared memory where it fits
+int launch_pq(Args a, int nbits) {
+  const size_t base = mma_smem_bytes<bf>(a.H);
+  const uintptr_t ptrs =
+      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.dec.table);
+  if (a.H % 128 != 0 || a.dec.d_sub < 1 || 128 % a.dec.d_sub != 0 || base > SMEM_MAX ||
+      (ptrs & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (nbits == 4) {
+    a.dec.table_smem = base + pq4_table_bytes(a.H) <= SMEM_MAX;
+    const size_t smem = a.dec.table_smem ? base + pq4_table_bytes(a.H) : base;
+    return launch_blocks<bf, pq4>(block_topj_mma_kernel<bf, pq4, true>, MQ, smem, a);
+  }
+  a.dec.table_smem = 0;
+  if (a.dec.dscale != nullptr)
+    return launch_blocks<bf, pq8i8>(block_topj_mma_kernel<bf, pq8i8, true>, MQ, base, a);
+  return launch_blocks<bf, pq8>(block_topj_mma_kernel<bf, pq8, true>, MQ, base, a);
 }
 
 template <bool SERVE>
@@ -776,7 +929,8 @@ extern "C" int drt_block_topj(const void* q, const void* corpus, const void* csc
     return (int)cudaErrorInvalidValue;
   const int n_blocks = (N + block - 1) / block;
   const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
-               Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream)};
+               Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream),
+               Decode{nullptr, nullptr, nullptr, 1, 0}};
   return serve ? dispatch<true>(a, qtype, ctype) : dispatch<false>(a, qtype, ctype);
 }
 
@@ -801,6 +955,46 @@ extern "C" int drt_ivf_topj(const void* qslab, const void* values, const void* c
   const Args a{qslab, values, cscales, qscales, out_v, out_i, Qcap, N, H, INT_MAX, block, J,
                Cells{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell),
                      cell_blocks, sel, n_sel},
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), Decode{nullptr, nullptr, nullptr, 1, 0}};
   return dispatch<true>(a, qtype, ctype);
+}
+
+// The PQ serve kernels K15 / K16: q [Q, H] bf16 (16-byte aligned) against PQ codes, codes
+// [M, N] int8 (8-bit, code - 128) or [M/2, N] (4-bit, nibble-packed), M = H / d_sub, table
+// [M, k, d_sub] (k = 256 or 16) bf16, or int8 with dscale [H] fp32 (8-bit only: K16); rows
+// >= n_valid masked; serve selection -> out_vals / out_ids [Q, ceil(N / block), J].
+// Takes H % 128 == 0 and d_sub | 128.
+extern "C" int drt_pq_topj(const void* q, const void* codes, const void* table,
+                           const void* dscale, void* out_v, void* out_i, int Q, int N, int H,
+                           int d_sub, int nbits, int n_valid, int block, int J, void* stream) {
+  if (J < 1 || J > JMAX || block < 1 || (nbits != 4 && nbits != 8) ||
+      (nbits == 4 && dscale != nullptr) || d_sub < 1 || H % d_sub != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_blocks = (N + block - 1) / block;
+  const Args a{q, codes, nullptr, nullptr, out_v, out_i, Q, N, H, n_valid, block, J,
+               Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream),
+               Decode{table, static_cast<const float*>(dscale), nullptr, d_sub, 0}};
+  return launch_pq(a, nbits);
+}
+
+// The IVF-PQ cell kernel K17: K14 over the ragged block list of PQ codes (codes [M, N] or
+// [M/2, N] as drt_pq_topj's, N = n_blocks * block, bf16 table [M, k, d_sub]), each cell's
+// bf16 query slab qslab [nlist, Qcap, H]; qoff [nlist, Qcap] fp32 is added to every score
+// of its slot before the row mask (row_ids < 0) and the selection. -> out_vals / out_ids
+// [N / block * ceil(block / sel), Qcap, J], ids flat positions.
+extern "C" int drt_ivf_pq_topj(const void* qslab, const void* codes, const void* table,
+                               const void* qoff, const void* row_ids, const void* block_cell,
+                               void* out_v, void* out_i, int Qcap, int N, int H, int d_sub,
+                               int nbits, int block, int sel, int J, void* stream) {
+  if (J < 1 || J > JMAX || block < 1 || sel < 1 || sel > block || N % block != 0 ||
+      row_ids == nullptr || block_cell == nullptr || qoff == nullptr ||
+      (nbits != 4 && nbits != 8) || d_sub < 1 || H % d_sub != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_sel = N / block * ((block + sel - 1) / sel);
+  const Args a{qslab, codes, nullptr, nullptr, out_v, out_i, Qcap, N, H, INT_MAX, block, J,
+               Cells{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell), 1,
+                     sel, n_sel},
+               static_cast<cudaStream_t>(stream),
+               Decode{table, nullptr, static_cast<const float*>(qoff), d_sub, 0}};
+  return launch_pq(a, nbits);
 }

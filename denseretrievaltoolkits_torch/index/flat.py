@@ -31,9 +31,9 @@ Counterpart of ``denseretrievaltoolkits_tpu/index/flat.py``:
   ``path.meta.json`` format, int8 and int4 indexes as their native
   ``values`` + ``scales`` payload, so indexes interchange both ways.
 - :func:`index_factory` builds the flat kinds, the trained IVF kinds of
-  ``index/ivf.py`` and the PCA / PCAR chains of ``index/transforms.py`` from
-  FAISS-style strings. The product-quantized kinds (PQ, OPQ, IVF-PQ) raise
-  ``NotImplementedError`` naming their ROADMAP item; no dtype or mode
+  ``index/ivf.py``, the product-quantized kinds of ``index/pq.py`` and
+  ``index/ivf_pq.py`` and the PCA / PCAR / OPQ chains of
+  ``index/transforms.py`` from FAISS-style strings; no dtype or mode
   silently runs another.
 """
 
@@ -285,9 +285,6 @@ FLAT_FACTORY = {
     "sq8": "int8", "sqint8": "int8",
     "sq4": "int4", "sqint4": "int4",
 }
-PQ_ITEM = ("is not ported yet (ROADMAP queue 1 item 12b, 'Trained indexes': PQ, IVF-PQ and "
-           "OPQ; kernels K15-K17 in queue 2)")
-
 
 def _count(text: str) -> int:
     """The count in a factory token ("IVF1024" -> 1024), 0 if there is none."""
@@ -297,26 +294,54 @@ def _count(text: str) -> int:
         return 0
 
 
+def _pq_spec(spec: str) -> Tuple[int, int]:
+    """(M, nbits) of a "{M}[x{bits}]" token ("96" -> (96, 8), "192x4" -> (192,
+    4)); M = 0 when it does not parse."""
+    m, _, bits = spec.partition("x")
+    try:
+        return int(m), int(bits) if bits else 8
+    except ValueError:
+        return 0, 8
+
+
 def index_factory(dim: int, factory_str: str, block_size: int = DEFAULT_BLOCK, nprobe: int = 32,
                   device=None):
     """FAISS ``index_factory``-style constructor, as the reference's
-    (index/flat.py:533-662), on ``device``:
+    (index/flat.py:517-662), on ``device``:
 
     - "Flat" / "IP" fp32, "BF16" / "Flat16" bf16, "SQ8" / "SQint8" int8 and
       "SQ4" / "SQint4" int4 rows with per-row scales: :class:`FlatIPIndex`;
     - "IVF{n},Flat|BF16|SQ8": the fixed-capacity :class:`IVFFlatIndex`;
       "IVFR{n},Flat|BF16|SQ8" (default SQ8): the ragged
       :class:`IVFRaggedIndex`, both probing ``nprobe`` cells;
+    - "PQ{M}" / "PQ{M}x4": the product-quantized :class:`PQIndex` (8- or
+      4-bit codes);
+    - "IVF{n},PQ{M}[x4]" / "IVFR{n},PQ{M}[x4]": the ragged IVF-PQ
+      :class:`IVFPQIndex` (residual codes);
     - "PCA{d},<any of these>" / "PCAR{d},<...>": a :class:`PCATransform` to d
-      dims (PCAR rotated) in front of the inner index.
+      dims (PCAR rotated) in front of the inner index; "OPQ{M}[x4],<...>" a
+      learned :class:`OPQTransform`, whose code width is the inner index's
+      where it has one (the reference's ``rot_bits``).
 
     "IVF{n},SQ4" raises the reference's ``ValueError`` (the sq4 kernels are
-    flat-corpus kernels); the product-quantized kinds ("PQ{M}", "OPQ{M},...",
-    "IVF{n},PQ{M}") raise ``NotImplementedError`` naming their ROADMAP item."""
+    flat-corpus kernels); so does a PQ geometry the classes reject."""
     key = factory_str.strip().lower()
     head, _, tail = key.partition(",")
-    if key.startswith(("pq", "opq")) or (key.startswith("ivf") and tail.startswith("pq")):
-        raise NotImplementedError(f"the product-quantized index {factory_str!r} {PQ_ITEM}")
+    if key.startswith("opq"):
+        m_rot, rot_bits = _pq_spec(head[3:])
+        if m_rot > 0 and tail:
+            from .transforms import OPQTransform, TransformedIndex
+
+            inner = index_factory(dim, tail, block_size=block_size, nprobe=nprobe, device=device)
+            rot_bits = getattr(inner, "nbits", rot_bits)
+            return TransformedIndex(OPQTransform(dim, M=m_rot, nbits=rot_bits, device=device),
+                                    inner)
+    if key.startswith("pq"):
+        m_sub, nbits = _pq_spec(key[2:])
+        if m_sub > 0:
+            from .pq import PQIndex
+
+            return PQIndex(dim, M=m_sub, nbits=nbits, device=device)
     if key.startswith("pca"):
         rotate = head.startswith("pcar")
         d_out = _count(head[4 if rotate else 3:])
@@ -329,6 +354,16 @@ def index_factory(dim: int, factory_str: str, block_size: int = DEFAULT_BLOCK, n
                                     inner)
     if key in FLAT_FACTORY:
         return FlatIPIndex(dim, dtype=FLAT_FACTORY[key], block_size=block_size, device=device)
+    if key.startswith("ivf"):
+        ragged = key.startswith("ivfr")
+        nlist = _count(head[4 if ragged else 3:])
+        if nlist > 0 and tail.startswith("pq"):
+            m_sub, nbits = _pq_spec(tail[2:])
+            if m_sub > 0:
+                from .ivf_pq import IVFPQIndex
+
+                return IVFPQIndex(dim, nlist=nlist, nprobe=nprobe, M=m_sub, nbits=nbits,
+                                  device=device)
     if key.startswith("ivfr"):
         cell_dtype = FLAT_FACTORY.get(tail or "sq8")
         if _count(head[4:]) > 0 and cell_dtype in ("float32", "bfloat16", "int8"):
@@ -349,5 +384,6 @@ def index_factory(dim: int, factory_str: str, block_size: int = DEFAULT_BLOCK, n
                                 device=device)
     raise ValueError(
         f"unsupported factory string {factory_str!r}; supported: Flat, IP, BF16, Flat16, SQ8, "
-        f"SQint8, SQ4, SQint4, IVF{{n}},Flat|BF16|SQ8, IVFR{{n}},Flat|BF16|SQ8, and PCA{{d}} / "
-        f"PCAR{{d}} in front of any of them (PQ, OPQ and IVF-PQ strings are not ported yet)")
+        f"SQint8, SQ4, SQint4, PQ{{M}}[x4], IVF{{n}},Flat|BF16|SQ8|PQ{{M}}[x4], "
+        f"IVFR{{n}},Flat|BF16|SQ8|PQ{{M}}[x4], and PCA{{d}} / PCAR{{d}} / OPQ{{M}}[x4] in front "
+        f"of any of them")

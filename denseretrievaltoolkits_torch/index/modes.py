@@ -68,10 +68,10 @@ APPROX_ALIAS = {
 FLAT_MODES = ("exact", "serve", "partial", "i8q", "approx")
 IVF_MODES = ("exact", "bulk", "serve", "probe", "i8q", "approx")
 
-# Product-quantized indexes (index/pq.py of the JAX package, not ported yet):
-# scores are ADC approximations by construction, so "exact" means exact-ADC
-# (fp32 ip against the reconstruction); "serve" is the fused decode-and-scan
-# kernel.  There is no partial (scores never exist as a flat fp32 scan) and no i8q
+# Product-quantized indexes (index/pq.py): scores are ADC approximations by
+# construction, so "exact" means exact-ADC (fp32 ip against the
+# reconstruction); "serve" is the decode-and-scan kernel (K16 for 8-bit
+# codes, K15 for 4-bit).  There is no partial (scores never exist as a flat fp32 scan) and no i8q
 # (queries already score against lossy reconstructions; quantizing them too
 # would stack a second uncontrolled loss) — both raise.
 PQ_MODES = ("exact", "serve", "approx")
@@ -117,7 +117,7 @@ def resolve_pq_mode(mode: str) -> str:
 
 # IVF-PQ (index/ivf_pq.py): cells store PQ codes, so every score is
 # reconstruction ADC — "exact" means exact-ADC over every reconstruction
-# (parity checks), "bulk"/"serve" the fused decode-and-scan cell kernel.
+# (parity checks), "bulk"/"serve" the decode-and-scan cell kernel K17.
 # No per-query probe path (the ragged layout serves bulk only), no i8q
 # (reconstructions are already lossy), no partial (no flat fp32 scan).
 IVFPQ_MODES = ("exact", "bulk", "serve", "approx")

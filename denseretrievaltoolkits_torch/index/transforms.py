@@ -1,4 +1,4 @@
-"""Vector transforms in front of an index: PCA and PCAR (the factory's ``PCA{d}`` / ``PCAR{d}``).
+"""Vector transforms in front of an index: the factory's ``PCA{d}``, ``PCAR{d}`` and ``OPQ{M}``.
 
 Counterpart of ``denseretrievaltoolkits_tpu/index/transforms.py``. The
 transform is one matmul: trained by a blockwise covariance on the device
@@ -11,7 +11,8 @@ the transform in front of any index at the reduced dimension: codecs train
 on transformed rows, queries are transformed at search time, and
 ``add_chunks`` applies the transform chunk by chunk. ``save`` / ``load``:
 the reference's directory (``transform.npz``, ``transformed_meta.json``,
-``inner``). OPQ needs the PQ kernels and is not ported yet.
+``inner``). :class:`OPQTransform` learns a rotation for a PQ inner index
+(the factory's ``OPQ{M}``).
 """
 
 from __future__ import annotations
@@ -90,12 +91,43 @@ class PCATransform:
 
 
 class OPQTransform(PCATransform):
-    """The learned OPQ rotation needs the PQ kernels (K15-K17)."""
+    """The learned OPQ rotation (FAISS ``OPQ{M}``; transforms.py:90-135 of the
+    JAX package): the OPQ-NP alternation (Ge et al., CVPR'13) from a random
+    orthogonal start (the QR of ``default_rng(seed).standard_normal``), each
+    of ``rounds`` rounds fitting PQ codebooks to the rotated sample
+    (``pq_train``, seed + round, ``kmeans_iters`` iterations), encoding and
+    decoding it, and taking the orthogonal Procrustes rotation U V^T of the
+    host SVD of X^T X_hat. The sample is capped at 65,536 rows. At apply
+    time it is one matmul, saved in ``PCATransform``'s format."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "OPQ rotations are not ported yet: they train against the PQ codebooks of "
-            "ops/pq.py (ROADMAP queue 1 item 12b, 'Trained indexes': PQ, IVF-PQ and OPQ)")
+    def __init__(self, dim: int, M: int, seed: int = 0, rounds: int = 6, kmeans_iters: int = 4,
+                 nbits: int = 8, device=None):
+        super().__init__(dim, dim, rotate=True, seed=seed, device=device)
+        self.M = M
+        self.rounds = rounds
+        self.kmeans_iters = kmeans_iters
+        self.nbits = nbits
+
+    def train(self, reps, block: int = 65536) -> None:
+        from ..ops.pq import pq_decode, pq_encode_device, pq_train
+
+        if reps.shape[1] != self.dim:
+            raise ValueError(f"expected [n, {self.dim}] rows, got {tuple(reps.shape)}")
+        n_cap = min(int(reps.shape[0]), 65536)
+        xd = torch.as_tensor(np.asarray(reps[:n_cap], np.float32) if isinstance(reps, np.ndarray)
+                             else reps[:n_cap]).to(device=self.device, dtype=torch.float32)
+        g = np.random.default_rng(self.seed).standard_normal((self.dim, self.dim))
+        q, r = np.linalg.qr(g)
+        rot = np.ascontiguousarray(q * np.sign(np.diag(r)), np.float32)
+        for t in range(self.rounds):
+            xr = torch.matmul(xd, torch.from_numpy(rot).to(self.device))
+            cb = pq_train(xr, self.M, iters=self.kmeans_iters, seed=self.seed + t,
+                          block_rows=min(2048, n_cap), k=1 << self.nbits)
+            cb_d = torch.from_numpy(cb).to(self.device)
+            xhat = pq_decode(pq_encode_device(xr, cb_d), cb_d)
+            u, _, vt = np.linalg.svd(torch.matmul(xd.T, xhat).cpu().numpy())
+            rot = np.ascontiguousarray(u @ vt, np.float32)
+        self._set(rot)
 
 
 class TransformedIndex:

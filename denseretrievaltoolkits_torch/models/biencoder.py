@@ -220,7 +220,13 @@ class DRModel(nn.Module):
         ``linear.init_head`` seeded with (seed, 1, 0) and, untied, (seed, 1, 1),
         as the reference folds its key (biencoder.py:351-359). The model lives
         on ``device``: the CUDA card unless the caller names another (without
-        a card that raises)."""
+        a card that raises). LoRA raises until it is ported."""
+        if getattr(model_args, "param_efficient_method", None) == "lora":
+            # the reference adds rank-r adapters and trains only them; training every
+            # parameter instead would be another model
+            raise NotImplementedError(
+                "param_efficient_method='lora' is not ported yet (ROADMAP queue 1 item 6, "
+                "'LoRA and HF import/export')")
         path = model_args.model_name_or_path
         dtype = getattr(model_args, "dtype", "float32")
         attention = getattr(model_args, "attention", "xla")

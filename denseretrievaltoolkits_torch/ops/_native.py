@@ -50,6 +50,11 @@ SIGNATURES = {
     # qslab, values, cell_scales, slot_scales, row_ids, block_cell, out_vals, out_ids,
     # Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream
     "drt_ivf_topj": [_P] * 8 + [_I] * 9 + [_P],
+    # q, codes, table, dscale, out_vals, out_ids, Q, N, H, d_sub, nbits, n_valid, block, J, stream
+    "drt_pq_topj": [_P] * 6 + [_I] * 8 + [_P],
+    # qslab, codes, table, qoff, row_ids, block_cell, out_vals, out_ids,
+    # Qcap, N, H, d_sub, nbits, block, sel, J, stream
+    "drt_ivf_pq_topj": [_P] * 8 + [_I] * 8 + [_P],
     # x, values, scales, n_in, n_out, H, is_bf16, stream
     "drt_quantize_int8": [_P] * 3 + [_I] * 4 + [_P],
     # x, packed, scales, n_in, n_out, H, is_bf16, stream

@@ -392,13 +392,24 @@ def ivf_ragged_search(q, centroids, values, row_ids, scales, block_cell, block_s
     ``block_start`` [nlist + 1] each cell's block range, ``nb_max`` the most
     blocks of one cell. Otherwise as :func:`ivf_bulk_search`, the kernel's
     plan (``block``, ``sel``, ``J``) included."""
-    B = q.shape[0]
     ps = probe_slab(q, centroids, values.dtype, nlist, nprobe, Qcap, hot_penalty, n_real,
                     i8_native)
     vals_b, ids_b = ragged_topj(block_cell, ps.qslab, values, row_ids, scales, J, block, sel,
                                 ps.qscales)
-    # per pair: the selection blocks of its cell's block range, in row order
+    tv, ti = ragged_merge(vals_b, ids_b, ps, block_start, block, sel, nb_max, nprobe, k)
+    tv, doc = _finish(tv, ti, row_ids, ps, (side_values, side_scales, side_ids, side_valid,
+                                            side_J, side_block), k)
+    return tv, doc, ps.n_dropped, ps.counts
+
+
+def ragged_merge(vals_b, ids_b, ps: ProbeSlab, block_start, block: int, sel: int, nb_max: int,
+                 nprobe: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Steps 4a-4c over the ragged layout (ivf_bulk.py:536-556): each pair's
+    candidates over the selection blocks of its cell's block range, in row
+    order, then per query. Returns (scores [B, k'], flat positions [B, k'])."""
     per = -(-block // sel)
+    J = vals_b.shape[2]
+    Qcap = vals_b.shape[1]
     nb_total = vals_b.shape[0] // per
     dev = vals_b.device
     prange = block_start[ps.sc].long()[:, None] + torch.arange(nb_max, device=dev)[None, :]
@@ -410,10 +421,8 @@ def ivf_ragged_search(q, centroids, values, row_ids, scales, block_cell, block_s
     pv = torch.where(keep, vals_b[prs, slot_c], float("-inf")).reshape(-1, nb_max * per * J)
     pi = ids_b[prs, slot_c].reshape(-1, nb_max * per * J)
     cv, ci = _top(pv, pi, min(k, nb_max * per * J))
-    tv, ti = _per_query(cv, ci, ps, torch.arange(pv.shape[0], device=dev), B, nprobe, k)
-    tv, doc = _finish(tv, ti, row_ids, ps, (side_values, side_scales, side_ids, side_valid,
-                                            side_J, side_block), k)
-    return tv, doc, ps.n_dropped, ps.counts
+    B = ps.qc.shape[0]
+    return _per_query(cv, ci, ps, torch.arange(pv.shape[0], device=dev), B, nprobe, k)
 
 
 def _side_scan(qc, tv, doc, side_values, side_scales, side_ids, side_valid: int, side_J: int,

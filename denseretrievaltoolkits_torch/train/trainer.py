@@ -15,13 +15,14 @@ Evaluation (trainer.py:290-594 there) encodes the corpus loader's passages
 on the model's device into a :class:`FlatIPIndex` at ``index_dtype`` through
 ``add_device`` in slabs of ``index_slab_rows`` (int8 / int4 slabs quantize on
 the card, K7 / K9), or into an ``index_factory`` index: a trained one (IVF,
-IVFR, PCA/PCAR chains) cannot take rows before it is fit, so the encoded
+IVFR, PQ, IVF-PQ, PCA / PCAR / OPQ chains) cannot take rows before it is fit, so the encoded
 batches stream to the ``{encode_corpus_dir}/{ep}.0.npy`` memmap instead, the
 index trains on a strided sample of at most ``index_train_rows`` of them and
 is built by ``add_chunks`` in ``index_slab_rows`` chunks (the memmap is
 removed after unless ``save_corpus_artifacts``). It then saves the index and
 its docid order, searches each query batch in ``search_mode`` (flat: K5/K6/K10
-exact, K8/K11 serve, K12 i8q; IVF: K13/K14 bulk, i8q, probe), labels the hits with
+exact, K8/K11 serve, K12 i8q; IVF: K13/K14 bulk, i8q, probe; PQ: K16 / K15
+serve, exact ADC; IVF-PQ: K17 bulk), labels the hits with
 ``evaluator/nq_eval.py``'s ``AnswerMatcher`` (or docid relevance with
 ``label_kind="docids"``) and writes the retrieval dump
 ``{retrieve_dir}/{ep}.0.json`` and the metrics ``{cache_train_dir}/{ep}.0_metrics``.
@@ -29,9 +30,8 @@ Corpus texts are read as ``dataset[rows]["original"]``, row by row where the
 dataset has no fancy indexing (a plain list of dicts).
 
 The model holds its parameters, so there is no ``params`` argument. The
-miner (ROADMAP queue 1 item 9) and a mesh (item 13) are later slices: given
-either, the constructor raises; so do product-quantized factory strings
-(item 12b) when the index is made.
+miner, a mesh and ``grad_cache`` (ROADMAP queue 1, 'Mining and BM25',
+``parallel/`` and 'Grad-cache') are later slices: given any of them, the constructor raises.
 
 Resume differs from the reference on purpose. The reference saves ``ep + 1``
 (the epochs done) and ``load`` starts at ``epoch + 1``, so a resumed run skips
@@ -72,6 +72,12 @@ class Trainer:
                                   (mesh, "a device mesh", 13)):
             if given is not None:
                 raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+        if getattr(training_args, "grad_cache", False):
+            # the full-batch step has the same gradient, but not the chunked memory bound
+            raise NotImplementedError(
+                "grad_cache (chunked encode with cached rep gradients) is not ported yet "
+                "(ROADMAP queue 1 item 3, 'Grad-cache'); unset grad_cache to train the "
+                "full batch at once")
         self.training_args = training_args
         self.model = model
         self.corpus_dataloader = corpus_dataloader

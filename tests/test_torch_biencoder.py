@@ -94,3 +94,23 @@ def test_manifest_and_unsupported_paths(tmp_path):
     assert not os.path.exists(os.path.join(str(tmp_path), tbi.MANIFEST))
     with open(os.path.join(str(tmp_path), "bert_config.json")) as fh:
         assert json.load(fh)["hidden_size"] == 64
+
+
+@pytest.mark.parametrize("source", ["random-init", "architecture-dir", "jax-checkpoint"])
+def test_lora_raises_until_ported(jax_model, tmp_path, source):
+    """``param_efficient_method='lora'`` parses, but the port has no adapters
+    yet: every build path refuses it, naming its ROADMAP item, instead of
+    training every parameter."""
+    path = ""
+    if source == "architecture-dir":
+        jbert.save_config(CFG, str(tmp_path))
+        path = str(tmp_path)
+    elif source == "jax-checkpoint":
+        jmodel, jparams = jax_model
+        jmodel.save(jparams, str(tmp_path))
+        path = str(tmp_path)
+    args = ModelArguments(model_name_or_path=path, param_efficient_method="lora", lora_rank=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        tbi.DRModel.build(args, bert_config=CFG, device="cpu")
+    args.param_efficient_method = None
+    assert tbi.DRModel.build(args, bert_config=CFG, device="cpu") is not None

@@ -584,3 +584,196 @@ def test_ivf_index_modes_on_card(gen, tmp_path, kind, dtype):
         recall = sum(len(set(a) & set(b)) for a, b in zip(d, rd)) / rd.size
         assert recall >= 0.99, (mode, recall)
         np.testing.assert_allclose(s, rs, rtol=1e-4, atol=1e-4)
+
+
+# --- the PQ kernels: K15 (bf16 table, 8- and 4-bit codes), K16 (int8 table), K17 (IVF-PQ) -----
+
+def _pq_case(gen, H, M, nbits, N, i8dec=False):
+    """Random codebooks [M, k, H/M], codes of N random rows under them, and
+    the kernels' table (K16: int8 entries and the per-dim scale)."""
+    from denseretrievaltoolkits_torch.ops import pq
+
+    cb = _randn(gen, M, 1 << nbits, H // M).cpu()
+    codes = pq.pq_encode_device(_randn(gen, N, H), cb.cuda())
+    if i8dec:
+        table, scale = pq.bdcb_table(*pq.build_bdcb_i8(cb.numpy()))
+    else:
+        table, scale = pq.bdcb_table(pq.build_bdcb(cb.numpy()), k=1 << nbits)
+    return cb.cuda(), codes, table.cuda(), None if scale is None else scale.cuda()
+
+
+def _decoded_rows(table, scale, codes, rows, nbits):
+    """fp64 decoded rows (the kernels' bf16 values) of the code columns ``rows``."""
+    from denseretrievaltoolkits_torch.ops import pq
+
+    tab = pq._decoded_table(table, scale).double()
+    idx = pq._code_ids(codes[:, rows.reshape(-1)], 1 << nbits)
+    M, _, d = tab.shape
+    dec = tab[torch.arange(M, device="cuda")[:, None], idx].permute(1, 0, 2)
+    return dec.reshape(*rows.shape, M * d)
+
+
+@pytest.mark.parametrize("nbits,i8dec,H,M", [(8, False, 768, 96), (8, True, 768, 96),
+                                             (8, True, 128, 8), (8, False, 256, 128),
+                                             (4, False, 768, 192), (4, False, 128, 16),
+                                             (4, False, 1024, 256), (8, True, 384, 24)])
+@pytest.mark.parametrize("J", [6, 32])
+def test_pq_topj_kernel(gen, nbits, i8dec, H, M, J):
+    """K15 / K16 against their plain version on 2300 rows in 512-row blocks
+    (a short last block, rows past n_valid masked): scores within 1e-5, every
+    kernel id rescored in fp64 under the kernel's formula (bf16 q x decoded
+    bf16 row) gives its score, ids equal but at ties. d_sub 2 to 16; H=1024
+    puts the 4-bit table in device memory instead of shared memory."""
+    from denseretrievaltoolkits_torch.ops import pq
+
+    cb, codes, table, scale = _pq_case(gen, H, M, nbits, 2300, i8dec)
+    q = _randn(gen, 70, H).to(torch.bfloat16)
+    counter = "launches_4bit" if nbits == 4 else ("launches_i8dec" if i8dec else "launches")
+    n = getattr(pq.pq_topj_blocks, counter)
+    v, i = pq.pq_topj_blocks(q, codes, table, J, 512, 2200, scale, nbits)
+    torch.cuda.synchronize()
+    assert getattr(pq.pq_topj_blocks, counter) == n + 1
+    rv, ri = pq._pq_topj_reference(q, codes, table, J, 512, 2200, scale, nbits)
+    assert v.shape == rv.shape == (70, 5, J) and torch.equal(i < 0, ri < 0)
+    fin = ri >= 0
+    torch.testing.assert_close(v[fin], rv[fin], rtol=1e-5, atol=1e-5)
+    assert (i[fin] < 2200).all()
+    dec = _decoded_rows(table, scale, codes, i.clamp(min=0).long(), nbits)
+    s = (q.double()[:, None, None, :] * dec).sum(-1)
+    torch.testing.assert_close(s[fin], v[fin].double(), rtol=1e-5, atol=1e-4)
+    assert ((i != ri) & fin).float().mean() < 0.01
+
+
+def test_pq_serve_topk_runs_the_kernels(gen):
+    """The serve search: k=100 over 40,000 rows in 1024-row blocks (J=8) and
+    k=1000 (the reference's J of 52 halves the block until J <= 32): the
+    kernels launch, the exact scan never; the ranking is the plain version's
+    up to ties."""
+    from denseretrievaltoolkits_torch.ops import pq
+
+    cb, codes, table, scale = _pq_case(gen, 256, 32, 8, 40000, i8dec=True)
+    q = _randn(gen, 50, 256)
+    for k in (100, 1000):
+        n, scans = pq.pq_topj_blocks.launches_i8dec, pq.pq_serve_topk.exact_scans
+        s, ids = pq.pq_serve_topk(q, codes, cb, table, k, 1024, scale=scale)
+        torch.cuda.synchronize()
+        assert pq.pq_topj_blocks.launches_i8dec == n + 1 and ids.shape == (50, k)
+        assert pq.pq_serve_topk.exact_scans == scans
+        rs, rids = pq.pq_serve_topk(q.cpu(), codes.cpu(), cb.cpu(), table.cpu(), k, 1024,
+                                    scale=scale.cpu())
+        overlap = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids.cpu(), rids))
+        assert overlap >= 0.999 * rids.numel()
+        torch.testing.assert_close(s.cpu(), rs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nbits,M", [(8, 96), (4, 192), (4, 48)])
+@pytest.mark.parametrize("J,sel", [(9, None), (3, 50)])
+def test_ragged_topj_pq_kernel(gen, nbits, M, J, sel):
+    """K17 over 9 blocks of 128 code columns whose block -> cell map skips
+    cell 2 and gives cell 3 three blocks, 72 slots per cell (two query tiles),
+    per-slot offsets, empty rows masked: the plain version's lists, every id
+    rescored in fp64 (bf16 slot x decoded row + offset)."""
+    from denseretrievaltoolkits_torch.ops import ivf_pq
+
+    H, nlist, Qcap, block = 768, 6, 72, 128
+    _, codes, table, _ = _pq_case(gen, H, M, nbits, 9 * block)
+    block_cell = torch.tensor([0, 0, 1, 3, 3, 3, 4, 5, 5], dtype=torch.int32, device="cuda")
+    row_ids = torch.arange(9 * block, dtype=torch.int32, device="cuda")
+    row_ids[100:128] = -1
+    row_ids[600:650] = -1
+    slab = _randn(gen, nlist, Qcap, H).to(torch.bfloat16)
+    poff = _randn(gen, nlist, Qcap, scale=5.0)
+    n = ivf_pq.ragged_topj_pq.launches
+    v, i = ivf_pq.ragged_topj_pq(block_cell, slab, codes, row_ids, poff, table, J, block, sel,
+                                 nbits)
+    torch.cuda.synchronize()
+    assert ivf_pq.ragged_topj_pq.launches == n + 1
+    s_ = block if sel is None else sel
+    rv, ri = ivf_pq._ivf_pq_topj_reference(slab, codes, row_ids, poff, table, block_cell, J,
+                                           block, s_, nbits)
+    assert v.shape == rv.shape and torch.equal(i < 0, ri < 0)
+    fin = ri >= 0
+    torch.testing.assert_close(v[fin], rv[fin], rtol=1e-5, atol=1e-5)
+    n_sel = v.shape[0]
+    cells = block_cell.repeat_interleave(-(-block // s_)).long()[:, None].expand(n_sel, Qcap)
+    slots = torch.arange(Qcap, device="cuda")[None, :].expand(n_sel, Qcap)
+    dec = _decoded_rows(table, None, codes, i.clamp(min=0).long(), nbits)
+    s = (slab.double()[cells, slots][:, :, None, :] * dec).sum(-1) \
+        + poff.double()[cells, slots][:, :, None]
+    torch.testing.assert_close(s[fin], v[fin].double(), rtol=1e-5, atol=1e-4)
+    assert (row_ids[i.clamp(min=0).long()][fin] >= 0).all()
+    assert ((i != ri) & fin).float().mean() < 0.01
+
+
+def test_pq_kernels_refuse_what_they_cannot_run(gen):
+    """fp32 queries, J past 32, an int8 table under 4-bit codes, a geometry
+    off the decode layout (128 does not divide H) and wrong offsets raise
+    before any launch."""
+    from denseretrievaltoolkits_torch.ops import ivf_pq, pq
+
+    cb, codes, table, scale = _pq_case(gen, 256, 32, 8, 1024, i8dec=True)
+    q = _randn(gen, 8, 256)
+    counts = (pq.pq_topj_blocks.launches_i8dec, pq.pq_topj_blocks.launches,
+              ivf_pq.ragged_topj_pq.launches)
+    with pytest.raises(ValueError, match="bf16"):
+        pq.pq_topj_blocks(q, codes, table, 8, 512, 1024, scale)
+    with pytest.raises(ValueError, match="J"):
+        pq.pq_topj_blocks(q.to(torch.bfloat16), codes, table, 33, 512, 1024, scale)
+    with pytest.raises(TypeError):
+        pq.pq_topj_blocks(q.to(torch.bfloat16), codes, table, 8, 512, 1024, None)
+    _, c4, _, _ = _pq_case(gen, 256, 64, 4, 1024)
+    with pytest.raises(ValueError):
+        pq.pq_topj_blocks(q.to(torch.bfloat16), c4, table, 8, 512, 1024, scale, nbits=4)
+    c3 = torch.zeros(24, 1024, dtype=torch.int8, device="cuda")
+    t3 = torch.zeros(24, 256, 8, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="128"):
+        pq.pq_topj_blocks(_randn(gen, 8, 192).to(torch.bfloat16), c3, t3, 8, 512, 1024)
+    bc = torch.zeros(2, dtype=torch.int32, device="cuda")
+    rid = torch.arange(1024, dtype=torch.int32, device="cuda")
+    slab = _randn(gen, 1, 8, 256).to(torch.bfloat16)
+    _, c8, t8, _ = _pq_case(gen, 256, 32, 8, 1024)
+    with pytest.raises(ValueError, match="offsets"):
+        ivf_pq.ragged_topj_pq(bc, slab, c8, rid, _randn(gen, 1, 7), t8, 8, 512)
+    assert counts == (pq.pq_topj_blocks.launches_i8dec, pq.pq_topj_blocks.launches,
+                      ivf_pq.ragged_topj_pq.launches)
+
+
+@pytest.mark.parametrize("spec", ["PQ32", "PQ64x4", "IVF16,PQ32x4", "IVFR16,PQ32"])
+def test_pq_index_modes_on_card(gen, tmp_path, spec):
+    """A PQ / IVF-PQ index built on the CPU, saved and loaded onto the card,
+    searches as on the CPU (the plain versions) in every mode: K16 / K15 /
+    K17 launch, the PQ exact scan is never taken on the serve path, ids
+    agree up to ties."""
+    from denseretrievaltoolkits_torch.index.flat import index_factory
+    from denseretrievaltoolkits_torch.index.io import load_index
+    from denseretrievaltoolkits_torch.ops import ivf_pq, pq
+
+    centres = _randn(gen, 48, 256)
+    x = (centres[torch.randint(0, 48, (9000,), generator=gen, device="cuda")]
+         + 0.4 * _randn(gen, 9000, 256)).cpu().numpy()
+    q = (centres[torch.randint(0, 48, (300,), generator=gen, device="cuda")]
+         + 0.4 * _randn(gen, 300, 256)).cpu().numpy()
+    cpu = index_factory(256, spec, nprobe=6, device="cpu")
+    cpu.train(x[:4096])
+    cpu.add(x)
+    cpu.save(str(tmp_path / "i"))
+    card = load_index(str(tmp_path / "i"))
+    assert card.device.type == "cuda"
+    ivfpq = spec.startswith("IVF")
+    for mode in ("bulk", "exact") if ivfpq else ("serve", "exact"):
+        if ivfpq:
+            counter = (ivf_pq.ragged_topj_pq, "launches")
+        else:
+            counter = (pq.pq_topj_blocks, "launches_4bit" if "x4" in spec else "launches_i8dec")
+        n, scans = getattr(*counter), pq.pq_serve_topk.exact_scans
+        s, d = card.search(q, 50, mode=mode)
+        rs, rd = cpu.search(q, 50, mode=mode)
+        assert pq.pq_serve_topk.exact_scans == scans
+        if mode != "exact":
+            assert getattr(*counter) > n
+        if ivfpq and mode == "bulk":
+            assert card._bulk_state["qcap"] == cpu._bulk_state["qcap"]
+            assert card.last_dropped == cpu.last_dropped
+        recall = sum(len(set(a) & set(b)) for a, b in zip(d, rd)) / rd.size
+        assert recall >= 0.99, (mode, recall)
+        np.testing.assert_allclose(s, rs, rtol=1e-4, atol=1e-4)

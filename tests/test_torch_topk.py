@@ -348,10 +348,10 @@ def test_index_factory_flat_strings(spec, dtype):
 
 
 def test_index_factory_unported_kinds_raise():
-    """The IVF, IVFR and PCA/PCAR strings build the classes the reference's
-    build; the product-quantized kinds wait for their ROADMAP item; int4 IVF
-    cells raise the reference's ValueError (the sq4 kernels are flat-corpus
-    kernels)."""
+    """The IVF, IVFR, PCA/PCAR and product-quantized (PQ, OPQ, IVF-PQ)
+    strings build the classes the reference's build, with its parameters;
+    int4 IVF cells raise the reference's ValueError (the sq4 kernels are
+    flat-corpus kernels)."""
     from denseretrievaltoolkits_torch.index import ivf, transforms
 
     for spec, cls, dtype, nlist in (("IVF64,Flat", ivf.IVFFlatIndex, "float32", 64),
@@ -372,9 +372,26 @@ def test_index_factory_unported_kinds_raise():
         assert isinstance(idx, transforms.TransformedIndex) and type(idx.inner) is inner
         assert (idx.transform.d_out, idx.transform.rotate, idx.inner.dim) == (d_out, rotate,
                                                                              d_out)
-    for spec in ("PQ8", "PQ16x4", "OPQ8,PQ8", "IVF16,PQ8x4", "IVFR16,PQ8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tflat.index_factory(16, spec, device="cpu")
+    # the product-quantized kinds build with the JAX package's parameters (dim
+    # 128: IVF-PQ's decode layout needs 128 | dim)
+    from denseretrievaltoolkits_torch.index import ivf_pq, pq
+
+    for spec in ("PQ8", "PQ16x4", "OPQ8,PQ8", "OPQ16x4,PQ16x4", "IVF16,PQ8x4", "IVFR16,PQ8"):
+        idx = tflat.index_factory(128, spec, nprobe=8, device="cpu")
+        want = jflat.index_factory(128, spec, nprobe=8)
+        if spec.startswith("OPQ"):
+            assert isinstance(idx, transforms.TransformedIndex)
+            assert type(idx.transform) is transforms.OPQTransform
+            assert (idx.transform.M, idx.transform.nbits, idx.transform.rounds) == \
+                (want.transform.M, want.transform.nbits, want.transform.rounds)
+            idx, want = idx.inner, want.inner
+        cls = ivf_pq.IVFPQIndex if spec.startswith("IVF") else pq.PQIndex
+        assert type(idx) is cls and type(want).__name__ == cls.__name__
+        assert (idx.M, idx.nbits) == (want.M, want.nbits)
+        if cls is pq.PQIndex:
+            assert idx.block_size == want.block_size
+        else:
+            assert (idx.nlist, idx.nprobe, idx.block) == (want.nlist, want.nprobe, want.block)
     for spec in ("IVF64,SQ4", "IVFR64,SQint4"):
         with pytest.raises(ValueError, match="flat SQ4"):
             tflat.index_factory(16, spec, device="cpu")

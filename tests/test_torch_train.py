@@ -433,3 +433,13 @@ def test_profile_trace_and_unported_arguments(tmp_path):
     for kw, item in (({"miner": object()}, 9), ({"mesh": object()}, 13)):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             Trainer(dataclasses.replace(args), _build(seed=2), **kw)
+
+
+def test_grad_cache_raises_until_ported(tmp_path):
+    """``grad_cache`` parses, but the port has no chunked step yet: the
+    Trainer refuses it, naming its ROADMAP item, instead of silently running
+    the full-batch step without the chunked memory bound."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+        Trainer(_args(tmp_path, grad_cache=True, gc_q_chunk_size=2), _build(seed=2),
+                train_loader=_loader())
+    assert Trainer(_args(tmp_path), _build(seed=2), train_loader=_loader()).step == 0
