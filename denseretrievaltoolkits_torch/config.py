@@ -106,7 +106,8 @@ class ModelArguments:
     attention: str = field(
         default="xla",
         metadata={"help": "Attention implementation: 'xla' (plain PyTorch "
-                  "einsum+softmax) | 'flash' (not ported yet: raises) | "
+                  "einsum+softmax) | 'flash' (the CUDA flash-attention "
+                  "kernels, forward and backward, BERT tower) | "
                   "'fused' (the CUDA encoder-block kernels K1/K2 for short "
                   "sequences: attention+o-proj+LN and MLP+gelu+LN — scores "
                   "and the [B,S,F] gelu intermediate never reach device "

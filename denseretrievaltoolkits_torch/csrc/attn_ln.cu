@@ -25,9 +25,15 @@
 //   in double-buffered 16-row slices by 16-byte cp.async, B fragments by ldmatrix,
 //   each warp owning H/8 output columns. The slices, and then the fp32 pre-LN rows,
 //   reuse the shared memory of the attention phase.
+//   A bf16 sequence whose K/V does not fit (S > 512 at bert-base) takes the next path.
 // - otherwise (fp32, whose products must stay exact fp32, and odd widths): CUDA-core
-//   FFMA with the context held transposed as fp32, each thread accumulating
-//   R x (H/256) projection outputs while o_kernel streams from L2.
+//   FFMA, the context held transposed as fp32, each thread accumulating R x (H/256)
+//   projection outputs while o_kernel streams from L2. Its attention has two bodies:
+//   resident (one head's K/V and the block's [R,S] scores in shared memory, the
+//   normalized probabilities rounded before p.v) wherever that fits (fp32 S <= 306 at
+//   bert-base), and streamed above it: K/V pass in 64-key tiles with the online softmax,
+//   so shared memory does not grow with S and any S is taken. The streamed body rounds
+//   exp(s - running max) in bf16, which only shapes the resident body refuses meet.
 //
 // All-pad sequences (mask all 0) give every score -1e9 + s; max subtraction turns
 // that into a uniform softmax, so their outputs stay finite.
@@ -43,6 +49,7 @@ namespace {
 constexpr int R = 16;       // query rows per block
 constexpr int NT = 256;     // threads per block
 constexpr int NCMAX = 4;    // CUDA-core path: output columns per thread, H <= NT * NCMAX
+constexpr int KT = 64;      // CUDA-core path: keys per streamed K/V tile
 constexpr int OKS = 16;     // tensor-core path: o_kernel rows per staged slice
 constexpr size_t SMEM_MAX = 232448;
 
@@ -263,6 +270,7 @@ int try_mma(const void* qkv, const void* x, const void* mask, const void* ok, co
   const int H = nh * hd;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(ok);
   if (!mma_width(H, hd) || (ptrs & 15) != 0) return -1;  // 16-byte loads
+  if (mma_smem_bytes(pad32(S), H, hd) > SMEM_MAX) return -1;  // one head's K/V must fit
   switch (H / 64) {
 #define DRT_CASE(n) \
   case n: return launch_mma<n>(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale, eps, stream);
@@ -280,34 +288,36 @@ __host__ __device__ constexpr int k_stride(int hd) {
   return hd + (sizeof(T) == 4 ? 1 : 2);
 }
 
+// shared memory of the resident body: one head's K/V and the block's score rows [R][S]
 template <typename T>
-size_t smem_bytes(int S, int H, int hd) {
+size_t resident_smem_bytes(int S, int H, int hd) {
   return sizeof(float) * ((size_t)H * R + (size_t)R * S + (size_t)R * hd + S) +
          sizeof(T) * ((size_t)S * k_stride<T>(hd) + (size_t)S * hd);
 }
 
+// shared memory of the streamed body: independent of S, K/V pass through in KT-key tiles
 template <typename T>
-__global__ void __launch_bounds__(NT)
-attn_ln_kernel(const T* __restrict__ qkv, const T* __restrict__ x, const int* __restrict__ mask,
-               const T* __restrict__ ok, const T* __restrict__ ob,
-               const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-               T* __restrict__ out, int S, int nh, int hd, float sm_scale, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
+size_t streamed_smem_bytes(int H, int hd) {
+  return sizeof(float) * ((size_t)H * R + (size_t)R * KT + (size_t)R * hd + KT + 3 * R) +
+         sizeof(T) * ((size_t)KT * k_stride<T>(hd) + (size_t)KT * hd);
+}
+
+// Resident body: one head's K/V [S,hd] and the scores [R,S] in shared memory; the
+// normalized probabilities are rounded to T before p.v. Writes ctxT [H][R] (as T values).
+template <typename T>
+__device__ __forceinline__ void attend_resident(const T* __restrict__ qkv,
+                                                const int* __restrict__ mask, float* ctxT,
+                                                float* scratch, int S, int nh, int hd,
+                                                float sm_scale, int r0, size_t seq) {
   const int H = nh * hd;
   const int KST = k_stride<T>(hd);
-  float* ctxT = reinterpret_cast<float*>(smem);  // [H][R]: context, then pre-LN rows
-  float* Ps = ctxT + (size_t)H * R;               // [R][S] scores -> probs
-  float* Qs = Ps + (size_t)R * S;                 // [R][hd]
-  float* bias = Qs + (size_t)R * hd;              // [S]
-  T* Ks = reinterpret_cast<T*>(bias + S);         // [S][KST]
-  T* Vs = Ks + (size_t)S * KST;                   // [S][hd]
-
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * R;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const size_t seq = (size_t)b * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t row3 = 3 * (size_t)H;
+  float* Ps = scratch;                    // [R][S] scores -> probs
+  float* Qs = Ps + (size_t)R * S;         // [R][hd]
+  float* bias = Qs + (size_t)R * hd;      // [S]
+  T* Ks = reinterpret_cast<T*>(bias + S); // [S][KST]
+  T* Vs = Ks + (size_t)S * KST;           // [S][hd]
 
   for (int j = tid; j < S; j += NT) bias[j] = (1.0f - (float)mask[seq + j]) * -1e9f;
 
@@ -357,6 +367,121 @@ attn_ln_kernel(const T* __restrict__ qkv, const T* __restrict__ x, const int* __
       ctxT[(h * hd + d) * R + r] = round_to<T>(acc);
     }
   }
+}
+
+// Streamed body: K/V pass through shared memory in KT-key tiles with the online
+// softmax (running max and sum per row, the context rescaled per tile and divided by
+// the sum at the head's end, as the flash kernels of csrc/flash_attn.cu do). In bf16
+// it rounds exp(s - running max) before p.v, where the resident body rounds the
+// normalized probabilities. Writes ctxT [H][R] (as T values).
+template <typename T>
+__device__ __forceinline__ void attend_streamed(const T* __restrict__ qkv,
+                                                const int* __restrict__ mask, float* ctxT,
+                                                float* scratch, int S, int nh, int hd,
+                                                float sm_scale, int r0, size_t seq) {
+  const int H = nh * hd;
+  const int KST = k_stride<T>(hd);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row3 = 3 * (size_t)H;
+  float* Ps = scratch;                       // [R][KT] scores -> probs of one key tile
+  float* Qs = Ps + (size_t)R * KT;           // [R][hd]
+  float* bias = Qs + (size_t)R * hd;         // [KT]
+  float* m_s = bias + KT;                    // [R] running max
+  float* l_s = m_s + R;                      // [R] running sum
+  float* alpha_s = l_s + R;                  // [R] rescale of the context by this tile
+  T* Ks = reinterpret_cast<T*>(alpha_s + R); // [KT][KST]
+  T* Vs = Ks + (size_t)KT * KST;             // [KT][hd]
+
+  for (int h = 0; h < nh; ++h) {
+    __syncthreads();  // the previous head's readers of Qs / m_s / l_s are done
+    for (int idx = tid; idx < R * hd; idx += NT) {
+      const int r = idx / hd, d = idx - r * hd;
+      const int row = r0 + r;
+      Qs[idx] = row < S ? to_float(qkv[(seq + row) * row3 + h * hd + d]) : 0.f;
+      ctxT[(h * hd + d) * R + r] = 0.f;
+    }
+    for (int r = tid; r < R; r += NT) {
+      m_s[r] = -INFINITY;
+      l_s[r] = 0.f;
+    }
+    for (int j0 = 0; j0 < S; j0 += KT) {
+      const int n = min(KT, S - j0);
+      __syncthreads();  // the previous tile's readers of Ks / Vs / Ps are done
+      for (int idx = tid; idx < n * hd; idx += NT) {
+        const int j = idx / hd, d = idx - j * hd;
+        const T* src = qkv + (seq + j0 + j) * row3 + h * hd + d;
+        Ks[j * KST + d] = src[H];
+        Vs[j * hd + d] = src[2 * H];
+      }
+      for (int j = tid; j < n; j += NT) bias[j] = (1.0f - (float)mask[seq + j0 + j]) * -1e9f;
+      __syncthreads();
+      for (int idx = tid; idx < R * n; idx += NT) {
+        const int r = idx / n, j = idx - r * n;
+        const float* q = Qs + r * hd;
+        const T* k = Ks + j * KST;
+        float acc = 0.f;
+        for (int d = 0; d < hd; ++d) acc = fmaf(q[d], to_float(k[d]), acc);
+        Ps[r * KT + j] = acc * sm_scale + bias[j];
+      }
+      __syncthreads();
+      // online softmax: every key before S has a finite score, so the max is finite
+      for (int r = warp; r < R; r += NT / 32) {
+        float* p = Ps + r * KT;
+        float mx = -INFINITY;
+        for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p[j]);
+        const float m_new = fmaxf(m_s[r], warp_max(mx));
+        float sum = 0.f;
+        for (int j = lane; j < n; j += 32) {
+          const float e = expf(p[j] - m_new);
+          p[j] = round_to<T>(e);
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          const float alpha = expf(m_s[r] - m_new);
+          alpha_s[r] = alpha;
+          l_s[r] = l_s[r] * alpha + sum;
+          m_s[r] = m_new;
+        }
+      }
+      __syncthreads();
+      for (int idx = tid; idx < R * hd; idx += NT) {
+        const int r = idx / hd, d = idx - r * hd;
+        const float* p = Ps + r * KT;
+        float acc = 0.f;
+        for (int j = 0; j < n; ++j) acc = fmaf(p[j], to_float(Vs[j * hd + d]), acc);
+        float* c = ctxT + (h * hd + d) * R + r;
+        *c = *c * alpha_s[r] + acc;
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < R * hd; idx += NT) {
+      const int r = idx / hd, d = idx - r * hd;
+      float* c = ctxT + (h * hd + d) * R + r;
+      *c = round_to<T>(*c / l_s[r]);
+    }
+  }
+}
+
+template <typename T, bool STREAM>
+__global__ void __launch_bounds__(NT)
+attn_ln_kernel(const T* __restrict__ qkv, const T* __restrict__ x, const int* __restrict__ mask,
+               const T* __restrict__ ok, const T* __restrict__ ob,
+               const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+               T* __restrict__ out, int S, int nh, int hd, float sm_scale, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = nh * hd;
+  float* ctxT = reinterpret_cast<float*>(smem);  // [H][R]: context, then pre-LN rows
+
+  const int r0 = blockIdx.x * R;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t seq = (size_t)blockIdx.y * S;
+
+  if constexpr (STREAM)
+    attend_streamed<T>(qkv, mask, ctxT, ctxT + (size_t)H * R, S, nh, hd, sm_scale, r0, seq);
+  else
+    attend_resident<T>(qkv, mask, ctxT, ctxT + (size_t)H * R, S, nh, hd, sm_scale, r0, seq);
   __syncthreads();
 
   // o-projection: thread owns columns tid + NT*i, all R rows; o_kernel streams from L2
@@ -404,26 +529,42 @@ attn_ln_kernel(const T* __restrict__ qkv, const T* __restrict__ x, const int* __
   }
 }
 
-template <typename T>
-int launch(const void* qkv, const void* x, const void* mask, const void* ok, const void* ob,
-           const void* ls, const void* lb, void* out, int B, int S, int nh, int hd,
-           float sm_scale, float eps, cudaStream_t stream) {
-  const int H = nh * hd;
-  const size_t smem = smem_bytes<T>(S, H, hd);
-  if (H > NT * NCMAX || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_ln_kernel<T>,
+template <typename T, bool STREAM>
+int launch_body(const void* qkv, const void* x, const void* mask, const void* ok, const void* ob,
+                const void* ls, const void* lb, void* out, int B, int S, int nh, int hd,
+                float sm_scale, float eps, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attn_ln_kernel<T, STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + R - 1) / R, B);
-  attn_ln_kernel<T><<<grid, NT, smem, stream>>>(
+  attn_ln_kernel<T, STREAM><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(x), static_cast<const int*>(mask),
       static_cast<const T*>(ok), static_cast<const T*>(ob), static_cast<const float*>(ls),
       static_cast<const float*>(lb), static_cast<T*>(out), S, nh, hd, sm_scale, eps);
   return (int)cudaGetLastError();
 }
 
+// the resident body where one head's K/V fits in shared memory, else the streamed one
+template <typename T>
+int launch(const void* qkv, const void* x, const void* mask, const void* ok, const void* ob,
+           const void* ls, const void* lb, void* out, int B, int S, int nh, int hd,
+           float sm_scale, float eps, cudaStream_t stream) {
+  const int H = nh * hd;
+  if (H > NT * NCMAX) return (int)cudaErrorInvalidValue;
+  const size_t resident = resident_smem_bytes<T>(S, H, hd);
+  if (resident <= SMEM_MAX)
+    return launch_body<T, false>(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale,
+                                 eps, resident, stream);
+  const size_t streamed = streamed_smem_bytes<T>(H, hd);
+  if (streamed > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return launch_body<T, true>(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale, eps,
+                              streamed, stream);
+}
+
 }  // namespace
 
+// bf16 takes the tensor-core path where its width, alignment and sequence fit (S <= 512
+// at bert-base widths), else the CUDA-core path, which takes any S.
 extern "C" int drt_attn_ln(const void* qkv, const void* x, const void* mask, const void* ok,
                            const void* ob, const void* ls, const void* lb, void* out, int B,
                            int S, int nh, int hd, float sm_scale, float eps, int is_bf16,
@@ -434,22 +575,6 @@ extern "C" int drt_attn_ln(const void* qkv, const void* x, const void* mask, con
   const int code = try_mma(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale, eps, st);
   if (code >= 0) return code;
   return launch<__nv_bfloat16>(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale, eps, st);
-}
-
-// The longest sequence the kernel takes at these widths: one head's K/V (and the
-// block's score rows) must fit in shared memory. 0 when the width is not taken.
-// bf16 assumes 16-byte aligned qkv and o_kernel, as PyTorch allocates them.
-extern "C" int drt_attn_ln_max_seq(int nh, int hd, int is_bf16) {
-  const int H = nh * hd;
-  auto fits = [&](int S) {
-    if (is_bf16 && mma_width(H, hd)) return mma_smem_bytes(pad32(S), H, hd) <= SMEM_MAX;
-    if (H > NT * NCMAX) return false;
-    return (is_bf16 ? smem_bytes<__nv_bfloat16>(S, H, hd) : smem_bytes<float>(S, H, hd)) <=
-           SMEM_MAX;
-  };
-  int S = 0;
-  while (S < (1 << 16) && fits(S + 1)) ++S;
-  return S;
 }
 
 extern "C" const char* drt_error_string(int code) {

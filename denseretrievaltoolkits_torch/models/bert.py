@@ -6,7 +6,13 @@ fp32 LayerNorm, fp32 scores plus the additive -1e9 mask bias, fp32 softmax
 with probs cast to the compute dtype, exact gelu, post-LN, and on the xla
 path the residual added in the compute dtype. ``attention="fused"`` routes
 each block through the K1 and K2 kernels (``ops/attn.py``), exactly where the
-reference calls its Pallas kernels (bert.py:215-244).
+reference calls its Pallas kernels (bert.py:215-244). ``attention="flash"``
+computes the context with the flash kernels (``ops/flash.py``, the stock
+Pallas flash attention at bert.py:258-259) over segment ids, then follows the
+xla path; unlike the reference, it runs them off the TPU too (the reference
+runs 'flash' as 'xla' there, bert.py:331-332), and its pad rows attend only the
+pad keys before S, where the reference's also average its 128-row padding:
+real rows agree, pad rows differ but stay finite.
 
 Weights keep the reference's ``[in, out]`` kernel layout, so the JAX pytree
 maps onto the module with no transpose (``models/convert.py``). Matrices and
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 
 from ..ops import attn as attn_ops
+from ..ops import flash as flash_ops
 
 ATTENTIONS = ("xla", "flash", "fused")
 
@@ -132,8 +139,11 @@ def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str)
         return attn_ops.fused_mlp_ln(
             x, layer.wi_kernel.to(cd), layer.wi_bias.to(cd), layer.wo_kernel.to(cd),
             layer.wo_bias.to(cd), layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
-    # the xla path: the same attention, then projection and residual in the compute dtype
-    ctx = attn_ops._reference_attention(qkv, mask, 1.0 / math.sqrt(hd), nh, hd)
+    if attention == "flash":
+        ctx = flash_ops.flash_attention_qkv(qkv, mask, nh, hd).reshape(x.shape)
+    else:
+        ctx = attn_ops._reference_attention(qkv, mask, 1.0 / math.sqrt(hd), nh, hd)
+    # as the xla path: projection and residual in the compute dtype, fp32 LayerNorm
     attn_out = _dense(ctx, layer.o_kernel, layer.o_bias)
     x = layer_norm(x + attn_out, layer.attn_ln_scale, layer.attn_ln_bias, c.layer_norm_eps)
     h = _dense(x, layer.wi_kernel, layer.wi_bias)
@@ -152,11 +162,6 @@ class BertEncoder(nn.Module):
         super().__init__()
         if attention not in ATTENTIONS:
             raise ValueError(f"Unknown attention impl: {attention}")
-        if attention == "flash":
-            raise NotImplementedError(
-                "attention='flash' calls JAX's library Pallas flash kernel in the "
-                "reference; its port is ROADMAP queue 1, item 'Flash attention'. "
-                "Use 'fused' or 'xla'.")
         self.config = config
         self.dtype = dtype
         self.attention = attention

@@ -36,6 +36,7 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures: name -> argtypes (every entry returns an int: a cudaError_t unless noted)
 SIGNATURES = {
@@ -59,8 +60,6 @@ SIGNATURES = {
     "drt_quantize_int8": [_P] * 3 + [_I] * 4 + [_P],
     # x, packed, scales, n_in, n_out, H, is_bf16, stream
     "drt_quantize_int4": [_P] * 3 + [_I] * 4 + [_P],
-    # nh, hd, is_bf16 -> the longest S drt_attn_ln takes (not a cudaError_t)
-    "drt_attn_ln_max_seq": [_I, _I, _I],
     # q, p, lse, tgt, Q, P, H, stride, stream
     "drt_contrastive_fwd": [_P] * 4 + [_I] * 4 + [_P],
     # q, p, lse, gout, dq (dp), Q, P, H, stride, stream
@@ -68,6 +67,14 @@ SIGNATURES = {
     "drt_contrastive_dp": [_P] * 5 + [_I] * 4 + [_P],
     # -> the widest H the contrastive kernels take (not a cudaError_t)
     "drt_contrastive_max_h": [],
+    # q, k, v, mask, o, lse, B, S, nh, hd, bstride, rstride, sm_scale, bias, is_bf16, stream
+    "drt_flash_fwd": [_P] * 6 + [_I] * 4 + [_L, _I, _F, _I, _I, _P],
+    # q, k, v, mask, lse, D, dout, dq, B, S, nh, hd, bstride, rstride, gbstride, grstride,
+    # sm_scale, is_bf16, stream
+    "drt_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_L, _I, _L, _I, _F, _I, _P],
+    # q, k, v, mask, lse, D, dout, dk, dv, B, S, nh, hd, bstride, rstride, gbstride,
+    # grstride, sm_scale, is_bf16, stream
+    "drt_flash_bwd_dkv": [_P] * 9 + [_I] * 4 + [_L, _I, _L, _I, _F, _I, _P],
 }
 
 # wall seconds the last build took (0.0 when a cached library was reused)
@@ -153,7 +160,7 @@ def library() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     """Raise if a launch returned a non-zero ``cudaError_t``. The kernels
     return ``cudaErrorInvalidValue`` for a shape they do not take (for
-    example a sequence whose K/V does not fit in shared memory)."""
+    example a head too wide for shared memory)."""
     if code != 0:
         what = library().drt_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: cudaError_t {code} ({what})")

@@ -8,16 +8,20 @@ Counterparts of ``denseretrievaltoolkits_tpu/ops/attn.py``:
 - :func:`fused_mlp_ln` (K2, ``csrc/mlp_ln.cu``): wi -> exact gelu -> wo,
   residual and LayerNorm in one kernel; its plain version is
   :func:`_reference_mlp_ln`.
+- :func:`fused_qkv_attention` (K18, the forward kernel of ``csrc/flash_attn.cu``
+  in bias mode): attention alone over the raw fused-QKV output, ctx [B,S,H];
+  its plain version is :func:`_reference_attention`. No package code calls it,
+  as in the reference, where K1 superseded it.
 
 A wrapper runs its plain version for tensors on the CPU. For CUDA tensors it
 launches its kernel or raises; it never falls back. Each wrapper counts its
 kernel launches in a plain int attribute, ``<wrapper>.launches``.
 
-Both wrappers are differentiable, as ``jax.custom_vjp`` makes them in the
-reference (attn.py:205-238, 344-367): the forward is the kernel, and the
-backward recomputes the block through its plain version under autograd and
+The wrappers are differentiable, as ``jax.custom_vjp`` makes them in the
+reference (attn.py:205-238, 344-367, 403-408): the forward is the kernel, and
+the backward recomputes the block through its plain version under autograd and
 returns ``torch.autograd.grad`` of it. The mask takes no gradient. The JAX
-package has no backward kernel for K1/K2, so neither has the port.
+package has no backward kernel for K1/K2/K18, so neither has the port.
 
 The plain versions reproduce the reference's numerics: products of
 compute-dtype values accumulate in fp32 (inputs upcast, so a bf16 product is
@@ -30,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _native
+from . import _native, flash
 
 _NEG = -1e9
 
@@ -150,19 +154,12 @@ def _attention_ln_forward(qkv, x, ok, ob, ls, lb, *, mask, sm_scale, nh, hd, eps
     mask = mask.to(device=qkv.device, dtype=torch.int32).contiguous()
     _check_cuda("fused_attention_ln", qkv.dtype, (qkv, x, ok, ob), (ls, lb))
     lib = _native.library()
-    is_bf16 = int(qkv.dtype == torch.bfloat16)
-    max_s = lib.drt_attn_ln_max_seq(nh, hd, is_bf16)
-    if S > max_s:
-        raise ValueError(
-            f"fused_attention_ln: the {qkv.dtype} kernel holds one head's K/V in shared memory "
-            f"and takes S <= {max_s} at nh={nh}, hd={hd}; got S={S} (longer sequences wait for "
-            f"the flash kernel, ROADMAP queue 1 item 4)")
     out = torch.empty_like(x)
     fused_attention_ln.launches += 1
     _native.check(lib.drt_attn_ln(
         qkv.data_ptr(), x.data_ptr(), mask.data_ptr(), ok.data_ptr(), ob.data_ptr(),
         ls.data_ptr(), lb.data_ptr(), out.data_ptr(), B, S, nh, hd, float(sm_scale),
-        float(eps), is_bf16, _native.stream_ptr(qkv)),
+        float(eps), int(qkv.dtype == torch.bfloat16), _native.stream_ptr(qkv)),
         "drt_attn_ln")
     return out
 
@@ -209,3 +206,35 @@ def _mlp_ln_forward(x, wi, bi, wo, bo, ls, lb, *, eps):
 
 
 fused_mlp_ln.launches = 0
+
+
+def _qkv_attention_plain(qkv, *, mask, sm_scale, nh, hd):
+    return _reference_attention(qkv, mask, sm_scale, nh, hd)
+
+
+def fused_qkv_attention(qkv, mask, sm_scale, nh, hd):
+    """Attention over the raw QKV projection output (K18, ``fused_qkv_attention``,
+    attn.py:388). qkv: [B,S,3H] laid out [q|k|v], heads contiguous; mask: [B,S]
+    0/1, pad keys biased by -1e9. Returns ctx [B,S,H] in qkv's dtype.
+    Differentiable in qkv: the backward recomputes through
+    :func:`_reference_attention`, as the reference's VJP does (attn.py:403-408)."""
+    static = dict(mask=mask, sm_scale=sm_scale, nh=nh, hd=hd)
+    return _RecomputeBackward.apply(_qkv_attention_forward, _qkv_attention_plain, static, qkv)
+
+
+def _qkv_attention_forward(qkv, *, mask, sm_scale, nh, hd):
+    if not qkv.is_cuda:
+        return _reference_attention(qkv, mask, sm_scale, nh, hd)
+    B, S, threeH = qkv.shape
+    H = nh * hd
+    if threeH != 3 * H:
+        raise ValueError(f"fused_qkv_attention: qkv {tuple(qkv.shape)} is not [B, S, 3 * {H}]")
+    if not qkv.is_contiguous():
+        raise ValueError("fused_qkv_attention: qkv must be contiguous")
+    q, k, v = flash.split_qkv(qkv, nh, hd)
+    ctx, _ = flash._launch_fwd(fused_qkv_attention, q, k, v, mask, sm_scale, bias=True,
+                               with_lse=False)
+    return ctx.view(B, S, H)
+
+
+fused_qkv_attention.launches = 0

@@ -159,8 +159,11 @@ def test_load_jax_params_roundtrip(tmp_path):
 
 
 def test_flash_and_lora_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbert.BertEncoder(tbert.BertConfig(**CFG), attention="flash")
+    """attention='flash' builds (its kernels are ported, tests/test_torch_flash.py);
+    an unknown attention and LoRA adapters still raise."""
+    assert tbert.BertEncoder(tbert.BertConfig(**CFG), attention="flash").attention == "flash"
+    with pytest.raises(ValueError, match="Unknown attention"):
+        tbert.BertEncoder(tbert.BertConfig(**CFG), attention="splash")
     tree = _tree()
     tree["layers"]["lora_q_A"] = np.zeros((2, 64, 4), np.float32)
     with pytest.raises(NotImplementedError, match="LoRA"):

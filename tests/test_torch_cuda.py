@@ -84,26 +84,168 @@ def test_block_topj_and_certified_topk(gen, dtype, H):
 
 
 def test_unsupported_shape_raises(gen):
-    """fp32 at bert-base widths takes S <= 306 (one head's K/V in the CUDA-core
-    kernel's shared memory): S=306 runs, and S=307 or 512 is refused with the
-    limit named, never run or silently replaced. bf16 takes S=512."""
-    nh, hd = 12, 64
-    H = nh * hd
-
-    def args(S, dtype=torch.float32):
+    """K1's CUDA-core path keeps one head's K/V in shared memory where it fits
+    and streams it over S above that, so fp32 at bert-base widths takes S=306
+    (resident), 307 and 512 (streamed; it took S <= 306 before); bf16 takes
+    S=512 on the tensor-core path, S=512 at the odd width H=384 on the resident
+    CUDA-core body, and S=600 on the streamed one. A width the kernel does not
+    take is refused, never run or silently replaced."""
+    def args(S, dtype=torch.float32, nh=12, hd=64):
+        H = nh * hd
         return (_randn(gen, 1, S, 3 * H, dtype=dtype), _randn(gen, 1, S, H, dtype=dtype),
                 torch.ones(1, S, dtype=torch.int32, device="cuda"),
                 _randn(gen, H, H, scale=0.02, dtype=dtype), _randn(gen, H, dtype=dtype),
                 _randn(gen, H), _randn(gen, H), 0.125, nh, hd, 1e-12)
 
-    for S, dtype in ((306, torch.float32), (512, torch.bfloat16)):
-        a = args(S, dtype)
+    errors = {}
+    for S, dtype, nh in ((306, torch.float32, 12), (307, torch.float32, 12),
+                         (512, torch.float32, 12), (512, torch.bfloat16, 12),
+                         (512, torch.bfloat16, 6)):
+        a = args(S, dtype, nh=nh)
         out = attn.fused_attention_ln(*a)
         torch.cuda.synchronize()
-        assert (out.float() - attn._reference_attention_ln(*a).float()).abs().max() <= TOL[dtype]
-    for S in (307, 512):
-        with pytest.raises(ValueError, match=r"takes S <= 306 at nh=12, hd=64; got S=" + str(S)):
-            attn.fused_attention_ln(*args(S))
+        errors[S, dtype, nh] = (out.float() - attn._reference_attention_ln(*a).float()).abs().max()
+    assert all(err <= TOL[dtype] for (_, dtype, _), err in errors.items()), errors
+    # bf16 past the tensor-core path's shared memory: the streamed body rounds
+    # exp(s - m) where the plain version rounds the normalized probabilities, so
+    # outputs agree within two bf16 ulps of each value (of 1 below 1)
+    a = args(600, torch.bfloat16)
+    out = attn.fused_attention_ln(*a).float()
+    ref = attn._reference_attention_ln(*a).float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1.0))) - 7)
+    assert bool(((out - ref).abs() <= 2 * ulp).all()), float(((out - ref).abs() / ulp).max())
+    with pytest.raises(ValueError, match="H <= 1024"):
+        attn.fused_attention_ln(*args(8, nh=17))
+
+
+def _flash_case(gen, B, S, nh, hd, dtype):
+    """q, k, v as views of one [B,S,3H] tensor; a ragged mask with pad rows, the
+    last sequence all padding."""
+    from denseretrievaltoolkits_torch.ops.flash import split_qkv
+
+    qkv = _randn(gen, B, S, 3 * nh * hd, dtype=dtype)
+    views = split_qkv(qkv, nh, hd)
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+    lens[0] = S
+    mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    mask[-1] = 0
+    return qkv, views, mask
+
+
+def _within(got, want, rel):
+    """|got - want| <= rel * max|want| over every element."""
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs().max()
+    return bool(err <= rel * want.abs().max()), float(err)
+
+
+# The flash kernels vs their plain versions, which share their semantics on every
+# row (pad rows too). fp32: summation order. bf16: outputs within two bf16 ulps at
+# their largest value (2^-6 of it): the kernel rounds exp(s - m) where the plain
+# forward rounds the normalized probabilities, and P, dS differ by rounding flips.
+FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [37, 200, 512])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_flash_kernels(gen, dtype, S, hd):
+    """Forward (o and lse) and both backward kernels vs their plain versions on
+    odd S, with pad rows and an all-pad sequence; each launches once."""
+    from denseretrievaltoolkits_torch.ops import flash
+
+    B, nh = 3, 2
+    _, (q, k, v), mask = _flash_case(gen, B, S, nh, hd, dtype)
+    scale = hd ** -0.5
+    n = (flash.flash_fwd.launches, flash.flash_bwd_dkv.launches, flash.flash_bwd_dq.launches)
+    o, lse = flash.flash_fwd(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    ro, rlse = flash._reference_flash_fwd(q, k, v, mask, scale)
+    assert torch.isfinite(o).all()
+    assert _within(o, ro, FLASH_REL[dtype])[0]
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    do = _randn(gen, B, S, nh, hd, dtype=dtype)
+    D = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dqkv = torch.empty(B, S, 3, nh, hd, dtype=dtype, device="cuda")
+    flash.flash_bwd_dkv(q, k, v, mask, rlse, do, D, scale, dqkv)
+    flash.flash_bwd_dq(q, k, v, mask, rlse, do, D, scale, dqkv)
+    torch.cuda.synchronize()
+    dq, dk, dv = dqkv.unbind(2)
+    rdk, rdv = flash._reference_flash_bwd_dkv(q, k, v, mask, rlse, do, D, scale)
+    rdq = flash._reference_flash_bwd_dq(q, k, v, mask, rlse, do, D, scale)
+    for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        ok, err = _within(got, want, FLASH_REL[dtype])
+        assert ok, (name, err)
+    assert (flash.flash_fwd.launches, flash.flash_bwd_dkv.launches,
+            flash.flash_bwd_dq.launches) == tuple(x + 1 for x in n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_card(gen, dtype):
+    """flash_attention_qkv under autograd vs autograd through the plain version
+    on qkv's views: values as above; qkv's gradient within 1e-4 (fp32) or 3e-2
+    (bf16) of its largest entry (autograd through the plain version rounds dP
+    to bf16, the kernels round dS)."""
+    from denseretrievaltoolkits_torch.ops import flash
+
+    B, S, nh, hd = 4, 300, 12, 64
+    qkv, _, mask = _flash_case(gen, B, S, nh, hd, dtype)
+    g = _randn(gen, B, S, nh, hd, dtype=dtype) * mask[:, :, None, None].to(dtype)
+    grads = []
+    plain = lambda t, m, nh, hd: flash._reference_flash_attention(  # noqa: E731
+        *flash.split_qkv(t, nh, hd), m, hd)
+    for fn in (flash.flash_attention_qkv, plain):
+        leaf = qkv.clone().requires_grad_(True)
+        out = fn(leaf, mask, nh, hd)
+        out.backward(g)
+        grads.append((out.detach(), leaf.grad))
+    assert _within(grads[0][0], grads[1][0], FLASH_REL[dtype])[0]
+    ok, err = _within(grads[0][1], grads[1][1], 1e-4 if dtype == torch.float32 else 3e-2)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [37, 156, 512])
+def test_fused_qkv_attention_kernel(gen, dtype, S):
+    """K18 (the flash forward in bias mode) vs ``_reference_attention`` on every
+    row, all-pad sequence included; the recompute backward equals the plain one."""
+    B, nh, hd = 3, 12, 64
+    qkv, _, mask = _flash_case(gen, B, S, nh, hd, dtype)
+    n = attn.fused_qkv_attention.launches
+    leaf = qkv.clone().requires_grad_(True)
+    out = attn.fused_qkv_attention(leaf, mask, hd ** -0.5, nh, hd)
+    torch.cuda.synchronize()
+    assert attn.fused_qkv_attention.launches == n + 1
+    ref_leaf = qkv.clone().requires_grad_(True)
+    ref = attn._reference_attention(ref_leaf, mask, hd ** -0.5, nh, hd)
+    assert torch.isfinite(out).all()
+    assert _within(out, ref, FLASH_REL[dtype])[0]
+    g = _randn(gen, *out.shape, dtype=dtype)
+    out.backward(g)
+    ref.backward(g)
+    torch.testing.assert_close(leaf.grad, ref_leaf.grad, rtol=0, atol=0)
+
+
+def test_flash_refuses_what_it_cannot_run(gen):
+    """Head dims the kernels do not take, mixed devices and q/k/v that do not
+    share strides raise; nothing runs the plain version instead."""
+    from denseretrievaltoolkits_torch.ops import flash
+
+    def case(hd, dtype, nh=2):
+        return _flash_case(gen, 2, 40, nh, hd, dtype)
+
+    for hd, dtype in ((24, torch.bfloat16), (12, torch.float32), (144, torch.float32)):
+        _, (q, k, v), mask = case(hd, dtype)
+        with pytest.raises(ValueError, match="head dim"):
+            flash.flash_attention(q, k, v, mask, hd)
+    _, (q, k, v), mask = case(32, torch.bfloat16)
+    with pytest.raises(ValueError, match="every operand must be on"):
+        flash.flash_attention(q, k, v, mask.cpu(), 32)
+    with pytest.raises(ValueError, match="share strides"):
+        flash.flash_fwd(q, k.contiguous(), v, mask, 32 ** -0.5)
+    with pytest.raises(ValueError, match="every operand must be on"):
+        attn.fused_qkv_attention(torch.cat([q, k, v], -1).flatten(2).contiguous(), mask.cpu(),
+                                 0.125, 2, 32)
 
 
 # K3/K4: fp32 products in true fp32, so summation order only
