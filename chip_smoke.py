@@ -142,12 +142,15 @@ Phases, each of which fails the run on error:
    (F-dq) kernels in bf16 at B=64, S=512 under a cotangent zero on pad rows,
    against the closed-form plain versions and against autograd through the
    plain forward; the query tower's shapes, S=32 (every tile partial), the
-   same way: F-fwd at B=64 (served) and all three at B=8 (trained);
+   same way: F-fwd at B=64 (served) and all three at B=8 (trained); F-fwd
+   bf16 at B=64, S=156 (a partial last tile) and at S=512 on a mask that is no
+   prefix (segments in runs of 96);
    K18 (the forward in bias mode) against ``_reference_attention`` at B=64,
    S=156 and 512. Errors with their tolerances, kernel, plain and bound ms, and
    ``torch.nn.functional.scaled_dot_product_attention`` with the same mask
-   (forward, and forward + backward), which the port never calls. (Runs before
-   phase 3.)
+   (forward, and forward + backward), which the port never calls, with the
+   kernel / SDPA ratio; for each forward row the (query tile, key tile) pairs
+   visited of all, the rest skipped as fully masked. (Runs before phase 3.)
 21. Serving at S=512 through the entry points: bert-base bf16
    ``attention='flash'`` built by ``DRModelForInference.build``;
    ``encode_batches`` over 4096 passages of lognormal length (median 256,
@@ -329,11 +332,20 @@ PQ_METRIC_GAP = {"PQ96": 0.34, "IVF16,PQ96x4": 0.64}
 # first reading on the card).
 FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 FLASH_AUTOGRAD_REL = 3e-2
-# (dtype, B, S, with the backward kernels): the passage tower at S=512 (serving and
-# training batch 64; fp32 at B=8) and the query tower at S=32, served at B=64 and
-# trained at B=8, where every query and key tile is partial (S below the 64-row tile).
-FLASH_KERNEL_CASES = ((torch.bfloat16, 64, 512, True), (torch.float32, 8, 512, False),
-                      (torch.bfloat16, 64, 32, False), (torch.bfloat16, 8, 32, True))
+# (dtype, B, S, with the backward kernels, mask): the passage tower at S=512 (serving
+# and training batch 64; fp32 at B=8) and the query tower at S=32, served at B=64 and
+# trained at B=8, where every query and key tile is partial (S below the 64-row tile),
+# on ragged prefix masks; the fused path's S=156 (a partial last tile) and S=512 on a
+# mask that is no prefix (segments alternating in runs of 96 rows: key tiles skipped
+# in the middle of a sequence).
+FLASH_KERNEL_CASES = ((torch.bfloat16, 64, 512, True, "ragged"),
+                      (torch.float32, 8, 512, False, "ragged"),
+                      (torch.bfloat16, 64, 32, False, "ragged"),
+                      (torch.bfloat16, 8, 32, True, "ragged"),
+                      (torch.bfloat16, 64, 156, False, "ragged"),
+                      (torch.bfloat16, 64, 512, False, "runs96"))
+# the forward kernels' tiles: 64 x 64 (query rows x keys) per skip decision
+FLASH_TILE = 64
 # Serving and training at S=512 (the reference's largest p_max_len): passages of
 # lognormal length, median 256 tokens, sigma 0.6, clipped to [16, 512], so about
 # 12% are 512 tokens long; 4096 passages and 512 queries (S=32) served, batch 8
@@ -406,6 +418,19 @@ def bound(n_bytes, ops, kind):
 def overlap(a, b):
     """Mean share of each row of ``a`` found in the same row of ``b``."""
     return float(np.mean([len(set(x) & set(y)) / max(1, len(x)) for x, y in zip(a, b)]))
+
+
+def runs_mask(gen, B, S, run=96):
+    """Segments alternating in runs of ``run`` rows, 0 or 1 first at random per
+    sequence: a 0/1 mask that is no prefix."""
+    first = torch.randint(0, 2, (B, 1), generator=gen, device="cuda")
+    return ((torch.arange(S, device="cuda")[None, :] // run + first) % 2).to(torch.int32)
+
+
+def tiles_visited(flash, mask, bias):
+    """(visited, total) (query tile, key tile) pairs of the forward kernels."""
+    vis = flash._visible_tiles(mask, FLASH_TILE, FLASH_TILE, bias)
+    return int(vis.sum()), vis.numel()
 
 
 def ragged_mask(gen, B, S, n_pad_rows):
@@ -967,16 +992,19 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
     """The flash forward (F-fwd), dK/dV (F-dkv) and dQ (F-dq) kernels and K18 vs
     their plain versions at bert-base widths (nh=12, hd=64), at the passage
     tower's S=512 and the query tower's S=32, on ragged segment masks with pad
-    rows and all-pad sequences; SDPA with the same mask timed beside them as a
-    yardstick (the port never calls it)."""
+    rows and all-pad sequences (F-fwd also at S=156 and on a mask that is no
+    prefix); SDPA with the same mask timed beside them as a yardstick (the port
+    never calls it). Each forward row reports the (query tile, key tile) pairs
+    the kernel visits of all (``flash._visible_tiles``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     H, scale = nh * hd, hd ** -0.5
     results = {}
-    for dtype, B, S, with_bwd in cases:
-        name = f"F-fwd {str(dtype)[6:]} B={B} S={S}"
+    for dtype, B, S, with_bwd, kind in cases:
+        name = f"F-fwd {str(dtype)[6:]} B={B} S={S}" + ("" if kind == "ragged" else f" {kind}")
         qkv = torch.randn(B, S, 3 * H, generator=gen, device="cuda").to(dtype)
         q, k, v = flash.split_qkv(qkv, nh, hd)
-        mask = ragged_mask(gen, B, S, n_pad_rows=2)
+        mask = ragged_mask(gen, B, S, n_pad_rows=2) if kind == "ragged" else runs_mask(gen, B, S)
+        tiles = tiles_visited(flash, mask, bias=False)
         real = mask.bool()
         o, lse = flash.flash_fwd(q, k, v, mask, scale)
         torch.cuda.synchronize()
@@ -1002,14 +1030,16 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
         log(f"{name}: real rows max_abs {err_real:.3e} ({rel_real:.3e} of max, tol {tol:g}) "
             f"mean_abs {mean_real:.3e}, all rows {err_all:.3e} ({rel_all:.3e}) mean_abs "
             f"{mean_all:.3e}, lse {lse_err:.3e} (tol 1e-4), finite={finite}; "
-            f"SDPA vs plain {lib_rel:.3e} of max; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"SDPA {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}; dense S^2 {dense_ms:.4f})")
+            f"SDPA vs plain {lib_rel:.3e} of max; kernel {ms:.4f} ms plain {plain_ms:.3f} ms "
+            f"SDPA {lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.3f}) bound {b_ms:.4f} ms "
+            f"({b_by}; dense S^2 {dense_ms:.4f}); tiles visited {tiles[0]} / {tiles[1]}")
         check(finite, f"{name}: non-finite output")
         check(rel_all <= tol and lse_err <= 1e-4, f"{name}: kernel disagrees with its plain version")
         results[name] = {"max_abs_err": err_all, "max_abs_err_real_rows": err_real,
                          "rel_err": rel_all, "mean_abs_err": mean_all, "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
                          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "dense_bound_ms": dense_ms}
+                         "dense_bound_ms": dense_ms, "sdpa_ratio": ms / lib_ms,
+                         "tiles_visited": tiles[0], "tiles_total": tiles[1]}
         if not with_bwd:
             del qkv, q, k, v, o, lse, ro, rlse, lib_out, seg
             continue
@@ -1084,6 +1114,7 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
         name = f"K18 bf16 B={B} S={S_k}"
         qkv = torch.randn(B, S_k, 3 * H, generator=gen, device="cuda").to(torch.bfloat16)
         mask = ragged_mask(gen, B, S_k, n_pad_rows=2)
+        tiles = tiles_visited(flash, mask, bias=True)
         out = attn.fused_qkv_attention(qkv, mask, scale, nh, hd)
         torch.cuda.synchronize()
         ref = attn._reference_attention(qkv, mask, scale, nh, hd)
@@ -1096,13 +1127,15 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
         lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias, scale=scale))
         b_ms, b_by = bound(2 * 4 * B * S_k * H + 4 * B * S_k, 4 * nh * hd * B * S_k * S_k, "bf16")
         log(f"{name}: max_abs {err:.3e} ({rel:.3e} of max, tol {FLASH_REL[torch.bfloat16]:g}) "
-            f"mean_abs {mean:.3e} finite={finite}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms SDPA {lib_ms:.3f} ms "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"mean_abs {mean:.3e} finite={finite}; kernel {ms:.4f} ms plain {plain_ms:.3f} ms "
+            f"SDPA {lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.3f}) bound {b_ms:.4f} ms "
+            f"({b_by}); tiles visited {tiles[0]} / {tiles[1]}")
         check(finite and rel <= FLASH_REL[torch.bfloat16],
               f"{name}: kernel disagrees with its plain version")
         results[name] = {"max_abs_err": err, "rel_err": rel, "mean_abs_err": mean, "ms": ms,
-                         "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "sdpa_ratio": ms / lib_ms, "tiles_visited": tiles[0],
+                         "tiles_total": tiles[1]}
         del qkv, out, ref, qt, kt, vt
         torch.cuda.empty_cache()
     return results

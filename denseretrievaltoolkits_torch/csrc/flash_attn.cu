@@ -37,19 +37,29 @@
 // the backward does 2.5x the forward's operations on twice its bytes. The [B, nh, S, S]
 // scores, 1.6 GB in fp32 at B = 64, S = 512, never reach device memory.
 //
-// Design (simple first: mma.sync and cp.async; wgmma and TMA are later work):
-//   - bf16, hd % 16 == 0, hd <= 128: four warps, 64 query (or key) rows per block, each
-//     warp owning 16 rows; tiles of 64 keys (queries) double-buffered in shared memory by
-//     16-byte cp.async. Products on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulation). Scores stay in registers: the accumulator fragment of s = q.k^T is
-//     reused as the A fragment of p.v (FA2's layout identity), and likewise for
-//     P^T.dO, dS^T.Q and dS.K. B fragments of row-major [k][n] tiles come by
-//     ldmatrix.trans, those of [n][k] tiles by 32-bit loads.
-//   - fp32 (products must stay exact fp32; no TF32): 256 threads, the same tiles in
-//     shared memory, each thread a 4 x 4 register tile of scores and a 4 x (hd/16)
-//     tile of the output; FFMA.
+// Design of the forward (which body a launch takes depends on dtype and hd alone):
+//   - bf16, hd = 64 or 128: the Hopper body `flash_fwd_wgmma` (its note below): 128
+//     query rows per CTA as two consumer warpgroups and a producer warp; K / V tiles by
+//     TMA into a ring of mbarrier-guarded stages; S = Q.K^T and O += P.V by wgmma;
+//     fully masked (query tile, key tile) pairs skipped. The TMA tensor maps are encoded
+//     on the host (`cuTensorMapEncodeTiled`, reached through the runtime's
+//     `cudaGetDriverEntryPoint[ByVersion]`, so the library links no libcuda) and passed
+//     as `__grid_constant__` parameters; the last few are cached.
+//   - bf16, other hd (multiples of 16 up to 112): `flash_fwd_mma`, four warps on
+//     mma.sync m16n8k16, 64 query rows per block, 64-key tiles double-buffered by
+//     cp.async; the scores' accumulator fragments are reused as the A fragments of P.V
+//     (FA2's layout identity).
+//   - fp32 (products stay exact fp32, no TF32): `flash_fwd_f32`, FFMA on 4 x 8 register
+//     tiles of scores with the same tile skipping (its note below).
+// Design of the backward (mma.sync and cp.async, as the forward's mma.sync body): bf16
+// dK/dV and dQ reuse the accumulator fragments for P^T.dO, dS^T.Q and dS.K, B fragments
+// of row-major [k][n] tiles by ldmatrix.trans, of [n][k] tiles by 32-bit loads; fp32 on
+// 256 threads, a 4 x 4 register tile of scores and a 4 x (hd/16) tile of the output each.
 #include <climits>
 #include <cstdint>
+#include <mutex>
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -152,7 +162,7 @@ __device__ __forceinline__ void stage_rows(bf* dst, int LD, const bf* src, size_
 template <int HD>
 __host__ __device__ constexpr int mma_ld() { return HD + 8; }  // 16-byte pad: conflict-free loads
 
-// ---- bf16 forward --------------------------------------------------------------------
+// ---- bf16 forward on mma.sync (head dims other than 64 and 128) ----------------------
 
 template <int HD>
 size_t fwd_mma_smem() {
@@ -274,6 +284,443 @@ flash_fwd_mma(const bf* __restrict__ q, const bf* __restrict__ k, const bf* __re
       *reinterpret_cast<unsigned*>(dst + n * 8) =
           pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
     if (lse != nullptr && t == 0) lse[((size_t)b * nh + h) * S + row[i]] = m[i] + logf(l[i]);
+  }
+}
+
+// ---- tile summaries: which (query tile, key tile) pairs can see each other ---------------
+//
+// A tile's summary ORs one bit per row (rows < S): SEG_ZERO for mask 0, SEG_ONE for 1,
+// SEG_OTHER for any other value, and SEG_PAST for a row past S. One warp ballot per 64
+// rows. The rule (`ops/flash.py:_visible_tiles` is its plain version):
+//   - segment mode: the tiles' value sets intersect (two SEG_OTHER tiles count as
+//     intersecting: never skipped, exact on the 0/1 masks the model passes);
+//   - bias mode: the key tile has a key of mask != 0, or the sequence has no key of mask 1.
+//     A skipped tile's keys are all 0 (bias -1e9) and the row sees a key of bias 0, so
+//     each skipped score contributes exp(-1e9 - m) = 0 exactly in fp32.
+// A skipped score is exactly 0 in the unskipped kernel too, so skipping changes no bit.
+
+constexpr unsigned SEG_ZERO = 1, SEG_ONE = 2, SEG_OTHER = 4, SEG_PAST = 8;
+constexpr unsigned SEG_VALUES = SEG_ZERO | SEG_ONE | SEG_OTHER;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x by the SFU (flush to zero: a probability below 2^-126 becomes 0, invisible next
+// to a row sum of at least 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned seg_bit(int v) {
+  return v == 0 ? SEG_ZERO : v == 1 ? SEG_ONE : SEG_OTHER;
+}
+
+// the mask of rows r0 + lane and r0 + 32 + lane (KEY_PAST past S), for tile_summary
+__device__ __forceinline__ int2 tile_mask(const int* __restrict__ mseq, int r0, int S, int lane) {
+  const int a = r0 + lane, c = a + 32;
+  return make_int2(a < S ? __ldg(mseq + a) : KEY_PAST, c < S ? __ldg(mseq + c) : KEY_PAST);
+}
+
+// summary of the 64 rows whose mask tile_mask read, by one whole warp
+__device__ __forceinline__ unsigned tile_summary(int2 v) {
+  const unsigned bits = (v.x == KEY_PAST ? SEG_PAST : seg_bit(v.x)) |
+                        (v.y == KEY_PAST ? SEG_PAST : seg_bit(v.y));
+  return __reduce_or_sync(0xffffffffu, bits);
+}
+
+__device__ __forceinline__ unsigned tile_summary(const int* __restrict__ mseq, int r0, int S,
+                                                 int lane) {
+  return tile_summary(tile_mask(mseq, r0, S, lane));
+}
+
+// whether the sequence has a key of mask 1 (bias mode), by one whole warp
+__device__ __forceinline__ bool has_one_key(const int* __restrict__ mseq, int S, int lane) {
+  bool one = false;
+#pragma unroll 4
+  for (int r = lane; r < S; r += 32) one |= __ldg(mseq + r) == 1;  // independent loads
+  return __any_sync(0xffffffffu, one);
+}
+
+template <bool BIAS>
+__device__ __forceinline__ bool tile_visible(unsigned qs, unsigned ks, bool has_one) {
+  if (!(qs & SEG_VALUES)) return false;  // no query row below S
+  return BIAS ? (ks & (SEG_ONE | SEG_OTHER)) != 0 || !has_one : (qs & ks & SEG_VALUES) != 0;
+}
+
+// ---- bf16 forward on Hopper: wgmma + TMA (hd = 64 and 128) ------------------------------
+//
+// One CTA: 128 query rows of one (sequence, head), as two consumer warpgroups of 64 rows,
+// and one producer warp. The producer walks the key tiles, skips those no row of the CTA
+// can see, and brings each other K / V tile by TMA (128-byte swizzle, 64-column boxes of
+// a 3-D tensor map over [B][S][H]: rows past S arrive as zeros) into a ring of NST
+// stages, completing on a `full` mbarrier; it writes the tile's index, summary and key
+// mask beside it. Each consumer warpgroup computes S = Q.K^T by wgmma (Q and K in shared
+// memory, K-major), skips a tile its own 64 rows cannot see, masks score by score only
+// where a row or key of the pair of tiles is not of the one shared segment, runs the
+// online softmax in base 2 on prescaled scores (quad shuffles per row), rounds P to bf16
+// in registers (the accumulator layout of S is the A-fragment layout of the next
+// product) and adds P.V by wgmma with V in shared memory, MN-major. Then it releases
+// the stage on its `empty` mbarrier. lse is stored in natural log.
+
+constexpr int WG_ROWS = 128;     // query rows per CTA
+constexpr int WG_THREADS = 288;  // two consumer warpgroups and one producer warp
+constexpr int PRODUCER_WARP = 8;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait until the barrier's phase of parity `parity` has completed; a wait of more than
+// about ten seconds is a fault and traps (the launch fails) rather than hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  unsigned done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000ll) __trap();
+  }
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of wgmma accumulators across the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (1024-byte aligned atoms of
+// 8 rows x 128 B): 8-row groups 1024 B apart (SBO); `lbo` the byte stride between
+// 64-column atoms of an MN-major operand (unused by K-major ones, which advance 32 B
+// along a row per k16 step)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (m64n64, fp32) = A.B^T, or d += A.B^T with accumulate: A and B bf16 in shared
+// memory, both K-major (descriptors)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64, fp32) += A.B: A bf16 in registers (four per thread, the mma.sync A
+// fragment of the thread's warp's 16 rows), B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const unsigned (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n128, fp32) += A.B: A bf16 in registers (four per thread, the mma.sync A
+// fragment of the thread's warp's 16 rows), B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64], const unsigned (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// Shared memory of the wgmma forward: Q [CH][128 rows][64], then NST stages of K and V
+// ([CH][64 rows][64] each; CH = HD / 64 chunks of 64 columns, one 128-byte swizzle atom
+// wide), then per stage {tile, summary, mask of its 64 keys}, then the barriers.
+template <int HD>
+struct WgLayout {
+  static constexpr int CH = HD / 64;
+  static constexpr int NST = HD == 64 ? 3 : 2;
+  static constexpr uint32_t BOX = 64 * 128;          // one TMA box: 64 rows x 128 B
+  static constexpr uint32_t Q_BYTES = 2 * CH * BOX;  // 128 rows
+  static constexpr uint32_t KV_BYTES = CH * BOX;     // K (or V) of one stage
+  static constexpr uint32_t STAGE = 2 * KV_BYTES;
+  static constexpr uint32_t META = NST * (2 + BN) * 4;
+  static constexpr uint32_t BARS = (2 * NST + 1) * 8;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + NST * STAGE + META + BARS;  // + alignment
+};
+
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(WG_THREADS, HD == 64 ? 2 : 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv, const int* __restrict__ mask,
+                bf* __restrict__ o, float* __restrict__ lse, int S, int nh, float scale) {
+  using L = WgLayout<HD>;
+  constexpr int CH = L::CH, NST = L::NST;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t q_s = base, kv_s = base + L::Q_BYTES;
+  int* meta = reinterpret_cast<int*>(gbase + L::Q_BYTES + NST * L::STAGE);  // [NST][2 + BN]
+  const uint32_t bars = kv_s + NST * L::STAGE + L::META;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (NST + s); };
+  const uint32_t qbar = bars + 16u * NST;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * WG_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int* mseq = mask + (size_t)b * S;
+  const int n_tiles = (S + BN - 1) / BN;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER_WARP) {
+    const int2 mq0 = tile_mask(mseq, q0, S, lane), mq1 = tile_mask(mseq, q0 + 64, S, lane);
+    int2 mk = tile_mask(mseq, 0, S, lane);  // the next key tile's mask, read ahead
+    if (lane == 0) {  // Q first: it needs no summary
+      const int q_boxes = q0 + 64 < S ? 2 : 1;  // a second box only where rows remain
+      mbar_expect_tx(qbar, q_boxes * CH * L::BOX);
+      for (int half = 0; half < q_boxes; ++half)
+        for (int c = 0; c < CH; ++c)
+          tma_load_3d(q_s + (c * 2 + half) * L::BOX, &tmq, h * HD + c * 64, q0 + 64 * half, b,
+                      qbar);
+    }
+    const unsigned qs0 = tile_summary(mq0), qs1 = tile_summary(mq1);
+    const bool has_one = BIAS ? has_one_key(mseq, S, lane) : true;
+    int stage = 0;
+    unsigned phase = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int2 cur = mk;
+      const unsigned ks = tile_summary(cur);
+      if (j + 1 < n_tiles) mk = tile_mask(mseq, (j + 1) * BN, S, lane);
+      if (!tile_visible<BIAS>(qs0, ks, has_one) && !tile_visible<BIAS>(qs1, ks, has_one)) continue;
+      mbar_wait(empty(stage), phase ^ 1);
+      int* m = meta + stage * (2 + BN);
+      m[2 + lane] = cur.x;
+      m[2 + 32 + lane] = cur.y;
+      if (lane == 0) {
+        m[0] = j;
+        m[1] = (int)ks;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t ks_s = kv_s + stage * L::STAGE, vs_s = ks_s + L::KV_BYTES;
+        mbar_expect_tx(full(stage), L::STAGE);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(ks_s + c * L::BOX, &tmk, h * HD + c * 64, j * BN, b, full(stage));
+          tma_load_3d(vs_s + c * L::BOX, &tmv, h * HD + c * 64, j * BN, b, full(stage));
+        }
+      }
+      if (++stage == NST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(empty(stage), phase ^ 1);
+    if (lane == 0) {
+      meta[stage * (2 + BN)] = -1;  // the end of the tiles
+      mbar_arrive(full(stage));
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; its warp wi rows 16 wi .. + 15
+  const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const unsigned qs = tile_summary(mseq, r0, S, lane);
+  const int row[2] = {r0 + wi * 16 + g, r0 + wi * 16 + g + 8};
+  int qseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qseg[i] = row[i] < S ? mseq[row[i]] : QUERY_PAST;
+  const float scale2 = scale * LOG2E;
+  const int H = nh * HD;
+  float acc[HD / 2];
+#pragma unroll
+  for (int n = 0; n < HD / 2; ++n) acc[n] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const uint32_t qa_s = q_s + wg * L::BOX;  // rows 64 wg .. of each 128-row Q chunk
+  bool q_ready = false;
+  int stage = 0;
+  unsigned phase = 0;
+  for (;;) {
+    mbar_wait(full(stage), phase);
+    const int* mt = meta + stage * (2 + BN);
+    const int j = mt[0];
+    const unsigned ks = (unsigned)mt[1];
+    if (j >= 0 && (BIAS ? (qs & SEG_VALUES) != 0 : (qs & ks & SEG_VALUES) != 0)) {
+      if (!q_ready) {
+        mbar_wait(qbar, 0);
+        q_ready = true;
+      }
+      const uint32_t ks_s = kv_s + stage * L::STAGE, vs_s = ks_s + L::KV_BYTES;
+      float s[32];
+#pragma unroll
+      for (int n = 0; n < 32; ++n) s[n] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(s, sw128_desc(qa_s + (kk / 4) * 2 * L::BOX + (kk % 4) * 32, 16),
+                     sw128_desc(ks_s + (kk / 4) * L::BOX + (kk % 4) * 32, 16), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      // every pair visible and unbiased: the raw scores, the scale folded into the
+      // exponent's FFMA (c); else the masked, biased, scaled scores (c = 1)
+      const bool dense = BIAS ? ks == SEG_ONE : qs == ks && (ks == SEG_ZERO || ks == SEG_ONE);
+      const float c = dense ? scale2 : 1.f;
+      if (!dense) {
+        const int* kseg = mt + 2;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kv = kseg[n * 8 + 2 * t + e];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float& x = s[4 * n + 2 * i + e];
+              x = masked<BIAS>(x, scale, kv, qseg[i]) * LOG2E;
+            }
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, mu[2], alpha[2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mx[i] = fmaxf(mx[i], fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i] * c);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing visible yet
+        alpha[i] = ex2(m[i] - mu[i]);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+      unsigned pa[4][4];  // P rounded to bf16: the A fragments of k16 steps 0..3
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = ex2(fmaf(s[4 * n + e], c, -mu[e >> 1]));
+          l[e >> 1] += p[e];
+        }
+        pa[n >> 1][2 * (n & 1)] = pack_bf16(p[0], p[1]);
+        pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[4 * n] *= alpha[0];
+        acc[4 * n + 1] *= alpha[0];
+        acc[4 * n + 2] *= alpha[1];
+        acc[4 * n + 3] *= alpha[1];
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (HD == 64)
+          wgmma_rs_n64_mn(acc, pa[kk], sw128_desc(vs_s + kk * 2048, L::BOX));
+        else
+          wgmma_rs_n128_mn(acc, pa[kk], sw128_desc(vs_s + kk * 2048, L::BOX));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    if (j < 0) break;  // the end of the tiles
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(stage));
+    if (++stage == NST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= S) continue;
+    const float inv = 1.0f / l[i];
+    bf* dst = o + ((size_t)b * S + row[i]) * H + h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<unsigned*>(dst + n * 8) =
+          pack_bf16(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * nh + h) * S + row[i]] = (m[i] + log2f(l[i])) * LN2;
   }
 }
 
@@ -489,7 +936,7 @@ flash_dkv_mma(const bf* __restrict__ q, const bf* __restrict__ k, const bf* __re
   }
 }
 
-// ---- fp32 (CUDA cores) ------------------------------------------------------------------
+// ---- fp32 backward (CUDA cores) ---------------------------------------------------------
 //
 // 256 threads as a 16 x 16 grid (tr, tc): a thread owns rows 4 tr .. 4 tr + 3 of every
 // 64-row tile product, columns tc + 16 c of the 64-wide score tiles (c < 4) and of the
@@ -546,102 +993,6 @@ __device__ __forceinline__ void tile_pb(float (&acc)[4][8], const float* P, cons
         for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(x[a], y, acc[a][c]);
       }
     }
-  }
-}
-
-size_t fwd_f32_smem(int hd) {
-  return sizeof(float) * (3 * (size_t)64 * f32_ld(hd) + 64 * LDP + 2 * 64) + sizeof(int) * 128;
-}
-
-template <bool BIAS>
-__global__ void __launch_bounds__(FT)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ mask, float* __restrict__ o,
-              float* __restrict__ lse, int S, int nh, int hd, long long bstride, int rstride,
-              float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = f32_ld(hd);
-  float* Qs = reinterpret_cast<float*>(smem);  // [64][ld]
-  float* Ks = Qs + 64 * ld;                    // [64][ld]
-  float* Vs = Ks + 64 * ld;                    // [64][ld]
-  float* Ps = Vs + 64 * ld;                    // [64][LDP]
-  float* alpha_s = Ps + 64 * LDP;              // [64]
-  float* l_s = alpha_s + 64;                   // [64]
-  int* kseg = reinterpret_cast<int*>(l_s + 64);  // [64]
-  int* qseg = kseg + 64;                         // [64]
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const int sr = tid >> 2, sq = tid & 3;  // softmax: row sr, keys 16 sq .. 16 sq + 15
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const size_t head = (size_t)b * bstride + (size_t)h * hd;
-  const size_t seq = (size_t)b * S;
-
-  stage_f32(Qs, ld, q + head + (size_t)q0 * rstride, rstride, S - q0, hd, tid);
-  for (int r = tid; r < 64; r += FT) qseg[r] = q0 + r < S ? mask[seq + q0 + r] : QUERY_PAST;
-  float acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-  float m = -INFINITY, l = 0.f;  // row sr's running max and sum (same in its 4 threads)
-
-  for (int j0 = 0; j0 < S; j0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_f32(Ks, ld, k + head + (size_t)j0 * rstride, rstride, S - j0, hd, tid);
-    stage_f32(Vs, ld, v + head + (size_t)j0 * rstride, rstride, S - j0, hd, tid);
-    for (int r = tid; r < 64; r += FT) kseg[r] = j0 + r < S ? mask[seq + j0 + r] : KEY_PAST;
-    __syncthreads();
-    float s[4][4];
-    tile_abt(s, Qs, Ks, ld, hd, tr, tc);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        Ps[(4 * tr + a) * LDP + tc + 16 * c] =
-            masked<BIAS>(s[a][c], scale, kseg[tc + 16 * c], qseg[4 * tr + a]);
-    __syncthreads();
-    float* pr = Ps + sr * LDP + 16 * sq;
-    float mx = -INFINITY;
-    for (int u = 0; u < 16; ++u) mx = fmaxf(mx, pr[u]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float mu = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = expf(m - mu);
-    float sum = 0.f;
-    for (int u = 0; u < 16; ++u) {
-      const float p = expf(pr[u] - mu);
-      pr[u] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    m = m_new;
-    l = l * alpha + sum;
-    if (sq == 0) alpha_s[sr] = alpha;
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float al = alpha_s[4 * tr + a];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[a][c] *= al;
-    }
-    tile_pb(acc, Ps, Vs, ld, hd, tr, tc);
-  }
-  if (sq == 0) {
-    l_s[sr] = l;
-    if (lse != nullptr && q0 + sr < S) lse[((size_t)b * nh + h) * S + q0 + sr] = m + logf(l);
-  }
-  __syncthreads();
-  const int H = nh * hd;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = 4 * tr + a;
-    if (q0 + r >= S) continue;
-    const float inv = 1.0f / l_s[r];
-    float* dst = o + (seq + q0 + r) * H + h * hd;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (tc + 16 * c < hd) dst[tc + 16 * c] = acc[a][c] * inv;
   }
 }
 
@@ -804,6 +1155,220 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- fp32 forward (CUDA cores) -------------------------------------------------------
+//
+// 128 threads as a 16 x 8 grid (tr, tc) over a 64 x 64 score tile: a thread owns rows
+// tr + 16 a (a < 4) and keys tc + 8 c (c < 8), and the output columns of the float4
+// groups tc + 8 i (i < NG, NG = ceil(hd / 32)). Q, K and V rows sit in shared memory at
+// a stride of hd + 4 floats (an odd number of 16-byte units: the 8 keys a quarter-warp
+// reads as float4 fall on distinct banks); each step of 4 dims takes 12 float4 loads for
+// 128 FFMA. K and V come by cp.async (16-byte where every row is 16-byte aligned, else
+// 4-byte), staggered in one buffer each: the next K tile loads during this tile's P.V,
+// this V tile during Q.K^T and the softmax, so that three CTAs fit an SM (hd <= 64);
+// only key tiles the query tile can see are staged. The row max and sum go by shuffles
+// among the 8 threads of a row; P goes through shared memory for P.V, read as float4
+// along the keys. Two barriers per tile.
+
+constexpr int F32_THREADS = 128;
+constexpr int F32_LDP = 68;  // P tile [64][68]
+
+__host__ __device__ constexpr int f32_fwd_ld(int hd) { return hd + 4; }
+
+size_t fwd_f32_smem(int hd) {
+  return sizeof(float) * (3 * (size_t)64 * f32_fwd_ld(hd) + 64 * F32_LDP) + sizeof(int) * 64;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+
+// 64 rows of hd floats (row r at src + r * stride, rows >= n zero) into a [64][ld] tile
+template <bool VEC>
+__device__ __forceinline__ void stage_f32_async(float* dst, int ld, const float* src,
+                                                size_t stride, int n, int hd, int tid) {
+  constexpr int W = VEC ? 4 : 1;
+  const int per_row = hd / W;
+  for (int idx = tid; idx < 64 * per_row; idx += F32_THREADS) {
+    const int r = idx / per_row, c = (idx - r * per_row) * W;
+    float* d = dst + r * ld + c;
+    if (r >= n) {
+#pragma unroll
+      for (int u = 0; u < W; ++u) d[u] = 0.f;
+    } else if (VEC) {
+      cp_async16(d, src + (size_t)r * stride + c);
+    } else {
+      cp_async4(d, src + (size_t)r * stride + c);
+    }
+  }
+}
+
+template <int NG, bool BIAS, bool VEC>
+__global__ void __launch_bounds__(F32_THREADS, NG <= 2 ? 3 : 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ mask, float* __restrict__ o,
+              float* __restrict__ lse, int S, int nh, int hd, long long bstride, int rstride,
+              float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = f32_fwd_ld(hd);
+  float* Qs = reinterpret_cast<float*>(smem);  // [64][ld]
+  float* Ks = Qs + 64 * ld;                    // [64][ld]
+  float* Vs = Ks + 64 * ld;                    // [64][ld]
+  float* Ps = Vs + 64 * ld;                    // [64][F32_LDP]
+  int* kseg = reinterpret_cast<int*>(Ps + 64 * F32_LDP);  // [64]
+  const int tid = threadIdx.x, lane = tid & 31, tr = tid >> 3, tc = tid & 7;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const size_t head = (size_t)b * bstride + (size_t)h * hd;
+  const int* mseq = mask + (size_t)b * S;
+  const int n_tiles = (S + BN - 1) / BN;
+
+  const unsigned qs = tile_summary(mseq, q0, S, lane);
+  const bool has_one = BIAS ? has_one_key(mseq, S, lane) : true;
+  auto next_tile = [&](int j) {  // the first key tile from j on that the query tile sees
+    while (j < n_tiles && !tile_visible<BIAS>(qs, tile_summary(mseq, j * BN, S, lane), has_one))
+      ++j;
+    return j;
+  };
+  auto load_k = [&](int j) {
+    const int j0 = j * BN;
+    stage_f32_async<VEC>(Ks, ld, k + head + (size_t)j0 * rstride, rstride, S - j0, hd, tid);
+    for (int r = tid; r < BN; r += F32_THREADS) kseg[r] = j0 + r < S ? mseq[j0 + r] : KEY_PAST;
+  };
+  auto load_v = [&](int j) {
+    const int j0 = j * BN;
+    stage_f32_async<VEC>(Vs, ld, v + head + (size_t)j0 * rstride, rstride, S - j0, hd, tid);
+  };
+  stage_f32_async<VEC>(Qs, ld, q + head + (size_t)q0 * rstride, rstride, S - q0, hd, tid);
+  int j = next_tile(0);
+  if (j < n_tiles) load_k(j);
+  cp_async_commit();
+
+  int qseg[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) qseg[a] = q0 + tr + 16 * a < S ? mseq[q0 + tr + 16 * a] : QUERY_PAST;
+  float4 acc[4][NG];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < NG; ++i) acc[a][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m[4], l[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+  }
+
+  while (j < n_tiles) {
+    const int jn = next_tile(j + 1);
+    cp_async_wait<0>();
+    __syncthreads();  // K of tile j (and Q) staged; every thread is done with the last P.V
+    load_v(j);
+    cp_async_commit();
+    const float* Kb = Ks;
+    const float* Vb = Vs;
+    float s[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[a][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < hd; d += 4) {
+      float4 x[4], y[8];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        x[a] = *reinterpret_cast<const float4*>(Qs + (tr + 16 * a) * ld + d);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        y[c] = *reinterpret_cast<const float4*>(Kb + (tc + 8 * c) * ld + d);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          s[a][c] = fmaf(x[a].x, y[c].x, s[a][c]);
+          s[a][c] = fmaf(x[a].y, y[c].y, s[a][c]);
+          s[a][c] = fmaf(x[a].z, y[c].z, s[a][c]);
+          s[a][c] = fmaf(x[a].w, y[c].w, s[a][c]);
+        }
+    }
+    const int* sk = kseg;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        s[a][c] = masked<BIAS>(s[a][c], scale, sk[tc + 8 * c], qseg[a]) * LOG2E;
+        mx = fmaxf(mx, s[a][c]);
+      }
+#pragma unroll
+      for (int w = 1; w < 8; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m[a], mx);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing visible yet
+      const float alpha = exp2f(m[a] - mu);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float p = exp2f(s[a][c] - mu);
+        Ps[(tr + 16 * a) * F32_LDP + tc + 8 * c] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int w = 1; w < 8; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      m[a] = m_new;
+      l[a] = l[a] * alpha + sum;
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        acc[a][i].x *= alpha;
+        acc[a][i].y *= alpha;
+        acc[a][i].z *= alpha;
+        acc[a][i].w *= alpha;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // P complete, V of tile j staged, every thread is done with K
+    if (jn < n_tiles) load_k(jn);
+    cp_async_commit();
+    for (int j4 = 0; j4 < BN; j4 += 4) {
+      float4 p[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        p[a] = *reinterpret_cast<const float4*>(Ps + (tr + 16 * a) * F32_LDP + j4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          const int col = 4 * (tc + 8 * i);
+          if (col >= hd) continue;
+          const float4 y = *reinterpret_cast<const float4*>(Vb + (j4 + u) * ld + col);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float pa = u == 0 ? p[a].x : u == 1 ? p[a].y : u == 2 ? p[a].z : p[a].w;
+            acc[a][i].x = fmaf(pa, y.x, acc[a][i].x);
+            acc[a][i].y = fmaf(pa, y.y, acc[a][i].y);
+            acc[a][i].z = fmaf(pa, y.z, acc[a][i].z);
+            acc[a][i].w = fmaf(pa, y.w, acc[a][i].w);
+          }
+        }
+      }
+    }
+    j = jn;
+  }
+  const int H = nh * hd;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = q0 + tr + 16 * a;
+    if (r >= S) continue;
+    const float inv = 1.0f / l[a];
+    float* dst = o + ((size_t)b * S + r) * H + h * hd;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int col = 4 * (tc + 8 * i);
+      if (col < hd)
+        *reinterpret_cast<float4*>(dst + col) = make_float4(
+            acc[a][i].x * inv, acc[a][i].y * inv, acc[a][i].z * inv, acc[a][i].w * inv);
+    }
+    if (lse != nullptr && tc == 0) lse[((size_t)b * nh + h) * S + r] = (m[a] + log2f(l[a])) * LN2;
+  }
+}
+
 // ---- launchers ------------------------------------------------------------------------
 
 template <typename Kernel>
@@ -825,6 +1390,115 @@ int fwd_mma(const void* q, const void* k, const void* v, const int* mask, void* 
   kernel<<<grid_of(B, S, nh), 128, smem, st>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), mask,
       static_cast<bf*>(o), lse, S, nh, bs, rs, scale);
+  return (int)cudaGetLastError();
+}
+
+// The tensor map of one of q, k, v: dims (nh * hd, S, B), innermost first, strides in
+// bytes; boxes of 64 columns x 64 rows, 128-byte swizzle (the wgmma operand layout); rows
+// past S read as zeros. cuTensorMapEncodeTiled is looked up in libcuda through the
+// runtime's entry-point query, so the library links no libcuda.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return (int)cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+int encode_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B, int S, int H,
+               long long bstride, int rstride) {
+  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  // a single sequence's batch stride is never used: any legal value
+  const long long bs = B > 1 ? bstride : (long long)rstride * S;
+  const cuuint64_t strides[2] = {(cuuint64_t)rstride * sizeof(bf), (cuuint64_t)bs * sizeof(bf)};
+  const cuuint32_t box[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A map depends only on its address, dims and strides, so the last few are kept: at the
+// query tower's shapes the encodes would cost more host time than the kernel's run.
+int make_map(CUtensorMap* map, const void* base, int B, int S, int H, long long bstride,
+             int rstride) {
+  struct Entry {
+    const void* base;
+    int B, S, H, rstride;
+    long long bstride;
+    CUtensorMap map;
+  };
+  constexpr int N = 24;
+  static Entry cache[N];
+  static int filled = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < filled; ++i) {
+    const Entry& e = cache[i];
+    if (e.base == base && e.B == B && e.S == S && e.H == H && e.rstride == rstride &&
+        e.bstride == bstride) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  EncodeTiled encode;
+  int err = encode_tiled(&encode);
+  if (err || (err = encode_map(map, encode, base, B, S, H, bstride, rstride))) return err;
+  cache[next] = Entry{base, B, S, H, rstride, bstride, *map};
+  next = (next + 1) % N;
+  filled = filled < N ? filled + 1 : N;
+  return 0;
+}
+
+template <int HD>
+int fwd_wgmma(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
+              int B, int S, int nh, long long bs, int rs, float scale, int bias,
+              cudaStream_t st) {
+  CUtensorMap tmq, tmk, tmv;
+  const int H = nh * HD;
+  int err;
+  if ((err = make_map(&tmq, q, B, S, H, bs, rs)) || (err = make_map(&tmk, k, B, S, H, bs, rs)) ||
+      (err = make_map(&tmv, v, B, S, H, bs, rs)))
+    return err;
+  const size_t smem = WgLayout<HD>::SMEM;
+  auto kernel = bias ? flash_fwd_wgmma<HD, true> : flash_fwd_wgmma<HD, false>;
+  if ((err = set_smem(kernel, smem))) return err;
+  kernel<<<dim3((S + WG_ROWS - 1) / WG_ROWS, nh, B), WG_THREADS, smem, st>>>(
+      tmq, tmk, tmv, mask, static_cast<bf*>(o), lse, S, nh, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int NG>
+int fwd_f32(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
+            int B, int S, int nh, int hd, long long bs, int rs, float scale, int bias,
+            cudaStream_t st) {
+  // 16-byte copies where every row starts 16-byte aligned
+  const bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0 &&
+                   rs % 4 == 0 && bs % 4 == 0;
+  auto kernel = bias ? (vec ? flash_fwd_f32<NG, true, true> : flash_fwd_f32<NG, true, false>)
+                     : (vec ? flash_fwd_f32<NG, false, true> : flash_fwd_f32<NG, false, false>);
+  const size_t smem = fwd_f32_smem(hd);
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<grid_of(B, S, nh), F32_THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, static_cast<float*>(o), lse, S, nh, hd, bs, rs, scale);
   return (int)cudaGetLastError();
 }
 
@@ -886,19 +1560,22 @@ extern "C" int drt_flash_fwd(const void* q, const void* k, const void* v, const 
   if (!shape_ok(B, S, nh, hd, is_bf16)) return (int)cudaErrorInvalidValue;
   const int* m = static_cast<const int*>(mask);
   float* l = static_cast<float*>(lse);
+  if (is_bf16 && (hd == 64 || hd == 128))  // the Hopper body; other head dims on mma.sync
+    return hd == 64 ? fwd_wgmma<64>(q, k, v, m, o, l, B, S, nh, bstride, rstride, scale, bias, st)
+                    : fwd_wgmma<128>(q, k, v, m, o, l, B, S, nh, bstride, rstride, scale, bias, st);
   if (is_bf16) {
 #define DRT_CALL(HD) fwd_mma<HD>(q, k, v, m, o, l, B, S, nh, bstride, rstride, scale, bias, st)
     DRT_HD_SWITCH(DRT_CALL)
 #undef DRT_CALL
   }
-  const size_t smem = fwd_f32_smem(hd);
-  auto kernel = bias ? flash_fwd_f32<true> : flash_fwd_f32<false>;
-  int err = set_smem(kernel, smem);
-  if (err) return err;
-  kernel<<<grid_of(B, S, nh), FT, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), m,
-      static_cast<float*>(o), l, S, nh, hd, bstride, rstride, scale);
-  return (int)cudaGetLastError();
+#define DRT_CALL(NG) fwd_f32<NG>(q, k, v, m, o, l, B, S, nh, hd, bstride, rstride, scale, bias, st)
+  switch ((hd + 31) / 32) {
+    case 1: return DRT_CALL(1);
+    case 2: return DRT_CALL(2);
+    case 3: return DRT_CALL(3);
+    default: return DRT_CALL(4);
+  }
+#undef DRT_CALL
 }
 
 // dout [B, S, nh * hd] contiguous; lse, D [B, nh, S] fp32; dq rows `grstride` and

@@ -30,7 +30,11 @@ padding keys: real rows agree with this module, pad rows differ but stay finite
 A wrapper runs its plain version for tensors on the CPU. For CUDA tensors it launches
 its kernel or raises; it never falls back. Launches are counted in
 ``<wrapper>.launches``. The kernels take float32 (head dim a multiple of 8) and
-bfloat16 (a multiple of 16, 16-byte aligned rows), head dim at most 128.
+bfloat16 (a multiple of 16, 16-byte aligned rows), head dim at most 128. The forward
+kernel has a body per case, fixed by dtype and head dim: bf16 at hd 64 and 128 on
+Hopper's wgmma with K/V by TMA, bf16 at other head dims on mma.sync, fp32 on FFMA.
+Each skips the (query tile, key tile) pairs that :func:`_visible_tiles` leaves out,
+which changes no output.
 
 Numerics of the plain versions (and the kernels): fp32 scores scaled by sm_scale,
 fp32 softmax, probabilities cast to the compute dtype before p·v, which accumulates
@@ -64,6 +68,36 @@ def _scores(q, k, seg, sm_scale):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     same = seg[:, None, :, None] == seg[:, None, None, :]
     return s.masked_fill(~same, float("-inf"))
+
+
+def _tile_values(mask, bt):
+    """Per tile of ``bt`` rows, whether a row below S holds 0, holds 1, holds any
+    other value: three bool [B, ceil(S / bt)]."""
+    B, S = mask.shape
+    n = -(-S // bt)
+    m = torch.nn.functional.pad(mask.long(), (0, n * bt - S), value=0).view(B, n, bt)
+    real = torch.nn.functional.pad(torch.ones_like(mask, dtype=torch.bool), (0, n * bt - S),
+                                   value=False).view(B, n, bt)
+    return ((m == 0) & real).any(-1), ((m == 1) & real).any(-1), ((m != 0) & (m != 1) & real).any(-1)
+
+
+def _visible_tiles(mask, bm: int, bn: int, bias: bool) -> torch.Tensor:
+    """Which (query tile, key tile) pairs the forward kernel visits: bool [B,
+    ceil(S / bm), ceil(S / bn)], the rule ``csrc/flash_attn.cu`` implements.
+
+    Segment mode: the tiles' sets of mask values (rows below S) intersect, two
+    tiles holding values other than 0 and 1 counting as intersecting. Bias mode:
+    the key tile holds a key whose mask is not 0, or the sequence holds no key of
+    mask 1. Every pair left out is all -inf in :func:`_scores` (segment mode) or,
+    in bias mode, all keys biased -1e9 in a row that sees a key biased 0, whose
+    exp(s - m) is exactly 0 in fp32: skipping them changes no output."""
+    kz, ko, kx = _tile_values(mask, bn)
+    if bias:
+        vis = ko | kx | ~ko.any(-1, keepdim=True)
+        return vis[:, None, :].expand(-1, -(-mask.shape[1] // bm), -1).clone()
+    qz, qo, qx = _tile_values(mask, bm)
+    return ((qz[:, :, None] & kz[:, None, :]) | (qo[:, :, None] & ko[:, None, :])
+            | (qx[:, :, None] & kx[:, None, :]))
 
 
 def _reference_flash_fwd(q, k, v, seg, sm_scale) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -118,25 +118,41 @@ def test_unsupported_shape_raises(gen):
         attn.fused_attention_ln(*args(8, nh=17))
 
 
-def _flash_case(gen, B, S, nh, hd, dtype):
-    """q, k, v as views of one [B,S,3H] tensor; a ragged mask with pad rows, the
-    last sequence all padding."""
+def _flash_case(gen, B, S, nh, hd, dtype, kind="ragged"):
+    """q, k, v as views of one [B,S,3H] tensor and a mask: "ragged" (pad rows, the
+    last sequence all padding), "runs40" (segments alternating in runs of 40 rows,
+    0 first in the first sequence and 1 first in the others: no prefix) or "all_pad"."""
     from denseretrievaltoolkits_torch.ops.flash import split_qkv
 
     qkv = _randn(gen, B, S, 3 * nh * hd, dtype=dtype)
     views = split_qkv(qkv, nh, hd)
-    lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
-    lens[0] = S
-    mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).to(torch.int32)
-    mask[-1] = 0
+    rows = torch.arange(S, device="cuda")
+    if kind == "runs40":
+        mask = ((rows // 40) % 2).to(torch.int32)[None].repeat(B, 1)
+        mask[1:] = 1 - mask[1:]
+    elif kind == "all_pad":
+        mask = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    else:
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+        lens[0] = S
+        mask = (rows[None] < lens[:, None]).to(torch.int32)
+        mask[-1] = 0
     return qkv, views, mask
 
 
-def _within(got, want, rel):
-    """|got - want| <= rel * max|want| over every element."""
+def _within(got, want, rel, scale=None):
+    """|got - want| <= rel * max|scale| (scale: want by default) over every element."""
     got, want = got.detach().float(), want.detach().float()
     err = (got - want).abs().max()
-    return bool(err <= rel * want.abs().max()), float(err)
+    ref = want if scale is None else scale.detach().float()
+    return bool(err <= rel * ref.abs().max()), float(err)
+
+
+def _grad_scale(name, S, rdv):
+    """What a gradient's error is measured against: itself, but at S = 1, where
+    every row sees one key, dq and dk vanish in exact arithmetic (P = 1, so dS =
+    dP - D = 0) and both sides hold rounding alone: dv's (= dO's) scale there."""
+    return rdv if S == 1 and name != "dv" else None
 
 
 # The flash kernels vs their plain versions, which share their semantics on every
@@ -147,11 +163,12 @@ FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [37, 200, 512])
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S", [37, 200, 512, 1, 64, 65, 513])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 def test_flash_kernels(gen, dtype, S, hd):
     """Forward (o and lse) and both backward kernels vs their plain versions on
-    odd S, with pad rows and an all-pad sequence; each launches once."""
+    odd S, with pad rows and an all-pad sequence; each launches once. bf16 hd 64
+    and 128 take the wgmma forward, hd 32 the mma.sync one."""
     from denseretrievaltoolkits_torch.ops import flash
 
     B, nh = 3, 2
@@ -174,7 +191,7 @@ def test_flash_kernels(gen, dtype, S, hd):
     rdk, rdv = flash._reference_flash_bwd_dkv(q, k, v, mask, rlse, do, D, scale)
     rdq = flash._reference_flash_bwd_dq(q, k, v, mask, rlse, do, D, scale)
     for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
-        ok, err = _within(got, want, FLASH_REL[dtype])
+        ok, err = _within(got, want, FLASH_REL[dtype], _grad_scale(name, S, rdv))
         assert ok, (name, err)
     assert (flash.flash_fwd.launches, flash.flash_bwd_dkv.launches,
             flash.flash_bwd_dq.launches) == tuple(x + 1 for x in n)
@@ -205,7 +222,7 @@ def test_flash_attention_autograd_on_card(gen, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [37, 156, 512])
+@pytest.mark.parametrize("S", [37, 156, 512, 1, 64, 65, 513])
 def test_fused_qkv_attention_kernel(gen, dtype, S):
     """K18 (the flash forward in bias mode) vs ``_reference_attention`` on every
     row, all-pad sequence included; the recompute backward equals the plain one."""
@@ -224,6 +241,42 @@ def test_fused_qkv_attention_kernel(gen, dtype, S):
     out.backward(g)
     ref.backward(g)
     torch.testing.assert_close(leaf.grad, ref_leaf.grad, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 64, 65, 513])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["runs40", "all_pad"])
+def test_flash_forward_on_other_masks(gen, dtype, S, hd, kind):
+    """The forward in both modes on masks that are no prefix (runs of 40: key tiles
+    skipped in the middle of a sequence) and with every sequence all padding (bias
+    mode: every key -1e9, nothing skipped): F-fwd's o and lse vs
+    ``_reference_flash_fwd``, K18 vs ``_reference_attention``; the backward
+    kernels on the forward kernel's own lse vs their plain versions."""
+    from denseretrievaltoolkits_torch.ops import flash
+
+    B, nh = 3, 2
+    qkv, (q, k, v), mask = _flash_case(gen, B, S, nh, hd, dtype, kind)
+    scale = hd ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, mask, scale)
+    out = attn.fused_qkv_attention(qkv, mask, scale, nh, hd)
+    torch.cuda.synchronize()
+    ro, rlse = flash._reference_flash_fwd(q, k, v, mask, scale)
+    assert torch.isfinite(o).all() and torch.isfinite(out).all()
+    assert _within(o, ro, FLASH_REL[dtype])[0]
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    assert _within(out, attn._reference_attention(qkv, mask, scale, nh, hd), FLASH_REL[dtype])[0]
+    do = _randn(gen, B, S, nh, hd, dtype=dtype)
+    D = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dqkv = torch.empty(B, S, 3, nh, hd, dtype=dtype, device="cuda")
+    flash.flash_bwd_dkv(q, k, v, mask, lse, do, D, scale, dqkv)
+    flash.flash_bwd_dq(q, k, v, mask, lse, do, D, scale, dqkv)
+    torch.cuda.synchronize()
+    rdk, rdv = flash._reference_flash_bwd_dkv(q, k, v, mask, lse, do, D, scale)
+    rdq = flash._reference_flash_bwd_dq(q, k, v, mask, lse, do, D, scale)
+    for name, got, want in zip(("dq", "dk", "dv"), dqkv.unbind(2), (rdq, rdk, rdv)):
+        ok, err = _within(got, want, FLASH_REL[dtype], _grad_scale(name, S, rdv))
+        assert ok, (name, err)
 
 
 def test_flash_refuses_what_it_cannot_run(gen):

@@ -218,3 +218,71 @@ def test_trainer_step_flash_equals_xla(tmp_path):
     want = dict(models["xla"].named_parameters())
     for name, prm in models["flash"].named_parameters():
         torch.testing.assert_close(prm, want[name], rtol=0, atol=1e-6, msg=name)
+
+
+def _tile_masks(S, seed):
+    """0/1 masks [6, S]: a prefix, a non-prefix random one, all real, all pad, runs of
+    40 alternating, and a prefix of one key."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((6, S), np.int32)
+    mask[0, :rng.integers(1, S + 1)] = 1
+    mask[1] = rng.integers(0, 2, S)
+    mask[2] = 1
+    mask[4] = (np.arange(S) // 40) % 2
+    mask[5, 0] = 1
+    return mask
+
+
+def _per_tile(x, bm, bn):
+    """any() of a bool [B, S, S] over each (bm x bn) tile: [B, ceil(S/bm), ceil(S/bn)]."""
+    B, S, _ = x.shape
+    nq, nk = -(-S // bm), -(-S // bn)
+    pad = torch.nn.functional.pad(x, (0, nk * bn - S, 0, nq * bm - S))
+    return pad.view(B, nq, bm, nk, bn).any(4).any(2)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 156, 513])
+@pytest.mark.parametrize("bm", [64, 128])
+def test_visible_tiles_segment_mode(S, bm):
+    """Segment mode: a pair of tiles the helper leaves out is all -inf in
+    ``_scores``, and every pair holding a visible score is marked visible (on 0/1
+    masks the two coincide)."""
+    mask = torch.from_numpy(_tile_masks(S, seed=S + bm))
+    rng = np.random.default_rng(S)
+    q, k = (torch.from_numpy(rng.standard_normal((6, S, 2, 8)).astype(np.float32))
+            for _ in range(2))
+    vis = flash._visible_tiles(mask, bm, 64, bias=False)
+    assert vis.shape == (6, -(-S // bm), -(-S // 64)) and vis.dtype == torch.bool
+    seen = torch.isfinite(flash._scores(q, k, mask, 0.35)).any(1)  # [B, S, S] over heads
+    assert torch.equal(_per_tile(seen, bm, 64), vis)
+    assert vis[2].all() and vis[3].all()  # one segment: nothing to skip
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 156, 513])
+@pytest.mark.parametrize("bm", [64, 128])
+def test_visible_tiles_bias_mode(S, bm):
+    """Bias mode: the keys of a tile the helper leaves out contribute exactly 0 to
+    ``_reference_attention`` (their values changed, the output keeps every bit),
+    every pair holding a probability above 0 is marked visible, and an all-pad
+    sequence skips nothing."""
+    mask = _tile_masks(S, seed=S + bm)
+    B, nh, hd = mask.shape[0], 2, 8
+    H = nh * hd
+    rng = np.random.default_rng(S + 1)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3 * H)).astype(np.float32))
+    tmask = torch.from_numpy(mask)
+    vis = flash._visible_tiles(tmask, bm, 64, bias=True)
+    assert vis[3].all()
+    skipped = ~vis.any(1)  # [B, key tiles]: invisible to every query tile alike
+    assert torch.equal(vis, ~skipped[:, None, :].expand_as(vis))
+    keys = skipped.repeat_interleave(64, dim=1)[:, :S]  # [B, S]
+    assert not (keys & tmask.bool()).any()
+    moved = qkv.clone()
+    moved[..., 2 * H:][keys] = torch.from_numpy(
+        1e4 * rng.standard_normal((int(keys.sum()), H)).astype(np.float32))
+    ref = tattn._reference_attention(qkv, tmask, 0.35, nh, hd)
+    assert torch.equal(tattn._reference_attention(moved, tmask, 0.35, nh, hd), ref)
+    s = torch.einsum("bqhd,bkhd->bhqk", *(qkv[..., i * H:(i + 1) * H].view(B, S, nh, hd)
+                                          for i in range(2))) * 0.35
+    p = torch.softmax(s + (1.0 - tmask.float())[:, None, None, :] * -1e9, -1)
+    assert not (_per_tile((p > 0).any(1), bm, 64) & ~vis).any()
