@@ -26,6 +26,12 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
+// two floats rounded to bf16 and packed into one register (lo in the low half)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

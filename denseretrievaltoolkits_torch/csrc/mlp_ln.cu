@@ -1,4 +1,4 @@
-// K2: fused MLP (wi -> exact gelu -> wo) + residual + LayerNorm, one kernel.
+// K2: fused MLP (wi -> exact gelu -> wo) + residual + LayerNorm.
 //
 // Replaces the TPU kernel `_mlp_ln_kernel` (denseretrievaltoolkits_tpu/ops/attn.py:252,
 // launched by `_fused_mlp_ln_impl`, attn.py:303). Semantics follow `_reference_mlp_ln`
@@ -6,37 +6,423 @@
 // kernel approximates erf, `_erf_approx`), h cast to the compute dtype, y = x + h.wo
 // (fp32 accumulation) + bo in fp32, LayerNorm in fp32, cast to the compute dtype.
 //
-// What bounds it on the H100: the [rows, F] gelu intermediate (4x the hidden width)
-// is what the unfused chain writes and reads back; here it never leaves shared
-// memory. What is left is the 4*rows*H*F products and the weights: wi and wo (4.7 MB
-// each in bf16) stream from L2 into every block.
+// What bounds it on the H100: the 4 * rows * H * F operations of the two products. At
+// bert-base (H = 768, F = 3072) and 9,984 rows that is 94.2 GFLOP, 0.095 ms at the bf16
+// peak; the bytes it must move (x, the weights, out: 40 MB) take 0.012 ms.
 //
-// Design, bf16 at H = 64 * {2,4,8,12,16} and F % 64 == 0 (bert-base): tensor cores
-// through mma.sync m16n8k16 with fp32 accumulation. A block owns 32 rows; x sits in
-// shared memory as bf16. F is walked in chunks of 64. The weights stream from L2
-// (all blocks share their 9.4 MB) into shared memory by 16-byte cp.async: wi in
-// double-buffered 64 x 64 k-slices, and the chunk's 64 x H rows of wo spread over the
-// same steps, so both loads overlap the products. Warp w computes n8 column tile w of
-// the chunk's [32, 64] gelu tile (B fragments by ldmatrix.trans), rounds it to bf16
-// into shared memory, and then adds chunk.wo for its H/8 output columns into a
-// [32, H/8] fp32 accumulator held in registers. After the last chunk the pre-LN rows
-// go to shared memory as fp32 (over the wo buffer) and one warp normalises each row.
+// Design, bf16 at H = 64 * {2,4,8,12,16} and F % 64 == 0 (bert-base): two launches of
+// one wgmma + TMA body (`mlp_ln_wgmma`, launched as the kernels `mlp_ln_stage_a` and
+// `mlp_ln_stage_b`), the Hopper form of a GEMM with a fused epilogue.
+// The launch plan (tile rows, grids, cluster width, scratch) is `ops/attn.py:mlp_ln_plan`;
+// the wrapper passes its tile rows here.
+//   Stage A: h = bf16(gelu(x.wi + bi)) into a [rows, F] bf16 scratch the wrapper
+//     allocates. Writing h and reading it back costs 4 * rows * F bytes (123 MB at 9,984
+//     rows), which leaves about 640 operations per byte, above the card's ridge (295):
+//     the products still bound the kernel, and no block has to hold a [rows, H] fp32 sum
+//     beside the first product's accumulator, as the TPU kernel's VMEM did. Tiles of 128
+//     columns, two CTAs an SM, so that the exact gelu (erff) of one CTA's epilogue runs
+//     under the other CTA's products.
+//   Stage B: out = LN((x + h.wo) + bo). A thread-block cluster of H / 256 CTAs (one CTA
+//     of 128 columns at H = 128) spans a row block's H columns; each CTA adds x and bo to
+//     its 256 columns in registers and the cluster exchanges per-row partial sums through
+//     distributed shared memory, once for the mean and once for the squared deviations,
+//     then each CTA normalizes and stores its columns. One CTA an SM.
+// A CTA computes 128 rows (two consumer warpgroups of 64) or, where 128-row tiles would
+// leave more than half the SMs idle, 64 (one). A producer warp brings 64-deep k-slices
+// of both operands by TMA (128-byte swizzle; rows and columns past the matrix read as
+// zeros) into a ring of stages (3 in stage A, 4 in stage B) guarded by `full` / `empty`
+// mbarriers; each consumer warpgroup issues wgmma m64nBNk16 on them (A K-major, B
+// MN-major: the row-major weights as they lie), keeps one slice's products in flight and
+// returns the stage before to the producer. What this does about the limits of the
+// first body (mma.sync, 32-row blocks; 1.23 ms at 9,984 rows on an H100):
+//   1. weights re-read from L2: a tile of 128 rows reads each weight element once per
+//      128 rows, not per 32;
+//   2. one block an SM at 2.4 waves: stage A runs two CTAs an SM, 24 x 78 tiles at 9,984
+//      rows; stage B one, 3 x 78, each CTA with a 48-slice k-loop;
+//   3. mma.sync fed by 32-bit shared loads: wgmma reads both operands from shared memory
+//      by descriptor;
+//   4. two barriers per 64 x 64 slice: none in the k-loop, only the ring's mbarriers, so
+//      TMA brings the next slices while the current one's products run;
+//   5. cp.async by every thread: one thread issues TMA; the others spend no registers or
+//      instructions on copies.
 //
-// Design, otherwise (fp32, whose products must stay exact fp32, and odd widths):
-// CUDA-core FFMA. A block owns R=16 rows, held transposed in shared memory as fp32.
-// F is walked in chunks of 256: each thread computes one gelu column of the chunk for
-// all R rows (x broadcast from shared memory, wi coalesced from L2), the chunk lands in
-// shared memory, and each thread adds its R x (H/256) share of chunk.wo into fp32
-// registers. After the last chunk the pre-LN rows overwrite x in shared memory and one
-// warp normalises each row.
+// nvcc -Xptxas -v (sm_90a; `kernel_ab.py --ptxas`): registers / dynamic shared memory
+// bytes, no spills, no stack:
+//   stage A <2 warpgroups, 128 columns> 90 / 100,400; <1, 128> 96 / 75,312;
+//   stage B <2, 256> 168 / 198,720; <1, 256> 255 / 165,440; <2, 128> 145 / 133,184;
+//   <1, 128> 145 / 99,904.
+//
+// Design, otherwise (fp32, whose products must stay exact fp32; odd widths; operands
+// not 16-byte aligned, which TMA cannot read): CUDA-core FFMA, no path launches it. A
+// block owns R=16 rows, held transposed in shared memory as fp32. F is walked in chunks
+// of 256: each thread computes one gelu column of the chunk for all R rows (x broadcast
+// from shared memory, wi coalesced from L2), the chunk lands in shared memory, and each
+// thread adds its R x (H/256) share of chunk.wo into fp32 registers. After the last chunk
+// the pre-LN rows overwrite x in shared memory and one warp normalises each row.
 #include <cstdint>
-#include <type_traits>
+#include <mutex>
+
+#include <cuda.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace drt;
 
 namespace {
+
+using bf = __nv_bfloat16;
+
+// ---- tensor-core path (bf16): wgmma + TMA ---------------------------------------------
+
+constexpr int KS = 64;                 // k-slice: one 128-byte swizzle atom of bf16
+constexpr uint32_t BOX_B = 64 * 128;   // one 64 x 64 box of B, bytes
+constexpr size_t SMEM_MAX = 232448;
+
+enum Epilogue { GELU, LAYER_NORM };
+
+template <int NWG, int BN, int EPI>
+struct Layout {
+  static constexpr int BM = 64 * NWG;
+  static constexpr int THREADS = 128 * NWG + 32;  // consumer warpgroups and a producer warp
+  // stage A: two CTAs an SM (three stages each, 64 accumulator registers a thread), so
+  // that one CTA's gelu epilogue runs under the other's products
+  static constexpr int CTAS_PER_SM = EPI == GELU ? 2 : 1;
+  static constexpr int NST = EPI == GELU ? 3 : 4;  // stages of the operand ring
+  static constexpr uint32_t A_BYTES = BM * 128;
+  static constexpr uint32_t STAGE = A_BYTES + (BN / 64) * BOX_B;
+  static constexpr uint32_t RED = 2 * BM * 4;  // per-row partials: sums, then squared deviations
+  static constexpr uint32_t BARS = 2 * NST * 8;
+  static constexpr size_t SMEM = 1024 + NST * STAGE + RED + BARS;  // + alignment
+  static_assert(SMEM * CTAS_PER_SM <= SMEM_MAX, "shared memory");
+};
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// C = A.B for one BM x BN tile: A [M, K] bf16 (K-major), B [K, N] bf16 (row-major) by TMA;
+// N % 64 == 0 and K % 64 == 0. EPI says what becomes of C:
+//   GELU: out[M, N] = bf16(gelu(C + bias)) (stage A: A = x, B = wi, out = h);
+//   LAYER_NORM: y = (x + C) + bias in fp32 and out = bf16(LN(y) * ln_scale + ln_bias), the
+//     row statistics over N = gridDim.x * BN columns, the grid's x being one cluster
+//     (stage B: A = h, B = wo).
+// The tensor maps are the kernel's __grid_constant__ parameters, passed on by reference.
+template <int NWG, int BN, int EPI>
+__device__ __forceinline__ void
+mlp_ln_wgmma(const CUtensorMap& tma, const CUtensorMap& tmb, const bf* __restrict__ bias,
+             const bf* __restrict__ x, const float* __restrict__ ln_scale,
+             const float* __restrict__ ln_bias, bf* __restrict__ out, int M, int N, int K,
+             float eps) {
+  using L = Layout<NWG, BN, EPI>;
+  constexpr int BM = L::BM, NST = L::NST;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t red = base + NST * L::STAGE;  // [2][BM] floats
+  float* red_g = reinterpret_cast<float*>(smem_raw + (red - raw));
+  const uint32_t bars = red + L::RED;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (NST + s); };
+  auto a_s = [&](int s) { return base + s * L::STAGE; };
+  auto b_s = [&](int s) { return base + s * L::STAGE + L::A_BYTES; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nk = K / KS;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NWG);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {  // the producer
+    if (lane == 0) {
+      const int nbox = min(BN, N - n0) / 64;  // B boxes inside the matrix
+      const uint32_t bytes = L::A_BYTES + nbox * BOX_B;
+      int stage = 0;
+      unsigned phase = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), bytes);
+        tma_load_2d(a_s(stage), &tma, kb * KS, m0, full(stage));
+        for (int c = 0; c < nbox; ++c)
+          tma_load_2d(b_s(stage) + c * BOX_B, &tmb, n0 + 64 * c, kb * KS, full(stage));
+        if (++stage == NST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    if constexpr (EPI == LAYER_NORM) {  // the consumers' three cluster barriers
+      __syncwarp();
+      cluster_sync();
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63, its warp wi rows 16 wi .. + 15
+  const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const uint32_t a_off = wg * 64 * 128;
+  int stage = 0, prev = 0;
+  unsigned phase = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    mbar_wait(full(stage), phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      const uint64_t da = sw128_desc(a_s(stage) + a_off + kk * 32, 16);
+      const uint64_t db = sw128_desc(b_s(stage) + kk * 2048, BOX_B);
+      if constexpr (BN == 256)
+        wgmma_ss_n256_mn(acc, da, db, 1);
+      else
+        wgmma_ss_n128_mn(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the slice before is done: its stage goes back to the producer
+    if (kb > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(prev));
+    }
+    prev = stage;
+    if (++stage == NST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int rl[2] = {wg * 64 + wi * 16 + g, wg * 64 + wi * 16 + g + 8};  // rows in the tile
+  if constexpr (EPI == GELU) {
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const int col = n0 + 8 * n + 2 * t;
+      if (col < N) {
+        const float b0 = to_float(bias[col]), b1 = to_float(bias[col + 1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = m0 + rl[i];
+          if (row < M)
+            *reinterpret_cast<unsigned*>(out + (size_t)row * N + col) =
+                pack_bf16(gelu_erf(acc[4 * n + 2 * i] + b0), gelu_erf(acc[4 * n + 2 * i + 1] + b1));
+        }
+      }
+    }
+  } else {
+    // y = (x + C) + bias in place, and the row sums of this CTA's columns
+    float s[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const int col = n0 + 8 * n + 2 * t;
+      const float b0 = to_float(bias[col]), b1 = to_float(bias[col + 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = m0 + rl[i];
+        float x0 = 0.f, x1 = 0.f;
+        if (row < M) {
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)row * N + col);
+          x0 = __low2float(xv);
+          x1 = __high2float(xv);
+        }
+        float& y0 = acc[4 * n + 2 * i];
+        float& y1 = acc[4 * n + 2 * i + 1];
+        y0 = (x0 + y0) + b0;
+        y1 = (x1 + y1) + b1;
+        s[i] += y0 + y1;
+      }
+    }
+    const unsigned nc = gridDim.x;  // the cluster: every CTA of a row block
+    float mean[2], rstd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+      if (t == 0) red_g[rl[i]] = s[i];
+    }
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float tot = 0.f;
+      for (unsigned r = 0; r < nc; ++r) tot += ld_cluster_f32(red + 4u * rl[i], r);
+      mean[i] = tot / N;
+      s[i] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = acc[4 * n + 2 * i + e] - mean[i];
+          s[i] += d * d;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+      if (t == 0) red_g[BM + rl[i]] = s[i];
+    }
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float tot = 0.f;
+      for (unsigned r = 0; r < nc; ++r) tot += ld_cluster_f32(red + 4u * (BM + rl[i]), r);
+      rstd[i] = rsqrtf(tot / N + eps);
+    }
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const int col = n0 + 8 * n + 2 * t;
+      const float s0 = ln_scale[col], s1 = ln_scale[col + 1];
+      const float c0 = ln_bias[col], c1 = ln_bias[col + 1];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = m0 + rl[i];
+        if (row < M)
+          *reinterpret_cast<unsigned*>(out + (size_t)row * N + col) =
+              pack_bf16((acc[4 * n + 2 * i] - mean[i]) * rstd[i] * s0 + c0,
+                        (acc[4 * n + 2 * i + 1] - mean[i]) * rstd[i] * s1 + c1);
+      }
+    }
+    cluster_sync();  // no CTA leaves while another may still read its partials
+  }
+}
+
+// The tensor map of a row-major [rows, cols] bf16 matrix: boxes of 64 columns x box_rows
+// rows, 128-byte swizzle (the wgmma operand layout); elements past the matrix read as
+// zeros. A map depends only on its address, shape and box, so the last MAPS are kept:
+// two towers' 12 layers of wi and wo, and the activations of a few shapes.
+int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  struct Entry {
+    const void* base;
+    int rows, cols, box_rows;
+    CUtensorMap map;
+  };
+  constexpr int MAPS = 128;
+  static Entry cache[MAPS];
+  static int filled = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < filled; ++i) {
+    const Entry& e = cache[i];
+    if (e.base == base && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  EncodeTiled encode;
+  if (int err = encode_tiled(&encode)) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  cache[next] = Entry{base, rows, cols, box_rows, *map};
+  next = (next + 1) % MAPS;
+  filled = filled < MAPS ? filled + 1 : MAPS;
+  return 0;
+}
+
+// The two stages as kernels of their own names, so that a profile tells them apart; one
+// signature, stage A ignoring x, the LN parameters and eps.
+template <int NWG, int BN>
+__global__ void __launch_bounds__(Layout<NWG, BN, GELU>::THREADS, Layout<NWG, BN, GELU>::CTAS_PER_SM)
+mlp_ln_stage_a(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+               const bf* __restrict__ bias, const bf* __restrict__ x,
+               const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+               bf* __restrict__ out, int M, int N, int K, float eps) {
+  mlp_ln_wgmma<NWG, BN, GELU>(tma, tmb, bias, x, ln_scale, ln_bias, out, M, N, K, eps);
+}
+
+template <int NWG, int BN>
+__global__ void __launch_bounds__(Layout<NWG, BN, LAYER_NORM>::THREADS,
+                                  Layout<NWG, BN, LAYER_NORM>::CTAS_PER_SM)
+mlp_ln_stage_b(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+               const bf* __restrict__ bias, const bf* __restrict__ x,
+               const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+               bf* __restrict__ out, int M, int N, int K, float eps) {
+  mlp_ln_wgmma<NWG, BN, LAYER_NORM>(tma, tmb, bias, x, ln_scale, ln_bias, out, M, N, K, eps);
+}
+
+// one stage: grid (N / BN, M / BM), the grid's x one cluster when EPI is LAYER_NORM
+template <int NWG, int BN, int EPI>
+int launch_stage(const CUtensorMap& ta, const CUtensorMap& tb, const void* bias, const void* x,
+                 const void* ls, const void* lb, void* out, int M, int N, int K, float eps,
+                 cudaStream_t st) {
+  using L = Layout<NWG, BN, EPI>;
+  const auto kernel = [] {
+    if constexpr (EPI == GELU) return &mlp_ln_stage_a<NWG, BN>;
+    else return &mlp_ln_stage_b<NWG, BN>;
+  }();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + BN - 1) / BN, (M + L::BM - 1) / L::BM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(L::THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = EPI == LAYER_NORM ? grid.x : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, ta, tb, static_cast<const bf*>(bias),
+                           static_cast<const bf*>(x), static_cast<const float*>(ls),
+                           static_cast<const float*>(lb), static_cast<bf*>(out), M, N, K, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Both stages at tile rows bm_a / bm_b (64 or 128, from mlp_ln_plan): h = gelu(x.wi + bi)
+// into the scratch h [rows, F], then out = LN((x + h.wo) + bo).
+int launch_wgmma(const void* x, const void* wi, const void* bi, const void* wo, const void* bo,
+                 const void* ls, const void* lb, void* out, void* h, int rows, int H, int F,
+                 float eps, int bm_a, int bm_b, cudaStream_t st) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wi) |
+                         reinterpret_cast<uintptr_t>(wo) | reinterpret_cast<uintptr_t>(h);
+  const int w = H / 64;
+  if (rows < 1 || H % 64 != 0 || !(w == 2 || w == 4 || w == 8 || w == 12 || w == 16) ||
+      F < 64 || F % 64 != 0 || (ptrs & 15) != 0 || (bm_a != 64 && bm_a != 128) ||
+      (bm_b != 64 && bm_b != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, twi, th, two;
+  int err;
+  if ((err = matrix_map(&tx, x, rows, H, bm_a)) || (err = matrix_map(&twi, wi, H, F, 64)) ||
+      (err = matrix_map(&th, h, rows, F, bm_b)) || (err = matrix_map(&two, wo, F, H, 64)))
+    return err;
+  err = bm_a == 128
+            ? launch_stage<2, 128, GELU>(tx, twi, bi, nullptr, nullptr, nullptr, h, rows, F, H,
+                                         eps, st)
+            : launch_stage<1, 128, GELU>(tx, twi, bi, nullptr, nullptr, nullptr, h, rows, F, H,
+                                         eps, st);
+  if (err) return err;
+  if (H == 128)
+    return bm_b == 128
+               ? launch_stage<2, 128, LAYER_NORM>(th, two, bo, x, ls, lb, out, rows, H, F, eps, st)
+               : launch_stage<1, 128, LAYER_NORM>(th, two, bo, x, ls, lb, out, rows, H, F, eps, st);
+  return bm_b == 128
+             ? launch_stage<2, 256, LAYER_NORM>(th, two, bo, x, ls, lb, out, rows, H, F, eps, st)
+             : launch_stage<1, 256, LAYER_NORM>(th, two, bo, x, ls, lb, out, rows, H, F, eps, st);
+}
+
+// ---- CUDA-core path ------------------------------------------------------------------
 
 constexpr int R = 16;       // rows per block
 constexpr int NT = 256;     // threads per block; also the F-chunk width
@@ -52,213 +438,6 @@ __device__ __forceinline__ void load_col(const float* src, float (&v)[R]) {
     v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
   }
 }
-
-// ---- tensor-core path (bf16) --------------------------------------------------------
-
-constexpr int MR = 32;  // rows per block
-constexpr int FC = 64;  // F chunk
-constexpr int KS = 64;  // k-slice of wi staged per step
-
-template <int NTW>
-constexpr size_t mma_smem_bytes() {
-  constexpr int H = 64 * NTW;
-  // x tile, gelu chunk, two wi k-slices, one wo chunk (reused as the fp32 pre-LN rows)
-  return sizeof(__nv_bfloat16) * ((size_t)MR * (H + 8) + (size_t)MR * (FC + 8) +
-                                  2 * (size_t)KS * (FC + 8) + (size_t)FC * (H + 8));
-}
-
-// NTW: n8 output tiles per warp, H = 8 warps * 8 * NTW
-template <int NTW>
-__global__ void __launch_bounds__(NT)
-mlp_ln_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wi,
-                  const __nv_bfloat16* __restrict__ bi, const __nv_bfloat16* __restrict__ wo,
-                  const __nv_bfloat16* __restrict__ bo, const float* __restrict__ ln_scale,
-                  const float* __restrict__ ln_bias, __nv_bfloat16* __restrict__ out, int rows,
-                  int F, float eps) {
-  constexpr int H = 64 * NTW;
-  constexpr int NS = H / KS;   // wi k-slices per chunk
-  constexpr int LDX = H + 8;   // the 16-byte pads keep fragment loads conflict-free
-  constexpr int LDH = FC + 8;
-  constexpr int LDW = FC + 8;
-  constexpr int LDO = H + 8;
-  constexpr int LDY = H + 4;
-  static_assert(MR * LDY * sizeof(float) <= FC * LDO * sizeof(__nv_bfloat16), "ys fits in wos");
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [MR][LDX]
-  __nv_bfloat16* hs = xs + MR * LDX;                            // [MR][LDH]
-  __nv_bfloat16* wis = hs + MR * LDH;                           // [2][KS][LDW]
-  __nv_bfloat16* wos = wis + 2 * KS * LDW;                      // [FC][LDO]
-  float* ys = reinterpret_cast<float*>(wos);                    // [MR][LDY], after the last chunk
-
-  const int r0 = blockIdx.x * MR;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  // ldmatrix row / column offsets of this lane within a 16 x 16 B tile
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-
-  auto load_wi_slice = [&](int buf, int f0, int k0) {
-    for (int idx = tid; idx < KS * FC / 8; idx += NT) {
-      const int r = idx / (FC / 8), c = (idx - r * (FC / 8)) * 8;
-      cp_async16(wis + (buf * KS + r) * LDW + c, wi + (size_t)(k0 + r) * F + f0 + c);
-    }
-  };
-  auto load_wo_rows = [&](int f0, int rb, int re) {
-    for (int idx = tid; idx < (re - rb) * (H / 8); idx += NT) {
-      const int r = rb + idx / (H / 8), c = (idx % (H / 8)) * 8;
-      cp_async16(wos + r * LDO + c, wo + (size_t)(f0 + r) * H + c);
-    }
-  };
-
-  for (int idx = tid; idx < MR * H / 8; idx += NT) {
-    const int r = idx / (H / 8), c = (idx - r * (H / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows) v = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * H + c);
-    *reinterpret_cast<uint4*>(xs + r * LDX + c) = v;
-  }
-  load_wi_slice(0, 0, 0);
-  cp_async_commit();
-
-  float acc[2][NTW][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-
-  const int col0 = warp * 8 * NTW;  // this warp's output columns
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    float h[2][4];  // gelu chunk: n8 column tile `warp`, both m16 row tiles
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) h[m][e] = 0.f;
-    for (int s = 0; s < NS; ++s) {
-      // in flight behind this slice: the next slice, and this step's share of the wo chunk
-      if (s + 1 < NS) load_wi_slice((s + 1) & 1, f0, (s + 1) * KS);
-      load_wo_rows(f0, s * FC / NS, (s + 1) * FC / NS);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const __nv_bfloat16* wbuf = wis + (s & 1) * KS * LDW;
-#pragma unroll
-      for (int kk = 0; kk < KS; kk += 32) {
-        unsigned b[4];  // slice rows kk .. kk+31 at this warp's 8 columns
-        ldmatrix_x4_trans(b, wbuf + (kk + lane) * LDW + warp * 8);
-#pragma unroll
-        for (int k16 = 0; k16 < 2; ++k16)
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {  // the two accumulators alternate: no back-to-back chain
-            const __nv_bfloat16* ap = xs + (m * 16 + g) * LDX + s * KS + kk + 16 * k16 + 2 * t;
-            const unsigned a[4] = {*reinterpret_cast<const unsigned*>(ap),
-                                   *reinterpret_cast<const unsigned*>(ap + 8 * LDX),
-                                   *reinterpret_cast<const unsigned*>(ap + 8),
-                                   *reinterpret_cast<const unsigned*>(ap + 8 * LDX + 8)};
-            mma_bf16_16x8x16(h[m], a, b[2 * k16], b[2 * k16 + 1]);
-          }
-      }
-      __syncthreads();  // this slice's buffer is refilled two steps on
-    }
-    if (f0 + FC < F) load_wi_slice(0, f0 + FC, 0);  // the next chunk's first slice
-    cp_async_commit();
-    {
-      const int c = warp * 8 + 2 * t;
-      const float b0 = to_float(bi[f0 + c]), b1 = to_float(bi[f0 + c + 1]);
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = m * 16 + g + 8 * half;
-          const float v0 = h[m][2 * half] + b0, v1 = h[m][2 * half + 1] + b1;
-          __nv_bfloat162 p;
-          p.x = __float2bfloat16(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)));
-          p.y = __float2bfloat16(0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
-          *reinterpret_cast<__nv_bfloat162*>(hs + r * LDH + c) = p;
-        }
-    }
-    cp_async_wait<1>();  // the wo chunk has landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FC; kk += 16) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const __nv_bfloat16* ap = hs + (m * 16 + g) * LDH + kk + 2 * t;
-        a[m][0] = *reinterpret_cast<const unsigned*>(ap);
-        a[m][1] = *reinterpret_cast<const unsigned*>(ap + 8 * LDH);
-        a[m][2] = *reinterpret_cast<const unsigned*>(ap + 8);
-        a[m][3] = *reinterpret_cast<const unsigned*>(ap + 8 * LDH + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NTW; j += 2) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, wos + (kk + lrow) * LDO + col0 + j * 8 + lcol);
-        mma_bf16_16x8x16(acc[0][j], a[0], b[0], b[1]);
-        mma_bf16_16x8x16(acc[1][j], a[1], b[0], b[1]);
-        mma_bf16_16x8x16(acc[0][j + 1], a[0], b[2], b[3]);
-        mma_bf16_16x8x16(acc[1][j + 1], a[1], b[2], b[3]);
-      }
-    }
-    __syncthreads();  // hs and wos are rewritten by the next chunk
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      const int c = col0 + j * 8 + 2 * t;
-      const float b0 = to_float(bo[c]), b1 = to_float(bo[c + 1]);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m * 16 + g + 8 * half;
-        ys[r * LDY + c] = (to_float(xs[r * LDX + c]) + acc[m][j][2 * half]) + b0;
-        ys[r * LDY + c + 1] = (to_float(xs[r * LDX + c + 1]) + acc[m][j][2 * half + 1]) + b1;
-      }
-    }
-  __syncthreads();
-  for (int r = warp; r < MR; r += NT / 32) {
-    if (r0 + r < rows)
-      warp_layer_norm_row<__nv_bfloat16>(ys + r * LDY, 1, H, ln_scale, ln_bias, eps,
-                                         out + (size_t)(r0 + r) * H, lane);
-  }
-}
-
-template <int NTW>
-int launch_mma(const void* x, const void* wi, const void* bi, const void* wo, const void* bo,
-               const void* ls, const void* lb, void* out, int rows, int F, float eps,
-               cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  constexpr size_t smem = mma_smem_bytes<NTW>();
-  cudaError_t err = cudaFuncSetAttribute(mlp_ln_mma_kernel<NTW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mlp_ln_mma_kernel<NTW><<<(rows + MR - 1) / MR, NT, smem, stream>>>(
-      static_cast<const bf*>(x), static_cast<const bf*>(wi), static_cast<const bf*>(bi),
-      static_cast<const bf*>(wo), static_cast<const bf*>(bo), static_cast<const float*>(ls),
-      static_cast<const float*>(lb), static_cast<bf*>(out), rows, F, eps);
-  return (int)cudaGetLastError();
-}
-
-// the tensor-core path, or -1 when the shape or alignment does not fit it
-int try_mma(const void* x, const void* wi, const void* bi, const void* wo, const void* bo,
-            const void* ls, const void* lb, void* out, int rows, int H, int F, float eps,
-            cudaStream_t stream) {
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wi) |
-                         reinterpret_cast<uintptr_t>(wo);
-  if (H % 64 != 0 || F % FC != 0 || (ptrs & 15) != 0) return -1;  // 16-byte copies
-  switch (H / 64) {
-    case 2: return launch_mma<2>(x, wi, bi, wo, bo, ls, lb, out, rows, F, eps, stream);
-    case 4: return launch_mma<4>(x, wi, bi, wo, bo, ls, lb, out, rows, F, eps, stream);
-    case 8: return launch_mma<8>(x, wi, bi, wo, bo, ls, lb, out, rows, F, eps, stream);
-    case 12: return launch_mma<12>(x, wi, bi, wo, bo, ls, lb, out, rows, F, eps, stream);
-    case 16: return launch_mma<16>(x, wi, bi, wo, bo, ls, lb, out, rows, F, eps, stream);
-    default: return -1;
-  }
-}
-
-// ---- CUDA-core path ------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -346,10 +525,6 @@ template <typename T>
 int launch(const void* x, const void* wi, const void* bi, const void* wo, const void* bo,
            const void* ls, const void* lb, void* out, int rows, int H, int F, float eps,
            cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int code = try_mma(x, wi, bi, wo, bo, ls, lb, out, rows, H, F, eps, stream);
-    if (code >= 0) return code;
-  }
   if (H > NT * NCMAX) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(H);
   cudaError_t err = cudaFuncSetAttribute(mlp_ln_kernel<T>,
@@ -365,10 +540,15 @@ int launch(const void* x, const void* wi, const void* bi, const void* wo, const 
 
 }  // namespace
 
+// bm_a / bm_b: the wgmma body's tile rows (64 or 128) for bf16, with h the [rows, F] bf16
+// scratch; 0 for the CUDA-core body (fp32, or what the wgmma body does not take)
 extern "C" int drt_mlp_ln(const void* x, const void* wi, const void* bi, const void* wo,
-                          const void* bo, const void* ls, const void* lb, void* out, int rows,
-                          int H, int F, float eps, int is_bf16, void* stream) {
+                          const void* bo, const void* ls, const void* lb, void* out, void* h,
+                          int rows, int H, int F, float eps, int is_bf16, int bm_a, int bm_b,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(x, wi, bi, wo, bo, ls, lb, out, rows, H, F, eps, st)
-                 : launch<float>(x, wi, bi, wo, bo, ls, lb, out, rows, H, F, eps, st);
+  if (!is_bf16) return launch<float>(x, wi, bi, wo, bo, ls, lb, out, rows, H, F, eps, st);
+  if (bm_a == 0 && bm_b == 0)
+    return launch<bf>(x, wi, bi, wo, bo, ls, lb, out, rows, H, F, eps, st);
+  return launch_wgmma(x, wi, bi, wo, bo, ls, lb, out, h, rows, H, F, eps, bm_a, bm_b, st);
 }

@@ -43,8 +43,9 @@ SIGNATURES = {
     # qkv, x, mask, o_kernel, o_bias, ln_scale, ln_bias, out,
     # B, S, nh, hd, sm_scale, eps, is_bf16, stream
     "drt_attn_ln": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _P],
-    # x, wi, bi, wo, bo, ln_scale, ln_bias, out, rows, H, F, eps, is_bf16, stream
-    "drt_mlp_ln": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    # x, wi, bi, wo, bo, ln_scale, ln_bias, out, h (scratch), rows, H, F, eps, is_bf16,
+    # bm_a, bm_b (tile rows of the two stages; 0: the CUDA-core body), stream
+    "drt_mlp_ln": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
     # q, corpus, corpus_scales, query_scales, out_vals, out_ids,
     # Q, N, H, n_valid, block, J, qtype, ctype, serve, stream
     "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P],

@@ -32,6 +32,8 @@ to the compute dtype, and the residual is added in fp32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _native, flash
@@ -176,9 +178,53 @@ def fused_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps):
 
     x: [B,S,H]; wi [H,F], bi [F], wo [F,H], bo [H] in the compute dtype;
     ls/lb LayerNorm params [H]. Returns the post-LN hidden [B,S,H].
-    Differentiable in every input."""
+    Differentiable in every input. ``fused_mlp_ln.launches`` counts one per
+    call that reaches the kernel, however many CUDA launches the call makes
+    (the wgmma body makes two: see :func:`mlp_ln_plan`)."""
     return _RecomputeBackward.apply(_mlp_ln_forward, _mlp_ln_plain, dict(eps=eps),
                                     x, wi, bi, wo, bo, ls, lb)
+
+
+H100_SMS = 132  # streaming multiprocessors of the H100 SXM
+_WGMMA_WIDTHS = (128, 256, 512, 768, 1024)  # H = 64 * {2, 4, 8, 12, 16}
+
+
+def mlp_ln_plan(rows, H, F, dtype=torch.bfloat16, aligned=True, sms=H100_SMS):
+    """The launch plan of K2's wgmma body (``csrc/mlp_ln.cu``), or None where the
+    CUDA-core body runs: float32, H not in 64 * {2, 4, 8, 12, 16}, F not a
+    multiple of 64, or an operand not 16-byte ``aligned`` (TMA cannot read it).
+
+    Two launches. Stage A writes h = bf16(gelu(x.wi + bi)) into a [rows, F]
+    bf16 scratch (``scratch``) in tiles of ``bm_a`` rows x ``bn_a`` columns
+    (two CTAs an SM), grid ``grid_a`` = (column tiles, row tiles). Stage B
+    computes LN((x + h.wo) + bo) in tiles of ``bm_b`` rows x ``bn_b`` columns:
+    a cluster of ``cluster`` = H / ``bn_b`` CTAs spans a row block's H columns
+    (256 columns a CTA; one CTA of 128 at H = 128), grid ``grid_b``. A stage
+    takes 128-row tiles (two consumer warpgroups) unless they would leave
+    more than half of the card's ``sms`` without a CTA; then 64-row tiles
+    (one), so that few rows still spread over the SMs. On the H100 that sends
+    the query tower's stage B (2,048 rows) to 64-row tiles and every stage of
+    9,984 rows and more, and stage A from 1,024 rows up, to 128."""
+    if (dtype != torch.bfloat16 or H not in _WGMMA_WIDTHS or F < 64 or F % 64 or not aligned
+            or rows < 1):
+        return None
+
+    def tile_rows(col_tiles):
+        return 128 if 2 * -(-rows // 128) * col_tiles >= sms else 64
+
+    bn_a = 128
+    cols_a = -(-F // bn_a)
+    bn_b = 128 if H == 128 else 256
+    cluster = H // bn_b
+    bm_a, bm_b = tile_rows(cols_a), tile_rows(cluster)
+    return {"bm_a": bm_a, "bn_a": bn_a, "grid_a": (cols_a, -(-rows // bm_a)), "bm_b": bm_b,
+            "bn_b": bn_b, "cluster": cluster, "grid_b": (cluster, -(-rows // bm_b)),
+            "scratch": (rows, F)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _mlp_ln_forward(x, wi, bi, wo, bo, ls, lb, *, eps):
@@ -196,12 +242,17 @@ def _mlp_ln_forward(x, wi, bi, wo, bo, ls, lb, *, eps):
     _check_cuda("fused_mlp_ln", x.dtype, (x, wi, bi, wo, bo), (ls, lb))
     out = torch.empty_like(x)
     rows = x.numel() // H
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, wi, wo))
+    plan = mlp_ln_plan(rows, H, F, x.dtype, aligned, _sm_count(x.device.index))
+    h = None if plan is None else torch.empty(plan["scratch"], dtype=x.dtype, device=x.device)
     lib = _native.library()
     fused_mlp_ln.launches += 1
     _native.check(lib.drt_mlp_ln(
         x.data_ptr(), wi.data_ptr(), bi.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        ls.data_ptr(), lb.data_ptr(), out.data_ptr(), rows, H, F, float(eps),
-        int(x.dtype == torch.bfloat16), _native.stream_ptr(x)), "drt_mlp_ln")
+        ls.data_ptr(), lb.data_ptr(), out.data_ptr(), None if h is None else h.data_ptr(),
+        rows, H, F, float(eps), int(x.dtype == torch.bfloat16),
+        0 if plan is None else plan["bm_a"], 0 if plan is None else plan["bm_b"],
+        _native.stream_ptr(x)), "drt_mlp_ln")
     return out
 
 

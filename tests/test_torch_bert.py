@@ -134,6 +134,44 @@ def test_mlp_ln_plain_matches_reference(dtype, F):
     assert d.max() <= TOL[dtype][0] and d.mean() <= TOL[dtype][1], (d.max(), d.mean())
 
 
+@pytest.mark.parametrize("rows,H,F", [
+    (1, 768, 3072), (50, 768, 3072), (1024, 768, 3072), (2048, 768, 3072),
+    (2048 + 17, 768, 3072), (9984, 768, 3072), (32768, 768, 3072), (50, 128, 320),
+    (2048 + 17, 128, 320), (300, 1024, 4096), (5000, 256, 64), (700, 512, 1024)])
+def test_mlp_ln_plan(rows, H, F):
+    """K2's launch plan (the wgmma body): each stage's grid covers every row and
+    column once, stage B's cluster spans H, and a stage takes 128-row tiles
+    exactly where they leave at most half of the SMs without a CTA."""
+    plan = tattn.mlp_ln_plan(rows, H, F)
+    assert plan["bn_b"] == (128 if H == 128 else 256)
+    assert plan["bn_b"] * plan["cluster"] == H and 1 <= plan["cluster"] <= 4
+    assert plan["scratch"] == (rows, F)
+    assert plan["bn_a"] == 128
+    for stage, col_tiles in (("a", -(-F // plan["bn_a"])), ("b", plan["cluster"])):
+        bm, (gx, gy) = plan["bm_" + stage], plan["grid_" + stage]
+        assert bm in (64, 128) and gx == col_tiles
+        assert (gy - 1) * bm < rows <= gy * bm
+        assert (bm == 128) == (-(-rows // 128) * col_tiles >= tattn.H100_SMS / 2)
+
+
+def test_mlp_ln_plan_bodies():
+    """Where the plan sends K2: the serving path's shape to 128-row tiles and
+    clusters of three; the CUDA-core body (no plan) for float32, widths off
+    64 * {2, 4, 8, 12, 16}, F % 64 != 0, unaligned operands and no rows; the
+    tile rows follow the card's SM count."""
+    assert tattn.mlp_ln_plan(9984, 768, 3072) == {
+        "bm_a": 128, "bn_a": 128, "grid_a": (24, 78), "bm_b": 128, "bn_b": 256, "cluster": 3,
+        "grid_b": (3, 78), "scratch": (9984, 3072)}
+    plan = tattn.mlp_ln_plan(2048, 768, 3072)  # the query tower: stage B on 64-row tiles
+    assert (plan["bm_a"], plan["bm_b"], plan["grid_b"]) == (128, 64, (3, 32))
+    for args in ((50, 768, 3072, torch.float32), (50, 96, 600), (50, 640, 2560),
+                 (50, 1536, 6144), (50, 768, 3000), (50, 768, 32), (0, 768, 3072)):
+        assert tattn.mlp_ln_plan(*args) is None, args
+    assert tattn.mlp_ln_plan(50, 768, 3072, aligned=False) is None
+    assert tattn.mlp_ln_plan(1024, 768, 3072)["bm_a"] == 128
+    assert tattn.mlp_ln_plan(2048, 768, 3072, sms=96)["bm_b"] == 128
+
+
 def test_fused_bf16_encoder_tracks_xla_bf16():
     """bf16 end to end: the fused and xla paths add the residual in different
     precisions (bert.py:223-226), so they agree only to bf16 noise."""

@@ -1,6 +1,7 @@
 """Import rules of the torch port, checked on its source (AST, no import).
 
-The port runs where there is no jax: nothing in it, nor ``chip_smoke.py``,
+The port runs where there is no jax: nothing in it, nor ``chip_smoke.py`` or
+``kernel_ab.py``,
 imports ``jax``, ``jaxlib``, ``flax``, ``optax`` or any module of the JAX
 package, nor the ``regex`` package, which the card's machine lacks too
 (``evaluator/nq_eval.py`` tokenizes with ``unicodedata`` instead). It keeps
@@ -15,7 +16,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "denseretrievaltoolkits_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "denseretrievaltoolkits_tpu", "regex")
 
 
