@@ -336,20 +336,24 @@ PQ_METRIC_GAP = {"PQ96": 0.34, "IVF16,PQ96x4": 0.64}
 # first reading on the card).
 FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 FLASH_AUTOGRAD_REL = 3e-2
+# D = rowsum(dO * O), which the dQ kernel computes in fp32, vs the plain formula on the
+# same o and dO: the summation order alone
+FLASH_D_REL = 1e-5
 # (dtype, B, S, with the backward kernels, mask): the passage tower at S=512 (serving
 # and training batch 64; fp32 at B=8) and the query tower at S=32, served at B=64 and
 # trained at B=8, where every query and key tile is partial (S below the 64-row tile),
 # on ragged prefix masks; the fused path's S=156 (a partial last tile) and S=512 on a
-# mask that is no prefix (segments alternating in runs of 96 rows: key tiles skipped
-# in the middle of a sequence).
+# mask that is no prefix (segments alternating in runs of 96 rows: tiles skipped in the
+# middle of a sequence, by the forward and both backward kernels).
 FLASH_KERNEL_CASES = ((torch.bfloat16, 64, 512, True, "ragged"),
                       (torch.float32, 8, 512, False, "ragged"),
                       (torch.bfloat16, 64, 32, False, "ragged"),
                       (torch.bfloat16, 8, 32, True, "ragged"),
                       (torch.bfloat16, 64, 156, False, "ragged"),
-                      (torch.bfloat16, 64, 512, False, "runs96"))
-# the forward kernels' tiles: 64 x 64 (query rows x keys) per skip decision
-FLASH_TILE = 64
+                      (torch.bfloat16, 64, 512, True, "runs96"))
+# the kernels' tiles: 64 x 64 (rows x columns) per warpgroup's skip decision; a CTA of
+# the wgmma bodies loads a streamed 64-row tile for its 128 rows (FLASH_CTA_ROWS)
+FLASH_TILE, FLASH_CTA_ROWS = 64, 128
 # Serving and training at S=512 (the reference's largest p_max_len): passages of
 # lognormal length, median 256 tokens, sigma 0.6, clipped to [16, 512], so about
 # 12% are 512 tokens long; 4096 passages and 512 queries (S=32) served, batch 8
@@ -437,9 +441,11 @@ def runs_mask(gen, B, S, run=96):
     return ((torch.arange(S, device="cuda")[None, :] // run + first) % 2).to(torch.int32)
 
 
-def tiles_visited(flash, mask, bias):
-    """(visited, total) (query tile, key tile) pairs of the forward kernels."""
-    vis = flash._visible_tiles(mask, FLASH_TILE, FLASH_TILE, bias)
+def tiles_visited(flash, mask, bias, rows=FLASH_TILE):
+    """(visited, total) (row tile, column tile) pairs of the kernels, ``rows`` rows
+    by FLASH_TILE columns: query rows by keys for the forward and dQ, key rows by
+    queries for dK/dV."""
+    vis = flash._visible_tiles(mask, rows, FLASH_TILE, bias)
     return int(vis.sum()), vis.numel()
 
 
@@ -756,13 +762,20 @@ ENCODE_GROUPS = (("K2 stage A (gelu)", ("mlp_ln_stage_a",)),
                  ("products (cuBLAS)", ("nvjet",)), ("products (cuBLAS)", ("gemm",)),
                  ("elementwise (bias adds, embeddings)", ("elementwise_kernel",)))
 ENCODE_PROFILE_BATCHES = 16
+# the groups of a flash training step's kernels (S=512), as ENCODE_GROUPS
+TRAIN_STEP_GROUPS = (("F-fwd", ("flash_fwd",)), ("F-dq", ("flash_dq",)),
+                     ("F-dkv", ("flash_dkv",)), ("K3 / K4 (contrastive loss)", ("contrastive",)),
+                     ("products (cuBLAS)", ("nvjet",)), ("products (cuBLAS)", ("gemm",)),
+                     ("LayerNorm", ("layer_norm",)), ("optimizer", ("multi_tensor",)),
+                     ("reductions", ("reduce_kernel",)),
+                     ("elementwise (bias adds, gelu, casts)", ("elementwise_kernel",)))
 
 
-def encode_split(fn):
+def encode_split(fn, groups=ENCODE_GROUPS):
     """One call of ``fn`` under ``torch.profiler``: its wall ms (ended by a
     synchronize), the device ms of its CUDA kernels, their share of the wall
-    time, and their ms by ``ENCODE_GROUPS`` (the rest as "other") and by name.
-    The run before it has built the kernels."""
+    time, and their ms by ``groups`` (the rest as "other") and by name. The run
+    before it has built the kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -774,15 +787,14 @@ def encode_split(fn):
     for e in prof.events():
         if str(e.device_type).endswith("CUDA"):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    groups = {}
+    by_group = {}
     for name, ms in by_name.items():
-        group = next((g for g, pieces in ENCODE_GROUPS if all(p in name for p in pieces)),
-                     "other")
-        groups[group] = groups.get(group, 0.0) + ms
+        group = next((g for g, pieces in groups if all(p in name for p in pieces)), "other")
+        by_group[group] = by_group.get(group, 0.0) + ms
     device_ms = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return {"wall_ms": wall_ms, "device_ms": device_ms, "busy": device_ms / wall_ms,
-            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "groups_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": {k[:120]: v for k, v in top.items()}}
 
 
@@ -1098,15 +1110,17 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
     """The flash forward (F-fwd), dK/dV (F-dkv) and dQ (F-dq) kernels and K18 vs
     their plain versions at bert-base widths (nh=12, hd=64), at the passage
     tower's S=512 and the query tower's S=32, on ragged segment masks with pad
-    rows and all-pad sequences (F-fwd also at S=156 and on a mask that is no
-    prefix); SDPA with the same mask timed beside them as a yardstick (the port
-    never calls it). Each forward row reports the (query tile, key tile) pairs
-    the kernel visits of all (``flash._visible_tiles``)."""
+    rows and all-pad sequences (F-fwd also at S=156, all three on a mask that is
+    no prefix), F-dq's D against the plain formula; SDPA with the same mask timed
+    beside them as a yardstick (the port never calls it). Each row reports the
+    (row tile, column tile) pairs the kernel visits of all
+    (``flash._visible_tiles``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     H, scale = nh * hd, hd ** -0.5
     results = {}
     for dtype, B, S, with_bwd, kind in cases:
-        name = f"F-fwd {str(dtype)[6:]} B={B} S={S}" + ("" if kind == "ragged" else f" {kind}")
+        suffix = "" if kind == "ragged" else f" {kind}"
+        name = f"F-fwd {str(dtype)[6:]} B={B} S={S}{suffix}"
         qkv = torch.randn(B, S, 3 * H, generator=gen, device="cuda").to(dtype)
         q, k, v = flash.split_qkv(qkv, nh, hd)
         mask = ragged_mask(gen, B, S, n_pad_rows=2) if kind == "ragged" else runs_mask(gen, B, S)
@@ -1149,14 +1163,16 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
         if not with_bwd:
             del qkv, q, k, v, o, lse, ro, rlse, lib_out, seg
             continue
-        # both backward kernels, on the forward kernel's o and lse, cotangent zero on pad rows
+        # both backward kernels, on the forward kernel's o and lse, cotangent zero on pad
+        # rows: F-dq first, which computes D (held to the plain formula), then F-dkv on it
         do = (torch.randn(B, S, nh, hd, generator=gen, device="cuda")
               * mask[:, :, None, None]).to(dtype)
-        D = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         grad = torch.empty(B, S, 3, nh, hd, dtype=dtype, device="cuda")
-        flash.flash_bwd_dkv(q, k, v, mask, lse, do, D, scale, grad)
-        flash.flash_bwd_dq(q, k, v, mask, lse, do, D, scale, grad)
+        kD = flash.flash_bwd_dq(q, k, v, mask, lse, do, o, scale, grad)
+        flash.flash_bwd_dkv(q, k, v, mask, lse, do, kD, scale, grad)
         torch.cuda.synchronize()
+        D = flash._reference_flash_d(o, do)
+        d_err, d_rel, _ = rel_err(kD, D)
         dq, dk, dv = grad.unbind(2)
         rdk, rdv = flash._reference_flash_bwd_dkv(q, k, v, mask, lse, do, D, scale)
         rdq = flash._reference_flash_bwd_dq(q, k, v, mask, lse, do, D, scale)
@@ -1169,12 +1185,12 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
                                       ("dv", dv, rdv, auto[:, :, 2])):
             errs[gname] = rel_err(got, closed) + rel_err(got, a)
             check(bool(torch.isfinite(got).all()), f"F-bwd {gname}: non-finite gradient")
-        t = {"dkv": cuda_ms(lambda: flash.flash_bwd_dkv(q, k, v, mask, lse, do, D, scale, grad)),
+        t = {"dkv": cuda_ms(lambda: flash.flash_bwd_dkv(q, k, v, mask, lse, do, kD, scale, grad)),
              "dkv_plain": cuda_ms(lambda: flash._reference_flash_bwd_dkv(q, k, v, mask, lse, do,
                                                                           D, scale)),
-             "dq": cuda_ms(lambda: flash.flash_bwd_dq(q, k, v, mask, lse, do, D, scale, grad)),
-             "dq_plain": cuda_ms(lambda: flash._reference_flash_bwd_dq(q, k, v, mask, lse, do, D,
-                                                                        scale))}
+             "dq": cuda_ms(lambda: flash.flash_bwd_dq(q, k, v, mask, lse, do, o, scale, grad)),
+             "dq_plain": cuda_ms(lambda: flash._reference_flash_bwd_dq(
+                 q, k, v, mask, lse, do, flash._reference_flash_d(o, do), scale))}
 
         def kernels_fwd_bwd():
             leaf = qkv.detach().requires_grad_(True)
@@ -1198,14 +1214,24 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
         port_o = flash.flash_attention_qkv(leaf, mask, nh, hd)
         t["bwd"] = cuda_ms(lambda: torch.autograd.grad(port_o, leaf, do, retain_graph=True))
         del ql, kl, vl, lib_o, do_t, leaf, port_o
+        # F-dkv reads q, k, v, dO, lse, D and the mask and writes dk, dv; F-dq reads q, k,
+        # v, dO, O, lse and the mask and writes dq and D
         in_bytes = 4 * es * B * S * H + 2 * 4 * B * nh * S + 4 * B * S
         bounds = {"dkv": bound(in_bytes + 2 * es * B * S * H, 8 * nh * hd * pairs, "bf16"),
-                  "dq": bound(in_bytes + es * B * S * H, 6 * nh * hd * pairs, "bf16")}
+                  "dq": bound(in_bytes + 2 * es * B * S * H,
+                              6 * nh * hd * pairs + 2 * B * S * H, "bf16")}
+        bwd_tiles = {"pairs": tiles_visited(flash, mask, False),
+                     "loads": tiles_visited(flash, mask, False, rows=FLASH_CTA_ROWS)}
         tol = FLASH_REL[dtype]
-        log(f"F-dkv / F-dq bf16 B={B} S={S}, rel to max|grad| vs closed-form plain (tol "
+        log(f"F-dkv / F-dq bf16 B={B} S={S}{suffix}, rel to max|grad| vs closed-form plain (tol "
             f"{tol:g}) / vs autograd through the plain forward (tol {FLASH_AUTOGRAD_REL:g}): "
             + ", ".join(f"{g} {e[1]:.3e} / {e[4]:.3e} (mean_abs {e[2]:.3e} / {e[5]:.3e})"
                         for g, e in errs.items())
+            + f"; F-dq's D vs the plain formula {d_err:.3e} ({d_rel:.3e} of max, tol "
+            f"{FLASH_D_REL:g}); each kernel visits {bwd_tiles['pairs'][0]} / "
+            f"{bwd_tiles['pairs'][1]} (key tile, query tile) pairs of 64 x 64 and loads "
+            f"{bwd_tiles['loads'][0]} / {bwd_tiles['loads'][1]} streamed tiles for its "
+            f"{FLASH_CTA_ROWS}-row CTAs"
             + f"; dkv {t['dkv']:.3f} ms (plain {t['dkv_plain']:.3f}, bound "
             f"{bounds['dkv'][0]:.4f} {bounds['dkv'][1]}), dq {t['dq']:.3f} ms (plain "
             f"{t['dq_plain']:.3f}, bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}); F-dkv + F-dq "
@@ -1214,9 +1240,10 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
             f"{t['fwd_bwd']:.3f} ms vs SDPA {t['library_fwd_bwd']:.3f} ms")
         check(all(e[1] <= tol and e[4] <= FLASH_AUTOGRAD_REL for e in errs.values()),
               "F-dkv / F-dq disagree with their plain versions")
+        check(d_rel <= FLASH_D_REL, "F-dq's D disagrees with the plain formula")
         for kname, gnames in (("F-dkv", ("dk", "dv")), ("F-dq", ("dq",))):
             key = kname[2:]
-            results[f"{kname} bf16 B={B} S={S}"] = {
+            results[f"{kname} bf16 B={B} S={S}{suffix}"] = {
                 "max_abs_err": max(errs[g][0] for g in gnames),
                 "rel_err": max(errs[g][1] for g in gnames),
                 "mean_abs_err": max(errs[g][2] for g in gnames),
@@ -1225,8 +1252,11 @@ def phase_flash_kernels(gen, flash, attn, cases=FLASH_KERNEL_CASES, k18_lens=(15
                 "bound_by": bounds[key][1], "library_ms": None,
                 "fwd_bwd_ms": t["fwd_bwd"], "library_fwd_bwd_ms": t["library_fwd_bwd"],
                 "bwd_ms": t["bwd"], "library_bwd_ms": t["library_bwd"],
-                "kernels_bwd_ms": t["dkv"] + t["dq"]}
-        del qkv, q, k, v, o, lse, ro, rlse, do, D, grad, dk, dv, dq, rdk, rdv, rdq, auto, seg
+                "kernels_bwd_ms": t["dkv"] + t["dq"], "tiles_visited": bwd_tiles["pairs"][0],
+                "tiles_total": bwd_tiles["pairs"][1], "tile_loads": bwd_tiles["loads"][0],
+                "tile_loads_total": bwd_tiles["loads"][1]}
+        results[f"F-dq bf16 B={B} S={S}{suffix}"].update(D_max_abs_err=d_err, D_rel_err=d_rel)
+        del qkv, q, k, v, o, lse, ro, rlse, do, D, kD, grad, dk, dv, dq, rdk, rdv, rdq, auto, seg
         torch.cuda.empty_cache()
 
     # K18: the forward kernel in bias mode vs _reference_attention, at its design shape
@@ -1541,6 +1571,8 @@ def phase_flash_train(args, tmp):
     rates["flash"].append(steps_per_s(kern_trainer))
     peaks = {"flash": peak_mib(lambda: kern_trainer.train_step(batches[0])),
              "xla": peak_mib(lambda: xla_trainer.train_step(batches[0]))}
+    # where one flash step's device time goes, by kernel group (torch.profiler)
+    split = encode_split(lambda: kern_trainer.train_step(batches[0]), TRAIN_STEP_GROUPS)
     del kern_trainer, xla_trainer
     torch.cuda.empty_cache()
     rate = {a: float(np.mean(r)) for a, r in rates.items()}
@@ -1548,11 +1580,16 @@ def phase_flash_train(args, tmp):
         f"flash {rate['flash']:.3f} steps/s peak {peaks['flash']:.0f} MiB; xla "
         f"{rate['xla']:.3f} steps/s peak {peaks['xla']:.0f} MiB; readings "
         f"{json.dumps({a: [round(x, 4) for x in r] for a, r in rates.items()})}")
+    log(f"one flash step under torch.profiler: {split['wall_ms']:.1f} ms wall, "
+        f"{split['device_ms']:.1f} ms on the device (busy {split['busy']:.3f}); by group "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in split["groups_ms"].items())
+        + "; top kernels " + ", ".join(f"{n[:60]} {ms:.2f}"
+                                       for n, ms in split["top_kernels_ms"].items()))
     return {"launches": launches, "losses": kern_losses, "paired_losses": pair_losses,
             "step1_rel": step1_rel, "grad_cos": cos, "grad_cos_to_fp32": cos_kf,
             "plain_grad_cos_to_fp32": cos_pf, "grad_norm_ratio": norm_ratio,
             "step_gap": step_gap, "steps_per_s": rate, "steps_per_s_readings": rates,
-            "peak_mib": peaks}
+            "peak_mib": peaks, "step_profile": split}
 
 
 def phase_quant(gen, quant, n_rows, dim=768):

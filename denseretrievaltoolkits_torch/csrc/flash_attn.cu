@@ -20,9 +20,11 @@
 // rounded to the compute dtype before p.v, which accumulates in fp32 (bf16: exp(s - m)
 // is rounded before the division by the row sum, as the stock kernel rounds it). The
 // forward saves lse = m + log(l) per row, fp32 [B, nh, S]. The backward recomputes
-// P = exp(s - lse) and, with D = rowsum(dO * O) computed outside (as flash_attention.py
-// :273-275 does), dV = P^T.dO, dP = dO.V^T, dS = P * (dP - D) * sm_scale, dK = dS^T.Q,
-// dQ = dS.K; P and dS are rounded to the compute dtype before their products, as there.
+// P = exp(s - lse) and, with D = rowsum(dO * O), dV = P^T.dO, dP = dO.V^T,
+// dS = P * (dP - D) * sm_scale, dK = dS^T.Q, dQ = dS.K; P and dS are rounded to the
+// compute dtype before their products, as there. The dQ kernel, launched first, computes
+// D for its rows (the stock VJP computes it outside its kernels, flash_attention.py
+// :273-275) and writes it for the dK/dV kernel.
 //
 // Layout. q, k and v are read in place from the [B, S, 3H] QKV projection through
 // strides (batch stride, row stride; heads contiguous, hd elements each): none of the
@@ -51,10 +53,18 @@
 //     (FA2's layout identity).
 //   - fp32 (products stay exact fp32, no TF32): `flash_fwd_f32`, FFMA on 4 x 8 register
 //     tiles of scores with the same tile skipping (its note below).
-// Design of the backward (mma.sync and cp.async, as the forward's mma.sync body): bf16
-// dK/dV and dQ reuse the accumulator fragments for P^T.dO, dS^T.Q and dS.K, B fragments
-// of row-major [k][n] tiles by ldmatrix.trans, of [n][k] tiles by 32-bit loads; fp32 on
-// 256 threads, a 4 x 4 register tile of scores and a 4 x (hd/16) tile of the output each.
+// Design of the backward (which body a launch takes depends on dtype and hd alone, as
+// for the forward):
+//   - bf16, hd = 64 or 128: `flash_dq_wgmma` and `flash_dkv_wgmma` (their note below),
+//     the forward's shape: 128 rows per CTA as two consumer warpgroups and a producer
+//     warp (dK/dV at hd 128: 64 rows, one warpgroup), the streamed operands by TMA into
+//     mbarrier stages, the four (dK/dV) or three (dQ) tile products by wgmma, fully
+//     masked tile pairs skipped;
+//   - bf16, other hd: `flash_dq_mma` / `flash_dkv_mma` on mma.sync and cp.async, the
+//     accumulator fragments reused for P^T.dO, dS^T.Q and dS.K, B fragments of row-major
+//     [k][n] tiles by ldmatrix.trans, of [n][k] tiles by 32-bit loads;
+//   - fp32: 256 threads, a 4 x 4 register tile of scores and a 4 x (hd/16) tile of the
+//     output each.
 #include <climits>
 #include <cstdint>
 #include <mutex>
@@ -592,7 +602,43 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
   }
 }
 
-// ---- bf16 backward: dQ -----------------------------------------------------------------
+// ---- D = rowsum(dO * O) ------------------------------------------------------------------
+//
+// Every dQ body computes D = sum_d O * dO in fp32 for its own rows, from O and dO as
+// stored (the stock VJP's formula, flash_attention.py:273-275, which runs it outside its
+// kernels), uses it, and writes it to the [B, nh, S] buffer the dK/dV kernel reads.
+
+// D of rows r0 .. r0 + 15 of one (sequence, head) by one warp (bf16, HD a multiple of 16;
+// rows >= S: 0): two lanes a row, each 16-byte loads of half its columns. Writes each
+// row's D at d_out[row]; returns the D of rows r0 + g (x) and r0 + g + 8 (y), g = lane / 4.
+template <int HD>
+__device__ __forceinline__ float2 warp_rows_D(const bf* __restrict__ o, const bf* __restrict__ dout,
+                                              float* __restrict__ d_out, int H, int r0, int S,
+                                              int lane) {
+  const int r = r0 + (lane >> 1);
+  float d = 0.f;
+  if (r < S) {
+    const size_t off = (size_t)r * H + (lane & 1) * (HD / 2);
+    const uint4* a = reinterpret_cast<const uint4*>(o + off);
+    const uint4* c = reinterpret_cast<const uint4*>(dout + off);
+#pragma unroll
+    for (int i = 0; i < HD / 16; ++i) {
+      const uint4 x = __ldg(a + i), y = __ldg(c + i);
+      const unsigned xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {  // two bf16 a word: low half, then high half
+        d = fmaf(__uint_as_float(xs[u] << 16), __uint_as_float(ys[u] << 16), d);
+        d = fmaf(__uint_as_float(xs[u] & 0xffff0000u), __uint_as_float(ys[u] & 0xffff0000u), d);
+      }
+    }
+  }
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  if (r < S && (lane & 1) == 0) d_out[r] = d;
+  const int g = lane >> 2;
+  return make_float2(__shfl_sync(0xffffffffu, d, 2 * g), __shfl_sync(0xffffffffu, d, 2 * g + 16));
+}
+
+// ---- bf16 backward on mma.sync: dQ (head dims other than 64 and 128) ----------------------
 
 template <int HD>
 size_t dq_mma_smem() {
@@ -603,9 +649,9 @@ template <int HD>
 __global__ void __launch_bounds__(128)
 flash_dq_mma(const bf* __restrict__ q, const bf* __restrict__ k, const bf* __restrict__ v,
              const int* __restrict__ mask, const float* __restrict__ lse,
-             const float* __restrict__ Dd, const bf* __restrict__ dout, bf* __restrict__ dq,
-             int S, int nh, long long bstride, int rstride, long long gbstride, int grstride,
-             float scale) {
+             const bf* __restrict__ o, const bf* __restrict__ dout, float* __restrict__ Dd,
+             bf* __restrict__ dq, int S, int nh, long long bstride, int rstride,
+             long long gbstride, int grstride, float scale) {
   constexpr int LD = mma_ld<HD>(), NT = HD / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf* Qs = reinterpret_cast<bf*>(smem);   // [BM][LD]
@@ -632,14 +678,17 @@ flash_dq_mma(const bf* __restrict__ q, const bf* __restrict__ k, const bf* __res
   cp_async_commit();
 
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const size_t stat = ((size_t)b * nh + h) * S;
+  const float2 D2 = warp_rows_D<HD>(o + seq * H + h * HD, dout + seq * H + h * HD, Dd + stat, H,
+                                    q0 + warp * 16, S, lane);
   int qseg[2];
-  float rlse[2], rD[2];
+  float rlse[2];
+  const float rD[2] = {D2.x, D2.y};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool in = row[i] < S;
     qseg[i] = in ? mask[seq + row[i]] : QUERY_PAST;
-    rlse[i] = in ? lse[((size_t)b * nh + h) * S + row[i]] : 0.f;
-    rD[i] = in ? Dd[((size_t)b * nh + h) * S + row[i]] : 0.f;
+    rlse[i] = in ? lse[stat + row[i]] : 0.f;
   }
   unsigned qa[HD / 16][4], da[HD / 16][4];
   float acc[NT][4];
@@ -693,7 +742,7 @@ flash_dq_mma(const bf* __restrict__ q, const bf* __restrict__ k, const bf* __res
   }
 }
 
-// ---- bf16 backward: dK, dV --------------------------------------------------------------
+// ---- bf16 backward on mma.sync: dK, dV (head dims other than 64 and 128) ---------------
 
 template <int HD>
 size_t dkv_mma_smem() {
@@ -804,6 +853,473 @@ flash_dkv_mma(const bf* __restrict__ q, const bf* __restrict__ k, const bf* __re
   }
 }
 
+// ---- bf16 backward on Hopper: wgmma + TMA (hd = 64 and 128) -----------------------------
+//
+// dQ (`flash_dq_wgmma`): one CTA per 128 query rows of one (sequence, head), as two
+// consumer warpgroups of 64 rows and a producer warp, like the forward. Q and dO come in
+// once by TMA; the producer walks the key tiles, skips those no row of the CTA can see
+// (the forward's rule) and brings K and V into a ring of mbarrier-guarded stages, each
+// with its tile's index, summary and key mask. Each consumer warp first computes D for
+// its 16 rows (`warp_rows_D`) and writes it for the dK/dV kernel. Per tile, in
+// registers: S = Q.K^T and dP = dO.V^T by wgmma from shared memory (both K-major);
+// P = exp2(S scale log2(e) - lse log2(e)), masked score by score only where the pair of
+// tiles is not one segment; dS = P (dP - D) scale rounded to bf16, whose accumulator
+// layout is the A-fragment layout of dQ += dS.K, taken by wgmma with K MN-major.
+//
+// dK / dV (`flash_dkv_wgmma`): one CTA per 128 key rows at hd 64, as two consumer
+// warpgroups of 64 keys (at hd 128 one warpgroup, 64 keys a CTA: its dK and dV
+// accumulators take 128 registers a thread, and ptxas holds a CTA of two warpgroups and
+// a producer warp to 168, as for three full warpgroups); K and V come in once by TMA.
+// The producer streams the visible 64-query tiles of
+// Q and dO by TMA, with the tile's query mask, lse and D beside them in the stage (the
+// rule is symmetric in queries and keys: the key tile is the row tile). Per tile:
+// S^T = K.Q^T and dP^T = V.dO^T (SS), P^T and dS^T in registers from each column's lse
+// and D, then dV += P^T.dO and dK += dS^T.Q with dO and Q MN-major: the tile as TMA
+// stored it is the K-major B of the first products and the MN-major B of the last.
+// dQ stays out of this kernel: an fp32 atomic dQ would make the gradient depend on the
+// order of the adds; the stock kernel's two-kernel split keeps it deterministic.
+//
+// A consumer that skips a stage still waits on its `full` barrier and arrives on its
+// `empty` one. Skipping changes no bit: a skipped pair is segment-masked, its P and dS
+// are 0. Pad queries see pad keys, so pad-by-pad pairs are visible and computed.
+
+template <int HD, int NST_, int META_WORDS, int NWG_>
+struct BwdLayout {
+  static constexpr int CH = HD / 64;
+  static constexpr int NST = NST_;
+  static constexpr int NWG = NWG_;                        // consumer warpgroups
+  static constexpr int ROWS = 64 * NWG;                   // resident rows per CTA
+  static constexpr int THREADS = 128 * NWG + 32;          // and one producer warp
+  static constexpr uint32_t BOX = 64 * 128;               // one TMA box: 64 rows x 128 B
+  static constexpr uint32_t ROWS_BYTES = NWG * CH * BOX;  // the resident rows of one operand
+  static constexpr uint32_t TILE_BYTES = CH * BOX;      // one streamed 64-row tile
+  static constexpr uint32_t STAGE = 2 * TILE_BYTES;     // two streamed tiles
+  static constexpr uint32_t META = NST * META_WORDS * 4;
+  static constexpr uint32_t BARS = (2 * NST + 1) * 8;
+  static constexpr size_t SMEM = 1024 + 2 * ROWS_BYTES + NST * STAGE + META + BARS;
+};
+// dQ: Q and dO resident, K and V streamed; a stage's meta {tile, summary, key masks}
+template <int HD>
+using DqLayout = BwdLayout<HD, HD == 64 ? 3 : 2, 2 + BN, 2>;
+// dK / dV: K and V resident, Q and dO streamed; {tile, summary, query masks, lse log2(e), D}
+template <int HD>
+using DkvLayout = BwdLayout<HD, HD == 64 ? 4 : 3, 2 + 3 * BN, HD == 64 ? 2 : 1>;
+
+// the lse (or D) of rows r0 + lane and r0 + 32 + lane of one [S] row (0 past S)
+__device__ __forceinline__ float2 tile_stats(const float* __restrict__ p, int r0, int S, int lane) {
+  const int a = r0 + lane, c = a + 32;
+  return make_float2(a < S ? __ldg(p + a) : 0.f, c < S ? __ldg(p + c) : 0.f);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+               const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmdo,
+               const int* __restrict__ mask, const float* __restrict__ lse,
+               const bf* __restrict__ o, const bf* __restrict__ dout, float* __restrict__ Dd,
+               bf* __restrict__ dq, int S, int nh, long long gbstride, int grstride, float scale) {
+  using L = DqLayout<HD>;
+  constexpr int CH = L::CH, NST = L::NST;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t q_s = base, do_s = base + L::ROWS_BYTES, kv_s = base + 2 * L::ROWS_BYTES;
+  int* meta = reinterpret_cast<int*>(gbase + 2 * L::ROWS_BYTES + NST * L::STAGE);  // [NST][2 + BN]
+  const uint32_t bars = kv_s + NST * L::STAGE + L::META;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (NST + s); };
+  const uint32_t qbar = bars + 16u * NST;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * WG_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int* mseq = mask + (size_t)b * S;
+  const int n_tiles = (S + BN - 1) / BN;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER_WARP) {
+    const int2 mq0 = tile_mask(mseq, q0, S, lane), mq1 = tile_mask(mseq, q0 + 64, S, lane);
+    int2 mk = tile_mask(mseq, 0, S, lane);  // the next key tile's mask, read ahead
+    if (lane == 0) {  // Q and dO first: they need no summary
+      const int q_boxes = q0 + 64 < S ? 2 : 1;  // a second box only where rows remain
+      mbar_expect_tx(qbar, 2 * q_boxes * CH * L::BOX);
+      for (int half = 0; half < q_boxes; ++half)
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(q_s + (c * 2 + half) * L::BOX, &tmq, h * HD + c * 64, q0 + 64 * half, b,
+                      qbar);
+          tma_load_3d(do_s + (c * 2 + half) * L::BOX, &tmdo, h * HD + c * 64, q0 + 64 * half, b,
+                      qbar);
+        }
+    }
+    const unsigned qs0 = tile_summary(mq0), qs1 = tile_summary(mq1);
+    int stage = 0;
+    unsigned phase = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int2 cur = mk;
+      const unsigned ks = tile_summary(cur);
+      if (j + 1 < n_tiles) mk = tile_mask(mseq, (j + 1) * BN, S, lane);
+      if (!tile_visible<false>(qs0, ks, true) && !tile_visible<false>(qs1, ks, true)) continue;
+      mbar_wait(empty(stage), phase ^ 1);
+      int* m = meta + stage * (2 + BN);
+      m[2 + lane] = cur.x;
+      m[2 + 32 + lane] = cur.y;
+      if (lane == 0) {
+        m[0] = j;
+        m[1] = (int)ks;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t ks_s = kv_s + stage * L::STAGE, vs_s = ks_s + L::TILE_BYTES;
+        mbar_expect_tx(full(stage), L::STAGE);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(ks_s + c * L::BOX, &tmk, h * HD + c * 64, j * BN, b, full(stage));
+          tma_load_3d(vs_s + c * L::BOX, &tmv, h * HD + c * 64, j * BN, b, full(stage));
+        }
+      }
+      if (++stage == NST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(empty(stage), phase ^ 1);
+    if (lane == 0) {
+      meta[stage * (2 + BN)] = -1;  // the end of the tiles
+      mbar_arrive(full(stage));
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; its warp wi rows 16 wi .. + 15
+  const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int H = nh * HD;
+  const size_t seq = (size_t)b * S, stat = ((size_t)b * nh + h) * S;
+  const unsigned qs = tile_summary(mseq, r0, S, lane);
+  const int row[2] = {r0 + wi * 16 + g, r0 + wi * 16 + g + 8};
+  const float scale2 = scale * LOG2E;
+  int qseg[2];
+  float lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row[i] < S;
+    qseg[i] = in ? mseq[row[i]] : QUERY_PAST;
+    lse2[i] = in ? lse[stat + row[i]] * LOG2E : 0.f;
+  }
+  const float2 D2 = warp_rows_D<HD>(o + seq * H + h * HD, dout + seq * H + h * HD, Dd + stat, H,
+                                    r0 + wi * 16, S, lane);
+  const float rD[2] = {D2.x, D2.y};
+  float acc[HD / 2];
+#pragma unroll
+  for (int n = 0; n < HD / 2; ++n) acc[n] = 0.f;
+  const uint32_t qa_s = q_s + wg * L::BOX, da_s = do_s + wg * L::BOX;  // this warpgroup's rows
+  bool q_ready = false;
+  int stage = 0;
+  unsigned phase = 0;
+  for (;;) {
+    mbar_wait(full(stage), phase);
+    const int* mt = meta + stage * (2 + BN);
+    const int j = mt[0];
+    const unsigned ks = (unsigned)mt[1];
+    if (j >= 0 && (qs & ks & SEG_VALUES) != 0) {
+      if (!q_ready) {
+        mbar_wait(qbar, 0);
+        q_ready = true;
+      }
+      const uint32_t ks_s = kv_s + stage * L::STAGE, vs_s = ks_s + L::TILE_BYTES;
+      float s[32], dp[32];
+#pragma unroll
+      for (int n = 0; n < 32; ++n) s[n] = dp[n] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(s, sw128_desc(qa_s + (kk / 4) * 2 * L::BOX + (kk % 4) * 32, 16),
+                     sw128_desc(ks_s + (kk / 4) * L::BOX + (kk % 4) * 32, 16), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(dp, sw128_desc(da_s + (kk / 4) * 2 * L::BOX + (kk % 4) * 32, 16),
+                     sw128_desc(vs_s + (kk / 4) * L::BOX + (kk % 4) * 32, 16), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S is in; dP may still run
+      fence_regs(s);
+      if (qs == ks && (ks == SEG_ZERO || ks == SEG_ONE)) {  // one segment, no row past S
+#pragma unroll
+        for (int n = 0; n < 32; ++n) s[n] = ex2(fmaf(s[n], scale2, -lse2[(n >> 1) & 1]));
+      } else {
+        const int* kseg = mt + 2;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kv = kseg[n * 8 + 2 * t + e];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float& x = s[4 * n + 2 * i + e];
+              x = ex2(fmaf(masked<false>(x, scale, kv, qseg[i]), LOG2E, -lse2[i]));
+            }
+          }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      unsigned da[4][4];  // dS rounded to bf16: the A fragments of k16 steps 0..3
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = s[4 * n + e] * (dp[4 * n + e] - rD[e >> 1]) * scale;
+        da[n >> 1][2 * (n & 1)] = pack_bf16(x[0], x[1]);
+        da[n >> 1][2 * (n & 1) + 1] = pack_bf16(x[2], x[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (HD == 64)
+          wgmma_rs_n64_mn(acc, da[kk], sw128_desc(ks_s + kk * 2048, L::BOX));
+        else
+          wgmma_rs_n128_mn(acc, da[kk], sw128_desc(ks_s + kk * 2048, L::BOX));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    if (j < 0) break;  // the end of the tiles
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(stage));
+    if (++stage == NST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= S) continue;
+    bf* dst = dq + (size_t)b * gbstride + (size_t)row[i] * grstride + h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<unsigned*>(dst + n * 8) =
+          pack_bf16(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(DkvLayout<HD>::THREADS, 1)
+flash_dkv_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmdo,
+                const int* __restrict__ mask, const float* __restrict__ lse,
+                const float* __restrict__ Dd, bf* __restrict__ dk, bf* __restrict__ dv, int S,
+                int nh, long long gbstride, int grstride, float scale) {
+  using L = DkvLayout<HD>;
+  constexpr int CH = L::CH, NST = L::NST, NWG = L::NWG, MW = 2 + 3 * BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t k_s = base, v_s = base + L::ROWS_BYTES, qd_s = base + 2 * L::ROWS_BYTES;
+  int* meta = reinterpret_cast<int*>(gbase + 2 * L::ROWS_BYTES + NST * L::STAGE);  // [NST][MW]
+  const uint32_t bars = qd_s + NST * L::STAGE + L::META;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (NST + s); };
+  const uint32_t kvbar = bars + 16u * NST;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k0 = blockIdx.x * L::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int* mseq = mask + (size_t)b * S;
+  const size_t stat = ((size_t)b * nh + h) * S;
+  const int n_tiles = (S + BN - 1) / BN;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NWG);  // lane 0 of each consumer warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {  // the producer
+    // summaries of the CTA's one or two 64-key halves (a second one of NWG == 1 is empty)
+    const int2 mk0 = tile_mask(mseq, k0, S, lane),
+               mk1 = tile_mask(mseq, NWG == 2 ? k0 + 64 : S, S, lane);
+    // the next query tile's mask, lse and D, read ahead
+    int2 mq = tile_mask(mseq, 0, S, lane);
+    float2 lq = tile_stats(lse + stat, 0, S, lane), dq2 = tile_stats(Dd + stat, 0, S, lane);
+    if (lane == 0) {  // K and V first: they need no summary
+      const int k_boxes = NWG == 2 && k0 + 64 < S ? 2 : 1;  // a second box only where rows remain
+      mbar_expect_tx(kvbar, 2 * k_boxes * CH * L::BOX);
+      for (int half = 0; half < k_boxes; ++half)
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(k_s + (c * NWG + half) * L::BOX, &tmk, h * HD + c * 64, k0 + 64 * half, b,
+                      kvbar);
+          tma_load_3d(v_s + (c * NWG + half) * L::BOX, &tmv, h * HD + c * 64, k0 + 64 * half, b,
+                      kvbar);
+        }
+    }
+    const unsigned ks0 = tile_summary(mk0), ks1 = tile_summary(mk1);
+    int stage = 0;
+    unsigned phase = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int2 cur = mq;
+      const float2 cl = lq, cd = dq2;
+      const unsigned qsum = tile_summary(cur);
+      if (j + 1 < n_tiles) {
+        mq = tile_mask(mseq, (j + 1) * BN, S, lane);
+        lq = tile_stats(lse + stat, (j + 1) * BN, S, lane);
+        dq2 = tile_stats(Dd + stat, (j + 1) * BN, S, lane);
+      }
+      if (!(ks0 & qsum & SEG_VALUES) && !(ks1 & qsum & SEG_VALUES)) continue;
+      mbar_wait(empty(stage), phase ^ 1);
+      int* m = meta + stage * MW;
+      float* f = reinterpret_cast<float*>(m + 2 + BN);  // [BN] lse log2(e), then [BN] D
+      m[2 + lane] = cur.x == KEY_PAST ? QUERY_PAST : cur.x;
+      m[2 + 32 + lane] = cur.y == KEY_PAST ? QUERY_PAST : cur.y;
+      f[lane] = cl.x * LOG2E;
+      f[32 + lane] = cl.y * LOG2E;
+      f[BN + lane] = cd.x;
+      f[BN + 32 + lane] = cd.y;
+      if (lane == 0) {
+        m[0] = j;
+        m[1] = (int)qsum;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t qt_s = qd_s + stage * L::STAGE, dot_s = qt_s + L::TILE_BYTES;
+        mbar_expect_tx(full(stage), L::STAGE);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(qt_s + c * L::BOX, &tmq, h * HD + c * 64, j * BN, b, full(stage));
+          tma_load_3d(dot_s + c * L::BOX, &tmdo, h * HD + c * 64, j * BN, b, full(stage));
+        }
+      }
+      if (++stage == NST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(empty(stage), phase ^ 1);
+    if (lane == 0) {
+      meta[stage * MW] = -1;  // the end of the tiles
+      mbar_arrive(full(stage));
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63; its warp wi keys 16 wi .. + 15
+  const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
+  const int kr0 = k0 + 64 * wg;
+  const unsigned ks = tile_summary(mseq, kr0, S, lane);
+  const int krow[2] = {kr0 + wi * 16 + g, kr0 + wi * 16 + g + 8};
+  const float scale2 = scale * LOG2E;
+  int kseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kseg[i] = krow[i] < S ? mseq[krow[i]] : KEY_PAST;
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int n = 0; n < HD / 2; ++n) dka[n] = dva[n] = 0.f;
+  const uint32_t ka_s = k_s + wg * L::BOX, va_s = v_s + wg * L::BOX;  // this warpgroup's keys
+  bool kv_ready = false;
+  int stage = 0;
+  unsigned phase = 0;
+  for (;;) {
+    mbar_wait(full(stage), phase);
+    const int* mt = meta + stage * MW;
+    const int j = mt[0];
+    const unsigned qsum = (unsigned)mt[1];
+    if (j >= 0 && (ks & qsum & SEG_VALUES) != 0) {
+      if (!kv_ready) {
+        mbar_wait(kvbar, 0);
+        kv_ready = true;
+      }
+      const uint32_t qt_s = qd_s + stage * L::STAGE, dot_s = qt_s + L::TILE_BYTES;
+      const float* fl = reinterpret_cast<const float*>(mt + 2 + BN);  // lse log2(e) by column
+      const float* fd = fl + BN;                                      // D by column
+      float st[32], dpt[32];  // [64 keys][64 queries]: S^T, then P^T; dP^T
+#pragma unroll
+      for (int n = 0; n < 32; ++n) st[n] = dpt[n] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(st, sw128_desc(ka_s + (kk / 4) * NWG * L::BOX + (kk % 4) * 32, 16),
+                     sw128_desc(qt_s + (kk / 4) * L::BOX + (kk % 4) * 32, 16), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(dpt, sw128_desc(va_s + (kk / 4) * NWG * L::BOX + (kk % 4) * 32, 16),
+                     sw128_desc(dot_s + (kk / 4) * L::BOX + (kk % 4) * 32, 16), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is in; dP^T may still run
+      fence_regs(st);
+      const bool dense = ks == qsum && (ks == SEG_ZERO || ks == SEG_ONE);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * t + e;
+          const float l2 = fl[c];
+          const int qv = mt[2 + c];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float& x = st[4 * n + 2 * i + e];
+            x = dense ? ex2(fmaf(x, scale2, -l2))
+                      : ex2(fmaf(masked<false>(x, scale, kseg[i], qv), LOG2E, -l2));
+          }
+        }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      unsigned pa[4][4], sa[4][4];  // P^T and dS^T rounded to bf16: A fragments, k16 steps 0..3
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = st[4 * n + e] * (dpt[4 * n + e] - fd[n * 8 + 2 * t + (e & 1)]) * scale;
+        pa[n >> 1][2 * (n & 1)] = pack_bf16(st[4 * n], st[4 * n + 1]);
+        pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(st[4 * n + 2], st[4 * n + 3]);
+        sa[n >> 1][2 * (n & 1)] = pack_bf16(x[0], x[1]);
+        sa[n >> 1][2 * (n & 1) + 1] = pack_bf16(x[2], x[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (HD == 64) {
+          wgmma_rs_n64_mn(dva, pa[kk], sw128_desc(dot_s + kk * 2048, L::BOX));
+          wgmma_rs_n64_mn(dka, sa[kk], sw128_desc(qt_s + kk * 2048, L::BOX));
+        } else {
+          wgmma_rs_n128_mn(dva, pa[kk], sw128_desc(dot_s + kk * 2048, L::BOX));
+          wgmma_rs_n128_mn(dka, sa[kk], sw128_desc(qt_s + kk * 2048, L::BOX));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dva);
+      fence_regs(dka);
+    }
+    if (j < 0) break;  // the end of the tiles
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(stage));
+    if (++stage == NST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (krow[i] >= S) continue;
+    const size_t off = (size_t)b * gbstride + (size_t)krow[i] * grstride + h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<unsigned*>(dk + off + n * 8) =
+          pack_bf16(dka[4 * n + 2 * i], dka[4 * n + 2 * i + 1]);
+      *reinterpret_cast<unsigned*>(dv + off + n * 8) =
+          pack_bf16(dva[4 * n + 2 * i], dva[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
 // ---- fp32 backward (CUDA cores) ---------------------------------------------------------
 //
 // 256 threads as a 16 x 16 grid (tr, tc): a thread owns rows 4 tr .. 4 tr + 3 of every
@@ -871,9 +1387,10 @@ size_t dq_f32_smem(int hd) {
 __global__ void __launch_bounds__(FT)
 flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ mask,
-             const float* __restrict__ lse, const float* __restrict__ Dd,
-             const float* __restrict__ dout, float* __restrict__ dq, int S, int nh, int hd,
-             long long bstride, int rstride, long long gbstride, int grstride, float scale) {
+             const float* __restrict__ lse, const float* __restrict__ o,
+             const float* __restrict__ dout, float* __restrict__ Dd, float* __restrict__ dq,
+             int S, int nh, int hd, long long bstride, int rstride, long long gbstride,
+             int grstride, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = f32_ld(hd);
   float* Qs = reinterpret_cast<float*>(smem);  // [64][ld]
@@ -898,7 +1415,20 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     const bool in = q0 + r < S;
     qseg[r] = in ? mask[seq + q0 + r] : QUERY_PAST;
     lses[r] = in ? lse[stat + q0 + r] : 0.f;
-    Ds[r] = in ? Dd[stat + q0 + r] : 0.f;
+  }
+  // D of the tile's rows (rows >= S: 0), a warp a row; read after the loop's first barrier
+  for (int r = tid >> 5; r < 64; r += FT / 32) {
+    const int lane = tid & 31;
+    float d = 0.f;
+    if (q0 + r < S) {
+      const size_t off = (seq + q0 + r) * H + (size_t)h * hd;
+      for (int c = lane; c < hd; c += 32) d = fmaf(o[off + c], dout[off + c], d);
+    }
+    d = warp_sum(d);
+    if (lane == 0) {
+      Ds[r] = d;
+      if (q0 + r < S) Dd[stat + q0 + r] = d;
+    }
   }
   float acc[4][8];
 #pragma unroll
@@ -1349,14 +1879,57 @@ int fwd_f32(const void* q, const void* k, const void* v, const int* mask, void* 
 
 template <int HD>
 int dq_mma(const void* q, const void* k, const void* v, const int* mask, const float* lse,
-           const float* D, const void* dout, void* dq, int B, int S, int nh, long long bs, int rs,
-           long long gbs, int grs, float scale, cudaStream_t st) {
+           const void* o, const void* dout, float* D, void* dq, int B, int S, int nh,
+           long long bs, int rs, long long gbs, int grs, float scale, cudaStream_t st) {
   const size_t smem = dq_mma_smem<HD>();
   int err = set_smem(flash_dq_mma<HD>, smem);
   if (err) return err;
   flash_dq_mma<HD><<<grid_of(B, S, nh), 128, smem, st>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), mask, lse,
-      D, static_cast<const bf*>(dout), static_cast<bf*>(dq), S, nh, bs, rs, gbs, grs, scale);
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), D, static_cast<bf*>(dq), S, nh, bs,
+      rs, gbs, grs, scale);
+  return (int)cudaGetLastError();
+}
+
+// the maps of q, k, v (through strides) and of the contiguous [B, S, H] dO
+int bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+             const void* dout, int B, int S, int H, long long bs, int rs) {
+  int err;
+  if ((err = make_map(&maps[0], q, B, S, H, bs, rs)) || (err = make_map(&maps[1], k, B, S, H, bs, rs)) ||
+      (err = make_map(&maps[2], v, B, S, H, bs, rs)) ||
+      (err = make_map(&maps[3], dout, B, S, H, (long long)S * H, H)))
+    return err;
+  return 0;
+}
+
+template <int HD>
+int dq_wgmma(const void* q, const void* k, const void* v, const int* mask, const float* lse,
+             const void* o, const void* dout, float* D, void* dq, int B, int S, int nh,
+             long long bs, int rs, long long gbs, int grs, float scale, cudaStream_t st) {
+  CUtensorMap m[4];
+  int err = bwd_maps(m, q, k, v, dout, B, S, nh * HD, bs, rs);
+  if (err) return err;
+  const size_t smem = DqLayout<HD>::SMEM;
+  if ((err = set_smem(flash_dq_wgmma<HD>, smem))) return err;
+  flash_dq_wgmma<HD><<<dim3((S + WG_ROWS - 1) / WG_ROWS, nh, B), WG_THREADS, smem, st>>>(
+      m[0], m[1], m[2], m[3], mask, lse, static_cast<const bf*>(o), static_cast<const bf*>(dout),
+      D, static_cast<bf*>(dq), S, nh, gbs, grs, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dkv_wgmma(const void* q, const void* k, const void* v, const int* mask, const float* lse,
+              const float* D, const void* dout, void* dk, void* dv, int B, int S, int nh,
+              long long bs, int rs, long long gbs, int grs, float scale, cudaStream_t st) {
+  CUtensorMap m[4];
+  int err = bwd_maps(m, q, k, v, dout, B, S, nh * HD, bs, rs);
+  if (err) return err;
+  const size_t smem = DkvLayout<HD>::SMEM;
+  if ((err = set_smem(flash_dkv_wgmma<HD>, smem))) return err;
+  using L = DkvLayout<HD>;
+  flash_dkv_wgmma<HD><<<dim3((S + L::ROWS - 1) / L::ROWS, nh, B), L::THREADS, smem, st>>>(
+      m[0], m[1], m[2], m[3], mask, lse, D, static_cast<bf*>(dk), static_cast<bf*>(dv), S, nh,
+      gbs, grs, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1380,16 +1953,15 @@ bool shape_ok(int B, int S, int nh, int hd, int is_bf16) {
   return is_bf16 ? hd % 16 == 0 : hd % 8 == 0;
 }
 
+// the bf16 head dims of the mma.sync bodies: 64 and 128 take the wgmma ones
 #define DRT_HD_SWITCH(CALL)                                                        \
   switch (hd) {                                                                    \
     case 16: return CALL(16);                                                      \
     case 32: return CALL(32);                                                      \
     case 48: return CALL(48);                                                      \
-    case 64: return CALL(64);                                                      \
     case 80: return CALL(80);                                                      \
     case 96: return CALL(96);                                                      \
     case 112: return CALL(112);                                                    \
-    case 128: return CALL(128);                                                    \
     default: return (int)cudaErrorInvalidValue;                                    \
   }
 
@@ -1423,21 +1995,28 @@ extern "C" int drt_flash_fwd(const void* q, const void* k, const void* v, const 
 #undef DRT_CALL
 }
 
-// dout [B, S, nh * hd] contiguous; lse, D [B, nh, S] fp32; dq rows `grstride` and
-// sequences `gbstride` elements apart (the [B, S, 3H] gradient)
+// o, dout [B, S, nh * hd] contiguous (bf16: 16-byte aligned); lse [B, nh, S] fp32; D
+// [B, nh, S] fp32, written (rows < S); dq rows `grstride` and sequences `gbstride`
+// elements apart (the [B, S, 3H] gradient)
 extern "C" int drt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* mask,
-                                const void* lse, const void* D, const void* dout, void* dq,
-                                int B, int S, int nh, int hd, long long bstride, int rstride,
-                                long long gbstride, int grstride, float scale, int is_bf16,
-                                void* stream) {
+                                const void* lse, const void* o, const void* dout, void* D,
+                                void* dq, int B, int S, int nh, int hd, long long bstride,
+                                int rstride, long long gbstride, int grstride, float scale,
+                                int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!shape_ok(B, S, nh, hd, is_bf16)) return (int)cudaErrorInvalidValue;
   const int* m = static_cast<const int*>(mask);
   const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(D);
+  float* d = static_cast<float*>(D);
+  if (is_bf16 && (hd == 64 || hd == 128))  // the Hopper body; other head dims on mma.sync
+    return hd == 64 ? dq_wgmma<64>(q, k, v, m, l, o, dout, d, dq, B, S, nh, bstride, rstride,
+                                   gbstride, grstride, scale, st)
+                    : dq_wgmma<128>(q, k, v, m, l, o, dout, d, dq, B, S, nh, bstride, rstride,
+                                    gbstride, grstride, scale, st);
   if (is_bf16) {
-#define DRT_CALL(HD) \
-  dq_mma<HD>(q, k, v, m, l, d, dout, dq, B, S, nh, bstride, rstride, gbstride, grstride, scale, st)
+#define DRT_CALL(HD)                                                                          \
+  dq_mma<HD>(q, k, v, m, l, o, dout, d, dq, B, S, nh, bstride, rstride, gbstride, grstride, \
+             scale, st)
     DRT_HD_SWITCH(DRT_CALL)
 #undef DRT_CALL
   }
@@ -1446,11 +2025,12 @@ extern "C" int drt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   if (err) return err;
   flash_dq_f32<<<grid_of(B, S, nh), FT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), m,
-      l, d, static_cast<const float*>(dout), static_cast<float*>(dq), S, nh, hd, bstride, rstride,
-      gbstride, grstride, scale);
+      l, static_cast<const float*>(o), static_cast<const float*>(dout), d, static_cast<float*>(dq),
+      S, nh, hd, bstride, rstride, gbstride, grstride, scale);
   return (int)cudaGetLastError();
 }
 
+// D [B, nh, S] fp32 as drt_flash_bwd_dq wrote it; dk and dv like dq
 extern "C" int drt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* mask,
                                  const void* lse, const void* D, const void* dout, void* dk,
                                  void* dv, int B, int S, int nh, int hd, long long bstride,
@@ -1461,6 +2041,11 @@ extern "C" int drt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   const int* m = static_cast<const int*>(mask);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(D);
+  if (is_bf16 && (hd == 64 || hd == 128))  // the Hopper body; other head dims on mma.sync
+    return hd == 64 ? dkv_wgmma<64>(q, k, v, m, l, d, dout, dk, dv, B, S, nh, bstride, rstride,
+                                    gbstride, grstride, scale, st)
+                    : dkv_wgmma<128>(q, k, v, m, l, d, dout, dk, dv, B, S, nh, bstride, rstride,
+                                     gbstride, grstride, scale, st);
   if (is_bf16) {
 #define DRT_CALL(HD)                                                                    \
   dkv_mma<HD>(q, k, v, m, l, d, dout, dk, dv, B, S, nh, bstride, rstride, gbstride, grstride, \

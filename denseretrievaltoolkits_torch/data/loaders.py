@@ -308,7 +308,7 @@ class CorpusDataloader:
         if self.shard_hosts:
             raise NotImplementedError(
                 "multi-process corpus encode (shard_hosts) is not ported yet "
-                "(ROADMAP queue 1 item 13, utils/distributed.py)")
+                "(ROADMAP queue 1, item '`parallel/` and `utils/distributed.py`')")
         # sort key: pre-tokenized passage length (+2 covers [CLS]/[SEP];
         # exactness is irrelevant — any monotone proxy groups lengths)
         sort = (lambda ex: len(ex["text"]) + 2) if self.bucketed else None

@@ -7,7 +7,8 @@ contrastive loss (plain, or the fused K3/K4 kernels with ``fused_loss``);
 ``DRModel.build`` from a directory the JAX package saved (``openmatch_config.json``
 + ``weights.npz``, biencoder.py:244-280), an architecture-only directory or a
 config (seeded random init); and ``save`` in that same layout, which the JAX
-package loads. HF-hub loading waits for ROADMAP queue 1 item 8.
+package loads. HF-hub loading waits for ROADMAP queue 1, item 'LoRA and HF
+import/export'.
 
 ``DRModel`` trains: matrices are fp32 master parameters cast to the compute
 dtype at use. ``DRModelForInference`` serves: it stores them in the compute
@@ -65,7 +66,7 @@ class DRModelSpec:
             raise ValueError(f"Unknown attention impl: {self.attention}")
         if self.remat:
             raise NotImplementedError(
-                f"remat={self.remat!r} is not ported yet (ROADMAP queue 1 item 5, "
+                f"remat={self.remat!r} is not ported yet (ROADMAP queue 1, item '`remat`', "
                 f"torch.utils.checkpoint)")
 
 
@@ -225,7 +226,7 @@ class DRModel(nn.Module):
             # the reference adds rank-r adapters and trains only them; training every
             # parameter instead would be another model
             raise NotImplementedError(
-                "param_efficient_method='lora' is not ported yet (ROADMAP queue 1 item 6, "
+                "param_efficient_method='lora' is not ported yet (ROADMAP queue 1, item "
                 "'LoRA and HF import/export')")
         path = model_args.model_name_or_path
         dtype = getattr(model_args, "dtype", "float32")

@@ -70,9 +70,9 @@ SIGNATURES = {
     "drt_contrastive_max_h": [],
     # q, k, v, mask, o, lse, B, S, nh, hd, bstride, rstride, sm_scale, bias, is_bf16, stream
     "drt_flash_fwd": [_P] * 6 + [_I] * 4 + [_L, _I, _F, _I, _I, _P],
-    # q, k, v, mask, lse, D, dout, dq, B, S, nh, hd, bstride, rstride, gbstride, grstride,
-    # sm_scale, is_bf16, stream
-    "drt_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_L, _I, _L, _I, _F, _I, _P],
+    # q, k, v, mask, lse, o, dout, D (written), dq, B, S, nh, hd, bstride, rstride,
+    # gbstride, grstride, sm_scale, is_bf16, stream
+    "drt_flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_L, _I, _L, _I, _F, _I, _P],
     # q, k, v, mask, lse, D, dout, dk, dv, B, S, nh, hd, bstride, rstride, gbstride,
     # grstride, sm_scale, is_bf16, stream
     "drt_flash_bwd_dkv": [_P] * 9 + [_I] * 4 + [_L, _I, _L, _I, _F, _I, _P],

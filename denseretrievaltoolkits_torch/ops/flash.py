@@ -9,12 +9,14 @@ keys (every row sees itself, so none is empty).
 - :func:`flash_fwd` (``csrc/flash_attn.cu``, replacing the stock
   ``_flash_attention_kernel``): ``(o, lse)``, the output and the fp32 log-sum-exp of
   each row's scaled, masked scores. Plain version: :func:`_reference_flash_fwd`.
-- :func:`flash_bwd_dkv` (the stock ``_flash_attention_dkv_kernel``) and
-  :func:`flash_bwd_dq` (``_flash_attention_dq_kernel``): dK/dV and dQ from P
-  recomputed off the saved lse, with ``D = rowsum(dO * O)`` computed outside them,
-  as the stock VJP does (flash_attention.py:273-275). Plain versions:
-  :func:`_reference_flash_bwd_dkv`, :func:`_reference_flash_bwd_dq`, the same
-  closed forms on the materialized scores.
+- :func:`flash_bwd_dq` (the stock ``_flash_attention_dq_kernel``), launched first,
+  and :func:`flash_bwd_dkv` (``_flash_attention_dkv_kernel``): dQ and dK/dV from P
+  recomputed off the saved lse. The dQ kernel also computes ``D = rowsum(dO * O)``
+  by the stock VJP's formula (flash_attention.py:273-275, which runs it outside its
+  kernels) for its rows, uses it and returns it for the dK/dV kernel. Plain
+  versions: :func:`_reference_flash_d`, :func:`_reference_flash_bwd_dkv`,
+  :func:`_reference_flash_bwd_dq`, the same closed forms on the materialized
+  scores.
 - :func:`flash_attention_qkv`: the differentiable attention over the ``[B, S, 3H]``
   QKV projection, read in place: the forward kernel saves O and the lse, and both
   backward kernels write dq, dk and dv into the one ``[B, S, 3, nh, hd]`` gradient of
@@ -32,9 +34,11 @@ its kernel or raises; it never falls back. Launches are counted in
 ``<wrapper>.launches``. The kernels take float32 (head dim a multiple of 8) and
 bfloat16 (a multiple of 16, 16-byte aligned rows), head dim at most 128. The forward
 kernel has a body per case, fixed by dtype and head dim: bf16 at hd 64 and 128 on
-Hopper's wgmma with K/V by TMA, bf16 at other head dims on mma.sync, fp32 on FFMA.
-Each skips the (query tile, key tile) pairs that :func:`_visible_tiles` leaves out,
-which changes no output.
+Hopper's wgmma with the streamed operands by TMA, bf16 at other head dims on
+mma.sync, fp32 on FFMA; so do the backward kernels (wgmma at bf16 hd 64 and 128).
+The forward's wgmma and fp32 bodies and both backward wgmma bodies skip the (query
+tile, key tile) pairs that :func:`_visible_tiles` leaves out, which changes no
+output.
 
 Numerics of the plain versions (and the kernels): fp32 scores scaled by sm_scale,
 fp32 softmax, probabilities cast to the compute dtype before p·v, which accumulates
@@ -82,8 +86,11 @@ def _tile_values(mask, bt):
 
 
 def _visible_tiles(mask, bm: int, bn: int, bias: bool) -> torch.Tensor:
-    """Which (query tile, key tile) pairs the forward kernel visits: bool [B,
-    ceil(S / bm), ceil(S / bn)], the rule ``csrc/flash_attn.cu`` implements.
+    """Which (row tile, column tile) pairs the kernels visit: bool [B, ceil(S / bm),
+    ceil(S / bn)], the rule ``csrc/flash_attn.cu`` implements. The forward and the
+    dQ kernel take query tiles of bm rows against key tiles of bn; the dK/dV kernel
+    takes key tiles of bm rows against query tiles of bn (segment mode is symmetric:
+    the result is the transpose of the call with bm and bn swapped).
 
     Segment mode: the tiles' sets of mask values (rows below S) intersect, two
     tiles holding values other than 0 and 1 counting as intersecting. Bias mode:
@@ -119,6 +126,12 @@ def _probs_and_ds(q, k, v, seg, lse, do, D, sm_scale):
     p = torch.exp(_scores(q, k, seg, sm_scale) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p, p * (dp - D[..., None]) * sm_scale
+
+
+def _reference_flash_d(o, do):
+    """D = rowsum(dO * O) in fp32, [B, nh, S]: the stock VJP's formula
+    (flash_attention.py:273-275) on [B, S, nh, hd] o and dO."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _reference_flash_bwd_dkv(q, k, v, seg, lse, do, D, sm_scale):
@@ -194,15 +207,24 @@ def flash_fwd(q, k, v, seg, sm_scale) -> Tuple[torch.Tensor, torch.Tensor]:
 flash_fwd.launches = 0
 
 
-def _check_bwd(name, q, lse, do, D, dqkv):
+def _check_bwd(name, q, lse, do, dqkv, D=None, o=None):
+    """lse (and D) contiguous [B, nh, S] fp32, dO (and O) contiguous [B, S, nh, hd] and
+    dqkv a contiguous [B, S, 3, nh, hd] of q's dtype on q's device; bf16 dO and O
+    16-byte aligned (the kernels read their rows by TMA or 16-byte loads)."""
     B, S, nh, hd = q.shape
-    for t, shape, dtype in ((lse, (B, nh, S), torch.float32), (D, (B, nh, S), torch.float32),
-                            (do, (B, S, nh, hd), q.dtype), (dqkv, (B, S, 3, nh, hd), q.dtype)):
+    stats, rows = (B, nh, S), (B, S, nh, hd)
+    for t, shape, dtype in ((lse, stats, torch.float32), (D, stats, torch.float32),
+                            (do, rows, q.dtype), (o, rows, q.dtype),
+                            (dqkv, (B, S, 3, nh, hd), q.dtype)):
+        if t is None:
+            continue
         if t.device != q.device or t.shape != shape or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: lse and D must be contiguous [B, nh, S] float32, dO a "
+            raise ValueError(f"{name}: lse and D must be contiguous [B, nh, S] float32, dO and O "
                              f"contiguous [B, S, nh, hd] and dqkv a contiguous [B, S, 3, nh, hd] "
                              f"{q.dtype} tensor on {q.device}; got {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (do, o) if t is not None):
+        raise ValueError(f"{name}: the bf16 kernels read dO and O as 16-byte aligned rows")
 
 
 def _slot(dqkv, which):
@@ -212,14 +234,15 @@ def _slot(dqkv, which):
 
 def flash_bwd_dkv(q, k, v, seg, lse, do, D, sm_scale, dqkv) -> None:
     """dK/dV kernel: writes them into ``dqkv[:, :, 1]`` and ``dqkv[:, :, 2]`` of the
-    [B,S,3,nh,hd] gradient, which is laid out like the QKV projection."""
+    [B,S,3,nh,hd] gradient, which is laid out like the QKV projection. D is what
+    :func:`flash_bwd_dq` returned."""
     if not q.is_cuda:
         dk, dv = _reference_flash_bwd_dkv(q, k, v, seg, lse, do, D, sm_scale)
         dqkv[:, :, 1].copy_(dk)
         dqkv[:, :, 2].copy_(dv)
         return
     mask = _check_qkv("flash_bwd_dkv", q, k, v, seg)
-    _check_bwd("flash_bwd_dkv", q, lse, do, D, dqkv)
+    _check_bwd("flash_bwd_dkv", q, lse, do, dqkv, D=D)
     B, S, nh, hd = q.shape
     lib = _native.library()
     flash_bwd_dkv.launches += 1
@@ -233,21 +256,26 @@ def flash_bwd_dkv(q, k, v, seg, lse, do, D, sm_scale, dqkv) -> None:
 flash_bwd_dkv.launches = 0
 
 
-def flash_bwd_dq(q, k, v, seg, lse, do, D, sm_scale, dqkv) -> None:
-    """dQ kernel: writes it into ``dqkv[:, :, 0]`` of the [B,S,3,nh,hd] gradient."""
+def flash_bwd_dq(q, k, v, seg, lse, do, o, sm_scale, dqkv) -> torch.Tensor:
+    """dQ kernel: writes it into ``dqkv[:, :, 0]`` of the [B,S,3,nh,hd] gradient, and
+    returns D = rowsum(dO * O), [B, nh, S] fp32, which it computes first from the
+    forward's output ``o`` and uses; :func:`flash_bwd_dkv` takes it."""
     if not q.is_cuda:
+        D = _reference_flash_d(o, do)
         dqkv[:, :, 0].copy_(_reference_flash_bwd_dq(q, k, v, seg, lse, do, D, sm_scale))
-        return
+        return D
     mask = _check_qkv("flash_bwd_dq", q, k, v, seg)
-    _check_bwd("flash_bwd_dq", q, lse, do, D, dqkv)
+    _check_bwd("flash_bwd_dq", q, lse, do, dqkv, o=o)
     B, S, nh, hd = q.shape
+    D = torch.empty(B, nh, S, dtype=torch.float32, device=q.device)
     lib = _native.library()
     flash_bwd_dq.launches += 1
     _native.check(lib.drt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(), D.data_ptr(),
-        do.data_ptr(), _slot(dqkv, 0), B, S, nh, hd, q.stride(0), q.stride(1), dqkv.stride(0),
-        dqkv.stride(1), float(sm_scale), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(), o.data_ptr(),
+        do.data_ptr(), D.data_ptr(), _slot(dqkv, 0), B, S, nh, hd, q.stride(0), q.stride(1),
+        dqkv.stride(0), dqkv.stride(1), float(sm_scale), int(q.dtype == torch.bfloat16),
         _native.stream_ptr(q)), "drt_flash_bwd_dq")
+    return D
 
 
 flash_bwd_dq.launches = 0
@@ -270,10 +298,9 @@ class _FlashAttention(torch.autograd.Function):
         qkv, seg, o, lse = ctx.saved_tensors
         q, k, v = split_qkv(qkv, ctx.nh, ctx.hd)
         do = do.contiguous()
-        D = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()  # [B, nh, S]
         dqkv = torch.empty(*q.shape[:2], 3, *q.shape[2:], dtype=q.dtype, device=q.device)
+        D = flash_bwd_dq(q, k, v, seg, lse, do, o, ctx.sm_scale, dqkv)
         flash_bwd_dkv(q, k, v, seg, lse, do, D, ctx.sm_scale, dqkv)
-        flash_bwd_dq(q, k, v, seg, lse, do, D, ctx.sm_scale, dqkv)
         return dqkv.view(qkv.shape), None, None, None
 
 

@@ -84,7 +84,8 @@ def get_optimizer(training_args, params: Iterable[torch.nn.Parameter]) -> Schedu
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"optimizer {name!r}: optax's {name} differs from torch.optim's (accumulator init, "
-            f"eps placement, decay); its port is ROADMAP queue 1 item 15")
+            f"eps placement, decay); its port is ROADMAP queue 1, item 'Optimizers adagrad, "
+            f"rmsprop and adafactor'")
     if name not in _FACTORIES:
         logger.warning("Unknown optimizer %r; defaulting to adamw", name)
         name = "adamw"

@@ -68,15 +68,17 @@ class Trainer:
     def __init__(self, training_args, model, corpus_dataloader=None, train_loader=None,
                  eval_loader=None, test_loader=None, mesh=None, label_kind: str = "answers",
                  miner=None):
-        for given, what, item in ((miner, "hard-negative mining", 9),
-                                  (mesh, "a device mesh", 13)):
+        for given, what, item in ((miner, "hard-negative mining", "Mining and BM25"),
+                                  (mesh, "a device mesh",
+                                   "`parallel/` and `utils/distributed.py`")):
             if given is not None:
-                raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP queue 1, item '{item}')")
         if getattr(training_args, "grad_cache", False):
             # the full-batch step has the same gradient, but not the chunked memory bound
             raise NotImplementedError(
                 "grad_cache (chunked encode with cached rep gradients) is not ported yet "
-                "(ROADMAP queue 1 item 3, 'Grad-cache'); unset grad_cache to train the "
+                "(ROADMAP queue 1, item 'Grad-cache'); unset grad_cache to train the "
                 "full batch at once")
         self.training_args = training_args
         self.model = model

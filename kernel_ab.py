@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
-"""Time K2 of this checkout of the port against K2 of another checkout (say the
-parent commit), on one card, in turns.
+"""Time a kernel of this checkout of the port against the same kernel of another
+checkout (say the parent commit), on one card, in turns.
 
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
-    python3 kernel_ab.py --other _chip_scratch/parent [--seed 0] [--profile] [--ptxas]
-                         [--out FILE]
+    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|flash_bwd]
+                         [--seed 0] [--profile] [--ptxas] [--out FILE]
 
-K2 is called through its wrapper ``ops/attn.py:fused_mlp_ln``, as the encoder
-calls it, at the bf16 bert-base shapes the main paths give it. Four processes run in turn,
-other, this, this, other; each imports the port from its own checkout (which
-builds its kernels into its own ``_build/``), makes the same inputs from
-``--seed``, measures the kernel's error against its checkout's plain version
-(abs, over max(3e-2, one bf16 ulp of the plain output), and the count of
-outputs off by more than 3e-2) and times it.
-``--profile`` adds the device time of each CUDA kernel a call of this
-checkout's K2 launches (``torch.profiler``); ``--ptxas`` prints ``nvcc -Xptxas
--v``'s registers, shared memory and spills of this checkout's ``csrc/mlp_ln.cu``.
-Needs a CUDA card; prints the card's name and power limit, then the results as
-one JSON line.
+``--kernel mlp_ln`` (the default): K2, called through its wrapper
+``ops/attn.py:fused_mlp_ln`` as the encoder calls it, at the bf16 bert-base shapes
+the main paths give it; its error is measured against its checkout's plain version
+(abs, over max(3e-2, one bf16 ulp of the plain output), and the count of outputs
+off by more than 3e-2).
+
+``--kernel flash_bwd``: the flash backward at bert-base widths (nh 12, hd 64), bf16,
+on ``chip_smoke.py``'s ragged mask with a cotangent zero on pad rows, at B=64, S=512
+(the passage tower at p_max_len 512) and B=8, S=32 (the query tower trained): F-dkv
+and F-dq through their wrappers, each alone, and the whole backward through
+``flash_attention_qkv``'s autograd (D included, wherever the checkout computes it),
+with SDPA's backward on the same inputs beside them. Errors are each gradient's
+largest difference to its checkout's closed-form plain version over its largest
+value.
+
+Four processes run in turn, other, this, this, other; each imports the port from
+its own checkout (which builds its kernels into its own ``_build/``), makes the
+same inputs from ``--seed`` and times the calls with CUDA events. ``--profile``
+adds the device time of each CUDA kernel a call of this checkout launches
+(``torch.profiler``); ``--ptxas`` prints ``nvcc -Xptxas -v``'s registers, shared
+memory and spills of this checkout's source of the kernel. Needs a CUDA card;
+prints the card's name and power limit, then the results as one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -32,11 +43,15 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (B, S) of the bf16 calls: the passage tower at S=156 (serving), the training path's
-# passages (256 x 128) and queries (32 x 32), the query tower (64 x 32)
+# K2: (B, S) of the bf16 calls: the passage tower at S=156 (serving), the training
+# path's passages (256 x 128) and queries (32 x 32), the query tower (64 x 32)
 SHAPES = ((64, 156), (256, 128), (32, 32), (64, 32))
 H, F = 768, 3072
 TOL = 3e-2  # chip_smoke.py's bf16 bound: an error is reported over max(TOL, 1 bf16 ulp)
+# the flash backward: (B, S) at bert-base widths
+FLASH_SHAPES = ((64, 512), (8, 32))
+NH, HD = 12, 64
+SOURCES = {"mlp_ln": "mlp_ln.cu", "flash_bwd": "flash_attn.cu"}
 
 
 def inputs(B, S, gen):
@@ -64,17 +79,13 @@ def kernel_us(fn, iters=20):
     return times
 
 
-def worker(checkout, seed, profile):
-    """One turn: K2 of ``checkout`` at every shape, as a dict."""
-    import chip_smoke  # this checkout's, before the other checkout leads the path
-    sys.path.insert(0, os.path.abspath(checkout))
-    from denseretrievaltoolkits_torch.ops import _native, attn
+def mlp_ln_rows(chip_smoke, seed, profile):
+    """K2 of the imported checkout at every shape."""
+    from denseretrievaltoolkits_torch.ops import attn
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _native.library()
     fn, ref = attn.fused_mlp_ln, attn._reference_mlp_ln
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    out = {"package": os.path.dirname(attn.__file__), "build_s": _native.build_seconds}
+    out = {}
     for B, S in SHAPES:
         args = inputs(B, S, gen)
         got = fn(*args)
@@ -92,13 +103,92 @@ def worker(checkout, seed, profile):
     return out
 
 
-def ptxas():
-    """``nvcc -Xptxas -v`` on this checkout's ``csrc/mlp_ln.cu``: the lines naming
+def flash_bwd_rows(chip_smoke, seed, profile):
+    """The flash backward of the imported checkout at every shape. A checkout whose
+    ``flash_bwd_dq`` takes O computes D inside it; an older one takes D, which is
+    then computed here as its backward computed it."""
+    from denseretrievaltoolkits_torch.ops import flash
+
+    d_inside = "o" in inspect.signature(flash.flash_bwd_dq).parameters
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale, Hq = HD ** -0.5, NH * HD
+    out = {"d_inside_dq": d_inside}
+    for B, S in FLASH_SHAPES:
+        qkv = torch.randn(B, S, 3 * Hq, generator=gen, device="cuda").to(torch.bfloat16)
+        mask = chip_smoke.ragged_mask(gen, B, S, n_pad_rows=2)
+        do = (torch.randn(B, S, NH, HD, generator=gen, device="cuda")
+              * mask[:, :, None, None]).to(torch.bfloat16)
+        q, k, v = flash.split_qkv(qkv, NH, HD)
+        o, lse = flash.flash_fwd(q, k, v, mask, scale)
+        grad = torch.empty(B, S, 3, NH, HD, dtype=torch.bfloat16, device="cuda")
+        D = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        if d_inside:
+            def dq_call():
+                return flash.flash_bwd_dq(q, k, v, mask, lse, do, o, scale, grad)
+            kD = dq_call()
+        else:
+            def dq_call():
+                return flash.flash_bwd_dq(q, k, v, mask, lse, do, D, scale, grad)
+            dq_call()
+            kD = D
+
+        def dkv_call():
+            flash.flash_bwd_dkv(q, k, v, mask, lse, do, kD, scale, grad)
+
+        dkv_call()
+        torch.cuda.synchronize()
+        rdk, rdv = flash._reference_flash_bwd_dkv(q, k, v, mask, lse, do, D, scale)
+        rdq = flash._reference_flash_bwd_dq(q, k, v, mask, lse, do, D, scale)
+        row = {"rel_err": {n: chip_smoke.rel_err(got, want)[1] for n, got, want in
+                           zip(("dq", "dk", "dv"), grad.unbind(2), (rdq, rdk, rdv))},
+               "D_rel_err": chip_smoke.rel_err(kD, D)[1]}
+        leaf = qkv.detach().requires_grad_(True)
+        port_o = flash.flash_attention_qkv(leaf, mask, NH, HD)
+
+        def bwd_call():
+            torch.autograd.grad(port_o, leaf, do, retain_graph=True)
+
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+        seg = mask[:, None, :, None] == mask[:, None, None, :]
+        lib_o = sdpa(qt, kt, vt, attn_mask=seg, scale=scale)
+        do_t = do.transpose(1, 2)
+        ms = lambda fn: chip_smoke.cuda_ms(fn, iters=20, warmup=3)  # noqa: E731
+        row.update(dkv_ms=ms(dkv_call), dq_ms=ms(dq_call), bwd_ms=ms(bwd_call),
+                   sdpa_bwd_ms=ms(lambda: torch.autograd.grad(lib_o, (qt, kt, vt), do_t,
+                                                              retain_graph=True)))
+        row["kernels_ms"] = row["dkv_ms"] + row["dq_ms"]
+        if profile:
+            row["kernels_us"] = kernel_us(bwd_call)
+        out[f"B={B} S={S}"] = row
+        del qkv, q, k, v, o, lse, grad, D, kD, leaf, port_o, qt, kt, vt, lib_o, seg
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(checkout, kernel, seed, profile):
+    """One turn: ``kernel`` of ``checkout`` at every shape, as a dict."""
+    import chip_smoke  # this checkout's, before the other checkout leads the path
+    sys.path.insert(0, os.path.abspath(checkout))
+    from denseretrievaltoolkits_torch.ops import _native
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _native.library()
+    out = {"package": os.path.dirname(os.path.dirname(_native.__file__)),
+           "build_s": _native.build_seconds}
+    rows = mlp_ln_rows if kernel == "mlp_ln" else flash_bwd_rows
+    out.update(rows(chip_smoke, seed, profile))
+    return out
+
+
+def ptxas(kernel):
+    """``nvcc -Xptxas -v`` on this checkout's source of ``kernel``: the lines naming
     entries, registers, shared memory and spills; and nvcc's exit code."""
     sys.path.insert(0, ROOT)
     from denseretrievaltoolkits_torch.ops import _native
-    src = os.path.join(_native.CSRC, "mlp_ln.cu")
-    obj = os.path.join(_native.BUILD_DIR, "ptxas_mlp_ln.o")
+    name = SOURCES[kernel]
+    src = os.path.join(_native.CSRC, name)
+    obj = os.path.join(_native.BUILD_DIR, "ptxas_" + name.replace(".cu", ".o"))
     os.makedirs(_native.BUILD_DIR, exist_ok=True)
     proc = subprocess.run([_native.find_nvcc(), *_native.COMPILE_FLAGS, "-Xptxas", "-v", "-I",
                            _native.CSRC, "-c", "-o", obj, src], capture_output=True, text=True)
@@ -107,9 +197,25 @@ def ptxas():
     return proc.returncode, lines
 
 
+def describe(name, turn):
+    """One line per turn."""
+    rows = {k: v for k, v in turn.items() if isinstance(v, dict)}
+    if "rel_err" not in next(iter(rows.values())):
+        return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+            f"{k} {v['ms']:.4f} ms, max_abs {v['max_abs_err']:.4e} "
+            f"({v['max_err_over_bound']:.3f} of max({TOL:g}, 1 ulp), {v['n_past_tol']} past "
+            f"{TOL:g})" for k, v in rows.items())
+    return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+        f"{k} F-dkv {v['dkv_ms']:.4f} F-dq {v['dq_ms']:.4f} (sum {v['kernels_ms']:.4f}) "
+        f"backward {v['bwd_ms']:.4f} SDPA backward {v['sdpa_bwd_ms']:.4f} ms, rel err "
+        + ", ".join(f"{g} {e:.3e}" for g, e in v["rel_err"].items())
+        + f", D {v['D_rel_err']:.3e}" for k, v in rows.items())
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--kernel", choices=sorted(SOURCES), default="mlp_ln")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--ptxas", action="store_true")
@@ -120,14 +226,14 @@ def main(argv=None):
         print("kernel_ab: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     if args.worker:
-        print(json.dumps(worker(args.worker, args.seed, args.profile)))
+        print(json.dumps(worker(args.worker, args.kernel, args.seed, args.profile)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}", flush=True)
-    result = {"card": smi, "seed": args.seed, "turns": []}
+    result = {"card": smi, "kernel": args.kernel, "seed": args.seed, "turns": []}
     if args.ptxas:
-        rc, lines = ptxas()
+        rc, lines = ptxas(args.kernel)
         print("\n".join(lines), flush=True)
         result["ptxas"] = lines
         if rc:
@@ -135,7 +241,7 @@ def main(argv=None):
     for i, (name, checkout) in enumerate((("other", args.other), ("this", ROOT), ("this", ROOT),
                                           ("other", args.other))):
         cmd = [sys.executable, os.path.abspath(__file__), "--other", args.other,
-               "--seed", str(args.seed), "--worker", checkout]
+               "--kernel", args.kernel, "--seed", str(args.seed), "--worker", checkout]
         if args.profile and name == "this" and i == 1:
             cmd.append("--profile")
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT)
@@ -144,22 +250,24 @@ def main(argv=None):
             return 1
         turn = json.loads(proc.stdout.strip().splitlines()[-1])
         result["turns"].append({"name": name, **turn})
-        print(f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
-            f"{k} {v['ms']:.4f} ms, max_abs {v['max_abs_err']:.4e} "
-            f"({v['max_err_over_bound']:.3f} of max({TOL:g}, 1 ulp), {v['n_past_tol']} past "
-            f"{TOL:g})" for k, v in turn.items()
-            if isinstance(v, dict)), flush=True)
+        print(describe(name, turn), flush=True)
         for k, v in turn.items():
             if isinstance(v, dict) and "kernels_us" in v:
                 print(f"  {k} device us a call by kernel: " + ", ".join(
                     f"{n} {t:.2f}" for n, t in v["kernels_us"].items()), flush=True)
-    for B, S in SHAPES:
+    shapes = SHAPES if args.kernel == "mlp_ln" else FLASH_SHAPES
+    fields = ("ms",) if args.kernel == "mlp_ln" else ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms",
+                                                      "sdpa_bwd_ms")
+    for B, S in shapes:
         key = f"B={B} S={S}"
-        ms = {n: [t[key]["ms"] for t in result["turns"] if t["name"] == n] for n in ("this",
-                                                                                 "other")}
-        result[key] = {f"{n}_ms": sum(v) / len(v) for n, v in ms.items()}
-        print(f"K2 bf16 {key} ({B * S} rows): this {result[key]['this_ms']:.4f} ms "
-              f"{ms['this']}, other {result[key]['other_ms']:.4f} ms {ms['other']}", flush=True)
+        result[key] = {}
+        for field in fields:
+            ms = {n: [t[key][field] for t in result["turns"] if t["name"] == n]
+                  for n in ("this", "other")}
+            means = {n: sum(v) / len(v) for n, v in ms.items()}
+            result[key].update({f"this_{field}": means["this"], f"other_{field}": means["other"]})
+            print(f"{args.kernel} bf16 {key} {field}: this {means['this']:.4f} ms {ms['this']}, "
+                  f"other {means['other']:.4f} ms {ms['other']}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

@@ -110,7 +110,7 @@ def test_lora_raises_until_ported(jax_model, tmp_path, source):
         jmodel.save(jparams, str(tmp_path))
         path = str(tmp_path)
     args = ModelArguments(model_name_or_path=path, param_efficient_method="lora", lora_rank=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 'LoRA and HF import/export'"):
         tbi.DRModel.build(args, bert_config=CFG, device="cpu")
     args.param_efficient_method = None
     assert tbi.DRModel.build(args, bert_config=CFG, device="cpu") is not None

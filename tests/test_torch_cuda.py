@@ -187,6 +187,9 @@ def _grad_scale(name, S, rdv):
 # their largest value (2^-6 of it): the kernel rounds exp(s - m) where the plain
 # forward rounds the normalized probabilities, and P, dS differ by rounding flips.
 FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+# D = rowsum(dO * O), which the dQ kernel computes in fp32, vs the plain formula: the
+# summation order alone
+D_REL = 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -194,8 +197,9 @@ FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 @pytest.mark.parametrize("hd", [32, 64, 128])
 def test_flash_kernels(gen, dtype, S, hd):
     """Forward (o and lse) and both backward kernels vs their plain versions on
-    odd S, with pad rows and an all-pad sequence; each launches once. bf16 hd 64
-    and 128 take the wgmma forward, hd 32 the mma.sync one."""
+    odd S, with pad rows and an all-pad sequence; the dQ kernel's D vs the plain
+    formula; each launches once. bf16 hd 64 and 128 take the wgmma bodies, hd 32
+    the mma.sync ones."""
     from denseretrievaltoolkits_torch.ops import flash
 
     B, nh = 3, 2
@@ -209,11 +213,13 @@ def test_flash_kernels(gen, dtype, S, hd):
     assert _within(o, ro, FLASH_REL[dtype])[0]
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
     do = _randn(gen, B, S, nh, hd, dtype=dtype)
-    D = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     dqkv = torch.empty(B, S, 3, nh, hd, dtype=dtype, device="cuda")
+    D = flash.flash_bwd_dq(q, k, v, mask, rlse, do, ro, scale, dqkv)
     flash.flash_bwd_dkv(q, k, v, mask, rlse, do, D, scale, dqkv)
-    flash.flash_bwd_dq(q, k, v, mask, rlse, do, D, scale, dqkv)
     torch.cuda.synchronize()
+    ok, err = _within(D, flash._reference_flash_d(ro, do), D_REL)
+    assert ok, ("D", err)
+    D = flash._reference_flash_d(ro, do)
     dq, dk, dv = dqkv.unbind(2)
     rdk, rdv = flash._reference_flash_bwd_dkv(q, k, v, mask, rlse, do, D, scale)
     rdq = flash._reference_flash_bwd_dq(q, k, v, mask, rlse, do, D, scale)
@@ -279,7 +285,8 @@ def test_flash_forward_on_other_masks(gen, dtype, S, hd, kind):
     skipped in the middle of a sequence) and with every sequence all padding (bias
     mode: every key -1e9, nothing skipped): F-fwd's o and lse vs
     ``_reference_flash_fwd``, K18 vs ``_reference_attention``; the backward
-    kernels on the forward kernel's own lse vs their plain versions."""
+    kernels on the forward kernel's own o and lse vs their plain versions (tiles
+    skipped in the middle of a sequence there too), and the dQ kernel's D."""
     from denseretrievaltoolkits_torch.ops import flash
 
     B, nh = 3, 2
@@ -294,11 +301,13 @@ def test_flash_forward_on_other_masks(gen, dtype, S, hd, kind):
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
     assert _within(out, attn._reference_attention(qkv, mask, scale, nh, hd), FLASH_REL[dtype])[0]
     do = _randn(gen, B, S, nh, hd, dtype=dtype)
-    D = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     dqkv = torch.empty(B, S, 3, nh, hd, dtype=dtype, device="cuda")
+    D = flash.flash_bwd_dq(q, k, v, mask, lse, do, o, scale, dqkv)
     flash.flash_bwd_dkv(q, k, v, mask, lse, do, D, scale, dqkv)
-    flash.flash_bwd_dq(q, k, v, mask, lse, do, D, scale, dqkv)
     torch.cuda.synchronize()
+    ok, err = _within(D, flash._reference_flash_d(o, do), D_REL)
+    assert ok, ("D", err)
+    D = flash._reference_flash_d(o, do)
     rdk, rdv = flash._reference_flash_bwd_dkv(q, k, v, mask, lse, do, D, scale)
     rdq = flash._reference_flash_bwd_dq(q, k, v, mask, lse, do, D, scale)
     for name, got, want in zip(("dq", "dk", "dv"), dqkv.unbind(2), (rdq, rdk, rdv)):

@@ -103,6 +103,36 @@ def test_flash_gradients_match_stock_kernel(S):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_dq_returns_stock_d(dtype):
+    """The dQ wrapper's plain path computes D = rowsum(dO * O) by the stock VJP's
+    formula (flash_attention.py:273-275, run here by JAX on the same numpy inputs in
+    the stock kernel's [B, nh, S, hd] layout): equal up to summation order. It
+    returns D, writes dq as ``_reference_flash_bwd_dq`` does with that D, and leaves
+    the rest of the gradient alone."""
+    B, S, nh, hd = 3, 37, 2, 16
+    mask = _mask(B, S)
+    seg = torch.from_numpy(mask)
+    (_, _, _), (tq, tk, tv) = _qkv((B, S, nh, hd), dtype, seed=11)
+    rng = np.random.default_rng(12)
+    jo, jdo = (jnp.asarray(rng.standard_normal((B, S, nh, hd)).astype(np.float32)).astype(JDT[dtype])
+               for _ in range(2))
+    to, tdo = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(TDT[dtype]) for x in (jo, jdo))
+    o_t, do_t = (jnp.transpose(x, (0, 2, 1, 3)) for x in (jo, jdo))
+    want = np.asarray(jnp.sum(o_t.astype(jnp.float32) * do_t.astype(jnp.float32), axis=-1))
+    scale = hd ** -0.5
+    _, lse = flash.flash_fwd(tq, tk, tv, seg, scale)
+    dqkv = torch.full((B, S, 3, nh, hd), 7.0, dtype=TDT[dtype])
+    n = flash.flash_bwd_dq.launches
+    D = flash.flash_bwd_dq(tq, tk, tv, seg, lse, tdo, to, scale, dqkv)
+    assert flash.flash_bwd_dq.launches == n  # CPU tensors never launch
+    assert D.dtype == torch.float32 and D.shape == (B, nh, S) and D.is_contiguous()
+    np.testing.assert_allclose(D.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+    want_dq = flash._reference_flash_bwd_dq(tq, tk, tv, seg, lse, tdo, D, scale)
+    torch.testing.assert_close(dqkv[:, :, 0], want_dq, rtol=0, atol=0)
+    assert bool((dqkv[:, :, 1:] == 7).all())
+
+
 def test_flash_reads_qkv_views_and_writes_one_gradient():
     """``flash_attention_qkv`` over one [B,S,3H] tensor: the same output as
     ``flash_attention`` on contiguous copies of its q, k and v views, and one
@@ -241,26 +271,35 @@ def _per_tile(x, bm, bn):
     return pad.view(B, nq, bm, nk, bn).any(4).any(2)
 
 
+# (row tile, column tile) of the kernels: the forward's and dQ's 64 x 64 and 128 x 64
+# (query rows x keys); dK/dV's 128 x 64 (key rows x queries, the same call, the rule
+# being symmetric) and its transpose 64 x 128
+TILE_SHAPES = pytest.mark.parametrize("bm,bn", [(64, 64), (128, 64), (64, 128)],
+                                      ids=["64", "128", "64x128"])
+
+
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 156, 513])
-@pytest.mark.parametrize("bm", [64, 128])
-def test_visible_tiles_segment_mode(S, bm):
+@TILE_SHAPES
+def test_visible_tiles_segment_mode(S, bm, bn):
     """Segment mode: a pair of tiles the helper leaves out is all -inf in
     ``_scores``, and every pair holding a visible score is marked visible (on 0/1
-    masks the two coincide)."""
+    masks the two coincide); the rule is symmetric in rows and columns, so the
+    transposed call gives the transposed pairs."""
     mask = torch.from_numpy(_tile_masks(S, seed=S + bm))
     rng = np.random.default_rng(S)
     q, k = (torch.from_numpy(rng.standard_normal((6, S, 2, 8)).astype(np.float32))
             for _ in range(2))
-    vis = flash._visible_tiles(mask, bm, 64, bias=False)
-    assert vis.shape == (6, -(-S // bm), -(-S // 64)) and vis.dtype == torch.bool
+    vis = flash._visible_tiles(mask, bm, bn, bias=False)
+    assert vis.shape == (6, -(-S // bm), -(-S // bn)) and vis.dtype == torch.bool
     seen = torch.isfinite(flash._scores(q, k, mask, 0.35)).any(1)  # [B, S, S] over heads
-    assert torch.equal(_per_tile(seen, bm, 64), vis)
+    assert torch.equal(_per_tile(seen, bm, bn), vis)
+    assert torch.equal(flash._visible_tiles(mask, bn, bm, bias=False).transpose(1, 2), vis)
     assert vis[2].all() and vis[3].all()  # one segment: nothing to skip
 
 
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 156, 513])
-@pytest.mark.parametrize("bm", [64, 128])
-def test_visible_tiles_bias_mode(S, bm):
+@TILE_SHAPES
+def test_visible_tiles_bias_mode(S, bm, bn):
     """Bias mode: the keys of a tile the helper leaves out contribute exactly 0 to
     ``_reference_attention`` (their values changed, the output keeps every bit),
     every pair holding a probability above 0 is marked visible, and an all-pad
@@ -271,11 +310,11 @@ def test_visible_tiles_bias_mode(S, bm):
     rng = np.random.default_rng(S + 1)
     qkv = torch.from_numpy(rng.standard_normal((B, S, 3 * H)).astype(np.float32))
     tmask = torch.from_numpy(mask)
-    vis = flash._visible_tiles(tmask, bm, 64, bias=True)
+    vis = flash._visible_tiles(tmask, bm, bn, bias=True)
     assert vis[3].all()
     skipped = ~vis.any(1)  # [B, key tiles]: invisible to every query tile alike
     assert torch.equal(vis, ~skipped[:, None, :].expand_as(vis))
-    keys = skipped.repeat_interleave(64, dim=1)[:, :S]  # [B, S]
+    keys = skipped.repeat_interleave(bn, dim=1)[:, :S]  # [B, S]
     assert not (keys & tmask.bool()).any()
     moved = qkv.clone()
     moved[..., 2 * H:][keys] = torch.from_numpy(
@@ -285,4 +324,4 @@ def test_visible_tiles_bias_mode(S, bm):
     s = torch.einsum("bqhd,bkhd->bhqk", *(qkv[..., i * H:(i + 1) * H].view(B, S, nh, hd)
                                           for i in range(2))) * 0.35
     p = torch.softmax(s + (1.0 - tmask.float())[:, None, None, :] * -1e9, -1)
-    assert not (_per_tile((p > 0).any(1), bm, 64) & ~vis).any()
+    assert not (_per_tile((p > 0).any(1), bm, bn) & ~vis).any()
