@@ -1,4 +1,4 @@
-// K1: fused attention + output projection + residual + LayerNorm, one kernel.
+// K1: fused attention + output projection + residual + LayerNorm.
 //
 // Replaces the TPU kernel `_attn_block_kernel` (denseretrievaltoolkits_tpu/ops/attn.py:110,
 // launched by `_fused_attention_ln_impl`, attn.py:163). Semantics follow
@@ -8,16 +8,48 @@
 // + o_bias in fp32, LayerNorm in fp32, cast to the compute dtype.
 //
 // What bounds it on the H100: the [B,nh,S,S] scores are the bytes the unfused chain
-// moves (fp32, 12 heads x S^2 per sequence); this kernel keeps them in shared memory,
-// so device memory sees only qkv, x, the o_kernel stream and the output. What is left
-// is the o_kernel stream (1.18 MB in bf16, read by every block from L2) and the
-// 2*S*H^2 + 4*S^2*H products.
+// moves (fp32, 12 heads x S^2 per sequence); every body keeps them on chip, so device
+// memory sees qkv, x, o_kernel and the output (77 MB at B=64, S=156: 0.023 ms at 3.35
+// TB/s), against 2*S*H^2 + 4*S^2*H products a sequence.
 //
-// Design: a block owns R=16 query rows of one sequence. LayerNorm needs whole H-wide
-// rows, and o_kernel cannot sit in 227 KB of shared memory, so the block loops over
-// heads with that head's K/V ([S,hd]) in shared memory, keeps the [R,H] context in
-// shared memory, and then streams o_kernel through shared memory while it accumulates
-// the projection in fp32. One warp normalises each row.
+// Design, bf16 at hd = 64 or 128, H = 64 * {2,4,8,12,16}, 1 <= S <= 256 (MAX_KEYS) and
+// 16-byte aligned qkv, x and o_kernel (the launch plan is `ops/attn.py:attn_ln_plan`):
+// two launches, in the Hopper form, with a [rows, H] bf16 scratch for ctx between them
+// (writing it and reading it back adds 4 * rows * H bytes, 30.7 MB at B=64, S=156).
+//   Stage A, `attn_ln_stage_a`: a CTA of one consumer warpgroup takes one (sequence,
+//     head). Its thread 0 brings the head's Q, K and V for the whole sequence by TMA
+//     (a 3-D map over qkv [B][S][3H], 64 x 64 boxes, 128-byte swizzle, rows past S
+//     zero-filled) into shared memory: at most 3 x 32 KB at hd 64. For each 64-row
+//     query tile below S the warpgroup computes the scores of every key at once by wgmma
+//     m64n64k16 (Q and K from shared memory, K-major), one n64 product per 64 keys, into
+//     fp32 registers (S padded to 64 keys x NKT), then in fp32: the scale, -1e9 where the
+//     mask is 0, -inf past S (zero probability; an all-pad sequence averages over its S
+//     keys), the row max, exp, the row sum, the division (the IEEE quotient, as the
+//     reference divides), and only then the rounding of P to bf16, the reference's order
+//     (no online softmax: every key is on chip). ctx =
+//     P.V by wgmma with P from registers and V MN-major (F-fwd's RS form), rounded to
+//     bf16 into the scratch. Two to four CTAs an SM by shared memory and registers.
+//   Stage B, `attn_ln_stage_b`: out = LN((x + ctx.o_kernel) + o_bias), K2's stage-B
+//     body (wgmma_ln.cuh) with its depth set to H: tiles of 128 (or 64) rows, o_kernel and
+//     ctx by TMA into an mbarrier ring, wgmma, and the LayerNorm of a row block's H
+//     columns over a cluster of H / 256 CTAs through distributed shared memory.
+// What this does about the limits of the mma.sync body below (0.439 ms at B=64, S=156 on
+// an H100; 19x its bound):
+//   1. 16 query rows a block, 624 blocks at B=64, S=156: stage A's CTA owns a whole
+//      (sequence, head), 64 rows a wgmma tile; stage B 128-row tiles;
+//   2. each head's K/V loaded by every 16-row block (about 10 times a sequence): once
+//      per (sequence, head), by TMA;
+//   3. o_kernel (1.18 MB in bf16) streamed through every 16-row block, 736 MB of L2
+//      reads a call: once per 128-row tile of stage B, 92 MB;
+//   4. mma.sync fed by 32-bit shared loads and cp.async by every thread: wgmma from
+//      shared-memory descriptors and registers, TMA issued by one thread.
+//
+// Design, bf16 otherwise up to S = 512 at bert-base widths (the S=512 `fused` encode):
+// `attn_ln_mma_kernel`, a block owns R=16 query rows of one sequence. LayerNorm needs
+// whole H-wide rows, and o_kernel cannot sit in 227 KB of shared memory, so the block
+// loops over heads with that head's K/V ([S,hd]) in shared memory, keeps the [R,H]
+// context in shared memory, and then streams o_kernel through shared memory while it
+// accumulates the projection in fp32. One warp normalises each row.
 //
 // - bf16 at H = 64 * {2,4,8,12,16} and hd % 16 == 0 (bert-base): tensor cores
 //   (mma.sync m16n8k16, fp32 accumulation) for q.k^T, p.v and the projection. S pads
@@ -40,11 +72,241 @@
 #include <algorithm>
 #include <cstdint>
 
+#include <cuda.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
+#include "wgmma_ln.cuh"
 
 using namespace drt;
 
 namespace {
+
+using bf = __nv_bfloat16;
+
+// ---- bf16 on Hopper, stage A: attention into the ctx scratch (wgmma + TMA) -------------
+
+constexpr int MAX_KEYS = 256;  // keys on chip: the whole sequence, S <= 256
+constexpr int WG = 128;        // threads of stage A's CTA: one consumer warpgroup
+
+// Shared memory of stage A: Q, K and V of one (sequence, head), each [NKT tiles][CH chunks]
+// [64 rows][64 columns] in TMA boxes (CH = HD / 64 chunks of one 128-byte swizzle atom);
+// then the keys' additive mask [64 NKT] and two mbarriers (Q and K; V).
+template <int HD, int NKT>
+struct StageA {
+  static constexpr int CH = HD / 64;
+  static constexpr uint32_t BOX = 64 * 128;  // one TMA box: 64 rows x 128 B
+  static constexpr uint32_t OPERAND = NKT * CH * BOX;
+  static constexpr uint32_t BIAS = NKT * 64 * 4;
+  static constexpr size_t SMEM = 1024 + 3 * OPERAND + BIAS + 16;  // + alignment
+  // CTAs an SM the registers are held to (255 a thread at two, 168 at three, 128 at
+  // four); shared memory allows 8 / 4 / 3 / 2 at hd 64 and NKT 1-4
+  static constexpr int MIN_CTAS = HD == 128 ? 1 : NKT == 1 ? 4 : NKT == 4 ? 2 : 3;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+template <int HD, int NKT>
+__global__ void __launch_bounds__(WG, StageA<HD, NKT>::MIN_CTAS)
+attn_ln_stage_a(const __grid_constant__ CUtensorMap tm, const int* __restrict__ mask,
+                bf* __restrict__ ctx, int S, int nh, float scale) {
+  using L = StageA<HD, NKT>;
+  constexpr int CH = L::CH;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base, k_s = base + L::OPERAND, v_s = base + 2 * L::OPERAND;
+  float* bias = reinterpret_cast<float*>(smem_raw + (base - raw) + 3 * L::OPERAND);
+  const uint32_t qk_bar = base + 3 * L::OPERAND + L::BIAS, v_bar = qk_bar + 8;
+
+  const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, H = nh * HD;
+  if (tid == 0) {
+    mbar_init(qk_bar, 1);
+    mbar_init(v_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {  // Q and K first, so that the scores start while V arrives
+    mbar_expect_tx(qk_bar, 2 * L::OPERAND);
+    for (int j = 0; j < NKT; ++j)
+      for (int c = 0; c < CH; ++c) {
+        const int col = h * HD + 64 * c;
+        tma_load_3d(q_s + (j * CH + c) * L::BOX, &tm, col, 64 * j, b, qk_bar);
+        tma_load_3d(k_s + (j * CH + c) * L::BOX, &tm, H + col, 64 * j, b, qk_bar);
+      }
+    mbar_expect_tx(v_bar, L::OPERAND);
+    for (int j = 0; j < NKT; ++j)
+      for (int c = 0; c < CH; ++c)
+        tma_load_3d(v_s + (j * CH + c) * L::BOX, &tm, 2 * H + h * HD + 64 * c, 64 * j, b, v_bar);
+  }
+  // the reference's additive mask, (1 - mask) * -1e9; keys past S -inf
+  const int* mseq = mask + (size_t)b * S;
+  for (int j = tid; j < NKT * 64; j += WG)
+    bias[j] = j < S ? (1.0f - (float)mseq[j]) * -1e9f : -INFINITY;
+  __syncthreads();
+  mbar_wait(qk_bar, 0);
+
+  // warp wi owns rows 16 wi + g and 16 wi + g + 8 of each query tile; score d[4n + e] of
+  // key chunk c lies at key 64 c + 8 n + 2 t + (e & 1), row g + 8 (e >> 1)
+  for (int qt = 0; qt < NKT; ++qt) {  // NKT = ceil(S / 64): every tile holds a row below S
+    float s[NKT][32];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NKT; ++c)
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(s[c], sw128_desc(q_s + (qt * CH + kk / 4) * L::BOX + (kk % 4) * 32, 16),
+                     sw128_desc(k_s + (c * CH + kk / 4) * L::BOX + (kk % 4) * 32, 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < NKT; ++c) {
+      fence_regs(s[c]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // s * scale + bias, rounded twice as the reference rounds it (no FMA)
+          float& x = s[c][4 * n + e];
+          x = __fadd_rn(__fmul_rn(x, scale), bias[64 * c + 8 * n + 2 * t + (e & 1)]);
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+#pragma unroll
+    for (int c = 0; c < NKT; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float& x = s[c][e];
+        x = expf(x - mx[(e >> 1) & 1]);
+        sum[(e >> 1) & 1] += x;
+      }
+    float rcp[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      rcp[i] = __frcp_rn(sum[i]);
+    }
+    // P = e / sum rounded as the reference's softmax divides (the IEEE quotient, by one
+    // FMA correction of e * RN(1 / sum), far cheaper than div.rn), then rounded to bf16:
+    // the A fragments of k16 step kk of chunk c are the n-tiles 2 kk and 2 kk + 1
+    auto quotient = [&](float x, int i) {
+      const float q = x * rcp[i];
+      return fmaf(fmaf(-q, sum[i], x), rcp[i], q);
+    };
+    unsigned pa[NKT][4][4];
+#pragma unroll
+    for (int c = 0; c < NKT; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float* x = s[c] + 4 * n;
+        pa[c][n >> 1][2 * (n & 1)] = pack_bf16(quotient(x[0], 0), quotient(x[1], 0));
+        pa[c][n >> 1][2 * (n & 1) + 1] = pack_bf16(quotient(x[2], 1), quotient(x[3], 1));
+      }
+    if (qt == 0) mbar_wait(v_bar, 0);
+    float acc[HD / 2];
+#pragma unroll
+    for (int n = 0; n < HD / 2; ++n) acc[n] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NKT; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = sw128_desc(v_s + c * CH * L::BOX + kk * 2048, L::BOX);
+        if constexpr (HD == 64)
+          wgmma_rs_n64_mn(acc, pa[c][kk], dv);
+        else
+          wgmma_rs_n128_mn(acc, pa[c][kk], dv);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = 64 * qt + 16 * wi + g + 8 * i;
+      if (row >= S) continue;
+      bf* dst = ctx + ((size_t)b * S + row) * H + h * HD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<unsigned*>(dst + 8 * n) =
+            pack_bf16(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+template <int HD, int NKT>
+int launch_stage_a(const CUtensorMap& tm, const int* mask, void* ctx, int B, int S, int nh,
+                   float scale, cudaStream_t st) {
+  using L = StageA<HD, NKT>;
+  cudaError_t err = cudaFuncSetAttribute(attn_ln_stage_a<HD, NKT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  attn_ln_stage_a<HD, NKT><<<dim3(nh, B), WG, L::SMEM, st>>>(tm, mask, static_cast<bf*>(ctx), S,
+                                                              nh, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- bf16 on Hopper, stage B: the projection and the LayerNorm (wgmma_ln.cuh) ----------
+
+template <int NWG, int BN>
+__global__ void __launch_bounds__(wgmma_ln::Layout<NWG, BN, wgmma_ln::LAYER_NORM>::THREADS,
+                                  wgmma_ln::Layout<NWG, BN, wgmma_ln::LAYER_NORM>::CTAS_PER_SM)
+attn_ln_stage_b(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+                const bf* __restrict__ bias, const bf* __restrict__ x,
+                const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                bf* __restrict__ out, int M, int N, int K, float eps) {
+  wgmma_ln::mlp_ln_wgmma<NWG, BN, wgmma_ln::LAYER_NORM>(tma, tmb, bias, x, ln_scale, ln_bias,
+                                                        out, M, N, K, eps);
+}
+
+struct StageB {  // the kernel wgmma_ln::launch_ln takes
+  template <int NWG, int BN>
+  static auto get() { return &attn_ln_stage_b<NWG, BN>; }
+};
+
+// both stages: ctx = attention(qkv) into the [B*S, H] scratch in q_tiles 64-row query tiles
+// a CTA, then out = LN((x + ctx.ok) + ob) at stage B's tile rows bm_b (64 or 128), both from
+// attn_ln_plan
+int launch_wgmma(const void* qkv, const void* x, const void* mask, const void* ok,
+                 const void* ob, const void* ls, const void* lb, void* out, void* ctx, int B,
+                 int S, int nh, int hd, float sm_scale, float eps, int q_tiles, int bm_b,
+                 cudaStream_t st) {
+  const int H = nh * hd, w = H / 64;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(ok) | reinterpret_cast<uintptr_t>(ctx);
+  if (B < 1 || S < 1 || S > MAX_KEYS || (hd != 64 && hd != 128) || H % 64 != 0 ||
+      !(w == 2 || w == 4 || w == 8 || w == 12 || w == 16) || (ptrs & 15) != 0 ||
+      q_tiles != (S + 63) / 64 || (bm_b != 64 && bm_b != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm;  // qkv as [B][S][3H]: q, k, v at columns 0, H, 2H
+  int err = tiled_map(&tm, qkv, 3, {(cuuint64_t)(3 * H), (cuuint64_t)S, (cuuint64_t)B},
+                      {(cuuint64_t)(3 * H) * sizeof(bf), (cuuint64_t)S * 3 * H * sizeof(bf)}, 64);
+  if (err) return err;
+  const int* m = static_cast<const int*>(mask);
+  switch ((hd / 64) * 8 + q_tiles) {
+#define DRT_CASE(HD, NKT) \
+  case (HD / 64) * 8 + NKT: err = launch_stage_a<HD, NKT>(tm, m, ctx, B, S, nh, sm_scale, st); break;
+    DRT_CASE(64, 1) DRT_CASE(64, 2) DRT_CASE(64, 3) DRT_CASE(64, 4)
+    DRT_CASE(128, 1) DRT_CASE(128, 2) DRT_CASE(128, 3) DRT_CASE(128, 4)
+#undef DRT_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  CUtensorMap tc, tok;
+  if ((err = wgmma_ln::matrix_map(&tc, ctx, B * S, H, bm_b)) ||
+      (err = wgmma_ln::matrix_map(&tok, ok, H, H, 64)))
+    return err;
+  return wgmma_ln::launch_ln<StageB>(tc, tok, ob, x, ls, lb, out, B * S, H, H, eps, bm_b, st);
+}
+
+// ---- tensor-core path (bf16, mma.sync) --------------------------------------------------
 
 constexpr int R = 16;       // query rows per block
 constexpr int NT = 256;     // threads per block
@@ -52,8 +314,6 @@ constexpr int NCMAX = 4;    // CUDA-core path: output columns per thread, H <= N
 constexpr int KT = 64;      // CUDA-core path: keys per streamed K/V tile
 constexpr int OKS = 16;     // tensor-core path: o_kernel rows per staged slice
 constexpr size_t SMEM_MAX = 232448;
-
-// ---- tensor-core path (bf16) --------------------------------------------------------
 
 int pad32(int S) { return (S + 31) / 32 * 32; }
 
@@ -563,15 +823,21 @@ int launch(const void* qkv, const void* x, const void* mask, const void* ok, con
 
 }  // namespace
 
-// bf16 takes the tensor-core path where its width, alignment and sequence fit (S <= 512
-// at bert-base widths), else the CUDA-core path, which takes any S.
+// ctx, q_tiles, bm_b: the [B*S, H] bf16 scratch, stage A's 64-row query tiles (ceil(S / 64))
+// and stage B's tile rows (64 or 128) of the Hopper body, which the wrapper chooses by shape
+// (`ops/attn.py:attn_ln_plan`); q_tiles and bm_b 0 for the other bodies: bf16 takes the
+// mma.sync path where its width, alignment and sequence fit (S <= 512 at bert-base
+// widths), else the CUDA-core path, which takes any S.
 extern "C" int drt_attn_ln(const void* qkv, const void* x, const void* mask, const void* ok,
-                           const void* ob, const void* ls, const void* lb, void* out, int B,
-                           int S, int nh, int hd, float sm_scale, float eps, int is_bf16,
-                           void* stream) {
+                           const void* ob, const void* ls, const void* lb, void* out, void* ctx,
+                           int B, int S, int nh, int hd, float sm_scale, float eps, int is_bf16,
+                           int q_tiles, int bm_b, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return launch<float>(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale, eps, st);
+  if (bm_b != 0)
+    return launch_wgmma(qkv, x, mask, ok, ob, ls, lb, out, ctx, B, S, nh, hd, sm_scale, eps,
+                        q_tiles, bm_b, st);
   const int code = try_mma(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale, eps, st);
   if (code >= 0) return code;
   return launch<__nv_bfloat16>(qkv, x, mask, ok, ob, ls, lb, out, B, S, nh, hd, sm_scale, eps, st);

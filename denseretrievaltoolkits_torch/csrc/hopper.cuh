@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels of flash_attn.cu
-// and mlp_ln.cu: mbarriers, TMA tile loads, wgmma fences / commits / waits and shared
-// memory descriptors, the wgmma instructions the kernels issue, cluster barriers and
-// distributed shared memory, and the host-side lookup of cuTensorMapEncodeTiled.
+// Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels of flash_attn.cu,
+// mlp_ln.cu and attn_ln.cu: mbarriers, TMA tile loads, wgmma fences / commits / waits and
+// shared memory descriptors, the wgmma instructions the kernels issue, cluster barriers
+// and distributed shared memory, and on the host the lookup of cuTensorMapEncodeTiled and
+// a cache of the tensor maps it encodes.
 //
 // Operand layouts: every tile is stored as TMA writes it with a 128-byte swizzle, in
 // 1024-byte aligned atoms of 8 rows x 128 bytes (64 bf16). A K-major operand has K along
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -275,6 +277,55 @@ inline int encode_tiled(EncodeTiled* fn) {
     cached = reinterpret_cast<EncodeTiled>(p);
   }
   *fn = cached;
+  return 0;
+}
+
+// The tensor map of a bf16 tensor of rank 2 or 3: `dims` innermost first (columns, rows,
+// then sequences), `strides` the byte strides of the rows and the sequences; boxes of 64
+// columns x box_rows rows (x 1 sequence), 128-byte swizzle (the wgmma operand layout);
+// elements past the tensor, rows past a sequence's end too, read as zeros. A map depends
+// only on these, so the last MAPS are kept, one cache for every source that includes
+// this header: two towers' 12 layers of weights, and the activations of a few shapes.
+inline int tiled_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t (&dims)[3],
+                     const cuuint64_t (&strides)[2], int box_rows) {
+  struct Entry {
+    const void* base;
+    int rank, box_rows;
+    cuuint64_t dims[3], strides[2];
+    CUtensorMap map;
+  };
+  constexpr int MAPS = 128;
+  static Entry cache[MAPS];
+  static int filled = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  auto same = [&](const Entry& e) {
+    return e.base == base && e.rank == rank && e.box_rows == box_rows && e.dims[0] == dims[0] &&
+           e.dims[1] == dims[1] && e.dims[2] == dims[2] && e.strides[0] == strides[0] &&
+           e.strides[1] == strides[1];
+  };
+  for (int i = 0; i < filled; ++i)
+    if (same(cache[i])) {
+      *map = cache[i].map;
+      return 0;
+    }
+  EncodeTiled encode;
+  if (int err = encode_tiled(&encode)) return err;
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  Entry& e = cache[next];
+  e.base = base;
+  e.rank = rank;
+  e.box_rows = box_rows;
+  for (int i = 0; i < 3; ++i) e.dims[i] = dims[i];
+  for (int i = 0; i < 2; ++i) e.strides[i] = strides[i];
+  e.map = *map;
+  next = (next + 1) % MAPS;
+  filled = filled < MAPS ? filled + 1 : MAPS;
   return 0;
 }
 

@@ -40,9 +40,10 @@ _L = ctypes.c_longlong
 
 # C signatures: name -> argtypes (every entry returns an int: a cudaError_t unless noted)
 SIGNATURES = {
-    # qkv, x, mask, o_kernel, o_bias, ln_scale, ln_bias, out,
-    # B, S, nh, hd, sm_scale, eps, is_bf16, stream
-    "drt_attn_ln": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _P],
+    # qkv, x, mask, o_kernel, o_bias, ln_scale, ln_bias, out, ctx (scratch),
+    # B, S, nh, hd, sm_scale, eps, is_bf16, q_tiles, bm_b (stage A's query tiles and
+    # stage B's tile rows of the Hopper body; 0, 0: the other bodies), stream
+    "drt_attn_ln": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
     # x, wi, bi, wo, bo, ln_scale, ln_bias, out, h (scratch), rows, H, F, eps, is_bf16,
     # bm_a, bm_b (tile rows of the two stages; 0: the CUDA-core body), stream
     "drt_mlp_ln": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],

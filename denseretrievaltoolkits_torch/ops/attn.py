@@ -3,8 +3,9 @@
 Counterparts of ``denseretrievaltoolkits_tpu/ops/attn.py``:
 
 - :func:`fused_attention_ln` (K1, ``csrc/attn_ln.cu``): attention over the raw
-  fused-QKV output, output projection, residual and LayerNorm in one kernel;
-  its plain version is :func:`_reference_attention_ln`.
+  fused-QKV output, output projection, residual and LayerNorm, in one kernel or,
+  where :func:`attn_ln_plan` gives a plan, in two launches of Hopper bodies; its
+  plain version is :func:`_reference_attention_ln`.
 - :func:`fused_mlp_ln` (K2, ``csrc/mlp_ln.cu``): wi -> exact gelu -> wo,
   residual and LayerNorm in one kernel; its plain version is
   :func:`_reference_mlp_ln`.
@@ -78,6 +79,13 @@ def _reference_mlp_ln(x, wi, bi, wo, bo, ls, lb, eps):
     """Plain version of K2 (``_reference_mlp_ln``, attn.py:328-341): exact gelu."""
     h = torch.matmul(x.float(), wi.float()) + bi.float()
     h = torch.nn.functional.gelu(h).to(x.dtype)
+    return _reference_ln_stage(x, h, wo, bo, ls, lb, eps)
+
+
+def _reference_ln_stage(x, h, wo, bo, ls, lb, eps):
+    """Plain version of the second launch of K2's Hopper body, which K1's also
+    runs with h = ctx and wo = o_kernel: LN((x + h.wo) + bo), products and sums
+    in fp32, cast to x's dtype."""
     y = x.float() + torch.matmul(h.float(), wo.float()) + bo.float()
     return layer_norm_f32(y, ls, lb, eps).to(x.dtype)
 
@@ -135,7 +143,9 @@ def fused_attention_ln(qkv, x, mask, ok, ob, ls, lb, sm_scale, nh, hd, eps):
     qkv: [B,S,3H] raw fused-QKV output ([q|k|v], heads contiguous); x: [B,S,H]
     the block input; mask: [B,S] 0/1; ok/ob: [H,H] / [H] in the compute dtype;
     ls/lb: LayerNorm scale/bias [H]. Returns the post-LN hidden [B,S,H].
-    Differentiable in every input but the mask."""
+    Differentiable in every input but the mask. ``fused_attention_ln.launches``
+    counts one per call that reaches the kernel, however many CUDA launches the
+    call makes (the Hopper body makes two: see :func:`attn_ln_plan`)."""
     static = dict(mask=mask, sm_scale=sm_scale, nh=nh, hd=hd, eps=eps)
     return _RecomputeBackward.apply(_attention_ln_forward, _attention_ln_plain, static,
                                     qkv, x, ok, ob, ls, lb)
@@ -155,14 +165,18 @@ def _attention_ln_forward(qkv, x, ok, ob, ls, lb, *, mask, sm_scale, nh, hd, eps
     lb = lb.float().contiguous()
     mask = mask.to(device=qkv.device, dtype=torch.int32).contiguous()
     _check_cuda("fused_attention_ln", qkv.dtype, (qkv, x, ok, ob), (ls, lb))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (qkv, x, ok))
+    plan = attn_ln_plan(B, S, H, nh, hd, qkv.dtype, aligned, _sm_count(qkv.device.index))
+    ctx = None if plan is None else torch.empty(plan["scratch"], dtype=x.dtype, device=x.device)
     lib = _native.library()
     out = torch.empty_like(x)
     fused_attention_ln.launches += 1
     _native.check(lib.drt_attn_ln(
         qkv.data_ptr(), x.data_ptr(), mask.data_ptr(), ok.data_ptr(), ob.data_ptr(),
-        ls.data_ptr(), lb.data_ptr(), out.data_ptr(), B, S, nh, hd, float(sm_scale),
-        float(eps), int(qkv.dtype == torch.bfloat16), _native.stream_ptr(qkv)),
-        "drt_attn_ln")
+        ls.data_ptr(), lb.data_ptr(), out.data_ptr(), None if ctx is None else ctx.data_ptr(),
+        B, S, nh, hd, float(sm_scale), float(eps), int(qkv.dtype == torch.bfloat16),
+        0 if plan is None else plan["q_tiles"], 0 if plan is None else plan["bm_b"],
+        _native.stream_ptr(qkv)), "drt_attn_ln")
     return out
 
 
@@ -220,6 +234,35 @@ def mlp_ln_plan(rows, H, F, dtype=torch.bfloat16, aligned=True, sms=H100_SMS):
     return {"bm_a": bm_a, "bn_a": bn_a, "grid_a": (cols_a, -(-rows // bm_a)), "bm_b": bm_b,
             "bn_b": bn_b, "cluster": cluster, "grid_b": (cluster, -(-rows // bm_b)),
             "scratch": (rows, F)}
+
+
+ATTN_LN_MAX_S = 256  # the longest sequence whose keys K1's Hopper body holds on chip
+_ATTN_QUERY_TILE = 64  # query rows of one wgmma tile of K1's stage A
+
+
+def attn_ln_plan(B, S, H, nh, hd, dtype=torch.bfloat16, aligned=True, sms=H100_SMS):
+    """The launch plan of K1's Hopper body (``csrc/attn_ln.cu``), or None where
+    the older bodies run: float32, hd not 64 or 128, H not in 64 * {2, 4, 8, 12,
+    16}, S past :data:`ATTN_LN_MAX_S` (the mma.sync body, up to S = 512 at
+    bert-base widths, then the CUDA-core one), or qkv, x or o_kernel not 16-byte
+    ``aligned`` (TMA cannot read them).
+
+    Two launches. Stage A computes the attention of one (sequence, head) a CTA,
+    grid ``grid_a`` = (nh, B), with the whole sequence's keys on chip (S padded
+    to 64 ``q_tiles`` times) and ``q_tiles`` query tiles of ``bm_a`` = 64 rows
+    in turn, and writes ctx into a bf16 scratch of shape ``scratch`` = (B S, H).
+    Stage B computes LN((x + ctx.o_kernel) + o_bias): K2's stage B with depth
+    H, whose fields ``bm_b``, ``bn_b``, ``cluster`` and ``grid_b`` are
+    :func:`mlp_ln_plan`'s for (B S, H, H). The wrapper passes ``q_tiles`` and
+    ``bm_b`` to the kernel, which checks them against the shape."""
+    if (dtype != torch.bfloat16 or hd not in (64, 128) or nh * hd != H or H not in _WGMMA_WIDTHS
+            or not 1 <= S <= ATTN_LN_MAX_S or B < 1 or not aligned):
+        return None
+    rows = B * S
+    stage_b = mlp_ln_plan(rows, H, H, dtype, aligned, sms)
+    q_tiles = -(-S // _ATTN_QUERY_TILE)
+    return {"grid_a": (nh, B), "bm_a": _ATTN_QUERY_TILE, "q_tiles": q_tiles, "scratch": (rows, H),
+            **{k: stage_b[k] for k in ("bm_b", "bn_b", "cluster", "grid_b")}}
 
 
 @functools.lru_cache(maxsize=None)

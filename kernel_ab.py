@@ -4,7 +4,7 @@ checkout (say the parent commit), on one card, in turns.
 
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
-    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|flash_bwd]
+    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|attn_ln|flash_bwd]
                          [--seed 0] [--profile] [--ptxas] [--out FILE]
 
 ``--kernel mlp_ln`` (the default): K2, called through its wrapper
@@ -12,6 +12,13 @@ checkout (say the parent commit), on one card, in turns.
 the main paths give it; its error is measured against its checkout's plain version
 (abs, over max(3e-2, one bf16 ulp of the plain output), and the count of outputs
 off by more than 3e-2).
+
+``--kernel attn_ln``: K1, through ``ops/attn.py:fused_attention_ln``, at the same
+shapes (nh 12, hd 64, ``chip_smoke.py``'s ragged mask); its error is measured
+against its checkout's plain version (abs, over 3e-2, and the count of outputs off
+by more than 3e-2). ``--profile`` splits a call into its CUDA kernels
+(``attn_ln_stage_a`` / ``attn_ln_stage_b`` on the Hopper body); ``--ptxas`` reads
+``attn_ln.cu``, which compiles both stages (stage B's body from ``wgmma_ln.cuh``).
 
 ``--kernel flash_bwd``: the flash backward at bert-base widths (nh 12, hd 64), bf16,
 on ``chip_smoke.py``'s ragged mask with a cotangent zero on pad rows, at B=64, S=512
@@ -43,15 +50,17 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# K2: (B, S) of the bf16 calls: the passage tower at S=156 (serving), the training
-# path's passages (256 x 128) and queries (32 x 32), the query tower (64 x 32)
+# K1 and K2: (B, S) of the bf16 calls: the passage tower at S=156 (serving), the
+# training path's passages (256 x 128) and queries (32 x 32), the query tower (64 x 32)
 SHAPES = ((64, 156), (256, 128), (32, 32), (64, 32))
 H, F = 768, 3072
-TOL = 3e-2  # chip_smoke.py's bf16 bound: an error is reported over max(TOL, 1 bf16 ulp)
+# chip_smoke.py's bf16 bound: K2's errors are reported over max(TOL, 1 bf16 ulp), K1's
+# over TOL
+TOL = 3e-2
 # the flash backward: (B, S) at bert-base widths
 FLASH_SHAPES = ((64, 512), (8, 32))
 NH, HD = 12, 64
-SOURCES = {"mlp_ln": "mlp_ln.cu", "flash_bwd": "flash_attn.cu"}
+SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",)}
 
 
 def inputs(B, S, gen):
@@ -62,6 +71,17 @@ def inputs(B, S, gen):
     ls, lb = 1 + r(H, scale=0.1, dt=torch.float32), r(H, scale=0.1, dt=torch.float32)
     return (r(B, S, H), r(H, F, scale=0.02), r(F, scale=0.02), r(F, H, scale=0.02),
             r(H, scale=0.02), ls, lb, 1e-12)
+
+
+def k1_inputs(chip_smoke, B, S, gen):
+    """K1's arguments, as ``chip_smoke.py``'s phase 2 makes them."""
+    def r(*shape, scale=1.0, dt=torch.bfloat16):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dt)
+
+    mask = chip_smoke.ragged_mask(gen, B, S, n_pad_rows=2)
+    ls, lb = 1 + r(H, scale=0.1, dt=torch.float32), r(H, scale=0.1, dt=torch.float32)
+    return (r(B, S, 3 * H), r(B, S, H), mask, r(H, H, scale=0.02), r(H, scale=0.02), ls, lb,
+            HD ** -0.5, NH, HD, 1e-12)
 
 
 def kernel_us(fn, iters=20):
@@ -79,20 +99,21 @@ def kernel_us(fn, iters=20):
     return times
 
 
-def mlp_ln_rows(chip_smoke, seed, profile):
-    """K2 of the imported checkout at every shape."""
+def block_rows(chip_smoke, seed, profile, k1=False):
+    """K2 (or K1) of the imported checkout at every shape."""
     from denseretrievaltoolkits_torch.ops import attn
 
-    fn, ref = attn.fused_mlp_ln, attn._reference_mlp_ln
+    fn, ref = ((attn.fused_attention_ln, attn._reference_attention_ln) if k1 else
+               (attn.fused_mlp_ln, attn._reference_mlp_ln))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
     for B, S in SHAPES:
-        args = inputs(B, S, gen)
+        args = k1_inputs(chip_smoke, B, S, gen) if k1 else inputs(B, S, gen)
         got = fn(*args)
         torch.cuda.synchronize()
         want = ref(*args).float()
         err = (got.float() - want).abs()
-        bound = chip_smoke.bf16_ulp(want).clamp(min=TOL)
+        bound = TOL if k1 else chip_smoke.bf16_ulp(want).clamp(min=TOL)
         row = {"ms": chip_smoke.cuda_ms(lambda: fn(*args), iters=20, warmup=3),
                "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
                "max_err_over_bound": (err / bound).max().item(),
@@ -176,34 +197,40 @@ def worker(checkout, kernel, seed, profile):
     _native.library()
     out = {"package": os.path.dirname(os.path.dirname(_native.__file__)),
            "build_s": _native.build_seconds}
-    rows = mlp_ln_rows if kernel == "mlp_ln" else flash_bwd_rows
-    out.update(rows(chip_smoke, seed, profile))
+    if kernel == "flash_bwd":
+        out.update(flash_bwd_rows(chip_smoke, seed, profile))
+    else:
+        out.update(block_rows(chip_smoke, seed, profile, k1=kernel == "attn_ln"))
     return out
 
 
 def ptxas(kernel):
-    """``nvcc -Xptxas -v`` on this checkout's source of ``kernel``: the lines naming
-    entries, registers, shared memory and spills; and nvcc's exit code."""
+    """``nvcc -Xptxas -v`` on this checkout's sources of ``kernel``: the lines naming
+    entries, registers, shared memory and spills; and nvcc's largest exit code."""
     sys.path.insert(0, ROOT)
     from denseretrievaltoolkits_torch.ops import _native
-    name = SOURCES[kernel]
-    src = os.path.join(_native.CSRC, name)
-    obj = os.path.join(_native.BUILD_DIR, "ptxas_" + name.replace(".cu", ".o"))
     os.makedirs(_native.BUILD_DIR, exist_ok=True)
-    proc = subprocess.run([_native.find_nvcc(), *_native.COMPILE_FLAGS, "-Xptxas", "-v", "-I",
-                           _native.CSRC, "-c", "-o", obj, src], capture_output=True, text=True)
-    lines = [ln for ln in (proc.stdout + proc.stderr).splitlines()
-             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
-    return proc.returncode, lines
+    rc, lines = 0, []
+    for name in SOURCES[kernel]:
+        src = os.path.join(_native.CSRC, name)
+        obj = os.path.join(_native.BUILD_DIR, "ptxas_" + name.replace(".cu", ".o"))
+        proc = subprocess.run([_native.find_nvcc(), *_native.COMPILE_FLAGS, "-Xptxas", "-v",
+                               "-I", _native.CSRC, "-c", "-o", obj, src],
+                              capture_output=True, text=True)
+        rc = max(rc, proc.returncode)
+        lines += [ln for ln in (proc.stdout + proc.stderr).splitlines()
+                  if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    return rc, lines
 
 
-def describe(name, turn):
+def describe(name, turn, kernel):
     """One line per turn."""
     rows = {k: v for k, v in turn.items() if isinstance(v, dict)}
     if "rel_err" not in next(iter(rows.values())):
+        bound = f"{TOL:g}" if kernel == "attn_ln" else f"max({TOL:g}, 1 ulp)"
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.4f} ms, max_abs {v['max_abs_err']:.4e} "
-            f"({v['max_err_over_bound']:.3f} of max({TOL:g}, 1 ulp), {v['n_past_tol']} past "
+            f"({v['max_err_over_bound']:.3f} of {bound}, {v['n_past_tol']} past "
             f"{TOL:g})" for k, v in rows.items())
     return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
         f"{k} F-dkv {v['dkv_ms']:.4f} F-dq {v['dq_ms']:.4f} (sum {v['kernels_ms']:.4f}) "
@@ -250,14 +277,14 @@ def main(argv=None):
             return 1
         turn = json.loads(proc.stdout.strip().splitlines()[-1])
         result["turns"].append({"name": name, **turn})
-        print(describe(name, turn), flush=True)
+        print(describe(name, turn, args.kernel), flush=True)
         for k, v in turn.items():
             if isinstance(v, dict) and "kernels_us" in v:
                 print(f"  {k} device us a call by kernel: " + ", ".join(
                     f"{n} {t:.2f}" for n, t in v["kernels_us"].items()), flush=True)
-    shapes = SHAPES if args.kernel == "mlp_ln" else FLASH_SHAPES
-    fields = ("ms",) if args.kernel == "mlp_ln" else ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms",
-                                                      "sdpa_bwd_ms")
+    flash = args.kernel == "flash_bwd"
+    shapes = FLASH_SHAPES if flash else SHAPES
+    fields = ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms", "sdpa_bwd_ms") if flash else ("ms",)
     for B, S in shapes:
         key = f"B={B} S={S}"
         result[key] = {}

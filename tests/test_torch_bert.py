@@ -102,21 +102,54 @@ def _block_inputs(B, S, H, F, seed, dtype):
 TOL = {"bfloat16": (3e-2, 1e-3), "float32": (2e-5, 2e-6)}
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_attention_ln_plain_matches_reference(dtype):
+# (B, S, nh, hd) of K1's plain-version checks: the first keeps its ids ("bfloat16",
+# "float32"); then the serving path's S=156 at bert-base's hd (K1's Hopper body on
+# the card) and S=257, one past that body's limit (the mma.sync body)
+_K1_SHAPES = ((3, 20, 4, 16), (2, 156, 2, 64), (2, 257, 2, 64))
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    pytest.param(dtype, shape, id=dtype if shape == _K1_SHAPES[0]
+                 else f"{dtype}-B{shape[0]}-S{shape[1]}-nh{shape[2]}-hd{shape[3]}")
+    for shape in _K1_SHAPES for dtype in ("bfloat16", "float32")])
+def test_attention_ln_plain_matches_reference(dtype, shape):
     """K1's plain version vs the JAX ``_reference_attention_ln`` (residual
-    added in fp32), the contract K1 is held to in bf16."""
+    added in fp32), the contract K1 is held to in bf16, on a ragged mask with an
+    all-pad sequence (``_block_inputs``). Every row is compared: the reference
+    pads nothing, so pad rows and the all-pad sequence (a uniform average over
+    its S keys on both sides) agree like real rows."""
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    B, S, nh, hd = 3, 20, 4, 16
+    B, S, nh, hd = shape
     mask, j, t = _block_inputs(B, S, nh * hd, 128, 3, jdt)
+    scale = 0.25 if hd == 16 else hd ** -0.5
     ref = jattn._reference_attention_ln(j["qkv"], j["x"], jnp.asarray(mask), j["ok"], j["ob"],
-                                        j["ls"], j["lb"], 0.25, nh, hd, 1e-12)
+                                        j["ls"], j["lb"], scale, nh, hd, 1e-12)
     out = tattn.fused_attention_ln(t["qkv"], t["x"], torch.from_numpy(mask), t["ok"], t["ob"],
-                                   t["ls"], t["lb"], 0.25, nh, hd, 1e-12)
+                                   t["ls"], t["lb"], scale, nh, hd, 1e-12)
     assert tattn.fused_attention_ln.launches == 0  # CPU tensors never launch
     d = np.abs(out.float().numpy() - np.asarray(ref.astype(jnp.float32)))
     assert d.max() <= TOL[dtype][0] and d.mean() <= TOL[dtype][1], (d.max(), d.mean())
     assert out.dtype == t["x"].dtype
+
+
+@pytest.mark.parametrize("shape", _K1_SHAPES[:2])
+def test_attention_ln_split_is_the_reference(shape):
+    """K1's Hopper body splits the block in two launches: attention with ctx
+    rounded to bf16 (stage A), then K2's second stage with depth H (stage B).
+    As plain PyTorch, K2's stage-B version (``_reference_ln_stage``, which K2's
+    plain version ends with) fed stage A's ctx is bit-equal to
+    ``_reference_attention_ln``: running K1's projection and LayerNorm on K2's
+    stage changes no rounding."""
+    B, S, nh, hd = shape
+    H = nh * hd
+    mask, _, t = _block_inputs(B, S, H, 128, 4, jnp.bfloat16)
+    mask = torch.from_numpy(mask)
+    ctx = tattn._reference_attention(t["qkv"], mask, hd ** -0.5, nh, hd)
+    assert ctx.dtype == torch.bfloat16
+    split = tattn._reference_ln_stage(t["x"], ctx, t["ok"], t["ob"], t["ls"], t["lb"], 1e-12)
+    ref = tattn._reference_attention_ln(t["qkv"], t["x"], mask, t["ok"], t["ob"], t["ls"],
+                                        t["lb"], hd ** -0.5, nh, hd, 1e-12)
+    assert torch.equal(split, ref)
 
 
 @pytest.mark.parametrize("dtype,F", [("bfloat16", 128), ("float32", 128), ("float32", 1536)])
@@ -170,6 +203,42 @@ def test_mlp_ln_plan_bodies():
     assert tattn.mlp_ln_plan(50, 768, 3072, aligned=False) is None
     assert tattn.mlp_ln_plan(1024, 768, 3072)["bm_a"] == 128
     assert tattn.mlp_ln_plan(2048, 768, 3072, sms=96)["bm_b"] == 128
+
+
+# (B, S, H, nh, hd, dtype, aligned): bert-base's passages at every S around the Hopper
+# body's limit of 256 keys, then what keeps the older bodies: float32, hd 32, H 1088
+# (17 heads: no wgmma width) and unaligned operands; H 1024 (clusters of four) and hd
+# 128 take the Hopper body
+_ATTN_PLAN_CASES = [(64, S, 768, 12, 64, torch.bfloat16, True)
+                    for S in (1, 32, 128, 156, 256, 257, 512)] + [
+    (64, 156, 768, 12, 64, torch.float32, True), (64, 156, 768, 24, 32, torch.bfloat16, True),
+    (64, 156, 1024, 16, 64, torch.bfloat16, True), (64, 156, 1088, 17, 64, torch.bfloat16, True),
+    (64, 156, 768, 12, 64, torch.bfloat16, False), (8, 200, 768, 6, 128, torch.bfloat16, True)]
+
+
+@pytest.mark.parametrize("B,S,H,nh,hd,dtype,aligned", _ATTN_PLAN_CASES)
+def test_attn_ln_plan(B, S, H, nh, hd, dtype, aligned):
+    """K1's launch plan: the Hopper body exactly for bf16 at hd 64 / 128, H in
+    64 * {2, 4, 8, 12, 16}, S <= 256 and aligned operands (else None: the
+    mma.sync or CUDA-core body); stage A's grid is one CTA a (sequence, head),
+    its query tiles cover S once with at most 256 keys, the scratch holds ctx
+    for every row, and stage B is K2's stage B planned at depth H."""
+    plan = tattn.attn_ln_plan(B, S, H, nh, hd, dtype, aligned)
+    hopper = (dtype == torch.bfloat16 and hd in (64, 128) and H in (128, 256, 512, 768, 1024)
+              and S <= tattn.ATTN_LN_MAX_S and aligned)
+    assert (plan is not None) == hopper
+    assert tattn.ATTN_LN_MAX_S == 256
+    if plan is None:
+        return
+    assert plan["grid_a"] == (nh, B) and plan["bm_a"] == 64
+    assert (plan["q_tiles"] - 1) * 64 < S <= plan["q_tiles"] * 64 <= 256
+    assert plan["scratch"] == (B * S, H)
+    stage_b = tattn.mlp_ln_plan(B * S, H, H)
+    assert {k: plan[k] for k in ("bm_b", "bn_b", "cluster", "grid_b")} == {
+        k: stage_b[k] for k in ("bm_b", "bn_b", "cluster", "grid_b")}
+    if (B, S, H) == (64, 156, 768):  # the serving path's passages
+        assert plan == {"grid_a": (12, 64), "bm_a": 64, "q_tiles": 3, "scratch": (9984, 768),
+                        "bm_b": 128, "bn_b": 256, "cluster": 3, "grid_b": (3, 78)}
 
 
 def test_fused_bf16_encoder_tracks_xla_bf16():

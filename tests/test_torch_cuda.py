@@ -57,6 +57,89 @@ def test_attention_ln_kernel(gen, dtype, nh):
     assert (out.float() - ref.float()).abs().max() <= TOL[dtype]
 
 
+def _cuda_kernel_names(fn):
+    """``fn()`` and the names of the CUDA kernels it launched (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.name for e in prof.events() if str(e.device_type).endswith("CUDA")}
+
+
+def _k1_bf16_args(gen, B, S, nh, hd, x_offset=0):
+    """K1's bf16 arguments: lengths in [1, S] with the first sequence full and the
+    last all padding; x ``x_offset`` elements past 16-byte alignment."""
+    H = nh * hd
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+    lens[0] = S
+    mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    mask[-1] = 0
+    x = _randn(gen, B * S * H + x_offset, dtype=torch.bfloat16)[x_offset:].view(B, S, H)
+    return (_randn(gen, B, S, 3 * H, dtype=torch.bfloat16), x, mask,
+            _randn(gen, H, H, scale=0.05, dtype=torch.bfloat16),
+            _randn(gen, H, scale=0.05, dtype=torch.bfloat16), 1 + _randn(gen, H, scale=0.1),
+            _randn(gen, H, scale=0.1), hd ** -0.5, nh, hd, 1e-12)
+
+
+# K1 bf16's bounds (chip_smoke.py's phase 2): max abs TOL, mean abs 1e-4
+K1_MEAN_TOL = 1e-4
+
+
+@pytest.mark.parametrize("S", [1, 32, 37, 128, 156, 256, 257])
+@pytest.mark.parametrize("H", [128, 768])
+def test_attention_ln_wgmma_kernel(gen, H, S):
+    """K1 bf16 at hd 64: the Hopper body (``attn_ln_stage_a``, then
+    ``attn_ln_stage_b``) wherever ``attn_ln_plan`` gives a plan, S <= 256, and
+    the mma.sync body past it (S = 257); one count a call, finite outputs, and
+    the plain version's values within TOL (max) and K1_MEAN_TOL (mean), pad
+    rows and the all-pad sequence included."""
+    nh, hd, B = H // 64, 64, 3
+    args = _k1_bf16_args(gen, B, S, nh, hd)
+    hopper = attn.attn_ln_plan(B, S, H, nh, hd) is not None
+    assert hopper == (S <= 256)
+    n = attn.fused_attention_ln.launches
+    out, names = _cuda_kernel_names(lambda: attn.fused_attention_ln(*args))
+    assert attn.fused_attention_ln.launches == n + 1
+    ran = {k for k in ("attn_ln_stage_a", "attn_ln_stage_b", "attn_ln_mma_kernel")
+           if any(k in name for name in names)}
+    assert ran == ({"attn_ln_stage_a", "attn_ln_stage_b"} if hopper else {"attn_ln_mma_kernel"})
+    ref = attn._reference_attention_ln(*args)
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs()
+    assert err.max() <= TOL[torch.bfloat16] and err.mean() <= K1_MEAN_TOL, (
+        float(err.max()), float(err.mean()))
+
+
+@pytest.mark.parametrize("S", [37, 200])
+def test_attention_ln_wgmma_kernel_hd128(gen, S):
+    """K1 bf16 at hd 128 (H 768, 6 heads) also takes the Hopper body, within the
+    same bounds."""
+    B, nh, hd = 3, 6, 128
+    args = _k1_bf16_args(gen, B, S, nh, hd)
+    out, names = _cuda_kernel_names(lambda: attn.fused_attention_ln(*args))
+    assert any("attn_ln_stage_a" in name for name in names)
+    err = (out.float() - attn._reference_attention_ln(*args).float()).abs()
+    assert torch.isfinite(out).all()
+    assert err.max() <= TOL[torch.bfloat16] and err.mean() <= K1_MEAN_TOL, (
+        float(err.max()), float(err.mean()))
+
+
+def test_attention_ln_unaligned_x_takes_the_mma_body(gen):
+    """An x 2 bytes past 16-byte alignment (TMA cannot read it) sends K1 bf16 at
+    the serving path's widths to the mma.sync body, which agrees all the same."""
+    B, S, nh, hd = 3, 156, 12, 64
+    args = _k1_bf16_args(gen, B, S, nh, hd, x_offset=1)
+    assert args[1].data_ptr() % 16 != 0
+    assert attn.attn_ln_plan(B, S, nh * hd, nh, hd, aligned=False) is None
+    out, names = _cuda_kernel_names(lambda: attn.fused_attention_ln(*args))
+    assert any("attn_ln_mma_kernel" in name for name in names)
+    assert not any("attn_ln_stage" in name for name in names)
+    err = (out.float() - attn._reference_attention_ln(*args).float()).abs()
+    assert torch.isfinite(out).all()
+    assert err.max() <= TOL[torch.bfloat16] and err.mean() <= K1_MEAN_TOL
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("H,F,rows,offset", [
     (128, 320, 50, 0),     # bf16: the wgmma body, one 128-column CTA in stage B, F % 256 != 0
