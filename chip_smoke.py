@@ -128,7 +128,9 @@ Phases, each of which fails the run on error:
    on the search's own codes, blocks and J (ids equal up to ties, rescored in
    fp64 under the kernel's formula; scores within 1e-4); recall@100 of serve
    against exact ADC of the same codes, recall10@100 against the certified
-   fp32 flat search; kernel, plain, search and bound ms. (Runs before phase 3.)
+   fp32 flat search; kernel, plain, search and bound ms, the decode passes' and
+   the scoring launches' device ms apart (``torch.profiler``), one decode pass
+   a scoring launch, and the scratch's bytes. (Runs before phase 3.)
 18. The evaluation path into the PQ indexes: phase 11's model evaluated into
    ``PQ96`` (serve on K16, exact ADC) and ``IVF16,PQ96x4`` (nprobe 4, bulk on
    K17, hot cells on K7 / K8); counters zeroed before; the plain versions over
@@ -140,8 +142,9 @@ Phases, each of which fails the run on error:
    ``OPQ192x4,IVF256,PQ192x4`` (nprobe 8, 2048-row blocks, bulk_j 8, max_hot
    16; bulk), trained on 262,144 rows, ``add_chunks`` in 500,000-row chunks;
    queries/s, recall10@100 against the certified int8 flat search of the same
-   rows, serve recall@100 against exact ADC, K17 against its plain version on
-   the search's own slab, build seconds, resident and peak memory.
+   rows, serve recall@100 against exact ADC (and K16's scratch bytes), K17
+   against its plain version on the search's own slab, build seconds, resident
+   and peak memory.
 
 20. The flash kernels (``csrc/flash_attn.cu``) vs their plain versions at
    bert-base widths (nh=12, hd=64), ragged segment masks with pad rows and
@@ -499,20 +502,33 @@ def block_bounds(B, S, H, nh, hd, F, es, kind):
 K1_BODIES = ("attn_ln_stage_a", "attn_ln_stage_b", "attn_ln_mma_kernel", "attn_ln_kernel")
 
 
+def kernel_split(fn, pieces, iters=5, windows=3):
+    """The mean device ms a call of ``fn`` spends in the CUDA kernels whose names
+    hold each of ``pieces`` (those it ran), from one ``torch.profiler`` window over
+    ``iters`` calls. A window that recorded none of them (the profiler now and then
+    returns no device events for a short window) is taken again, up to ``windows``
+    in all; then the empty result is returned for the caller's checks."""
+    from torch.profiler import ProfilerActivity, profile
+    ms = {}
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            piece = next((p for p in pieces if p in e.name), None)
+            if piece is not None and str(e.device_type).endswith("CUDA"):
+                ms[piece] = ms.get(piece, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        if ms:
+            break
+    return ms
+
+
 def k1_split(fn, iters=5):
     """Which of K1's bodies ``iters`` calls of ``fn`` ran, and the mean device ms
-    a call of each of its kernels, from one ``torch.profiler`` call."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ms = {}
-    for e in prof.events():
-        piece = next((p for p in K1_BODIES if p in e.name), None)
-        if piece is not None and str(e.device_type).endswith("CUDA"):
-            ms[piece] = ms.get(piece, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    a call of each of its kernels (``kernel_split``)."""
+    ms = kernel_split(fn, K1_BODIES, iters)
     return {"body": "+".join(p for p in K1_BODIES if p in ms),
             "stage_a_ms": ms.get("attn_ln_stage_a"), "stage_b_ms": ms.get("attn_ln_stage_b")}
 
@@ -2949,11 +2965,49 @@ def decoded_corpus(pq_ops, codes, table, scale, nbits, chunk=262_144):
     return out
 
 
+# the CUDA kernels of K15 / K16: the decode pass, then the scoring body
+PQ_PASSES = ("pq_decode_kernel", "pq_score_wgmma")
+# what the caching allocator may add to the scratch it was asked for (a large block is
+# cut from its segment only where more than 1 MiB would be left over)
+SCRATCH_SLACK = 2 ** 21
+
+
+def pq_call_measured(pq_ops, name, q, codes, table, scale, nbits, J, block, n_valid):
+    """One ``pq_topj_blocks`` call, measured: the device bytes it held at
+    its peak beyond the outputs it returned (the scratch and whatever else it
+    allocated, by the caching allocator's count), held to the plan's scratch
+    [min(chunk, N), H] bf16 within SCRATCH_SLACK; and its decode and scoring
+    launches as its C loop reported them, held to one of each a chunk of the
+    plan. Returns (transient bytes, launches a call, chunk rows)."""
+    f = pq_ops.pq_topj_blocks
+    N, H = codes.shape[1], q.shape[1]
+    scoring = ("launches", "launches_4bit", "launches_i8dec")
+    dec0, score0 = f.launches_decode, sum(getattr(f, c) for c in scoring)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = f(q, codes, table, J, block, n_valid, scale, nbits)
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+    n_dec, n_score = f.launches_decode - dec0, sum(getattr(f, c) for c in scoring) - score0
+    chunk = pq_ops.pq_chunk_rows(N, block)
+    planned = min(chunk, N) * H * 2
+    check(n_dec == n_score == -(-N // chunk),
+          f"{name}: {n_dec} decode and {n_score} scoring launches in a call of "
+          f"{-(-N // chunk)} chunks")
+    check(transient <= planned + SCRATCH_SLACK,
+          f"{name}: a call held {transient} bytes beyond its outputs, the scratch is {planned}")
+    return transient, n_score, chunk
+
+
 def pq_blocks_check(name, pq_ops, q, codes, table, scale, nbits, k, block_size, n_valid):
     """K15 / K16 against its plain version block by block, on the search's own
     codes, queries, block and J: scores rank-wise within 1e-4 relative, each
     kernel id rescored in fp64 under the kernel's formula (bf16 q x the
-    decoded bf16 row), so ids differ only at ties. Returns the result row."""
+    decoded bf16 row), so ids differ only at ties. Also the device ms of a
+    call's decode passes and scoring launches apart (``kernel_split``) and the
+    scratch's measured bytes (``pq_call_measured``). Returns the result row:
+    times per call, with the call's launches of each kernel (one a chunk)."""
     from denseretrievaltoolkits_torch.ops.topk import serve_plan
 
     N = codes.shape[1]
@@ -2973,17 +3027,28 @@ def pq_blocks_check(name, pq_ops, q, codes, table, scale, nbits, k, block_size, 
     fin = want[1] >= 0
     max_abs = float((got[0] - want[0]).abs()[fin].max())
     ms, plain_ms = cuda_ms(kernel, iters=3), cuda_ms(plain, iters=1, warmup=0)
+    split = kernel_split(kernel, PQ_PASSES, iters=3)
     # the least time: 2 Q N H bf16 products, or the codes, queries and table
-    # read once and the lists written once
+    # read once and the lists written once; the scratch's decoded rows, written
+    # and read once, are bytes of this design, not of the function
     Q, H = q.shape
     b_ms, b_by = bound(codes.numel() + 2 * Q * H + table.numel() * table.element_size()
                        + 8 * Q * -(-N // block) * J, 2 * Q * N * H, "bf16")
-    log(f"{name}: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}); "
-        f"block {block}, J={J}; rank err {err[0]:.3g}, rescored err {err[1]:.3g}, {err[2]} ids "
-        f"differing")
+    scratch_bytes, per_call, chunk = pq_call_measured(pq_ops, name, qb, codes, table, scale,
+                                                      nbits, J, block, n_valid)
+    decode_ms, score_ms = (split.get(p, 0.0) for p in PQ_PASSES)
+    log(f"{name}: kernel {ms:.3f} ms (decode passes {decode_ms:.3f} ms, scoring {score_ms:.3f} "
+        f"ms; {per_call} chunks of {chunk} rows, a launch of each a chunk; {scratch_bytes} "
+        f"bytes held beyond the outputs) vs plain "
+        f"{plain_ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; the decoded rows written and read "
+        f"once {bound(4 * N * H, 0, 'bf16')[0]:.3f} ms); block {block}, J={J}; rank err "
+        f"{err[0]:.3g}, rescored err {err[1]:.3g}, {err[2]} ids differing")
     check(ok, f"{name}: the kernel disagrees with its plain version")
+    check(decode_ms > 0 and score_ms > 0, f"{name}: the profile shows no decode pass or scoring")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs, "bound_ms": b_ms,
-            "bound_by": b_by, "block": block, "J": J, "ids_differing": err[2]}
+            "bound_by": b_by, "block": block, "J": J, "ids_differing": err[2],
+            "decode_ms": decode_ms, "score_ms": score_ms, "chunk_rows": chunk,
+            "launches_per_call": per_call, "scratch_peak_bytes": scratch_bytes}
 
 
 def phase_pq_kernels(seed, flat, pq_ops, n_rows, n_queries=PQ_QUERIES, k=100, dim=768):
@@ -3006,7 +3071,7 @@ def phase_pq_kernels(seed, flat, pq_ops, n_rows, n_queries=PQ_QUERIES, k=100, di
     log(f"PQ kernels: {n_rows} x {dim} spectrumed mixture rows (lambda_d = (d + 1)^-"
         f"{PQ_SPECTRUM}), {n_queries} queries, k={k}; codebooks on {PQ_TRAIN_ROWS} rows")
     out = {}
-    counters = ("launches", "launches_4bit", "launches_i8dec")
+    counters = ("launches", "launches_4bit", "launches_i8dec", "launches_decode")
     for spec, runs in (("PQ96", (("K16", "launches_i8dec"), ("K15 8-bit", "launches"))),
                        ("PQ192x4", (("K15 4-bit", "launches_4bit"),))):
         idx = flat.index_factory(dim, spec, device="cuda")
@@ -3045,12 +3110,16 @@ def phase_pq_kernels(seed, flat, pq_ops, n_rows, n_queries=PQ_QUERIES, k=100, di
                 _, ids = search()
             search_s = (time.perf_counter() - t0) / PQ_TIMED_SEARCHES
             launches = getattr(pq_ops.pq_topj_blocks, counter)
-            check(launches > 0, f"{spec} {name}: the kernel never launched")
+            decode_launches = pq_ops.pq_topj_blocks.launches_decode
+            check(launches > 0 and decode_launches == launches,
+                  f"{spec} {name}: the scoring body launched {launches} times, the decode pass "
+                  f"{decode_launches}")
             check(pq_ops.pq_serve_topk.exact_scans == scans,
                   f"{spec} {name}: the serve search took the exact scan")
             r = pq_blocks_check(f"{spec} {name}", pq_ops, q, codes, table, scale, idx.nbits, k,
                                 idx.block_size, len(idx))
-            r.update(launches=launches, search_ms=search_s * 1e3,
+            r.update(launches=launches, decode_launches=decode_launches,
+                     search_ms=search_s * 1e3,
                      queries_per_s=n_queries / search_s,
                      recall_vs_adc=overlap(ids.tolist(), adc.tolist()),
                      recall10_vs_fp32=recall10_at(ids, fp32_exact, k), train_s=train_s,
@@ -3119,6 +3188,8 @@ def phase_pq_scale(seed, flat, pq_ops, ivf_pq_ops, n_queries=PQ_QUERIES, k=100, 
     against the certified search of a flat int8 index of the same rows, serve
     recall@100 against exact ADC (flat PQ), K17 against its plain version on
     the search's own slab, build seconds, resident and peak memory."""
+    from denseretrievaltoolkits_torch.ops.topk import serve_plan
+
     rows = spectrumed(seed, dim)
     q = rows(0, n_queries, stream=1)
     qn = q.cpu().numpy()
@@ -3157,6 +3228,7 @@ def phase_pq_scale(seed, flat, pq_ops, ivf_pq_ops, n_queries=PQ_QUERIES, k=100, 
                        (pq_ops.pq_topj_blocks, "launches_i8dec" if inner.nbits == 8
                         else "launches_4bit"))
         setattr(fn, counter, 0)
+        pq_ops.pq_topj_blocks.launches_decode = 0
         scans = pq_ops.pq_serve_topk.exact_scans
         index.search(qn, k, mode=mode)  # the tuning call (IVF-PQ: Qcap, hot set)
         torch.cuda.synchronize()
@@ -3166,6 +3238,10 @@ def phase_pq_scale(seed, flat, pq_ops, ivf_pq_ops, n_queries=PQ_QUERIES, k=100, 
         secs = (time.perf_counter() - t0) / IVF_TIMED_SEARCHES
         launches = getattr(fn, counter)
         check(launches > 0, f"scale {spec}: its kernel never launched")
+        if not ivfpq:  # K16: one decode pass a scoring launch
+            check(pq_ops.pq_topj_blocks.launches_decode == launches,
+                  f"scale {spec}: {pq_ops.pq_topj_blocks.launches_decode} decode passes for "
+                  f"{launches} scoring launches")
         check(pq_ops.pq_serve_topk.exact_scans == scans, f"scale {spec}: took the exact scan")
         r = {"train_s": train_s, "build_s": build_s, "resident_gib": resident_gib,
              "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
@@ -3199,15 +3275,23 @@ def phase_pq_scale(seed, flat, pq_ops, ivf_pq_ops, n_queries=PQ_QUERIES, k=100, 
                 f"side slab {state['side'][3]} rows, {inner.last_dropped} pairs dropped")
             check(ok, f"scale {spec}: K17 disagrees with its plain version")
         else:
-            _, adc = pq_ops.pq_blockwise_topk(qt, inner._materialize(), inner._cb_dev, k,
-                                              block_size=65536)
+            n_rows, codes = len(inner), inner._materialize()
+            block, J = serve_plan(k, n_rows, n_rows, inner.block_size)
+            scratch_bytes, per_call, chunk = pq_call_measured(
+                pq_ops, f"scale {spec}", qt.to(torch.bfloat16), codes, inner._table,
+                inner._table_scale, inner.nbits, J, block, n_rows)
+            r.update(chunk_rows=chunk, launches_per_call=per_call,
+                     scratch_peak_bytes=scratch_bytes)
+            _, adc = pq_ops.pq_blockwise_topk(qt, codes, inner._cb_dev, k, block_size=65536)
             r["recall_vs_adc"] = overlap(ids.tolist(), adc.cpu().numpy().tolist())
             check(r["recall_vs_adc"] >= PQ_SERVE_RECALL,
                   f"scale {spec}: serve recall@{k} vs exact ADC below its bound")
         log(f"scale {spec} {mode}: {n_queries} queries k={k} in {secs:.4f} s "
             f"({r['queries_per_s']:.1f} queries/s); recall10@{k} vs the certified int8 flat search "
             f"{r['recall10_vs_int8_flat']:.5f}"
-            + (f", recall@{k} vs exact ADC {r['recall_vs_adc']:.5f}" if not ivfpq else "")
+            + (f", recall@{k} vs exact ADC {r['recall_vs_adc']:.5f}; a call held "
+               f"{r['scratch_peak_bytes']} bytes beyond its outputs ({r['launches_per_call']} "
+               f"chunks of {r['chunk_rows']} rows)" if not ivfpq else "")
             + f"; trained in {train_s:.1f} s, add_chunks {build_s:.1f} s; {resident_gib:.2f} GiB "
               f"resident, peak {r['peak_gib']:.2f} GiB (build and search); {launches} launches")
         check(r["recall10_vs_int8_flat"] >= SCALE_PQ_RECALL10[spec],
@@ -3268,6 +3352,7 @@ def phase_pq_eval_path(args, tmp, ctx, plain_gaps):
     counted = {"fused_attention_ln": (attn.fused_attention_ln, "launches"),
                "fused_mlp_ln": (attn.fused_mlp_ln, "launches"),
                "pq_topj_blocks (K16)": (pq.pq_topj_blocks, "launches_i8dec"),
+               "pq_topj_blocks (decode pass)": (pq.pq_topj_blocks, "launches_decode"),
                "ragged_topj_pq (K17)": (ivf_pq.ragged_topj_pq, "launches"),
                "quantize_int8_device": (quant.quantize_int8_device, "launches"),
                "block_topj_serve": (topk.block_topj_serve, "launches")}
@@ -3297,9 +3382,13 @@ def phase_pq_eval_path(args, tmp, ctx, plain_gaps):
         need = ["fused_attention_ln", "fused_mlp_ln"] + (
             ["ragged_topj_pq (K17)"] + (["quantize_int8_device", "block_topj_serve"]
                                         if side_rows else []) if ivfpq
-            else ["pq_topj_blocks (K16)"])
+            else ["pq_topj_blocks (K16)", "pq_topj_blocks (decode pass)"])
         for name in need:
             check(launches[name] > 0, f"PQ evaluation path {factory}: {name} never launched")
+        if not ivfpq:
+            check(launches["pq_topj_blocks (decode pass)"] == launches["pq_topj_blocks (K16)"],
+                  f"PQ evaluation path {factory}: the C loop made unequal decode and scoring "
+                  f"launches")
         check(pq.pq_serve_topk.exact_scans == scans, f"{factory}: the serve search took the scan")
         for mode, (m, ranked, n_rows, secs) in runs.items():
             log(f"{factory} {mode}: {secs:.2f} s; dump {n_rows} rows; metrics "
@@ -3599,24 +3688,40 @@ def main(argv=None):
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                         "launched_bound_ms": r["launched_bound_ms"]})
-    # the PQ kernels: K15 / K16 times at the 1M-row phase, launches on the path that
-    # runs each (K16 the PQ96 evaluation, K15 the 1M-row serve searches); K17 times at
-    # the 8.8M-row IVF-PQ search's own slab, launches on the IVF16,PQ96x4 evaluation
+    # the PQ kernels: K15 / K16 times at the 1M-row phase, per launch like their
+    # launches (a launch is one chunk: its decode pass and its scoring launch; times
+    # are a call's over its launches, the decode passes' and the scoring launches'
+    # apart, and `ms_call` the call's), launches on the path that runs each (K16 the
+    # PQ96 evaluation, K15 the 1M-row serve searches; the scoring body's, with the
+    # decode pass's beside them); K17 times at the 8.8M-row IVF-PQ search's own slab,
+    # launches on the IVF16,PQ96x4 evaluation
     k17 = pq_scale["OPQ192x4,IVF256,PQ192x4"]
-    for name, line, r, launches in (
+    pq_src = ", ".join(src + f for f in ("pq_serve.cu", "serve_select.cuh", "hopper.cuh",
+                                         "common.cuh"))
+    pq96_launches = pq_eval["PQ96"]["launches"]
+    for name, line, r, launches, decode_launches in (
             ("pq_topj_blocks (K15, 8-bit codes)", "pq.py:349", pq_kernels["K15 8-bit"],
-             pq_kernels["K15 8-bit"]["launches"]),
+             pq_kernels["K15 8-bit"]["launches"], pq_kernels["K15 8-bit"]["decode_launches"]),
             ("pq_topj_blocks (K15, 4-bit codes)", "pq.py:409", pq_kernels["K15 4-bit"],
-             pq_kernels["K15 4-bit"]["launches"]),
+             pq_kernels["K15 4-bit"]["launches"], pq_kernels["K15 4-bit"]["decode_launches"]),
             ("pq_topj_blocks (K16, int8 codebook)", "pq.py:293", pq_kernels["K16"],
-             pq_eval["PQ96"]["launches"]["pq_topj_blocks (K16)"]),
+             pq96_launches["pq_topj_blocks (K16)"],
+             pq96_launches["pq_topj_blocks (decode pass)"]),
             ("ragged_topj_pq (K17)", "ivf_pq.py:58", dict(k17, ms=k17["kernel_ms"]),
-             pq_eval["IVF16,PQ96x4"]["launches"]["ragged_topj_pq (K17)"])):
-        kernels.append({"name": name, "route": "cuda", "source": src + "block_topj.cu",
-                        "replaces": f"denseretrievaltoolkits_tpu/ops/{line}",
-                        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+             pq_eval["IVF16,PQ96x4"]["launches"]["ragged_topj_pq (K17)"], None)):
+        row = {"name": name, "route": "cuda",
+               "source": src + "block_topj.cu" if decode_launches is None else pq_src,
+               "replaces": f"denseretrievaltoolkits_tpu/ops/{line}",
+               "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None}
+        if decode_launches is not None:
+            per = r["launches_per_call"]
+            row.update({k: r[k] / per for k in ("ms", "plain_ms", "bound_ms")},
+                       decode_ms=r["decode_ms"] / per, score_ms=r["score_ms"] / per,
+                       decode_launches=decode_launches, launches_per_call=per,
+                       ms_call=r["ms"], scratch_peak_bytes=r["scratch_peak_bytes"])
+        kernels.append(row)
     # flash attention and K18: times at B=64, S=512 bf16 (K18 also at S=156, its design
     # shape); launches on the S=512 serving path (F-fwd) and training path (F-dkv, F-dq);
     # K18's on both, counted there like the others (no path calls it, as in the

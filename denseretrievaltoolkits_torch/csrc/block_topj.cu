@@ -24,15 +24,12 @@
 //   K14 `_ragged_kernel` / `_scaled` / `_i8q` (:165, :184, :202; `_ivf_ragged_topj`,
 //       :272): the same over the ragged padded-flat block list, whose block -> cell map
 //       picks the slab.
-// and these of denseretrievaltoolkits_tpu/ops/pq.py and ops/ivf_pq.py (the PQ kernels, all
-// with the serve selection):
-//   K15 `_pq_serve_kernel` / `_pq4_serve_kernel` (:349, :409; `pq_topj_blocks`, :499): per
-//       (query tile, corpus block) the block's PQ codes decoded to bf16 rows, scored against
-//       bf16 queries, rows >= n_valid masked;
-//   K16 `_pq_serve_kernel_i8dec` (:293, the same call with `scale`): K15 through an int8
-//       codebook with one scale per output dim;
+// and this of denseretrievaltoolkits_tpu/ops/ivf_pq.py (with the serve selection):
 //   K17 `_ragged_pq_kernel` (ivf_pq.py:58; `_ivf_ragged_topj_pq`, :167): K14 over PQ codes
 //       of cell residuals, each slot's probe score added to its scores before the mask.
+// The flat PQ serve kernels K15 / K16 (ops/pq.py:293, :349, :409) are pq_serve.cu's: a
+// decode pass writes each block's rows once per search, then a wgmma + TMA body scores
+// them. The serve selection itself lives in serve_select.cuh, shared with pq_serve.cu.
 // The IVF kernels are this family with a per-block query base: a block reads its cell
 // (block_cell[blk] for K14, blk / blocks-per-cell for K13; the TPU scalar-prefetches it)
 // and stages its tile of that cell's slots, and the row mask reads the row ids. Their
@@ -50,27 +47,21 @@
 // the smaller id. Output layout [Q, n_blocks, J] (vals fp32, ids int32; an empty slot
 // is (-inf, -1)), which the merge reads as [Q, n_blocks * J] without a transpose.
 //
-// PQ corpora (K15-K17) are code-major: codes [M, N] int8 (code - 128) or [M/2, N]
-// nibble-packed (subspace 2i low, 2i+1 high), M = H / d_sub. The TPU decodes a block with
-// one-hot matmuls against a block-diagonal codebook, whose every output is one codebook
-// entry; here the rows are decoded while they are staged: each code byte gathers that
-// subspace's d_sub entries of a compact table [M, k, d_sub] into the bf16 k-slices the
-// tensor-core body consumes. The 4-bit table (32 H bytes) is copied to shared memory, the
-// 8-bit one (512 H bytes, more than a CTA holds at H = 768) is read through L2. K16's table
-// is int8 with a per-dim scale: the staged value is bf16(float(entry) x scale[dim]), the
-// TPU's s32 one-hot sum times the scale, rounded once. A block decodes its rows once per
-// query tile (Q / 64 times in all).
+// K17's PQ codes are code-major: codes [M, N] int8 (code - 128) or [M/2, N] nibble-packed
+// (subspace 2i low, 2i+1 high), M = H / d_sub. The TPU decodes a block with one-hot
+// matmuls against a block-diagonal codebook, whose every output is one codebook entry;
+// here the rows are decoded while they are staged: each code byte gathers that subspace's
+// d_sub entries of a compact bf16 table [M, k, d_sub] into the k-slices the tensor-core
+// body consumes. The 4-bit table (32 H bytes) is copied to shared memory, the 8-bit one
+// (512 H bytes, more than a CTA holds at H = 768) is read through L2. A block decodes its
+// rows once per 64-query tile of its cell.
 //
 // Template parameters: the query element type QT (float, bf16, int8), the corpus
 // element type CT (float, bf16, int8 or packed int4 with a per-row scale, or PQ codes)
 // and the selection SERVE.
 // - Certified (K5, K6): the list is (score, id) pairs; the certificate and its
 //   escalation ladder run on the host side (ops/topk.py:certified_topk).
-// - Serve (K8, K12): one packed 64-bit key per candidate, order-preserving score bits
-//   high and the inverted row id low, so a merge step is one comparison and ties go to
-//   the smaller id. The TPU packs into 32 bits (Mosaic has no top_k) and rounds the
-//   score to 2^id_bits ulps; here the key keeps all 32 score bits, so scores come back
-//   exact.
+// - Serve (K8, K12): the packed 64-bit keys of serve_select.cuh, scores exact.
 // fp32 rows score in true fp32 (FFMA, no TF32) to match Precision.HIGHEST; bf16 rows
 // score bf16 values with fp32 accumulation; int8 rows under bf16 queries convert to
 // bf16 (|v| <= 127 is exact) and score on the same bf16 path, the scale multiplying in
@@ -107,6 +98,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "serve_select.cuh"
 
 using namespace drt;
 
@@ -114,7 +106,6 @@ namespace {
 
 using i8 = signed char;
 using bf = __nv_bfloat16;
-using u64 = unsigned long long;
 
 constexpr int TN = 128;           // corpus rows per sub-tile
 constexpr int NT = 256;           // threads per block
@@ -130,28 +121,23 @@ enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2, T_I4 = 3 };
 struct nib {
   unsigned char b;
 };
-// PQ codes (corpus elements the tensor-core body decodes while staging): 8-bit codes over a
-// bf16 table (K15, K17), over an int8 table x per-dim scale (K16), 4-bit codes (K15, K17)
+// PQ codes (corpus elements the tensor-core body decodes while staging, K17): 8-bit and
+// 4-bit codes over a bf16 table
 struct pq8 {
-  unsigned char b;
-};
-struct pq8i8 {
   unsigned char b;
 };
 struct pq4 {
   unsigned char b;
 };
 template <typename CT>
-constexpr bool is_pq = std::is_same_v<CT, pq8> || std::is_same_v<CT, pq8i8> ||
-                       std::is_same_v<CT, pq4>;
+constexpr bool is_pq = std::is_same_v<CT, pq8> || std::is_same_v<CT, pq4>;
 
 // The decode operands of a PQ corpus, and the per-slot score offsets of K17.
 struct Decode {
-  const void* table;    // [M, k, d_sub]: bf16, or int8 for K16; k = 256 (8-bit) or 16 (4-bit)
-  const float* dscale;  // K16: [H] fp32 scale of output dim d; else null
-  const float* qoff;    // K17: [n_cells, Q] fp32 added to each slot's scores; else null
-  int d_sub;            // dims per subspace (divides 128)
-  int table_smem;       // copy the table to shared memory (the 4-bit table, where it fits)
+  const void* table;  // [M, k, d_sub] bf16; k = 256 (8-bit) or 16 (4-bit)
+  const float* qoff;  // K17: [n_cells, Q] fp32 added to each slot's scores; else null
+  int d_sub;          // dims per subspace (divides 128)
+  int table_smem;     // copy the table to shared memory (the 4-bit table, where it fits)
 };
 
 // Eight consecutive output dims k..k+7 (k % 8 == 0) of row `row` of a PQ corpus, decoded to
@@ -159,8 +145,7 @@ struct Decode {
 // packed row m / 2), entry (m, code, dim % d_sub) of the table.
 template <typename CT>
 __device__ __forceinline__ uint4 pq_decode8(const unsigned char* __restrict__ codes, int N,
-                                            size_t row, int k, const void* table,
-                                            const float* __restrict__ dscale, int d) {
+                                            size_t row, int k, const void* table, int d) {
   constexpr bool FOUR = std::is_same_v<CT, pq4>;
   constexpr int KC = FOUR ? 16 : 256;
   auto code_of = [&](int m) -> int {
@@ -171,12 +156,10 @@ __device__ __forceinline__ uint4 pq_decode8(const unsigned char* __restrict__ co
       return (int)(__ldg(codes + (size_t)m * N + row) ^ 0x80u);  // centered int8 -> id
     }
   };
-  if constexpr (!std::is_same_v<CT, pq8i8>) {
-    const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
-    if (d >= 8) {  // 8 dims of one subspace: one 16-byte load (d % 8 == 0)
-      const int m = k / d;
-      return *reinterpret_cast<const uint4*>(t + ((size_t)m * KC + code_of(m)) * d + (k - m * d));
-    }
+  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
+  if (d >= 8) {  // 8 dims of one subspace: one 16-byte load (d % 8 == 0)
+    const int m = k / d;
+    return *reinterpret_cast<const uint4*>(t + ((size_t)m * KC + code_of(m)) * d + (k - m * d));
   }
   __align__(16) __nv_bfloat16 o[8];
   int mc = -1;
@@ -188,12 +171,7 @@ __device__ __forceinline__ uint4 pq_decode8(const unsigned char* __restrict__ co
       mc = m;
       at = ((size_t)m * KC + code_of(m)) * d - (size_t)m * d;
     }
-    if constexpr (std::is_same_v<CT, pq8i8>) {
-      const signed char v = static_cast<const signed char*>(table)[at + kk];
-      o[e] = __float2bfloat16_rn((float)v * __ldg(dscale + kk));
-    } else {
-      o[e] = static_cast<const __nv_bfloat16*>(table)[at + kk];
-    }
+    o[e] = t[at + kk];
   }
   return *reinterpret_cast<const uint4*>(o);
 }
@@ -219,21 +197,6 @@ __device__ __forceinline__ const void* corpus_at(const CT* corpus, size_t row, i
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
-
-// The serve key: order-preserving score bits high, the inverted row id low, so a
-// larger key is a larger score or, on a tie, a smaller id. 0 is an empty slot (or a
-// masked row): every finite score maps above it.
-__device__ __forceinline__ u64 pack_key(float v, int row) {
-  if (v == -INFINITY) return 0ull;
-  const unsigned b = __float_as_uint(v);
-  const unsigned o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((u64)o << 32) | (u64)(~(unsigned)row);
-}
-__device__ __forceinline__ float key_score(u64 k) {
-  const unsigned o = (unsigned)(k >> 32);
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-__device__ __forceinline__ int key_row(u64 k) { return (int)~(unsigned)(k & 0xffffffffu); }
 
 // One warp merges a sub-tile's TN scores of one query (sc, rows base..base+TN-1,
 // masked rows at -inf) into the query's sorted top-J list (qlv, qli).
@@ -285,44 +248,14 @@ __device__ __forceinline__ void merge_subtile(const float* sc, int base, float* 
   __syncwarp();
 }
 
-// The serve merge: the same rounds on packed keys, one comparison per step.
+// The serve merge: a sub-tile's TN scores of one query packed into keys (rows
+// base..base+TN-1, masked rows at -inf), then serve_select.cuh's merge into the list.
 __device__ __forceinline__ void merge_subtile_packed(const float* sc, int base, u64* qk, int J,
                                                      int lane) {
-  const u64 thr = qk[J - 1];
   u64 ck[CPL];
-  bool beat = false;
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) {
-    ck[c] = pack_key(sc[lane + 32 * c], base + lane + 32 * c);
-    beat |= ck[c] > thr;
-  }
-  if (!__any_sync(0xffffffffu, beat)) return;
-  const u64 a = lane < J ? qk[lane] : 0ull;
-  bool a_taken = false;
-  bool c_taken[CPL];
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) c_taken[c] = false;
-  u64 nk = 0ull;
-  for (int j = 0; j < J; ++j) {
-    u64 b = a_taken ? 0ull : a;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c)
-      if (!c_taken[c] && ck[c] > b) b = ck[c];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const u64 ob = __shfl_xor_sync(0xffffffffu, b, o);
-      b = ob > b ? ob : b;
-    }
-    if (b == 0ull) break;  // only masked rows / empty slots remain
-    if (lane == j) nk = b;
-    // keys carry their row id, so exactly one lane owns the winner
-    if (!a_taken && a == b) a_taken = true;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c)
-      if (!c_taken[c] && ck[c] == b) c_taken[c] = true;
-  }
-  if (lane < J) qk[lane] = nk;
-  __syncwarp();
+  for (int c = 0; c < CPL; ++c) ck[c] = pack_key(sc[lane + 32 * c], base + lane + 32 * c);
+  merge_keys<CPL>(ck, qk, J, lane);
 }
 
 // The running top-J lists of a block's queries, in LIST_BYTES * JMAX bytes per query
@@ -517,8 +450,7 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
       chunk_rc(i, r, c);
       if constexpr (PQ) {
         held[i] = base + r < N ? pq_decode8<CT>(reinterpret_cast<const unsigned char*>(corpus), N,
-                                                (size_t)(base + r), k0 + c, table, dec.dscale,
-                                                dec.d_sub)
+                                                (size_t)(base + r), k0 + c, table, dec.d_sub)
                                : make_uint4(0, 0, 0, 0);
       } else if constexpr (CONVERT) {
         const void* src = corpus_at(corpus, (size_t)(base + r), k0 + c, H);
@@ -855,8 +787,8 @@ int try_mma(const Args& a) {
   return launch_blocks<QT, CT>(block_topj_mma_kernel<QT, CT, SERVE>, MQ, smem, a);
 }
 
-// the PQ corpora (bf16 queries, the tensor-core body only): 8-bit codes over a bf16 or an
-// int8 table, 4-bit codes with their table in shared memory where it fits
+// K17's PQ corpora (bf16 queries, the tensor-core body only): 8-bit codes over a bf16
+// table, 4-bit codes with their table in shared memory where it fits
 int launch_pq(Args a, int nbits) {
   const size_t base = mma_smem_bytes<bf>(a.H);
   const uintptr_t ptrs =
@@ -870,8 +802,6 @@ int launch_pq(Args a, int nbits) {
     return launch_blocks<bf, pq4>(block_topj_mma_kernel<bf, pq4, true>, MQ, smem, a);
   }
   a.dec.table_smem = 0;
-  if (a.dec.dscale != nullptr)
-    return launch_blocks<bf, pq8i8>(block_topj_mma_kernel<bf, pq8i8, true>, MQ, base, a);
   return launch_blocks<bf, pq8>(block_topj_mma_kernel<bf, pq8, true>, MQ, base, a);
 }
 
@@ -930,7 +860,7 @@ extern "C" int drt_block_topj(const void* q, const void* corpus, const void* csc
   const int n_blocks = (N + block - 1) / block;
   const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
                Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream),
-               Decode{nullptr, nullptr, nullptr, 1, 0}};
+               Decode{nullptr, nullptr, 1, 0}};
   return serve ? dispatch<true>(a, qtype, ctype) : dispatch<false>(a, qtype, ctype);
 }
 
@@ -955,30 +885,13 @@ extern "C" int drt_ivf_topj(const void* qslab, const void* values, const void* c
   const Args a{qslab, values, cscales, qscales, out_v, out_i, Qcap, N, H, INT_MAX, block, J,
                Cells{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell),
                      cell_blocks, sel, n_sel},
-               static_cast<cudaStream_t>(stream), Decode{nullptr, nullptr, nullptr, 1, 0}};
+               static_cast<cudaStream_t>(stream), Decode{nullptr, nullptr, 1, 0}};
   return dispatch<true>(a, qtype, ctype);
 }
 
-// The PQ serve kernels K15 / K16: q [Q, H] bf16 (16-byte aligned) against PQ codes, codes
-// [M, N] int8 (8-bit, code - 128) or [M/2, N] (4-bit, nibble-packed), M = H / d_sub, table
-// [M, k, d_sub] (k = 256 or 16) bf16, or int8 with dscale [H] fp32 (8-bit only: K16); rows
-// >= n_valid masked; serve selection -> out_vals / out_ids [Q, ceil(N / block), J].
-// Takes H % 128 == 0 and d_sub | 128.
-extern "C" int drt_pq_topj(const void* q, const void* codes, const void* table,
-                           const void* dscale, void* out_v, void* out_i, int Q, int N, int H,
-                           int d_sub, int nbits, int n_valid, int block, int J, void* stream) {
-  if (J < 1 || J > JMAX || block < 1 || (nbits != 4 && nbits != 8) ||
-      (nbits == 4 && dscale != nullptr) || d_sub < 1 || H % d_sub != 0)
-    return (int)cudaErrorInvalidValue;
-  const int n_blocks = (N + block - 1) / block;
-  const Args a{q, codes, nullptr, nullptr, out_v, out_i, Q, N, H, n_valid, block, J,
-               Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream),
-               Decode{table, static_cast<const float*>(dscale), nullptr, d_sub, 0}};
-  return launch_pq(a, nbits);
-}
-
-// The IVF-PQ cell kernel K17: K14 over the ragged block list of PQ codes (codes [M, N] or
-// [M/2, N] as drt_pq_topj's, N = n_blocks * block, bf16 table [M, k, d_sub]), each cell's
+// The IVF-PQ cell kernel K17: K14 over the ragged block list of PQ codes (codes [M, N] int8
+// holding code - 128, or [M/2, N] nibble-packed, M = H / d_sub, N = n_blocks * block;
+// bf16 table [M, k, d_sub], d_sub | 128, H % 128 == 0), each cell's
 // bf16 query slab qslab [nlist, Qcap, H]; qoff [nlist, Qcap] fp32 is added to every score
 // of its slot before the row mask (row_ids < 0) and the selection. -> out_vals / out_ids
 // [N / block * ceil(block / sel), Qcap, J], ids flat positions.
@@ -995,6 +908,6 @@ extern "C" int drt_ivf_pq_topj(const void* qslab, const void* codes, const void*
                Cells{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell), 1,
                      sel, n_sel},
                static_cast<cudaStream_t>(stream),
-               Decode{table, nullptr, static_cast<const float*>(qoff), d_sub, 0}};
+               Decode{table, static_cast<const float*>(qoff), d_sub, 0}};
   return launch_pq(a, nbits);
 }

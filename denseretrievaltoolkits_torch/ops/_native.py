@@ -53,8 +53,9 @@ SIGNATURES = {
     # qslab, values, cell_scales, slot_scales, row_ids, block_cell, out_vals, out_ids,
     # Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream
     "drt_ivf_topj": [_P] * 8 + [_I] * 9 + [_P],
-    # q, codes, table, dscale, out_vals, out_ids, Q, N, H, d_sub, nbits, n_valid, block, J, stream
-    "drt_pq_topj": [_P] * 6 + [_I] * 8 + [_P],
+    # q, codes, table, dscale, scratch, out_vals, out_ids, Q, N, H, d_sub, nbits, n_valid,
+    # block, J, chunk_rows, launched (int[2], written: decode and scoring launches), stream
+    "drt_pq_topj": [_P] * 7 + [_I] * 9 + [_P, _P],
     # qslab, codes, table, qoff, row_ids, block_cell, out_vals, out_ids,
     # Qcap, N, H, d_sub, nbits, block, sel, J, stream
     "drt_ivf_pq_topj": [_P] * 8 + [_I] * 8 + [_P],

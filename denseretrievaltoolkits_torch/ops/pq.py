@@ -23,36 +23,40 @@ reference's call order, sums by ``index_add_``), :func:`pq_encode_device`
 :func:`pq_blockwise_topk` (exact ADC: true-fp32 scores against the
 reconstructions). fp32 products on CUDA must not use TF32.
 
-The serve kernels (``csrc/block_topj.cu``, the bf16 tensor-core body of the
-block top-J family with a PQ corpus type): a CTA stages its corpus rows by
-gathering, per code byte, that subspace's ``d_sub`` entries of a compact
-table ``[M, k, d_sub]`` (:func:`bdcb_table` cuts it out of ``bdcb``) into the
-bf16 k-slices the ``mma.sync`` body consumes, scores bf16(q) against them with
-fp32 sums, masks rows >= n_valid and keeps each block's J best rows with the
-64-bit serve selection (exact scores).
+The serve kernels (``csrc/pq_serve.cu``) decode each block once per search,
+as the TPU kernel does, then score it on the tensor cores. The corpus goes
+through in chunks of whole storage blocks (:func:`pq_chunk_rows`); per chunk
+a decode pass writes the chunk's rows, bf16 [rows, H], into a scratch the
+wrapper allocates (the codes gather, per code byte, that subspace's ``d_sub``
+entries of a compact table ``[M, k, d_sub]``, which :func:`bdcb_table` cuts
+out of ``bdcb``), then a wgmma + TMA body scores bf16(q) against the decoded
+rows with fp32 sums, masks rows >= n_valid and keeps each block's J best rows
+with the 64-bit serve selection (exact scores). Two launches a chunk, counted
+per launch: the decode pass in ``pq_topj_blocks.launches_decode``, the
+scoring body in the counter of its kernel:
 
 - K15 (:func:`pq_topj_blocks`, bf16 table; ``_pq_serve_kernel`` and
   ``_pq4_serve_kernel``, pq.py:349, :409): each decoded value is one bf16
-  codebook entry, as the TPU's one-hot matmul yields. The 4-bit table (32 H
-  bytes) sits in shared memory, the 8-bit one (512 H bytes) is read through
-  L2. Launches in ``pq_topj_blocks.launches`` (8-bit) and
-  ``.launches_4bit``.
+  codebook entry, as the TPU's one-hot matmul yields. Scoring launches in
+  ``pq_topj_blocks.launches`` (8-bit) and ``.launches_4bit``.
 - K16 (the same wrapper given ``scale``; ``_pq_serve_kernel_i8dec``,
   pq.py:293): an int8 table and one fp32 scale per output dim; each decoded
   value is bf16(float(entry) x scale[dim]), rounded once, which is what the
-  TPU's s8 x s8 -> s32 one-hot decode yields (it sums one entry). Launches in
-  ``pq_topj_blocks.launches_i8dec``.
+  TPU's s8 x s8 -> s32 one-hot decode yields (it sums one entry). Scoring
+  launches in ``pq_topj_blocks.launches_i8dec``.
 
-Plain version :func:`_pq_topj_reference`; CPU tensors take it, CUDA tensors
-launch the kernel or raise. :func:`pq_serve_topk` is the serve search
-(``pallas_topk_pq_fast``, pq.py:553-588): the Poisson J, the kernels' J <= 32
-by halving the block (``ops/topk.py:serve_plan``), and the exact scan for tiny
-corpora only, counted in ``pq_serve_topk.exact_scans``. The TPU rounds serve
+Plain versions :func:`_pq_decode_reference` (a chunk's decoded rows) and
+:func:`_pq_topj_reference` (chunk by chunk under the same plan); CPU tensors
+take them, CUDA tensors launch the kernels or raise. :func:`pq_serve_topk` is
+the serve search (``pallas_topk_pq_fast``, pq.py:553-588): the Poisson J, the
+kernels' J <= 32 by halving the block (``ops/topk.py:serve_plan``), and the
+exact scan for tiny corpora only, counted in ``pq_serve_topk.exact_scans``. The TPU rounds serve
 scores to 2^id_bits ulps in its packed selection; these come back exact.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -63,6 +67,9 @@ from .topk import JMAX, _per_block, _select_packed, _top, serve_plan
 
 K = 256         # entries per subspace of the 8-bit codes (FAISS's PQ{M} default)
 PQ_BLOCK = 512  # the serve search's default corpus block (pq.py:548)
+# rows of one decode chunk of the serve kernels (rounded to whole blocks): 48 MB of
+# decoded rows at H = 768, most of which the 50 MB L2 still holds when they are scored
+PQ_CHUNK_ROWS = 32768
 # elements of one [M, rows, k] score chunk of the encoder
 _ENCODE_CHUNK = 1 << 27
 
@@ -283,24 +290,51 @@ def _decoded_table(table: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.
     return (table.float() * scale.reshape(M, 1, d)).to(torch.bfloat16)
 
 
-def _pq_topj_reference(q, codes, table, J: int, block_size: int, n_valid: int, scale=None,
-                       nbits: int = 8):
-    """Plain version of K15 (and, with ``scale``, K16): each block's codes
-    decoded to bf16 rows through the table, bf16(q) scored against them with
-    fp32 sums, rows >= n_valid masked, the serve selection (ties to the
-    smaller id). Returns (vals [Q, n_blocks, J], ids)."""
+def pq_chunk_rows(N: int, block_size: int) -> int:
+    """Rows of one chunk of the serve kernels over N rows in blocks of
+    ``block_size``: a whole number of blocks, about PQ_CHUNK_ROWS rows but at
+    least one block, no more blocks than the corpus has nor than a grid's
+    65535. The scratch holds min(chunk, N) decoded rows, so its bytes do not
+    grow with N."""
+    per = max(1, min(-(-N // block_size), PQ_CHUNK_ROWS // block_size, 65535))
+    return per * block_size
+
+
+def _pq_decode_reference(codes, table, scale, nbits: int, row0: int, rows: int) -> torch.Tensor:
+    """Plain version of the decode pass: code columns row0 .. row0 + rows - 1
+    decoded to bf16 rows [rows, H] through the table (K16: bf16(float(entry)
+    x scale[dim]), rounded once)."""
     M, k, d = table.shape
-    tab = _decoded_table(table, scale).float()
+    tab = _decoded_table(table, scale)
+    idx = _code_ids(codes[:, row0:row0 + rows], 1 << nbits)
+    return tab[torch.arange(M, device=codes.device)[:, None], idx].permute(1, 0, 2).reshape(
+        rows, M * d)
+
+
+def _pq_topj_reference(q, codes, table, J: int, block_size: int, n_valid: int, scale=None,
+                       nbits: int = 8, chunk_rows: Optional[int] = None):
+    """Plain version of K15 (and, with ``scale``, K16), chunk by chunk under
+    the kernels' plan (``chunk_rows``, default :func:`pq_chunk_rows`): each
+    chunk's rows decoded to bf16, bf16(q) scored against them with fp32 sums,
+    rows >= n_valid masked, the serve selection per block (ties to the
+    smaller id). Returns (vals [Q, n_blocks, J], ids)."""
+    Q, N = q.shape[0], codes.shape[1]
+    chunk = pq_chunk_rows(N, block_size) if chunk_rows is None else chunk_rows
+    if chunk % block_size:
+        raise ValueError(f"a chunk of {chunk} rows is no whole number of {block_size}-row blocks")
     qb = q.to(torch.bfloat16).float()
-    m_idx = torch.arange(M, device=codes.device)[:, None]
-
-    def score(a, b):
-        idx = pq4_unpack(codes[:, a:b]) if nbits == 4 else codes[:, a:b].to(torch.int64) + 128
-        dec = tab[m_idx, idx].permute(1, 0, 2).reshape(b - a, M * d)
-        return torch.matmul(qb, dec.T)
-
-    return _per_block(score, _select_packed, q.shape[0], codes.shape[1], J, block_size, n_valid,
-                      q.device)
+    n_blocks = -(-N // block_size)
+    vals = torch.full((Q, n_blocks, J), float("-inf"), dtype=torch.float32, device=q.device)
+    ids = torch.full((Q, n_blocks, J), -1, dtype=torch.int32, device=q.device)
+    for row0 in range(0, N, chunk):
+        rows = min(chunk, N - row0)
+        dec = _pq_decode_reference(codes, table, scale, nbits, row0, rows).float()
+        v, i = _per_block(lambda a, b: torch.matmul(qb, dec[a:b].T), _select_packed, Q, rows, J,
+                          block_size, n_valid - row0, q.device)
+        b0 = row0 // block_size
+        vals[:, b0:b0 + v.shape[1]] = v
+        ids[:, b0:b0 + v.shape[1]] = torch.where(i >= 0, i + row0, -1)
+    return vals, ids
 
 
 def _check_table(name, H, codes, table, scale, nbits, device):
@@ -337,7 +371,9 @@ def pq_topj_blocks(q: torch.Tensor, codes: torch.Tensor, table: torch.Tensor, J:
     (bf16 on CUDA), codes [M, N] (8-bit) or [M/2, N] (4-bit), table [M, k,
     d_sub] bf16 (int8 with ``scale`` [H], 8-bit only), rows >= n_valid
     masked. Returns (vals [Q, n_blocks, J] fp32, ids int32), n_blocks =
-    ceil(N / block_size); an empty slot is (-inf, -1)."""
+    ceil(N / block_size); an empty slot is (-inf, -1). On CUDA the corpus
+    goes through in chunks of :func:`pq_chunk_rows` rows, decoded into one
+    bf16 scratch [min(chunk, N), H] (48 MB at H = 768), then scored."""
     H = q.shape[1]
     if not codes.is_cuda:
         return _pq_topj_reference(q, codes, table, J, block_size, n_valid, scale, nbits)
@@ -350,28 +386,33 @@ def pq_topj_blocks(q: torch.Tensor, codes: torch.Tensor, table: torch.Tensor, J:
         raise ValueError(f"{name}: the kernel keeps 1 <= J <= {JMAX} per block, got {J}")
     Q, N = q.shape[0], codes.shape[1]
     n_blocks = -(-N // block_size)
-    if n_blocks > 65535:
-        raise ValueError(f"{name}: {n_blocks} blocks exceed the grid; raise block_size")
     vals = torch.empty((Q, n_blocks, J), dtype=torch.float32, device=q.device)
     ids = torch.empty((Q, n_blocks, J), dtype=torch.int32, device=q.device)
     if Q == 0 or N == 0:
         return vals, ids
     q, codes, table = q.contiguous(), codes.contiguous(), table.contiguous()
+    chunk = pq_chunk_rows(N, block_size)
+    scratch = torch.empty((min(chunk, N), H), dtype=torch.bfloat16, device=q.device)
     counter = "launches_4bit" if nbits == 4 else ("launches_i8dec" if scale is not None
                                                   else "launches")
     lib = _native.library()
-    setattr(pq_topj_blocks, counter, getattr(pq_topj_blocks, counter) + 1)
-    _native.check(lib.drt_pq_topj(
+    launched = (ctypes.c_int * 2)()  # the C loop's decode and scoring launches
+    err = lib.drt_pq_topj(
         q.data_ptr(), codes.data_ptr(), table.data_ptr(),
-        0 if scale is None else scale.data_ptr(), vals.data_ptr(), ids.data_ptr(), Q, N, H,
-        table.shape[2], nbits, int(n_valid), int(block_size), int(J), _native.stream_ptr(q)),
-        "drt_pq_topj")
+        0 if scale is None else scale.data_ptr(), scratch.data_ptr(), vals.data_ptr(),
+        ids.data_ptr(), Q, N, H, table.shape[2], nbits, int(n_valid), int(block_size), int(J),
+        chunk, ctypes.addressof(launched), _native.stream_ptr(q))
+    pq_topj_blocks.launches_decode += launched[0]
+    setattr(pq_topj_blocks, counter, getattr(pq_topj_blocks, counter) + launched[1])
+    _native.check(err, "drt_pq_topj")
     return vals, ids
 
 
-pq_topj_blocks.launches = 0        # K15, 8-bit codes
-pq_topj_blocks.launches_4bit = 0   # K15, 4-bit codes
-pq_topj_blocks.launches_i8dec = 0  # K16
+# launches made, as the C loop counts them: one of each kernel a chunk
+pq_topj_blocks.launches = 0         # K15's scoring body, 8-bit codes
+pq_topj_blocks.launches_4bit = 0    # K15's scoring body, 4-bit codes
+pq_topj_blocks.launches_i8dec = 0   # K16's scoring body
+pq_topj_blocks.launches_decode = 0  # the decode pass (K15 and K16)
 
 
 def pq_serve_topk(q_reps: torch.Tensor, codes: torch.Tensor, codebooks: torch.Tensor,

@@ -4,7 +4,7 @@ checkout (say the parent commit), on one card, in turns.
 
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
-    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|attn_ln|flash_bwd]
+    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|attn_ln|flash_bwd|pq]
                          [--seed 0] [--profile] [--ptxas] [--out FILE]
 
 ``--kernel mlp_ln`` (the default): K2, called through its wrapper
@@ -29,6 +29,17 @@ with SDPA's backward on the same inputs beside them. Errors are each gradient's
 largest difference to its checkout's closed-form plain version over its largest
 value.
 
+``--kernel pq``: the PQ serve kernels K16 (PQ96, int8 codebook), K15 8-bit (PQ96,
+bf16 table) and K15 4-bit (PQ192x4) through ``ops/pq.py:pq_topj_blocks`` at
+``chip_smoke.py``'s ``phase_pq_kernels`` shapes: 1,000,000 spectrumed rows x 768,
+2048 queries, k=100 (its serve plan: PQ96 1024-row blocks, PQ192x4 2048), codebooks
+trained on 65,536 of the rows (4 iterations). The inputs are made once and saved, so
+both checkouts score the same codes. Errors are the kernel's largest difference to
+its checkout's plain version over the first 128 queries. Another chunk size is timed
+as another checkout: a copy of this tree with ``ops/pq.py:PQ_CHUNK_ROWS`` edited.
+``--profile`` splits a call by CUDA kernel (``pq_decode_kernel`` / ``pq_score_wgmma``,
+or the parent's one ``block_topj_mma_kernel``); ``--ptxas`` reads ``pq_serve.cu``.
+
 Four processes run in turn, other, this, this, other; each imports the port from
 its own checkout (which builds its kernels into its own ``_build/``), makes the
 same inputs from ``--seed`` and times the calls with CUDA events. ``--profile``
@@ -46,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import torch
 
@@ -60,7 +72,11 @@ TOL = 3e-2
 # the flash backward: (B, S) at bert-base widths
 FLASH_SHAPES = ((64, 512), (8, 32))
 NH, HD = 12, 64
-SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",)}
+# the PQ serve kernels: (name, M, nbits, int8 codebook), at 1M rows x 768, 2048 queries
+PQ_CASES = (("K16", 96, 8, True), ("K15 8-bit", 96, 8, False), ("K15 4-bit", 192, 4, False))
+PQ_ROWS, PQ_DIM, PQ_QUERIES, PQ_K, PQ_TRAIN = 1_000_000, 768, 2048, 100, 65_536
+SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",),
+           "pq": ("pq_serve.cu",)}
 
 
 def inputs(B, S, gen):
@@ -187,7 +203,62 @@ def flash_bwd_rows(chip_smoke, seed, profile):
     return out
 
 
-def worker(checkout, kernel, seed, profile):
+def pq_inputs(chip_smoke, seed, path):
+    """K15 / K16's inputs, made by this checkout and saved to ``path``: the
+    spectrumed rows' codes under codebooks trained on PQ_TRAIN of them, the
+    kernels' tables, the queries, block and J of the serve plan."""
+    sys.path.insert(0, ROOT)
+    from denseretrievaltoolkits_torch.ops import pq
+    from denseretrievaltoolkits_torch.ops.topk import serve_plan
+
+    rows = chip_smoke.spectrumed(seed, PQ_DIM)
+    x = rows(0, PQ_ROWS)
+    out = {"q": rows(0, PQ_QUERIES, stream=1).to(torch.bfloat16)}
+    for name, M, nbits, i8 in PQ_CASES:
+        if name == "K15 8-bit":  # PQ96's codes again, through the bf16 table
+            out[name] = dict(out["K16"], scale=None, table=pq.bdcb_table(pq.build_bdcb(cb))[0])
+            continue
+        cb = pq.pq_train(x[:PQ_TRAIN], M, iters=4, seed=seed, k=1 << nbits)
+        codes = pq.pq_encode_device(x, torch.from_numpy(cb).cuda())
+        table, scale = (pq.bdcb_table(*pq.build_bdcb_i8(cb)) if i8 else
+                        pq.bdcb_table(pq.build_bdcb(cb), k=1 << nbits))
+        block, J = serve_plan(PQ_K, PQ_ROWS, PQ_ROWS, 1024 if nbits == 8 else 2048)
+        out[name] = {"codes": codes.cpu(), "table": table, "scale": scale, "nbits": nbits,
+                     "block": block, "J": J}
+    torch.save(out, path)
+
+
+def pq_rows(chip_smoke, path, profile):
+    """K15 / K16 of the imported checkout on the saved inputs."""
+    from denseretrievaltoolkits_torch.ops import pq
+
+    inputs = torch.load(path)
+    q = inputs["q"].cuda()
+    out = {}
+    for name, *_ in PQ_CASES:
+        a = inputs[name]
+        codes, table = a["codes"].cuda(), a["table"].cuda()
+        scale = None if a["scale"] is None else a["scale"].cuda()
+
+        def call(qq=q):
+            return pq.pq_topj_blocks(qq, codes, table, a["J"], a["block"], PQ_ROWS, scale,
+                                     a["nbits"])
+        v, i = call(q[:128])
+        rv, ri = pq._pq_topj_reference(q[:128], codes, table, a["J"], a["block"], PQ_ROWS, scale,
+                                       a["nbits"])
+        fin = ri >= 0
+        row = {"ms": chip_smoke.cuda_ms(call, iters=5, warmup=1),
+               "max_abs_err": (v - rv).abs()[fin].max().item(),
+               "ids_differing": int(((i != ri) & fin).sum()), "block": a["block"], "J": a["J"]}
+        if profile:
+            row["kernels_us"] = kernel_us(call, iters=3)
+        out[name] = row
+        del codes, v, i, rv, ri
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(checkout, kernel, seed, profile, inputs=""):
     """One turn: ``kernel`` of ``checkout`` at every shape, as a dict."""
     import chip_smoke  # this checkout's, before the other checkout leads the path
     sys.path.insert(0, os.path.abspath(checkout))
@@ -199,6 +270,8 @@ def worker(checkout, kernel, seed, profile):
            "build_s": _native.build_seconds}
     if kernel == "flash_bwd":
         out.update(flash_bwd_rows(chip_smoke, seed, profile))
+    elif kernel == "pq":
+        out.update(pq_rows(chip_smoke, inputs, profile))
     else:
         out.update(block_rows(chip_smoke, seed, profile, k1=kernel == "attn_ln"))
     return out
@@ -226,6 +299,10 @@ def ptxas(kernel):
 def describe(name, turn, kernel):
     """One line per turn."""
     rows = {k: v for k, v in turn.items() if isinstance(v, dict)}
+    if kernel == "pq":
+        return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms, max_abs {v['max_abs_err']:.3e}, {v['ids_differing']} ids "
+            f"differing" for k, v in rows.items())
     if "rel_err" not in next(iter(rows.values())):
         bound = f"{TOL:g}" if kernel == "attn_ln" else f"max({TOL:g}, 1 ulp)"
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
@@ -248,12 +325,13 @@ def main(argv=None):
     parser.add_argument("--ptxas", action="store_true")
     parser.add_argument("--out", default="")
     parser.add_argument("--worker", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--inputs", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     if args.worker:
-        print(json.dumps(worker(args.worker, args.kernel, args.seed, args.profile)))
+        print(json.dumps(worker(args.worker, args.kernel, args.seed, args.profile, args.inputs)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -265,35 +343,41 @@ def main(argv=None):
         result["ptxas"] = lines
         if rc:
             return 1
-    for i, (name, checkout) in enumerate((("other", args.other), ("this", ROOT), ("this", ROOT),
-                                          ("other", args.other))):
-        cmd = [sys.executable, os.path.abspath(__file__), "--other", args.other,
-               "--kernel", args.kernel, "--seed", str(args.seed), "--worker", checkout]
-        if args.profile and name == "this" and i == 1:
-            cmd.append("--profile")
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT)
-        if proc.returncode:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            return 1
-        turn = json.loads(proc.stdout.strip().splitlines()[-1])
-        result["turns"].append({"name": name, **turn})
-        print(describe(name, turn, args.kernel), flush=True)
-        for k, v in turn.items():
-            if isinstance(v, dict) and "kernels_us" in v:
-                print(f"  {k} device us a call by kernel: " + ", ".join(
-                    f"{n} {t:.2f}" for n, t in v["kernels_us"].items()), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:  # the saved inputs of --kernel pq
+        inputs = os.path.join(tmp, "pq_inputs.pt")
+        if args.kernel == "pq":
+            import chip_smoke
+            pq_inputs(chip_smoke, args.seed, inputs)
+            torch.cuda.empty_cache()
+        for i, (name, checkout) in enumerate((("other", args.other), ("this", ROOT), ("this", ROOT),
+                                              ("other", args.other))):
+            cmd = [sys.executable, os.path.abspath(__file__), "--other", args.other,
+                   "--kernel", args.kernel, "--seed", str(args.seed), "--worker", checkout,
+                   "--inputs", inputs]
+            if args.profile and name == "this" and i == 1:
+                cmd.append("--profile")
+            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT)
+            if proc.returncode:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+                return 1
+            turn = json.loads(proc.stdout.strip().splitlines()[-1])
+            result["turns"].append({"name": name, **turn})
+            print(describe(name, turn, args.kernel), flush=True)
+            for k, v in turn.items():
+                if isinstance(v, dict) and "kernels_us" in v:
+                    print(f"  {k} device us a call by kernel: " + ", ".join(
+                        f"{n} {t:.2f}" for n, t in v["kernels_us"].items()), flush=True)
     flash = args.kernel == "flash_bwd"
-    shapes = FLASH_SHAPES if flash else SHAPES
     fields = ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms", "sdpa_bwd_ms") if flash else ("ms",)
-    for B, S in shapes:
-        key = f"B={B} S={S}"
+    keys = [k for k, v in result["turns"][0].items() if isinstance(v, dict)]
+    for key in keys:
         result[key] = {}
         for field in fields:
             ms = {n: [t[key][field] for t in result["turns"] if t["name"] == n]
                   for n in ("this", "other")}
             means = {n: sum(v) / len(v) for n, v in ms.items()}
             result[key].update({f"this_{field}": means["this"], f"other_{field}": means["other"]})
-            print(f"{args.kernel} bf16 {key} {field}: this {means['this']:.4f} ms {ms['this']}, "
+            print(f"{args.kernel} {key} {field}: this {means['this']:.4f} ms {ms['this']}, "
                   f"other {means['other']:.4f} ms {ms['other']}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -927,31 +927,52 @@ def _decoded_rows(table, scale, codes, rows, nbits):
     return dec.reshape(*rows.shape, M * d)
 
 
+# (Q, N, block, n_valid, PQ_CHUNK_ROWS) of test_pq_topj_kernel: one chunk of 512-row
+# blocks; three chunks of two blocks (the last chunk one short block, n_valid inside
+# it) under 200 queries (a second, partial 128-query tile); one query over 100-row blocks
+# (shorter than the scoring body's 128-row tile) in three chunks of ten blocks
+PQ_SHAPES = {"one-chunk": (70, 2300, 512, 2200, None),
+             "three-chunks-q200": (200, 2300, 512, 2200, 1024),
+             "q1-block100": (1, 2300, 100, 2250, 1000)}
+
+
 @pytest.mark.parametrize("nbits,i8dec,H,M", [(8, False, 768, 96), (8, True, 768, 96),
                                              (8, True, 128, 8), (8, False, 256, 128),
                                              (4, False, 768, 192), (4, False, 128, 16),
                                              (4, False, 1024, 256), (8, True, 384, 24)])
 @pytest.mark.parametrize("J", [6, 32])
-def test_pq_topj_kernel(gen, nbits, i8dec, H, M, J):
-    """K15 / K16 against their plain version on 2300 rows in 512-row blocks
-    (a short last block, rows past n_valid masked): scores within 1e-5, every
-    kernel id rescored in fp64 under the kernel's formula (bf16 q x decoded
-    bf16 row) gives its score, ids equal but at ties. d_sub 2 to 16; H=1024
-    puts the 4-bit table in device memory instead of shared memory."""
+@pytest.mark.parametrize("shape", sorted(PQ_SHAPES))
+def test_pq_topj_kernel(gen, monkeypatch, nbits, i8dec, H, M, J, shape):
+    """K15 / K16 (the decode pass, then the scoring body, per chunk) against
+    their plain version over 2300 rows at each PQ_SHAPES case (a short last
+    block, rows past n_valid masked): one launch of each kernel a chunk;
+    scores within 1e-5, every kernel id rescored in fp64 under the kernel's
+    formula (bf16 q x decoded bf16 row) gives its score, ids equal but at
+    ties. d_sub 2 to 16, H 128 to 1024."""
     from denseretrievaltoolkits_torch.ops import pq
 
-    cb, codes, table, scale = _pq_case(gen, H, M, nbits, 2300, i8dec)
-    q = _randn(gen, 70, H).to(torch.bfloat16)
+    Q, N, block, n_valid, target = PQ_SHAPES[shape]
+    if target is not None:
+        monkeypatch.setattr(pq, "PQ_CHUNK_ROWS", target)
+    n_chunks = -(-N // pq.pq_chunk_rows(N, block))
+    assert n_chunks == (1 if target is None else 3)
+    cb, codes, table, scale = _pq_case(gen, H, M, nbits, N, i8dec)
+    q = _randn(gen, Q, H).to(torch.bfloat16)
     counter = "launches_4bit" if nbits == 4 else ("launches_i8dec" if i8dec else "launches")
-    n = getattr(pq.pq_topj_blocks, counter)
-    v, i = pq.pq_topj_blocks(q, codes, table, J, 512, 2200, scale, nbits)
+    n, n_dec = getattr(pq.pq_topj_blocks, counter), pq.pq_topj_blocks.launches_decode
+    v, i = pq.pq_topj_blocks(q, codes, table, J, block, n_valid, scale, nbits)
     torch.cuda.synchronize()
-    assert getattr(pq.pq_topj_blocks, counter) == n + 1
-    rv, ri = pq._pq_topj_reference(q, codes, table, J, 512, 2200, scale, nbits)
-    assert v.shape == rv.shape == (70, 5, J) and torch.equal(i < 0, ri < 0)
+    assert getattr(pq.pq_topj_blocks, counter) == n + n_chunks
+    assert pq.pq_topj_blocks.launches_decode == n_dec + n_chunks
+    n_blocks = -(-N // block)
+    rv, ri = pq._pq_topj_reference(q, codes, table, J, block, n_valid, scale, nbits,
+                                   chunk_rows=n_blocks * block)  # unchunked
+    assert v.shape == rv.shape == (Q, n_blocks, J) and torch.equal(i < 0, ri < 0)
     fin = ri >= 0
     torch.testing.assert_close(v[fin], rv[fin], rtol=1e-5, atol=1e-5)
-    assert (i[fin] < 2200).all()
+    assert (i[fin] < n_valid).all()
+    starts = torch.arange(n_blocks, device="cuda")[None, :, None] * block
+    assert ((i >= starts) & (i < starts + block))[fin].all()  # each id in its own block
     dec = _decoded_rows(table, scale, codes, i.clamp(min=0).long(), nbits)
     s = (q.double()[:, None, None, :] * dec).sum(-1)
     torch.testing.assert_close(s[fin], v[fin].double(), rtol=1e-5, atol=1e-4)
@@ -961,9 +982,11 @@ def test_pq_topj_kernel(gen, nbits, i8dec, H, M, J):
 def test_pq_serve_topk_runs_the_kernels(gen):
     """The serve search: k=100 over 40,000 rows in 1024-row blocks (J=8) and
     k=1000 (the reference's J of 52 halves the block until J <= 32): the
-    kernels launch, the exact scan never; the ranking is the plain version's
-    up to ties."""
+    kernels launch, once a chunk (two chunks of 32,768 rows), the exact scan
+    never; the ranking is the plain version's up to ties."""
     from denseretrievaltoolkits_torch.ops import pq
+
+    from denseretrievaltoolkits_torch.ops.topk import serve_plan
 
     cb, codes, table, scale = _pq_case(gen, 256, 32, 8, 40000, i8dec=True)
     q = _randn(gen, 50, 256)
@@ -971,7 +994,8 @@ def test_pq_serve_topk_runs_the_kernels(gen):
         n, scans = pq.pq_topj_blocks.launches_i8dec, pq.pq_serve_topk.exact_scans
         s, ids = pq.pq_serve_topk(q, codes, cb, table, k, 1024, scale=scale)
         torch.cuda.synchronize()
-        assert pq.pq_topj_blocks.launches_i8dec == n + 1 and ids.shape == (50, k)
+        n_chunks = -(-40000 // pq.pq_chunk_rows(40000, serve_plan(k, 40000, 40000, 1024)[0]))
+        assert pq.pq_topj_blocks.launches_i8dec == n + n_chunks and ids.shape == (50, k)
         assert pq.pq_serve_topk.exact_scans == scans
         rs, rids = pq.pq_serve_topk(q.cpu(), codes.cpu(), cb.cpu(), table.cpu(), k, 1024,
                                     scale=scale.cpu())

@@ -209,6 +209,97 @@ def test_serve_kernel_plain_matches_pallas(fitted, nbits, i8dec):
                                rtol=2 * _quantum(block), atol=1e-6)
 
 
+def _onehot_rows(cb, codes, nbits, i8dec, row0, rows):
+    """The rows [rows, H] bf16 (as uint16 bits) that the Pallas kernels' one-hot
+    decode yields for code columns row0 .. row0 + rows - 1, in numpy from the
+    reference's block-diagonal operand: per 128-dim group, bdcb[g] times the
+    one-hot of the group's codes (fp32 sums; K16: int8 x int8 -> int32, then
+    times the per-dim scale), cast to bf16 (pq.py:318-341, :375-392)."""
+    M, k, d = cb.shape
+    ids = tpq._code_ids(_j2t(codes[:, row0:row0 + rows]), k).numpy()  # [M, rows]
+    onehot = np.zeros((M, k, rows), np.float32)
+    onehot[np.arange(M)[:, None], ids, np.arange(rows)[None, :]] = 1.0
+    G = 128 // d
+    onehot = onehot.reshape(M // G, G * k, rows)
+    if i8dec:
+        bd, sc = jpq.build_bdcb_i8(cb)
+        acc = np.einsum("gik,gkr->gir", np.asarray(bd, np.int32), onehot.astype(np.int32))
+        out = acc.astype(np.float32) * np.asarray(sc)
+    else:
+        out = np.einsum("gik,gkr->gir", np.asarray(jpq.build_bdcb(cb), np.float32), onehot)
+    out = out.reshape(M * d, rows).T
+    return np.asarray(jnp.asarray(out).astype(jnp.bfloat16)).view(np.uint16)
+
+
+@pytest.mark.parametrize("nbits,i8dec", [(8, False), (8, True), (4, False)],
+                         ids=["K15-8bit", "K16", "K15-4bit"])
+def test_decode_pass_plain_bit_equal_to_onehot(fitted, nbits, i8dec):
+    """The plain decode pass (``_pq_decode_reference``) over a slice of code
+    columns that starts mid-corpus: bit-equal to the rows the JAX kernels'
+    one-hot matmul yields from ``build_bdcb`` / ``build_bdcb_i8``."""
+    _, _, out = fitted
+    cb, codes = out[nbits]
+    _, _, table, scale = _serve_operands(cb, nbits, i8dec)
+    got = tpq._pq_decode_reference(_j2t(codes), table, scale, nbits, 700, 900)
+    assert got.dtype == torch.bfloat16 and got.shape == (900, H)
+    want = _onehot_rows(cb, codes, nbits, i8dec, 700, 900)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), want)
+
+
+@pytest.mark.parametrize("nbits,i8dec", [(8, False), (8, True), (4, False)],
+                         ids=["K15-8bit", "K16", "K15-4bit"])
+def test_chunk_plan_plain_matches_unchunked_and_pallas(fitted, monkeypatch, nbits, i8dec):
+    """The plain K15 / K16 chunk by chunk under the wrapper's plan: 1900 rows,
+    k=100 (serve_plan halves the 512-row block to 256, J=31), chunks of two
+    blocks (four chunks, the last of 364 rows ending in a 108-row block),
+    n_valid 1850 inside the last chunk. The same lists as the unchunked plain
+    version, and per block the ids of ``pq_topj_blocks`` (interpret; the codes
+    padded to whole blocks, the pad masked by n_valid), scores within two
+    quanta."""
+    from denseretrievaltoolkits_torch.ops.topk import serve_plan
+
+    _, queries, out = fitted
+    cb, codes = out[nbits]
+    N, n_valid = 1900, 1850
+    block, J = serve_plan(100, N, n_valid, 512)
+    assert (block, J) == (256, 31)
+    monkeypatch.setattr(tpq, "PQ_CHUNK_ROWS", 600)
+    chunk = tpq.pq_chunk_rows(N, block)
+    assert chunk == 512 and -(-N // chunk) == 4 and N % block == 108
+    jop, jsc, table, scale = _serve_operands(cb, nbits, i8dec)
+    q = torch.from_numpy(queries[:32]).to(torch.bfloat16)
+    tv, ti = tpq.pq_topj_blocks(q, _j2t(codes[:, :N]), table, J, block, n_valid, scale, nbits)
+    uv, ui = tpq._pq_topj_reference(q, _j2t(codes[:, :N]), table, J, block, n_valid, scale,
+                                    nbits, chunk_rows=8 * block)
+    assert torch.equal(tv, uv) and torch.equal(ti, ui)
+    padded = np.concatenate([codes[:, :N], np.zeros((codes.shape[0], 8 * block - N), np.int8)], 1)
+    jv, ji = jpq.pq_topj_blocks(jnp.asarray(queries[:32]), jnp.asarray(padded), jop, J, block,
+                                n_valid, tq=32, scale=jsc, nbits=nbits)
+    jv, ji = np.transpose(np.asarray(jv), (2, 0, 1)), np.transpose(np.asarray(ji), (2, 0, 1))
+    tv, ti = tv.numpy(), ti.numpy()
+    fin = jv > -1e29
+    np.testing.assert_array_equal(ti >= 0, fin)
+    assert (ti[fin] < n_valid).all() and (ti[:, 7][fin[:, 7]] >= 7 * block).all()
+    for a, b, f in zip(ti.reshape(-1, J), ji.reshape(-1, J), fin.reshape(-1, J)):
+        assert set(a[f]) == set(b[f])
+    np.testing.assert_allclose(np.sort(np.where(fin, tv, 0), -1), np.sort(np.where(fin, jv, 0), -1),
+                               rtol=2 * _quantum(block), atol=1e-6)
+
+
+def test_chunk_plan_bounds_the_scratch(monkeypatch):
+    """Chunks are whole blocks of about PQ_CHUNK_ROWS rows, at least one block,
+    at most the corpus's blocks and a grid's 65535: the scratch (min(chunk, N)
+    rows) does not grow with N, 48 MB at H = 768 at MS MARCO's 8.8M rows."""
+    assert tpq.pq_chunk_rows(8_841_823, 1024) == 32768
+    assert tpq.pq_chunk_rows(1_000_000, 2048) == 32768
+    assert tpq.pq_chunk_rows(1_000_000, 3000) == 30000
+    assert tpq.pq_chunk_rows(1_000_000, 65536) == 65536
+    assert tpq.pq_chunk_rows(5000, 512) == 5120
+    assert min(tpq.pq_chunk_rows(8_841_823, 1024), 8_841_823) * 768 * 2 == 48 * 2 ** 20
+    monkeypatch.setattr(tpq, "PQ_CHUNK_ROWS", 10 ** 6)
+    assert tpq.pq_chunk_rows(10 ** 9, 1) == 65535
+
+
 @pytest.mark.parametrize("n,k,block", [(5000, 20, 512), (5000, 300, 512), (900, 20, 512)],
                          ids=["poisson-J", "J-over-32", "tiny-corpus"])
 def test_serve_search_matches_pallas_fast(fitted, n, k, block):
