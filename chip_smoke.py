@@ -2,7 +2,7 @@
 """Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash) once on a card; check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json] [--flash_only]
-                          [--blocks_only] [--eval_only]
+                          [--blocks_only] [--eval_only] [--ivf_only]
 
 Phases, each of which fails the run on error:
 
@@ -101,13 +101,15 @@ Phases, each of which fails the run on error:
    ``IVFR1024`` (ragged, 512-row blocks, K14) trained on 262,144 rows,
    nprobe 32, k=100; fp32, bf16 and int8 cells in ``bulk``, int8 in
    ``i8q``. Each body then meets its plain version block by block on the
-   search's own slab, blocks and J (ids equal up to ties, scores within
-   1e-5 fp32 / 1e-4 others, i8q bit-equal); kernel, plain and bound ms (the
-   bound on the data's own work: the stored rows of the probed cells against
-   their real query slots; the launched, padded shape's beside it),
-   queries/s, recall@100 against the certified flat search of the same rows
-   and dtype. Then ``PCAR384,SQ4`` through ``train`` and ``add_chunks``.
-   (Runs before phase 3.)
+   search's own slab, blocks, J and filled slots (ids equal up to ties,
+   scores within 1e-5 fp32 / 1e-4 others, i8q bit-equal); every search and
+   call must run ``csrc/ivf_cell.cu``'s bodies (``launches_generic`` 0, and
+   one call's CUDA kernels by ``torch.profiler``); kernel, plain and bound ms
+   (the bound on the data's own work: the stored rows of the probed cells
+   against their real query slots; the launched, padded shape's beside it),
+   a launch's device ms by CUDA kernel, queries/s, recall@100 against the
+   certified flat search of the same rows and dtype. Then ``PCAR384,SQ4``
+   through ``train`` and ``add_chunks``. (Runs before phase 3.)
 15. The evaluation path into a trained index: phase 11's model evaluated
    with ``index_factory="IVF16,SQ8"`` (nprobe 4) in ``bulk`` and ``i8q``:
    spill, k-means, ``add_chunks`` (K7), K13, the side slab on K8 / K12.
@@ -116,9 +118,11 @@ Phases, each of which fails the run on error:
 16. Scale IVF: 8,841,823 x 768 mixture rows in ``IVFR256,SQ8`` (nprobe 8,
    2048-row blocks), trained on 262,144 rows, ``add_chunks`` in 500,000-row
    chunks; ``bulk`` and ``i8q`` at steady state after the tuning call (the
-   learned Qcap, hot set, drops, K14's time), recall@100 against the
-   certified search of a flat int8 index of the same rows, build seconds,
-   resident and peak memory.
+   learned Qcap, hot set, drops, K14's time, its split by CUDA kernel and
+   its block-by-block check against the plain version, as phase 14's),
+   recall@100 against the certified search of a flat int8 index of the same
+   rows, build seconds, resident and peak memory. ``--ivf_only`` runs phases
+   14 and 16 alone.
 17. K15 and K16 (the PQ serve kernels) through the entry points: 1,000,000 x
    768 rows of the JAX package's PQ benchmark data (the IVF mixture times
    the spectrum (d + 1)^-0.35), 2048 queries, k=100; ``PQ96`` trained on
@@ -2555,24 +2559,25 @@ def ivf_cell_call(ivf_bulk, idx, q, k, mode):
     row_ids = idx._row_ids.reshape(-1)
     scales = None if idx._scales is None else idx._scales.reshape(-1)
     block, sel, J = idx._cell_plan(qcap, k)
+    filled = ivf_bulk.filled_slots(ps, qcap)  # as the searches pass them
     if idx._values.dim() == 3:  # the fixed-capacity layout, K13
         block_cell, cell_blocks = None, int(idx._values.shape[1]) // block
 
         def kernel():
             return ivf_bulk.cell_topj(ps.qslab, idx._values, idx._row_ids, idx._scales, J, block,
-                                      sel, ps.qscales)
+                                      sel, ps.qscales, filled)
         block_of = torch.arange(values.shape[0] // block, device="cuda") // cell_blocks
     else:  # the ragged layout, K14
         block_cell, cell_blocks = idx._block_cell, 1
 
         def kernel():
             return ivf_bulk.ragged_topj(idx._block_cell, ps.qslab, idx._values, idx._row_ids,
-                                        idx._scales, J, block, sel, ps.qscales)
+                                        idx._scales, J, block, sel, ps.qscales, filled)
         block_of = idx._block_cell.long()
 
     def plain():
         return ivf_bulk._ivf_topj_reference(ps.qslab, values, row_ids, scales, ps.qscales,
-                                            block_cell, cell_blocks, J, block, sel)
+                                            block_cell, cell_blocks, J, block, sel, filled)
     per = -(-block // sel)
     # list (selection block sb, slot s) scores query row cell(sb) * Qcap + s of the slab
     list_q = ((block_of.repeat_interleave(per) * qcap)[:, None]
@@ -2597,8 +2602,52 @@ def ivf_cell_call(ivf_bulk, idx, q, k, mode):
     kind = "int8" if mode == "i8q" else ("fp32" if idx.dtype == "float32" else "bf16")
     return {"kernel": kernel, "plain": plain, "ps": ps, "values": values, "row_ids": row_ids,
             "scales": scales, "list_q": list_q, "block": block, "sel": sel, "J": J,
+            "slots": filled,
             "bound": bound(n_bytes, 2 * dim * float((slots * rows).sum()), kind),
             "launched_bound": bound(launched_bytes, 2 * dim * values.shape[0] * qcap, kind)}
+
+
+# The CUDA kernels of the IVF cell kernels' bodies, by a piece of their names: ivf_cell.cu's
+# (wgmma: bf16 / int8 rows / i8q; ffma: fp32) and the block top-J family's, which takes the
+# shapes those do not (its launches also count on ``launches_generic``)
+IVF_BODIES = tuple((p, (p,)) for p in ("ivf_cell_wgmma", "ivf_cell_ffma", "block_topj"))
+# the groups of one bulk search's kernels, as ENCODE_GROUPS: the cell kernel, the side scan
+# (K8 / K12), the merges' sorts and top-k, the probe's products, gathers and the rest
+IVF_SEARCH_GROUPS = (("cell kernel (K13 / K14)", ("ivf_cell",)),
+                     ("side scan (K8 / K12)", ("block_topj",)),
+                     ("sorts", ("Sort",)), ("top-k", ("TopK",)), ("top-k", ("topk",)),
+                     ("products (cuBLAS)", ("nvjet",)), ("products (cuBLAS)", ("gemm",)),
+                     ("gathers and scatters", ("index",)),
+                     ("elementwise", ("elementwise_kernel",)))
+
+
+def ivf_cell_checked(name, call, exact, rel_tol, dim):
+    """The cell kernel's lists against its plain version's, list by list, both
+    with the search's ``slots``: bit-equal where ``exact`` (i8q), else each list
+    (selection block, slot) rank-wise and rescored against its slot of its
+    cell's slab (``blocks_against_plain``); then one call's device ms by CUDA
+    kernel (``encode_split``), in which the block top-J family's body may not
+    appear. Returns (ok, errors, max abs error, split)."""
+    got, want = call["kernel"](), call["plain"]()
+    if exact:
+        ok = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        err = (0.0, 0.0, int((got[1] != want[1]).sum()))
+    else:
+        n_lists, J = got[0].shape[0] * got[0].shape[1], got[0].shape[2]
+        ok, *err = blocks_against_plain(
+            call["ps"].qslab.reshape(-1, dim), call["values"], call["scales"],
+            tuple(t.reshape(n_lists, 1, J) for t in got),
+            tuple(t.reshape(n_lists, 1, J) for t in want), rel_tol, chunk=8192,
+            list_q=call["list_q"], stored=call["row_ids"] >= 0)
+    fin = want[1] >= 0
+    max_abs = float((got[0] - want[0]).abs()[fin].max()) if fin.any() else 0.0
+    del got, want
+    split = encode_split(call["kernel"], IVF_BODIES)["groups_ms"]
+    check("block_topj" not in split, f"{name}: a call ran the block top-J family's body")
+    if not split:  # the counters (launches_generic 0) still show which body ran
+        log(f"{name}: torch.profiler recorded none of the call's CUDA kernels")
+    return ok, err, max_abs, split
+
 
 
 def phase_ivf_kernels(seed, flat, ivf, ivf_bulk, n_rows, n_queries=2048, k=100, dim=768):
@@ -2627,7 +2676,7 @@ def phase_ivf_kernels(seed, flat, ivf, ivf_bulk, n_rows, n_queries=2048, k=100, 
         f"{IVF_SIGMA}), {n_queries} queries, k={k}; k-means of {IVF_NLIST} cells on "
         f"{IVF_TRAIN_ROWS} rows in {train_s:.1f} s")
     out = {"train_s": train_s}
-    counters = ("launches", "launches_int8", "launches_i8q")
+    counters = ("launches", "launches_int8", "launches_i8q", "launches_generic")
     for layout, cls, fn in (("IVF", ivf.IVFFlatIndex, ivf_bulk.cell_topj),
                             ("IVFR", ivf.IVFRaggedIndex, ivf_bulk.ragged_topj)):
         for dtype, mode in (("float32", "bulk"), ("bfloat16", "bulk"), ("int8", "bulk"),
@@ -2651,26 +2700,17 @@ def phase_ivf_kernels(seed, flat, ivf, ivf_bulk, n_rows, n_queries=2048, k=100, 
                 _, ids = idx.search(q, k, mode=mode)
             qps = IVF_TIMED_SEARCHES * n_queries / (time.perf_counter() - t0)
             launches = {c: getattr(fn, c) for c in counters}
+            search = encode_split(lambda: idx.search(q, k, mode=mode), IVF_SEARCH_GROUPS)
             body = "launches_i8q" if mode == "i8q" else (
                 "launches_int8" if dtype == "int8" else "launches")
             check(launches[body] > 0, f"{name}: the cell kernel never launched")
+            check(launches["launches_generic"] == 0,
+                  f"{name}: the search ran the block top-J family's body, not ivf_cell.cu's")
             recall = overlap(ids.tolist(), exact[dtype].tolist())
             call = ivf_cell_call(ivf_bulk, idx, q, k, mode)
-            got, want = call["kernel"](), call["plain"]()
-            if mode == "i8q":  # s32 products: bit-equal
-                ok = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
-                err = (0.0, 0.0, int((got[1] != want[1]).sum()))
-            else:
-                # each list (selection block, slot) against its slot of its cell's slab
-                n_lists, J = got[0].shape[0] * got[0].shape[1], got[0].shape[2]
-                ok, *err = blocks_against_plain(
-                    call["ps"].qslab.reshape(-1, dim), call["values"], call["scales"],
-                    tuple(t.reshape(n_lists, 1, J) for t in got),
-                    tuple(t.reshape(n_lists, 1, J) for t in want),
-                    1e-5 if dtype == "float32" else 1e-4, chunk=8192, list_q=call["list_q"],
-                    stored=call["row_ids"] >= 0)
-            fin = want[1] >= 0
-            max_abs = float((got[0] - want[0]).abs()[fin].max()) if fin.any() else 0.0
+            # i8q's s32 products: bit-equal
+            ok, err, max_abs, split = ivf_cell_checked(
+                name, call, mode == "i8q", 1e-5 if dtype == "float32" else 1e-4, dim)
             ms, plain_ms = cuda_ms(call["kernel"]), cuda_ms(call["plain"], iters=2)
             state = idx._bulk_state
             out[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs,
@@ -2681,15 +2721,22 @@ def phase_ivf_kernels(seed, flat, ivf, ivf_bulk, n_rows, n_queries=2048, k=100, 
                          "qcap": state["qcap"], "hot": int(state["hot"].size),
                          "side_rows": state["side"][3], "dropped": idx.last_dropped,
                          "block": call["block"], "sel": call["sel"], "J": call["J"],
-                         "launches": launches[body], "build_s": build_s}
+                         "launches": launches[body], "build_s": build_s,
+                         "body": "+".join(split), "kernel_split_ms": split,
+                         "filled_slots": int(call["slots"].sum()), "search_split": search}
             log(f"{name}: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (bound "
                 f"{call['bound'][0]:.3f} ms by {call['bound'][1]}; {call['launched_bound'][0]:.3f}"
-                f" ms at the launched shape), block {call['block']} in selection blocks of "
+                f" ms at the launched shape; a launch by CUDA kernel, ms: "
+                f"{json.dumps(split)}; {int(call['slots'].sum())} of "
+                f"{call['slots'].numel() * state['qcap']} slots filled), block {call['block']} in "
+                f"selection blocks of "
                 f"{call['sel']}, J={call['J']}; rank err {err[0]:.3g}, rescored err {err[1]:.3g}, "
                 f"{err[2]} ids differing; {qps:.1f} queries/s; recall@{k} vs exact {dtype} "
                 f"{recall:.5f} (vs fp32 {out[name]['recall_vs_fp32']:.5f}); Qcap {state['qcap']}, "
                 f"{state['hot'].size} hot cells, side slab {state['side'][3]} rows, "
-                f"{idx.last_dropped} pairs dropped; built in {build_s:.2f} s")
+                f"{idx.last_dropped} pairs dropped; built in {build_s:.2f} s; one search under "
+                f"torch.profiler: wall {search['wall_ms']:.2f} ms, device {search['device_ms']:.2f}"
+                f" ms, by group {json.dumps(search['groups_ms'])}")
             check(ok, f"{name}: the cell kernel disagrees with its plain version")
             check(recall >= IVF_RECALL[layout],
                   f"{name}: recall@{k} below {IVF_RECALL[layout]}")
@@ -2884,7 +2931,7 @@ def phase_ivf_scale(seed, flat, ivf_bulk, n_queries=2048, k=100, dim=768):
     resident_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
     q = rows(0, n_queries, stream=1).cpu().numpy()
     exact = ref.search(q, k, mode="exact")[1]
-    counters = ("launches_int8", "launches_i8q")
+    counters = ("launches_int8", "launches_i8q", "launches_generic")
     res = {}
     for mode in ("bulk", "i8q"):
         for c in counters:
@@ -2899,22 +2946,36 @@ def phase_ivf_scale(seed, flat, ivf_bulk, n_queries=2048, k=100, dim=768):
             _, ids = index.search(q, k, mode=mode)
         secs = (time.perf_counter() - t0) / IVF_TIMED_SEARCHES
         launches = {c: getattr(ivf_bulk.ragged_topj, c) for c in counters}
+        search = encode_split(lambda: index.search(q, k, mode=mode), IVF_SEARCH_GROUPS)
         recall = overlap(ids.tolist(), exact.tolist())
         call = ivf_cell_call(ivf_bulk, index, q, k, mode)
+        ok, err, max_abs, split = ivf_cell_checked(f"scale IVF {mode}", call, mode == "i8q",
+                                                   1e-4, dim)
         kernel_ms = cuda_ms(call["kernel"], iters=3)
         res[mode] = dict(tuned, seconds=secs, queries_per_s=n_queries / secs, recall=recall,
                          launches=launches["launches_i8q" if mode == "i8q" else "launches_int8"],
                          steady_dropped=index.last_dropped, kernel_ms=kernel_ms,
-                         bound_ms=call["bound"][0], J=call["J"])
+                         bound_ms=call["bound"][0], bound_by=call["bound"][1],
+                         launched_bound_ms=call["launched_bound"][0], J=call["J"],
+                         max_abs_err=max_abs, body="+".join(split), kernel_split_ms=split,
+                         filled_slots=int(call["slots"].sum()), search_split=search)
         log(f"scale IVF {mode}: {n_queries} queries k={k} in {secs:.4f} s ({n_queries / secs:.1f} "
             f"queries/s), of which K14 {kernel_ms:.3f} ms (J={call['J']}, bound "
             f"{call['bound'][0]:.3f} ms by {call['bound'][1]}, "
-            f"{call['launched_bound'][0]:.3f} ms at the launched shape); recall@{k} vs the "
+            f"{call['launched_bound'][0]:.3f} ms at the launched shape; a launch by CUDA kernel, "
+            f"ms: {json.dumps(split)}; {int(call['slots'].sum())} slots filled); vs its plain "
+            f"version: rank err {err[0]:.3g}, rescored err {err[1]:.3g}, {err[2]} ids differing; "
+            f"recall@{k} vs the "
             f"certified int8 flat search {recall:.5f} (>= "
             f"{SCALE_IVF_RECALL}); Qcap {tuned['qcap']}, hot cells {tuned['hot']}, side slab "
             f"{tuned['side_rows']} rows, pairs dropped {tuned['dropped']} (tuning) / "
-            f"{index.last_dropped} (steady); K14 launches {json.dumps(launches)}")
+            f"{index.last_dropped} (steady); K14 launches {json.dumps(launches)}; one search "
+            f"under torch.profiler: wall {search['wall_ms']:.2f} ms, device "
+            f"{search['device_ms']:.2f} ms, by group {json.dumps(search['groups_ms'])}")
         check(res[mode]["launches"] > 0, f"scale IVF {mode}: K14 never launched")
+        check(launches["launches_generic"] == 0,
+              f"scale IVF {mode}: the search ran the block top-J family's body, not ivf_cell.cu's")
+        check(ok, f"scale IVF {mode}: the cell kernel disagrees with its plain version")
         check(recall >= SCALE_IVF_RECALL, f"scale IVF {mode}: recall@{k} below its bound")
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     pad = index._block_cell.numel() * index.block / SCALE_ROWS - 1
@@ -3502,6 +3563,9 @@ def main(argv=None):
     parser.add_argument("--blocks_only", action="store_true",
                         help="run only K1 and K2 against their plain versions (phase 2), for "
                              "their readings at another --seed; prints no kernels line")
+    parser.add_argument("--ivf_only", action="store_true",
+                        help="run only the IVF cell kernels' phases (14 and 16: 1M and 8.8M "
+                             "rows), for their readings; prints no kernels line")
     parser.add_argument("--eval_only", action="store_true",
                         help="run only the evaluation paths (phases 11, 15 and 18, with the "
                              "plain encoder's PQ96 gaps), for their readings at another --seed; "
@@ -3531,6 +3595,16 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.blocks_only:
         results = {"card": smi, "seed": args.seed, "blocks": phase_block_kernels(gen, attn)}
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(results, fh, indent=1)
+        log(smi)
+        return 0
+    if args.ivf_only:
+        results = {"card": smi, "seed": args.seed,
+                   "ivf_kernels": phase_ivf_kernels(args.seed + 7, flat, ivf, ivf_bulk,
+                                                    args.corpus_rows),
+                   "ivf_scale": phase_ivf_scale(args.seed + 11, flat, ivf_bulk)}
         if args.out:
             with open(args.out, "w") as fh:
                 json.dump(results, fh, indent=1)
@@ -3665,6 +3739,8 @@ def main(argv=None):
                         "launches": eval_path["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    ivf_src = ", ".join(src + f for f in ("ivf_cell.cu", "serve_select.cuh", "hopper.cuh",
+                                          "common.cuh"))
     # the IVF cell kernels: times at the 1M-row phase, one row per body; launches on
     # the path that runs the body (the 1M-row searches for fp32 / bf16 cells, the
     # evaluation path for K13's int8 bodies, the 8.8M-row phase for K14's)
@@ -3682,12 +3758,12 @@ def main(argv=None):
             ("ragged_topj (K14, i8q)", 202, "IVFR", "int8 i8q",
              ivf_scale["modes"]["i8q"]["launches"])):
         r = ivf_kernels[f"{layout}{IVF_NLIST} {body}"]
-        kernels.append({"name": name, "route": "cuda", "source": src + "block_topj.cu",
+        kernels.append({"name": name, "route": "cuda", "source": ivf_src,
                         "replaces": f"denseretrievaltoolkits_tpu/ops/ivf_bulk.py:{line}",
                         "launches": r["launches"] if launches is None else launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-                        "launched_bound_ms": r["launched_bound_ms"]})
+                        "launched_bound_ms": r["launched_bound_ms"], "body": r["body"]})
     # the PQ kernels: K15 / K16 times at the 1M-row phase, per launch like their
     # launches (a launch is one chunk: its decode pass and its scoring launch; times
     # are a call's over its launches, the decode passes' and the scoring launches'

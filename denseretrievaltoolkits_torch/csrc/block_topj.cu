@@ -16,8 +16,9 @@
 //       int4 rows, fp32 queries, true-fp32 scores times the row scale;
 //   K11 `_block_topj_kernel_packed_sq4` (:166, `_pallas_block_topj_packed_sq4`, :445): the
 //       serve selection over int4 rows, bf16 queries.
-// and these of denseretrievaltoolkits_tpu/ops/ivf_bulk.py (the IVF cell kernels, all with
-// the serve selection):
+// and, for the shapes ivf_cell.cu's bodies do not take (drt_ivf_cell_takes), these of
+// denseretrievaltoolkits_tpu/ops/ivf_bulk.py (the IVF cell kernels, all with the serve
+// selection; ivf_cell.cu runs them otherwise):
 //   K13 `_cell_topj_kernel` / `_scaled` / `_i8q` (:44, :61, :143; `_ivf_cell_topj`, :122):
 //       per (cell, cell block) the cell's probing-query slab [Qcap, H] against the block's
 //       rows of the fixed-capacity layout [nlist * C, H], empty slots (row id < 0) masked;

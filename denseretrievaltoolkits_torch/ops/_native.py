@@ -53,6 +53,11 @@ SIGNATURES = {
     # qslab, values, cell_scales, slot_scales, row_ids, block_cell, out_vals, out_ids,
     # Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream
     "drt_ivf_topj": [_P] * 8 + [_I] * 9 + [_P],
+    # qslab, values, cell_scales, slot_scales, row_ids, block_cell, slots, out_vals, out_ids,
+    # nlist, Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream
+    "drt_ivf_cell": [_P] * 9 + [_I] * 10 + [_P],
+    # qslab, values, H, qtype, ctype -> 1 where drt_ivf_cell takes the shape (not a cudaError_t)
+    "drt_ivf_cell_takes": [_P, _P, _I, _I, _I],
     # q, codes, table, dscale, scratch, out_vals, out_ids, Q, N, H, d_sub, nbits, n_valid,
     # block, J, chunk_rows, launched (int[2], written: decode and scoring launches), stream
     "drt_pq_topj": [_P] * 7 + [_I] * 9 + [_P, _P],

@@ -16,14 +16,20 @@ the JAX package:
    (:func:`cell_topj`) walks the fixed-capacity layout [nlist, C, dim], K14
    (:func:`ragged_topj`) the ragged padded-flat block list, whose
    ``block_cell`` map names each block's cell. Both are one C entry,
-   ``drt_ivf_topj`` in ``csrc/block_topj.cu``, the PR 3 block top-J family
-   with a per-block query base and a row-id mask. Bodies: fp32 and bf16
+   ``drt_ivf_cell`` in ``csrc/ivf_cell.cu``: the searches pass ``slots``,
+   each cell's filled query slots (:func:`filled_slots`), and the kernel
+   scores and selects only those, and only row tiles holding a stored row;
+   the other slots' lists come back (-inf, -1). Bodies: fp32 and bf16
    cells (queries of the cells' dtype), int8 cells x per-row scales (bf16
    queries) and i8q (int8 queries, s32 products, x row scale x slot
    scale). Launches are counted per body in ``<wrapper>.launches`` (fp32 /
-   bf16 cells), ``.launches_int8`` and ``.launches_i8q``. CPU tensors take
-   the plain version of both, :func:`_ivf_topj_reference`; CUDA tensors
-   launch the kernel or raise;
+   bf16 cells), ``.launches_int8`` and ``.launches_i8q``. Shapes the new
+   bodies do not take (``drt_ivf_cell_takes``: bf16 / int8 rows at
+   H % 64 != 0, i8q at H % 128 != 0, unaligned operands) run the block
+   top-J family's body, ``drt_ivf_topj`` in ``csrc/block_topj.cu``, whose
+   launches also count on ``.launches_generic``. CPU tensors take the plain
+   version of both, :func:`_ivf_topj_reference`; CUDA tensors launch a
+   kernel or raise;
 4. **merge**: per (cell, slot) over the cell's blocks, per pair back to
    query order, per query; then the dense side scan (overflow rows and hot
    cells) on K8 (:func:`..topk.block_topj_serve`) or K12
@@ -203,11 +209,33 @@ def _cell_scores(qs, rows, scales, qscales) -> torch.Tensor:
     return s if scales is None else s * scales[:, None, :]
 
 
+def filled_slots(ps: ProbeSlab, Qcap: int) -> torch.Tensor:
+    """int32 [nlist]: each cell's filled query slots, its first
+    ``min(counts, Qcap)`` (:func:`invert_probe_pairs` gives a cell's real
+    pairs its first slots); the cell kernels' ``slots``."""
+    return ps.counts.clamp(max=Qcap).to(torch.int32)
+
+
+def _clear_empty_slots(vals, ids, slots, block_cell, cell_blocks, per: int) -> None:
+    """(-inf, -1) in place in the lists [n_sel, Qcap, J] of every slot at or
+    past its cell's ``slots`` entry (selection block i in storage block
+    i // per, whose cell is ``block_cell`` or the block // ``cell_blocks``)."""
+    n_sel, Qcap = vals.shape[:2]
+    blocks = torch.arange(n_sel, device=vals.device) // per
+    cells = blocks // cell_blocks if block_cell is None else block_cell.long()[blocks]
+    empty = (torch.arange(Qcap, device=vals.device)[None, :]
+             >= slots.long()[cells][:, None])[:, :, None]
+    vals.masked_fill_(empty, float("-inf"))
+    ids.masked_fill_(empty, -1)
+
+
 def _ivf_topj_reference(qslab, values, row_ids, scales, qscales, block_cell, cell_blocks,
-                        J: int, block: int, sel: int):
+                        J: int, block: int, sel: int, slots=None):
     """Plain version of the IVF cell kernels over values [N, H] in N / block
     storage blocks (cell ``block_cell[b]``, or ``b // cell_blocks``), each cut
-    into selection blocks of ``sel`` rows: (vals, ids) [n_sel, Qcap, J]."""
+    into selection blocks of ``sel`` rows: (vals, ids) [n_sel, Qcap, J]; with
+    ``slots`` [nlist], the lists of a cell's slots at or past its entry are
+    (-inf, -1)."""
     N, H = values.shape
     Qcap = qslab.shape[1]
     n_blocks, per = N // block, -(-block // sel)
@@ -231,13 +259,16 @@ def _ivf_topj_reference(qslab, values, row_ids, scales, qscales, block_cell, cel
         v, i = _packed_topj(s.reshape(b1 - b0, Qcap, per, sel), ids, J)
         out_v[b0 * per:b1 * per] = v.permute(0, 2, 1, 3).reshape(-1, Qcap, J)
         out_i[b0 * per:b1 * per] = i.permute(0, 2, 1, 3).reshape(-1, Qcap, J)
+    if slots is not None:
+        _clear_empty_slots(out_v, out_i, slots, block_cell, cell_blocks, per)
     return out_v, out_i
 
 
 def _launch(wrapper, qslab, values, row_ids, scales, qscales, block_cell, cell_blocks, J, block,
-            sel):
-    """Check the operands and launch ``drt_ivf_topj``; one launch adds one to
-    the counter of its body on ``wrapper``."""
+            sel, slots=None):
+    """Check the operands and launch ``drt_ivf_cell``, or ``drt_ivf_topj`` for
+    a shape it does not take; one launch adds one to the counter of its body
+    on ``wrapper`` (and, on ``drt_ivf_topj``, to ``launches_generic``)."""
     name = wrapper.__name__
     nlist, Qcap, H = qslab.shape
     N = values.shape[0]
@@ -261,6 +292,9 @@ def _launch(wrapper, qslab, values, row_ids, scales, qscales, block_cell, cell_b
         if t is not None and (t.dtype != torch.float32 or t.shape != shape
                               or t.device != values.device):
             raise ValueError(f"{name}: {what} must be float32 {list(shape)}")
+    if slots is not None and (slots.dtype != torch.int32 or slots.shape != (nlist,)
+                              or slots.device != values.device):
+        raise ValueError(f"{name}: slots must be int32 [{nlist}]")
     if not (1 <= J <= JMAX and J <= sel <= block):
         raise ValueError(f"{name}: the kernel keeps 1 <= J <= {JMAX} <= selection block "
                          f"{sel} <= block {block}, got J={J}")
@@ -274,29 +308,41 @@ def _launch(wrapper, qslab, values, row_ids, scales, qscales, block_cell, cell_b
         return vals, ids
     qslab, values = qslab.contiguous(), values.contiguous()
     lib = _native.library()
+    qtype, ctype = TYPE_CODES[qslab.dtype], TYPE_CODES[values.dtype]
+    ptrs = (qslab.data_ptr(), values.data_ptr(), 0 if scales is None else scales.data_ptr(),
+            0 if qscales is None else qscales.contiguous().data_ptr(), row_ids.data_ptr(),
+            0 if block_cell is None else block_cell.data_ptr())
     setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    if lib.drt_ivf_cell_takes(qslab.data_ptr(), values.data_ptr(), H, qtype, ctype):
+        _native.check(lib.drt_ivf_cell(
+            *ptrs, 0 if slots is None else slots.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            nlist, Qcap, N, H, int(block), int(sel), int(J), int(cell_blocks), qtype, ctype,
+            _native.stream_ptr(values)), "drt_ivf_cell")
+        return vals, ids
+    wrapper.launches_generic += 1
     _native.check(lib.drt_ivf_topj(
-        qslab.data_ptr(), values.data_ptr(), 0 if scales is None else scales.data_ptr(),
-        0 if qscales is None else qscales.contiguous().data_ptr(), row_ids.data_ptr(),
-        0 if block_cell is None else block_cell.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        Qcap, N, H, int(block), int(sel), int(J), int(cell_blocks),
-        TYPE_CODES[qslab.dtype], TYPE_CODES[values.dtype], _native.stream_ptr(values)),
-        "drt_ivf_topj")
+        *ptrs, vals.data_ptr(), ids.data_ptr(), Qcap, N, H, int(block), int(sel), int(J),
+        int(cell_blocks), qtype, ctype, _native.stream_ptr(values)), "drt_ivf_topj")
+    if slots is not None:
+        _clear_empty_slots(vals, ids, slots, block_cell, cell_blocks, -(-block // sel))
     return vals, ids
 
 
 def cell_topj(qslab: torch.Tensor, values: torch.Tensor, row_ids: torch.Tensor,
               scales: Optional[torch.Tensor], J: int, block: int, sel: Optional[int] = None,
-              qscales: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              qscales: Optional[torch.Tensor] = None, slots: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13 over the fixed-capacity layout: qslab [nlist, Qcap, dim] against
     values [nlist, C, dim] (row_ids [nlist, C] int32, -1 = empty; scales
     [nlist, C] for int8 cells; qscales [nlist, Qcap] for int8 slots), C a
-    multiple of ``block``. Returns (vals, ids) [nlist * C / block *
-    ceil(block / sel), Qcap, J], ids flat positions in [nlist * C]."""
+    multiple of ``block``; ``slots`` int32 [nlist]: each cell's filled slots,
+    its first ones (None: every slot), the others' lists (-inf, -1). Returns
+    (vals, ids) [nlist * C / block * ceil(block / sel), Qcap, J], ids flat
+    positions in [nlist * C]."""
     nlist, C, dim = values.shape
     args = (qslab, values.reshape(nlist * C, dim), row_ids.reshape(-1),
             None if scales is None else scales.reshape(-1), qscales, None, C // block, J, block,
-            block if sel is None else sel)
+            block if sel is None else sel, slots)
     if not values.is_cuda:
         return _ivf_topj_reference(*args)
     return _launch(cell_topj, *args)
@@ -305,18 +351,19 @@ def cell_topj(qslab: torch.Tensor, values: torch.Tensor, row_ids: torch.Tensor,
 cell_topj.launches = 0
 cell_topj.launches_int8 = 0
 cell_topj.launches_i8q = 0
+cell_topj.launches_generic = 0
 
 
 def ragged_topj(block_cell: torch.Tensor, qslab: torch.Tensor, values: torch.Tensor,
                 row_ids: torch.Tensor, scales: Optional[torch.Tensor], J: int, block: int,
-                sel: Optional[int] = None, qscales: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                sel: Optional[int] = None, qscales: Optional[torch.Tensor] = None,
+                slots: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K14 over the ragged padded-flat layout: values [nb_total * block, dim]
     whose block b belongs to cell ``block_cell[b]`` (int32 [nb_total]); row
-    ids, scales and slabs as :func:`cell_topj`. Returns (vals, ids)
+    ids, scales, slabs and slots as :func:`cell_topj`. Returns (vals, ids)
     [nb_total * ceil(block / sel), Qcap, J], ids flat positions."""
     args = (qslab, values, row_ids, scales, qscales, block_cell, 1, J, block,
-            block if sel is None else sel)
+            block if sel is None else sel, slots)
     if not values.is_cuda:
         return _ivf_topj_reference(*args)
     return _launch(ragged_topj, *args)
@@ -325,6 +372,7 @@ def ragged_topj(block_cell: torch.Tensor, qslab: torch.Tensor, values: torch.Ten
 ragged_topj.launches = 0
 ragged_topj.launches_int8 = 0
 ragged_topj.launches_i8q = 0
+ragged_topj.launches_generic = 0
 
 
 # -- the searches -----------------------------------------------------------------------------
@@ -367,7 +415,8 @@ def ivf_bulk_search(q, centroids, values, row_ids, scales, side_values, side_sca
     B = q.shape[0]
     ps = probe_slab(q, centroids, values.dtype, nlist, nprobe, Qcap, hot_penalty, n_real,
                     i8_native)
-    vals_b, ids_b = cell_topj(ps.qslab, values, row_ids, scales, J, block, sel, ps.qscales)
+    vals_b, ids_b = cell_topj(ps.qslab, values, row_ids, scales, J, block, sel, ps.qscales,
+                              filled_slots(ps, Qcap))
     # 4a) per (cell, slot): the cell's selection blocks, in row order
     nbs = vals_b.shape[0] // nlist
     v = vals_b.reshape(nlist, nbs, Qcap, J).permute(0, 2, 1, 3).reshape(nlist * Qcap, nbs * J)
@@ -395,7 +444,7 @@ def ivf_ragged_search(q, centroids, values, row_ids, scales, block_cell, block_s
     ps = probe_slab(q, centroids, values.dtype, nlist, nprobe, Qcap, hot_penalty, n_real,
                     i8_native)
     vals_b, ids_b = ragged_topj(block_cell, ps.qslab, values, row_ids, scales, J, block, sel,
-                                ps.qscales)
+                                ps.qscales, filled_slots(ps, Qcap))
     tv, ti = ragged_merge(vals_b, ids_b, ps, block_start, block, sel, nb_max, nprobe, k)
     tv, doc = _finish(tv, ti, row_ids, ps, (side_values, side_scales, side_ids, side_valid,
                                             side_J, side_block), k)

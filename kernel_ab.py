@@ -4,7 +4,7 @@ checkout (say the parent commit), on one card, in turns.
 
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
-    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|attn_ln|flash_bwd|pq]
+    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf]
                          [--seed 0] [--profile] [--ptxas] [--out FILE]
 
 ``--kernel mlp_ln`` (the default): K2, called through its wrapper
@@ -39,6 +39,18 @@ its checkout's plain version over the first 128 queries. Another chunk size is t
 as another checkout: a copy of this tree with ``ops/pq.py:PQ_CHUNK_ROWS`` edited.
 ``--profile`` splits a call by CUDA kernel (``pq_decode_kernel`` / ``pq_score_wgmma``,
 or the parent's one ``block_topj_mma_kernel``); ``--ptxas`` reads ``pq_serve.cu``.
+
+``--kernel ivf``: the IVF cell kernels K13 (``cell_topj``) and K14 (``ragged_topj``) at
+``chip_smoke.py``'s phase 14 shapes (1,000,000 mixture rows x 768, 2048 queries, k=100,
+``IVF1024`` / ``IVFR1024`` with 512-row blocks, nprobe 32; fp32, bf16 and int8 cells in
+bulk, int8 in i8q) and K14 at phase 16's (8,841,823 rows in ``IVFR256,SQ8``, 2048-row
+blocks, nprobe 8; bulk and i8q), each call as the search makes it after its tuning call
+(Qcap, hot set, plan). The centroids are trained once and saved; each turn makes the same
+rows from the seed, adds them to indexes on the saved centroids and reports checksums of
+its layout and slabs, which must agree between turns. A checkout whose wrappers take
+``slots`` gets the search's filled slots; errors are over the filled slots' lists against
+the checkout's plain version (the i8q lists must be bit-equal). ``--profile`` splits a
+call by CUDA kernel; ``--ptxas`` reads ``ivf_cell.cu``.
 
 Four processes run in turn, other, this, this, other; each imports the port from
 its own checkout (which builds its kernels into its own ``_build/``), makes the
@@ -75,8 +87,16 @@ NH, HD = 12, 64
 # the PQ serve kernels: (name, M, nbits, int8 codebook), at 1M rows x 768, 2048 queries
 PQ_CASES = (("K16", 96, 8, True), ("K15 8-bit", 96, 8, False), ("K15 4-bit", 192, 4, False))
 PQ_ROWS, PQ_DIM, PQ_QUERIES, PQ_K, PQ_TRAIN = 1_000_000, 768, 2048, 100, 65_536
+# the IVF cell kernels: (name, layout, cell dtype, search mode); "scale" is the 8.8M-row
+# IVFR256,SQ8 index
+IVF_CASES = tuple((f"{k} 1M {d} {m}", layout, d, m)
+                  for k, layout in (("K13", "IVF"), ("K14", "IVFR"))
+                  for d, m in (("float32", "bulk"), ("bfloat16", "bulk"), ("int8", "bulk"),
+                               ("int8", "i8q"))) + (
+    ("K14 8.8M int8 bulk", "scale", "int8", "bulk"), ("K14 8.8M int8 i8q", "scale", "int8", "i8q"))
+IVF_ROWS, IVF_QUERIES, IVF_K = 1_000_000, 2048, 100
 SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",),
-           "pq": ("pq_serve.cu",)}
+           "pq": ("pq_serve.cu",), "ivf": ("ivf_cell.cu",)}
 
 
 def inputs(B, S, gen):
@@ -258,6 +278,119 @@ def pq_rows(chip_smoke, path, profile):
     return out
 
 
+def ivf_inputs(chip_smoke, seed, path):
+    """The centroids of the IVF cases, trained by this checkout as ``chip_smoke.py``'s
+    phases 14 and 16 train them, saved to ``path``."""
+    sys.path.insert(0, ROOT)
+    from denseretrievaltoolkits_torch.index import flat, ivf
+
+    rows = chip_smoke.mixture(seed + 7, H)
+    small = ivf.IVFFlatIndex(H, nlist=chip_smoke.IVF_NLIST, nprobe=chip_smoke.IVF_NPROBE,
+                             device="cuda")
+    small.train(rows(0, chip_smoke.IVF_TRAIN_ROWS))
+    rows = chip_smoke.mixture(seed + 11, H)
+    scale = flat.index_factory(H, f"IVFR{chip_smoke.SCALE_IVF_NLIST},SQ8",
+                               nprobe=chip_smoke.SCALE_IVF_NPROBE, device="cuda")
+    scale.block = chip_smoke.SCALE_IVF_BLOCK
+    scale.train(rows(0, chip_smoke.IVF_TRAIN_ROWS))
+    torch.save({"1M": small.centroids.cpu(), "8.8M": scale.centroids.cpu()}, path)
+
+
+def ivf_case(chip_smoke, ivf_bulk, idx, q, mode, profile):
+    """The cell kernel call of ``idx``'s bulk search of q (after its tuning call), timed,
+    against the checkout's plain version on the filled slots' lists."""
+    has_slots = "slots" in inspect.signature(ivf_bulk.cell_topj).parameters
+    idx.search(q, IVF_K, mode=mode)  # the tuning call: Qcap, hot set
+    state, nlist = idx._bulk_state, idx.nlist
+    qcap = state["qcap"]
+    qd, B0 = idx._pad_queries(q)
+    ps = ivf_bulk.probe_slab(qd, idx.centroids, idx._values.dtype, nlist,
+                             min(idx.nprobe, nlist - int(state["hot"].size)), qcap, state["hp"],
+                             B0, mode == "i8q")
+    block, sel, J = idx._cell_plan(qcap, IVF_K)
+    slots = ps.counts.clamp(max=qcap).to(torch.int32)
+    extra = (slots,) if has_slots else ()
+    values = idx._values.reshape(-1, H)
+    row_ids = idx._row_ids.reshape(-1)
+    scales = None if idx._scales is None else idx._scales.reshape(-1)
+    per = -(-block // sel)
+    if idx._values.dim() == 3:  # K13
+        cell_blocks = int(idx._values.shape[1]) // block
+        block_cell = None
+        cells = (torch.arange(values.shape[0] // block, device="cuda") // cell_blocks)
+
+        def call():
+            return ivf_bulk.cell_topj(ps.qslab, idx._values, idx._row_ids, idx._scales, J, block,
+                                      sel, ps.qscales, *extra)
+    else:  # K14
+        cell_blocks, block_cell = 1, idx._block_cell
+        cells = block_cell.long()
+
+        def call():
+            return ivf_bulk.ragged_topj(block_cell, ps.qslab, idx._values, idx._row_ids,
+                                        idx._scales, J, block, sel, ps.qscales, *extra)
+    v, i = call()
+    rv, ri = ivf_bulk._ivf_topj_reference(ps.qslab, values, row_ids, scales, ps.qscales,
+                                          block_cell, cell_blocks, J, block, sel)
+    filled = (torch.arange(qcap, device="cuda")[None, :]
+              < slots.long()[cells.repeat_interleave(per)][:, None])[:, :, None].expand_as(v)
+    fin = filled & (ri >= 0)
+    row = {"ms": chip_smoke.cuda_ms(call, iters=5, warmup=1),
+           "max_abs_err": float((v - rv).abs()[fin].max()) if fin.any() else 0.0,
+           "ids_differing": int(((i != ri) & filled).sum()),
+           "values_differing": int(((v != rv) & filled).sum()),
+           "block": block, "sel": sel, "J": J, "qcap": qcap, "filled_slots": int(slots.sum()),
+           "slots_passed": has_slots,
+           "checksum": [float(ps.qslab.float().sum()), int(row_ids.long().sum()),
+                        float(values[:: max(1, values.shape[0] // 65536)].float().sum()),
+                        int(slots.sum())]}
+    if profile:
+        row["kernels_us"] = kernel_us(call, iters=3)
+    del v, i, rv, ri, filled, fin
+    return row
+
+
+def ivf_rows(chip_smoke, seed, path, profile):
+    """K13 / K14 of the imported checkout on indexes over the saved centroids."""
+    from denseretrievaltoolkits_torch.index import flat, ivf
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+
+    saved = torch.load(path)
+    out = {}
+    rows = chip_smoke.mixture(seed + 7, H)
+    x = rows(0, IVF_ROWS)
+    q = rows(0, IVF_QUERIES, stream=1).cpu().numpy()
+    for name, layout, dtype, mode in IVF_CASES:
+        if layout == "scale":
+            continue
+        if mode == "bulk":
+            cls = ivf.IVFFlatIndex if layout == "IVF" else ivf.IVFRaggedIndex
+            kw = {"block": chip_smoke.IVF_RAGGED_BLOCK} if layout == "IVFR" else {}
+            idx = cls(H, nlist=chip_smoke.IVF_NLIST, nprobe=chip_smoke.IVF_NPROBE, dtype=dtype,
+                      device="cuda", **kw)
+            idx.centroids = saved["1M"].cuda()
+            idx.add_device(x)
+        out[name] = ivf_case(chip_smoke, ivf_bulk, idx, q, mode, profile)
+        if mode == "i8q" or dtype != "int8":
+            del idx
+            torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+    rows = chip_smoke.mixture(seed + 11, H)
+    index = flat.index_factory(H, f"IVFR{chip_smoke.SCALE_IVF_NLIST},SQ8",
+                               nprobe=chip_smoke.SCALE_IVF_NPROBE, device="cuda")
+    index.block = chip_smoke.SCALE_IVF_BLOCK
+    index.centroids = saved["8.8M"].cuda()
+    index.add_chunks(rows, chip_smoke.SCALE_ROWS, chunk_rows=chip_smoke.SCALE_IVF_CHUNK)
+    q = rows(0, IVF_QUERIES, stream=1).cpu().numpy()
+    for name, layout, _, mode in IVF_CASES:
+        if layout == "scale":
+            out[name] = ivf_case(chip_smoke, ivf_bulk, index, q, mode, profile)
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
 def worker(checkout, kernel, seed, profile, inputs=""):
     """One turn: ``kernel`` of ``checkout`` at every shape, as a dict."""
     import chip_smoke  # this checkout's, before the other checkout leads the path
@@ -272,6 +405,8 @@ def worker(checkout, kernel, seed, profile, inputs=""):
         out.update(flash_bwd_rows(chip_smoke, seed, profile))
     elif kernel == "pq":
         out.update(pq_rows(chip_smoke, inputs, profile))
+    elif kernel == "ivf":
+        out.update(ivf_rows(chip_smoke, seed, inputs, profile))
     else:
         out.update(block_rows(chip_smoke, seed, profile, k1=kernel == "attn_ln"))
     return out
@@ -299,6 +434,12 @@ def ptxas(kernel):
 def describe(name, turn, kernel):
     """One line per turn."""
     rows = {k: v for k, v in turn.items() if isinstance(v, dict)}
+    if kernel == "ivf":
+        return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms (J={v['J']}, sel {v['sel']}, Qcap {v['qcap']}, "
+            f"{v['filled_slots']} filled slots, slots passed {v['slots_passed']}), max_abs "
+            f"{v['max_abs_err']:.3e}, {v['ids_differing']} ids / {v['values_differing']} "
+            f"values differing, checksum {v['checksum']}" for k, v in rows.items())
     if kernel == "pq":
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.3f} ms, max_abs {v['max_abs_err']:.3e}, {v['ids_differing']} ids "
@@ -343,11 +484,11 @@ def main(argv=None):
         result["ptxas"] = lines
         if rc:
             return 1
-    with tempfile.TemporaryDirectory() as tmp:  # the saved inputs of --kernel pq
-        inputs = os.path.join(tmp, "pq_inputs.pt")
-        if args.kernel == "pq":
+    with tempfile.TemporaryDirectory() as tmp:  # the saved inputs of --kernel pq / ivf
+        inputs = os.path.join(tmp, "inputs.pt")
+        if args.kernel in ("pq", "ivf"):
             import chip_smoke
-            pq_inputs(chip_smoke, args.seed, inputs)
+            (pq_inputs if args.kernel == "pq" else ivf_inputs)(chip_smoke, args.seed, inputs)
             torch.cuda.empty_cache()
         for i, (name, checkout) in enumerate((("other", args.other), ("this", ROOT), ("this", ROOT),
                                               ("other", args.other))):
@@ -370,6 +511,12 @@ def main(argv=None):
     flash = args.kernel == "flash_bwd"
     fields = ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms", "sdpa_bwd_ms") if flash else ("ms",)
     keys = [k for k, v in result["turns"][0].items() if isinstance(v, dict)]
+    if args.kernel == "ivf":  # every turn scored the same layouts and slabs
+        for key in keys:
+            sums = {json.dumps(t[key]["checksum"]) for t in result["turns"]}
+            if len(sums) != 1:
+                print(f"ivf {key}: the turns' inputs differ: {sorted(sums)}", file=sys.stderr)
+                return 1
     for key in keys:
         result[key] = {}
         for field in fields:

@@ -855,6 +855,135 @@ def test_ivf_kernels_refuse_what_they_cannot_run(gen):
     assert ivf_bulk.ragged_topj.launches_i8q == n
 
 
+def _ivf_body_call(layout, body, slab, values, row_ids, scales, qscales, nlist, J, block, sel,
+                   slots, block_cell=None):
+    """K13 (fixed: nlist cells of equal size) or K14 (ragged: ``block_cell``)
+    through its wrapper; returns (lists, the plain version's lists, the cell
+    of each selection block, the wrapper)."""
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+
+    N, H = values.shape
+    per = -(-block // sel)
+    if layout == "fixed":
+        C = N // nlist
+        fn = ivf_bulk.cell_topj
+        got = fn(slab, values.reshape(nlist, C, H), row_ids.reshape(nlist, C),
+                 None if scales is None else scales.reshape(nlist, C), J, block, sel, qscales,
+                 slots)
+        want = ivf_bulk._ivf_topj_reference(slab, values, row_ids, scales, qscales, None,
+                                            C // block, J, block, sel, slots)
+        cells = torch.arange(N // block, device="cuda").repeat_interleave(per) // (C // block)
+    else:
+        fn = ivf_bulk.ragged_topj
+        got = fn(block_cell, slab, values, row_ids, scales, J, block, sel, qscales, slots)
+        want = ivf_bulk._ivf_topj_reference(slab, values, row_ids, scales, qscales, block_cell,
+                                            1, J, block, sel, slots)
+        cells = block_cell.repeat_interleave(per)
+    torch.cuda.synchronize()
+    return got, want, cells, fn
+
+
+_IVF_COUNTER = {"i8q": "launches_i8q", "int8": "launches_int8"}
+
+
+@pytest.mark.parametrize("body", ["float32", "bfloat16", "int8", "i8q"])
+@pytest.mark.parametrize("layout", ["fixed", "ragged"])
+def test_ivf_cell_slots_and_empty_rows(gen, body, layout):
+    """The IVF cell kernel body with ``slots``: cells with 0, 1, a partial
+    tile (slots 40 of 72: the second 64-slot tile empty) and every slot
+    filled; a storage block whose rows are all empty and a 128-row tile
+    inside a block that is all empty. Filled slots' lists as the plain
+    version's (i8q bit-equal); every other list (-inf, -1); the new body ran
+    (its counter, not ``launches_generic``)."""
+    H = 128  # every body's new shape: bf16 / int8 rows H % 64, i8q H % 128
+    slab, values, row_ids, scales, qscales = _ivf_case(gen, body, H)
+    row_ids[384:512] = -1   # the fifth 96-row block, and the head of the sixth
+    row_ids[768:960] = -1   # fixed: cell 4's two blocks; ragged: blocks 8 and 9
+    nlist, block = 6, 96
+    block_cell = torch.tensor([0, 0, 1, 3, 3, 3, 4, 5, 5, 2, 2, 1], dtype=torch.int32,
+                              device="cuda")
+    slots = torch.tensor([72, 0, 1, 40, 72, 65], dtype=torch.int32, device="cuda")
+    counter = _IVF_COUNTER.get(body, "launches")
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+    fn = ivf_bulk.cell_topj if layout == "fixed" else ivf_bulk.ragged_topj
+    n, n_gen = getattr(fn, counter), fn.launches_generic
+    got, want, cells, fn = _ivf_body_call(layout, body, slab, values, row_ids, scales, qscales,
+                                          nlist, 9, block, 96, slots, block_cell)
+    assert getattr(fn, counter) == n + 1 and fn.launches_generic == n_gen
+    filled = (torch.arange(72, device="cuda")[None, :] < slots.long()[cells][:, None])
+    assert bool((got[1][~filled] == -1).all()) and bool((got[0][~filled] == float("-inf")).all())
+    assert bool((got[1][filled] >= 0).any())
+    _assert_ivf_lists(got, want, slab, values, row_ids, scales, qscales, cells,
+                      0 if body == "i8q" else 1e-5)
+    if body == "i8q":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("body", ["float32", "bfloat16", "int8", "i8q"])
+@pytest.mark.parametrize("J,sel,block", [(32, 128, 512), (31, 512, 1024), (20, 2048, 2048)])
+def test_ivf_cell_selection_at_full_width(gen, body, J, sel, block):
+    """The main paths' selections at H = 768: J 32 over 128-row selection
+    blocks (every tile a first tile: the bitonic pass), 31 over 512 and 20
+    over 2048 (insertions after the first tile), K14 over 3 cells with one
+    block empty and slots 80 / 23 / 64 of Qcap 80. Scores within 1e-5 (fp32)
+    or 1e-4 (bf16 products summed in fp32 in another order over 768 terms);
+    i8q bit-equal."""
+    from denseretrievaltoolkits_torch.ops.quant import quantize_queries
+
+    H, nlist, Qcap = 768, 3, 80
+    n_blocks = 6 if block < 2048 else 4
+    N = n_blocks * block
+    x = _randn(gen, N, H)
+    row_ids = torch.arange(N, dtype=torch.int32, device="cuda")
+    row_ids[block + 7:block + 300] = -1
+    row_ids[3 * block:4 * block] = -1  # an empty block
+    q = _randn(gen, nlist * Qcap, H)
+    scales = qscales = None
+    if body in ("int8", "i8q"):
+        values, scales = _int8_rows(gen, N, H)
+        if body == "i8q":
+            slab, qscales = quantize_queries(q)
+            slab, qscales = slab.reshape(nlist, Qcap, H), qscales.reshape(nlist, Qcap)
+        else:
+            slab = q.to(torch.bfloat16).reshape(nlist, Qcap, H)
+    else:
+        dtype = torch.float32 if body == "float32" else torch.bfloat16
+        values, slab = x.to(dtype), q.to(dtype).reshape(nlist, Qcap, H)
+    block_cell = torch.tensor([0, 2, 1, 1, 0, 2][:n_blocks], dtype=torch.int32, device="cuda")
+    slots = torch.tensor([80, 23, 64], dtype=torch.int32, device="cuda")
+    counter = _IVF_COUNTER.get(body, "launches")
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+    n, n_gen = getattr(ivf_bulk.ragged_topj, counter), ivf_bulk.ragged_topj.launches_generic
+    got, want, cells, _ = _ivf_body_call("ragged", body, slab, values, row_ids, scales, qscales,
+                                         nlist, J, block, sel, slots, block_cell)
+    assert getattr(ivf_bulk.ragged_topj, counter) == n + 1
+    assert ivf_bulk.ragged_topj.launches_generic == n_gen
+    _assert_ivf_lists(got, want, slab, values, row_ids, scales, qscales, cells,
+                      0 if body == "i8q" else 1e-5 if body == "float32" else 1e-4)
+    if body == "i8q":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("body,H", [("bfloat16", 48), ("int8", 80), ("i8q", 64)])
+def test_ivf_cell_other_body(gen, body, H):
+    """A shape the new bodies do not take (bf16 / int8 rows at H % 64 != 0,
+    i8q at H % 128 != 0) runs the block top-J family's body and counts on
+    ``launches_generic``; with ``slots`` its lists past each count are
+    (-inf, -1) as well."""
+    from denseretrievaltoolkits_torch.ops import ivf_bulk
+
+    slab, values, row_ids, scales, qscales = _ivf_case(gen, body, H)
+    slots = torch.tensor([72, 0, 1, 40, 72, 65], dtype=torch.int32, device="cuda")
+    counter = _IVF_COUNTER.get(body, "launches")
+    fn = ivf_bulk.cell_topj
+    n, n_gen = getattr(fn, counter), fn.launches_generic
+    got, want, cells, _ = _ivf_body_call("fixed", body, slab, values, row_ids, scales, qscales,
+                                         6, 7, 96, 96, slots)
+    assert getattr(fn, counter) == n + 1 and fn.launches_generic == n_gen + 1
+    _assert_ivf_lists(got, want, slab, values, row_ids, scales, qscales, cells,
+                      0 if body == "i8q" else 1e-5)
+
+
 @pytest.mark.parametrize("kind,dtype", [("fixed", "float32"), ("fixed", "bfloat16"),
                                         ("fixed", "int8"), ("ragged", "int8"),
                                         ("ragged", "bfloat16")])

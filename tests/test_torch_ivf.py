@@ -202,6 +202,101 @@ def test_selection_plan_halves_within_blocks():
         np.testing.assert_allclose(v[sb].numpy(), top.values[:, :7].numpy())
 
 
+@pytest.mark.parametrize("body", ["float32", "int8", "i8q"])
+@pytest.mark.parametrize("layout", ["fixed", "ragged"])
+def test_reference_slots_clear_past_each_count(body, layout):
+    """With ``slots`` the plain cell kernels return (-inf, -1) in every list of
+    a slot at or past its cell's count (counts 0, 1, a middle value and Qcap,
+    over cells with empty row tails), and each filled slot's list equals the
+    ``slots=None`` result."""
+    slab, values, row_ids, scales, qscales = (
+        _t(a) if a is not None and not isinstance(a, np.ndarray) else a
+        for a in _cells_case(np.random.default_rng(5), body))
+    row_ids = torch.from_numpy(row_ids)
+    nlist, Qcap, dim = slab.shape
+    slots = torch.tensor([0, 1, Qcap // 2 + 1, Qcap], dtype=torch.int32)
+    J, block, sel = 9, 64, 32
+    if layout == "fixed":
+        block_cell, cell_blocks = None, values.shape[0] // nlist // block
+    else:
+        block_cell, cell_blocks = torch.tensor([3, 3, 0, 1, 0, 2, 1, 2], dtype=torch.int32), 1
+    args = (slab, values, row_ids, scales, qscales, block_cell, cell_blocks, J, block, sel)
+    full_v, full_i = tb._ivf_topj_reference(*args)
+    v, i = tb._ivf_topj_reference(*args, slots=slots)
+    per = block // sel
+    blocks = torch.arange(v.shape[0]) // per
+    cells = blocks // cell_blocks if block_cell is None else block_cell.long()[blocks]
+    filled = torch.arange(Qcap)[None, :] < slots.long()[cells][:, None]  # [n_sel, Qcap]
+    assert bool((~filled).any()) and bool(filled.any())
+    assert torch.equal(v[filled], full_v[filled]) and torch.equal(i[filled], full_i[filled])
+    assert bool((v[~filled] == float("-inf")).all()) and bool((i[~filled] == -1).all())
+    assert bool((full_i[filled] >= 0).any())
+    # the wrappers pass slots to the plain version on the CPU
+    if layout == "fixed":
+        got = tb.cell_topj(slab, values.reshape(nlist, -1, dim), row_ids.reshape(nlist, -1),
+                           None if scales is None else scales.reshape(nlist, -1), J, block, sel,
+                           qscales, slots)
+    else:
+        got = tb.ragged_topj(block_cell, slab, values, row_ids, scales, J, block, sel, qscales,
+                             slots)
+    assert torch.equal(got[0], v) and torch.equal(got[1], i)
+
+
+def test_filled_slots_are_the_real_pairs_in_capacity():
+    """``filled_slots`` is min(counts, Qcap) per cell, and every in-capacity
+    pair's slot lies below its cell's entry (the searches read no other)."""
+    rng = np.random.default_rng(6)
+    B, nprobe, nlist, Qcap = 40, 4, 16, 6
+    q = torch.from_numpy(rng.normal(size=(B, 8)).astype(np.float32))
+    cent = torch.from_numpy(rng.normal(size=(nlist, 8)).astype(np.float32))
+    ps = tb.probe_slab(q, cent, torch.float32, nlist, nprobe, Qcap, n_real=33)
+    slots = tb.filled_slots(ps, Qcap)
+    assert slots.dtype == torch.int32
+    assert torch.equal(slots.long(), ps.counts.clamp(max=Qcap))
+    assert bool((ps.slot[ps.in_cap] < slots.long()[ps.sc[ps.in_cap]]).all())
+    assert int(ps.in_cap.sum()) == int(slots.sum())
+
+
+@pytest.mark.parametrize("layout", ["fixed", "ragged"])
+def test_searches_unchanged_by_slots(data, built, layout, monkeypatch):
+    """The bulk searches give the same scores and rows whether the cell
+    kernels clear the empty slots' lists (``slots``) or score every slot."""
+    _, queries = data
+    q = torch.from_numpy(queries[:40])
+    hot = np.array([3])
+
+    def run():
+        if layout == "fixed":
+            idx = built["int8"]
+            sv, ss, si, side_valid = idx._side_slab(hot)
+            block, J = idx._bulk_tiles(16, 10)
+            return tb.ivf_bulk_search(
+                q, _t(idx.centroids), _t(idx._values), _t(idx._row_ids), _t(idx._scales), _t(sv),
+                _t(ss), _t(si), k=10, nprobe=4, Qcap=16, J=J, block=block, sel=block, nlist=16,
+                hot_penalty=torch.from_numpy(_hot(16, hot)), side_valid=side_valid, n_real=37)
+        idx = built["ragged"]
+        sv, ss, si, side_valid = idx._side_slab(hot)
+        return tb.ivf_ragged_search(
+            q, _t(idx.centroids), _t(idx._values), _t(idx._row_ids), _t(idx._scales),
+            _t(idx._block_cell), _t(idx._block_start), _t(sv), _t(ss), _t(si), k=10, nprobe=4,
+            Qcap=24, J=10, block=64, sel=64, nlist=16, nb_max=idx._nb_max,
+            hot_penalty=torch.from_numpy(_hot(16, hot)), side_valid=side_valid, n_real=37)
+
+    got = run()
+    name = "cell_topj" if layout == "fixed" else "ragged_topj"
+    fn = getattr(tb, name)
+    seen = []
+
+    def every_slot(*a):
+        seen.append(a[-1])
+        return fn(*a[:-1])
+    monkeypatch.setattr(tb, name, every_slot)
+    want = run()
+    assert seen and seen[0] is not None and bool((seen[0] < (16 if layout == "fixed" else 24)).any())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # -- the bulk searches ---------------------------------------------------------------------------
 
 
