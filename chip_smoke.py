@@ -76,7 +76,12 @@ Phases, each of which fails the run on error:
    against the same searches on the plain versions, and block by block at
    the searches' J (ids equal up to ties, rescored in fp64 under the kernel's
    formula; K12 sq4 bit-equal); recall@100 of serve and i8q vs the certified
-   search; kernel, plain and search ms.
+   search; kernel, plain and search ms. K10 must run ``csrc/int4_certified.cu``'s
+   s8 body (``block_topj.launches_int4_generic`` 0 on every path of the script,
+   its CUDA kernel by ``torch.profiler``); ``block_topj.cu``'s FFMA body runs
+   beside it on the same rows 4 bytes off alignment, for its time and its
+   largest |score - fp64|, which the s8 body's may not exceed; K10's time at
+   J = 32 too; its bound on the s8 body's three passes, the FFMA one beside.
 11. The evaluation path through the entry points: bert-base (12 layers,
    bf16, fused attention and loss) built by ``DRModel.build``, one short
    epoch of ``Trainer.train`` with an ``eval_loader`` that evaluates into an
@@ -94,7 +99,8 @@ Phases, each of which fails the run on error:
    ``exact`` at k=100, recall@100 of serve / i8q vs exact, peak memory.
 13. Scale int4: 138,364,198 x 768 rows (MS MARCO v2 passage, which int8
    cannot hold on one card) in 528 slabs packed by K9; the same searches and
-   numbers, plus the resident size.
+   numbers, plus the resident size; one more certified search under
+   ``torch.profiler``, its device time by group (K10, the merges, the exact scan).
 14. K13 and K14 (the IVF cell kernels) through the entry points: 1,000,000
    x 768 rows of the JAX package's IVF benchmark mixture (4096 centres,
    sigma 0.5), 2048 queries of it, ``IVF1024`` (fixed capacity, K13) and
@@ -147,8 +153,10 @@ Phases, each of which fails the run on error:
    16; bulk), trained on 262,144 rows, ``add_chunks`` in 500,000-row chunks;
    queries/s, recall10@100 against the certified int8 flat search of the same
    rows, serve recall@100 against exact ADC (and K16's scratch bytes), K17
-   against its plain version on the search's own slab, build seconds, resident
-   and peak memory.
+   against its plain version on the search's own slab and filled slots (its
+   CUDA kernel ``ivf_cell.cu``'s ``ivf_cell_wgmma<3>``), one search's device time
+   by group (K17, the side scan, the merges), build seconds, resident and peak
+   memory.
 
 20. The flash kernels (``csrc/flash_attn.cu``) vs their plain versions at
    bert-base widths (nh=12, hd=64), ragged segment masks with pad rows and
@@ -2137,26 +2145,57 @@ def phase_int4_topk(gen, topk, quant, blockwise_topk, x_int4, n_queries=1024, k=
         q, values, scales, topk.block_topj(q, values, J, block, n_rows, scales, int4=True),
         topk._block_topj_reference(q, values, J, block, n_rows, scales, int4=True), 1e-5,
         int4_query=torch.float32)
-    t = {"ms": cuda_ms(lambda: topk.block_topj(q, values, J, block, n_rows, scales, int4=True),
-                       iters=3),
+    # the s8 wgmma body (int4_certified.cu) takes these shapes: block_topj.cu's FFMA body
+    # must not have run on this path
+    check(topk.block_topj.launches_int4_generic == 0,
+          "K10: the certified int4 search ran block_topj.cu's FFMA body at H = 768")
+    kern = lambda rows, j=J: topk.block_topj(q, rows, j, block, n_rows, scales, int4=True)  # noqa
+    t = {"ms": cuda_ms(lambda: kern(values), iters=3),
+         "ms_j32": cuda_ms(lambda: kern(values, 32), iters=3),
          "plain_ms": cuda_ms(lambda: topk._block_topj_reference(q, values, J, block, n_rows,
                                                                  scales, int4=True), iters=3),
          "search_ms": cuda_ms(lambda: topk.certified_topk(q, values, k, block, scales=scales,
-                                                          int4=True), iters=3)}
+                                                          int4=True), iters=3),
+         "body": ",".join(kernel_split(lambda: kern(values), ("int4_certified_wgmma",
+                                                              "block_topj_kernel"), iters=3))}
+    # (an empty split: the profiler recorded no kernel; the counter above still holds)
+    check(t["body"] in ("int4_certified_wgmma", ""), f"K10 ran CUDA kernels {t['body']!r}")
+    # the FFMA body on the same rows, 4 bytes off 16-byte alignment (a shape the new body
+    # does not take), for its time and its error against fp64 beside the new body's
+    ffma_rows = torch.empty(values.numel() + 4, dtype=torch.int8, device="cuda")[4:].view(
+        values.shape)
+    ffma_rows.copy_(values)
+    ffma_ok, _, ffma_res, _ = blocks_against_plain(
+        q, values, scales, kern(ffma_rows),
+        topk._block_topj_reference(q, values, J, block, n_rows, scales, int4=True), 1e-5,
+        int4_query=torch.float32)
+    t["ffma_ms"] = cuda_ms(lambda: kern(ffma_rows), iters=3)
+    check(topk.block_topj.launches_int4_generic > 0, "K10: the FFMA body's comparison did not "
+          "run the FFMA body")
+    topk.block_topj.launches_int4_generic = 0  # those launches were the comparison's
+    del ffma_rows
     out_bytes = 8 * n_queries * nb * J
-    t["bound_ms"], t["bound_by"] = bound(values.numel() + 4 * n_rows + 4 * q.numel() + out_bytes,
-                                         ops, "fp32")
+    n_bytes = values.numel() + 4 * n_rows + 4 * q.numel() + out_bytes
+    # the s8 body's work: three digit planes against the codes, each 2 Q N H operations
+    t["bound_ms"], t["bound_by"] = bound(n_bytes, 3 * ops, "int8")
+    t["fp32_bound_ms"] = bound(n_bytes, ops, "fp32")[0]
     log(f"K10 int4 {n_rows}x{dim} Q={n_queries} k={k}: vs the plain-version certified search: "
         f"ids differing {differ}, max rank err {rank_err:.3e}, max rescored err {res_err:.3e} "
         f"(rel tol 1e-5), vs the int4 exact scan: {scan_ok}; certificate escalated {escalated} "
         f"fallbacks {fallbacks}; per block (J={J}): {blk_ok}, ids differing {blk_differ} (ties "
-        f"only), max err {blk_err:.3e}, rescored {blk_res:.3e}; kernel {t['ms']:.3f} ms plain "
-        f"{t['plain_ms']:.3f} ms bound {t['bound_ms']:.3f} ms ({t['bound_by']}), certified "
-        f"search {t['search_ms']:.3f} ms")
+        f"only), max err {blk_err:.3e}; max |score - fp64| {blk_res:.3e} (the FFMA body on the "
+        f"same rows {ffma_res:.3e}, per block vs plain {ffma_ok}); kernel ({t['body']}) "
+        f"{t['ms']:.3f} ms (J=32 {t['ms_j32']:.3f}, the FFMA body {t['ffma_ms']:.3f}) plain "
+        f"{t['plain_ms']:.3f} ms bound {t['bound_ms']:.3f} ms ({t['bound_by']}, s8; fp32 FFMA "
+        f"{t['fp32_bound_ms']:.3f}), certified search {t['search_ms']:.3f} ms")
     check(ok and scan_ok, "K10: the certified int4 search disagrees with its plain version")
     check(blk_ok, "K10 per block disagrees with its plain version")
+    check(ffma_ok, "K10's FFMA body per block disagrees with its plain version")
+    check(blk_res <= ffma_res, f"K10: the s8 body's error against fp64 ({blk_res:.3e}) exceeds "
+          f"the FFMA body's ({ffma_res:.3e})")
     results["K10"] = dict(t, max_abs_err=blk_err, escalated=escalated, fallbacks=fallbacks,
-                          ids_differing=differ, block_ids_differing=blk_differ)
+                          ids_differing=differ, block_ids_differing=blk_differ,
+                          max_abs_err_fp64=blk_res, ffma_max_abs_err_fp64=ffma_res)
     exact = ids
     # the certified search over bf16-rounded queries scores exactly as K11 does
     # (bf16 x int4 products are exact in fp32): serve's recall against it is
@@ -2474,6 +2513,19 @@ def _metrics_of(targs, ep):
         return json.load(fh)
 
 
+# the groups of one certified int4 search's kernels (ENCODE_GROUPS' form): K10, the merges (the
+# slabs' and the certificate's sorts and top-k), the certificate's exact scan (unpacked rows
+# on cuBLAS) and the rest
+CERTIFIED_SEARCH_GROUPS = (("K10 (int4_certified.cu)", ("int4_certified",)),
+                           ("K10 (block_topj.cu's FFMA body)", ("block_topj_kernel",)),
+                           ("merge: sorts", ("Sort",)), ("merge: sorts", ("sort",)),
+                           ("merge: top-k", ("TopK",)), ("merge: top-k", ("topk",)),
+                           ("exact scan: products (cuBLAS)", ("nvjet",)),
+                           ("exact scan: products (cuBLAS)", ("gemm",)),
+                           ("gathers and scatters", ("index",)),
+                           ("elementwise", ("elementwise_kernel",)))
+
+
 def phase_scale4(gen, flat, n_queries, k=100, dim=768):
     """MS MARCO v2 passage's row count in int4, which int8 cannot hold on one
     card: add_device of 262,144-row fp32 slabs, packed by K9 on arrival."""
@@ -2502,6 +2554,12 @@ def phase_scale4(gen, flat, n_queries, k=100, dim=768):
     recall = {m: overlap(res[m].tolist(), res["exact"].tolist()) for m in ("serve", "i8q")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_slabs = len(index._device_slabs)
+    # one more certified search under torch.profiler: K10, the merges, the exact scan
+    split = encode_split(lambda: index.search(q, k, mode="exact"), CERTIFIED_SEARCH_GROUPS)
+    log(f"scale int4 exact search under torch.profiler: wall {split['wall_ms']:.1f} ms, device "
+        f"{split['device_ms']:.1f} ms (busy {split['busy']:.3f}), by group "
+        f"{json.dumps({g: round(ms, 2) for g, ms in split['groups_ms'].items()})}; top kernels "
+        f"{json.dumps({n: round(ms, 2) for n, ms in split['top_kernels_ms'].items()})}")
     log(f"scale int4: {SCALE4_ROWS} x {dim} rows packed to {dim // 2} bytes in {n_slabs} slabs of "
         f"{SLAB_ROWS} (built in {build_s:.1f} s, {resident_gib:.2f} GiB resident); {n_queries} "
         f"queries k={k}: seconds {json.dumps({m: round(x, 3) for m, x in secs.items()})}, "
@@ -2514,7 +2572,7 @@ def phase_scale4(gen, flat, n_queries, k=100, dim=768):
     torch.cuda.empty_cache()
     return {"rows": SCALE4_ROWS, "slabs": n_slabs, "build_s": build_s, "queries": n_queries,
             "seconds": secs, "queries_per_s": rates, "recall": recall,
-            "resident_gib": resident_gib, "peak_gib": peak_gib}
+            "resident_gib": resident_gib, "peak_gib": peak_gib, "exact_split": split}
 
 
 # -- the trained IVF index: K13 and K14 ------------------------------------------------------------
@@ -3203,6 +3261,10 @@ def phase_pq_kernels(seed, flat, pq_ops, n_rows, n_queries=PQ_QUERIES, k=100, di
     return out
 
 
+# the groups of one bulk IVF-PQ search's kernels, as IVF_SEARCH_GROUPS with K17 the cell kernel
+PQ_SEARCH_GROUPS = (("cell kernel (K17)", ("ivf_cell",)),) + IVF_SEARCH_GROUPS[1:]
+
+
 def pq_cell_call(ivf_pq_ops, inner, q, k):
     """K17's call of ``inner``'s (an IVFPQIndex) last bulk search of q (its
     learned Qcap, hot set and plan), the plain version's, the offset and query
@@ -3214,8 +3276,9 @@ def pq_cell_call(ivf_pq_ops, inner, q, k):
                                         min(inner.nprobe, nlist - int(state["hot"].size)), qcap,
                                         state["hp"], B0)
     block, sel, J = inner._cell_plan(qcap, k)
+    filled = ivf_pq_ops.filled_slots(ps, qcap)  # as ivf_pq_search passes them
     args = (inner._block_cell, ps.qslab, inner._values, inner._row_ids, poff, inner._table, J,
-            block, sel, inner.nbits)
+            block, sel, inner.nbits, filled)
 
     def kernel():
         return ivf_pq_ops.ragged_topj_pq(*args)
@@ -3223,7 +3286,7 @@ def pq_cell_call(ivf_pq_ops, inner, q, k):
     def plain():
         return ivf_pq_ops._ivf_pq_topj_reference(ps.qslab, inner._values, inner._row_ids, poff,
                                                  inner._table, inner._block_cell, J, block, sel,
-                                                 inner.nbits)
+                                                 inner.nbits, filled)
     per = -(-block // sel)
     block_of = inner._block_cell.long()
     list_cell = block_of.repeat_interleave(per)[:, None]
@@ -3236,7 +3299,8 @@ def pq_cell_call(ivf_pq_ops, inner, q, k):
     n_bytes = (float(rows.sum()) * (inner._values.shape[0] + 4) + float(slots.sum()) * (2 * dim + 4)
                + 4 * block_of.numel() + inner._table.numel() * 2 + 8 * J * lists)
     return {"kernel": kernel, "plain": plain, "ps": ps, "poff": poff.reshape(-1)[list_q],
-            "list_q": list_q, "block": block, "sel": sel, "J": J,
+            "poff_slab": poff,
+            "list_q": list_q, "block": block, "sel": sel, "J": J, "slots": filled,
             "bound": bound(n_bytes, 2 * dim * float((slots * rows).sum()), "bf16")}
 
 
@@ -3324,14 +3388,26 @@ def phase_pq_scale(seed, flat, pq_ops, ivf_pq_ops, n_queries=PQ_QUERIES, k=100, 
                 list_q=call["list_q"], stored=inner._row_ids >= 0, list_off=call["poff"])
             del dec
             fin = want[1] >= 0
+            # the body that ran (ivf_cell.cu's, not block_topj.cu's), and one search under
+            # torch.profiler: K17, the side scan, the merges
+            body = kernel_split(call["kernel"], ("ivf_cell_wgmma", "block_topj"), iters=3)
+            check("block_topj" not in body and (not body or "ivf_cell_wgmma" in body),
+                  f"scale {spec}: K17 ran CUDA kernels {sorted(body)}")
+            search = encode_split(lambda: index.search(qn, k, mode=mode), PQ_SEARCH_GROUPS)
+            log(f"scale {spec} search under torch.profiler: wall {search['wall_ms']:.2f} ms, "
+                f"device {search['device_ms']:.2f} ms (busy {search['busy']:.3f}), by group "
+                f"{json.dumps({g: round(ms, 3) for g, ms in search['groups_ms'].items()})}")
+            r.update(body=",".join(sorted(body)), search_split=search,
+                     filled_slots=int(call["slots"].sum()))
             r.update(kernel_ms=cuda_ms(call["kernel"], iters=3),
                      plain_ms=cuda_ms(call["plain"], iters=1, warmup=0),
                      max_abs_err=float((got[0] - want[0]).abs()[fin].max()),
                      bound_ms=call["bound"][0], bound_by=call["bound"][1], J=call["J"],
                      sel=call["sel"], ids_differing=err[2])
-            log(f"scale {spec} K17: kernel {r['kernel_ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
-                f"(bound {r['bound_ms']:.3f} ms by {r['bound_by']}), J={call['J']} over selection "
-                f"blocks of {call['sel']}; rank err {err[0]:.3g}, rescored err {err[1]:.3g}, "
+            log(f"scale {spec} K17 ({r['body']}): kernel {r['kernel_ms']:.3f} ms vs plain "
+                f"{r['plain_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by {r['bound_by']}), "
+                f"J={call['J']} over selection blocks of {call['sel']}, {r['filled_slots']} "
+                f"filled slots; rank err {err[0]:.3g}, rescored err {err[1]:.3g}, "
                 f"{err[2]} ids differing; Qcap {state['qcap']}, hot cells {state['hot'].tolist()}, "
                 f"side slab {state['side'][3]} rows, {inner.last_dropped} pairs dropped")
             check(ok, f"scale {spec}: K17 disagrees with its plain version")
@@ -3464,9 +3540,9 @@ def phase_pq_eval_path(args, tmp, ctx, plain_gaps):
         reps = torch.from_numpy(np.load(os.path.join(targs.encode_corpus_dir,
                                                      f"{ep}.0.npy"))).cuda()
         if ivfpq:
-            plain = {ivf_pq: {"ragged_topj_pq": lambda bc, qs, c, rid, po, tab, J, blk, sel, nb:
-                              ivf_pq._ivf_pq_topj_reference(qs, c, rid, po, tab, bc, J, blk, sel,
-                                                            nb)},
+            plain = {ivf_pq: {"ragged_topj_pq": lambda bc, qs, c, rid, po, tab, J, blk, sel, nb,
+                              slots=None: ivf_pq._ivf_pq_topj_reference(
+                                  qs, c, rid, po, tab, bc, J, blk, sel, nb, slots)},
                      ivf_pq_index: {"quantize_int8_device": quant._quantize_int8_reference},
                      ivf_bulk: {"block_topj_serve": topk._block_topj_serve_reference}}
             plain_index = ivf_pq_index.IVFPQIndex(reps.shape[1], nlist=index.nlist,
@@ -3725,20 +3801,28 @@ def main(argv=None):
                         "launches": int8_path["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
-    # the int4 kernels: times on the 1M-row corpus, launches on the evaluation path
+    # the int4 kernels: times on the 1M-row corpus, launches on the evaluation path; K10 runs
+    # int4_certified.cu's s8 body (block_topj.cu's FFMA body launched 0 times on these paths:
+    # checked), with the FFMA body's time and error against fp64 on the same rows beside it
     for name, source, replaces, r, counter in (
             ("quantize_int4_device", "quant.cu", "ops/quant.py:64", k9, "quantize_int4_device"),
-            ("block_topj (K10, int4 rows)", "block_topj.cu", "ops/topk.py:237", int4_topk["K10"],
-             "block_topj (K10)"),
+            ("block_topj (K10, int4 rows)",
+             "int4_certified.cu, hopper.cuh, serve_select.cuh, common.cuh",
+             "ops/topk.py:237", int4_topk["K10"], "block_topj (K10)"),
             ("block_topj_serve (K11, int4 rows)", "block_topj.cu", "ops/topk.py:166",
              int4_topk["K11"], "block_topj_serve (K11)"),
             ("block_topj_i8q (K12 sq4, int4 rows)", "block_topj.cu", "ops/topk.py:213",
              int4_topk["K12 sq4"], "block_topj_i8q (K12 sq4)")):
-        kernels.append({"name": name, "route": "cuda", "source": src + source,
+        kernels.append({"name": name, "route": "cuda",
+                        "source": ", ".join(src + f for f in source.split(", ")),
                         "replaces": "denseretrievaltoolkits_tpu/" + replaces,
                         "launches": eval_path["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+        if counter == "block_topj (K10)":
+            kernels[-1].update({f: r[f] for f in ("body", "ms_j32", "fp32_bound_ms", "ffma_ms",
+                                                  "max_abs_err_fp64", "ffma_max_abs_err_fp64")},
+                               generic_launches=topk.block_topj.launches_int4_generic)
     ivf_src = ", ".join(src + f for f in ("ivf_cell.cu", "serve_select.cuh", "hopper.cuh",
                                           "common.cuh"))
     # the IVF cell kernels: times at the 1M-row phase, one row per body; launches on
@@ -3786,12 +3870,14 @@ def main(argv=None):
             ("ragged_topj_pq (K17)", "ivf_pq.py:58", dict(k17, ms=k17["kernel_ms"]),
              pq_eval["IVF16,PQ96x4"]["launches"]["ragged_topj_pq (K17)"], None)):
         row = {"name": name, "route": "cuda",
-               "source": src + "block_topj.cu" if decode_launches is None else pq_src,
+               "source": ivf_src if decode_launches is None else pq_src,
                "replaces": f"denseretrievaltoolkits_tpu/ops/{line}",
                "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}
-        if decode_launches is not None:
+        if decode_launches is None:  # K17: the body that ran, the slab's filled slots
+            row.update(body=r["body"], filled_slots=r["filled_slots"])
+        else:
             per = r["launches_per_call"]
             row.update({k: r[k] / per for k in ("ms", "plain_ms", "bound_ms")},
                        decode_ms=r["decode_ms"] / per, score_ms=r["score_ms"] / per,
@@ -3827,6 +3913,10 @@ def main(argv=None):
                        bwd_ms=r["bwd_ms"], library_bwd_ms=r["library_bwd_ms"],
                        kernels_bwd_ms=r["kernels_bwd_ms"])
         kernels.append(row)
+    # every path above searched int4 rows at H = 768 / 384: K10's s8 body took them all
+    check(topk.block_topj.launches_int4_generic == 0,
+          f"K10: block_topj.cu's FFMA body ran {topk.block_topj.launches_int4_generic} times on "
+          f"the paths")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

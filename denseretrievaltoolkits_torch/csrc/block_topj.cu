@@ -1,5 +1,5 @@
 // Per-block top-J of inner-product scores: one templated kernel family for K5, K6, K8,
-// K10-K17.
+// K10-K12, and K13 / K14 at the shapes ivf_cell.cu does not take.
 //
 // Replaces these TPU kernels of denseretrievaltoolkits_tpu/ops/topk.py:
 //   K5  `_block_topj_kernel` (:37, launched by `_pallas_block_topj`, :336): exact top-J,
@@ -13,7 +13,9 @@
 //       products, times scale_row x scale_query, then the serve selection; and its sq4
 //       body `_block_topj_kernel_packed_sq4_i8q` (:213, :517) over int4 rows;
 //   K10 `_block_topj_kernel_sq4` (:237, `_pallas_block_topj_sq4`, :288): exact top-J over
-//       int4 rows, fp32 queries, true-fp32 scores times the row scale;
+//       int4 rows, fp32 queries, true-fp32 scores times the row scale, at the shapes
+//       int4_certified.cu does not take (drt_int4_certified_takes; drt_block_topj dispatches
+//       the others to its s8 wgmma body);
 //   K11 `_block_topj_kernel_packed_sq4` (:166, `_pallas_block_topj_packed_sq4`, :445): the
 //       serve selection over int4 rows, bf16 queries.
 // and, for the shapes ivf_cell.cu's bodies do not take (drt_ivf_cell_takes), these of
@@ -25,12 +27,8 @@
 //   K14 `_ragged_kernel` / `_scaled` / `_i8q` (:165, :184, :202; `_ivf_ragged_topj`,
 //       :272): the same over the ragged padded-flat block list, whose block -> cell map
 //       picks the slab.
-// and this of denseretrievaltoolkits_tpu/ops/ivf_pq.py (with the serve selection):
-//   K17 `_ragged_pq_kernel` (ivf_pq.py:58; `_ivf_ragged_topj_pq`, :167): K14 over PQ codes
-//       of cell residuals, each slot's probe score added to its scores before the mask.
-// The flat PQ serve kernels K15 / K16 (ops/pq.py:293, :349, :409) are pq_serve.cu's: a
-// decode pass writes each block's rows once per search, then a wgmma + TMA body scores
-// them. The serve selection itself lives in serve_select.cuh, shared with pq_serve.cu.
+// The PQ kernels are pq_serve.cu's (K15 / K16) and ivf_cell.cu's (K17). The serve selection
+// itself lives in serve_select.cuh, shared with pq_serve.cu and ivf_cell.cu.
 // The IVF kernels are this family with a per-block query base: a block reads its cell
 // (block_cell[blk] for K14, blk / blocks-per-cell for K13; the TPU scalar-prefetches it)
 // and stages its tile of that cell's slots, and the row mask reads the row ids. Their
@@ -48,21 +46,13 @@
 // the smaller id. Output layout [Q, n_blocks, J] (vals fp32, ids int32; an empty slot
 // is (-inf, -1)), which the merge reads as [Q, n_blocks * J] without a transpose.
 //
-// K17's PQ codes are code-major: codes [M, N] int8 (code - 128) or [M/2, N] nibble-packed
-// (subspace 2i low, 2i+1 high), M = H / d_sub. The TPU decodes a block with one-hot
-// matmuls against a block-diagonal codebook, whose every output is one codebook entry;
-// here the rows are decoded while they are staged: each code byte gathers that subspace's
-// d_sub entries of a compact bf16 table [M, k, d_sub] into the k-slices the tensor-core
-// body consumes. The 4-bit table (32 H bytes) is copied to shared memory, the 8-bit one
-// (512 H bytes, more than a CTA holds at H = 768) is read through L2. A block decodes its
-// rows once per 64-query tile of its cell.
-//
 // Template parameters: the query element type QT (float, bf16, int8), the corpus
-// element type CT (float, bf16, int8 or packed int4 with a per-row scale, or PQ codes)
+// element type CT (float, bf16, int8 or packed int4 with a per-row scale)
 // and the selection SERVE.
 // - Certified (K5, K6): the list is (score, id) pairs; the certificate and its
 //   escalation ladder run on the host side (ops/topk.py:certified_topk).
-// - Serve (K8, K12): the packed 64-bit keys of serve_select.cuh, scores exact.
+// - Serve (K8, K11, K12, K13 / K14): the packed 64-bit keys of serve_select.cuh, scores
+//   exact.
 // fp32 rows score in true fp32 (FFMA, no TF32) to match Precision.HIGHEST; bf16 rows
 // score bf16 values with fp32 accumulation; int8 rows under bf16 queries convert to
 // bf16 (|v| <= 127 is exact) and score on the same bf16 path, the scale multiplying in
@@ -122,67 +112,6 @@ enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2, T_I4 = 3 };
 struct nib {
   unsigned char b;
 };
-// PQ codes (corpus elements the tensor-core body decodes while staging, K17): 8-bit and
-// 4-bit codes over a bf16 table
-struct pq8 {
-  unsigned char b;
-};
-struct pq4 {
-  unsigned char b;
-};
-template <typename CT>
-constexpr bool is_pq = std::is_same_v<CT, pq8> || std::is_same_v<CT, pq4>;
-
-// The decode operands of a PQ corpus, and the per-slot score offsets of K17.
-struct Decode {
-  const void* table;  // [M, k, d_sub] bf16; k = 256 (8-bit) or 16 (4-bit)
-  const float* qoff;  // K17: [n_cells, Q] fp32 added to each slot's scores; else null
-  int d_sub;          // dims per subspace (divides 128)
-  int table_smem;     // copy the table to shared memory (the 4-bit table, where it fits)
-};
-
-// Eight consecutive output dims k..k+7 (k % 8 == 0) of row `row` of a PQ corpus, decoded to
-// bf16: code of subspace m = dim / d_sub at codes[m * N + row] (4-bit: nibble m & 1 of
-// packed row m / 2), entry (m, code, dim % d_sub) of the table.
-template <typename CT>
-__device__ __forceinline__ uint4 pq_decode8(const unsigned char* __restrict__ codes, int N,
-                                            size_t row, int k, const void* table, int d) {
-  constexpr bool FOUR = std::is_same_v<CT, pq4>;
-  constexpr int KC = FOUR ? 16 : 256;
-  auto code_of = [&](int m) -> int {
-    if constexpr (FOUR) {
-      const unsigned b = __ldg(codes + (size_t)(m >> 1) * N + row);
-      return (m & 1) ? (int)(b >> 4) : (int)(b & 15u);
-    } else {
-      return (int)(__ldg(codes + (size_t)m * N + row) ^ 0x80u);  // centered int8 -> id
-    }
-  };
-  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
-  if (d >= 8) {  // 8 dims of one subspace: one 16-byte load (d % 8 == 0)
-    const int m = k / d;
-    return *reinterpret_cast<const uint4*>(t + ((size_t)m * KC + code_of(m)) * d + (k - m * d));
-  }
-  __align__(16) __nv_bfloat16 o[8];
-  int mc = -1;
-  size_t at = 0;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int kk = k + e, m = kk / d;
-    if (m != mc) {
-      mc = m;
-      at = ((size_t)m * KC + code_of(m)) * d - (size_t)m * d;
-    }
-    o[e] = t[at + kk];
-  }
-  return *reinterpret_cast<const uint4*>(o);
-}
-
-// Four packed bytes -> their four low nibbles (dims j) or high nibbles (dims j + H/2),
-// sign-extended, as four int8 in one word: (n ^ 8) - 8 per byte, no borrow across bytes.
-__device__ __forceinline__ unsigned nibbles(unsigned w, bool high) {
-  const unsigned n = (high ? w >> 4 : w) & 0x0F0F0F0Fu;
-  return __vsub4(n ^ 0x08080808u, 0x08080808u);
-}
 
 // The address of corpus element (row, k); for int4 rows the byte that holds dim k.
 template <typename CT>
@@ -326,17 +255,16 @@ __device__ __forceinline__ size_t cell_of(const Cells& cells, int blk) {
 }
 
 // a sub-tile score: the product, x the row scale, x the query scale (the reference's
-// order), + the slot's offset (K17), or -inf for a masked row (past n_valid or the
-// selection block, or an empty IVF slot)
+// order), or -inf for a masked row (past n_valid or the selection block, or an empty IVF
+// slot)
 __device__ __forceinline__ float epilogue(float acc, int row, int q, int n_valid, int row_end,
                                           const float* cscale, const float* qscale,
-                                          const int* row_ids, const float* qoff = nullptr) {
+                                          const int* row_ids) {
   if (row >= n_valid || row >= row_end) return -INFINITY;
   if (row_ids != nullptr && __ldg(row_ids + row) < 0) return -INFINITY;
   float v = acc;
   if (cscale != nullptr) v *= __ldg(cscale + row);
   if (qscale != nullptr) v *= __ldg(qscale + q);
-  if (qoff != nullptr) v += __ldg(qoff + q);
   return v;
 }
 
@@ -356,22 +284,17 @@ size_t mma_smem_bytes(int H) {
   return sizeof(QT) * (size_t)MQ * (H + pad) + sizeof(ME) * 2 * (size_t)TN * (MK + pad) +
          sizeof(float) * (size_t)MQ * (TN + 1) + LIST_BYTES * MQ * JMAX;
 }
-// bytes of the 4-bit PQ table [H / d_sub, 16, d_sub] bf16, which follows the lists
-__host__ __device__ inline size_t pq4_table_bytes(int H) {
-  return sizeof(__nv_bfloat16) * 16 * (size_t)H;
-}
 
 template <typename QT, typename CT, bool SERVE>
 __global__ void __launch_bounds__(NT)
 block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
                       const float* __restrict__ cscale, const float* __restrict__ qscale,
                       float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
-                      int n_valid, int block, int J, Cells cells, Decode dec) {
+                      int n_valid, int block, int J, Cells cells) {
   using ME = MmaT<QT>;
   constexpr bool INT8 = std::is_same_v<QT, i8>;
   constexpr bool NIB = std::is_same_v<CT, nib>;
-  constexpr bool PQ = is_pq<CT>;
-  // int8 rows under bf16 queries, int4 rows, PQ codes: converted while staged
+  // int8 rows under bf16 queries, int4 rows: converted while staged
   constexpr bool CONVERT = !std::is_same_v<CT, ME>;
   using Acc = std::conditional_t<INT8, int, float>;
   constexpr int PAD = 16 / sizeof(ME);
@@ -399,17 +322,6 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
   const size_t cell = cell_of(cells, blk);
   q += cell * Q * H;
   if (qscale != nullptr) qscale += cell * Q;
-  const float* qoff = dec.qoff != nullptr ? dec.qoff + cell * Q : nullptr;
-  const void* table = dec.table;
-  if constexpr (std::is_same_v<CT, pq4>) {
-    if (dec.table_smem) {  // the 4-bit table, 16 B at a time, after the lists
-      unsigned char* ts = reinterpret_cast<unsigned char*>(sc + MQ * LDSC) + LIST_BYTES * MQ * JMAX;
-      const int n16 = (int)(pq4_table_bytes(H) / 16);
-      for (int idx = tid; idx < n16; idx += NT)
-        reinterpret_cast<uint4*>(ts)[idx] = __ldg(reinterpret_cast<const uint4*>(dec.table) + idx);
-      table = ts;  // read after the first slice barrier
-    }
-  }
 
   const int qrow_chunks = H * (int)sizeof(QT) / 16;
   for (int idx = tid; idx < MQ * qrow_chunks; idx += NT) {
@@ -424,24 +336,18 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
 
   // corpus elements per chunk: 16 int8, 8 bf16, or the 16 dims of one half that 16 packed
   // int4 bytes hold (H % 64 == 0, so a load never straddles the halves), each one 16-byte
-  // load; for PQ codes the 8 dims one decoded uint4 holds
-  constexpr int PER_CHUNK = PQ ? 8 : 16 / (int)sizeof(CT);
+  // load
+  constexpr int PER_CHUNK = 16 / (int)sizeof(CT);
   // a slice: TN rows x MK elements of the corpus; CHUNKS chunks per thread
   constexpr int SLICE_CHUNKS = TN * MK / PER_CHUNK;
   constexpr int CHUNKS = SLICE_CHUNKS / NT;
   static_assert(SLICE_CHUNKS % NT == 0, "slice loads must divide evenly");
   uint4 held[CONVERT ? CHUNKS : 1];                // converted rows one slice ahead
-  // (row, column) of a thread's chunk i: along the row, so a row's bytes coalesce; PQ codes
-  // along the column, so a warp reads 32 consecutive code bytes of one subspace
+  // (row, column) of a thread's chunk i: along the row, so a row's bytes coalesce
   auto chunk_rc = [&](int i, int& r, int& c) {
     const int idx = tid + i * NT;
-    if constexpr (PQ) {
-      r = idx % TN;
-      c = (idx / TN) * PER_CHUNK;
-    } else {
-      r = idx / (MK / PER_CHUNK);
-      c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
-    }
+    r = idx / (MK / PER_CHUNK);
+    c = (idx - r * (MK / PER_CHUNK)) * PER_CHUNK;
   };
 
   auto fetch_slice = [&](int buf, int base, int k0) {
@@ -449,11 +355,7 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
     for (int i = 0; i < CHUNKS; ++i) {
       int r, c;
       chunk_rc(i, r, c);
-      if constexpr (PQ) {
-        held[i] = base + r < N ? pq_decode8<CT>(reinterpret_cast<const unsigned char*>(corpus), N,
-                                                (size_t)(base + r), k0 + c, table, dec.d_sub)
-                               : make_uint4(0, 0, 0, 0);
-      } else if constexpr (CONVERT) {
+      if constexpr (CONVERT) {
         const void* src = corpus_at(corpus, (size_t)(base + r), k0 + c, H);
         held[i] = base + r < N ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
       } else {
@@ -466,17 +368,10 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
       }
     }
   };
-  // the held slice k0.. into buffer buf: decoded PQ rows as they are; int4 nibbles
-  // sign-extended to int8, then int8 -> bf16 under bf16 queries (both exact)
+  // the held slice k0.. into buffer buf: int4 nibbles sign-extended to int8, then int8 ->
+  // bf16 under bf16 queries (both exact)
   auto store_held = [&](int buf, int k0) {
-    if constexpr (PQ) {
-#pragma unroll
-      for (int i = 0; i < CHUNKS; ++i) {
-        int r, c;
-        chunk_rc(i, r, c);
-        *reinterpret_cast<uint4*>(cs + (buf * TN + r) * LDW + c) = held[i];
-      }
-    } else if constexpr (CONVERT) {
+    if constexpr (CONVERT) {
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
         int r, c;
@@ -512,7 +407,6 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-    if constexpr (PQ) __syncthreads();  // the 4-bit table is in shared memory
     fetch_slice(0, base, 0);
     if constexpr (CONVERT) store_held(0, 0);
     cp_async_commit();
@@ -553,7 +447,7 @@ block_topj_mma_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
       for (int e = 0; e < 4; ++e) {
         const int r = mt * 16 + g + 8 * (e >> 1), c = n + (e & 1);
         sc[r * LDSC + c] = epilogue((float)acc[j][e], base + c, q0 + r, n_valid, s_end,
-                                    cscale, qscale, cells.row_ids, qoff);
+                                    cscale, qscale, cells.row_ids);
       }
     }
     __syncthreads();
@@ -662,7 +556,7 @@ __global__ void __launch_bounds__(NT)
 block_topj_kernel(const QT* __restrict__ q, const CT* __restrict__ corpus,
                   const float* __restrict__ cscale, const float* __restrict__ qscale,
                   float* __restrict__ out_v, int* __restrict__ out_i, int Q, int N, int H,
-                  int n_valid, int block, int J, Cells cells, Decode /* PQ only */) {
+                  int n_valid, int block, int J, Cells cells) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qt = reinterpret_cast<float*>(smem);  // [KT][LDQT]: a K chunk of the queries
   float* ct = qt + KT * LDQT;                  // [KT][LDCT]: a K chunk of the sub-tile rows
@@ -752,7 +646,6 @@ struct Args {
   int Q, N, H, n_valid, block, J;
   Cells cells;
   cudaStream_t stream;
-  Decode dec;
 };
 
 // One kernel over every storage block, one grid row each (the grid's y extent takes at
@@ -770,7 +663,7 @@ int launch_blocks(K kernel, int tile, size_t smem, const Args& a) {
       static_cast<const QT*>(a.q), static_cast<const CT*>(a.corpus),
       static_cast<const float*>(a.cscale), static_cast<const float*>(a.qscale),
       static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), a.Q, a.N, a.H, a.n_valid,
-      a.block, a.J, a.cells, a.dec);
+      a.block, a.J, a.cells);
   return (int)cudaGetLastError();
 }
 
@@ -786,24 +679,6 @@ int try_mma(const Args& a) {
   const size_t smem = mma_smem_bytes<QT>(a.H);
   if (a.H % MK != 0 || (ptrs & 15) != 0 || smem > SMEM_MAX) return -1;
   return launch_blocks<QT, CT>(block_topj_mma_kernel<QT, CT, SERVE>, MQ, smem, a);
-}
-
-// K17's PQ corpora (bf16 queries, the tensor-core body only): 8-bit codes over a bf16
-// table, 4-bit codes with their table in shared memory where it fits
-int launch_pq(Args a, int nbits) {
-  const size_t base = mma_smem_bytes<bf>(a.H);
-  const uintptr_t ptrs =
-      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.dec.table);
-  if (a.H % 128 != 0 || a.dec.d_sub < 1 || 128 % a.dec.d_sub != 0 || base > SMEM_MAX ||
-      (ptrs & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-  if (nbits == 4) {
-    a.dec.table_smem = base + pq4_table_bytes(a.H) <= SMEM_MAX;
-    const size_t smem = a.dec.table_smem ? base + pq4_table_bytes(a.H) : base;
-    return launch_blocks<bf, pq4>(block_topj_mma_kernel<bf, pq4, true>, MQ, smem, a);
-  }
-  a.dec.table_smem = 0;
-  return launch_blocks<bf, pq8>(block_topj_mma_kernel<bf, pq8, true>, MQ, base, a);
 }
 
 template <bool SERVE>
@@ -835,7 +710,7 @@ int dispatch(const Args& a, int qtype, int ctype) {
       const int code = try_mma<i8, nib, true>(a);
       return code >= 0 ? code : (int)cudaErrorInvalidValue;
     }
-  } else if (qtype == T_F32 && ctype == T_I4) {  // K10
+  } else if (qtype == T_F32 && ctype == T_I4) {  // K10 where int4_certified.cu does not take it
     const uintptr_t q16 = reinterpret_cast<uintptr_t>(a.q) & 15;
     const uintptr_t c4 = reinterpret_cast<uintptr_t>(a.corpus) & 3;
     if (a.H % 8 == 0 && q16 == 0 && c4 == 0) return launch<float, nib, true, false>(a);
@@ -846,22 +721,34 @@ int dispatch(const Args& a, int qtype, int ctype) {
 
 }  // namespace
 
+// int4_certified.cu: K10's s8 wgmma body and the shapes it takes
+extern "C" int drt_int4_certified_takes(const void* q, const void* corpus, int H);
+extern "C" int drt_int4_certified(const void* q, const void* corpus, const void* scales,
+                                  void* out_v, void* out_i, int Q, int N, int H, int n_valid,
+                                  int block, int J, void* stream);
+
 // q [Q,H] (qtype), corpus [N,H] (ctype) or [N,H/2] (int4), cscales [N] fp32 or null,
 // qscales [Q] fp32 or null -> out_vals [Q, n_blocks, J] fp32, out_ids [Q, n_blocks, J]
 // int32. Types: 0 fp32, 1 bf16, 2 int8, 3 int4 (nibble-packed, column halves, H even).
 // Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8, fp32 x int4 (certified only), and
 // (serve only) bf16 x int4, and int8 x int8 / int8 x int4 at H % 64 == 0 with 16-byte
-// aligned rows.
+// aligned rows. fp32 x int4 certified runs int4_certified.cu's body where it takes the
+// shape; `body`, where not null, is set to 1 then, else to 0 (this file's bodies).
 extern "C" int drt_block_topj(const void* q, const void* corpus, const void* cscales,
                               const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
                               int n_valid, int block, int J, int qtype, int ctype, int serve,
-                              void* stream) {
+                              int* body, void* stream) {
+  if (body != nullptr) *body = 0;
   if (J < 1 || J > JMAX || block < 1 || (ctype == T_I4 && H % 2))
     return (int)cudaErrorInvalidValue;
+  if (!serve && qtype == T_F32 && ctype == T_I4 && drt_int4_certified_takes(q, corpus, H)) {
+    if (body != nullptr) *body = 1;
+    return drt_int4_certified(q, corpus, cscales, out_v, out_i, Q, N, H, n_valid, block, J,
+                              stream);
+  }
   const int n_blocks = (N + block - 1) / block;
   const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
-               Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream),
-               Decode{nullptr, nullptr, 1, 0}};
+               Cells{nullptr, nullptr, 1, block, n_blocks}, static_cast<cudaStream_t>(stream)};
   return serve ? dispatch<true>(a, qtype, ctype) : dispatch<false>(a, qtype, ctype);
 }
 
@@ -886,29 +773,6 @@ extern "C" int drt_ivf_topj(const void* qslab, const void* values, const void* c
   const Args a{qslab, values, cscales, qscales, out_v, out_i, Qcap, N, H, INT_MAX, block, J,
                Cells{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell),
                      cell_blocks, sel, n_sel},
-               static_cast<cudaStream_t>(stream), Decode{nullptr, nullptr, 1, 0}};
+               static_cast<cudaStream_t>(stream)};
   return dispatch<true>(a, qtype, ctype);
-}
-
-// The IVF-PQ cell kernel K17: K14 over the ragged block list of PQ codes (codes [M, N] int8
-// holding code - 128, or [M/2, N] nibble-packed, M = H / d_sub, N = n_blocks * block;
-// bf16 table [M, k, d_sub], d_sub | 128, H % 128 == 0), each cell's
-// bf16 query slab qslab [nlist, Qcap, H]; qoff [nlist, Qcap] fp32 is added to every score
-// of its slot before the row mask (row_ids < 0) and the selection. -> out_vals / out_ids
-// [N / block * ceil(block / sel), Qcap, J], ids flat positions.
-extern "C" int drt_ivf_pq_topj(const void* qslab, const void* codes, const void* table,
-                               const void* qoff, const void* row_ids, const void* block_cell,
-                               void* out_v, void* out_i, int Qcap, int N, int H, int d_sub,
-                               int nbits, int block, int sel, int J, void* stream) {
-  if (J < 1 || J > JMAX || block < 1 || sel < 1 || sel > block || N % block != 0 ||
-      row_ids == nullptr || block_cell == nullptr || qoff == nullptr ||
-      (nbits != 4 && nbits != 8) || d_sub < 1 || H % d_sub != 0)
-    return (int)cudaErrorInvalidValue;
-  const int n_sel = N / block * ((block + sel - 1) / sel);
-  const Args a{qslab, codes, nullptr, nullptr, out_v, out_i, Qcap, N, H, INT_MAX, block, J,
-               Cells{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell), 1,
-                     sel, n_sel},
-               static_cast<cudaStream_t>(stream),
-               Decode{table, static_cast<const float*>(qoff), d_sub, 0}};
-  return launch_pq(a, nbits);
 }

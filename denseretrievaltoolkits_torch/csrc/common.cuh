@@ -73,6 +73,13 @@ __device__ __forceinline__ void mma_s8_16x8x32(int (&d)[4], const unsigned (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four packed int4 bytes -> their four low nibbles or, with `high`, high nibbles,
+// sign-extended, as four int8 in one word: (n ^ 8) - 8 per byte, no borrow across bytes.
+__device__ __forceinline__ unsigned nibbles(unsigned w, bool high) {
+  const unsigned n = (high ? w >> 4 : w) & 0x0F0F0F0Fu;
+  return __vsub4(n ^ 0x08080808u, 0x08080808u);
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels of flash_attn.cu,
-// mlp_ln.cu, attn_ln.cu and pq_serve.cu: mbarriers, TMA tile loads, wgmma fences /
-// commits / waits and shared memory descriptors, the wgmma instructions the kernels
-// issue, cluster barriers and distributed shared memory, and on the host the lookup of
-// cuTensorMapEncodeTiled and a cache of the tensor maps it encodes.
+// mlp_ln.cu, attn_ln.cu, pq_serve.cu, ivf_cell.cu and int4_certified.cu: mbarriers, TMA tile
+// loads, wgmma fences / commits / waits and shared memory descriptors, the wgmma
+// instructions the kernels issue (bf16 and s8), the generic-to-async proxy fence and the
+// consumer warpgroup's named barrier, cluster barriers and distributed shared memory, and on
+// the host the lookup of cuTensorMapEncodeTiled and the tensor maps it encodes.
 //
 // Operand layouts: every tile is stored as TMA writes it with a 128-byte swizzle, in
 // 1024-byte aligned atoms of 8 rows x 128 bytes (64 bf16). A K-major operand has K along
@@ -86,6 +87,27 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(unsigned (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// shared-memory writes of the generic proxy (rows converted by threads) made visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the barrier of one consumer warpgroup (named barrier 1, 128 threads: a producer warp, where
+// the CTA has one, does not take part)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile (1024-byte aligned atoms of
 // 8 rows x 128 B): 8-row groups 1024 B apart (SBO); `lbo` the byte stride between
@@ -142,6 +164,56 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n128, s32) = A.B^T, or d += A.B^T with accumulate: A and B int8 in shared memory,
+// both K-major (k32 = 32 bytes); accumulator layout as wgmma_ss_n128_mn's
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64, s32) = A.B^T, or d += A.B^T with accumulate: A int8 in registers (four words a
+// thread, each four consecutive k: rows g and g + 8 of the thread's warp's 16, k 4 t and
+// 16 + 4 t of the k32 step, as the mma.sync m16n8k32 A fragment), B int8 in shared memory,
+// K-major; accumulator layout as wgmma_ss_n128_mn's. The A registers are read after the
+// instruction issues: they must hold until a wait shows the group done.
+__device__ __forceinline__ void wgmma_s8_rs_n64(int (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d (m64n64, fp32) += A.B: A bf16 in registers (four per thread, the mma.sync A
@@ -307,6 +379,20 @@ inline int encode_tiled(EncodeTiled* fn) {
   }
   *fn = cached;
   return 0;
+}
+
+// A tensor map of any element type, rank, box and swizzle (no cache): elements past the
+// tensor read as zeros. Returns 0 or a cudaError_t.
+inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode;
+  if (int err = encode_tiled(&encode)) return err;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // The tensor map of a bf16 tensor of rank 2 or 3: `dims` innermost first (columns, rows,

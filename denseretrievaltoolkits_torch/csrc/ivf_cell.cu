@@ -1,19 +1,26 @@
-// The IVF cell kernels K13 and K14 on Hopper: empty query slots and empty row tiles skipped,
-// products on wgmma + TMA (bf16, int8 rows, i8q) or FFMA (fp32), and an exact serve selection
-// built for J of 20-32.
+// The IVF cell kernels K13, K14 and K17 on Hopper: empty query slots and empty row tiles
+// skipped, products on wgmma + TMA (bf16, int8 rows, i8q, PQ codes) or FFMA (fp32), and an
+// exact serve selection built for J of 20-32 (K17 at J <= 8: register lists, two lanes a
+// slot).
 //
 // Replaces these TPU kernels of denseretrievaltoolkits_tpu/ops/ivf_bulk.py (serve selection):
 //   K13 `_cell_topj_kernel` / `_scaled` / `_i8q` (:44, :61, :143; `_ivf_cell_topj`, :122): per
 //       (cell, cell block) the cell's probing-query slab [Qcap, H] against the block's rows of
 //       the fixed-capacity layout [nlist * C, H], empty row slots (row id < 0) masked;
 //   K14 `_ragged_kernel` / `_scaled` / `_i8q` (:165, :184, :202; `_ivf_ragged_topj`, :272):
-//       the same over the ragged padded-flat block list, whose block -> cell map picks the slab.
+//       the same over the ragged padded-flat block list, whose block -> cell map picks the slab;
+// and this of denseretrievaltoolkits_tpu/ops/ivf_pq.py:
+//   K17 `_ragged_pq_kernel` (:58; `_ivf_ragged_topj_pq`, :167): K14 over PQ codes of cell
+//       residuals, decoded through the table [M, k, d_sub], each slot's probe score added to
+//       its scores after the product, before the row mask.
 // For each (storage block, selection block of `sel` rows, slot) the J best (score, id) pairs
 // under the serve key of serve_select.cuh (exact fp32 score, ties to the smaller flat id),
 // written cell-major [n_sel, Qcap, J] (an empty entry is (-inf, -1)). Formulas: fp32 cells
 // score fp32 slots in true fp32 (FFMA, no TF32); bf16 cells bf16 products with fp32 sums;
 // int8 cells under bf16 slots convert int8 -> bf16 (exact) and multiply the row scale after
-// the sum; i8q runs s8 x s8 -> s32, then float(s32) * scale_row * scale_slot, in that order.
+// the sum; i8q runs s8 x s8 -> s32, then float(s32) * scale_row * scale_slot, in that order;
+// PQ cells decode each code to its table entry in bf16 (exact: the table is bf16) and score
+// bf16 products with fp32 sums, + the slot's offset.
 //
 // What bounds it on the H100: the rows the probed cells hold, read once (0.26-0.98 ms at 1M
 // rows x 768, 2.04 ms at 8.8M int8 rows), and the real (slot, row) products (about 0.1 ms
@@ -40,6 +47,14 @@
 //   with every tile padded to 64 slots, while the selection and the bytes scale with the
 //   real slots and rows only, so one shape (and two CTAs an SM at 101 KB of shared memory)
 //   serves every fill.
+// - Products, PQ codes (`ivf_cell_wgmma<K_PQ>`, K17): the slots' slice as bf16's, the codes of
+//   the tile's 128 rows for the slice's subspaces by TMA (a box of 128 rows x the slice's
+//   storage rows of the code-major [M_storage, N]; where N, block or sel is no multiple of 16
+//   the producer warp copies them), one code-major stage of R x 128 bytes beside the slots'.
+//   Each consumer thread decodes its row's 64 dims (the 4-bit table, 32 H bytes, copied to
+//   shared memory once a CTA; the 8-bit one, 512 H bytes, read through L2) while the previous
+//   slice's products run, then stores them swizzled as bf16 once every warp's products are
+//   done (the products read every row), behind fence.proxy.async and the named barrier.
 // - Products, fp32 (`ivf_cell_ffma`): 8 warps, each 8 slots x 128 rows by register-tiled
 //   FFMA over K chunks staged transposed in shared memory; a warp whose 8 slots are all past
 //   the count skips its products.
@@ -51,7 +66,10 @@
 //   warp-wide bitonic pass: the four 32-key columns sorted in alternating directions, their
 //   top 32 by elementwise max and half-cleaners, then merged with the list the same way.
 //   That costs about one pass over the tile's keys, where the J argmax rounds cost J; the
-//   lists stay exact (the keys a full merge keeps).
+//   lists stay exact (the keys a full merge keeps). K17 at J <= 8 (its bulk J): lanes 2 j and
+//   2 j + 1 own slot j, each half the tile's rows with a register list of 8 keys; the rows
+//   past the list's J-th score are marked one bit a row, then inserted (select_pair); the
+//   two lists merge when the selection block is written.
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -61,6 +79,7 @@
 #include "serve_select.cuh"
 
 using namespace drt;
+using namespace drt::warp_select;
 
 namespace {
 
@@ -71,7 +90,6 @@ constexpr int SLOTS = 64;       // slots a CTA: the wgmma M, the FFMA body's que
 constexpr int TR = 128;         // rows a tile
 constexpr int SCP = TR + 8;     // score tile pitch, floats: the accumulators' float2 stores
                                 // take two wavefronts, a lane's reads one
-constexpr int INSERT_MAX = 32;  // candidates a slot inserts one by one; more: bitonic
 constexpr size_t SMEM_MAX = 232448;
 
 enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2 };
@@ -129,81 +147,12 @@ __device__ __forceinline__ TileRows tile_rows(const Job& jb, int base, int lim, 
   return t;
 }
 
-// ---- the selection ---------------------------------------------------------------------
-
-// one compare-exchange step with lane ^ j: keep the smaller key where keep_min
-__device__ __forceinline__ u64 cx(u64 v, int j, bool keep_min) {
-  const u64 p = __shfl_xor_sync(0xffffffffu, v, j);
-  return keep_min ? (p < v ? p : v) : (p > v ? p : v);
-}
-
-// a bitonic sequence of 32 keys (one a lane) sorted, ascending if asc
-__device__ __forceinline__ u64 clean32(u64 v, bool asc, int lane) {
-#pragma unroll
-  for (int j = 16; j > 0; j >>= 1) v = cx(v, j, ((lane & j) == 0) == asc);
-  return v;
-}
-
-__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a > b ? a : b; }
-
-// The list L (sorted descending, one key a lane) and the 128 keys k (4 a lane) -> the top 32
-// of both, sorted descending: the four key columns sorted across the warp (0 and 2
-// descending, 1 and 3 ascending), the top 32 of each pair by elementwise max (a bitonic
-// sequence) and a half-cleaner cascade, the same for the two halves, then with the list.
-__device__ __forceinline__ u64 merge_bitonic(u64 L, u64 (&k)[4], int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
-#pragma unroll
-    for (int j = size >> 1; j > 0; j >>= 1)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const bool asc = ((lane & size) == 0) == (r & 1);
-        k[r] = cx(k[r], j, ((lane & j) == 0) == asc);
-      }
-  const u64 a = clean32(kmax(k[0], k[1]), false, lane);
-  const u64 b = clean32(kmax(k[2], k[3]), true, lane);
-  const u64 c = clean32(kmax(a, b), true, lane);
-  return clean32(kmax(L, c), false, lane);
-}
-
-// key x into the list L (sorted descending, one key a lane): the lanes above its place keep
-// theirs, the others take their upper neighbour's; lane 31's key falls off
-__device__ __forceinline__ u64 insert_key(u64 L, u64 x, int lane) {
-  const int p = __popc(__ballot_sync(0xffffffffu, L > x));
-  const u64 up = __shfl_up_sync(0xffffffffu, L, 1);
-  return lane < p ? L : (lane == p ? x : up);
-}
-
-// One slot's tile of candidate keys k (4 a lane, 0: masked) into its list (32 keys in shared
-// memory, sorted descending, 0 = empty; the first J are the result).
-__device__ __forceinline__ void merge_tile(u64 (&k)[4], u64* list, int J, int lane) {
-  const u64 thr = list[J - 1];
-  unsigned m[4];
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = __ballot_sync(0xffffffffu, k[r] > thr);
-    c += __popc(m[r]);
-  }
-  if (c == 0) return;
-  u64 L = list[lane];
-  if (c <= INSERT_MAX) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      for (unsigned mm = m[r]; mm != 0u; mm &= mm - 1u)
-        L = insert_key(L, __shfl_sync(0xffffffffu, k[r], __ffs(mm) - 1), lane);
-  } else {
-    L = merge_bitonic(L, k, lane);
-  }
-  __syncwarp();  // every lane has read the list
-  list[lane] = L;
-  __syncwarp();
-}
+// ---- the selection (warp_select::merge_tile of serve_select.cuh) -------------------------
 
 // The candidate keys of one slot's row of the score tile: column lane + 32 r is flat row
 // base + lane + 32 r, x the row scale (int8 cells), x the slot scale (i8q), the reference's
-// order; masked rows are 0.
-template <bool CS, bool QS>
+// order, or + the slot's offset (PQ cells, after the product); masked rows are 0.
+template <bool CS, bool QS, bool OFF = false>
 __device__ __forceinline__ void slot_keys(u64 (&k)[4], const float* srow, const TileRows& tr,
                                           const float (&cs)[4], float qs, int base, int lane) {
 #pragma unroll
@@ -211,8 +160,76 @@ __device__ __forceinline__ void slot_keys(u64 (&k)[4], const float* srow, const 
     float v = srow[lane + 32 * r];
     if constexpr (CS) v = v * cs[r];
     if constexpr (QS) v = v * qs;
+    if constexpr (OFF) v = v + qs;
     k[r] = tr.valid[r] ? pack_key(v, base + lane + 32 * r) : 0ull;
   }
+}
+
+// K17's selection for J <= JT: lanes 2 j and 2 j + 1 of a warp own its slot j, each half the
+// tile's rows (64 h .. 64 h + 63), with a list of JT keys at keys 8 h .. of the slot's 32
+// (sorted descending): the rows past the list's J-th score (ties cannot enter: later rows
+// carry larger ids) as a bitmask, then each in row order against the floor as it stands, by
+// a register insertion. srow: the slot's scores, valid: the tile's stored rows (bit r of
+// word w: row 32 w + r), off: the slot's offset, added after the product.
+constexpr int JT = 8;
+__device__ __forceinline__ void select_pair(u64* list, const float* srow, const unsigned (&valid)[4],
+                                            float off, int base, int h, int J) {
+  const u64 t = list[J - 1];
+  float floor = t == 0ull ? -INFINITY : key_score(t);
+  unsigned long long cand = 0ull;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float4 s4 = *reinterpret_cast<const float4*>(srow + 64 * h + 4 * k);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (sv[e] + off > floor) cand |= 1ull << (4 * k + e);
+  }
+  const unsigned lo = h ? valid[2] : valid[0], hi = h ? valid[3] : valid[1];
+  cand &= ((unsigned long long)hi << 32) | lo;
+  if (cand == 0ull) return;
+  u64 L[JT];
+#pragma unroll
+  for (int p = 0; p < JT; ++p) L[p] = list[p];
+  do {
+    const int b = __ffsll(cand) - 1;
+    cand &= cand - 1ull;
+    const float v = srow[64 * h + b] + off;
+    if (v > floor) {
+      insert_sorted(L, pack_key(v, base + 64 * h + b));
+      floor = list_floor(L, J);
+    }
+  } while (cand != 0ull);
+#pragma unroll
+  for (int p = 0; p < JT; ++p) list[p] = L[p];
+}
+
+// The lists of select_pair (slot j's halves at keys 0 and 8 of its 32) of selection block sbi
+// into the output as write_lists does: each pair merged in its even lane.
+__device__ __forceinline__ void write_pair_lists(const Job& jb, u64* lists, int sbi, int slot0,
+                                                 int n, int mine, int lane) {
+  const int j = lane >> 1, h = lane & 1;
+  u64 L[JT];
+#pragma unroll
+  for (int p = 0; p < JT; ++p) {
+    L[p] = j < mine ? lists[j * JMAX + 8 * h + p] : 0ull;
+    if (j < mine) lists[j * JMAX + 8 * h + p] = 0ull;
+  }
+#pragma unroll
+  for (int p = 0; p < JT; ++p) {
+    const u64 other = __shfl_xor_sync(0xffffffffu, L[p], 1);
+    if (h == 0) insert_sorted(L, other);
+  }
+  if (h == 0 && j < n) {
+    const size_t o = ((size_t)sbi * jb.Qcap + slot0 + j) * jb.J;
+#pragma unroll
+    for (int p = 0; p < JT; ++p)
+      if (p < jb.J) {
+        jb.out_v[o + p] = L[p] == 0ull ? -INFINITY : key_score(L[p]);
+        jb.out_i[o + p] = L[p] == 0ull ? -1 : key_row(L[p]);
+      }
+  }
+  __syncwarp();
 }
 
 // The lists of n slots (the CTA's slots sl0 .. sl0 + n - 1, lists 32 keys apart) of selection
@@ -235,9 +252,10 @@ __device__ __forceinline__ void write_lists(const Job& jb, u64* lists, int sbi, 
   __syncwarp();
 }
 
-// ---- the wgmma body (bf16 slots x bf16 rows, bf16 slots x int8 rows, int8 x int8) -------
+// ---- the wgmma body (bf16 slots x bf16 rows, bf16 slots x int8 rows, int8 x int8, bf16
+// slots x PQ codes) --------------------------------------------------------------------------
 
-enum { K_BF16 = 0, K_I8ROWS = 1, K_I8Q = 2 };
+enum { K_BF16 = 0, K_I8ROWS = 1, K_I8Q = 2, K_PQ = 3 };
 
 constexpr int NST = 2;           // ring stages
 constexpr int WG_THREADS = 160;  // one consumer warpgroup and one producer warp
@@ -247,66 +265,89 @@ template <int KIND>
 struct Wg {
   static constexpr int KS = KIND == K_I8Q ? 128 : 64;  // k elements a slice: 128 bytes
   static constexpr uint32_t A_BYTES = SLOTS * 128;     // the slots' slice, swizzled
-  // the rows' slice: swizzled 128-byte rows, or int8 rows of 64 bytes (converted after)
-  static constexpr uint32_t B_BYTES = KIND == K_I8ROWS ? TR * 64 : TR * 128;
+  // the rows' slice: swizzled 128-byte rows, or int8 rows of 64 bytes (converted after); PQ
+  // codes take the launch's Pq::stage - A_BYTES
+  static constexpr uint32_t B_BYTES = KIND == K_I8ROWS ? TR * 64 : KIND == K_PQ ? 0 : TR * 128;
   static constexpr uint32_t STAGE = A_BYTES + B_BYTES;
-  static constexpr uint32_t CONV = KIND == K_I8ROWS ? TR * 128 : 0;  // the rows as bf16
+  // the rows as bf16 (int8 rows converted, PQ rows decoded)
+  static constexpr uint32_t CONV = KIND == K_I8ROWS || KIND == K_PQ ? TR * 128 : 0;
   static constexpr size_t SMEM = 1024 + NST * STAGE + CONV + sizeof(float) * SLOTS * SCP +
                                  sizeof(u64) * SLOTS * JMAX + 2 * NST * 8;
 };
+
+// K17's PQ cells: codes code-major [M_storage, N] (8-bit: code - 128 as int8 [M, N]; 4-bit:
+// subspaces 2i, 2i + 1 in the low and high nibbles of [M / 2, N]), the bf16 table [M, k,
+// d_sub] (k = 256 / 16), M = H / d_sub, d_sub | 128.
+struct Pq {
+  const unsigned char* codes;
+  const bf* table;      // device memory; the 4-bit table is copied to shared memory
+  const float* poff;    // [nlist, Qcap]: each slot's offset, added to its scores
+  int d_sub, four;      // four: 4-bit codes
+  int rows;             // storage rows of codes a 64-dim slice (one at least)
+  int tma;              // the codes come by TMA (N, block and sel multiples of 16, 16-byte
+                        // aligned); else the producer warp copies them
+  int table_smem;       // the table is in shared memory (after the barriers)
+  uint32_t stage;       // ring stage bytes: the slots' slice, then the codes (1024-aligned)
+};
+
+// the first storage row of codes of 64-dim slice s
+__device__ __forceinline__ int pq_row0(const Pq& pq, int s) {
+  const int m = s * 64 / pq.d_sub;
+  return pq.four ? m >> 1 : m;
+}
+
+// Row `row` of a tile's 64-dim slice s decoded to bf16 (8 dims a uint4): codes [pq.rows][TR]
+// bytes as the stage holds them; entry (m, code, dim % d_sub) of the table for subspace m =
+// dim / d_sub.
+__device__ __forceinline__ void pq_decode(uint4 (&o)[8], const unsigned char* codes,
+                                          const bf* table, const Pq& pq, int s, int row) {
+  const int d = pq.d_sub, kc = pq.four ? 16 : 256, r0 = pq_row0(pq, s);
+  auto entry = [&](int m) {  // the table row of subspace m's code for this row
+    const unsigned b = codes[((pq.four ? m >> 1 : m) - r0) * TR + row];
+    const unsigned code = pq.four ? ((m & 1) ? b >> 4 : b & 15u) : b ^ 0x80u;
+    return table + ((size_t)m * kc + code) * d;
+  };
+  if (pq.four && d == 4) {  // 8 dims: two subspaces, one code byte, two 8-byte entries
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int m = (s * 64 + 8 * c) >> 2;  // even
+      const unsigned b = codes[((m >> 1) - r0) * TR + row];
+      const uint2 lo = *reinterpret_cast<const uint2*>(table + ((size_t)m * 16 + (b & 15u)) * 4);
+      const uint2 hi = *reinterpret_cast<const uint2*>(table + ((size_t)m * 16 + 16 + (b >> 4)) * 4);
+      o[c] = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int k = s * 64 + 8 * c;
+    if (d >= 8) {  // 8 dims of one subspace: one 16-byte load
+      const int m = k / d;
+      o[c] = *reinterpret_cast<const uint4*>(entry(m) + (k - m * d));
+    } else if (d == 4) {  // two subspaces, 8 bytes each
+      const uint2 a = *reinterpret_cast<const uint2*>(entry(k >> 2));
+      const uint2 b = *reinterpret_cast<const uint2*>(entry((k >> 2) + 1));
+      o[c] = make_uint4(a.x, a.y, b.x, b.y);
+    } else {  // d_sub 1 or 2: 4 bytes at a time
+      unsigned w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = k + 2 * e;
+        if (d == 2) {
+          w[e] = *reinterpret_cast<const unsigned*>(entry(kk >> 1));
+        } else {
+          const unsigned lo = *reinterpret_cast<const unsigned short*>(entry(kk));
+          const unsigned hi = *reinterpret_cast<const unsigned short*>(entry(kk + 1));
+          w[e] = lo | (hi << 16);
+        }
+      }
+      o[c] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
 static_assert(Wg<K_BF16>::SMEM <= SMEM_MAX / 2 && Wg<K_I8ROWS>::SMEM <= SMEM_MAX / 2 &&
                   Wg<K_I8Q>::SMEM <= SMEM_MAX / 2,
               "two CTAs of the wgmma body must fit an SM");
-
-// d (m64n128, s32) = A.B^T, or d += A.B^T with accumulate: A and B int8 in shared memory,
-// both K-major (k32); accumulator layout as wgmma_ss_n128's
-__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "%64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// keep the compiler from moving accesses of wgmma accumulators across the wait
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_acc(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// shared-memory writes of the generic proxy (the converted rows) made visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// the consumer warpgroup's own barrier (the producer warp does not take part)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
 
 // four int8 (one word, k in byte order) -> four bf16 in two words, exactly: each biased byte
 // u = x + 128 becomes the float 2^23 + u, minus 2^23 + 128 leaves x, whose low 16 bits are
@@ -342,14 +383,16 @@ __device__ __forceinline__ void convert_rows(const unsigned char* src, unsigned 
 template <int KIND>
 __global__ void __launch_bounds__(WG_THREADS, 2)
 ivf_cell_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmr,
-               Job jb) {
+               Job jb, Pq pq) {
   using W = Wg<KIND>;
   using Acc = std::conditional_t<KIND == K_I8Q, int, float>;
+  constexpr bool PQ = KIND == K_PQ;
+  const uint32_t STAGE = PQ ? pq.stage : W::STAGE;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (ring - smem_addr(smem_raw));
-  const uint32_t conv = ring + NST * W::STAGE;
-  float* scores = reinterpret_cast<float*>(gbase + NST * W::STAGE + W::CONV);
+  const uint32_t conv = ring + NST * STAGE;
+  float* scores = reinterpret_cast<float*>(gbase + NST * STAGE + W::CONV);
   u64* lists = reinterpret_cast<u64*>(scores + SLOTS * SCP);
   const uint32_t bars = smem_addr(lists + SLOTS * JMAX);
   auto full = [&](int s) { return bars + 8u * s; };
@@ -371,6 +414,16 @@ ivf_cell_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  const bf* table = nullptr;  // PQ: the table, in shared memory where it fits
+  if constexpr (PQ) {
+    table = pq.table;
+    if (pq.table_smem) {
+      uint4* ts = reinterpret_cast<uint4*>(lists + SLOTS * JMAX) + NST;  // after the barriers
+      for (int i = tid; i < 2 * jb.H; i += WG_THREADS)  // 32 H bytes
+        ts[i] = __ldg(reinterpret_cast<const uint4*>(pq.table) + i);
+      table = reinterpret_cast<const bf*>(ts);
+    }
+  }
   __syncthreads();
   const int per = (jb.block + jb.sel - 1) / jb.sel;
   const int blk_start = blk * jb.block;
@@ -383,18 +436,35 @@ ivf_cell_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
       const int s0 = blk_start + sb * jb.sel, s_end = min(blk_start + jb.block, s0 + jb.sel);
       for (int base = s0; base < s_end; base += TR) {
         if (!tile_rows(jb, base, s_end, lane).any) continue;
-        if (lane == 0)
-          for (int s = 0; s < ns; ++s) {
+        for (int s = 0; s < ns; ++s) {
+          const uint32_t st = ring + stage * STAGE;
+          if constexpr (PQ) {  // every lane: the codes, copied where TMA cannot bring them
             mbar_wait(empty(stage), phase ^ 1);
-            const uint32_t st = ring + stage * W::STAGE;
+            const int r0 = pq_row0(pq, s);
+            if (!pq.tma) {
+              unsigned char* dst = gbase + stage * STAGE + W::A_BYTES;
+              for (int i = lane; i < pq.rows * TR; i += 32) {
+                const int n = base + (i & (TR - 1));
+                dst[i] = n < jb.N ? pq.codes[(size_t)(r0 + i / TR) * jb.N + n] : 0;
+              }
+            }
+            __syncwarp();
+            if (lane == 0) {
+              mbar_expect_tx(full(stage), W::A_BYTES + (pq.tma ? pq.rows * TR : 0));
+              tma_load_3d(st, &tmq, s * W::KS, s_lo, cell, full(stage));
+              if (pq.tma) tma_load_2d(st + W::A_BYTES, &tmr, base, r0, full(stage));
+            }
+          } else if (lane == 0) {
+            mbar_wait(empty(stage), phase ^ 1);
             mbar_expect_tx(full(stage), W::STAGE);
             tma_load_3d(st, &tmq, s * W::KS, s_lo, cell, full(stage));
             tma_load_2d(st + W::A_BYTES, &tmr, s * W::KS, base, full(stage));
-            if (++stage == NST) {
-              stage = 0;
-              phase ^= 1;
-            }
           }
+          if (++stage == NST) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
         __syncwarp();
       }
     }
@@ -423,8 +493,29 @@ ivf_cell_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
       int prev = 0;
       for (int s = 0; s < ns; ++s) {
         mbar_wait(full(stage), phase);
-        const uint32_t st = ring + stage * W::STAGE;
-        if constexpr (KIND == K_I8ROWS) {
+        const uint32_t st = ring + stage * STAGE;
+        if constexpr (PQ) {
+          // this row's slice decoded while the previous slice's products run, stored once every
+          // warp's products are done (they read every row of the buffer)
+          uint4 o[8];
+          pq_decode(o, gbase + stage * STAGE + W::A_BYTES, table, pq, s, tid);
+          if (s > 0) {
+            wgmma_wait<0>();
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty(prev));
+          }
+          consumers_sync();
+          unsigned char* dst = gbase + NST * STAGE + tid * 128;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) *reinterpret_cast<uint4*>(dst + ((c ^ (tid & 7)) << 4)) = o[c];
+          fence_proxy_async();
+          consumers_sync();
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n128(acc, sw128_desc(st + kk * 32, 16), sw128_desc(conv + kk * 32, 16), 1);
+          wgmma_commit();
+        } else if constexpr (KIND == K_I8ROWS) {
           if (s > 0) {  // the previous slice's products are done: its rows and stage are free
             wgmma_wait<0>();
             __syncwarp();
@@ -463,7 +554,7 @@ ivf_cell_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
         }
       }
       wgmma_wait<0>();
-      fence_acc(acc);
+      fence_regs(acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(prev));
       // the sums of slot rows 16 w + g (+ 8) at columns 8 n + 2 t4 (+ 1) into the score tile
@@ -477,10 +568,22 @@ ivf_cell_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
       }
       __syncwarp();
       float cs[4] = {1.f, 1.f, 1.f, 1.f};
-      if constexpr (KIND != K_BF16) {
+      if constexpr (KIND == K_I8ROWS || KIND == K_I8Q) {
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           if (tr.valid[r]) cs[r] = __ldg(jb.cscale + base + lane + 32 * r);
+      }
+      if (PQ && jb.J <= JT) {  // K17: two lanes a slot, register lists
+        unsigned valid[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) valid[r] = __ballot_sync(0xffffffffu, tr.valid[r]);
+        const int j = lane >> 1;
+        if (j < mine)
+          select_pair(my_lists + j * JMAX + 8 * (lane & 1), scores + (16 * warp + j) * SCP, valid,
+                      __ldg(pq.poff + (size_t)cell * jb.Qcap + s_lo + 16 * warp + j), base,
+                      lane & 1, jb.J);
+        __syncwarp();
+        continue;
       }
       for (int j = 0; j < mine; ++j) {
         const int sl = 16 * warp + j;
@@ -489,13 +592,20 @@ ivf_cell_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
           slot_keys<true, true>(k, scores + sl * SCP, tr, cs,
                                 __ldg(jb.qscale + (size_t)cell * jb.Qcap + s_lo + sl), base,
                                 lane);
+        else if constexpr (PQ)
+          slot_keys<false, false, true>(k, scores + sl * SCP, tr, cs,
+                                        __ldg(pq.poff + (size_t)cell * jb.Qcap + s_lo + sl), base,
+                                        lane);
         else
           slot_keys<KIND == K_I8ROWS, false>(k, scores + sl * SCP, tr, cs, 1.f, base, lane);
         merge_tile(k, my_lists + j * JMAX, jb.J, lane);
       }
       __syncwarp();  // the tile is read before the next one is stored
     }
-    write_lists(jb, my_lists, blk * per + sb, s_lo + 16 * warp, n_here, mine, lane);
+    if (PQ && jb.J <= JT)
+      write_pair_lists(jb, my_lists, blk * per + sb, s_lo + 16 * warp, n_here, mine, lane);
+    else
+      write_lists(jb, my_lists, blk * per + sb, s_lo + 16 * warp, n_here, mine, lane);
   }
 }
 
@@ -647,18 +757,6 @@ ivf_cell_ffma(const float* __restrict__ qslab, const float* __restrict__ values,
 
 // ---- host ---------------------------------------------------------------------------------
 
-int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
-               const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-               CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode;
-  if (int err = encode_tiled(&encode)) return err;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int KIND>
 int launch_wgmma(const void* qslab, const void* values, const Job& jb, int nlist, dim3 grid,
                  cudaStream_t stream) {
@@ -673,12 +771,12 @@ int launch_wgmma(const void* qslab, const void* values, const Job& jb, int nlist
   const cuuint64_t qdims[3] = {(cuuint64_t)jb.H, (cuuint64_t)jb.Qcap, (cuuint64_t)nlist};
   const cuuint64_t qstrides[2] = {jb.H * qe, (cuuint64_t)jb.Qcap * jb.H * qe};
   const cuuint32_t qbox[3] = {(cuuint32_t)W::KS, SLOTS, 1};
-  if (int e = encode_map(&tmq, qt, qslab, 3, qdims, qstrides, qbox, CU_TENSOR_MAP_SWIZZLE_128B))
+  if (int e = tensor_map(&tmq, qt, qslab, 3, qdims, qstrides, qbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return e;
   const cuuint64_t rdims[2] = {(cuuint64_t)jb.H, (cuuint64_t)jb.N};
   const cuuint64_t rstrides[1] = {jb.H * re};
   const cuuint32_t rbox[2] = {(cuuint32_t)W::KS, TR};
-  if (int e = encode_map(&tmr, rt, values, 2, rdims, rstrides, rbox,
+  if (int e = tensor_map(&tmr, rt, values, 2, rdims, rstrides, rbox,
                          KIND == K_I8ROWS ? CU_TENSOR_MAP_SWIZZLE_NONE
                                           : CU_TENSOR_MAP_SWIZZLE_128B))
     return e;
@@ -686,7 +784,45 @@ int launch_wgmma(const void* qslab, const void* values, const Job& jb, int nlist
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)W::SMEM);
   if (err != cudaSuccess) return (int)err;
-  ivf_cell_wgmma<KIND><<<grid, WG_THREADS, W::SMEM, stream>>>(tmq, tmr, jb);
+  ivf_cell_wgmma<KIND><<<grid, WG_THREADS, W::SMEM, stream>>>(tmq, tmr, jb, Pq{});
+  return (int)cudaGetLastError();
+}
+
+// K17: the slab's map as bf16 slots', the codes' (a box of 128 rows x the slice's storage
+// rows) where TMA can bring them; the 4-bit table in shared memory where it fits
+int launch_pq(const void* qslab, const Job& jb, Pq pq, int nlist, int m_storage, dim3 grid,
+              cudaStream_t stream) {
+  using W = Wg<K_PQ>;
+  CUtensorMap tmq, tmr = {};
+  const cuuint64_t qdims[3] = {(cuuint64_t)jb.H, (cuuint64_t)jb.Qcap, (cuuint64_t)nlist};
+  const cuuint64_t qstrides[2] = {jb.H * 2ull, (cuuint64_t)jb.Qcap * jb.H * 2};
+  const cuuint32_t qbox[3] = {(cuuint32_t)W::KS, SLOTS, 1};
+  if (int e = tensor_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qslab, 3, qdims, qstrides, qbox,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+    return e;
+  pq.rows = max(1, (64 / pq.d_sub) >> pq.four);
+  // a box's first row is its innermost coordinate: every tile start a multiple of 16 bytes
+  pq.tma = jb.N % 16 == 0 && jb.block % 16 == 0 && jb.sel % 16 == 0 &&
+           (reinterpret_cast<uintptr_t>(pq.codes) & 15) == 0;
+  if (pq.tma) {
+    const cuuint64_t cdims[2] = {(cuuint64_t)jb.N, (cuuint64_t)m_storage};
+    const cuuint64_t cstrides[1] = {(cuuint64_t)jb.N};
+    const cuuint32_t cbox[2] = {TR, (cuuint32_t)pq.rows};
+    if (int e = tensor_map(&tmr, CU_TENSOR_MAP_DATA_TYPE_UINT8, pq.codes, 2, cdims, cstrides, cbox,
+                           CU_TENSOR_MAP_SWIZZLE_NONE))
+      return e;
+  }
+  pq.stage = W::A_BYTES + ((pq.rows * TR + 1023u) & ~1023u);
+  size_t smem = 1024 + NST * (size_t)pq.stage + W::CONV + sizeof(float) * SLOTS * SCP +
+                sizeof(u64) * SLOTS * JMAX + 2 * NST * 8;
+  const size_t table = 32 * (size_t)jb.H;  // the 4-bit table [M, 16, d_sub] bf16
+  pq.table_smem = pq.four && smem + table <= SMEM_MAX;
+  if (pq.table_smem) smem += table;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ivf_cell_wgmma<K_PQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ivf_cell_wgmma<K_PQ><<<grid, WG_THREADS, smem, stream>>>(tmq, tmr, jb, pq);
   return (int)cudaGetLastError();
 }
 
@@ -752,4 +888,38 @@ extern "C" int drt_ivf_cell(const void* qslab, const void* values, const void* c
   if (qtype == T_I8) return launch_wgmma<K_I8Q>(qslab, values, jb, nlist, grid, st);
   if (ctype == T_I8) return launch_wgmma<K_I8ROWS>(qslab, values, jb, nlist, grid, st);
   return launch_wgmma<K_BF16>(qslab, values, jb, nlist, grid, st);
+}
+
+// The IVF-PQ cell kernel K17 over the ragged block list of PQ codes: codes [M, N] int8 holding
+// code - 128 (nbits 8) or [M / 2, N] nibble-packed (nbits 4), M = H / d_sub, N = n_blocks x
+// block; the bf16 table [M, k, d_sub] (k = 256 / 16, d_sub | 128, H % 128 == 0, 16-byte
+// aligned); each cell's bf16 query slab qslab [nlist, Qcap, H] (16-byte aligned); qoff [nlist,
+// Qcap] fp32 is added to every score of its slot after the product, before the row mask
+// (row_ids < 0) and the selection; block_cell [N / block] each block's cell; slots [nlist]
+// int32 each cell's filled slots, its first ones (null: every slot), the lists of the others
+// (-inf, -1). -> out_vals / out_ids [N / block * ceil(block / sel), Qcap, J], ids flat
+// positions.
+extern "C" int drt_ivf_pq_cell(const void* qslab, const void* codes, const void* table,
+                               const void* qoff, const void* row_ids, const void* block_cell,
+                               const void* slots, void* out_v, void* out_i, int nlist, int Qcap,
+                               int N, int H, int d_sub, int nbits, int block, int sel, int J,
+                               void* stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(qslab) | reinterpret_cast<uintptr_t>(table);
+  if (J < 1 || J > JMAX || block < 1 || sel < 1 || sel > block || J > sel || N % block != 0 ||
+      row_ids == nullptr || block_cell == nullptr || qoff == nullptr || nlist < 1 || Qcap < 1 ||
+      N < 1 || N / block > 65535 || (nbits != 4 && nbits != 8) || d_sub < 1 || 128 % d_sub != 0 ||
+      H < 128 || H % 128 != 0 || (ptrs & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Job jb{static_cast<const int*>(row_ids), static_cast<const int*>(block_cell),
+               static_cast<const int*>(slots), nullptr, nullptr, static_cast<float*>(out_v),
+               static_cast<int*>(out_i), Qcap, N, H, block, sel, J, 1};
+  Pq pq{};
+  pq.codes = static_cast<const unsigned char*>(codes);
+  pq.table = static_cast<const bf*>(table);
+  pq.poff = static_cast<const float*>(qoff);
+  pq.d_sub = d_sub;
+  pq.four = nbits == 4;
+  const int m_storage = H / d_sub / (nbits == 4 ? 2 : 1);
+  const dim3 grid((Qcap + SLOTS - 1) / SLOTS, N / block);
+  return launch_pq(qslab, jb, pq, nlist, m_storage, grid, static_cast<cudaStream_t>(stream));
 }

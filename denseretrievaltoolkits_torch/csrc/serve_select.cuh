@@ -1,9 +1,11 @@
-// The serve selection shared by the block top-J kernels (block_topj.cu) and the PQ serve
-// scoring body (pq_serve.cu): one packed 64-bit key per candidate, order-preserving
-// score bits high and the inverted row id low, so a merge step is one comparison and
-// ties go to the smaller id. The TPU packs into 32 bits (Mosaic has no top_k) and rounds
-// the score to 2^id_bits ulps; here the key keeps all 32 score bits, so scores come back
-// exact.
+// The serve selection shared by the block top-J kernels (block_topj.cu), the PQ serve
+// scoring body (pq_serve.cu), the IVF cell kernels (ivf_cell.cu) and the certified int4
+// search (int4_certified.cu): one packed 64-bit key per candidate, order-preserving score
+// bits high and the inverted row id low, so a merge step is one comparison and ties go to
+// the smaller id. The TPU packs into 32 bits (Mosaic has no top_k) and rounds the score to
+// 2^id_bits ulps; here the key keeps all 32 score bits, so scores come back exact. With the
+// scores' -0 made +0 the key order is also the certified order (score descending, then id
+// ascending, equal scores equal whatever their sign).
 #pragma once
 
 #include <math.h>
@@ -65,5 +67,116 @@ __device__ __forceinline__ void merge_keys(const u64 (&ck)[CPL], u64* qk, int J,
   if (lane < J) qk[lane] = nk;
   __syncwarp();
 }
+
+// A thread's own list of N keys in registers, sorted descending (int4_certified.cu, and
+// ivf_cell.cu's K17 for J <= 8): the key x inserted, the smallest falling off, every entry's
+// new value from its own comparison and its upper neighbour's, with no chain between entries.
+template <int N>
+__device__ __forceinline__ void insert_sorted(u64 (&L)[N], u64 x) {
+  bool above[N];  // L[p] stays ahead of x
+#pragma unroll
+  for (int p = 0; p < N; ++p) above[p] = L[p] > x;
+#pragma unroll
+  for (int p = N - 1; p > 0; --p) L[p] = above[p] ? L[p] : (above[p - 1] ? x : L[p - 1]);
+  L[0] = above[0] ? L[0] : x;
+}
+
+// the j-th key (from 0) of a list of N (a power of two): a select tree on the bits of j
+template <int N>
+__device__ __forceinline__ u64 jth_key(const u64 (&L)[N], int j) {
+  if constexpr (N == 1) {
+    return L[0];
+  } else {
+    u64 half[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) half[i] = (j & 1) ? L[2 * i + 1] : L[2 * i];
+    return jth_key<N / 2>(half, j >> 1);
+  }
+}
+
+// the score a key must beat to enter a list of J: its J-th, or -inf while it holds fewer
+template <int N>
+__device__ __forceinline__ float list_floor(const u64 (&L)[N], int J) {
+  const u64 t = jth_key<N>(L, J - 1);
+  return t == 0ull ? -INFINITY : key_score(t);
+}
+
+// The merge of a tile's 128 candidate keys into a list of up to 32 (ivf_cell.cu):
+// candidates above the list's J-th key are inserted one by one up to INSERT_MAX, more take
+// one warp bitonic pass.
+namespace warp_select {
+
+constexpr int INSERT_MAX = 32;  // candidates a list inserts one by one; more: bitonic
+
+// one compare-exchange step with lane ^ j: keep the smaller key where keep_min
+__device__ __forceinline__ u64 cx(u64 v, int j, bool keep_min) {
+  const u64 p = __shfl_xor_sync(0xffffffffu, v, j);
+  return keep_min ? (p < v ? p : v) : (p > v ? p : v);
+}
+
+// a bitonic sequence of 32 keys (one a lane) sorted, ascending if asc
+__device__ __forceinline__ u64 clean32(u64 v, bool asc, int lane) {
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) v = cx(v, j, ((lane & j) == 0) == asc);
+  return v;
+}
+
+__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a > b ? a : b; }
+
+// The list L (sorted descending, one key a lane) and the 128 keys k (4 a lane) -> the top 32
+// of both, sorted descending: the four key columns sorted across the warp (0 and 2
+// descending, 1 and 3 ascending), the top 32 of each pair by elementwise max (a bitonic
+// sequence) and a half-cleaner cascade, the same for the two halves, then with the list.
+__device__ __forceinline__ u64 merge_bitonic(u64 L, u64 (&k)[4], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool asc = ((lane & size) == 0) == (r & 1);
+        k[r] = cx(k[r], j, ((lane & j) == 0) == asc);
+      }
+  const u64 a = clean32(kmax(k[0], k[1]), false, lane);
+  const u64 b = clean32(kmax(k[2], k[3]), true, lane);
+  const u64 c = clean32(kmax(a, b), true, lane);
+  return clean32(kmax(L, c), false, lane);
+}
+
+// key x into the list L (sorted descending, one key a lane): the lanes above its place keep
+// theirs, the others take their upper neighbour's; lane 31's key falls off
+__device__ __forceinline__ u64 insert_key(u64 L, u64 x, int lane) {
+  const int p = __popc(__ballot_sync(0xffffffffu, L > x));
+  const u64 up = __shfl_up_sync(0xffffffffu, L, 1);
+  return lane < p ? L : (lane == p ? x : up);
+}
+
+// One tile's candidate keys k (4 a lane, 0: masked) into a list (32 keys in shared memory,
+// sorted descending, 0 = empty; the first J are the result).
+__device__ __forceinline__ void merge_tile(u64 (&k)[4], u64* list, int J, int lane) {
+  const u64 thr = list[J - 1];
+  unsigned m[4];
+  int c = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = __ballot_sync(0xffffffffu, k[r] > thr);
+    c += __popc(m[r]);
+  }
+  if (c == 0) return;
+  u64 L = list[lane];
+  if (c <= INSERT_MAX) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      for (unsigned mm = m[r]; mm != 0u; mm &= mm - 1u)
+        L = insert_key(L, __shfl_sync(0xffffffffu, k[r], __ffs(mm) - 1), lane);
+  } else {
+    L = merge_bitonic(L, k, lane);
+  }
+  __syncwarp();  // every lane has read the list
+  list[lane] = L;
+  __syncwarp();
+}
+
+}  // namespace warp_select
 
 }  // namespace drt

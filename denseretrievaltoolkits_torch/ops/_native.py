@@ -48,8 +48,9 @@ SIGNATURES = {
     # bm_a, bm_b (tile rows of the two stages; 0: the CUDA-core body), stream
     "drt_mlp_ln": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
     # q, corpus, corpus_scales, query_scales, out_vals, out_ids,
-    # Q, N, H, n_valid, block, J, qtype, ctype, serve, stream
-    "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P],
+    # Q, N, H, n_valid, block, J, qtype, ctype, serve, body (int*, written: 1 where
+    # int4_certified.cu's body ran, else 0), stream
+    "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P, _P],
     # qslab, values, cell_scales, slot_scales, row_ids, block_cell, out_vals, out_ids,
     # Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream
     "drt_ivf_topj": [_P] * 8 + [_I] * 9 + [_P],
@@ -61,9 +62,9 @@ SIGNATURES = {
     # q, codes, table, dscale, scratch, out_vals, out_ids, Q, N, H, d_sub, nbits, n_valid,
     # block, J, chunk_rows, launched (int[2], written: decode and scoring launches), stream
     "drt_pq_topj": [_P] * 7 + [_I] * 9 + [_P, _P],
-    # qslab, codes, table, qoff, row_ids, block_cell, out_vals, out_ids,
-    # Qcap, N, H, d_sub, nbits, block, sel, J, stream
-    "drt_ivf_pq_topj": [_P] * 8 + [_I] * 8 + [_P],
+    # qslab, codes, table, qoff, row_ids, block_cell, slots, out_vals, out_ids,
+    # nlist, Qcap, N, H, d_sub, nbits, block, sel, J, stream
+    "drt_ivf_pq_cell": [_P] * 9 + [_I] * 9 + [_P],
     # x, values, scales, n_in, n_out, H, is_bf16, stream
     "drt_quantize_int8": [_P] * 3 + [_I] * 4 + [_P],
     # x, packed, scales, n_in, n_out, H, is_bf16, stream

@@ -12,12 +12,15 @@ residuals (``x - centroid``), step for step:
    each block's codes decode to bf16 rows through the table (``ops/pq.py``),
    score against the cell's bf16 query slab with fp32 sums, get their slot's
    ``poff`` added, rows with ``row_id < 0`` are masked, and each selection
-   block keeps its J best with the serve selection. It is K14's
-   instantiation of ``csrc/block_topj.cu`` (``drt_ivf_pq_topj``) with the PQ
-   corpus type; the selection block halves inside a storage block while the
-   Poisson J exceeds the lists' 32 (``selection_plan``). Plain version
-   :func:`_ivf_pq_topj_reference`; CPU tensors take it, CUDA tensors launch
-   the kernel or raise; launches in ``ragged_topj_pq.launches``;
+   block keeps its J best with the serve selection; the slots past each
+   cell's filled count (``filled_slots``, computed on the device) get (-inf,
+   -1). It is the PQ row type of K14's wgmma + TMA body in
+   ``csrc/ivf_cell.cu`` (``drt_ivf_pq_cell``): filled slots and stored-row
+   tiles only, the codes decoded to bf16 inside the body; the selection block
+   halves inside a storage block while the Poisson J exceeds the lists' 32
+   (``selection_plan``). Plain version :func:`_ivf_pq_topj_reference`; CPU
+   tensors take it, CUDA tensors launch the kernel or raise; launches in
+   ``ragged_topj_pq.launches``;
 4. **merge**: the ragged merges of ``ops/ivf_bulk.py``, then the dense side
    scan of hot cells (their rows decoded once to reconstructions and
    quantized by K7, scored by K8) and the -1 sentinel.
@@ -33,18 +36,20 @@ from typing import Optional, Tuple
 import torch
 
 from . import _native
-from .ivf_bulk import (_PLAIN_CHUNK, ProbeSlab, _descending, _finish, _packed_topj,
-                       invert_probe_pairs, ragged_merge)
+from .ivf_bulk import (_PLAIN_CHUNK, ProbeSlab, _clear_empty_slots, _descending, _finish,
+                       _packed_topj, filled_slots, invert_probe_pairs, ragged_merge)
 from .pq import _check_table, _code_ids
 from .topk import JMAX
 
 
 def _ivf_pq_topj_reference(qslab, codes, row_ids, poff, table, block_cell, J: int, block: int,
-                           sel: int, nbits: int = 8):
+                           sel: int, nbits: int = 8, slots=None):
     """Plain version of K17 over codes [M_storage, N] in N / block storage
     blocks (cell ``block_cell[b]``), each cut into selection blocks of
     ``sel`` rows: bf16 decode, fp32 scores + the slot offset, row-id mask,
-    serve selection. Returns (vals, ids) [n_sel, Qcap, J]."""
+    serve selection. Returns (vals, ids) [n_sel, Qcap, J]; with ``slots``
+    [nlist], the lists of a cell's slots at or past its entry are (-inf,
+    -1)."""
     nlist, Qcap, H = qslab.shape
     M, k, d = table.shape
     N = codes.shape[1]
@@ -71,24 +76,27 @@ def _ivf_pq_topj_reference(qslab, codes, row_ids, poff, table, block_cell, J: in
         v, i = _packed_topj(s.reshape(b1 - b0, Qcap, per, sel), ids, J)
         out_v[b0 * per:b1 * per] = v.permute(0, 2, 1, 3).reshape(-1, Qcap, J)
         out_i[b0 * per:b1 * per] = i.permute(0, 2, 1, 3).reshape(-1, Qcap, J)
+    if slots is not None:
+        _clear_empty_slots(out_v, out_i, slots, block_cell, 1, per)
     return out_v, out_i
 
 
 def ragged_topj_pq(block_cell: torch.Tensor, qslab: torch.Tensor, codes: torch.Tensor,
                    row_ids: torch.Tensor, poff: torch.Tensor, table: torch.Tensor, J: int,
-                   block: int, sel: Optional[int] = None, nbits: int = 8
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   block: int, sel: Optional[int] = None, nbits: int = 8,
+                   slots: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K17 over the ragged padded-flat layout of PQ codes: qslab [nlist,
     Qcap, H] bf16 against codes [M, nb_total * block] (8-bit) or [M/2, ...]
     (4-bit) whose block b belongs to cell ``block_cell[b]`` (int32
     [nb_total]), table [M, k, d_sub] bf16, poff [nlist, Qcap] fp32 added to
     every score of its slot, row_ids [nb_total * block] int32 (-1 = padding,
-    masked). Returns (vals, ids) [nb_total * ceil(block / sel), Qcap, J], ids
-    flat positions."""
+    masked); ``slots`` int32 [nlist]: each cell's filled slots, its first
+    ones (None: every slot), the others' lists (-inf, -1). Returns (vals,
+    ids) [nb_total * ceil(block / sel), Qcap, J], ids flat positions."""
     sel = block if sel is None else sel
     if not codes.is_cuda:
         return _ivf_pq_topj_reference(qslab, codes, row_ids, poff, table, block_cell, J, block,
-                                      sel, nbits)
+                                      sel, nbits, slots)
     name = "ragged_topj_pq"
     nlist, Qcap, H = qslab.shape
     _check_table(name, H, codes, table, None, nbits, qslab.device)
@@ -106,6 +114,9 @@ def ragged_topj_pq(block_cell: torch.Tensor, qslab: torch.Tensor, codes: torch.T
     if not (1 <= J <= JMAX and J <= sel <= block):
         raise ValueError(f"{name}: the kernel keeps 1 <= J <= {JMAX} <= selection block {sel} "
                          f"<= block {block}, got J={J}")
+    if slots is not None and (slots.dtype != torch.int32 or slots.shape != (nlist,)
+                              or slots.device != qslab.device):
+        raise ValueError(f"{name}: slots must be int32 [{nlist}] on {qslab.device}")
     n_sel = N // block * -(-block // sel)
     vals = torch.empty((n_sel, Qcap, J), dtype=torch.float32, device=codes.device)
     ids = torch.empty((n_sel, Qcap, J), dtype=torch.int32, device=codes.device)
@@ -115,11 +126,11 @@ def ragged_topj_pq(block_cell: torch.Tensor, qslab: torch.Tensor, codes: torch.T
         poff.contiguous()
     lib = _native.library()
     ragged_topj_pq.launches += 1
-    _native.check(lib.drt_ivf_pq_topj(
+    _native.check(lib.drt_ivf_pq_cell(
         qslab.data_ptr(), codes.data_ptr(), table.data_ptr(), poff.data_ptr(),
-        row_ids.data_ptr(), block_cell.data_ptr(), vals.data_ptr(), ids.data_ptr(), Qcap, N, H,
-        table.shape[2], nbits, int(block), int(sel), int(J), _native.stream_ptr(codes)),
-        "drt_ivf_pq_topj")
+        row_ids.data_ptr(), block_cell.data_ptr(), 0 if slots is None else slots.data_ptr(),
+        vals.data_ptr(), ids.data_ptr(), nlist, Qcap, N, H, table.shape[2], nbits, int(block),
+        int(sel), int(J), _native.stream_ptr(codes)), "drt_ivf_pq_cell")
     return vals, ids
 
 
@@ -159,7 +170,7 @@ def ivf_pq_search(q, centroids, codes, row_ids, block_cell, block_start, table, 
     device, with no host sync."""
     ps, poff = pq_probe_slab(q, centroids, nlist, nprobe, Qcap, hot_penalty, n_real)
     vals_b, ids_b = ragged_topj_pq(block_cell, ps.qslab, codes, row_ids, poff, table, J, block,
-                                   sel, nbits)
+                                   sel, nbits, filled_slots(ps, Qcap))
     tv, ti = ragged_merge(vals_b, ids_b, ps, block_start, block, sel, nb_max, nprobe, k)
     tv, doc = _finish(tv, ti, row_ids, ps, (side_values, side_scales, side_ids, side_valid,
                                             side_J, side_block), k)

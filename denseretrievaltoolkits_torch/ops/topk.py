@@ -1,14 +1,18 @@
 """Block top-J kernels K5, K6, K8, K10, K11 and K12, the certified search and the serve search.
 
 Counterparts of ``denseretrievaltoolkits_tpu/ops/topk.py``. The kernels are
-instantiations of one templated CUDA family (``csrc/block_topj.cu``); each
-has its own entry point, launch counter and plain version. CPU tensors take
-the plain version; CUDA tensors launch the kernel or raise.
+instantiations of one templated CUDA family (``csrc/block_topj.cu``), but for
+K10 at the shapes ``csrc/int4_certified.cu`` takes; each has its own entry
+point, launch counter and plain version. CPU tensors take the plain version;
+CUDA tensors launch the kernel or raise.
 
 ``int4=True`` selects the nibble-packed int4 rows of ``ops/quant.py`` (K9):
 corpus [N, H/2] int8 in column halves with per-row ``scales``, queries [Q, H].
 Each entry point then runs its sq4 twin: ``block_topj`` K10 (fp32 queries,
-true-fp32 scores, ``block_topj.launches_int4``), ``block_topj_serve`` K11
+true-fp32 scores, ``block_topj.launches_int4``; on s8 wgmma with exact query
+digits at H % 128 == 0, H <= 768 and 16-byte aligned rows, else on
+``block_topj.cu``'s FFMA body, which also counts on
+``block_topj.launches_int4_generic``), ``block_topj_serve`` K11
 (bf16 queries, ``block_topj_serve.launches_int4``) and ``block_topj_i8q``
 K12's sq4 body (int8 queries, exact s32 products,
 ``block_topj_i8q.launches_int4``). The plain versions score the reference's
@@ -49,6 +53,7 @@ lives in ``index/flat.py``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -171,7 +176,10 @@ def _block_topj_i8q_reference(qi, qscales, corpus, scales, J: int, block_size: i
 def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qscales=None,
             serve=False, int4=False):
     """Check the operands and launch ``drt_block_topj``; returns (vals, ids).
-    A launch adds one to ``wrapper.<counter>``."""
+    A launch adds one to ``wrapper.<counter>``, and to
+    ``wrapper.<counter>_generic`` where the C entry reports that
+    ``block_topj.cu``'s body ran a call that ``int4_certified.cu`` could take
+    at other shapes (fp32 x int4, certified)."""
     name = wrapper.__name__
     Q, H = q.shape
     N = corpus.shape[0]
@@ -202,12 +210,15 @@ def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qs
         return vals, ids
     lib = _native.library()
     setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    body = ctypes.c_int(0)
     _native.check(lib.drt_block_topj(
         q.data_ptr(), corpus.data_ptr(), 0 if scales is None else scales.data_ptr(),
         0 if qscales is None else qscales.data_ptr(), vals.data_ptr(), ids.data_ptr(),
         Q, N, H, int(n_valid), int(block_size), int(J), TYPE_CODES[q.dtype],
-        INT4_CODE if int4 else TYPE_CODES[corpus.dtype], int(serve), _native.stream_ptr(q)),
-        "drt_block_topj")
+        INT4_CODE if int4 else TYPE_CODES[corpus.dtype], int(serve), ctypes.byref(body),
+        _native.stream_ptr(q)), "drt_block_topj")
+    if int4 and not serve and body.value == 0:
+        setattr(wrapper, counter + "_generic", getattr(wrapper, counter + "_generic") + 1)
     return vals, ids
 
 
@@ -242,6 +253,7 @@ def block_topj(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,
 block_topj.launches = 0
 block_topj.launches_int8 = 0
 block_topj.launches_int4 = 0
+block_topj.launches_int4_generic = 0
 
 
 def block_topj_serve(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,

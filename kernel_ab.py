@@ -4,7 +4,8 @@ checkout (say the parent commit), on one card, in turns.
 
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
-    python3 kernel_ab.py --other _chip_scratch/parent [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf]
+    python3 kernel_ab.py --other _chip_scratch/parent
+                         [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf|int4|ivfpq]
                          [--seed 0] [--profile] [--ptxas] [--out FILE]
 
 ``--kernel mlp_ln`` (the default): K2, called through its wrapper
@@ -52,6 +53,24 @@ its layout and slabs, which must agree between turns. A checkout whose wrappers 
 the checkout's plain version (the i8q lists must be bit-equal). ``--profile`` splits a
 call by CUDA kernel; ``--ptxas`` reads ``ivf_cell.cu``.
 
+``--kernel int4``: K10, the certified int4 search's block top-J, through
+``ops/topk.py:block_topj(int4=True)`` at ``chip_smoke.py``'s phase 10 shapes: 1,000,000
+seeded N(0, 1) rows x 768 packed by K9 (row 0 zero), 1024 seeded fp32 queries, 4096-row
+blocks, J = 8 (the search's) and 32 (its escalation's). Each turn makes the same rows from
+the seed and reports checksums (which must agree) and the kernel's largest |score - fp64
+score of the same fp32 queries| over every list, beside its time. ``--ptxas`` reads
+``int4_certified.cu``.
+
+``--kernel ivfpq``: K17 through ``ops/ivf_pq.py:ragged_topj_pq`` on one call's inputs
+as ``chip_smoke.py``'s phase 19 makes it: 8,841,823 spectrumed rows in
+``OPQ192x4,IVF256,PQ192x4`` (nprobe 8, 2048-row blocks, bulk J 8, 16 hot cells at most),
+2048 queries, k=100, the search's own slab after its tuning call. The index is built once
+by this checkout and the call's operands saved (checksums equal in every turn); a checkout
+whose wrapper takes ``slots`` gets the search's filled slots. The same slab is scored again
+against seeded random 8-bit codes of the same row bytes (PQ96, d_sub 8, a random bf16 table):
+the 8-bit decode reads its table through L2. Errors are over the filled slots' lists
+against the checkout's plain version. ``--ptxas`` reads ``ivf_cell.cu``.
+
 Four processes run in turn, other, this, this, other; each imports the port from
 its own checkout (which builds its kernels into its own ``_build/``), makes the
 same inputs from ``--seed`` and times the calls with CUDA events. ``--profile``
@@ -95,8 +114,11 @@ IVF_CASES = tuple((f"{k} 1M {d} {m}", layout, d, m)
                                ("int8", "i8q"))) + (
     ("K14 8.8M int8 bulk", "scale", "int8", "bulk"), ("K14 8.8M int8 i8q", "scale", "int8", "i8q"))
 IVF_ROWS, IVF_QUERIES, IVF_K = 1_000_000, 2048, 100
+# K10: 1M int4 rows x 768, 1024 queries, 4096-row blocks, at the search's J and its escalation's
+INT4_ROWS, INT4_QUERIES, INT4_BLOCK, INT4_J = 1_000_000, 1024, 4096, (8, 32)
 SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",),
-           "pq": ("pq_serve.cu",), "ivf": ("ivf_cell.cu",)}
+           "pq": ("pq_serve.cu",), "ivf": ("ivf_cell.cu",), "int4": ("int4_certified.cu",),
+           "ivfpq": ("ivf_cell.cu",)}
 
 
 def inputs(B, S, gen):
@@ -391,6 +413,115 @@ def ivf_rows(chip_smoke, seed, path, profile):
     return out
 
 
+def int4_rows(chip_smoke, seed, profile):
+    """K10 of the imported checkout at J = 8 and 32 on rows and queries made from the seed."""
+    from denseretrievaltoolkits_torch.ops import quant, topk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(INT4_ROWS, H, generator=gen, device="cuda")
+    x[0] = 0
+    values, scales = quant.quantize_int4_device(x)
+    del x
+    q = torch.randn(INT4_QUERIES, H, generator=gen, device="cuda")
+    checksum = [float(q.sum()), int(values[::997].long().sum()), float(scales.sum())]
+    out = {}
+    for J in INT4_J:
+        def call(j=J):
+            return topk.block_topj(q, values, j, INT4_BLOCK, INT4_ROWS, scales, int4=True)
+        vals, ids = call()
+        err = 0.0
+        for a in range(0, INT4_QUERIES, 64):
+            want = chip_smoke.rescore(q[a:a + 64], values, ids[a:a + 64].reshape(64, -1), scales,
+                                      torch.float32, True)
+            err = max(err, float((want - vals[a:a + 64].reshape(64, -1).double()).abs().max()))
+        row = {"ms": chip_smoke.cuda_ms(call, iters=5, warmup=1), "max_abs_err_fp64": err,
+               "J": J, "checksum": checksum}
+        if profile:
+            row["kernels_us"] = kernel_us(call, iters=3)
+        out[f"K10 J={J}"] = row
+        del vals, ids
+    return out
+
+
+def ivfpq_inputs(chip_smoke, seed, path):
+    """K17's call of the 8.8M-row ``OPQ192x4,IVF256,PQ192x4`` search, as ``chip_smoke.py``'s
+    phase 19 builds and tunes it, saved to ``path``."""
+    sys.path.insert(0, ROOT)
+    from denseretrievaltoolkits_torch.index import flat
+    from denseretrievaltoolkits_torch.ops import ivf_pq
+
+    rows = chip_smoke.spectrumed(seed + 17, H)
+    index = flat.index_factory(H, "OPQ192x4,IVF256,PQ192x4", nprobe=chip_smoke.SCALE_PQ_NPROBE,
+                               device="cuda")
+    inner = index.inner
+    inner.block, inner.bulk_j = chip_smoke.SCALE_IVF_BLOCK, chip_smoke.SCALE_PQ_BULK_J
+    inner.max_hot = chip_smoke.SCALE_PQ_MAX_HOT
+    index.train(rows(0, chip_smoke.PQ_TRAIN_ROWS))
+    index.add_chunks(rows, chip_smoke.SCALE_ROWS, chunk_rows=chip_smoke.SCALE_IVF_CHUNK)
+    q = rows(0, chip_smoke.PQ_QUERIES, stream=1)
+    index.search(q.cpu().numpy(), IVF_K, mode="bulk")  # the tuning call: Qcap, hot set
+    call = chip_smoke.pq_cell_call(ivf_pq, inner, index.transform.apply(q), IVF_K)
+    ps = call["ps"]
+    # 8-bit codes at the same slab and row bytes (PQ96: 96 subspaces of 8 dims), seeded random
+    # codes and table, for the 8-bit decode (its table read through L2) beside the 4-bit one
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    n_codes = inner._values.shape[1]
+    codes8 = torch.randint(-128, 128, (96, n_codes), generator=gen, device="cuda",
+                           dtype=torch.int8)
+    table8 = torch.randn(96, 256, H // 96, generator=gen, device="cuda").to(torch.bfloat16)
+    torch.save({"block_cell": inner._block_cell.cpu(), "qslab": ps.qslab.cpu(),
+                "codes": inner._values.cpu(), "row_ids": inner._row_ids.cpu(),
+                "poff": call["poff_slab"].cpu(), "table": inner._table.cpu(), "J": call["J"],
+                "block": call["block"], "sel": call["sel"], "nbits": inner.nbits,
+                "slots": call["slots"].cpu(), "codes8": codes8.cpu(), "table8": table8.cpu()},
+               path)
+
+
+def ivfpq_rows(chip_smoke, path, profile):
+    """K17 of the imported checkout on the saved call, with its 4-bit codes and with the
+    8-bit codes of the same slab."""
+    a = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in torch.load(path).items()}
+    out = {"K17 8.8M OPQ192x4,IVF256,PQ192x4": ivfpq_case(chip_smoke, a, a["codes"], a["table"],
+                                                           a["nbits"], profile)}
+    out["K17 8.8M slab, 8-bit PQ96 codes"] = ivfpq_case(chip_smoke, a, a["codes8"], a["table8"], 8,
+                                                         profile)
+    return out
+
+
+def ivfpq_case(chip_smoke, a, codes, table, nbits, profile):
+    """One K17 call on the saved slab and the given codes, timed, against the checkout's
+    plain version on the filled slots' lists."""
+    from denseretrievaltoolkits_torch.ops import ivf_pq
+
+    has_slots = "slots" in inspect.signature(ivf_pq.ragged_topj_pq).parameters
+    extra = (a["slots"],) if has_slots else ()
+    args = (a["block_cell"], a["qslab"], codes, a["row_ids"], a["poff"], table, a["J"],
+            a["block"], a["sel"], nbits)
+
+    def call():
+        return ivf_pq.ragged_topj_pq(*args, *extra)
+    v, i = call()
+    rv, ri = ivf_pq._ivf_pq_topj_reference(a["qslab"], codes, a["row_ids"], a["poff"], table,
+                                           a["block_cell"], a["J"], a["block"], a["sel"], nbits)
+    per = -(-a["block"] // a["sel"])
+    cells = a["block_cell"].long().repeat_interleave(per)
+    qcap = a["qslab"].shape[1]
+    filled = (torch.arange(qcap, device="cuda")[None, :]
+              < a["slots"].long()[cells][:, None])[:, :, None].expand_as(v)
+    fin = filled & (ri >= 0)
+    row = {"ms": chip_smoke.cuda_ms(call, iters=5, warmup=1),
+           "max_abs_err": float((v - rv).abs()[fin].max()) if fin.any() else 0.0,
+           "ids_differing": int(((i != ri) & filled).sum()),
+           "empty_lists_cleared": bool(((i == -1) | filled).all()) if has_slots else None,
+           "J": a["J"], "sel": a["sel"], "qcap": qcap, "filled_slots": int(a["slots"].sum()),
+           "slots_passed": has_slots,
+           "checksum": [float(a["qslab"].float().sum()), int(a["row_ids"].long().sum()),
+                        int(codes[:, ::997].long().sum()), float(a["poff"].sum())]}
+    if profile:
+        row["kernels_us"] = kernel_us(call, iters=3)
+    return row
+
+
 def worker(checkout, kernel, seed, profile, inputs=""):
     """One turn: ``kernel`` of ``checkout`` at every shape, as a dict."""
     import chip_smoke  # this checkout's, before the other checkout leads the path
@@ -407,6 +538,10 @@ def worker(checkout, kernel, seed, profile, inputs=""):
         out.update(pq_rows(chip_smoke, inputs, profile))
     elif kernel == "ivf":
         out.update(ivf_rows(chip_smoke, seed, inputs, profile))
+    elif kernel == "int4":
+        out.update(int4_rows(chip_smoke, seed, profile))
+    elif kernel == "ivfpq":
+        out.update(ivfpq_rows(chip_smoke, inputs, profile))
     else:
         out.update(block_rows(chip_smoke, seed, profile, k1=kernel == "attn_ln"))
     return out
@@ -440,6 +575,17 @@ def describe(name, turn, kernel):
             f"{v['filled_slots']} filled slots, slots passed {v['slots_passed']}), max_abs "
             f"{v['max_abs_err']:.3e}, {v['ids_differing']} ids / {v['values_differing']} "
             f"values differing, checksum {v['checksum']}" for k, v in rows.items())
+    if kernel == "int4":
+        return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms, max |score - fp64| {v['max_abs_err_fp64']:.3e}, checksum "
+            f"{v['checksum']}" for k, v in rows.items())
+    if kernel == "ivfpq":
+        return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms (J={v['J']}, sel {v['sel']}, Qcap {v['qcap']}, "
+            f"{v['filled_slots']} filled slots, slots passed {v['slots_passed']}, empty lists "
+            f"(-inf, -1): {v['empty_lists_cleared']}), max_abs {v['max_abs_err']:.3e}, "
+            f"{v['ids_differing']} ids differing, checksum {v['checksum']}"
+            for k, v in rows.items())
     if kernel == "pq":
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.3f} ms, max_abs {v['max_abs_err']:.3e}, {v['ids_differing']} ids "
@@ -484,11 +630,12 @@ def main(argv=None):
         result["ptxas"] = lines
         if rc:
             return 1
-    with tempfile.TemporaryDirectory() as tmp:  # the saved inputs of --kernel pq / ivf
+    with tempfile.TemporaryDirectory() as tmp:  # the saved inputs of --kernel pq / ivf / ivfpq
         inputs = os.path.join(tmp, "inputs.pt")
-        if args.kernel in ("pq", "ivf"):
+        saved = {"pq": pq_inputs, "ivf": ivf_inputs, "ivfpq": ivfpq_inputs}
+        if args.kernel in saved:
             import chip_smoke
-            (pq_inputs if args.kernel == "pq" else ivf_inputs)(chip_smoke, args.seed, inputs)
+            saved[args.kernel](chip_smoke, args.seed, inputs)
             torch.cuda.empty_cache()
         for i, (name, checkout) in enumerate((("other", args.other), ("this", ROOT), ("this", ROOT),
                                               ("other", args.other))):
@@ -511,7 +658,7 @@ def main(argv=None):
     flash = args.kernel == "flash_bwd"
     fields = ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms", "sdpa_bwd_ms") if flash else ("ms",)
     keys = [k for k, v in result["turns"][0].items() if isinstance(v, dict)]
-    if args.kernel == "ivf":  # every turn scored the same layouts and slabs
+    if args.kernel in ("ivf", "int4", "ivfpq"):  # every turn scored the same inputs
         for key in keys:
             sums = {json.dumps(t[key]["checksum"]) for t in result["turns"]}
             if len(sums) != 1:

@@ -676,6 +676,63 @@ def test_block_topj_int4_kernel(gen, H):
     torch.testing.assert_close(s.cpu(), cs, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("J", [8, 32])
+@pytest.mark.parametrize("H", [768, 384, 256, 128])  # 6, 3, 2 and 1 k-slices of 128 dims
+def test_block_topj_int4_wgmma_kernel(gen, H, J):
+    """K10's s8 wgmma body with exact query digits (``int4_certified.cu``): ids
+    equal to the plain version's, scores within 1e-5, over 1000-row blocks (not a
+    multiple of the 128-row tile) with n_valid inside the last, exact ties inside
+    a block, a zero row, an all-zero query (every score +0, ids ascending) and a
+    query tile cut short (70 queries); ``launches_int4_generic`` stays; the
+    certified search on the card equals the one on the CPU."""
+    c, sc = _int4_rows(gen, 5000, H)  # row 3 is zero
+    c[700:710] = c[700]  # exact ties inside one block
+    sc[700:710] = sc[700]
+    q = _randn(gen, 70, H, scale=3.0)
+    q[5] = 0
+    q[6] *= 1e-4  # small and large queries: each takes its own step
+    n, n_gen = topk.block_topj.launches_int4, topk.block_topj.launches_int4_generic
+    v, i = topk.block_topj(q, c, J, 1000, 4990, sc, int4=True)
+    torch.cuda.synchronize()
+    assert topk.block_topj.launches_int4 == n + 1
+    assert topk.block_topj.launches_int4_generic == n_gen
+    rv, ri = topk._block_topj_reference(q, c, J, 1000, 4990, sc, int4=True)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+    assert bool((v[5] == 0).all()) and not bool(torch.signbit(v[5]).any())
+    assert bool((i[5] == torch.arange(J, device="cuda") + 1000 * torch.arange(
+        5, device="cuda")[:, None]).all())
+    s, ids = topk.certified_topk(q, c, 50, block_size=512, scales=sc, int4=True)
+    cs, cids = topk.certified_topk(q.cpu(), c.cpu(), 50, block_size=512, scales=sc.cpu(),
+                                   int4=True)
+    assert torch.equal(ids.cpu(), cids)
+    torch.testing.assert_close(s.cpu(), cs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("H,offset", [(64, 0), (50, 0), (768, 4)])
+def test_block_topj_int4_generic_body(gen, H, offset):
+    """K10 at the shapes ``int4_certified.cu`` does not take (H % 128 != 0, or
+    rows 4 bytes off 16-byte alignment) runs ``block_topj.cu``'s FFMA body,
+    counted on ``launches_int4_generic`` too: the plain version's ids, scores
+    within 1e-5."""
+    c, sc = _int4_rows(gen, 3000, H)
+    if offset:
+        buf = torch.empty(c.numel() + offset, dtype=torch.int8, device="cuda")
+        moved = buf[offset:].view(c.shape)
+        moved.copy_(c)
+        c = moved
+    assert (c.data_ptr() % 16 != 0) == bool(offset)
+    q = _randn(gen, 70, H)
+    n, n_gen = topk.block_topj.launches_int4, topk.block_topj.launches_int4_generic
+    v, i = topk.block_topj(q, c, 8, 1024, 2990, sc, int4=True)
+    torch.cuda.synchronize()
+    assert topk.block_topj.launches_int4 == n + 1
+    assert topk.block_topj.launches_int4_generic == n_gen + 1
+    rv, ri = topk._block_topj_reference(q, c, 8, 1024, 2990, sc, int4=True)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("H", [64, 48])  # tensor-core path / CUDA-core path
 def test_block_topj_serve_int4_kernel(gen, H):
     """K11: bf16 queries x int4 rows: the plain version's ids, exact scores."""
@@ -1169,6 +1226,55 @@ def test_ragged_topj_pq_kernel(gen, nbits, M, J, sel):
         + poff.double()[cells, slots][:, :, None]
     torch.testing.assert_close(s[fin], v[fin].double(), rtol=1e-5, atol=1e-4)
     assert (row_ids[i.clamp(min=0).long()][fin] >= 0).all()
+    assert ((i != ri) & fin).float().mean() < 0.01
+
+
+@pytest.mark.parametrize("J", [8, 9])  # two lanes a slot (J <= 8), the warp merge
+@pytest.mark.parametrize("nbits,M,block", [(4, 192, 128), (4, 96, 128), (4, 12, 128),
+                                           (8, 96, 128), (8, 384, 128), (8, 768, 128),
+                                           (8, 6, 72), (4, 192, 72)])
+def test_ragged_topj_pq_kernel_filled_slots(gen, nbits, M, block, J):
+    """K17 (``ivf_cell.cu``'s PQ rows) with each cell's filled slots: d_sub 4, 8
+    and 64 at 4-bit, 1, 2, 8 and 128 at 8-bit; 72-row blocks (N % 16 != 0: the
+    producer warp copies the codes, which TMA cannot map); a cell with no
+    filled slot, one with a partial second 64-slot tile, a 128-row tile with no
+    stored row and offsets of scale 5; both selections. Filled slots' lists
+    equal the plain version's up to ties (scores within 1e-4); every other list
+    (-inf, -1)."""
+    from denseretrievaltoolkits_torch.ops import ivf_pq
+
+    H, nlist, Qcap = 768, 6, 72
+    nb = 11
+    _, codes, table, _ = _pq_case(gen, H, M, nbits, nb * block)
+    block_cell = torch.tensor([0, 0, 1, 3, 3, 3, 4, 5, 5, 2, 2], dtype=torch.int32,
+                              device="cuda")
+    row_ids = torch.arange(nb * block, dtype=torch.int32, device="cuda")
+    row_ids[block - 20:block] = -1
+    row_ids[3 * block:5 * block] = -1  # cell 3's first two blocks: whole tiles empty
+    row_ids[6 * block + 10:6 * block + 30] = -1
+    slab = _randn(gen, nlist, Qcap, H).to(torch.bfloat16)
+    poff = _randn(gen, nlist, Qcap, scale=5.0)
+    slots = torch.tensor([72, 0, 5, 70, 40, 64], dtype=torch.int32, device="cuda")
+    n = ivf_pq.ragged_topj_pq.launches
+    v, i = ivf_pq.ragged_topj_pq(block_cell, slab, codes, row_ids, poff, table, J, block, None,
+                                 nbits, slots)
+    torch.cuda.synchronize()
+    assert ivf_pq.ragged_topj_pq.launches == n + 1
+    rv, ri = ivf_pq._ivf_pq_topj_reference(slab, codes, row_ids, poff, table, block_cell, J,
+                                           block, block, nbits, slots)
+    cells = block_cell.long()
+    filled = (torch.arange(Qcap, device="cuda")[None, :] < slots.long()[cells][:, None])
+    filled = filled[:, :, None].expand_as(v)
+    assert bool((i[~filled] == -1).all()) and bool((v[~filled] == float("-inf")).all())
+    assert torch.equal(i < 0, ri < 0) and bool((i[filled] >= 0).any())
+    fin = ri >= 0
+    torch.testing.assert_close(v[fin], rv[fin], rtol=1e-4, atol=1e-4)
+    slot = torch.arange(Qcap, device="cuda")[None, :, None].expand_as(i)
+    cell = cells[:, None, None].expand_as(i)
+    dec = _decoded_rows(table, None, codes, i.clamp(min=0).long(), nbits)
+    s = (slab.double()[cell, slot] * dec).sum(-1) + poff.double()[cell, slot]
+    torch.testing.assert_close(s[fin], v[fin].double(), rtol=1e-4, atol=1e-4)
+    assert bool((row_ids[i.clamp(min=0).long()][fin] >= 0).all())
     assert ((i != ri) & fin).float().mean() < 0.01
 
 

@@ -358,3 +358,141 @@ def test_cpu_tensors_never_launch_int4():
     ttopk.block_topj_serve(q.bfloat16(), p, 4, 64, 300, s, int4=True)
     assert counts == (tquant.quantize_int4_device.launches, ttopk.block_topj.launches_int4,
                       ttopk.block_topj_serve.launches_int4, ttopk.block_topj_i8q.launches_int4)
+
+
+# -- K10's digit arithmetic on the card (csrc/int4_certified.cu), in plain numpy ---------------
+
+
+def _k10_digits(q):
+    """K10's split of fp32 queries q [Q, H]: per query the shift sh of
+    ``int4_certified.cu:digit_shift`` (23 - E for max|q| = f 2^E, f in [0.5,
+    1), one less where the top digit would overflow; 0 for an all-zero
+    query), the fixed-point integers v = round(q 2^sh) (int64) and their
+    balanced base-256 digits (d2, d1, d0), each in [-128, 127]."""
+    q = np.asarray(q, np.float32)
+    m = np.abs(q).max(axis=1)
+    _, E = np.frexp(m)
+    sh = 23 - E.astype(np.int64)
+    sh = np.where(np.rint(np.ldexp(m.astype(np.float64), sh)) > 8355711, sh - 1, sh)
+    sh = np.where(m > 0, sh, 0)
+    v = np.rint(np.ldexp(q.astype(np.float64), sh[:, None])).astype(np.int64)
+    d0 = ((v + 128) & 255) - 128
+    v1 = (v - d0) >> 8
+    d1 = ((v1 + 128) & 255) - 128
+    d2 = (v1 - d1) >> 8
+    return sh, v, (d2, d1, d0)
+
+
+def _k10_scores(q, packed, scales):
+    """K10's scores [Q, N]: the three digit planes' exact int64 sums against
+    the codes, S = P2 2^16 + P1 2^8 + P0, fp32(S 2^-sh) rounded once, times
+    the row scale in fp32, + 0. Also returns (S 2^-sh in fp64, sh, v)."""
+    sh, v, digits = _k10_digits(q)
+    codes = tquant.unpack_int4(torch.from_numpy(np.asarray(packed))).numpy().astype(np.int64)
+    p2, p1, p0 = (d @ codes.T for d in digits)
+    exact = ((p2 << 16) + (p1 << 8) + p0).astype(np.float64) * np.ldexp(1.0, -sh)[:, None]
+    s = exact.astype(np.float32) * np.asarray(scales, np.float32)[None, :] + np.float32(0)
+    return s, exact, sh, v
+
+
+def _k10_queries(rng, n=64, h=768):
+    """Seeded fp32 queries over six decades of magnitude, an all-zero query,
+    one whose largest component is negative and one at the top digit's edge
+    (max |q| just under a power of two)."""
+    q = (rng.standard_normal((n, h)) * 10.0 ** rng.uniform(-3, 3, (n, 1))).astype(np.float32)
+    q[0] = 0
+    q[1, 7] = -4 * np.abs(q[1]).max()
+    q[2, 3] = np.float32(np.nextafter(np.float32(8), np.float32(0))) * np.abs(q[2]).max()
+    return q
+
+
+def test_k10_digits_hold_the_queries():
+    """Each component is off by at most e / 2, e = 2^-sh the query's step;
+    the digits are balanced bytes and recombine to v exactly; v fits the
+    three digits; an all-zero query has every digit 0."""
+    q = _k10_queries(np.random.default_rng(40))
+    sh, v, (d2, d1, d0) = _k10_digits(q)
+    step = np.ldexp(1.0, -sh)[:, None]
+    assert (np.abs(v * step - q.astype(np.float64)) <= step / 2).all()
+    for d in (d2, d1, d0):
+        assert d.min() >= -128 and d.max() <= 127
+    np.testing.assert_array_equal((d2 << 16) + (d1 << 8) + d0, v)
+    # the step is within a factor 2 of 2^-23 of the largest component: 22-23 bits kept
+    top = np.abs(v).max(axis=1)[1:]
+    assert (top >= 2 ** 21).all() and (top <= 8355711).all()
+    assert sh[0] == 0 and (v[0] == 0).all()
+
+
+def test_k10_digit_scores_are_exact():
+    """The digit sums give the fp64 scores of the fixed-point queries
+    exactly (integer sums below 2^53), and the kernel's score is that value
+    rounded once to fp32, then times the scale."""
+    rng = np.random.default_rng(41)
+    q = _k10_queries(rng, n=32)
+    _, _, packed, scales = _int4_corpus(42, n=300, h=768)
+    s, exact, sh, v = _k10_scores(q, packed, scales)
+    codes = tquant.unpack_int4(torch.from_numpy(packed)).numpy().astype(np.float64)
+    fixed = v.astype(np.float64) * np.ldexp(1.0, -sh)[:, None]
+    np.testing.assert_array_equal(exact, fixed @ codes.T)
+    np.testing.assert_array_equal(s, (fixed @ codes.T).astype(np.float32) * scales[None, :])
+    assert (np.signbit(s) == (s < 0)).all()  # no -0 score
+    # against the fp64 score of the fp32 queries: e / 2 a component, then the two fp32
+    # roundings (the sum's and the scale's)
+    f64 = (q.astype(np.float64) @ codes.T) * scales[None, :]
+    bound = (0.5 * np.ldexp(1.0, -sh)[:, None] * (np.abs(codes).sum(1) * scales)[None, :]
+             + 2.0 ** -23 * np.abs(f64))
+    assert (np.abs(s - f64) <= bound).all()
+
+
+def test_k10_digit_scores_match_the_plain_version():
+    """On seeded N(0, 1) queries and rows at H = 768: the digit scores lie
+    within 1e-5 of the plain K10's (``_block_topj_reference(int4=True)``,
+    true-fp32 products), and give the same per-block top-J ids. (Rows with a
+    common offset, as ``_int4_corpus``'s, cancel to scores far below the
+    terms' magnitude: there both sit about 2e-7 of the magnitude off fp64.)"""
+    rng = np.random.default_rng(43)
+    q = rng.standard_normal((64, 768)).astype(np.float32)
+    q[0] = 0
+    packed, scales = (t.numpy() for t in tquant.quantize_int4_device(
+        torch.from_numpy(rng.standard_normal((2048, 768)).astype(np.float32))))
+    s, _, _, _ = _k10_scores(q, packed, scales)
+    J, block, n_valid = 8, 512, 2000
+    tq, tc, ts = torch.from_numpy(q), torch.from_numpy(packed), torch.from_numpy(scales)
+    rv, ri = ttopk._block_topj_reference(tq, tc, J, block, n_valid, ts, int4=True)
+    dv, di = ttopk._per_block(lambda a, b: torch.from_numpy(s[:, a:b]), ttopk._select_pairs,
+                              q.shape[0], packed.shape[0], J, block, n_valid, "cpu")
+    assert torch.equal(di, ri)
+    torch.testing.assert_close(dv, rv, rtol=1e-5, atol=1e-5)
+    # every score, within 1e-5 of the magnitude of its terms (sum_d |q_d c_d| x scale, which
+    # bounds the rounding of a sum whose terms cancel), as chip_smoke.py holds the kernels
+    plain = ttopk._scores(tq, tc, ts, int4=True).numpy()
+    codes = tquant.unpack_int4(tc).numpy().astype(np.float64)
+    mag = (np.abs(q).astype(np.float64) @ np.abs(codes).T) * scales[None, :]
+    assert (np.abs(s - plain) <= 1e-5 * np.maximum(mag, 1.0)).all()
+
+
+def _certified_key(v, row):
+    """``serve_select.cuh:pack_key`` of fp32 scores v (the kernel's + 0 applied)
+    and int32 rows, as uint64: order-preserving score bits high, the inverted
+    row low."""
+    b = (np.asarray(v, np.float32) + np.float32(0)).view(np.uint32).astype(np.uint64)
+    o = np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+    return (o << np.uint64(32)) | (~np.asarray(row, np.uint64) & np.uint64(0xFFFFFFFF))
+
+
+def test_k10_packed_keys_order_as_the_certified_selection():
+    """Sorting the packed keys descending orders (score, id) pairs exactly as
+    ``_select_pairs`` (stable descending sort: equal scores by ascending id),
+    with -0 and +0 equal, exact ties and negative scores; without the + 0 a
+    -0 would sort below +0."""
+    v = np.array([0.0, -0.0, 1.5, -2.0, 1.5, -0.0, 3.0, 0.0, -2.0, 1e-30, -1e-30, 1.5],
+                 np.float32)
+    rows = np.arange(v.size)
+    keys = _certified_key(v, rows)
+    order = np.array(sorted(rows, key=lambda i: keys[i], reverse=True))
+    sv, pos = ttopk._select_pairs(torch.from_numpy(v)[None, :], torch.from_numpy(rows), v.size)
+    np.testing.assert_array_equal(order, pos[0].numpy())
+    raw = np.where(np.signbit(v) & (v == 0), np.float32(-0.0), v)  # no + 0: -0 stays
+    b = raw.view(np.uint32).astype(np.uint64)
+    o = np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+    assert o[1] < o[0]  # the packed -0 sorts below +0 without the + 0

@@ -70,11 +70,10 @@ def _t(a):
 # -- K17's plain version vs the Pallas kernel ------------------------------------------------------
 
 
-@pytest.mark.parametrize("nbits,M", [(8, 16), (4, 32)])
-def test_ragged_topj_pq_plain_matches_pallas(nbits, M):
+def _k17_case(nbits, M):
     """8 blocks of 64 code columns over 4 cells (the block -> cell map picks
-    the slab and the offsets), padding rows masked, J=10: per block the same
-    ids, scores within two quanta."""
+    the slab and the offsets), padding rows masked, J=10: the JAX kernel's
+    lists in interpret mode and the port's operands."""
     rng = np.random.default_rng(nbits)
     nlist, Qcap, J, block = 4, 16, 10, 64
     block_cell = np.array([0, 0, 2, 1, 1, 3, 3, 3], np.int32)
@@ -92,11 +91,45 @@ def test_ragged_topj_pq_plain_matches_pallas(nbits, M):
         jnp.asarray(row_ids), jnp.asarray(poff.reshape(nlist, 1, Qcap)),
         jnp.asarray(jpq.build_bdcb(cb)), J, block, nbits)
     table, _ = tpq.bdcb_table(tpq.build_bdcb(cb), k=1 << nbits)
+    args = (_t(block_cell), _t(slab).to(torch.bfloat16), _t(codes), _t(row_ids), _t(poff), table,
+            J, block)
+    return args, (jv, ji)
+
+
+@pytest.mark.parametrize("nbits,M", [(8, 16), (4, 32)])
+def test_ragged_topj_pq_plain_matches_pallas(nbits, M):
+    """8 blocks of 64 code columns over 4 cells (the block -> cell map picks
+    the slab and the offsets), padding rows masked, J=10: per block the same
+    ids, scores within two quanta."""
+    args, (jv, ji) = _k17_case(nbits, M)
     before = tivfpq.ragged_topj_pq.launches
-    tv, ti = tivfpq.ragged_topj_pq(_t(block_cell), _t(slab).to(torch.bfloat16), _t(codes),
-                                   _t(row_ids), _t(poff), table, J, block, nbits=nbits)
+    tv, ti = tivfpq.ragged_topj_pq(*args, nbits=nbits)
     assert tivfpq.ragged_topj_pq.launches == before  # CPU tensors: the plain version
-    _assert_blocks_match(tv, ti, jv, ji, block)
+    _assert_blocks_match(tv, ti, jv, ji, args[7])
+
+
+@pytest.mark.parametrize("nbits,M", [(8, 16), (4, 32)])
+def test_ragged_topj_pq_plain_filled_slots(nbits, M):
+    """K17's plain version with ``slots`` (cell 2 empty, cell 1 full, the
+    others part-filled): every filled slot's list equals the list computed
+    without ``slots`` and the JAX kernel's (per block the same ids, scores
+    within two quanta); every slot past its cell's count is (-inf, -1)."""
+    args, (jv, ji) = _k17_case(nbits, M)
+    block_cell, block = args[0], args[7]
+    Qcap = args[1].shape[1]
+    slots = torch.tensor([3, Qcap, 0, 9], dtype=torch.int32)
+    sv, si = tivfpq.ragged_topj_pq(*args, nbits=nbits, slots=slots)
+    av, ai = tivfpq.ragged_topj_pq(*args, nbits=nbits)
+    filled = (torch.arange(Qcap)[None, :] < slots.long()[block_cell.long()][:, None])
+    filled = filled[:, :, None].expand_as(sv)
+    assert int(filled.sum()) > 0 and int((~filled).sum()) > 0
+    assert torch.equal(sv[filled], av[filled]) and torch.equal(si[filled], ai[filled])
+    assert bool((sv[~filled] == float("-inf")).all()) and bool((si[~filled] == -1).all())
+    # the JAX lists are [nb, J, Qcap]: cleared past the counts in the port's layout
+    jvc = torch.from_numpy(np.array(jv)).transpose(1, 2).contiguous()
+    jic = torch.from_numpy(np.array(ji)).transpose(1, 2).contiguous()
+    tb._clear_empty_slots(jvc, jic, slots, block_cell, 1, 1)
+    _assert_blocks_match(sv, si, jvc.transpose(1, 2).numpy(), jic.transpose(1, 2).numpy(), block)
 
 
 # -- the index -------------------------------------------------------------------------------------
