@@ -17,7 +17,11 @@ Phases, each of which fails the run on error:
    the body it took and its stage A / stage B ms (``torch.profiler``); K2 bf16
    beside the xla block's bf16 chain on cuBLAS (``chain_ms``);
    K5 (block top-J) on a 1,000,000 x 768 corpus, fp32 and bf16, 1024 queries,
-   k=100, through the certified search against the exact scan.
+   k=100, through the certified search against the exact scan; then block by
+   block at J = 8 and 32 on ``flat_certified.cu``'s bodies (fp32 products as
+   fp16 pairs, bf16 on TMA + wgmma; ``block_topj.launches_generic`` 0), with
+   ``block_topj.cu``'s body on the same rows 2 elements off 16-byte alignment
+   beside them: each body's time and largest |score - fp64|.
 3. The main path, through the entry points a user calls: a bert-base
    (12 layers, H=768, bf16, ``attention='fused'``) dual encoder with seeded
    random weights built by ``DRModelForInference.build``; ``encode_batches``
@@ -32,7 +36,11 @@ Phases, each of which fails the run on error:
    (Q=1000, P=8000) and at the training path's shape (Q=32, P=256). Loss
    and grad errors, kernel vs plain ms (forward, and
    forward + backward), peak device memory of each path; plain variants with
-   the target one column off, or without the 1/n_q, must fail the bounds.
+   the target one column off, or without the 1/n_q, must fail the bounds. K4
+   runs its tensor-core body (fp16 pairs, a cluster of four CTAs a 64-row
+   tile; ``launches_generic`` 0); its largest |grad - fp64| is printed beside
+   the FFMA body's on the same inputs (its C entry without scratch), with both
+   bodies' times.
 5. The training main path, through the entry points a user calls: a bert-base
    (12 layers, H=768, bf16, ``attention='fused'``, ``fused_loss=True``, tied)
    built by ``DRModel.build`` from an architecture-only dir (seeded random
@@ -207,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import functools
 import json
 import math
@@ -647,8 +656,44 @@ def topk_errors(q, corpus, vals, ids, ref_vals):
     return (vals - ref_vals).abs(), (rescored - ref_vals.double()).abs()
 
 
+def fp64_err(q, corpus, vals, ids, chunk=64):
+    """The largest |score - fp64 score of the same id| over per-block lists [Q, nb, J]
+    (queries in the kernels' input type; empty entries left out)."""
+    err = 0.0
+    for a in range(0, q.shape[0], chunk):
+        v = vals[a:a + chunk].reshape(vals[a:a + chunk].shape[0], -1)
+        i = ids[a:a + chunk].reshape(v.shape)
+        d = (rescore(q[a:a + chunk], corpus, i) - v.double()).abs()
+        err = max(err, float(torch.where(i >= 0, d, torch.zeros_like(d)).max()))
+    return err
+
+
+def block_errors(q, corpus, vals, ids, ref_vals, chunk=16):
+    """Per-block lists [Q, nb, J] against the plain version's on the same rows: the largest
+    rank-wise score error and the largest |fp64 score of the list's id - the plain score at
+    that rank| (ids may differ from the plain version's only inside near ties), each over
+    max(1, |plain score|); and whether both leave the same entries empty."""
+    rank = rescored = 0.0
+    same_empty = True
+    for a in range(0, q.shape[0], chunk):
+        n = min(chunk, q.shape[0] - a)
+        v, i, w = (t[a:a + n].reshape(n, -1) for t in (vals, ids, ref_vals))
+        filled = i >= 0
+        same_empty &= bool((filled == torch.isfinite(w)).all())
+        w64 = torch.where(filled, w.double(), torch.zeros_like(w, dtype=torch.float64))
+        scale = w64.abs().clamp(min=1.0)
+        zero = torch.zeros_like(w64)
+        rank = max(rank, float(torch.where(filled, (v.double() - w64).abs() / scale, zero).max()))
+        d = (rescore(q[a:a + n], corpus, i) - w64).abs() / scale
+        rescored = max(rescored, float(torch.where(filled, d, zero).max()))
+    return rank, rescored, same_empty
+
+
 def phase_topk(gen, topk, blockwise_topk, n_rows, n_queries=1024, k=100, dim=768):
-    """K5 through the certified search vs the exact scan on a seeded corpus."""
+    """K5 through the certified search vs the exact scan on a seeded corpus; then block by
+    block at the search's J (8) and its escalation's (32) on ``flat_certified.cu``'s bodies
+    (fp32 as fp16 pairs, bf16 on TMA + wgmma), with block_topj.cu's body on the same rows,
+    2 elements off 16-byte alignment, for its time and error against fp64 beside theirs."""
     results = {}
     for dtype, rel_tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-3)):
         corpus = torch.randn(n_rows, dim, generator=gen, device="cuda").to(dtype)
@@ -663,18 +708,67 @@ def phase_topk(gen, topk, blockwise_topk, n_rows, n_queries=1024, k=100, dim=768
         rank_err, rescored_err = topk_errors(q, corpus, s, ids, bs)
         mismatched = int((ids != bids).sum())
         qc = q.to(dtype)
-        ms = cuda_ms(lambda: topk.block_topj(qc, corpus, 8, block, n_rows), iters=3)
+        kern = lambda rows, j=8: topk.block_topj(qc, rows, j, block, n_rows)  # noqa: E731
+        # the search's J (8) and its escalation's (32), each against the plain version and fp64
+        held, err64 = {}, {}
+        for J in (8, 32):
+            vals, vids = kern(corpus, J)
+            body = topk.block_topj.last_body
+            check(body == "flat_certified" and topk.block_topj.launches_generic == 0,
+                  f"K5 {dtype} J={J}: ran {body!r} ({topk.block_topj.launches_generic} "
+                  f"launches of block_topj.cu's body), not flat_certified.cu's")
+            err64[J] = fp64_err(q, corpus, vals, vids, chunk=16)
+            ref_vals, _ = topk._block_topj_reference(qc, corpus, J, block, n_rows)
+            held[J] = block_errors(q, corpus, vals, vids, ref_vals)
+            del vals, vids, ref_vals
+            check(held[J][0] <= rel_tol and held[J][1] <= rel_tol and held[J][2],
+                  f"K5 {dtype} J={J}: per-block lists disagree with the plain version's "
+                  f"(rank {held[J][0]:.3e}, rescored {held[J][1]:.3e} of max(1, |score|), "
+                  f"same empty entries {held[J][2]})")
+        ms = cuda_ms(lambda: kern(corpus), iters=3)
+        ms_j32 = cuda_ms(lambda: kern(corpus, 32), iters=3)
         plain_ms = cuda_ms(lambda: topk._block_topj_reference(qc, corpus, 8, block, n_rows), iters=3)
         search_ms = cuda_ms(lambda: topk.certified_topk(q, corpus, k, block), iters=3)
         scan_ms = cuda_ms(lambda: blockwise_topk(q, corpus, k, block), iters=3)
+        # block_topj.cu's body on the same rows (a shape flat_certified.cu does not take): one
+        # call, then cuda_ms's warm-up and 3 timed calls
+        generic0 = topk.block_topj.launches_generic
+        check(generic0 == 0, f"K5 {dtype}: block_topj.cu's body ran {generic0} times in the "
+              f"timed calls")
+        moved = torch.empty(corpus.numel() + 2, dtype=dtype, device="cuda")[2:].view(corpus.shape)
+        moved.copy_(corpus)
+        vals, vids = kern(moved)
+        generic_err64 = fp64_err(q, corpus, vals, vids)
+        del vals, vids
+        generic_ms = cuda_ms(lambda: kern(moved), iters=3)
+        ran = topk.block_topj.launches_generic - generic0
+        check(ran == 5 and topk.block_topj.last_body == "block_topj",
+              f"K5 {dtype}: the comparison on unaligned rows ran block_topj.cu's body {ran} "
+              f"times of its 5 calls")
+        topk.block_topj.launches_generic = generic0  # those launches were the comparison's
+        del moved
+        if dtype == torch.float32:  # the fp16 pairs' error at most 2x the FFMA body's
+            check(err64[8] <= 2 * generic_err64,
+                  f"K5 fp32: max |score - fp64| {err64[8]:.3e} over 2x the FFMA body's "
+                  f"{generic_err64:.3e} on the same rows")
         log(f"K5 {str(dtype)[6:]} {n_rows}x{dim} Q={n_queries} k={k}: ids differing {mismatched} "
             f"of {ids.numel()}, max rank score err {rank_err.max().item():.3e}, max rescored err "
             f"{rescored_err.max().item():.3e} (rel tol {rel_tol:g}), certificate escalated "
-            f"{escalated} fallbacks {fallbacks}; block_topj kernel {ms:.3f} ms plain "
+            f"{escalated} fallbacks {fallbacks}; block_topj kernel ({body}) J=8 {ms:.3f} ms, "
+            f"J=32 {ms_j32:.3f} ms, max |score - fp64| J=8 {err64[8]:.3e} J=32 {err64[32]:.3e}, "
+            f"against the plain version (of max(1, |score|); rank / rescored) J=8 "
+            f"{held[8][0]:.3e} / {held[8][1]:.3e}, J=32 {held[32][0]:.3e} / {held[32][1]:.3e} "
+            f"(<= {rel_tol:g}); block_topj.cu's body on the "
+            f"same rows {generic_ms:.3f} ms, max |score - fp64| {generic_err64:.3e}; plain "
             f"{plain_ms:.3f} ms; certified search {search_ms:.3f} ms exact scan {scan_ms:.3f} ms")
         check(bool((rank_err <= tol).all()), f"K5 {dtype}: scores disagree with the exact scan")
         check(bool((rescored_err <= tol.double()).all()), f"K5 {dtype}: ids are not the top-k")
         results[str(dtype)[6:]] = {"max_abs_err": rank_err.max().item(), "ms": ms,
+                                   "ms_j32": ms_j32, "body": body,
+                                   "max_abs_err_fp64": err64[8], "max_abs_err_fp64_j32": err64[32],
+                                   "plain_rel_err": held[8][:2], "plain_rel_err_j32": held[32][:2],
+                                   "generic_ms": generic_ms,
+                                   "generic_max_abs_err_fp64": generic_err64,
                                    "plain_ms": plain_ms, "search_ms": search_ms,
                                    "scan_ms": scan_ms, "escalated": escalated,
                                    "fallbacks": fallbacks}
@@ -799,10 +893,13 @@ def phase_main_path(args, tmp):
     rank_err, rescored_err = topk_errors(q, corpus, vals, ids, ref_vals)
     tol = 1e-5 * ref_vals.reshape(q.shape[0], -1).abs().clamp(min=1.0)
     log(f"K5 float32 at the main path's shape ({q.shape[0]} x {tuple(corpus.shape)}, block "
-        f"{INDEX_BLOCK}, J={J}): max rank score err {rank_err.max().item():.3e}, max "
-        f"rescored err {rescored_err.max().item():.3e} (rel tol 1e-05)")
+        f"{INDEX_BLOCK}, J={J}; body {topk.block_topj.last_body}): max rank score err "
+        f"{rank_err.max().item():.3e}, max rescored err {rescored_err.max().item():.3e} (rel tol "
+        f"1e-05); block_topj.cu's body launched {topk.block_topj.launches_generic} times")
     check(bool((rank_err <= tol).all()) and bool((rescored_err <= tol.double()).all()),
           "K5 disagrees with its plain version at the main path's shape")
+    check(topk.block_topj.last_body == "flat_certified" and topk.block_topj.launches_generic == 0,
+          "the main path's K5 did not run flat_certified.cu's body alone")
 
     with mock.patch.object(attn, "fused_attention_ln", attn._reference_attention_ln), \
             mock.patch.object(attn, "fused_mlp_ln", attn._reference_mlp_ln), \
@@ -906,9 +1003,28 @@ def peak_mib(fn):
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
+def ffma_bwd(con, dp, q, p, lse, stride, gout):
+    """K4's FFMA body (``contrastive_bwd_kernel``) on the same inputs: its C entry given no
+    scratch, which the tensor-core body needs."""
+    from denseretrievaltoolkits_torch.ops import _native
+
+    out = torch.empty(p.shape[0] if dp else q.shape[0], q.shape[1], device=q.device)
+    body = ctypes.c_int(-1)
+    entry = "drt_contrastive_dp" if dp else "drt_contrastive_dq"
+    _native.check(getattr(_native.library(), entry)(
+        q.data_ptr(), p.data_ptr(), lse.data_ptr(), gout.data_ptr(), out.data_ptr(), q.shape[0],
+        p.shape[0], q.shape[1], stride, 0, ctypes.byref(body), _native.stream_ptr(q)), entry)
+    check(body.value == 0, f"{entry} without scratch did not run the FFMA body")
+    return out
+
+
 def phase_contrastive(gen, con):
     """K3 and K4 vs their plain versions, fp32, H=768: at grad-cache scale,
-    ragged, and at the training path's shape (Q=32, P=256)."""
+    ragged, and at the training path's shape (Q=32, P=256). K4 runs its
+    tensor-core body (fp16 pairs; ``launches_generic`` 0), whose error against
+    the fp64 gradients is printed beside the FFMA body's on the same inputs."""
+    from denseretrievaltoolkits_torch.ops import _native
+
     H, stride = 768, 8
     # fp32 sums in another order. Readings on the H100: loss rel err 0, grads
     # 4.4e-6 of max|grad|; the bounds keep 5-10x of room and still fail the
@@ -950,10 +1066,35 @@ def phase_contrastive(gen, con):
                     float((got[2] - want[2]).abs().max() / want[2].abs().max()),
                     float((got[3] - want[3]).abs().max() / want[3].abs().max()))
 
+        generic0 = (con.contrastive_bwd_dq.launches_generic,
+                    con.contrastive_bwd_dp.launches_generic)
         out = kernels()
         torch.cuda.synchronize()
+        bodies = (con.contrastive_bwd_dq.last_body, con.contrastive_bwd_dp.last_body)
+        # the parts the tensor-core body split the walked axis into (minus a cudaError_t
+        # where the card's cluster occupancy could not be read)
+        splits = [_native.library().drt_contrastive_splits(Q, P, H, dp) for dp in (0, 1)]
+        check(min(splits) > 0, f"K4 Q={Q} P={P}: walked-axis parts dq / dp {splits}")
+        check(bodies == ("wgmma", "wgmma") and (con.contrastive_bwd_dq.launches_generic,
+                                                con.contrastive_bwd_dp.launches_generic) == generic0,
+              f"K4 Q={Q} P={P}: ran {bodies}, not the tensor-core body")
         want = plain_versions()
         loss_err, dq_err, dp_err = errors(out, want)
+        # against the fp64 gradients, beside the FFMA body's on the same inputs
+        qd, pd = q.double(), p.double()
+        g64 = torch.exp(qd @ pd.T - torch.logsumexp(qd @ pd.T, 1)[:, None])
+        g64[rows, rows * stride] -= 1.0
+        g64 /= Q
+        want64 = (g64 @ pd, g64.T @ qd)
+        del qd, pd, g64
+        lse_k = out[0]
+        ffma = (ffma_bwd(con, False, q, p, lse_k, stride, one),
+                ffma_bwd(con, True, q, p, lse_k, stride, one))
+        fp64_err = [float((a.double() - b).abs().max() / b.abs().max())
+                    for a, b in zip(out[2:], want64)]
+        ffma_fp64_err = [float((a.double() - b).abs().max() / b.abs().max())
+                         for a, b in zip(ffma, want64)]
+        del ffma, want64
         abs_err = [float((a - b).abs().max()) for a, b in zip(out, want)]
         off = errors(planted(target_shift=1), want)
         no_nq = errors(planted(scale_nq=False), want)
@@ -962,8 +1103,10 @@ def phase_contrastive(gen, con):
         t = {"fwd": cuda_ms(lambda: con.contrastive_fwd(q, p, stride)),
              "fwd_plain": cuda_ms(lambda: con._reference_contrastive_fwd(q, p, stride)),
              "dq": cuda_ms(lambda: con.contrastive_bwd_dq(q, p, lse, stride, one)),
+             "dq_ffma": cuda_ms(lambda: ffma_bwd(con, False, q, p, lse, stride, one)),
              "dq_plain": cuda_ms(lambda: plain_g(lse) @ p),
              "dp": cuda_ms(lambda: con.contrastive_bwd_dp(q, p, lse, stride, one)),
+             "dp_ffma": cuda_ms(lambda: ffma_bwd(con, True, q, p, lse, stride, one)),
              "dp_plain": cuda_ms(lambda: plain_g(lse).T @ q),
              "all": cuda_ms(kernels), "all_plain": cuda_ms(plain_versions)}
         kernel_mib, plain_mib = peak_mib(kernels), peak_mib(plain_versions)
@@ -976,6 +1119,11 @@ def phase_contrastive(gen, con):
             f"{t['fwd_plain']:.3f}; dq {t['dq']:.3f} vs {t['dq_plain']:.3f}; dp {t['dp']:.3f} vs "
             f"{t['dp_plain']:.3f}; forward+backward {t['all']:.3f} vs {t['all_plain']:.3f}; peak "
             f"memory forward+backward {kernel_mib:.1f} MiB vs {plain_mib:.1f} MiB")
+        log(f"K4 Q={Q} P={P} bodies dq / dp {bodies[0]} / {bodies[1]}, walked-axis parts "
+            f"{splits[0]} / {splits[1]}: max |grad - fp64| of "
+            f"max|grad| dq {fp64_err[0]:.3e} dp {fp64_err[1]:.3e} (the FFMA body on the same "
+            f"inputs: {ffma_fp64_err[0]:.3e} / {ffma_fp64_err[1]:.3e}, {t['dq_ffma']:.3f} / "
+            f"{t['dp_ffma']:.3f} ms)")
         check(loss_err <= loss_tol and dq_err <= grad_tol and dp_err <= grad_tol,
               f"K3/K4 Q={Q} P={P}: kernels disagree with their plain versions")
         check(off[0] > loss_tol and min(off[1:]) > grad_tol,
@@ -987,7 +1135,8 @@ def phase_contrastive(gen, con):
             "loss_rel_err": loss_err, "dq_rel_err": dq_err, "dp_rel_err": dp_err,
             "max_abs_err": dict(zip(("lse", "tgt", "dq", "dp"), abs_err)), "ms": t,
             "peak_mib": kernel_mib, "plain_peak_mib": plain_mib, "target_off": off,
-            "no_nq": no_nq}
+            "no_nq": no_nq, "bodies": bodies, "splits": splits, "fp64_rel_err": fp64_err,
+            "ffma_fp64_rel_err": ffma_fp64_err}
         del q, p, lse
         torch.cuda.empty_cache()
     return results
@@ -3755,15 +3904,16 @@ def main(argv=None):
          ", ".join(src + f for f in ("mlp_ln.cu", "wgmma_ln.cuh", "hopper.cuh", "common.cuh")),
          "denseretrievaltoolkits_tpu/ops/attn.py:252",
          blocks["K2 bfloat16 B=64 S=156"]),
-        ("block_topj", src + "block_topj.cu", "denseretrievaltoolkits_tpu/ops/topk.py:37",
-         k5["float32"]),
+        ("block_topj",
+         ", ".join(src + f for f in ("flat_certified.cu", "split.cuh", "hopper.cuh",
+                                     "serve_select.cuh", "common.cuh")),
+         "denseretrievaltoolkits_tpu/ops/topk.py:37", k5["float32"]),
     ]
     # bounds at the shapes timed: K1/K2 bf16 B=64 S=156 (phase 2's rows); K5 fp32 over
     # the corpus
     H = 768
-    bounds = {"block_topj": bound(4 * (args.corpus_rows + 1024) * H
-                                  + 8 * 1024 * -(-args.corpus_rows // 4096) * 8,
-                                  2 * 1024 * args.corpus_rows * H, "fp32")}
+    k5_bytes = 4 * (args.corpus_rows + 1024) * H + 8 * 1024 * -(-args.corpus_rows // 4096) * 8
+    bounds = {"block_topj": bound(k5_bytes, 3 * 2 * 1024 * args.corpus_rows * H, "bf16")}
     for name, _, _, r in rows[:2]:
         bounds[name] = (r["bound_ms"], r["bound_by"])
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3774,6 +3924,18 @@ def main(argv=None):
     kernels[0].update({k: rows[0][3][k] for k in ("body", "stage_a_ms", "stage_b_ms",
                                                   "scratch_bound_ms")})  # K1's two launches
     kernels[1]["chain_ms"] = rows[1][3]["chain_ms"]  # K2: the xla block's bf16 chain
+    # K5: flat_certified.cu's bodies (fp32 as fp16 pairs, bf16), block_topj.cu's on the same
+    # rows beside them; fp32's bound is the three fp16 products that run (989 TFLOP/s), the
+    # fp32 FFMA bound beside it
+    f32, b16 = k5["float32"], k5["bfloat16"]
+    kernels[2].update({
+        "body": f32["body"], "ms_j32": f32["ms_j32"], "max_abs_err_fp64": f32["max_abs_err_fp64"],
+        "generic_ms": f32["generic_ms"], "generic_max_abs_err_fp64": f32["generic_max_abs_err_fp64"],
+        "ffma_bound_ms": bound(k5_bytes, 2 * 1024 * args.corpus_rows * H, "fp32")[0],
+        "bf16_ms": b16["ms"], "bf16_ms_j32": b16["ms_j32"],
+        "bf16_max_abs_err_fp64": b16["max_abs_err_fp64"], "bf16_generic_ms": b16["generic_ms"],
+        "bf16_bound_ms": bound(2 * (args.corpus_rows + 1024) * H, 2 * 1024 * args.corpus_rows * H,
+                               "bf16")[0]})
     big = k34["4096x32768"]
     Q, P = 4096, 32768
     for name, line, err, ms, out_rows, ops in (
@@ -3781,12 +3943,28 @@ def main(argv=None):
              "fwd", 0, 2 * Q * P * H),
             ("contrastive_bwd_dq", 121, big["max_abs_err"]["dq"], "dq", Q, 4 * Q * P * H),
             ("contrastive_bwd_dp", 150, big["max_abs_err"]["dp"], "dp", P, 4 * Q * P * H)):
-        b_ms, b_by = bound(4 * ((Q + P + out_rows) * H + 2 * Q), ops, "fp32")
+        # K4's bound is the three fp16 products that run (989 TFLOP/s), K3's its FFMA
+        k4 = ms != "fwd"
+        b_ms, b_by = bound(4 * ((Q + P + out_rows) * H + 2 * Q), 3 * ops if k4 else ops,
+                           "bf16" if k4 else "fp32")
         kernels.append({"name": name, "route": "cuda", "source": src + "contrastive.cu",
                         "replaces": f"denseretrievaltoolkits_tpu/ops/contrastive.py:{line}",
                         "launches": train["launches"][name], "max_abs_err": err,
                         "ms": big["ms"][ms], "plain_ms": big["ms"][ms + "_plain"],
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                        "train_shape_ms": k34["32x256"]["ms"][ms]})
+        if k4:  # K4's tensor-core body: fp16 pairs, the FFMA body and its bound beside it
+            i = 0 if ms == "dq" else 1
+            kernels[-1].update({
+                "source": ", ".join(src + f for f in ("contrastive.cu", "split.cuh",
+                                                      "hopper.cuh", "common.cuh")),
+                "body": big["bodies"][i], "ffma_ms": big["ms"][ms + "_ffma"],
+                "train_shape_ffma_ms": k34["32x256"]["ms"][ms + "_ffma"],
+                "fp64_rel_err": big["fp64_rel_err"][i],
+                "ffma_fp64_rel_err": big["ffma_fp64_rel_err"][i],
+                "ffma_bound_ms": bound(4 * ((Q + P + out_rows) * H + 2 * Q), ops, "fp32")[0],
+                "splits": big["splits"][i], "train_shape_splits": k34["32x256"]["splits"][i],
+                "generic_launches": getattr(contrastive, name).launches_generic})
     # this slice's kernels: times on the 1M-row corpus, launches on the int8 path
     for name, source, replaces, r, counter in (
             ("block_topj (K6, int8 rows)", "block_topj.cu", "ops/topk.py:65", int8_topk["K6"],
@@ -3917,6 +4095,13 @@ def main(argv=None):
     check(topk.block_topj.launches_int4_generic == 0,
           f"K10: block_topj.cu's FFMA body ran {topk.block_topj.launches_int4_generic} times on "
           f"the paths")
+    # and fp32 / bf16 rows (K5) and the loss's backward (K4) at H = 768: their new bodies
+    kernels[2]["generic_launches"] = topk.block_topj.launches_generic
+    check(topk.block_topj.launches_generic == 0,
+          f"K5: block_topj.cu's body ran {topk.block_topj.launches_generic} times on the paths")
+    k4_generic = (contrastive.contrastive_bwd_dq.launches_generic,
+                  contrastive.contrastive_bwd_dp.launches_generic)
+    check(k4_generic == (0, 0), f"K4: the FFMA body ran {k4_generic} times on the paths")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

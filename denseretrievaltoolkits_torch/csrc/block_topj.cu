@@ -3,7 +3,8 @@
 //
 // Replaces these TPU kernels of denseretrievaltoolkits_tpu/ops/topk.py:
 //   K5  `_block_topj_kernel` (:37, launched by `_pallas_block_topj`, :336): exact top-J,
-//       fp32 / bf16 rows;
+//       fp32 / bf16 rows, at the shapes flat_certified.cu does not take
+//       (drt_flat_certified_takes; drt_block_topj dispatches the others to its wgmma bodies);
 //   K6  `_block_topj_kernel_scaled` (:65, `_pallas_block_topj_scaled`, :618): K5 over
 //       int8 rows times a per-row scale, bf16 queries;
 //   K8  `_packed_select` with `_block_topj_kernel_packed` / `_packed_scaled` (:94, :122,
@@ -726,6 +727,11 @@ extern "C" int drt_int4_certified_takes(const void* q, const void* corpus, int H
 extern "C" int drt_int4_certified(const void* q, const void* corpus, const void* scales,
                                   void* out_v, void* out_i, int Q, int N, int H, int n_valid,
                                   int block, int J, void* stream);
+// flat_certified.cu: K5's wgmma bodies (fp32 as fp16 pairs, bf16) and the shapes they take
+extern "C" int drt_flat_certified_takes(const void* q, const void* corpus, int H, int dtype);
+extern "C" int drt_flat_certified(const void* q, const void* corpus, void* out_v, void* out_i,
+                                  int Q, int N, int H, int n_valid, int block, int J, int dtype,
+                                  void* stream);
 
 // q [Q,H] (qtype), corpus [N,H] (ctype) or [N,H/2] (int4), cscales [N] fp32 or null,
 // qscales [Q] fp32 or null -> out_vals [Q, n_blocks, J] fp32, out_ids [Q, n_blocks, J]
@@ -733,7 +739,8 @@ extern "C" int drt_int4_certified(const void* q, const void* corpus, const void*
 // Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8, fp32 x int4 (certified only), and
 // (serve only) bf16 x int4, and int8 x int8 / int8 x int4 at H % 64 == 0 with 16-byte
 // aligned rows. fp32 x int4 certified runs int4_certified.cu's body where it takes the
-// shape; `body`, where not null, is set to 1 then, else to 0 (this file's bodies).
+// shape, and fp32 x fp32 / bf16 x bf16 certified flat_certified.cu's; `body`, where not null,
+// is set to 1 or 2 then, else to 0 (this file's bodies).
 extern "C" int drt_block_topj(const void* q, const void* corpus, const void* cscales,
                               const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
                               int n_valid, int block, int J, int qtype, int ctype, int serve,
@@ -744,6 +751,12 @@ extern "C" int drt_block_topj(const void* q, const void* corpus, const void* csc
   if (!serve && qtype == T_F32 && ctype == T_I4 && drt_int4_certified_takes(q, corpus, H)) {
     if (body != nullptr) *body = 1;
     return drt_int4_certified(q, corpus, cscales, out_v, out_i, Q, N, H, n_valid, block, J,
+                              stream);
+  }
+  if (!serve && qtype == ctype && (qtype == T_F32 || qtype == T_BF16) &&
+      drt_flat_certified_takes(q, corpus, H, qtype)) {
+    if (body != nullptr) *body = 2;
+    return drt_flat_certified(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, qtype,
                               stream);
   }
   const int n_blocks = (N + block - 1) / block;

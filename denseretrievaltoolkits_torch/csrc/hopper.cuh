@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels of flash_attn.cu,
-// mlp_ln.cu, attn_ln.cu, pq_serve.cu, ivf_cell.cu and int4_certified.cu: mbarriers, TMA tile
-// loads, wgmma fences / commits / waits and shared memory descriptors, the wgmma
-// instructions the kernels issue (bf16 and s8), the generic-to-async proxy fence and the
-// consumer warpgroup's named barrier, cluster barriers and distributed shared memory, and on
-// the host the lookup of cuTensorMapEncodeTiled and the tensor maps it encodes.
+// mlp_ln.cu, attn_ln.cu, pq_serve.cu, ivf_cell.cu, int4_certified.cu, flat_certified.cu and
+// contrastive.cu: mbarriers, TMA tile loads, wgmma fences / commits / waits and shared memory
+// descriptors, the wgmma instructions the kernels issue (bf16, fp16 and s8), the
+// generic-to-async proxy fence and the consumer warpgroup's named barrier, cluster barriers,
+// distributed shared memory and bulk copies between a cluster's CTAs, and on the host the
+// lookup of cuTensorMapEncodeTiled and the tensor maps it encodes.
 //
 // Operand layouts: every tile is stored as TMA writes it with a 128-byte swizzle, in
 // 1024-byte aligned atoms of 8 rows x 128 bytes (64 bf16). A K-major operand has K along
@@ -330,6 +331,87 @@ __device__ __forceinline__ void wgmma_ss_n256_mn(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+
+// ---- fp16 (the split-fp32 products of flat_certified.cu and contrastive.cu) ----------
+
+// d (m64n64, fp32) = A.B^T, or d += A.B^T with accumulate: A and B fp16 in shared
+// memory, both K-major; accumulator layout as wgmma_ss_n128_mn's
+__device__ __forceinline__ void wgmma_f16_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64, fp32) = A.B^T, or d += A.B^T with accumulate: A fp16 in registers (the
+// mma.sync A fragment of the thread's warp's 16 rows: a[0] row g, k 2t, 2t + 1; a[1] row
+// g + 8; a[2] row g, k 2t + 8, 2t + 9; a[3] row g + 8), B fp16 in shared memory, K-major
+__device__ __forceinline__ void wgmma_f16_rs_n64(float (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (m64n192, fp32) = A.B, or d += A.B with accumulate: A fp16 in shared memory, K-major;
+// B fp16 in shared memory, MN-major (three 64-column atoms `lbo` bytes apart)
+__device__ __forceinline__ void wgmma_f16_ss_n192_mn(float (&d)[96], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.f16.f16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, "
+      "%96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // ---- clusters ------------------------------------------------------------------------
 
 // every thread of every CTA of the cluster arrives, then waits for all the others;
@@ -353,6 +435,28 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t addr, unsigned rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
   return v;
+}
+
+// `bytes` (a multiple of 16) from this CTA's shared memory at `src` to the same offset's
+// address `dst` in the cluster's CTA `rank` (this one included), by the bulk copy engine,
+// completing `bytes` of transactions on that CTA's mbarrier `bar` (a shared address of the
+// same layout); committed to the issuing thread's bulk async group
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar, unsigned rank) {
+  uint32_t rdst, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rdst) : "r"(dst), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(rdst), "r"(src), "r"(bytes), "r"(rbar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until the issuing thread's bulk copies have read their sources (they may be rewritten)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---- host ----------------------------------------------------------------------------

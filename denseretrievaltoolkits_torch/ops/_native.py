@@ -49,7 +49,7 @@ SIGNATURES = {
     "drt_mlp_ln": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
     # q, corpus, corpus_scales, query_scales, out_vals, out_ids,
     # Q, N, H, n_valid, block, J, qtype, ctype, serve, body (int*, written: 1 where
-    # int4_certified.cu's body ran, else 0), stream
+    # int4_certified.cu's body ran, 2 where flat_certified.cu's did, else 0), stream
     "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P, _P],
     # qslab, values, cell_scales, slot_scales, row_ids, block_cell, out_vals, out_ids,
     # Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream
@@ -71,11 +71,15 @@ SIGNATURES = {
     "drt_quantize_int4": [_P] * 3 + [_I] * 4 + [_P],
     # q, p, lse, tgt, Q, P, H, stride, stream
     "drt_contrastive_fwd": [_P] * 4 + [_I] * 4 + [_P],
-    # q, p, lse, gout, dq (dp), Q, P, H, stride, stream
-    "drt_contrastive_dq": [_P] * 5 + [_I] * 4 + [_P],
-    "drt_contrastive_dp": [_P] * 5 + [_I] * 4 + [_P],
+    # q, p, lse, gout, dq (dp), Q, P, H, stride, scratch (drt_contrastive_scratch_bytes),
+    # body (int*, written: 1 where the tensor-core body ran, else 0), stream
+    "drt_contrastive_dq": [_P] * 5 + [_I] * 4 + [_P, _P, _P],
+    "drt_contrastive_dp": [_P] * 5 + [_I] * 4 + [_P, _P, _P],
     # -> the widest H the contrastive kernels take (not a cudaError_t)
     "drt_contrastive_max_h": [],
+    # Q, P, H, dp -> the parts K4's tensor-core body splits the walked axis into (0: the
+    # FFMA body runs it; minus a cudaError_t: the cluster occupancy query failed)
+    "drt_contrastive_splits": [_I] * 4,
     # q, k, v, mask, o, lse, B, S, nh, hd, bstride, rstride, sm_scale, bias, is_bf16, stream
     "drt_flash_fwd": [_P] * 6 + [_I] * 4 + [_L, _I, _F, _I, _I, _P],
     # q, k, v, mask, lse, o, dout, D (written), dq, B, S, nh, hd, bstride, rstride,
@@ -163,6 +167,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.drt_error_string.argtypes = [_I]
     lib.drt_error_string.restype = ctypes.c_char_p
+    # Q, P, H, dp -> the scratch bytes K4's tensor-core body needs for dq (dp = 0) or dp (1)
+    # (0: the FFMA body runs it; minus a cudaError_t as drt_contrastive_splits)
+    lib.drt_contrastive_scratch_bytes.argtypes = [_I, _I, _I, _I]
+    lib.drt_contrastive_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 

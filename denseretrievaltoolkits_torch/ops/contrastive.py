@@ -11,17 +11,24 @@ computed without the [Q, P] score matrix.
   source): dq = g·p and dp = gᵀ·q with g = (exp(s − lse) − onehot)/n_q
   recomputed per tile, times the upstream scalar. Plain version:
   :func:`_reference_contrastive_bwd`, the closed form on a materialized [Q, P].
+  At H = 768 with 16-byte aligned rows the products run on the tensor cores
+  as fp16 pairs (a cluster of four CTAs a 64-row tile, one quarter of H
+  each); other shapes run the FFMA body, counted on
+  ``<wrapper>.launches_generic`` too. ``<wrapper>.last_body`` names the
+  body of the last call ("wgmma" or "ffma").
 - :func:`fused_contrastive_loss`: the differentiable loss, K3 forward (saving
   lse) and K4 backward. :func:`contrastive_loss_auto` takes it when P % Q == 0
   and the plain loss with scores otherwise (contrastive.py:260-271).
 
 A wrapper runs its plain version for tensors on the CPU. For CUDA tensors it
 launches its kernel or raises; it never falls back. Launches are counted in
-``<wrapper>.launches``. The kernels take fp32 (products in true fp32).
+``<wrapper>.launches``. The kernels take fp32 (K3's products, and K4's FFMA
+body's, in true fp32).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -85,14 +92,30 @@ contrastive_fwd.launches = 0
 
 
 def _bwd(wrapper, entry, q, p, lse, stride, gout, rows):
+    """Launch a K4 entry: the tensor-core body where the C entry takes the shape
+    (it reports which body ran), with the scratch it asks for: the operands'
+    largest magnitudes, the walked side's fp16 planes (its rows x H x 4 bytes)
+    and, where the walked axis is split across clusters, the parts' sums."""
     _check(wrapper.__name__, q, p, lse, gout)
     if lse.shape != (q.shape[0],) or gout.numel() != 1:
         raise ValueError(f"{wrapper.__name__}: lse must be [Q] and gout a scalar")
-    out = torch.empty(rows, q.shape[1], dtype=torch.float32, device=q.device)
+    lib = _native.library()
+    Q, H = q.shape
+    out = torch.empty(rows, H, dtype=torch.float32, device=q.device)
+    n_scratch = lib.drt_contrastive_scratch_bytes(Q, p.shape[0], H,
+                                                  int(entry == "drt_contrastive_dp"))
+    if n_scratch < 0:  # the card's cluster occupancy could not be read
+        _native.check(-n_scratch, "drt_contrastive_scratch_bytes")
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device) if n_scratch else None
+    body = ctypes.c_int(0)
     wrapper.launches += 1
-    _native.check(getattr(_native.library(), entry)(
-        q.data_ptr(), p.data_ptr(), lse.data_ptr(), gout.data_ptr(), out.data_ptr(), q.shape[0],
-        p.shape[0], q.shape[1], stride, _native.stream_ptr(q)), entry)
+    _native.check(getattr(lib, entry)(
+        q.data_ptr(), p.data_ptr(), lse.data_ptr(), gout.data_ptr(), out.data_ptr(), Q,
+        p.shape[0], H, stride, 0 if scratch is None else scratch.data_ptr(), ctypes.byref(body),
+        _native.stream_ptr(q)), entry)
+    wrapper.last_body = "wgmma" if body.value else "ffma"
+    if not body.value:
+        wrapper.launches_generic += 1
     return out
 
 
@@ -106,6 +129,8 @@ def contrastive_bwd_dq(q, p, lse, stride: int, gout) -> torch.Tensor:
 
 
 contrastive_bwd_dq.launches = 0
+contrastive_bwd_dq.launches_generic = 0
+contrastive_bwd_dq.last_body = None
 
 
 def contrastive_bwd_dp(q, p, lse, stride: int, gout) -> torch.Tensor:
@@ -117,6 +142,8 @@ def contrastive_bwd_dp(q, p, lse, stride: int, gout) -> torch.Tensor:
 
 
 contrastive_bwd_dp.launches = 0
+contrastive_bwd_dp.launches_generic = 0
+contrastive_bwd_dp.last_body = None
 
 
 class _FusedContrastiveLoss(torch.autograd.Function):

@@ -22,7 +22,11 @@ two half-dim products (topk.py:166-258), then the scale.
   given per-row ``scales`` for int8 rows, ``_pallas_block_topj_scaled`` (K6,
   bf16 queries): per (query, corpus block) the J best (score, id) pairs, ties
   to the smaller id. Plain version :func:`_block_topj_reference`; launches in
-  ``block_topj.launches`` (K5) and ``block_topj.launches_int8`` (K6).
+  ``block_topj.launches`` (K5) and ``block_topj.launches_int8`` (K6). K5 runs
+  ``csrc/flat_certified.cu``'s wgmma bodies (fp32 products as fp16 pairs, bf16
+  on TMA + wgmma) at H % 64 == 0 (fp32: H <= 768) with 16-byte aligned rows,
+  else ``block_topj.cu``'s, which also count on ``block_topj.launches_generic``.
+  ``block_topj.last_body`` names the body of the last call.
 - :func:`block_topj_serve` ports the serve kernels ``_block_topj_kernel_packed``
   / ``_packed_scaled`` (K8) over fp32, bf16 and int8 rows. The TPU packs score
   and id into one int32 and rounds the score; the kernel packs them into 64
@@ -173,13 +177,18 @@ def _block_topj_i8q_reference(qi, qscales, corpus, scales, J: int, block_size: i
                       n_valid, qi.device)
 
 
+# the bodies drt_block_topj reports it ran
+BODIES = ("block_topj", "int4_certified", "flat_certified")
+
+
 def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qscales=None,
             serve=False, int4=False):
     """Check the operands and launch ``drt_block_topj``; returns (vals, ids).
     A launch adds one to ``wrapper.<counter>``, and to
     ``wrapper.<counter>_generic`` where the C entry reports that
-    ``block_topj.cu``'s body ran a call that ``int4_certified.cu`` could take
-    at other shapes (fp32 x int4, certified)."""
+    ``block_topj.cu``'s body ran a call that ``int4_certified.cu`` (fp32 x
+    int4) or ``flat_certified.cu`` (fp32 x fp32, bf16 x bf16) could take at
+    other shapes, certified. ``wrapper.last_body`` names the body that ran."""
     name = wrapper.__name__
     Q, H = q.shape
     N = corpus.shape[0]
@@ -217,7 +226,8 @@ def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qs
         Q, N, H, int(n_valid), int(block_size), int(J), TYPE_CODES[q.dtype],
         INT4_CODE if int4 else TYPE_CODES[corpus.dtype], int(serve), ctypes.byref(body),
         _native.stream_ptr(q)), "drt_block_topj")
-    if int4 and not serve and body.value == 0:
+    wrapper.last_body = BODIES[body.value]
+    if not serve and body.value == 0 and (int4 or corpus.dtype != torch.int8):
         setattr(wrapper, counter + "_generic", getattr(wrapper, counter + "_generic") + 1)
     return vals, ids
 
@@ -251,9 +261,11 @@ def block_topj(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,
 
 
 block_topj.launches = 0
+block_topj.launches_generic = 0
 block_topj.launches_int8 = 0
 block_topj.launches_int4 = 0
 block_topj.launches_int4_generic = 0
+block_topj.last_body = None
 
 
 def block_topj_serve(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,
@@ -276,6 +288,7 @@ def block_topj_serve(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: 
 
 
 block_topj_serve.launches = 0
+block_topj_serve.last_body = None
 block_topj_serve.launches_int4 = 0
 
 
@@ -303,6 +316,7 @@ def block_topj_i8q(qi: torch.Tensor, qscales: torch.Tensor, corpus: torch.Tensor
 
 
 block_topj_i8q.launches = 0
+block_topj_i8q.last_body = None
 block_topj_i8q.launches_int4 = 0
 
 

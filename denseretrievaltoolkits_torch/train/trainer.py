@@ -146,7 +146,8 @@ class Trainer:
                     f"non-finite mean loss {mean_loss} at epoch {ep + 1}; "
                     f"resume from the last checkpoint under "
                     f"{args.output_dir}/checkpoint with --resume_from "
-                    f"(consider a lower learning_rate or --remat full)")
+                    f"(consider a lower learning_rate; rematerialization, --remat, is not "
+                    f"ported yet: ROADMAP queue 1, item '`remat`')")
             logger.info("epoch %d done, mean loss %.4f", ep + 1, mean_loss)
             self._log_metrics({"epoch": ep + 1, "step": self.step, "mean_loss": mean_loss,
                                "epoch_seconds": time.time() - t0})

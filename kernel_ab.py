@@ -5,7 +5,7 @@ checkout (say the parent commit), on one card, in turns.
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
     python3 kernel_ab.py --other _chip_scratch/parent
-                         [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf|int4|ivfpq]
+                         [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf|int4|ivfpq|contrastive|flat]
                          [--seed 0] [--profile] [--ptxas] [--out FILE]
 
 ``--kernel mlp_ln`` (the default): K2, called through its wrapper
@@ -71,6 +71,18 @@ against seeded random 8-bit codes of the same row bytes (PQ96, d_sub 8, a random
 the 8-bit decode reads its table through L2. Errors are over the filled slots' lists
 against the checkout's plain version. ``--ptxas`` reads ``ivf_cell.cu``.
 
+``--kernel contrastive``: K4, dq and dp through ``ops/contrastive.py``'s wrappers, at
+``chip_smoke.py``'s grad-cache shape (Q=4096, P=32768) and the training path's own (Q=32,
+P=256), H=768, 0.3 N(0, 1) reps from the seed, lse from the checkout's K3; each gradient's
+largest difference to the fp64 gradient over its largest value, and the body that ran where
+the checkout names it. ``--ptxas`` reads ``contrastive.cu``.
+
+``--kernel flat``: K5, the certified search's block top-J, through
+``ops/topk.py:block_topj`` on 1,000,000 seeded N(0, 1) rows x 768 in fp32 and in bf16, 1024
+seeded queries, 4096-row blocks, J = 8 (the search's) and 32 (its escalation's); each turn's
+largest |score - fp64 score of the same ids| and checksums (which must agree), and the body
+that ran where the checkout names it. ``--ptxas`` reads ``flat_certified.cu``.
+
 Four processes run in turn, other, this, this, other; each imports the port from
 its own checkout (which builds its kernels into its own ``_build/``), makes the
 same inputs from ``--seed`` and times the calls with CUDA events. ``--profile``
@@ -116,9 +128,14 @@ IVF_CASES = tuple((f"{k} 1M {d} {m}", layout, d, m)
 IVF_ROWS, IVF_QUERIES, IVF_K = 1_000_000, 2048, 100
 # K10: 1M int4 rows x 768, 1024 queries, 4096-row blocks, at the search's J and its escalation's
 INT4_ROWS, INT4_QUERIES, INT4_BLOCK, INT4_J = 1_000_000, 1024, 4096, (8, 32)
+# K5: the same shape in fp32 and bf16 rows
+FLAT_ROWS, FLAT_QUERIES, FLAT_BLOCK, FLAT_J = 1_000_000, 1024, 4096, (8, 32)
+# K4: (Q, P) of the grad-cache scale and of the training path, stride P / Q
+CONTRASTIVE_SHAPES = ((4096, 32768), (32, 256))
 SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",),
            "pq": ("pq_serve.cu",), "ivf": ("ivf_cell.cu",), "int4": ("int4_certified.cu",),
-           "ivfpq": ("ivf_cell.cu",)}
+           "ivfpq": ("ivf_cell.cu",), "contrastive": ("contrastive.cu",),
+           "flat": ("flat_certified.cu",)}
 
 
 def inputs(B, S, gen):
@@ -522,6 +539,69 @@ def ivfpq_case(chip_smoke, a, codes, table, nbits, profile):
     return row
 
 
+def flat_rows(chip_smoke, seed, profile):
+    """K5 of the imported checkout in fp32 and bf16 at J = 8 and 32 on rows and queries made
+    from the seed."""
+    from denseretrievaltoolkits_torch.ops import topk
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        corpus = torch.randn(FLAT_ROWS, H, generator=gen, device="cuda").to(dtype)
+        q = torch.randn(FLAT_QUERIES, H, generator=gen, device="cuda")
+        qc = q.to(dtype)
+        checksum = [float(q.sum()), float(corpus[::997].float().sum())]
+        for J in FLAT_J:
+            def call(j=J):
+                return topk.block_topj(qc, corpus, j, FLAT_BLOCK, FLAT_ROWS)
+            vals, ids = call()
+            row = {"ms": chip_smoke.cuda_ms(call, iters=5, warmup=1),
+                   "max_abs_err_fp64": chip_smoke.fp64_err(q, corpus, vals, ids), "J": J,
+                   "body": getattr(topk.block_topj, "last_body", None), "checksum": checksum}
+            if profile:
+                row["kernels_us"] = kernel_us(call, iters=3)
+            out[f"K5 {str(dtype)[6:]} J={J}"] = row
+            del vals, ids
+        del corpus
+        torch.cuda.empty_cache()
+    return out
+
+
+def contrastive_rows(chip_smoke, seed, profile):
+    """K4's dq and dp of the imported checkout at the grad-cache and training shapes."""
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+
+    out = {}
+    for Q, P in CONTRASTIVE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        q = 0.3 * torch.randn(Q, H, generator=gen, device="cuda")
+        p = 0.3 * torch.randn(P, H, generator=gen, device="cuda")
+        stride, one = P // Q, torch.ones((), device="cuda")
+        lse, _ = con.contrastive_fwd(q, p, stride)
+        qd, pd = q.double(), p.double()
+        rows = torch.arange(Q, device="cuda")
+        g = torch.exp(qd @ pd.T - torch.logsumexp(qd @ pd.T, 1)[:, None])
+        g[rows, rows * stride] -= 1.0
+        g /= Q
+        exact = {"dq": g @ pd, "dp": g.T @ qd}
+        del g, qd, pd
+        for name, fn in (("dq", con.contrastive_bwd_dq), ("dp", con.contrastive_bwd_dp)):
+            def call(f=fn):
+                return f(q, p, lse, stride, one)
+            got = call()
+            row = {"ms": chip_smoke.cuda_ms(call, iters=10, warmup=2),
+                   "rel_err_fp64": float((got.double() - exact[name]).abs().max()
+                                         / exact[name].abs().max()),
+                   "body": getattr(fn, "last_body", None),
+                   "checksum": [float(q.sum()), float(p.sum())]}
+            if profile:
+                row["kernels_us"] = kernel_us(call, iters=3)
+            out[f"K4 {name} Q={Q} P={P}"] = row
+        del exact
+        torch.cuda.empty_cache()
+    return out
+
+
 def worker(checkout, kernel, seed, profile, inputs=""):
     """One turn: ``kernel`` of ``checkout`` at every shape, as a dict."""
     import chip_smoke  # this checkout's, before the other checkout leads the path
@@ -542,6 +622,10 @@ def worker(checkout, kernel, seed, profile, inputs=""):
         out.update(int4_rows(chip_smoke, seed, profile))
     elif kernel == "ivfpq":
         out.update(ivfpq_rows(chip_smoke, inputs, profile))
+    elif kernel == "flat":
+        out.update(flat_rows(chip_smoke, seed, profile))
+    elif kernel == "contrastive":
+        out.update(contrastive_rows(chip_smoke, seed, profile))
     else:
         out.update(block_rows(chip_smoke, seed, profile, k1=kernel == "attn_ln"))
     return out
@@ -575,10 +659,15 @@ def describe(name, turn, kernel):
             f"{v['filled_slots']} filled slots, slots passed {v['slots_passed']}), max_abs "
             f"{v['max_abs_err']:.3e}, {v['ids_differing']} ids / {v['values_differing']} "
             f"values differing, checksum {v['checksum']}" for k, v in rows.items())
-    if kernel == "int4":
+    if kernel in ("int4", "flat"):
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
-            f"{k} {v['ms']:.3f} ms, max |score - fp64| {v['max_abs_err_fp64']:.3e}, checksum "
-            f"{v['checksum']}" for k, v in rows.items())
+            f"{k} {v['ms']:.3f} ms{' (' + v['body'] + ')' if v.get('body') else ''}, max "
+            f"|score - fp64| {v['max_abs_err_fp64']:.3e}, checksum {v['checksum']}"
+            for k, v in rows.items())
+    if kernel == "contrastive":
+        return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+            f"{k} {v['ms']:.4f} ms{' (' + v['body'] + ')' if v.get('body') else ''}, max "
+            f"|grad - fp64| of max|grad| {v['rel_err_fp64']:.3e}" for k, v in rows.items())
     if kernel == "ivfpq":
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.3f} ms (J={v['J']}, sel {v['sel']}, Qcap {v['qcap']}, "
@@ -658,11 +747,11 @@ def main(argv=None):
     flash = args.kernel == "flash_bwd"
     fields = ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms", "sdpa_bwd_ms") if flash else ("ms",)
     keys = [k for k, v in result["turns"][0].items() if isinstance(v, dict)]
-    if args.kernel in ("ivf", "int4", "ivfpq"):  # every turn scored the same inputs
+    if args.kernel in ("ivf", "int4", "ivfpq", "flat", "contrastive"):  # the same inputs
         for key in keys:
             sums = {json.dumps(t[key]["checksum"]) for t in result["turns"]}
             if len(sums) != 1:
-                print(f"ivf {key}: the turns' inputs differ: {sorted(sums)}", file=sys.stderr)
+                print(f"{args.kernel} {key}: the turns' inputs differ: {sorted(sums)}", file=sys.stderr)
                 return 1
     for key in keys:
         result[key] = {}

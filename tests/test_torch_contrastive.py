@@ -121,3 +121,56 @@ def test_rr_losses_match_jax(name, margin):
     ref = jlosses.rr_loss_functions[name](jnp.asarray(pos), jnp.asarray(neg), margin)
     out = tlosses.rr_loss_functions[name](torch.from_numpy(pos), torch.from_numpy(neg), margin)
     np.testing.assert_allclose(float(out), float(ref), rtol=1e-6, atol=1e-7)
+
+
+# --- K4's tensor-core products (csrc/contrastive.cu), emulated ------------------------------
+
+def _emulated_bwd(q, p, lse, stride, scheme):
+    """dq, dp as K4's tensor-core body forms them, with test_torch_topk.py's split
+    emulation: the scores' partial sums over four quarters of H (q and p each with one
+    exponent, from their largest magnitude), added in fp32 in quarter order; g x 2^13 split
+    with no further scale; the gradient products of the split operands summed in fp32, the
+    scales taken back out."""
+    from test_torch_topk import split_exp, split_matmul, split_pair
+
+    n_q, H = q.shape
+    e_q, e_p = split_exp(q.abs().amax()).reshape(1, 1), split_exp(p.abs().amax()).reshape(1, 1)
+    s = torch.zeros(n_q, p.shape[0])
+    for d in range(0, H, H // 4):
+        s = s + split_matmul(q[:, d:d + H // 4], p[:, d:d + H // 4], scheme, e_q, e_p)
+    rows = torch.arange(n_q)
+    g = torch.exp(s - lse[:, None])
+    g[rows, rows * stride] -= 1.0
+    g = g * 8192.0
+    zero = torch.zeros(1, 1, dtype=e_q.dtype)
+
+    def grad(gm, walk, e_w):  # gm [own, walk] . walk [walk, H], scales taken out
+        gh, gl = split_pair(gm, scheme, zero)
+        wh, wl = split_pair(walk, scheme, e_w)
+        out = gh @ wh + gh @ wl + gl @ wh
+        return out / 8192.0 / n_q if scheme == "tf32" else torch.ldexp(out, -e_w) / 8192.0 / n_q
+
+    return grad(g, p, e_p), grad(g.T.contiguous(), q, e_q)
+
+
+@pytest.mark.parametrize("scheme", ["fp16", "tf32"])
+@pytest.mark.parametrize("Q,P", [(32, 256), (64, 512)])
+def test_split_products_hold_the_k4_bound(scheme, Q, P):
+    """K4's split products, emulated at H = 768 on chip_smoke.py's data (0.3 N(0, 1)), stay
+    within its bound: dq and dp within 2e-5 of max|grad| of the fp64 gradients and of the
+    port's plain (fp32) version."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(0.3 * rng.normal(size=(Q, 768)).astype(np.float32))
+    p = torch.from_numpy(0.3 * rng.normal(size=(P, 768)).astype(np.float32))
+    stride = P // Q
+    qd, pd = q.double(), p.double()
+    lse = torch.logsumexp(qd @ pd.T, 1)
+    gd = torch.exp(qd @ pd.T - lse[:, None])
+    gd[torch.arange(Q), torch.arange(Q) * stride] -= 1.0
+    exact = (gd @ pd / Q, gd.T @ qd / Q)
+    plain = tcon._reference_contrastive_bwd(q, p, lse.float(), stride, 1.0)
+    got = _emulated_bwd(q, p, lse.float(), stride, scheme)
+    for g, e, pl in zip(got, exact, plain):
+        bound = 2e-5 * float(e.abs().max())
+        assert float((g.double() - e.double()).abs().max()) <= bound
+        assert float((g.double() - pl.double()).abs().max()) <= bound

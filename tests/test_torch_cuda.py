@@ -193,6 +193,81 @@ def test_block_topj_and_certified_topk(gen, dtype, H):
     torch.testing.assert_close(s, bs, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("J", [1, 8, 32])
+@pytest.mark.parametrize("H", [768, 128, 64])  # 12, 2 and 1 k-slices of 64 dims
+def test_block_topj_flat_wgmma_kernel(gen, dtype, H, J):
+    """K5's wgmma bodies (``flat_certified.cu``; fp32 products as fp16 pairs,
+    bf16 on TMA + wgmma): ids equal to the plain version's, scores within 1e-5,
+    over 1000-row blocks (not a multiple of the 64-row tile) with n_valid inside
+    the last, exact ties inside a block, a zero row, rows and queries of other
+    magnitudes (each row slice and query takes its own scale), an all-zero query
+    (every score +0, ids ascending) and a query tile cut short (70 queries);
+    ``launches_generic`` stays; the certified search on the card equals the one
+    on the CPU."""
+    c = _randn(gen, 5000, H, dtype=dtype)
+    c[700:710] = c[700]  # exact ties inside one block
+    c[3] = 0
+    c[1500:1600] *= 1e-3
+    c[2500:2600] *= 1e3
+    c[3500:3600, : H // 2] *= 8.0  # another scale in every row's first slices
+    q = _randn(gen, 70, H, scale=3.0)
+    q[5] = 0
+    q[6] *= 1e-4
+    qc = q.to(dtype)
+    n, n_gen = topk.block_topj.launches, topk.block_topj.launches_generic
+    v, i = topk.block_topj(qc, c, J, 1000, 4990)
+    torch.cuda.synchronize()
+    assert topk.block_topj.last_body == "flat_certified"
+    assert (topk.block_topj.launches, topk.block_topj.launches_generic) == (n + 1, n_gen)
+    rv, ri = topk._block_topj_reference(qc, c, J, 1000, 4990)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+    # ids equal to the plain version's but inside near ties: where they differ, both ids
+    # score the same in fp64 within 1e-5 of the terms' magnitudes (cuBLAS may order the
+    # exactly tied rows 700-709 by rounding)
+    qi, blk, j = torch.nonzero(i != ri, as_tuple=True)
+    if qi.numel():
+        qd = qc.double()[qi]
+        got = (qd * c.double()[i[qi, blk, j].long()]).sum(1)
+        want = (qd * c.double()[ri[qi, blk, j].long()]).sum(1)
+        mag = (qd.abs() * c.double()[ri[qi, blk, j].long()].abs()).sum(1)
+        assert bool(((got - want).abs() <= 1e-5 * mag).all()), (qi, blk, j, got, want)
+    assert bool((v[5] == 0).all()) and not bool(torch.signbit(v[5]).any())
+    assert bool((i[5] == torch.arange(J, device="cuda") + 1000 * torch.arange(
+        5, device="cuda")[:, None]).all())
+    s, ids = topk.certified_topk(q, c, 50, block_size=512)
+    cs, cids = topk.certified_topk(q.cpu(), c.cpu(), 50, block_size=512)
+    assert torch.equal(ids.cpu(), cids)
+    # scores within 1e-5 of their terms' magnitudes: the rows scaled by 1e3 score in the
+    # 1e5s, where the two fp32 searches' sums part by more than 1e-5 of a cancelled score
+    mag = torch.einsum("qd,qkd->qk", q.to(dtype).double().abs(), c[ids.long()].double().abs())
+    assert bool(((s.double() - cs.to(s.device).double()).abs()
+                 <= 1e-5 * mag.clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,offset", [(48, 0), (768, 2)])  # 2 elements: off 16-byte alignment
+def test_block_topj_flat_generic_body(gen, dtype, H, offset):
+    """K5 at the shapes ``flat_certified.cu`` does not take (H % 64 != 0, or rows
+    off 16-byte alignment) runs ``block_topj.cu``'s bodies, counted on
+    ``launches_generic`` too: the plain version's ids, scores within 1e-5."""
+    c = _randn(gen, 3000, H, dtype=dtype)
+    if offset:
+        buf = torch.empty(c.numel() + offset, dtype=dtype, device="cuda")
+        moved = buf[offset:].view(c.shape)
+        moved.copy_(c)
+        c = moved
+    q = _randn(gen, 70, H).to(dtype)
+    n, n_gen = topk.block_topj.launches, topk.block_topj.launches_generic
+    v, i = topk.block_topj(q, c, 8, 1024, 2990)
+    torch.cuda.synchronize()
+    assert topk.block_topj.last_body == "block_topj"
+    assert (topk.block_topj.launches, topk.block_topj.launches_generic) == (n + 1, n_gen + 1)
+    rv, ri = topk._block_topj_reference(q, c, 8, 1024, 2990)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
+
+
 def test_unsupported_shape_raises(gen):
     """K1's CUDA-core path keeps one head's K/V in shared memory where it fits
     and streams it over S above that, so fp32 at bert-base widths takes S=306
@@ -444,6 +519,53 @@ def test_contrastive_kernels(gen, Q, P, H):
     torch.testing.assert_close(tgt, rtgt, rtol=1e-5, atol=1e-5)
     for got, want in ((dq, rdq), (dp, rdp)):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("Q,P", [(32, 256), (64, 512), (100, 700), (5, 10), (1000, 8000)])
+def test_contrastive_bwd_wgmma_kernel(gen, Q, P):
+    """K4's tensor-core body (H = 768, fp16 pairs, a cluster of four CTAs a
+    64-row tile): dq and dp within 2e-5 of max|grad| of the plain versions
+    (``chip_smoke.py``'s bound), ragged Q and P, the training path's Q=32,
+    P=256; ``launches_generic`` stays; a second call repeats bit for bit."""
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+
+    stride = P // Q
+    q, p = _randn(gen, Q, 768, scale=0.3), _randn(gen, P, 768, scale=0.3)
+    gout = torch.tensor(1.7, device="cuda")
+    lse, _ = con._reference_contrastive_fwd(q, p, stride)
+    n_gen = (con.contrastive_bwd_dq.launches_generic, con.contrastive_bwd_dp.launches_generic)
+    dq = con.contrastive_bwd_dq(q, p, lse, stride, gout)
+    dp = con.contrastive_bwd_dp(q, p, lse, stride, gout)
+    torch.cuda.synchronize()
+    assert con.contrastive_bwd_dq.last_body == con.contrastive_bwd_dp.last_body == "wgmma"
+    assert (con.contrastive_bwd_dq.launches_generic,
+            con.contrastive_bwd_dp.launches_generic) == n_gen
+    rdq, rdp = con._reference_contrastive_bwd(q, p, lse, stride, gout)
+    for got, want in ((dq, rdq), (dp, rdp)):
+        assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert torch.equal(con.contrastive_bwd_dq(q, p, lse, stride, gout), dq)
+    assert torch.equal(con.contrastive_bwd_dp(q, p, lse, stride, gout), dp)
+
+
+def test_contrastive_bwd_generic_body(gen):
+    """K4 at a width the tensor-core body does not take (H != 768) runs the FFMA
+    body, counted on ``launches_generic`` too, within 1e-5 of max|grad|."""
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+
+    Q, P, H = 40, 160, 128
+    q, p = _randn(gen, Q, H, scale=0.3), _randn(gen, P, H, scale=0.3)
+    gout = torch.tensor(1.0, device="cuda")
+    lse, _ = con._reference_contrastive_fwd(q, p, 4)
+    n = (con.contrastive_bwd_dq.launches_generic, con.contrastive_bwd_dp.launches_generic)
+    dq = con.contrastive_bwd_dq(q, p, lse, 4, gout)
+    dp = con.contrastive_bwd_dp(q, p, lse, 4, gout)
+    torch.cuda.synchronize()
+    assert con.contrastive_bwd_dq.last_body == con.contrastive_bwd_dp.last_body == "ffma"
+    assert (con.contrastive_bwd_dq.launches_generic,
+            con.contrastive_bwd_dp.launches_generic) == (n[0] + 1, n[1] + 1)
+    rdq, rdp = con._reference_contrastive_bwd(q, p, lse, 4, gout)
+    for got, want in ((dq, rdq), (dp, rdp)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_fused_loss_autograd_on_card(gen):

@@ -416,3 +416,83 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_index(str(tmp_path / "i"))
     assert len(load_index(str(tmp_path / "i"), device="cpu")) == 4
+
+
+# --- the split products of K5's fp32 body (csrc/flat_certified.cu), emulated ----------------
+# Each fp32 operand becomes hi + lo. "fp16": the kernels' split (csrc/split.cuh), a group
+# scaled by 2^e (its largest magnitude into [2^13, 2^14)), hi = fp16(x 2^e), lo = fp16(x 2^e -
+# hi); "tf32": the 3xTF32 split, hi = tf32_rn(x), lo = tf32_rn(x - hi), rounding by bit
+# arithmetic (cvt.rna: half of 2^13 added to the magnitude, then cut). A product is hi.hi +
+# hi.lo + lo.hi, summed in fp32.
+
+def tf32_rn(x):
+    """fp32 -> the nearest TF32 value (ties away from zero), as fp32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_exp(m):
+    """The kernels' power of two for groups of largest magnitude m: m 2^e in [2^13, 2^14),
+    0 for m = 0, clamped to +-100."""
+    _, E = torch.frexp(m)  # m = f 2^E, f in [0.5, 1)
+    return torch.where(m > 0, (14 - E).clamp(-100, 100), torch.zeros_like(E))
+
+
+def split_pair(x, scheme, e=None):
+    """(hi, lo) of x in fp32: fp16 halves of x 2^e (e broadcast against x), or TF32 halves."""
+    if scheme == "tf32":
+        hi = tf32_rn(x)
+        return hi, tf32_rn(x - hi)
+    xs = torch.ldexp(x, e)
+    hi = xs.half().float()
+    return hi, (xs - hi).half().float()
+
+
+def split_matmul(a, b, scheme, ea=None, eb=None):
+    """a [m, k] . b [n, k]^T from split operands, three products summed in fp32, scales
+    (row exponents ea [m, 1] / eb [n, 1] of a and b) taken back out exactly."""
+    ah, al = split_pair(a, scheme, ea)
+    bh, bl = split_pair(b, scheme, eb)
+    s = ah @ bh.T + ah @ bl.T + al @ bh.T
+    return s if scheme == "tf32" else torch.ldexp(s, -ea - eb.T)
+
+
+def emulated_flat_scores(q, c, scheme, slice_dims=64):
+    """K5's fp32 scores as its split body forms them: fp16 pairs with one exponent a query
+    and one a (row, 64-dim slice), each slice's three products summed in fp32, the slices'
+    sums scaled back and added in fp32; or the same sums over TF32 pairs."""
+    eq = split_exp(q.abs().amax(1, keepdim=True))
+    total = torch.zeros(c.shape[0], q.shape[0])
+    for d in range(0, q.shape[1], slice_dims):
+        cs, qs = c[:, d:d + slice_dims], q[:, d:d + slice_dims]
+        ec = split_exp(cs.abs().amax(1, keepdim=True))
+        total = total + split_matmul(cs, qs, scheme, ec, eq)
+    return total.T
+
+
+@pytest.mark.parametrize("scheme", ["fp16", "tf32"])
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 1e3])
+def test_split_products_hold_the_k5_bound(scheme, scale):
+    """The emulated split products of K5's fp32 body stay within chip_smoke.py's K5 bound
+    (1e-5 of max(|score|, 1) against fp64, over each query's top 100) at 768 dims, over rows
+    of several magnitudes, and their largest error over all scores, relative to the terms'
+    magnitudes, is at most twice plain fp32's; each pair holds 22 bits of its value
+    (|x - (hi + lo)| <= 2^-22 |x| above 2^-3 of the group's largest)."""
+    rng = np.random.default_rng(11)
+    c = torch.from_numpy(rng.normal(size=(2048, 768)).astype(np.float32)) * scale
+    c[100:200, :384] *= 8.0  # another scale in these rows' first slices
+    q = torch.from_numpy(rng.normal(size=(64, 768)).astype(np.float32))
+    got = emulated_flat_scores(q, c, scheme).double()
+    exact = q.double() @ c.double().T
+    top = exact.topk(100, dim=1).indices
+    err, want = (got - exact).abs().gather(1, top), exact.gather(1, top)
+    assert bool((err <= 1e-5 * want.abs().clamp(min=1.0)).all())
+    mag = q.double().abs() @ c.double().abs().T
+    plain = ((q @ c.T).double() - exact).abs()
+    assert float(((got - exact).abs() / mag).max()) <= 2 * float((plain / mag).max())
+    e = split_exp(c.abs().amax(1, keepdim=True))
+    hi, lo = split_pair(c, scheme, e)
+    rebuilt = hi + lo if scheme == "tf32" else torch.ldexp(hi + lo, -e)
+    big = c.abs() >= c.abs().amax(1, keepdim=True) / 8
+    err = ((c.double() - rebuilt.double()).abs() / c.double().abs().clamp(min=1e-30))[big]
+    assert float(err.max()) <= 2.0 ** -22

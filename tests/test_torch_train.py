@@ -418,6 +418,23 @@ def test_non_finite_loss_stops(tmp_path):
         trainer.train()
 
 
+def test_non_finite_loss_message_advises_no_unported_flag(tmp_path):
+    """The message names --remat as not ported (the port refuses the flag, see
+    models/biencoder.py) instead of advising it."""
+    port = _build(seed=1)
+    trainer = Trainer(_args(tmp_path, max_epochs=1), port, train_loader=_loader())
+    with torch.no_grad():
+        for prm in port.parameters():
+            prm.fill_(float("nan"))
+    with pytest.raises(FloatingPointError) as err:
+        trainer.train()
+    msg = str(err.value)
+    assert "--remat full" not in msg
+    assert "--remat, is not ported yet: ROADMAP queue 1, item '`remat`'" in msg
+    with pytest.raises(NotImplementedError, match="item '`remat`'"):
+        _build(seed=1, remat="full")
+
+
 def test_profile_trace_and_unported_arguments(tmp_path):
     """The profiler trace of step 2; evaluation loaders are taken (the
     evaluation itself is held to the JAX Trainer in tests/test_torch_eval.py),
