@@ -64,7 +64,10 @@ Phases, each of which fails the run on error:
    against ``blockwise_topk`` on the int8 rows), K8 through ``serve_topk`` on
    all three dtypes and K12 through ``serve_topk(i8_native=True)``: top-k vs
    the plain versions, recall@100 vs the certified search of the same index;
-   kernel, plain and search ms.
+   kernel, plain and search ms. K12 must run ``csrc/flat_serve.cu``'s wgmma
+   body (its CUDA kernel by ``torch.profiler``, ``block_topj_i8q.launches_generic``
+   0) and stay bit-equal to its plain version at the IVF side scan's J = 4 on
+   1024-row blocks and at J = 11 and 32 on 4096-row blocks, each timed.
 8. The int8 serving path through the entry points, on the main path's
    bert-base reps: ``FlatIPIndex(dtype="int8")`` filled by ``add_device``,
    ``search_queries`` in ``exact``, ``serve``, ``i8q`` and ``approx``
@@ -90,6 +93,11 @@ Phases, each of which fails the run on error:
    beside it on the same rows 4 bytes off alignment, for its time and its
    largest |score - fp64|, which the s8 body's may not exceed; K10's time at
    J = 32 too; its bound on the s8 body's three passes, the FFMA one beside.
+   K11 and K12 sq4 must run ``csrc/flat_serve.cu``'s wgmma body (by
+   ``torch.profiler``; ``launches_int4_generic`` 0), K12 sq4 bit-equal and K11
+   within 1e-4 at J = 4 (1024-row blocks), 11 and 32, each timed; K11's largest
+   |score - fp64| is held to twice that of ``block_topj.cu``'s body on the same
+   rows 4 bytes off alignment (its time beside).
 11. The evaluation path through the entry points: bert-base (12 layers,
    bf16, fused attention and loss) built by ``DRModel.build``, one short
    epoch of ``Trainer.train`` with an ``eval_loader`` that evaluates into an
@@ -1954,6 +1962,43 @@ def plain_versions_of(table):
         yield
 
 
+# the serve kernels' CUDA kernels by the pieces of their names: flat_serve.cu's wgmma body (K11,
+# K12), block_topj.cu's mma.sync and CUDA-core bodies
+SERVE_BODIES = ("flat_serve_wgmma", "block_topj_mma_kernel", "block_topj_kernel")
+# (J, block) of the serve kernels beside a 1M-row search's own (J = 7, 4096-row blocks): the IVF
+# side scan's J and block, the 262,144-row slabs' J, and the most
+SERVE_SHAPES = ((4, 1024), (11, 4096), (32, 4096))
+
+
+def bit_equal(got, want):
+    return bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+def serve_shapes(name, kern_at, ref_at, same):
+    """``kern_at(J, block)`` against ``ref_at(J, block)`` by ``same(got, want)`` (checked) at
+    each of SERVE_SHAPES, and the kernel's ms there: {"ms_j{J}_b{block}": ms}."""
+    out = {}
+    for J, blk in SERVE_SHAPES:
+        check(same(kern_at(J, blk), ref_at(J, blk)),
+              f"{name} at J={J}, block {blk} disagrees with its plain version")
+        out[f"ms_j{J}_b{blk}"] = cuda_ms(lambda: kern_at(J, blk), iters=3)
+    return out
+
+
+def serve_times(t):
+    """The kernel's ms at SERVE_SHAPES, as a phrase."""
+    return ", ".join(f"J={j} block {b} {t[f'ms_j{j}_b{b}']:.3f} ms" for j, b in SERVE_SHAPES)
+
+
+def serve_body(name, wrapper, kern):
+    """The CUDA kernels a call of ``kern`` ran (``torch.profiler``; empty where it recorded
+    none), which must be flat_serve.cu's wgmma body, as the wrapper's ``last_body`` says."""
+    body = ",".join(kernel_split(kern, SERVE_BODIES, iters=3))
+    check(wrapper.last_body == "flat_serve" and body in ("flat_serve_wgmma", ""),
+          f"{name} ran {wrapper.last_body} ({body!r}), not flat_serve.cu's body")
+    return body
+
+
 def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=100, dim=768):
     """K6, K8 and K12 vs their plain versions on the 1M-row corpus (int8 from
     K7, and fp32 / bf16 forms from the same seed for K8)."""
@@ -2054,10 +2099,20 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
         n_bytes = corpus.numel() * corpus.element_size() + (0 if sc is None else 4 * n_rows)
         t["bound_ms"], t["bound_by"] = bound(n_bytes + q_bytes, ops, kind)
         label = f"{name} {dtype}"
+        other = ""
+        if native:  # K12: flat_serve.cu's body, bit-equal at every serve J
+            t["body"] = serve_body(label, topk.block_topj_i8q, kern)
+            t.update(serve_shapes(
+                label, lambda j, b: topk.block_topj_i8q(qi, qs, corpus, sc, j, b, n_rows),
+                lambda j, b: topk._block_topj_i8q_reference(qi, qs, corpus, sc, j, b, n_rows),
+                bit_equal))
+            other = f" (body {t['body']}; bit-equal at {serve_times(t)})"
+            check(topk.block_topj_i8q.launches_generic == 0,
+                  "K12 int8: block_topj.cu's body ran at H = 768")
         log(f"{label} {n_rows}x{dim} Q={n_queries} k={k} J={J}: vs the plain versions: ids "
             f"differing {differ}, max rank err {rank_err:.3e}, max rescored err {res_err:.3e}; "
             f"per-block max err {blk_err:.3e}; recall@{k} vs the certified search "
-            f"{recall:.5f}; kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms bound "
+            f"{recall:.5f}; kernel {t['ms']:.3f} ms{other} plain {t['plain_ms']:.3f} ms bound "
             f"{t['bound_ms']:.3f} ms ({t['bound_by']}), search {t['search_ms']:.3f} ms")
         check(ok, f"{label}: the serve search disagrees with its plain version")
         check(recall >= (I8Q_RECALL if native else SERVE_RECALL),
@@ -2379,7 +2434,7 @@ def phase_int4_topk(gen, topk, quant, blockwise_topk, x_int4, n_queries=1024, k=
                                                            n_rows, scales, int4=True)
             ok, rank_err, res_err, _ = against_plain(q, values, scales, got, want, 1e-4,
                                                      int4_query=torch.bfloat16)
-            blk_ok, blk_err, _, blk_differ = blocks_against_plain(
+            blk_ok, blk_err, blk_res, blk_differ = blocks_against_plain(
                 q, values, scales, kern(), ref(), 1e-4, int4_query=torch.bfloat16)
             kind, q_bytes = "bf16", 2 * q.numel()
         differ = int((got[1] != want[1]).sum())
@@ -2393,13 +2448,60 @@ def phase_int4_topk(gen, topk, quant, blockwise_topk, x_int4, n_queries=1024, k=
         out_bytes = 8 * n_queries * -(-n_rows // sblock) * sJ
         t["bound_ms"], t["bound_by"] = bound(values.numel() + 4 * n_rows + q_bytes + out_bytes,
                                              ops, kind)
+        # flat_serve.cu's body on this path, held to the plain version at every serve J
+        wrapper = topk.block_topj_i8q if native else topk.block_topj_serve
+        t["body"] = serve_body(name, wrapper, kern)
+        if native:
+            t.update(serve_shapes(
+                name, lambda j, b: topk.block_topj_i8q(qi, qs, values, scales, j, b, n_rows,
+                                                       int4=True),
+                lambda j, b: topk._block_topj_i8q_reference(qi, qs, values, scales, j, b, n_rows,
+                                                            int4=True), bit_equal))
+        else:
+            t.update(serve_shapes(
+                name, lambda j, b: topk.block_topj_serve(qb, values, j, b, n_rows, scales,
+                                                         int4=True),
+                lambda j, b: topk._block_topj_serve_reference(qb, values, j, b, n_rows, scales,
+                                                              int4=True),
+                lambda got, want: blocks_against_plain(q, values, scales, got, want, 1e-4,
+                                                       int4_query=torch.bfloat16)[0]))
+        check(wrapper.launches_int4_generic == 0,
+              f"{name}: block_topj.cu's body ran at H = 768")
+        other = ""
+        if not native:
+            # block_topj.cu's body on the same rows, 4 bytes off 16-byte alignment (a shape
+            # flat_serve.cu does not take), for its time and its error against fp64 beside the
+            # new body's; then its launches, which were this comparison's, are taken back
+            n_generic = wrapper.launches_int4_generic
+            old_rows = torch.empty(values.numel() + 4, dtype=torch.int8, device="cuda")[4:].view(
+                values.shape)
+            old_rows.copy_(values)
+            old = lambda: topk.block_topj_serve(qb, old_rows, sJ, sblock, n_rows,  # noqa: E731
+                                                scales, int4=True)
+            old_ok, _, old_res, _ = blocks_against_plain(q, values, scales, old(), ref(), 1e-4,
+                                                         int4_query=torch.bfloat16)
+            t["old_body"] = ",".join(kernel_split(old, SERVE_BODIES, iters=3))
+            t["old_body_ms"] = cuda_ms(old, iters=3)
+            check(wrapper.last_body == "block_topj" and wrapper.launches_int4_generic > n_generic,
+                  f"{name}: the old body's comparison did not run block_topj.cu's body")
+            wrapper.launches_int4_generic = n_generic
+            del old_rows
+            t.update(max_abs_err_fp64=blk_res, old_body_max_abs_err_fp64=old_res)
+            other = (f"; max |score - fp64| {blk_res:.3e} (block_topj.cu's body "
+                     f"{t['old_body']} on the same rows {old_res:.3e}, per block vs plain "
+                     f"{old_ok}, {t['old_body_ms']:.3f} ms)")
+            check(old_ok, f"{name}: block_topj.cu's body per block disagrees with its plain "
+                  f"version")
+            check(blk_res <= 2 * old_res, f"{name}: the wgmma body's error against fp64 "
+                  f"({blk_res:.3e}) exceeds twice block_topj.cu's body's ({old_res:.3e})")
         log(f"{name} int4 {n_rows}x{dim} Q={n_queries} k={k} block {sblock} J={sJ}: vs the "
             f"plain versions: {'bit-equal ' if native else ''}{ok}, ids differing {differ}, max "
             f"rank err {rank_err:.3e}, max rescored err {res_err:.3e}; per block "
             f"{'bit-equal ' if native else ''}{blk_ok} (ids differing {blk_differ}, max err "
-            f"{blk_err:.3e}); recall@{k} vs the certified int4 search {recall:.5f}"
+            f"{blk_err:.3e}){other}; recall@{k} vs the certified int4 search {recall:.5f}"
             f"{'' if native else f', over the same bf16 queries {selection:.5f}'}; kernel "
-            f"{t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.3f} ms "
+            f"({t['body']}) {t['ms']:.3f} ms ({'bit-equal' if native else 'within 1e-4'} at "
+            f"{serve_times(t)}) plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}), search {t['search_ms']:.3f} ms")
         check(ok and blk_ok, f"{name}: the int4 serve search disagrees with its plain version")
         check(recall >= (I8Q_RECALL if native else INT4_SERVE_FP32_RECALL),
@@ -2822,6 +2924,7 @@ IVF_BODIES = tuple((p, (p,)) for p in ("ivf_cell_wgmma", "ivf_cell_ffma", "block
 # (K8 / K12), the merges' sorts and top-k, the probe's products, gathers and the rest
 IVF_SEARCH_GROUPS = (("cell kernel (K13 / K14)", ("ivf_cell",)),
                      ("side scan (K8 / K12)", ("block_topj",)),
+                     ("side scan (K8 / K12)", ("flat_serve",)),
                      ("sorts", ("Sort",)), ("top-k", ("TopK",)), ("top-k", ("topk",)),
                      ("products (cuBLAS)", ("nvjet",)), ("products (cuBLAS)", ("gemm",)),
                      ("gathers and scatters", ("index",)),
@@ -3972,13 +4075,16 @@ def main(argv=None):
             ("quantize_int8_device", "quant.cu", "ops/quant.py:20", k7, "quantize_int8_device"),
             ("block_topj_serve", "block_topj.cu", "ops/topk.py:94", int8_topk["K8 int8"],
              "block_topj_serve"),
-            ("block_topj_i8q", "block_topj.cu", "ops/topk.py:190", int8_topk["K12 int8"],
-             "block_topj_i8q")):
-        kernels.append({"name": name, "route": "cuda", "source": src + source,
+            ("block_topj_i8q", "flat_serve.cu, serve_select.cuh, hopper.cuh, common.cuh",
+             "ops/topk.py:190", int8_topk["K12 int8"], "block_topj_i8q")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": ", ".join(src + f for f in source.split(", ")),
                         "replaces": "denseretrievaltoolkits_tpu/" + replaces,
                         "launches": int8_path["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+        if counter == "block_topj_i8q":  # flat_serve.cu's body, its times at the other serve J
+            kernels[-1].update({f: r[f] for f in r if f == "body" or f.startswith("ms_j")})
     # the int4 kernels: times on the 1M-row corpus, launches on the evaluation path; K10 runs
     # int4_certified.cu's s8 body (block_topj.cu's FFMA body launched 0 times on these paths:
     # checked), with the FFMA body's time and error against fp64 on the same rows beside it
@@ -3987,10 +4093,12 @@ def main(argv=None):
             ("block_topj (K10, int4 rows)",
              "int4_certified.cu, hopper.cuh, serve_select.cuh, common.cuh",
              "ops/topk.py:237", int4_topk["K10"], "block_topj (K10)"),
-            ("block_topj_serve (K11, int4 rows)", "block_topj.cu", "ops/topk.py:166",
-             int4_topk["K11"], "block_topj_serve (K11)"),
-            ("block_topj_i8q (K12 sq4, int4 rows)", "block_topj.cu", "ops/topk.py:213",
-             int4_topk["K12 sq4"], "block_topj_i8q (K12 sq4)")):
+            ("block_topj_serve (K11, int4 rows)",
+             "flat_serve.cu, int4_tiles.cuh, serve_select.cuh, hopper.cuh, common.cuh",
+             "ops/topk.py:166", int4_topk["K11"], "block_topj_serve (K11)"),
+            ("block_topj_i8q (K12 sq4, int4 rows)",
+             "flat_serve.cu, int4_tiles.cuh, serve_select.cuh, hopper.cuh, common.cuh",
+             "ops/topk.py:213", int4_topk["K12 sq4"], "block_topj_i8q (K12 sq4)")):
         kernels.append({"name": name, "route": "cuda",
                         "source": ", ".join(src + f for f in source.split(", ")),
                         "replaces": "denseretrievaltoolkits_tpu/" + replaces,
@@ -4001,6 +4109,9 @@ def main(argv=None):
             kernels[-1].update({f: r[f] for f in ("body", "ms_j32", "fp32_bound_ms", "ffma_ms",
                                                   "max_abs_err_fp64", "ffma_max_abs_err_fp64")},
                                generic_launches=topk.block_topj.launches_int4_generic)
+        elif counter != "quantize_int4_device":  # K11 / K12 sq4: flat_serve.cu's body
+            kernels[-1].update({f: r[f] for f in r if f.startswith(("body", "ms_j", "old_body"))
+                                or f == "max_abs_err_fp64"})
     ivf_src = ", ".join(src + f for f in ("ivf_cell.cu", "serve_select.cuh", "hopper.cuh",
                                           "common.cuh"))
     # the IVF cell kernels: times at the 1M-row phase, one row per body; launches on
@@ -4095,6 +4206,18 @@ def main(argv=None):
     check(topk.block_topj.launches_int4_generic == 0,
           f"K10: block_topj.cu's FFMA body ran {topk.block_topj.launches_int4_generic} times on "
           f"the paths")
+    # and int8 / int4 rows under int8 queries (K12) and int4 rows under bf16 ones (K11):
+    # flat_serve.cu's body took them all
+    serve_generic = {"K11": topk.block_topj_serve.launches_int4_generic,
+                     "K12 int8": topk.block_topj_i8q.launches_generic,
+                     "K12 sq4": topk.block_topj_i8q.launches_int4_generic}
+    for row in kernels:
+        if row["name"].startswith(("block_topj_i8q", "block_topj_serve (K11")):
+            row["generic_launches"] = serve_generic[
+                "K11" if "K11" in row["name"] else "K12 sq4" if "sq4" in row["name"]
+                else "K12 int8"]
+    check(not any(serve_generic.values()),
+          f"K11 / K12: block_topj.cu's body ran on the paths: {serve_generic}")
     # and fp32 / bf16 rows (K5) and the loss's backward (K4) at H = 768: their new bodies
     kernels[2]["generic_launches"] = topk.block_topj.launches_generic
     check(topk.block_topj.launches_generic == 0,

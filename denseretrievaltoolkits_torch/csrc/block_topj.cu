@@ -12,13 +12,16 @@
 //       int8 rows;
 //   K12 `_block_topj_kernel_packed_i8q` (:190, :481): int8 queries x int8 rows, s32
 //       products, times scale_row x scale_query, then the serve selection; and its sq4
-//       body `_block_topj_kernel_packed_sq4_i8q` (:213, :517) over int4 rows;
+//       body `_block_topj_kernel_packed_sq4_i8q` (:213, :517) over int4 rows; both at the
+//       shapes flat_serve.cu does not take (drt_flat_serve_takes; drt_block_topj dispatches
+//       the others to its wgmma bodies);
 //   K10 `_block_topj_kernel_sq4` (:237, `_pallas_block_topj_sq4`, :288): exact top-J over
 //       int4 rows, fp32 queries, true-fp32 scores times the row scale, at the shapes
 //       int4_certified.cu does not take (drt_int4_certified_takes; drt_block_topj dispatches
 //       the others to its s8 wgmma body);
 //   K11 `_block_topj_kernel_packed_sq4` (:166, `_pallas_block_topj_packed_sq4`, :445): the
-//       serve selection over int4 rows, bf16 queries.
+//       serve selection over int4 rows, bf16 queries, at the shapes flat_serve.cu does not
+//       take.
 // and, for the shapes ivf_cell.cu's bodies do not take (drt_ivf_cell_takes), these of
 // denseretrievaltoolkits_tpu/ops/ivf_bulk.py (the IVF cell kernels, all with the serve
 // selection; ivf_cell.cu runs them otherwise):
@@ -727,6 +730,12 @@ extern "C" int drt_int4_certified_takes(const void* q, const void* corpus, int H
 extern "C" int drt_int4_certified(const void* q, const void* corpus, const void* scales,
                                   void* out_v, void* out_i, int Q, int N, int H, int n_valid,
                                   int block, int J, void* stream);
+// flat_serve.cu: K11's and K12's wgmma bodies and the shapes they take
+extern "C" int drt_flat_serve_takes(const void* q, const void* corpus, int H, int qtype,
+                                    int ctype);
+extern "C" int drt_flat_serve(const void* q, const void* corpus, const void* cscales,
+                              const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
+                              int n_valid, int block, int J, int qtype, int ctype, void* stream);
 // flat_certified.cu: K5's wgmma bodies (fp32 as fp16 pairs, bf16) and the shapes they take
 extern "C" int drt_flat_certified_takes(const void* q, const void* corpus, int H, int dtype);
 extern "C" int drt_flat_certified(const void* q, const void* corpus, void* out_v, void* out_i,
@@ -739,8 +748,9 @@ extern "C" int drt_flat_certified(const void* q, const void* corpus, void* out_v
 // Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8, fp32 x int4 (certified only), and
 // (serve only) bf16 x int4, and int8 x int8 / int8 x int4 at H % 64 == 0 with 16-byte
 // aligned rows. fp32 x int4 certified runs int4_certified.cu's body where it takes the
-// shape, and fp32 x fp32 / bf16 x bf16 certified flat_certified.cu's; `body`, where not null,
-// is set to 1 or 2 then, else to 0 (this file's bodies).
+// shape, fp32 x fp32 / bf16 x bf16 certified flat_certified.cu's, and int8 x int8, int8 x
+// int4 and bf16 x int4 serve flat_serve.cu's; `body`, where not null, is set to 1, 2 or 3
+// then, else to 0 (this file's bodies).
 extern "C" int drt_block_topj(const void* q, const void* corpus, const void* cscales,
                               const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
                               int n_valid, int block, int J, int qtype, int ctype, int serve,
@@ -758,6 +768,11 @@ extern "C" int drt_block_topj(const void* q, const void* corpus, const void* csc
     if (body != nullptr) *body = 2;
     return drt_flat_certified(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, qtype,
                               stream);
+  }
+  if (serve && drt_flat_serve_takes(q, corpus, H, qtype, ctype)) {
+    if (body != nullptr) *body = 3;
+    return drt_flat_serve(q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
+                          qtype, ctype, stream);
   }
   const int n_blocks = (N + block - 1) / block;
   const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,

@@ -135,28 +135,6 @@ __device__ __forceinline__ void select_rows(u64* list, int stride, float* floor_
   *floor_at = floor;
 }
 
-// The two halves' lists of N keys of a query (a lane pair's L) merged in its even thread,
-// which writes them into out [Q, n_blocks, J].
-template <int N>
-__device__ __forceinline__ void write_pair_lists(u64 (&L)[N], int tid, int q0, int Q, int blk,
-                                                 int n_blocks, int J, float* out_v, int* out_i) {
-  const int my_q = tid >> 1, my_half = tid & 1;
-#pragma unroll
-  for (int p = 0; p < N; ++p) {
-    const u64 other = __shfl_xor_sync(0xffffffffu, L[p], 1);
-    if (my_half == 0) insert_sorted(L, other);
-  }
-  if (my_half == 0 && q0 + my_q < Q) {
-    const size_t o = ((size_t)(q0 + my_q) * n_blocks + blk) * J;
-#pragma unroll
-    for (int p = 0; p < N; ++p)
-      if (p < J) {
-        out_v[o + p] = L[p] == 0ull ? -INFINITY : key_score(L[p]);
-        out_i[o + p] = L[p] == 0ull ? -1 : key_row(L[p]);
-      }
-  }
-}
-
 // The tile's fp32 sums (acc[4 n + e]: row 16 w + g, query 8 n + 2 t4 + e; acc[4 n + 2 + e]:
 // row + 8), times the query's factor where qf is given, + 0, into the score tile.
 __device__ __forceinline__ void store_scores(float* scores, const float (&acc)[32],

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels of flash_attn.cu,
-// mlp_ln.cu, attn_ln.cu, pq_serve.cu, ivf_cell.cu, int4_certified.cu, flat_certified.cu and
-// contrastive.cu: mbarriers, TMA tile loads, wgmma fences / commits / waits and shared memory
-// descriptors, the wgmma instructions the kernels issue (bf16, fp16 and s8), the
-// generic-to-async proxy fence and the consumer warpgroup's named barrier, cluster barriers,
-// distributed shared memory and bulk copies between a cluster's CTAs, and on the host the
-// lookup of cuTensorMapEncodeTiled and the tensor maps it encodes.
+// mlp_ln.cu, attn_ln.cu, pq_serve.cu, ivf_cell.cu, int4_certified.cu, flat_certified.cu,
+// flat_serve.cu and contrastive.cu: mbarriers, TMA tile loads, wgmma fences / commits /
+// waits and shared memory descriptors, the wgmma instructions the kernels issue (bf16, fp16
+// and s8), the generic-to-async proxy fence and the consumer warpgroup's named barrier,
+// cluster barriers, distributed shared memory and bulk copies between a cluster's CTAs, and on
+// the host the lookup of cuTensorMapEncodeTiled and the tensor maps it encodes.
 //
 // Operand layouts: every tile is stored as TMA writes it with a 128-byte swizzle, in
 // 1024-byte aligned atoms of 8 rows x 128 bytes (64 bf16). A K-major operand has K along
@@ -99,7 +99,8 @@ __device__ __forceinline__ void fence_regs(unsigned (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// shared-memory writes of the generic proxy (rows converted by threads) made visible to wgmma
+// shared-memory accesses of the generic proxy ordered with the async proxy's: writes (rows
+// converted by threads) made visible to wgmma, or reads finished before a TMA refill
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -195,6 +196,25 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (m64n64, s32) = A.B^T, or d += A.B^T with accumulate: A and B int8 in shared memory,
+// both K-major (k32 = 32 bytes); accumulator layout as wgmma_ss_n128_mn's
+__device__ __forceinline__ void wgmma_s8_ss_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (m64n64, s32) = A.B^T, or d += A.B^T with accumulate: A int8 in registers (four words a
 // thread, each four consecutive k: rows g and g + 8 of the thread's warp's 16, k 4 t and
 // 16 + 4 t of the k32 step, as the mma.sync m16n8k32 A fragment), B int8 in shared memory,
@@ -214,6 +234,26 @@ __device__ __forceinline__ void wgmma_s8_rs_n64(int (&d)[32], const unsigned (&a
         "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
         "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64, fp32) = A.B^T, or d += A.B^T with accumulate: A bf16 in registers (the mma.sync
+// A fragment of the thread's warp's 16 rows, as wgmma_f16_rs_n64's), B bf16 in shared memory,
+// K-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -54,11 +54,13 @@
 //   two lists merge at the end of the block. The candidates of a tile are first marked,
 //   one bit a row, against the floor at the tile's start, so only they reach the insertion.
 //   For J > 8 (the escalation's 32) one thread owns a query, every row, a list of 32 keys.
-//   Keys are unpacked into (score, id) once.
+//   Keys are unpacked into (score, id) once. The selection (floor, bitmask, insertion, merge)
+//   is serve_select.cuh's, the fragments int4_tiles.cuh's, both shared with flat_serve.cu.
 #include <cstdint>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "int4_tiles.cuh"
 #include "serve_select.cuh"
 
 using namespace drt;
@@ -67,7 +69,6 @@ namespace {
 
 constexpr int QT = 64;           // queries a CTA: the wgmma N
 constexpr int TR = 64;           // rows a tile: the wgmma M
-constexpr int STAGE_BYTES = 128; // packed bytes of a row a stage: two k-slices of 128 dims
 constexpr int JMAX = 32;         // the list of a query, for J > JT
 constexpr int JT = 8;            // the thread selection's list: J <= JT
 constexpr int NST = 5;           // ring stages
@@ -82,7 +83,7 @@ static_assert(JT * 128 <= QT * JMAX, "both lists' layouts share one space");
 __host__ __device__ inline size_t smem_bytes(int H) {
   return 1024 + 3 * (size_t)(H / 128) * PLANE_TILE + NST * STAGE + sizeof(float) * QT * SCP +
          sizeof(u64) * QT * JMAX + sizeof(double) * QT + sizeof(float) * TR +
-         sizeof(float) * 128 + 2 * NST * 8;
+         sizeof(unsigned) * 128 + 2 * NST * 8;
 }
 
 // The exponent shift of a query whose largest |component| is m: v = round(q 2^sh) with
@@ -103,73 +104,22 @@ __device__ __forceinline__ double exact_double(int x) {
   return __hiloint2double(0x43300000, x ^ 0x80000000) - 4503601774854144.0;  // 2^52 + 2^31
 }
 
-// One thread's selection over ROWS rows of a tile (32 or 64) into its list of N keys (column
-// `list` of a slot-major array, `stride` apart): the rows past the list's J-th score at the
-// tile's start (the floor only rises) as a bitmask, then each of them, in row order, against
-// the floor as it stands; the list and its floor leave shared memory only where a row
-// entered. srow / crow: the rows' fp32 sums and scales; rows past n_rows are not stored.
-template <int N, int ROWS>
-__device__ __forceinline__ void select_rows(u64* list, int stride, float* floor_at,
-                                            const float* srow, const float* crow, int n_rows,
-                                            int row0, int J) {
-  float floor = *floor_at;
-  unsigned long long cand = 0ull;
-#pragma unroll
-  for (int k = 0; k < ROWS / 4; ++k) {
+// The orders of a tile row's scores for the selection (serve_select.cuh): each row's sum (srow)
+// times its scale (crow), + 0 (the certified order: -0 is +0); four rows or one.
+struct ScaledRow {
+  const float* srow;
+  const float* crow;
+  __device__ __forceinline__ void operator()(int k, unsigned (&o)[4]) const {
     const float4 s4 = *reinterpret_cast<const float4*>(srow + 4 * k);
     const float4 c4 = *reinterpret_cast<const float4*>(crow + 4 * k);
     const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, cv[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (__fmul_rn(sv[e], cv[e]) > floor) cand |= 1ull << (4 * k + e);
+    for (int e = 0; e < 4; ++e) o[e] = score_order(__fadd_rn(__fmul_rn(sv[e], cv[e]), 0.f));
   }
-  if (n_rows < ROWS) cand &= n_rows <= 0 ? 0ull : (1ull << n_rows) - 1ull;
-  if (cand == 0ull) return;
-  u64 L[N];
-#pragma unroll
-  for (int p = 0; p < N; ++p) L[p] = list[p * stride];
-  do {
-    const int b = __ffsll(cand) - 1;
-    cand &= cand - 1ull;
-    const float v = __fadd_rn(__fmul_rn(srow[b], crow[b]), 0.f);
-    if (v > floor) {
-      insert_sorted(L, pack_key(v, row0 + b));
-      floor = list_floor(L, J);
-    }
-  } while (cand != 0ull);
-#pragma unroll
-  for (int p = 0; p < N; ++p) list[p * stride] = L[p];
-  *floor_at = floor;
-}
-
-// The packed words of one k-slice (h: the stage's first or second) a thread's A fragments
-// need: rows 16 w + g (i = 0) and + 8 (i = 1), bytes 64 h + 16 m + 4 t4 (m = 0..3), from the
-// stage's 128-byte swizzled rows (16-byte chunk c of row r at c ^ (r % 8)).
-__device__ __forceinline__ void slice_words(unsigned (&w)[2][4], const unsigned char* stage,
-                                            int h, int warp, int g, int t4) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 16 * warp + g + 8 * i;
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      w[i][m] = *reinterpret_cast<const unsigned*>(
-          stage + r * STAGE_BYTES + (((4 * h + m) ^ (r & 7)) << 4) + 4 * t4);
+  __device__ __forceinline__ unsigned operator()(int b) const {
+    return score_order(__fadd_rn(__fmul_rn(srow[b], crow[b]), 0.f));
   }
-}
-
-// The A fragments of the slice's four k32 steps from its words: steps 0 and 1 the low
-// nibbles (dims j), 2 and 3 the high ones (dims j + H/2), sign-extended to int8.
-__device__ __forceinline__ void slice_fragments(unsigned (&a)[4][4], const unsigned (&w)[2][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const bool high = kk >= 2;
-    const int m = 2 * (kk & 1);
-    a[kk][0] = nibbles(w[0][m], high);
-    a[kk][1] = nibbles(w[1][m], high);
-    a[kk][2] = nibbles(w[0][m + 1], high);
-    a[kk][3] = nibbles(w[1][m + 1], high);
-  }
-}
+};
 
 __global__ void __launch_bounds__(THREADS, 1)
 int4_certified_wgmma(const __grid_constant__ CUtensorMap tmr, const float* __restrict__ q,
@@ -188,7 +138,7 @@ int4_certified_wgmma(const __grid_constant__ CUtensorMap tmr, const float* __res
   u64* lists = reinterpret_cast<u64*>(scores + QT * SCP);
   double* step = reinterpret_cast<double*>(lists + QT * JMAX);       // [QT]: 2^-sh
   float* tile_scale = reinterpret_cast<float*>(step + QT);           // [TR]
-  float* floors = reinterpret_cast<float*>(tile_scale + TR);  // [128]: each thread list's J-th
+  unsigned* floors = reinterpret_cast<unsigned*>(tile_scale + TR);  // [128]: the lists' floors
   const uint32_t bars = smem_addr(floors + 128);
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (NST + s); };
@@ -291,7 +241,7 @@ int4_certified_wgmma(const __grid_constant__ CUtensorMap tmr, const float* __res
     }
   }
   for (int i = tid; i < QT * JMAX; i += 128) lists[i] = 0ull;
-  floors[tid] = -INFINITY;
+  floors[tid] = 0u;
   fence_proxy_async();
   consumers_sync();
 
@@ -324,8 +274,10 @@ int4_certified_wgmma(const __grid_constant__ CUtensorMap tmr, const float* __res
       const unsigned char* st = g_ring + stage * STAGE;
       slice_words(w0, st, 0, warp, g, t4);
       if (two) slice_words(w1, st, 1, warp, g, t4);
+      // the words are in registers: the generic reads ordered before the TMA's refill
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty(stage));  // the words are in registers
+      fence_proxy_async();
+      if (lane == 0) mbar_arrive(empty(stage));
       // a0 was read by slice 2 j - 2: done once at most one group (slice 2 j - 1) is pending
       wgmma_wait<1>();
       fence_regs(a0[0]), fence_regs(a0[1]), fence_regs(a0[2]), fence_regs(a0[3]);
@@ -367,13 +319,14 @@ int4_certified_wgmma(const __grid_constant__ CUtensorMap tmr, const float* __res
     consumers_sync();
     const int n_rows = row_lim - base;  // the tile's stored rows
     if (thread_lists) {  // thread t: query t / 2, rows 32 (t % 2) .. + 31, a list of JT
-      if (q0 + my_q < Q)
-        select_rows<JT, 32>(lists + tid, 128, floors + tid, scores + my_q * SCP + 32 * my_half,
-                            tile_scale + 32 * my_half, n_rows - 32 * my_half,
+      if (q0 + my_q < Q) {
+        const ScaledRow o{scores + my_q * SCP + 32 * my_half, tile_scale + 32 * my_half};
+        select_rows<JT, 32>(lists + tid, 128, floors + tid, o, o, n_rows - 32 * my_half,
                             base + 32 * my_half, J);
+      }
     } else if (tid < QT && q0 + tid < Q) {  // thread t: query t, every row, a list of JMAX
-      select_rows<JMAX, TR>(lists + tid, QT, floors + tid, scores + tid * SCP, tile_scale, n_rows,
-                            base, J);
+      const ScaledRow o{scores + tid * SCP, tile_scale};
+      select_rows<JMAX, TR>(lists + tid, QT, floors + tid, o, o, n_rows, base, J);
     }
     consumers_sync();  // the score tile is read before the next tile's scores
   }
@@ -383,20 +336,7 @@ int4_certified_wgmma(const __grid_constant__ CUtensorMap tmr, const float* __res
     u64 L[JT];
 #pragma unroll
     for (int p = 0; p < JT; ++p) L[p] = lists[p * 128 + tid];
-#pragma unroll
-    for (int p = 0; p < JT; ++p) {
-      const u64 other = __shfl_xor_sync(0xffffffffu, L[p], 1);
-      if (my_half == 0) insert_sorted(L, other);
-    }
-    if (my_half == 0 && q0 + my_q < Q) {
-      const size_t o = ((size_t)(q0 + my_q) * n_blocks + blk) * J;
-#pragma unroll
-      for (int p = 0; p < JT; ++p)
-        if (p < J) {
-          out_v[o + p] = L[p] == 0ull ? -INFINITY : key_score(L[p]);
-          out_i[o + p] = L[p] == 0ull ? -1 : key_row(L[p]);
-        }
-    }
+    write_pair_lists(L, tid, q0, Q, blk, n_blocks, J, out_v, out_i);
     return;
   }
   if (tid < QT && q0 + tid < Q) {

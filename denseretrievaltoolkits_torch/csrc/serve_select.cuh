@@ -1,11 +1,12 @@
-// The serve selection shared by the block top-J kernels (block_topj.cu), the PQ serve
-// scoring body (pq_serve.cu), the IVF cell kernels (ivf_cell.cu) and the certified int4
-// search (int4_certified.cu): one packed 64-bit key per candidate, order-preserving score
-// bits high and the inverted row id low, so a merge step is one comparison and ties go to
-// the smaller id. The TPU packs into 32 bits (Mosaic has no top_k) and rounds the score to
-// 2^id_bits ulps; here the key keeps all 32 score bits, so scores come back exact. With the
-// scores' -0 made +0 the key order is also the certified order (score descending, then id
-// ascending, equal scores equal whatever their sign).
+// The serve selection shared by the block top-J kernels (block_topj.cu), the native-int8 and
+// int4 serve kernels (flat_serve.cu), the PQ serve scoring body (pq_serve.cu), the IVF cell
+// kernels (ivf_cell.cu) and the certified searches (int4_certified.cu, flat_certified.cu): one
+// packed 64-bit key per candidate, order-preserving score bits high and the inverted row id
+// low, so a merge step is one comparison and ties go to the smaller id. The TPU packs into 32
+// bits (Mosaic has no top_k) and rounds the score to 2^id_bits ulps; here the key keeps all 32
+// score bits, so scores come back exact. The key orders -0 just below +0, as the reference's
+// packed selection does; with the scores' -0 made +0 its order is also the certified order
+// (score descending, then id ascending, equal scores equal whatever their sign).
 #pragma once
 
 #include <math.h>
@@ -14,13 +15,21 @@ namespace drt {
 
 using u64 = unsigned long long;
 
+// The order of a score, the serve key's high word: larger for a larger score, -0 just below
+// +0; every finite score's is above 0.
+__device__ __forceinline__ unsigned score_order(float v) {
+  const unsigned b = __float_as_uint(v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
 // The serve key: a larger key is a larger score or, on a tie, a smaller id. 0 is an
 // empty slot (or a masked row): every finite score maps above it.
+__device__ __forceinline__ u64 order_key(unsigned o, int row) {
+  return ((u64)o << 32) | (u64)(~(unsigned)row);
+}
 __device__ __forceinline__ u64 pack_key(float v, int row) {
   if (v == -INFINITY) return 0ull;
-  const unsigned b = __float_as_uint(v);
-  const unsigned o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((u64)o << 32) | (u64)(~(unsigned)row);
+  return order_key(score_order(v), row);
 }
 __device__ __forceinline__ float key_score(u64 k) {
   const unsigned o = (unsigned)(k >> 32);
@@ -68,8 +77,8 @@ __device__ __forceinline__ void merge_keys(const u64 (&ck)[CPL], u64* qk, int J,
   __syncwarp();
 }
 
-// A thread's own list of N keys in registers, sorted descending (int4_certified.cu, and
-// ivf_cell.cu's K17 for J <= 8): the key x inserted, the smallest falling off, every entry's
+// A thread's own list of N keys in registers, sorted descending (int4_certified.cu,
+// flat_certified.cu, flat_serve.cu, and ivf_cell.cu's K17 for J <= 8): the key x inserted, the smallest falling off, every entry's
 // new value from its own comparison and its upper neighbour's, with no chain between entries.
 template <int N>
 __device__ __forceinline__ void insert_sorted(u64 (&L)[N], u64 x) {
@@ -99,6 +108,96 @@ template <int N>
 __device__ __forceinline__ float list_floor(const u64 (&L)[N], int J) {
   const u64 t = jth_key<N>(L, J - 1);
   return t == 0ull ? -INFINITY : key_score(t);
+}
+
+// ---- a thread's own list over a tile's rows (int4_certified.cu, flat_serve.cu) ---------------
+// A thread owns a sorted list of N keys and sees the rows of each tile in row order, each
+// row as its score's order (score_order; the certified kernel makes -0 +0 first, so its
+// order is the certified one). A row enters only past the order of the list's J-th key,
+// the floor: an equal order cannot enter, since a later row carries a larger id. The floor
+// only rises, so the rows past the floor at the tile's start are marked first, one bit a
+// row, and only they reach the insertion.
+
+// the order of the list's J-th key, 0 while it holds fewer than J (J = N: its last, no tree)
+template <int N>
+__device__ __forceinline__ unsigned list_floor_order(const u64 (&L)[N], int J) {
+  return (unsigned)((J == N ? L[N - 1] : jth_key<N>(L, J - 1)) >> 32);
+}
+
+// The rows of a tile (ROWS <= 64, a multiple of 4) whose order beats `floor`, as a bitmask:
+// order4(k, o) gives the orders of rows 4 k .. 4 k + 3; rows at or past n_rows are not stored.
+template <int ROWS, typename Order4>
+__device__ __forceinline__ unsigned long long tile_candidates(Order4 order4, unsigned floor,
+                                                              int n_rows) {
+  unsigned long long cand = 0ull;
+#pragma unroll
+  for (int k = 0; k < ROWS / 4; ++k) {
+    unsigned o[4];
+    order4(k, o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (o[e] > floor) cand |= 1ull << (4 * k + e);
+  }
+  if (n_rows < ROWS) cand &= n_rows <= 0 ? 0ull : (1ull << n_rows) - 1ull;
+  return cand;
+}
+
+// The candidates of a tile (a bitmask), in row order, into the list L against the floor as it
+// stands: order1(b) gives row b's order, row0 the tile's first row id.
+template <int N, typename Order1>
+__device__ __forceinline__ void insert_candidates(u64 (&L)[N], unsigned& floor,
+                                                  unsigned long long cand, Order1 order1,
+                                                  int row0, int J) {
+  while (cand != 0ull) {
+    const int b = __ffsll(cand) - 1;
+    cand &= cand - 1ull;
+    const unsigned o = order1(b);
+    if (o > floor) {
+      insert_sorted(L, order_key(o, row0 + b));
+      floor = list_floor_order(L, J);
+    }
+  }
+}
+
+// The same with the list in shared memory (column `list` of a slot-major array, `stride`
+// apart) and its floor at floor_at: both leave shared memory only where a row entered.
+template <int N, int ROWS, typename Order4, typename Order1>
+__device__ __forceinline__ void select_rows(u64* list, int stride, unsigned* floor_at,
+                                            Order4 order4, Order1 order1, int n_rows, int row0,
+                                            int J) {
+  unsigned floor = *floor_at;
+  const unsigned long long cand = tile_candidates<ROWS>(order4, floor, n_rows);
+  if (cand == 0ull) return;
+  u64 L[N];
+#pragma unroll
+  for (int p = 0; p < N; ++p) L[p] = list[p * stride];
+  insert_candidates(L, floor, cand, order1, row0, J);
+#pragma unroll
+  for (int p = 0; p < N; ++p) list[p * stride] = L[p];
+  *floor_at = floor;
+}
+
+// The two halves' lists of N keys of a query (a lane pair's L, thread 2 q + h holding half h
+// of the block's rows) merged in its even thread, which writes them into out [Q, n_blocks, J]
+// (query q0 + q, block blk; an empty entry (-inf, -1)).
+template <int N>
+__device__ __forceinline__ void write_pair_lists(u64 (&L)[N], int tid, int q0, int Q, int blk,
+                                                 int n_blocks, int J, float* out_v, int* out_i) {
+  const int my_q = tid >> 1, my_half = tid & 1;
+#pragma unroll
+  for (int p = 0; p < N; ++p) {
+    const u64 other = __shfl_xor_sync(0xffffffffu, L[p], 1);
+    if (my_half == 0) insert_sorted(L, other);
+  }
+  if (my_half == 0 && q0 + my_q < Q) {
+    const size_t o = ((size_t)(q0 + my_q) * n_blocks + blk) * J;
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+      if (p < J) {
+        out_v[o + p] = L[p] == 0ull ? -INFINITY : key_score(L[p]);
+        out_i[o + p] = L[p] == 0ull ? -1 : key_row(L[p]);
+      }
+  }
 }
 
 // The merge of a tile's 128 candidate keys into a list of up to 32 (ivf_cell.cu):

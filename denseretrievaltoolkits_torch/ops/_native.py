@@ -49,7 +49,8 @@ SIGNATURES = {
     "drt_mlp_ln": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
     # q, corpus, corpus_scales, query_scales, out_vals, out_ids,
     # Q, N, H, n_valid, block, J, qtype, ctype, serve, body (int*, written: 1 where
-    # int4_certified.cu's body ran, 2 where flat_certified.cu's did, else 0), stream
+    # int4_certified.cu's body ran, 2 where flat_certified.cu's did, 3 where flat_serve.cu's
+    # did, else 0), stream
     "drt_block_topj": [_P] * 6 + [_I] * 9 + [_P, _P],
     # qslab, values, cell_scales, slot_scales, row_ids, block_cell, out_vals, out_ids,
     # Qcap, N, H, block, sel, J, cell_blocks, qtype, ctype, stream

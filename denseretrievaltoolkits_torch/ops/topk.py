@@ -2,9 +2,10 @@
 
 Counterparts of ``denseretrievaltoolkits_tpu/ops/topk.py``. The kernels are
 instantiations of one templated CUDA family (``csrc/block_topj.cu``), but for
-K10 at the shapes ``csrc/int4_certified.cu`` takes; each has its own entry
-point, launch counter and plain version. CPU tensors take the plain version;
-CUDA tensors launch the kernel or raise.
+K5 / K10 / K11 / K12 at the shapes their Hopper bodies take
+(``csrc/flat_certified.cu``, ``csrc/int4_certified.cu``, ``csrc/flat_serve.cu``);
+each has its own entry point, launch counter and plain version. CPU tensors
+take the plain version; CUDA tensors launch the kernel or raise.
 
 ``int4=True`` selects the nibble-packed int4 rows of ``ops/quant.py`` (K9):
 corpus [N, H/2] int8 in column halves with per-row ``scales``, queries [Q, H].
@@ -16,7 +17,12 @@ digits at H % 128 == 0, H <= 768 and 16-byte aligned rows, else on
 (bf16 queries, ``block_topj_serve.launches_int4``) and ``block_topj_i8q``
 K12's sq4 body (int8 queries, exact s32 products,
 ``block_topj_i8q.launches_int4``). The plain versions score the reference's
-two half-dim products (topk.py:166-258), then the scale.
+two half-dim products (topk.py:166-258), then the scale. K11 and both K12
+bodies run ``csrc/flat_serve.cu``'s wgmma bodies at H % 128 == 0 (int4 rows up
+to 768, int8 up to 1024) with 16-byte aligned operands; at other shapes
+``block_topj.cu``'s run them and the call also counts on
+``<counter>_generic`` (``block_topj_serve.launches_int4_generic``,
+``block_topj_i8q.launches_generic`` / ``launches_int4_generic``).
 
 - :func:`block_topj` ports ``_pallas_block_topj`` (K5, fp32 / bf16 rows) and,
   given per-row ``scales`` for int8 rows, ``_pallas_block_topj_scaled`` (K6,
@@ -178,7 +184,7 @@ def _block_topj_i8q_reference(qi, qscales, corpus, scales, J: int, block_size: i
 
 
 # the bodies drt_block_topj reports it ran
-BODIES = ("block_topj", "int4_certified", "flat_certified")
+BODIES = ("block_topj", "int4_certified", "flat_certified", "flat_serve")
 
 
 def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qscales=None,
@@ -188,7 +194,9 @@ def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qs
     ``wrapper.<counter>_generic`` where the C entry reports that
     ``block_topj.cu``'s body ran a call that ``int4_certified.cu`` (fp32 x
     int4) or ``flat_certified.cu`` (fp32 x fp32, bf16 x bf16) could take at
-    other shapes, certified. ``wrapper.last_body`` names the body that ran."""
+    other shapes, certified, or that ``flat_serve.cu`` (int8 x int8, int8 x
+    int4, bf16 x int4) could take at other shapes, serve.
+    ``wrapper.last_body`` names the body that ran."""
     name = wrapper.__name__
     Q, H = q.shape
     N = corpus.shape[0]
@@ -227,7 +235,9 @@ def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qs
         INT4_CODE if int4 else TYPE_CODES[corpus.dtype], int(serve), ctypes.byref(body),
         _native.stream_ptr(q)), "drt_block_topj")
     wrapper.last_body = BODIES[body.value]
-    if not serve and body.value == 0 and (int4 or corpus.dtype != torch.int8):
+    # the type pairs a Hopper body takes at other shapes
+    hopper = int4 or (q.dtype == torch.int8 if serve else corpus.dtype != torch.int8)
+    if body.value == 0 and hopper:
         setattr(wrapper, counter + "_generic", getattr(wrapper, counter + "_generic") + 1)
     return vals, ids
 
@@ -290,6 +300,7 @@ def block_topj_serve(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: 
 block_topj_serve.launches = 0
 block_topj_serve.last_body = None
 block_topj_serve.launches_int4 = 0
+block_topj_serve.launches_int4_generic = 0
 
 
 def block_topj_i8q(qi: torch.Tensor, qscales: torch.Tensor, corpus: torch.Tensor,
@@ -316,8 +327,10 @@ def block_topj_i8q(qi: torch.Tensor, qscales: torch.Tensor, corpus: torch.Tensor
 
 
 block_topj_i8q.launches = 0
+block_topj_i8q.launches_generic = 0
 block_topj_i8q.last_body = None
 block_topj_i8q.launches_int4 = 0
+block_topj_i8q.launches_int4_generic = 0
 
 
 def _top(vals: torch.Tensor, ids: torch.Tensor, k: int):

@@ -5,7 +5,7 @@ checkout (say the parent commit), on one card, in turns.
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
     python3 kernel_ab.py --other _chip_scratch/parent
-                         [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf|int4|ivfpq|contrastive|flat]
+                         [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf|int4|ivfpq|contrastive|flat|serve]
                          [--seed 0] [--profile] [--ptxas] [--out FILE]
 
 ``--kernel mlp_ln`` (the default): K2, called through its wrapper
@@ -83,6 +83,16 @@ seeded queries, 4096-row blocks, J = 8 (the search's) and 32 (its escalation's);
 largest |score - fp64 score of the same ids| and checksums (which must agree), and the body
 that ran where the checkout names it. ``--ptxas`` reads ``flat_certified.cu``.
 
+``--kernel serve``: K11 (``block_topj_serve(int4=True)``, bf16 queries), K12's sq4 body
+(``block_topj_i8q(int4=True)``) and K12's int8 body (``block_topj_i8q``) on 1,000,000 seeded
+N(0, 1) rows x 768 (row 0 zero) quantized by K7 and packed by K9, 1024 seeded queries (K7's
+query quantization for K12), 4096-row blocks at J = 7 (the 1M-row serve J) and 11 (the
+262,144-row slabs'), and K12 int8 at the IVF side scan's 1024-row blocks and J = 4. Each
+turn makes the same rows from the seed and reports checksums (which must agree); K12's
+errors are against its checkout's plain version (0: bit-equal), K11's the largest |score -
+fp64 score of the same bf16 queries|; the body that ran where the checkout names it.
+``--ptxas`` reads ``flat_serve.cu``.
+
 Four processes run in turn, other, this, this, other; each imports the port from
 its own checkout (which builds its kernels into its own ``_build/``), makes the
 same inputs from ``--seed`` and times the calls with CUDA events. ``--profile``
@@ -130,12 +140,17 @@ IVF_ROWS, IVF_QUERIES, IVF_K = 1_000_000, 2048, 100
 INT4_ROWS, INT4_QUERIES, INT4_BLOCK, INT4_J = 1_000_000, 1024, 4096, (8, 32)
 # K5: the same shape in fp32 and bf16 rows
 FLAT_ROWS, FLAT_QUERIES, FLAT_BLOCK, FLAT_J = 1_000_000, 1024, 4096, (8, 32)
+# K11 / K12: 1M rows x 768, 1024 queries; (body, J, block): the 1M-row serve J, the slabs' J,
+# and the IVF side scan's J and block
+SERVE_ROWS, SERVE_QUERIES = 1_000_000, 1024
+SERVE_CASES = tuple((b, j, 4096) for b in ("K11", "K12 sq4", "K12 int8") for j in (7, 11)) + (
+    ("K12 int8", 4, 1024),)
 # K4: (Q, P) of the grad-cache scale and of the training path, stride P / Q
 CONTRASTIVE_SHAPES = ((4096, 32768), (32, 256))
 SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",),
            "pq": ("pq_serve.cu",), "ivf": ("ivf_cell.cu",), "int4": ("int4_certified.cu",),
            "ivfpq": ("ivf_cell.cu",), "contrastive": ("contrastive.cu",),
-           "flat": ("flat_certified.cu",)}
+           "flat": ("flat_certified.cu",), "serve": ("flat_serve.cu",)}
 
 
 def inputs(B, S, gen):
@@ -567,6 +582,57 @@ def flat_rows(chip_smoke, seed, profile):
     return out
 
 
+def serve_rows(chip_smoke, seed, profile):
+    """K11 and K12 (both bodies) of the imported checkout at SERVE_CASES on rows and queries
+    made from the seed."""
+    from denseretrievaltoolkits_torch.ops import quant, topk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(SERVE_ROWS, H, generator=gen, device="cuda")
+    x[0] = 0
+    c8, s8 = quant.quantize_int8_device(x)
+    c4, s4 = quant.quantize_int4_device(x)
+    del x
+    q = torch.randn(SERVE_QUERIES, H, generator=gen, device="cuda")
+    qi, qs = quant.quantize_queries(q)
+    qb = q.bfloat16()
+    checksum = [float(q.sum()), int(c8[::997].long().sum()), int(c4[::997].long().sum()),
+                float(s8.sum()), float(s4.sum()), int(qi[::7].long().sum())]
+    out = {}
+    for body, J, blk in SERVE_CASES:
+        if body == "K11":
+            fn = topk.block_topj_serve
+            def call(j=J, b=blk):
+                return fn(qb, c4, j, b, SERVE_ROWS, s4, int4=True)
+        else:
+            fn = topk.block_topj_i8q
+            c, sc, int4 = (c4, s4, True) if body == "K12 sq4" else (c8, s8, False)
+            def call(j=J, b=blk, c=c, sc=sc, int4=int4):
+                return fn(qi, qs, c, sc, j, b, SERVE_ROWS, int4=int4)
+        vals, ids = call()
+        row = {"ms": chip_smoke.cuda_ms(call, iters=5, warmup=1), "J": J, "block": blk,
+               "body": getattr(fn, "last_body", None), "checksum": checksum}
+        if body == "K11":  # against fp64 scores of the same bf16 queries
+            err = 0.0
+            for a in range(0, SERVE_QUERIES, 64):
+                got = vals[a:a + 64].reshape(64, -1)
+                want = chip_smoke.rescore(q[a:a + 64], c4, ids[a:a + 64].reshape(64, -1), s4,
+                                          torch.bfloat16, True)
+                err = max(err, float(torch.where(got.isfinite(), (want - got.double()).abs(),
+                                                 0.0).max()))
+            row["max_abs_err_fp64"] = err
+        else:
+            rv, ri = topk._block_topj_i8q_reference(qi, qs, c, sc, J, blk, SERVE_ROWS, int4=int4)
+            row["max_abs_err"] = float((vals - rv).abs().max())
+            row["bit_equal"] = bool(torch.equal(vals, rv) and torch.equal(ids, ri))
+            del rv, ri
+        if profile:
+            row["kernels_us"] = kernel_us(call, iters=3)
+        out[f"{body} J={J} block={blk}"] = row
+        del vals, ids
+    return out
+
+
 def contrastive_rows(chip_smoke, seed, profile):
     """K4's dq and dp of the imported checkout at the grad-cache and training shapes."""
     from denseretrievaltoolkits_torch.ops import contrastive as con
@@ -626,6 +692,8 @@ def worker(checkout, kernel, seed, profile, inputs=""):
         out.update(flat_rows(chip_smoke, seed, profile))
     elif kernel == "contrastive":
         out.update(contrastive_rows(chip_smoke, seed, profile))
+    elif kernel == "serve":
+        out.update(serve_rows(chip_smoke, seed, profile))
     else:
         out.update(block_rows(chip_smoke, seed, profile, k1=kernel == "attn_ln"))
     return out
@@ -664,6 +732,12 @@ def describe(name, turn, kernel):
             f"{k} {v['ms']:.3f} ms{' (' + v['body'] + ')' if v.get('body') else ''}, max "
             f"|score - fp64| {v['max_abs_err_fp64']:.3e}, checksum {v['checksum']}"
             for k, v in rows.items())
+    if kernel == "serve":
+        return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms{' (' + v['body'] + ')' if v.get('body') else ''}, "
+            + (f"max |score - fp64| {v['max_abs_err_fp64']:.3e}" if "max_abs_err_fp64" in v
+               else f"vs plain {'bit-equal' if v['bit_equal'] else v['max_abs_err']}")
+            + f", checksum {v['checksum']}" for k, v in rows.items())
     if kernel == "contrastive":
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.4f} ms{' (' + v['body'] + ')' if v.get('body') else ''}, max "
@@ -747,7 +821,7 @@ def main(argv=None):
     flash = args.kernel == "flash_bwd"
     fields = ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms", "sdpa_bwd_ms") if flash else ("ms",)
     keys = [k for k, v in result["turns"][0].items() if isinstance(v, dict)]
-    if args.kernel in ("ivf", "int4", "ivfpq", "flat", "contrastive"):  # the same inputs
+    if args.kernel in ("ivf", "int4", "ivfpq", "flat", "contrastive", "serve"):  # same inputs
         for key in keys:
             sums = {json.dumps(t[key]["checksum"]) for t in result["turns"]}
             if len(sums) != 1:

@@ -909,6 +909,131 @@ def test_serve_topk_int4_deep_k_runs_the_kernels(gen):
             torch.testing.assert_close(s.cpu(), rs, rtol=1e-5, atol=1e-5)
 
 
+# --- K11 and K12 on flat_serve.cu's wgmma bodies -----------------------------------------------
+
+_SERVE_COUNTER = {"K12 int8": "launches", "K12 sq4": "launches_int4", "K11": "launches_int4"}
+
+
+def _serve_case(gen, body, H, N=5000, Q=1000):
+    """Rows for ``body`` (int8 by the plain K7, int4 by the plain K9) with planted rows: exact
+    ties inside a block (700-709), a zero row scoring -0 (row 3, scale -0) beside zero rows
+    scoring +0 (rows 4 and 900, whose +0 comes after a -0 at the same score), and queries
+    (a zero query among them); returns (call, ref, wrapper) of the kernel and its plain
+    version at (J, block, n_valid)."""
+    from denseretrievaltoolkits_torch.ops.quant import (_quantize_int4_reference,
+                                                        _quantize_int8_reference,
+                                                        quantize_queries)
+
+    x = _randn(gen, N, H)
+    c, sc = (_quantize_int8_reference if body == "K12 int8" else _quantize_int4_reference)(x)
+    c[700:710] = c[700]
+    sc[700:710] = sc[700]
+    c[3] = c[4] = c[900] = 0
+    sc[3] = -0.0
+    q = _randn(gen, Q, H, scale=3.0)
+    q[5] = 0
+    int4 = body != "K12 int8"
+    if body == "K11":
+        qb = q.to(torch.bfloat16)
+        return (lambda J, b, nv, rows=c: topk.block_topj_serve(qb, rows, J, b, nv, sc, int4=True),
+                lambda J, b, nv: topk._block_topj_serve_reference(qb, c, J, b, nv, sc, int4=True),
+                topk.block_topj_serve, (qb, c, sc))
+    qi, qs = quantize_queries(q)
+    return (lambda J, b, nv, rows=c: topk.block_topj_i8q(qi, qs, rows, sc, J, b, nv, int4=int4),
+            lambda J, b, nv: topk._block_topj_i8q_reference(qi, qs, c, sc, J, b, nv, int4=int4),
+            topk.block_topj_i8q, (qi, c, sc))
+
+
+def _assert_k11_lists(got, want, qb, c, sc):
+    """K11's lists against the plain version's: scores rank-wise within 1e-4 of max(1,
+    |score|), empty entries alike; where ids differ (near ties of the two fp32 sums), both
+    rows score the kernel's score in fp64 within 1e-4 of the terms' magnitudes."""
+    from denseretrievaltoolkits_torch.ops.quant import unpack_int4
+
+    (v, i), (rv, ri) = got, want
+    assert torch.equal(i < 0, ri < 0)
+    live = ri >= 0
+    assert bool(((v - rv).abs() <= 1e-4 * rv.abs().clamp(min=1.0))[live].all())
+    qi_, blk, j = torch.nonzero(i != ri, as_tuple=True)
+    if qi_.numel():
+        qd = qb.double()[qi_]
+        for ids in (i[qi_, blk, j], ri[qi_, blk, j]):
+            rows = unpack_int4(c[ids.long()]).double() * sc[ids.long()].double()[:, None]
+            f64 = (qd * rows).sum(1)
+            mag = (qd.abs() * rows.abs()).sum(1)
+            assert bool(((f64 - v[qi_, blk, j].double()).abs() <= 1e-4 * mag.clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("block", [512, 1000, 4096])
+@pytest.mark.parametrize("J", [4, 7, 11, 32])
+@pytest.mark.parametrize("H", [768, 256])
+@pytest.mark.parametrize("body", ["K12 int8", "K12 sq4", "K11"])
+def test_serve_wgmma_kernel(gen, body, H, J, block):
+    """K11 and both K12 bodies on ``flat_serve.cu``'s wgmma body: K12's lists bit-equal to the
+    plain version's, K11's within 1e-4 of max(1, |score|); 1000 queries (a tile cut short),
+    blocks of 512, 1000 (no multiple of the 64-row tile) and 4096 rows, n_valid inside a
+    tile; -0 and +0 rows and exact ties rank as the plain version ranks them; one launch
+    each, ``last_body`` "flat_serve", the ``_generic`` counters unmoved."""
+    call, ref, wrapper, (qx, c, sc) = _serve_case(gen, body, H)
+    counter = _SERVE_COUNTER[body]
+    n, n_gen = getattr(wrapper, counter), getattr(wrapper, counter + "_generic")
+    got = call(J, block, 4990)
+    torch.cuda.synchronize()
+    assert wrapper.last_body == "flat_serve"
+    assert (getattr(wrapper, counter), getattr(wrapper, counter + "_generic")) == (n + 1, n_gen)
+    want = ref(J, block, 4990)
+    if body == "K11":
+        _assert_k11_lists(got, want, qx, c, sc)
+    else:
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))  # signs too
+    # the zero query: every score +-0, -0 only for row 3; its lists rank the +0 rows first
+    v5, i5 = got[0][5], got[1][5]
+    assert bool((v5[i5 >= 0] == 0).all())
+    assert bool((torch.signbit(v5) & (i5 >= 0) == (i5 == 3)).all())
+
+
+@pytest.mark.parametrize("J", [7, 32])
+def test_serve_wgmma_kernel_two_warpgroups(gen, J):
+    """K12 int8 at H = 1024, where two CTAs no longer fit an SM and ``flat_serve.cu`` runs two
+    consumer warpgroups on the row tiles in turn (each tile's 8 stages deeper than half the
+    ring): bit-equal to the plain version over 1000-row blocks."""
+    call, ref, wrapper, _ = _serve_case(gen, "K12 int8", 1024)
+    n = wrapper.launches
+    got = call(J, 1000, 4990)
+    torch.cuda.synchronize()
+    assert wrapper.last_body == "flat_serve" and wrapper.launches == n + 1
+    want = ref(J, 1000, 4990)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("body,H,offset", [("K12 int8", 64, 0), ("K12 sq4", 64, 0),
+                                           ("K11", 64, 0), ("K11", 768, 4)])
+def test_serve_generic_body(gen, body, H, offset):
+    """K11 / K12 at shapes ``flat_serve.cu`` does not take (H % 128 != 0, or int4 rows 4 bytes
+    off 16-byte alignment for K11; K12's wrapper refuses unaligned rows) run
+    ``block_topj.cu``'s bodies, counted on ``<counter>_generic`` too, as the plain version."""
+    call, ref, wrapper, (qx, c, sc) = _serve_case(gen, body, H, N=3000, Q=70)
+    rows = c
+    if offset:
+        buf = torch.empty(c.numel() + offset, dtype=c.dtype, device="cuda")
+        rows = buf[offset:].view(c.shape)
+        rows.copy_(c)
+    counter = _SERVE_COUNTER[body]
+    n, n_gen = getattr(wrapper, counter), getattr(wrapper, counter + "_generic")
+    got = call(7, 1024, 2990, rows=rows)
+    torch.cuda.synchronize()
+    assert wrapper.last_body == "block_topj"
+    assert (getattr(wrapper, counter), getattr(wrapper, counter + "_generic")) == (n + 1,
+                                                                                   n_gen + 1)
+    want = ref(7, 1024, 2990)
+    if body == "K11":
+        _assert_k11_lists(got, want, qx, c, sc)
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # --- the IVF cell kernels: K13 (fixed-capacity cells) and K14 (ragged block list) --------------
 
 def _ivf_case(gen, body, H, nlist=6, Qcap=72, N=1152):

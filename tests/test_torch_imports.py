@@ -38,4 +38,4 @@ def test_kernel_sources_present():
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert names == {"attn_ln.cu", "mlp_ln.cu", "block_topj.cu", "contrastive.cu", "quant.cu",
                      "flash_attn.cu", "pq_serve.cu", "ivf_cell.cu", "int4_certified.cu",
-                     "flat_certified.cu"}
+                     "flat_certified.cu", "flat_serve.cu"}

@@ -496,3 +496,149 @@ def test_k10_packed_keys_order_as_the_certified_selection():
     b = raw.view(np.uint32).astype(np.uint64)
     o = np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
     assert o[1] < o[0]  # the packed -0 sorts below +0 without the + 0
+
+
+# -- K11 / K12 sq4 on the card (csrc/flat_serve.cu, csrc/int4_tiles.cuh), in plain numpy --------
+# Packed words are read as four bytes, little-endian: byte e of word m of a thread t4 is packed
+# byte 16 m + 4 t4 + e of its 64-byte slice (int4_tiles.cuh:slice_words).
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint32 arrays: result byte i is byte (s >> 4 i) & 7 of y:x."""
+    pool = (np.asarray(y, np.uint64) << np.uint64(32)) | np.asarray(x, np.uint64)
+    out = np.zeros(np.shape(x), np.uint64)
+    for i in range(4):
+        sel = np.uint64((s >> (4 * i)) & 7)
+        out |= ((pool >> (np.uint64(8) * sel)) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _bf16_bits_to_f32(bits):
+    return (np.asarray(bits, np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def _nibble_pair_bf16(x, p):
+    """int4_tiles.cuh:nibble_pair_bf16: bytes 2 p, 2 p + 1 of x (low nibbles) as bf16x2, the
+    bias 0x4300 | (n ^ 8) (= 136 + n) set by one byte permute and one AND-XOR, then one
+    bf16x2 FMA x 1 - 136 (exact: every value is a small integer). Returns the two halves'
+    bf16 bits, low first."""
+    biased = (_byte_perm(x, 0, 0x4140 if p == 0 else 0x4342) & np.uint32(0x000F000F)) \
+        ^ np.uint32(0x43084308)
+    halves = []
+    for h in (biased & np.uint32(0xFFFF), biased >> np.uint32(16)):
+        v = _bf16_bits_to_f32(h).astype(np.float64) * 1.0 - 136.0
+        bits = torch.from_numpy(v.astype(np.float32)).bfloat16().view(torch.int16).numpy()
+        assert np.array_equal(_bf16_bits_to_f32(bits.astype(np.uint16)), v.astype(np.float32))
+        halves.append(bits.astype(np.uint16))
+    return halves
+
+
+def test_nibble_to_bf16_conversion_is_exact():
+    """The K11 fragments' conversion (int4_tiles.cuh:slice_fragments_bf16) on every byte
+    value, low and high nibble, in each of a word's four byte positions: bit-equal to
+    ``unpack_int4(...).to(torch.bfloat16)`` of the same packed rows."""
+    packed = np.stack([np.roll(np.arange(256, dtype=np.uint8), s) for s in range(4)])  # [4, 256]
+    H = 2 * packed.shape[1]
+    want = tquant.unpack_int4(torch.from_numpy(packed.view(np.int8))).bfloat16()
+    want = want.view(torch.int16).numpy().astype(np.uint16)
+    words = packed.reshape(4, -1, 4).astype(np.uint32)
+    words = words[..., 0] | words[..., 1] << 8 | words[..., 2] << 16 | words[..., 3] << 24
+    got = np.zeros_like(want)
+    for hi in (0, 1):
+        x = words >> np.uint32(4) if hi else words
+        for p in (0, 1):
+            lo_bits, hi_bits = _nibble_pair_bf16(x, p)
+            for e, bits in ((2 * p, lo_bits), (2 * p + 1, hi_bits)):
+                got[:, hi * H // 2 + 4 * np.arange(words.shape[1]) + e] = bits
+    np.testing.assert_array_equal(got, want)
+
+
+def _bf16_column(i):
+    """int4_tiles.cuh:bf16_column: dim offset i of a 16-dim group -> its k in a k16 step."""
+    return 2 * (i >> 2) + (i & 1) + 8 * ((i >> 1) & 1)
+
+
+def _fragment_k_order(H, kind):
+    """The dim each k of the serve bodies' A fragments holds, from int4_tiles.cuh's word loads
+    (slice_words) and fragment builds, k counted per 128-dim slice s as the wgmma steps walk
+    it: SQ4 (s8, four k32 steps: a[0] / a[1] word m, a[2] / a[3] word m + 1, bytes e at k
+    4 t4 + e and 16 + 4 t4 + e; steps 0-1 low nibbles, 2-3 high) and BF4 (bf16, eight k16
+    steps: step 4 hi + m word m, bytes 0-1 at k 2 t4 + e, bytes 2-3 at 2 t4 + 8 + e - 2)."""
+    order = np.full(H, -1)
+    half = H // 2
+    for s in range(H // 128):
+        for t4 in range(4):
+            for e in range(4):
+                if kind == "sq4":
+                    for kk in range(4):
+                        high, m0 = kk >= 2, 2 * (kk & 1)
+                        for reg, m in ((0, m0), (2, m0 + 1)):
+                            k = 128 * s + 32 * kk + (16 if reg == 2 else 0) + 4 * t4 + e
+                            order[k] = (half if high else 0) + 64 * s + 16 * m + 4 * t4 + e
+                else:
+                    for hi in (0, 1):
+                        for m in range(4):
+                            k = 128 * s + 16 * (4 * hi + m) + (2 * t4 + e if e < 2
+                                                               else 2 * t4 + 8 + e - 2)
+                            order[k] = (half if hi else 0) + 64 * s + 16 * m + 4 * t4 + e
+    return order
+
+
+def _query_tile_k_order(H, kind):
+    """The dim each k of the query tile holds, as flat_serve.cu's consumer warps write it:
+    SQ4 byte (hi ? 64 : 0) + (dd & 63) of slice dd >> 6; BF4 tile 2 s + hi, column
+    16 (o >> 4) + bf16_column(o & 15) for o = dd & 63 (dd: the dim within its half)."""
+    order = np.full(H, -1)
+    half = H // 2
+    for d in range(H):
+        hi = d >= half
+        dd = d - half if hi else d
+        if kind == "sq4":
+            k = 128 * (dd >> 6) + (64 if hi else 0) + (dd & 63)
+        else:
+            o = dd & 63
+            k = 128 * (dd >> 6) + 64 * hi + 16 * (o >> 4) + _bf16_column(o & 15)
+        order[k] = d
+    return order
+
+
+@pytest.mark.parametrize("kind", ["sq4", "bf4"])
+@pytest.mark.parametrize("H", [768, 384, 128])
+def test_serve_bodies_k_order(kind, H):
+    """The k order of flat_serve.cu's int4 bodies is one permutation of the dims on both
+    operands (the rows' fragments and the query tile), and scores summed in that order equal
+    ``_half_products``: exactly for int8 queries (K12 sq4: exact integer sums, also from its
+    biased codes less 8 x the query's sum), within fp32 rounding for bf16 ones (K11: fp32 sums
+    of each k16 step's exact products, in step order, within 2^-22 of the terms' magnitudes)."""
+    rows_k, query_k = _fragment_k_order(H, kind), _query_tile_k_order(H, kind)
+    np.testing.assert_array_equal(np.sort(rows_k), np.arange(H))
+    np.testing.assert_array_equal(rows_k, query_k)
+    _, _, packed, scales = _int4_corpus(44, n=200, h=H)
+    codes = tquant.unpack_int4(torch.from_numpy(packed)).numpy().astype(np.float64)
+    rng = np.random.default_rng(45)
+    if kind == "sq4":
+        qi, _ = tquant.quantize_queries(torch.from_numpy(rng.normal(size=(16, H)).astype(
+            np.float32)))
+        q = qi.numpy().astype(np.int64)
+        got = q[:, rows_k] @ codes[:, rows_k].astype(np.int64).T
+        want = ttopk._half_products(qi.to(torch.float64), torch.from_numpy(packed)).numpy()
+        np.testing.assert_array_equal(got, want)
+        # the body's codes are biased (int4_tiles.cuh:biased_nibbles, n + 8 by one AND-XOR of
+        # the packed byte): its s32 sums less 8 x each query's sum are the same integers, below
+        # 2^22 (the epilogue's exact float conversion)
+        b = packed.view(np.uint8).astype(np.int64)
+        biased = np.concatenate([(b & 0xF) ^ 8, ((b >> 4) & 0xF) ^ 8], axis=1)
+        np.testing.assert_array_equal(biased - 8, codes.astype(np.int64))
+        sums = q[:, rows_k] @ biased[:, rows_k].T
+        assert np.abs(sums).max() < 2 ** 31
+        np.testing.assert_array_equal(sums - 8 * q.sum(1, keepdims=True), want)
+        assert np.abs(want).max() < 2 ** 22
+    else:
+        qb = torch.from_numpy(rng.normal(size=(16, H)).astype(np.float32)).bfloat16()
+        q = qb.double().numpy()
+        acc = np.zeros((16, codes.shape[0]), np.float32)
+        for k0 in range(0, H, 16):  # a k16 step: exact products, one fp32 addition a step
+            idx = rows_k[k0:k0 + 16]
+            acc = (acc + (q[:, idx] @ codes[:, idx].T).astype(np.float32)).astype(np.float32)
+        want = ttopk._half_products(qb.float(), torch.from_numpy(packed)).numpy()
+        mag = np.abs(q) @ np.abs(codes).T
+        assert (np.abs(acc.astype(np.float64) - want) <= 2.0 ** -22 * np.maximum(mag, 1)).all()

@@ -496,3 +496,87 @@ def test_split_products_hold_the_k5_bound(scheme, scale):
     big = c.abs() >= c.abs().amax(1, keepdim=True) / 8
     err = ((c.double() - rebuilt.double()).abs() / c.double().abs().clamp(min=1e-30))[big]
     assert float(err.max()) <= 2.0 ** -22
+
+
+# --- the serve bodies' selection (csrc/serve_select.cuh, csrc/flat_serve.cu), emulated --------
+
+def _score_order(v):
+    """serve_select.cuh:score_order: the serve key's high word of fp32 scores (uint64 here)."""
+    b = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    return np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+
+
+def _serve_select(s, block, n_valid, J, tile=64):
+    """flat_serve.cu's selection over one query's scores s [N]: per storage block, two lists
+    (two threads), each of the least of 8 / 16 / 32 keys that holds J and each seeing half of
+    every 64-row tile; per tile a thread's rows whose order beats the order of its list's
+    J-th key (0 while it holds fewer) at the tile's start, marked first, then inserted in row
+    order against the floor as it stands; at the block's end the odd list inserted into the
+    even one, its first J written ((-inf, -1) empty). Returns (vals, ids) [n_blocks, J]."""
+    N = s.shape[0]
+    NL = 8 if J <= 8 else 16 if J <= 16 else 32
+    n_blocks = -(-N // block)
+    vals = np.full((n_blocks, J), -np.inf, np.float32)
+    ids = np.full((n_blocks, J), -1, np.int32)
+    order = _score_order(s)
+    for blk in range(n_blocks):
+        start = blk * block
+        row_lim = min(N, start + block, n_valid)
+        lists = [[], []]  # keys, sorted descending
+        for base in range(start, row_lim, tile):
+            for h in (0, 1):
+                L = lists[h]
+                floor = (L[J - 1] >> 32) if len(L) >= J else 0
+                rows = [base + tile // 2 * h + b for b in range(tile // 2)
+                        if base + tile // 2 * h + b < row_lim]
+                cand = [r for r in rows if order[r] > floor]  # the bitmask at the tile's start
+                for r in cand:
+                    if order[r] > floor:
+                        L.append((int(order[r]) << 32) | (~r & 0xFFFFFFFF))
+                        L.sort(reverse=True)
+                        del L[NL:]
+                        floor = (L[J - 1] >> 32) if len(L) >= J else 0
+        merged = sorted(lists[0] + lists[1], reverse=True)[:J]
+        for p, key in enumerate(merged):
+            o = np.uint64(key >> 32)
+            bits = np.where(o & 0x80000000, o & 0x7FFFFFFF, ~o & 0xFFFFFFFF).astype(np.uint32)
+            vals[blk, p] = bits.view(np.float32)
+            ids[blk, p] = ~(key & 0xFFFFFFFF) & 0xFFFFFFFF
+    return vals, ids
+
+
+@pytest.mark.parametrize("J", [4, 7, 11, 16, 32])
+def test_serve_selection_rule_matches_select_packed(J):
+    """The serve bodies' selection, emulated in key order, equals ``_select_packed`` (the
+    plain K8 / K11 / K12 selection) bit for bit, scores' signs included, on planted rows:
+    -0 against +0 at and around the J-th place (a +0 row after a -0 J-th entry enters; a -0
+    row after a +0 one does not), equal scores across the two halves of a tile and across
+    tiles (the smaller id first), blocks of 1000 rows (not a multiple of the 64-row tile),
+    a short last block and rows masked by n_valid inside a tile."""
+    rng = np.random.default_rng(46)
+    N, block, n_valid = 2900, 1000, 2871
+    s = rng.normal(size=(3, N)).astype(np.float32)
+    # query 0: the best rows are +0 or -0: J - 2 of +0 interleaved with -0 (both halves of
+    # the first tile), a tile of -0, then one +0 in a later tile, which must displace a -0
+    # J-th entry: the block's list is J - 1 rows of +0, then the first -0 row (11)
+    s[0, :] = -np.abs(s[0, :]) - 1.0
+    s[0, 10:10 + 2 * (J - 2):2] = 0.0
+    s[0, 11:11 + 2 * (J - 2):2] = -0.0
+    s[0, 100:164] = -0.0
+    s[0, 170] = 0.0
+    # query 1: ties across the two halves of a tile, across tiles and across blocks
+    s[1, :] = rng.normal(size=N).astype(np.float32) - 3.0
+    s[1, [5, 37, 70, 100, 1001, 1040, 1999]] = 2.5
+    s[1, [6, 38, 71]] = -0.0
+    # query 2: the top rows sit past n_valid inside the last tile, which they must not enter
+    s[2, n_valid:] = 50.0
+    v, i = zip(*(_serve_select(s[q], block, n_valid, J) for q in range(3)))
+    want_v, want_i = ttopk._per_block(lambda a, b: torch.from_numpy(s[:, a:b]),
+                                      ttopk._select_packed, 3, N, J, block, n_valid, "cpu")
+    got_v, got_i = torch.from_numpy(np.stack(v)), torch.from_numpy(np.stack(i))
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))  # -0 stays -0
+    assert not bool(torch.signbit(got_v[0, 0, :J - 1]).any()) and got_v[0, 0, J - 1] == 0
+    assert bool(torch.signbit(got_v[0, 0, J - 1])) and got_i[0, 0, J - 1] == 11
+    assert 170 in got_i[0, 0].tolist()
+    assert not bool((got_i[2] >= n_valid).any())
