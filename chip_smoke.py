@@ -18,8 +18,9 @@ Phases, each of which fails the run on error:
    beside the xla block's bf16 chain on cuBLAS (``chain_ms``);
    K5 (block top-J) on a 1,000,000 x 768 corpus, fp32 and bf16, 1024 queries,
    k=100, through the certified search against the exact scan; then block by
-   block at J = 8 and 32 on ``flat_certified.cu``'s bodies (fp32 products as
-   fp16 pairs, bf16 on TMA + wgmma; ``block_topj.launches_generic`` 0), with
+   block at J = 8 and 32 on its Hopper bodies (fp32 products as fp16 pairs,
+   ``flat_certified.cu``; bf16 on TMA + wgmma in the certified order,
+   ``flat_serve.cu``; ``block_topj.launches_generic`` 0), with
    ``block_topj.cu``'s body on the same rows 2 elements off 16-byte alignment
    beside them: each body's time and largest |score - fp64|.
 3. The main path, through the entry points a user calls: a bert-base
@@ -64,10 +65,20 @@ Phases, each of which fails the run on error:
    against ``blockwise_topk`` on the int8 rows), K8 through ``serve_topk`` on
    all three dtypes and K12 through ``serve_topk(i8_native=True)``: top-k vs
    the plain versions, recall@100 vs the certified search of the same index;
-   kernel, plain and search ms. K12 must run ``csrc/flat_serve.cu``'s wgmma
-   body (its CUDA kernel by ``torch.profiler``, ``block_topj_i8q.launches_generic``
-   0) and stay bit-equal to its plain version at the IVF side scan's J = 4 on
-   1024-row blocks and at J = 11 and 32 on 4096-row blocks, each timed.
+   kernel, plain and search ms. K6 and K8 bf16 / int8 must run
+   ``csrc/flat_serve.cu``'s wgmma body and K8 fp32 ``csrc/flat_certified.cu``'s
+   fp16-pair body (``last_body`` and their CUDA kernels by ``torch.profiler``;
+   ``block_topj.launches_int8_generic`` and ``block_topj_serve.launches_generic``
+   0 on every path of the script), and meet their plain versions block by block
+   (rescored in fp64; 1e-5 K6 / K8 fp32, 1e-4 K8 bf16 / int8): K6 at J = 8 and
+   32, K8 at the serve J (7), at J = 11 and 32 on 4096-row blocks and at the
+   IVF side scans' (block 512, J = 12, 9, 6; held on the first 131,072 rows),
+   each timed; K8 fp32's largest |score - fp64| is held to twice that of
+   ``block_topj.cu``'s FFMA body on the same rows 4 bytes off alignment (its
+   time beside). K12 must run ``csrc/flat_serve.cu``'s wgmma body (its CUDA
+   kernel by ``torch.profiler``, ``block_topj_i8q.launches_generic`` 0) and stay
+   bit-equal to its plain version at the 8.8M IVFR256 i8q side scan's J = 9 on
+   512-row blocks and at J = 11 and 32 on 4096-row blocks, each timed.
 8. The int8 serving path through the entry points, on the main path's
    bert-base reps: ``FlatIPIndex(dtype="int8")`` filled by ``add_device``,
    ``search_queries`` in ``exact``, ``serve``, ``i8q`` and ``approx``
@@ -112,7 +123,9 @@ Phases, each of which fails the run on error:
 12. Scale: 8,841,823 x 768 int8 rows (MS MARCO passage) built by
    ``add_device`` in 262,144-row slabs of seeded fp32 quantized by K7 (the
    trainer's evaluation path); queries/s of ``serve``, ``i8q`` and
-   ``exact`` at k=100, recall@100 of serve / i8q vs exact, peak memory.
+   ``exact`` at k=100, recall@100 of serve / i8q vs exact, peak memory; one
+   more exact and one serve search under ``torch.profiler``, their device
+   time by group (K6 / K8, the merges, the rest).
 13. Scale int4: 138,364,198 x 768 rows (MS MARCO v2 passage, which int8
    cannot hold on one card) in 528 slabs packed by K9; the same searches and
    numbers, plus the resident size; one more certified search under
@@ -130,7 +143,9 @@ Phases, each of which fails the run on error:
    (the bound on the data's own work: the stored rows of the probed cells
    against their real query slots; the launched, padded shape's beside it),
    a launch's device ms by CUDA kernel, queries/s, recall@100 against the
-   certified flat search of the same rows and dtype. Then ``PCAR384,SQ4``
+   certified flat search of the same rows and dtype; one search under
+   ``torch.profiler`` by group (the cell kernel, the side scan on K8 / K12,
+   the merges) with the (rows, block, J) its side scans ran. Then ``PCAR384,SQ4``
    through ``train`` and ``add_chunks``. (Runs before phase 3.)
 15. The evaluation path into a trained index: phase 11's model evaluated
    with ``index_factory="IVF16,SQ8"`` (nprobe 4) in ``bulk`` and ``i8q``:
@@ -699,8 +714,9 @@ def block_errors(q, corpus, vals, ids, ref_vals, chunk=16):
 
 def phase_topk(gen, topk, blockwise_topk, n_rows, n_queries=1024, k=100, dim=768):
     """K5 through the certified search vs the exact scan on a seeded corpus; then block by
-    block at the search's J (8) and its escalation's (32) on ``flat_certified.cu``'s bodies
-    (fp32 as fp16 pairs, bf16 on TMA + wgmma), with block_topj.cu's body on the same rows,
+    block at the search's J (8) and its escalation's (32) on its Hopper bodies (fp32 as fp16
+    pairs, ``flat_certified.cu``; bf16 on TMA + wgmma, ``flat_serve.cu``), with block_topj.cu's
+    body on the same rows,
     2 elements off 16-byte alignment, for its time and error against fp64 beside theirs."""
     results = {}
     for dtype, rel_tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-3)):
@@ -719,12 +735,13 @@ def phase_topk(gen, topk, blockwise_topk, n_rows, n_queries=1024, k=100, dim=768
         kern = lambda rows, j=8: topk.block_topj(qc, rows, j, block, n_rows)  # noqa: E731
         # the search's J (8) and its escalation's (32), each against the plain version and fp64
         held, err64 = {}, {}
+        want = "flat_certified" if dtype == torch.float32 else "flat_serve"
         for J in (8, 32):
             vals, vids = kern(corpus, J)
             body = topk.block_topj.last_body
-            check(body == "flat_certified" and topk.block_topj.launches_generic == 0,
+            check(body == want and topk.block_topj.launches_generic == 0,
                   f"K5 {dtype} J={J}: ran {body!r} ({topk.block_topj.launches_generic} "
-                  f"launches of block_topj.cu's body), not flat_certified.cu's")
+                  f"launches of block_topj.cu's body), not {want}.cu's")
             err64[J] = fp64_err(q, corpus, vals, vids, chunk=16)
             ref_vals, _ = topk._block_topj_reference(qc, corpus, J, block, n_rows)
             held[J] = block_errors(q, corpus, vals, vids, ref_vals)
@@ -738,7 +755,7 @@ def phase_topk(gen, topk, blockwise_topk, n_rows, n_queries=1024, k=100, dim=768
         plain_ms = cuda_ms(lambda: topk._block_topj_reference(qc, corpus, 8, block, n_rows), iters=3)
         search_ms = cuda_ms(lambda: topk.certified_topk(q, corpus, k, block), iters=3)
         scan_ms = cuda_ms(lambda: blockwise_topk(q, corpus, k, block), iters=3)
-        # block_topj.cu's body on the same rows (a shape flat_certified.cu does not take): one
+        # block_topj.cu's body on the same rows (a shape the Hopper bodies do not take): one
         # call, then cuda_ms's warm-up and 3 timed calls
         generic0 = topk.block_topj.launches_generic
         check(generic0 == 0, f"K5 {dtype}: block_topj.cu's body ran {generic0} times in the "
@@ -1962,12 +1979,26 @@ def plain_versions_of(table):
         yield
 
 
-# the serve kernels' CUDA kernels by the pieces of their names: flat_serve.cu's wgmma body (K11,
-# K12), block_topj.cu's mma.sync and CUDA-core bodies
-SERVE_BODIES = ("flat_serve_wgmma", "block_topj_mma_kernel", "block_topj_kernel")
-# (J, block) of the serve kernels beside a 1M-row search's own (J = 7, 4096-row blocks): the IVF
-# side scan's J and block, the 262,144-row slabs' J, and the most
-SERVE_SHAPES = ((4, 1024), (11, 4096), (32, 4096))
+# the serve kernels' CUDA kernels by the pieces of their names: flat_serve.cu's wgmma body (K6,
+# K8 bf16 / int8, K11, K12), flat_certified.cu's fp32 body (K8 fp32), block_topj.cu's mma.sync
+# and CUDA-core bodies
+SERVE_BODIES = ("flat_serve_wgmma", "flat_split_wgmma", "block_topj_mma_kernel",
+                "block_topj_kernel")
+# K6 and K8: the body each runs at H = 768 (ops/topk.py:BODIES) and its CUDA kernel
+FLAT8_BODIES = {"K6": ("flat_serve", "flat_serve_wgmma"),
+                "K8 float32": ("flat_certified", "flat_split_wgmma"),
+                "K8 bfloat16": ("flat_serve", "flat_serve_wgmma"),
+                "K8 int8": ("flat_serve", "flat_serve_wgmma")}
+# (J, block) of K8 beside a 1M-row search's own (J = 7, 4096-row blocks): the 262,144-row
+# slabs' J, the most, and the IVF side scans' (512-row blocks: 1M IVF1024 fp32 J = 12, 8.8M
+# IVFR256 int8 J = 9, 8.8M IVF-PQ int8 J = 6; the IVF phases log the shapes their searches
+# run); the side scans' shapes are held to the plain version on the first K8_SIDE_CHECK_ROWS
+# rows and timed over all of them
+K8_SHAPES = ((11, 4096), (32, 4096), (12, 512), (9, 512), (6, 512))
+K8_SIDE_CHECK_ROWS = 131_072
+# (J, block) of the serve kernels beside a 1M-row search's own (J = 7, 4096-row blocks): the 8.8M
+# IVFR256 i8q side scan's J and block, the 262,144-row slabs' J, and the most
+SERVE_SHAPES = ((9, 512), (11, 4096), (32, 4096))
 
 
 def bit_equal(got, want):
@@ -2034,14 +2065,32 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
     scan_recall = overlap(ids.tolist(), bids.tolist())
     qc = q.bfloat16()
     J = max(4, min(k, 8))
-    kv, _ = topk.block_topj(qc, values, J, block, n_rows, scales)
-    pv, _ = topk._block_topj_reference(qc, values, J, block, n_rows, scales)
-    blk_err = (kv - pv).abs().max().item()
+    # block by block at the search's J and its escalation's (4 J), on flat_serve.cu's body
+    held = {}
+    for j6 in (J, 4 * J):
+        kv, ki = topk.block_topj(qc, values, j6, block, n_rows, scales)
+        body = topk.block_topj.last_body
+        check(body == FLAT8_BODIES["K6"][0] and topk.block_topj.launches_int8_generic == 0,
+              f"K6 J={j6}: ran {body!r} ({topk.block_topj.launches_int8_generic} launches of "
+              f"block_topj.cu's body), not flat_serve.cu's")
+        pv, pi = topk._block_topj_reference(qc, values, j6, block, n_rows, scales)
+        held[j6] = blocks_against_plain(q, values, scales, (kv, ki), (pv, pi), 1e-5)
+        check(held[j6][0], f"K6 J={j6}: per-block lists disagree with the plain version's "
+              f"(rank {held[j6][1]:.3e}, rescored {held[j6][2]:.3e})")
+        if j6 == J:
+            blk_err = (kv - pv).abs().max().item()
+        del kv, ki, pv, pi
     t = {"ms": cuda_ms(lambda: topk.block_topj(qc, values, J, block, n_rows, scales), iters=3),
+         "ms_j32": cuda_ms(lambda: topk.block_topj(qc, values, 4 * J, block, n_rows, scales),
+                           iters=3),
          "plain_ms": cuda_ms(lambda: topk._block_topj_reference(qc, values, J, block, n_rows,
                                                                  scales), iters=3),
          "search_ms": cuda_ms(lambda: topk.certified_topk(q, values, k, block, scales=scales),
-                              iters=3)}
+                              iters=3),
+         "body": kernel_split(lambda: topk.block_topj(qc, values, J, block, n_rows, scales),
+                              SERVE_BODIES, iters=1)}
+    check(set(t["body"]) <= {FLAT8_BODIES["K6"][1]}, f"K6 ran CUDA kernels {sorted(t['body'])}")
+    t["body"] = ",".join(t["body"]) or body
     ops = 2.0 * n_queries * n_rows * dim
     t["bound_ms"], t["bound_by"] = bound(values.numel() + 4 * n_rows + 2 * q.numel(), ops, "bf16")
     log(f"K6 int8 {n_rows}x{dim} Q={n_queries} k={k}: vs the plain-version certified search: "
@@ -2049,14 +2098,17 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
         f"(rel tol 1e-5); certificate escalated {escalated} fallbacks {fallbacks}; vs the exact "
         f"scan on fp32 queries: max rank gap {scan_err.max().item():.3e} within the measured "
         f"bf16-query gap (max {gap.max().item():.3e}): {scan_ok}, recall@{k} {scan_recall:.5f}; "
-        f"per-block max err {blk_err:.3e}; kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms "
-        f"bound {t['bound_ms']:.3f} ms, certified search {t['search_ms']:.3f} ms")
+        f"per block (body {t['body']}) against the plain version, rank / rescored err J={J} "
+        f"{held[J][1]:.3e} / {held[J][2]:.3e}, J={4 * J} {held[4 * J][1]:.3e} / "
+        f"{held[4 * J][2]:.3e} (rel tol 1e-5); kernel J={J} {t['ms']:.3f} ms, J={4 * J} "
+        f"{t['ms_j32']:.3f} ms, plain {t['plain_ms']:.3f} ms bound {t['bound_ms']:.3f} ms, "
+        f"certified search {t['search_ms']:.3f} ms")
     check(ok, "K6: the certified int8 search disagrees with its plain version")
     check(scan_ok, "K6: the certified int8 search is not within the bf16-query gap of the scan")
     results["K6"] = dict(t, max_abs_err=blk_err, escalated=escalated, fallbacks=fallbacks,
                          ids_differing=differ, scan_recall=scan_recall)
     exact = {"int8": ids}
-    del bs, bids, kv, pv
+    del bs, bids
 
     # K8 on fp32, bf16 and int8 rows; K12 on int8 rows
     x = torch.randn(n_rows, dim, generator=gen, device="cuda")
@@ -2082,15 +2134,20 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
             kind, q_bytes = "int8", q.numel() + 4 * n_queries
         else:
             qc = q.to(torch.bfloat16 if dtype != "float32" else torch.float32)
-            kern = lambda: topk.block_topj_serve(qc, corpus, J, block, n_rows, sc)  # noqa: E731
+            tol = 1e-5 if dtype == "float32" else 1e-4
+
+            def kern_at(j, b, n=n_rows, rows=corpus):
+                return topk.block_topj_serve(qc, rows[:n], j, b, n,
+                                             None if sc is None else sc[:n])
+
+            kern = lambda: kern_at(J, block)  # noqa: E731
             ref = lambda: topk._block_topj_serve_reference(qc, corpus, J, block,  # noqa: E731
                                                            n_rows, sc)
-            ok, rank_err, res_err, differ = against_plain(
-                q, corpus, sc, got, want, 1e-5 if dtype == "float32" else 1e-4)
+            ok, rank_err, res_err, differ = against_plain(q, corpus, sc, got, want, tol)
             kind = "fp32" if dtype == "float32" else "bf16"
             q_bytes = qc.numel() * qc.element_size()
-        kv, _ = kern()
-        pv, _ = ref()
+        kv, ki = kern()
+        pv, pi = ref()
         blk_err = (kv - pv).abs().max().item()
         recall = overlap(got[1].tolist(), exact[dtype].tolist())
         t = {"ms": cuda_ms(kern, iters=3), "plain_ms": cuda_ms(ref, iters=3),
@@ -2109,6 +2166,61 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
             other = f" (body {t['body']}; bit-equal at {serve_times(t)})"
             check(topk.block_topj_i8q.launches_generic == 0,
                   "K12 int8: block_topj.cu's body ran at H = 768")
+        else:  # K8: its Hopper body, held to the plain version block by block at each shape
+            want_body, want_kernel = FLAT8_BODIES[label]
+            body = kernel_split(kern, SERVE_BODIES, iters=1)
+            check(topk.block_topj_serve.last_body == want_body and set(body) <= {want_kernel},
+                  f"{label} ran {topk.block_topj_serve.last_body} ({sorted(body)}), not "
+                  f"{want_body}'s body")
+            t["body"] = ",".join(body) or want_body
+            held = {J: blocks_against_plain(q, corpus, sc, (kv, ki), (pv, pi), tol)}
+            for j, b in K8_SHAPES:
+                n = K8_SIDE_CHECK_ROWS if b < block else n_rows
+                held[j, b] = blocks_against_plain(
+                    q, corpus[:n], None if sc is None else sc[:n], kern_at(j, b, n),
+                    topk._block_topj_serve_reference(qc, corpus[:n], j, b, n,
+                                                     None if sc is None else sc[:n]), tol)
+                t[f"ms_j{j}_b{b}"] = cuda_ms(lambda: kern_at(j, b), iters=3)
+            for key, h in held.items():
+                check(h[0], f"{label} at (J, block) {key}: per-block lists disagree with the "
+                      f"plain version's (rank {h[1]:.3e}, rescored {h[2]:.3e}, rel tol {tol:g})")
+            t["plain_rel_err"] = {str(key): h[1:3] for key, h in held.items()}
+            check(topk.block_topj_serve.launches_generic == 0,
+                  f"{label}: block_topj.cu's body ran {topk.block_topj_serve.launches_generic} "
+                  f"times at H = 768")
+            if dtype == "float32":
+                # block_topj.cu's FFMA body on the same rows, 4 bytes off 16-byte alignment:
+                # its time and its error against fp64 beside the fp16 pairs' (at most 2x)
+                t["max_abs_err_fp64"] = fp64_err(q, corpus, kv, ki, chunk=16)
+                generic0 = topk.block_topj_serve.launches_generic
+                moved = torch.empty(corpus.numel() + 1, device="cuda")[1:].view(corpus.shape)
+                moved.copy_(corpus)
+                gv, gi = kern_at(J, block, rows=moved)
+                t["ffma_max_abs_err_fp64"] = fp64_err(q, corpus, gv, gi, chunk=16)
+                del gv, gi
+                t["ffma_ms"] = cuda_ms(lambda: kern_at(J, block, rows=moved), iters=3)
+                ran = topk.block_topj_serve.launches_generic - generic0
+                check(ran == 5 and topk.block_topj_serve.last_body == "block_topj",
+                      f"K8 fp32: the comparison on unaligned rows ran block_topj.cu's body {ran} "
+                      f"times of its 5 calls")
+                topk.block_topj_serve.launches_generic = generic0  # the comparison's launches
+                del moved
+                check(t["max_abs_err_fp64"] <= 2 * t["ffma_max_abs_err_fp64"],
+                      f"K8 fp32: max |score - fp64| {t['max_abs_err_fp64']:.3e} over 2x the FFMA "
+                      f"body's {t['ffma_max_abs_err_fp64']:.3e} on the same rows")
+                t["ffma_bound_ms"] = bound(n_bytes + q_bytes, ops, "fp32")[0]
+                # the fp16 pairs: three bf16-rate products
+                t["bound_ms"], t["bound_by"] = bound(n_bytes + q_bytes, 3 * ops, "bf16")
+                other = (f"; block_topj.cu's FFMA body on the same rows (unaligned) "
+                         f"{t['ffma_ms']:.3f} ms, max |score - fp64| "
+                         f"{t['ffma_max_abs_err_fp64']:.3e} against this body's "
+                         f"{t['max_abs_err_fp64']:.3e} (<= 2x); FFMA bound "
+                         f"{t['ffma_bound_ms']:.3f} ms")
+            other = (f" (body {t['body']}; " + ", ".join(
+                f"J={j} block {b} {t[f'ms_j{j}_b{b}']:.3f} ms" for j, b in K8_SHAPES)
+                + "; per block against the plain version, rank / rescored err " + ", ".join(
+                f"{key}: {h[1]:.3e} / {h[2]:.3e}" for key, h in held.items())
+                + f" (rel tol {tol:g}))" + other)
         log(f"{label} {n_rows}x{dim} Q={n_queries} k={k} J={J}: vs the plain versions: ids "
             f"differing {differ}, max rank err {rank_err:.3e}, max rescored err {res_err:.3e}; "
             f"per-block max err {blk_err:.3e}; recall@{k} vs the certified search "
@@ -2118,7 +2230,7 @@ def phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8, n_queries=1024, k=
         check(recall >= (I8Q_RECALL if native else SERVE_RECALL),
               f"{label}: recall@{k} vs the certified search below its bound")
         results[label] = dict(t, max_abs_err=blk_err, ids_differing=differ, recall=recall, J=J)
-        del kv, pv
+        del kv, ki, pv, pi
     del x, forms
     torch.cuda.empty_cache()
     return results
@@ -2255,9 +2367,23 @@ def phase_int8_path(args, tmp, kern):
     return {"launches": launches, "blocks": blocks, "modes": summary}
 
 
+# the groups of one flat int8 search's kernels (ENCODE_GROUPS' form): K6 / K8 / K12 on their
+# Hopper body or block_topj.cu's, the merges (the slabs' and the certificate's sorts and top-k),
+# the certificate's exact scan (cuBLAS), the queries' casts and quantization and the rest
+FLAT_SEARCH_GROUPS = (("K6 / K8 / K12 (flat_serve.cu)", ("flat_serve",)),
+                      ("K6 / K8 / K12 (block_topj.cu)", ("block_topj",)),
+                      ("merge: sorts", ("Sort",)), ("merge: sorts", ("sort",)),
+                      ("merge: top-k", ("TopK",)), ("merge: top-k", ("topk",)),
+                      ("exact scan: products (cuBLAS)", ("nvjet",)),
+                      ("exact scan: products (cuBLAS)", ("gemm",)),
+                      ("gathers and scatters", ("index",)),
+                      ("elementwise", ("elementwise_kernel",)))
+
+
 def phase_scale(gen, flat, topk, n_queries, k=100, dim=768):
     """MS MARCO passage's row count in int8, built as the trainer's evaluation
-    path builds it: add_device of 262,144-row fp32 slabs, quantized by K7."""
+    path builds it: add_device of 262,144-row fp32 slabs, quantized by K7; one exact and
+    one serve search under torch.profiler."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2279,6 +2405,16 @@ def phase_scale(gen, flat, topk, n_queries, k=100, dim=768):
     recall = {m: overlap(res[m].tolist(), res["exact"].tolist()) for m in ("serve", "i8q")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_slabs = len(index._device_slabs)
+    splits = {}
+    for mode in ("exact", "serve"):  # K6 / K8 over the slabs, the merges, the rest
+        splits[mode] = encode_split(lambda: index.search(q, k, mode=mode), FLAT_SEARCH_GROUPS)
+        sp = splits[mode]
+        log(f"scale int8 {mode} search under torch.profiler: wall {sp['wall_ms']:.1f} ms, device "
+            f"{sp['device_ms']:.1f} ms (busy {sp['busy']:.3f}), by group "
+            f"{json.dumps({g: round(ms, 2) for g, ms in sp['groups_ms'].items()})}; top kernels "
+            f"{json.dumps({n: round(ms, 2) for n, ms in sp['top_kernels_ms'].items()})}")
+        check("K6 / K8 / K12 (block_topj.cu)" not in sp["groups_ms"],
+              f"scale int8 {mode}: block_topj.cu's body ran")
     log(f"scale: {SCALE_ROWS} x {dim} int8 rows in {n_slabs} slabs of {SLAB_ROWS} (built in "
         f"{build_s:.1f} s); {n_queries} queries k={k}: queries/s "
         f"{json.dumps({m: round(r, 1) for m, r in rates.items()})}; recall@{k} vs exact "
@@ -2289,7 +2425,8 @@ def phase_scale(gen, flat, topk, n_queries, k=100, dim=768):
     del index
     torch.cuda.empty_cache()
     return {"rows": SCALE_ROWS, "slabs": n_slabs, "build_s": build_s, "queries": n_queries,
-            "queries_per_s": rates, "recall": recall, "peak_gib": peak_gib}
+            "queries_per_s": rates, "recall": recall, "peak_gib": peak_gib,
+            "search_split": splits}
 
 
 def phase_quant4(gen, quant, n_rows, dim=768):
@@ -2925,10 +3062,40 @@ IVF_BODIES = tuple((p, (p,)) for p in ("ivf_cell_wgmma", "ivf_cell_ffma", "block
 IVF_SEARCH_GROUPS = (("cell kernel (K13 / K14)", ("ivf_cell",)),
                      ("side scan (K8 / K12)", ("block_topj",)),
                      ("side scan (K8 / K12)", ("flat_serve",)),
+                     ("side scan (K8 / K12)", ("flat_split",)),
                      ("sorts", ("Sort",)), ("top-k", ("TopK",)), ("top-k", ("topk",)),
                      ("products (cuBLAS)", ("nvjet",)), ("products (cuBLAS)", ("gemm",)),
                      ("gathers and scatters", ("index",)),
                      ("elementwise", ("elementwise_kernel",)))
+
+
+@contextlib.contextmanager
+def side_scans(ivf_bulk):
+    """The (rows, block, J) of every side-scan call (K8 / K12) of ``ivf_bulk`` while open, as
+    a set the context yields."""
+    seen = set()
+    serve, i8q = ivf_bulk.block_topj_serve, ivf_bulk.block_topj_i8q
+
+    def on_serve(qc, values, J, block, n_valid, *a, **kw):
+        seen.add((int(n_valid), int(block), int(J)))
+        return serve(qc, values, J, block, n_valid, *a, **kw)
+
+    def on_i8q(qi, qs, values, scales, J, block, n_valid, *a, **kw):
+        seen.add((int(n_valid), int(block), int(J)))
+        return i8q(qi, qs, values, scales, J, block, n_valid, *a, **kw)
+
+    with mock.patch.object(ivf_bulk, "block_topj_serve", on_serve), \
+            mock.patch.object(ivf_bulk, "block_topj_i8q", on_i8q):
+        yield seen
+
+
+def searched(ivf_bulk, fn, groups):
+    """``encode_split(fn, groups)`` with the (rows, block, J) of its side scans in
+    ``side_scans``."""
+    with side_scans(ivf_bulk) as seen:
+        split = encode_split(fn, groups)
+    split["side_scans"] = sorted(seen)
+    return split
 
 
 def ivf_cell_checked(name, call, exact, rel_tol, dim):
@@ -3010,7 +3177,7 @@ def phase_ivf_kernels(seed, flat, ivf, ivf_bulk, n_rows, n_queries=2048, k=100, 
                 _, ids = idx.search(q, k, mode=mode)
             qps = IVF_TIMED_SEARCHES * n_queries / (time.perf_counter() - t0)
             launches = {c: getattr(fn, c) for c in counters}
-            search = encode_split(lambda: idx.search(q, k, mode=mode), IVF_SEARCH_GROUPS)
+            search = searched(ivf_bulk, lambda: idx.search(q, k, mode=mode), IVF_SEARCH_GROUPS)
             body = "launches_i8q" if mode == "i8q" else (
                 "launches_int8" if dtype == "int8" else "launches")
             check(launches[body] > 0, f"{name}: the cell kernel never launched")
@@ -3046,7 +3213,8 @@ def phase_ivf_kernels(seed, flat, ivf, ivf_bulk, n_rows, n_queries=2048, k=100, 
                 f"{state['hot'].size} hot cells, side slab {state['side'][3]} rows, "
                 f"{idx.last_dropped} pairs dropped; built in {build_s:.2f} s; one search under "
                 f"torch.profiler: wall {search['wall_ms']:.2f} ms, device {search['device_ms']:.2f}"
-                f" ms, by group {json.dumps(search['groups_ms'])}")
+                f" ms, by group {json.dumps(search['groups_ms'])}; side scans (rows, block, "
+                f"J) {search['side_scans']}")
             check(ok, f"{name}: the cell kernel disagrees with its plain version")
             check(recall >= IVF_RECALL[layout],
                   f"{name}: recall@{k} below {IVF_RECALL[layout]}")
@@ -3256,7 +3424,7 @@ def phase_ivf_scale(seed, flat, ivf_bulk, n_queries=2048, k=100, dim=768):
             _, ids = index.search(q, k, mode=mode)
         secs = (time.perf_counter() - t0) / IVF_TIMED_SEARCHES
         launches = {c: getattr(ivf_bulk.ragged_topj, c) for c in counters}
-        search = encode_split(lambda: index.search(q, k, mode=mode), IVF_SEARCH_GROUPS)
+        search = searched(ivf_bulk, lambda: index.search(q, k, mode=mode), IVF_SEARCH_GROUPS)
         recall = overlap(ids.tolist(), exact.tolist())
         call = ivf_cell_call(ivf_bulk, index, q, k, mode)
         ok, err, max_abs, split = ivf_cell_checked(f"scale IVF {mode}", call, mode == "i8q",
@@ -3281,7 +3449,8 @@ def phase_ivf_scale(seed, flat, ivf_bulk, n_queries=2048, k=100, dim=768):
             f"{tuned['side_rows']} rows, pairs dropped {tuned['dropped']} (tuning) / "
             f"{index.last_dropped} (steady); K14 launches {json.dumps(launches)}; one search "
             f"under torch.profiler: wall {search['wall_ms']:.2f} ms, device "
-            f"{search['device_ms']:.2f} ms, by group {json.dumps(search['groups_ms'])}")
+            f"{search['device_ms']:.2f} ms, by group {json.dumps(search['groups_ms'])}; side "
+            f"scans (rows, block, J) {search['side_scans']}")
         check(res[mode]["launches"] > 0, f"scale IVF {mode}: K14 never launched")
         check(launches["launches_generic"] == 0,
               f"scale IVF {mode}: the search ran the block top-J family's body, not ivf_cell.cu's")
@@ -3645,10 +3814,12 @@ def phase_pq_scale(seed, flat, pq_ops, ivf_pq_ops, n_queries=PQ_QUERIES, k=100, 
             body = kernel_split(call["kernel"], ("ivf_cell_wgmma", "block_topj"), iters=3)
             check("block_topj" not in body and (not body or "ivf_cell_wgmma" in body),
                   f"scale {spec}: K17 ran CUDA kernels {sorted(body)}")
-            search = encode_split(lambda: index.search(qn, k, mode=mode), PQ_SEARCH_GROUPS)
+            from denseretrievaltoolkits_torch.ops import ivf_bulk
+            search = searched(ivf_bulk, lambda: index.search(qn, k, mode=mode), PQ_SEARCH_GROUPS)
             log(f"scale {spec} search under torch.profiler: wall {search['wall_ms']:.2f} ms, "
                 f"device {search['device_ms']:.2f} ms (busy {search['busy']:.3f}), by group "
-                f"{json.dumps({g: round(ms, 3) for g, ms in search['groups_ms'].items()})}")
+                f"{json.dumps({g: round(ms, 3) for g, ms in search['groups_ms'].items()})}; side "
+                f"scans (rows, block, J) {search['side_scans']}")
             r.update(body=",".join(sorted(body)), search_split=search,
                      filled_slots=int(call["slots"].sum()))
             r.update(kernel_ms=cuda_ms(call["kernel"], iters=3),
@@ -4008,8 +4179,8 @@ def main(argv=None):
          "denseretrievaltoolkits_tpu/ops/attn.py:252",
          blocks["K2 bfloat16 B=64 S=156"]),
         ("block_topj",
-         ", ".join(src + f for f in ("flat_certified.cu", "split.cuh", "hopper.cuh",
-                                     "serve_select.cuh", "common.cuh")),
+         ", ".join(src + f for f in ("flat_certified.cu", "flat_serve.cu", "split.cuh",
+                                     "hopper.cuh", "serve_select.cuh", "common.cuh")),
          "denseretrievaltoolkits_tpu/ops/topk.py:37", k5["float32"]),
     ]
     # bounds at the shapes timed: K1/K2 bf16 B=64 S=156 (phase 2's rows); K5 fp32 over
@@ -4027,9 +4198,9 @@ def main(argv=None):
     kernels[0].update({k: rows[0][3][k] for k in ("body", "stage_a_ms", "stage_b_ms",
                                                   "scratch_bound_ms")})  # K1's two launches
     kernels[1]["chain_ms"] = rows[1][3]["chain_ms"]  # K2: the xla block's bf16 chain
-    # K5: flat_certified.cu's bodies (fp32 as fp16 pairs, bf16), block_topj.cu's on the same
-    # rows beside them; fp32's bound is the three fp16 products that run (989 TFLOP/s), the
-    # fp32 FFMA bound beside it
+    # K5: its Hopper bodies (fp32 as fp16 pairs, flat_certified.cu; bf16 flat_serve.cu's),
+    # block_topj.cu's on the same rows beside them; fp32's bound is the three fp16 products
+    # that run (989 TFLOP/s), the fp32 FFMA bound beside it
     f32, b16 = k5["float32"], k5["bfloat16"]
     kernels[2].update({
         "body": f32["body"], "ms_j32": f32["ms_j32"], "max_abs_err_fp64": f32["max_abs_err_fp64"],
@@ -4068,13 +4239,15 @@ def main(argv=None):
                 "ffma_bound_ms": bound(4 * ((Q + P + out_rows) * H + 2 * Q), ops, "fp32")[0],
                 "splits": big["splits"][i], "train_shape_splits": k34["32x256"]["splits"][i],
                 "generic_launches": getattr(contrastive, name).launches_generic})
-    # this slice's kernels: times on the 1M-row corpus, launches on the int8 path
+    # this slice's kernels: times on the 1M-row corpus, launches on the int8 path; K6 and K8 on
+    # their Hopper bodies (flat_serve.cu; K8 fp32 flat_certified.cu's fp16-pair body)
     for name, source, replaces, r, counter in (
-            ("block_topj (K6, int8 rows)", "block_topj.cu", "ops/topk.py:65", int8_topk["K6"],
-             "block_topj (K6)"),
+            ("block_topj (K6, int8 rows)",
+             "flat_serve.cu, serve_select.cuh, hopper.cuh, common.cuh", "ops/topk.py:65",
+             int8_topk["K6"], "block_topj (K6)"),
             ("quantize_int8_device", "quant.cu", "ops/quant.py:20", k7, "quantize_int8_device"),
-            ("block_topj_serve", "block_topj.cu", "ops/topk.py:94", int8_topk["K8 int8"],
-             "block_topj_serve"),
+            ("block_topj_serve", "flat_serve.cu, flat_certified.cu, split.cuh, serve_select.cuh, "
+             "hopper.cuh, common.cuh", "ops/topk.py:94", int8_topk["K8 int8"], "block_topj_serve"),
             ("block_topj_i8q", "flat_serve.cu, serve_select.cuh, hopper.cuh, common.cuh",
              "ops/topk.py:190", int8_topk["K12 int8"], "block_topj_i8q")):
         kernels.append({"name": name, "route": "cuda",
@@ -4085,6 +4258,22 @@ def main(argv=None):
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
         if counter == "block_topj_i8q":  # flat_serve.cu's body, its times at the other serve J
             kernels[-1].update({f: r[f] for f in r if f == "body" or f.startswith("ms_j")})
+        elif counter == "block_topj (K6)":  # the escalation's J = 32
+            kernels[-1].update(body=r["body"], ms_j32=r["ms_j32"],
+                               generic_launches=topk.block_topj.launches_int8_generic)
+        elif counter == "block_topj_serve":  # K8 int8's times at the other J, its fp32 and bf16
+            f32, b16 = int8_topk["K8 float32"], int8_topk["K8 bfloat16"]
+            kernels[-1].update({f: r[f] for f in r if f == "body" or f.startswith("ms_j")})
+            kernels[-1].update(
+                generic_launches=topk.block_topj_serve.launches_generic,
+                fp32_body=f32["body"], fp32_ms=f32["ms"], fp32_plain_ms=f32["plain_ms"],
+                fp32_bound_ms=f32["bound_ms"], fp32_ffma_bound_ms=f32["ffma_bound_ms"],
+                fp32_ffma_ms=f32["ffma_ms"], fp32_max_abs_err_fp64=f32["max_abs_err_fp64"],
+                fp32_ffma_max_abs_err_fp64=f32["ffma_max_abs_err_fp64"],
+                bf16_body=b16["body"], bf16_ms=b16["ms"], bf16_plain_ms=b16["plain_ms"],
+                bf16_bound_ms=b16["bound_ms"],
+                **{f"fp32_{f}": f32[f] for f in f32 if f.startswith("ms_j")},
+                **{f"bf16_{f}": b16[f] for f in b16 if f.startswith("ms_j")})
     # the int4 kernels: times on the 1M-row corpus, launches on the evaluation path; K10 runs
     # int4_certified.cu's s8 body (block_topj.cu's FFMA body launched 0 times on these paths:
     # checked), with the FFMA body's time and error against fp64 on the same rows beside it
@@ -4218,6 +4407,12 @@ def main(argv=None):
                 else "K12 int8"]
     check(not any(serve_generic.values()),
           f"K11 / K12: block_topj.cu's body ran on the paths: {serve_generic}")
+    # and int8 rows under bf16 queries, certified (K6), and fp32, bf16 and int8 rows, serve (K8,
+    # the IVF side scans too): flat_serve.cu's and flat_certified.cu's bodies
+    flat8_generic = {"K6": topk.block_topj.launches_int8_generic,
+                     "K8": topk.block_topj_serve.launches_generic}
+    check(not any(flat8_generic.values()),
+          f"K6 / K8: block_topj.cu's body ran on the paths: {flat8_generic}")
     # and fp32 / bf16 rows (K5) and the loss's backward (K4) at H = 768: their new bodies
     kernels[2]["generic_launches"] = topk.block_topj.launches_generic
     check(topk.block_topj.launches_generic == 0,

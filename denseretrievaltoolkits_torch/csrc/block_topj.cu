@@ -3,13 +3,15 @@
 //
 // Replaces these TPU kernels of denseretrievaltoolkits_tpu/ops/topk.py:
 //   K5  `_block_topj_kernel` (:37, launched by `_pallas_block_topj`, :336): exact top-J,
-//       fp32 / bf16 rows, at the shapes flat_certified.cu does not take
-//       (drt_flat_certified_takes; drt_block_topj dispatches the others to its wgmma bodies);
+//       fp32 / bf16 rows, at the shapes flat_certified.cu (fp32) and flat_serve.cu (bf16) do
+//       not take (drt_block_topj dispatches the others to their wgmma bodies);
 //   K6  `_block_topj_kernel_scaled` (:65, `_pallas_block_topj_scaled`, :618): K5 over
-//       int8 rows times a per-row scale, bf16 queries;
+//       int8 rows times a per-row scale, bf16 queries, at the shapes flat_serve.cu does not
+//       take (drt_flat_serve_takes; drt_block_topj dispatches the others to its wgmma body);
 //   K8  `_packed_select` with `_block_topj_kernel_packed` / `_packed_scaled` (:94, :122,
 //       :148; `pallas_topk_serve*`, :373, :411): the serve selection over fp32, bf16 and
-//       int8 rows;
+//       int8 rows, at the shapes flat_certified.cu (fp32) and flat_serve.cu (bf16, int8) do
+//       not take;
 //   K12 `_block_topj_kernel_packed_i8q` (:190, :481): int8 queries x int8 rows, s32
 //       products, times scale_row x scale_query, then the serve selection; and its sq4
 //       body `_block_topj_kernel_packed_sq4_i8q` (:213, :517) over int4 rows; both at the
@@ -730,16 +732,19 @@ extern "C" int drt_int4_certified_takes(const void* q, const void* corpus, int H
 extern "C" int drt_int4_certified(const void* q, const void* corpus, const void* scales,
                                   void* out_v, void* out_i, int Q, int N, int H, int n_valid,
                                   int block, int J, void* stream);
-// flat_serve.cu: K11's and K12's wgmma bodies and the shapes they take
+// flat_serve.cu: K6's, K8's (bf16 and int8 rows), K11's and K12's wgmma bodies and the shapes
+// they take
 extern "C" int drt_flat_serve_takes(const void* q, const void* corpus, int H, int qtype,
                                     int ctype);
 extern "C" int drt_flat_serve(const void* q, const void* corpus, const void* cscales,
                               const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
-                              int n_valid, int block, int J, int qtype, int ctype, void* stream);
-// flat_certified.cu: K5's wgmma bodies (fp32 as fp16 pairs, bf16) and the shapes they take
-extern "C" int drt_flat_certified_takes(const void* q, const void* corpus, int H, int dtype);
+                              int n_valid, int block, int J, int qtype, int ctype, int cert,
+                              void* stream);
+// flat_certified.cu: K5's and K8's wgmma body over fp32 rows (fp16 pairs) and the shapes it
+// takes
+extern "C" int drt_flat_certified_takes(const void* q, const void* corpus, int H);
 extern "C" int drt_flat_certified(const void* q, const void* corpus, void* out_v, void* out_i,
-                                  int Q, int N, int H, int n_valid, int block, int J, int dtype,
+                                  int Q, int N, int H, int n_valid, int block, int J, int serve,
                                   void* stream);
 
 // q [Q,H] (qtype), corpus [N,H] (ctype) or [N,H/2] (int4), cscales [N] fp32 or null,
@@ -747,10 +752,10 @@ extern "C" int drt_flat_certified(const void* q, const void* corpus, void* out_v
 // int32. Types: 0 fp32, 1 bf16, 2 int8, 3 int4 (nibble-packed, column halves, H even).
 // Pairs taken: fp32 x fp32, bf16 x bf16, bf16 x int8, fp32 x int4 (certified only), and
 // (serve only) bf16 x int4, and int8 x int8 / int8 x int4 at H % 64 == 0 with 16-byte
-// aligned rows. fp32 x int4 certified runs int4_certified.cu's body where it takes the
-// shape, fp32 x fp32 / bf16 x bf16 certified flat_certified.cu's, and int8 x int8, int8 x
-// int4 and bf16 x int4 serve flat_serve.cu's; `body`, where not null, is set to 1, 2 or 3
-// then, else to 0 (this file's bodies).
+// aligned rows. Where they take the shape, fp32 x int4 certified runs int4_certified.cu's
+// body, fp32 x fp32 (both selections) flat_certified.cu's, and bf16 x bf16 and bf16 x int8
+// (both), int8 x int8, int8 x int4 and bf16 x int4 serve flat_serve.cu's; `body`, where not
+// null, is set to 1, 2 or 3 then, else to 0 (this file's bodies).
 extern "C" int drt_block_topj(const void* q, const void* corpus, const void* cscales,
                               const void* qscales, void* out_v, void* out_i, int Q, int N, int H,
                               int n_valid, int block, int J, int qtype, int ctype, int serve,
@@ -763,16 +768,16 @@ extern "C" int drt_block_topj(const void* q, const void* corpus, const void* csc
     return drt_int4_certified(q, corpus, cscales, out_v, out_i, Q, N, H, n_valid, block, J,
                               stream);
   }
-  if (!serve && qtype == ctype && (qtype == T_F32 || qtype == T_BF16) &&
-      drt_flat_certified_takes(q, corpus, H, qtype)) {
+  if (qtype == T_F32 && ctype == T_F32 && drt_flat_certified_takes(q, corpus, H)) {
     if (body != nullptr) *body = 2;
-    return drt_flat_certified(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, qtype,
+    return drt_flat_certified(q, corpus, out_v, out_i, Q, N, H, n_valid, block, J, serve,
                               stream);
   }
-  if (serve && drt_flat_serve_takes(q, corpus, H, qtype, ctype)) {
+  if ((serve || (qtype == T_BF16 && (ctype == T_BF16 || ctype == T_I8))) &&
+      drt_flat_serve_takes(q, corpus, H, qtype, ctype)) {
     if (body != nullptr) *body = 3;
     return drt_flat_serve(q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,
-                          qtype, ctype, stream);
+                          qtype, ctype, !serve, stream);
   }
   const int n_blocks = (N + block - 1) / block;
   const Args a{q, corpus, cscales, qscales, out_v, out_i, Q, N, H, n_valid, block, J,

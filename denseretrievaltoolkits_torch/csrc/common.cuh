@@ -80,6 +80,21 @@ __device__ __forceinline__ unsigned nibbles(unsigned w, bool high) {
   return __vsub4(n ^ 0x08080808u, 0x08080808u);
 }
 
+// Four int8 (one word, k in byte order) -> four bf16 in two words (lo: bytes 0, 1; hi: bytes
+// 2, 3), exactly, with no int-to-float conversion (ivf_cell.cu's int8 rows, flat_serve.cu's K6
+// / K8 fragments): each biased byte u = x + 128 becomes the float 2^23 + u (its bits 0x4B000000
+// | u, one byte permute), minus 2^23 + 128 leaves x, whose low 16 bits are zero (|x| <= 128),
+// so its bf16 is its high half.
+__device__ __forceinline__ void i8x4_to_bf16(unsigned w, unsigned& lo, unsigned& hi) {
+  const unsigned b = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

@@ -12,6 +12,7 @@
 // 64-column atoms `lbo` bytes apart (sw128_desc).
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <mutex>
 
@@ -500,6 +501,21 @@ __device__ __forceinline__ void bulk_wait_read() {
 }
 
 // ---- host ----------------------------------------------------------------------------
+
+// The grid's y extent for a (query tile, storage block) kernel whose CTAs walk their blocks
+// in turn (blockIdx.y, + gridDim.y, ...), keeping their query tile: blocks short of 4096 rows
+// share a CTA up to 4096 rows (the IVF side scans' 512-row blocks) while the grid keeps 4
+// waves of `per_sm` CTAs on each of the card's SMs; one block a CTA where the SM count cannot
+// be read.
+inline int grid_blocks(int n_blocks, int q_tiles, int block, int per_sm) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    return n_blocks;
+  const long long ctas = (long long)n_blocks * q_tiles, want = 4LL * sms * per_sm;
+  const long long per = std::max(1LL, std::min<long long>(4096 / block, ctas / want));
+  return (int)((n_blocks + per - 1) / per);
+}
 
 // cuTensorMapEncodeTiled is looked up in libcuda through the runtime's entry-point
 // query, so the library links no libcuda.

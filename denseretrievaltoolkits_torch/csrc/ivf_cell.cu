@@ -349,19 +349,6 @@ static_assert(Wg<K_BF16>::SMEM <= SMEM_MAX / 2 && Wg<K_I8ROWS>::SMEM <= SMEM_MAX
                   Wg<K_I8Q>::SMEM <= SMEM_MAX / 2,
               "two CTAs of the wgmma body must fit an SM");
 
-// four int8 (one word, k in byte order) -> four bf16 in two words, exactly: each biased byte
-// u = x + 128 becomes the float 2^23 + u, minus 2^23 + 128 leaves x, whose low 16 bits are
-// zero (|x| <= 128), so its bf16 is its high half
-__device__ __forceinline__ void i8x4_to_bf16(unsigned w, unsigned& lo, unsigned& hi) {
-  const unsigned b = w ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7541)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7542)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7543)) - 8388736.f;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
 // The tile's int8 rows [TR][64 bytes] -> bf16 [TR][128 bytes] in the 128-byte swizzle (16-byte
 // chunk c of row r at c ^ (r % 8)); the warpgroup's 128 threads take 16 bytes of int8 each time
 __device__ __forceinline__ void convert_rows(const unsigned char* src, unsigned char* dst,

@@ -110,7 +110,7 @@ __device__ __forceinline__ float list_floor(const u64 (&L)[N], int J) {
   return t == 0ull ? -INFINITY : key_score(t);
 }
 
-// ---- a thread's own list over a tile's rows (int4_certified.cu, flat_serve.cu) ---------------
+// ---- a thread's own list over a tile's rows (int4_certified.cu, flat_serve.cu, flat_certified.cu)
 // A thread owns a sorted list of N keys and sees the rows of each tile in row order, each
 // row as its score's order (score_order; the certified kernel makes -0 +0 first, so its
 // order is the certified one). A row enters only past the order of the list's J-th key,
@@ -158,6 +158,17 @@ __device__ __forceinline__ void insert_candidates(u64 (&L)[N], unsigned& floor,
     }
   }
 }
+
+// A query's row of a score tile of orders as the selection reads it: four rows or one
+// (flat_serve.cu, flat_certified.cu's fp32 body).
+struct OrderRow {
+  const unsigned* orow;
+  __device__ __forceinline__ void operator()(int k, unsigned (&o)[4]) const {
+    const uint4 v = *reinterpret_cast<const uint4*>(orow + 4 * k);
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  }
+  __device__ __forceinline__ unsigned operator()(int b) const { return orow[b]; }
+};
 
 // The same with the list in shared memory (column `list` of a slot-major array, `stride`
 // apart) and its floor at floor_at: both leave shared memory only where a row entered.

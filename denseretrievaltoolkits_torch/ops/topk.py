@@ -1,11 +1,14 @@
 """Block top-J kernels K5, K6, K8, K10, K11 and K12, the certified search and the serve search.
 
-Counterparts of ``denseretrievaltoolkits_tpu/ops/topk.py``. The kernels are
-instantiations of one templated CUDA family (``csrc/block_topj.cu``), but for
-K5 / K10 / K11 / K12 at the shapes their Hopper bodies take
-(``csrc/flat_certified.cu``, ``csrc/int4_certified.cu``, ``csrc/flat_serve.cu``);
-each has its own entry point, launch counter and plain version. CPU tensors
-take the plain version; CUDA tensors launch the kernel or raise.
+Counterparts of ``denseretrievaltoolkits_tpu/ops/topk.py``. Every kernel runs a
+Hopper body at the shapes it takes (``csrc/flat_certified.cu``: K5, K8 over fp32
+rows; ``csrc/flat_serve.cu``: K5 over bf16 rows, K6, K8 over bf16 and int8 rows,
+K11, K12;
+``csrc/int4_certified.cu``: K10), and one templated CUDA family
+(``csrc/block_topj.cu``) at the others, where the call also counts on
+``<counter>_generic`` (:func:`hopper_pair`); each has its own entry point,
+launch counter and plain version. CPU tensors take the plain version; CUDA
+tensors launch the kernel or raise.
 
 ``int4=True`` selects the nibble-packed int4 rows of ``ops/quant.py`` (K9):
 corpus [N, H/2] int8 in column halves with per-row ``scales``, queries [Q, H].
@@ -28,16 +31,24 @@ to 768, int8 up to 1024) with 16-byte aligned operands; at other shapes
   given per-row ``scales`` for int8 rows, ``_pallas_block_topj_scaled`` (K6,
   bf16 queries): per (query, corpus block) the J best (score, id) pairs, ties
   to the smaller id. Plain version :func:`_block_topj_reference`; launches in
-  ``block_topj.launches`` (K5) and ``block_topj.launches_int8`` (K6). K5 runs
-  ``csrc/flat_certified.cu``'s wgmma bodies (fp32 products as fp16 pairs, bf16
-  on TMA + wgmma) at H % 64 == 0 (fp32: H <= 768) with 16-byte aligned rows,
-  else ``block_topj.cu``'s, which also count on ``block_topj.launches_generic``.
+  ``block_topj.launches`` (K5) and ``block_topj.launches_int8`` (K6). K5 over
+  fp32 rows runs ``csrc/flat_certified.cu``'s wgmma body (fp32 products as fp16
+  pairs) at H % 64 == 0 up to 768, K5 over bf16 rows ``csrc/flat_serve.cu``'s
+  (TMA + wgmma, the certified order) at H % 64 == 0 up to 1024, with 16-byte
+  aligned rows, else ``block_topj.cu``'s, which also count on
+  ``block_topj.launches_generic``; K6 ``flat_serve.cu``'s (int8 words into bf16
+  wgmma fragments, the certified order) at H % 64 == 0 up to 1024, else
+  ``block_topj.cu``'s, counted on ``block_topj.launches_int8_generic`` too.
   ``block_topj.last_body`` names the body of the last call.
 - :func:`block_topj_serve` ports the serve kernels ``_block_topj_kernel_packed``
   / ``_packed_scaled`` (K8) over fp32, bf16 and int8 rows. The TPU packs score
   and id into one int32 and rounds the score; the kernel packs them into 64
   bits, so its scores are exact. Plain version
   :func:`_block_topj_serve_reference`; launches in ``block_topj_serve.launches``.
+  fp32 rows run ``flat_certified.cu``'s fp16-pair body (H % 64 == 0 up to 768),
+  bf16 and int8 rows ``flat_serve.cu``'s (H % 64 == 0 up to 1024), 16-byte
+  aligned; other shapes ``block_topj.cu``'s, counted on
+  ``block_topj_serve.launches_generic`` too.
 - :func:`block_topj_i8q` ports ``_block_topj_kernel_packed_i8q`` (K12's int8
   body): int8 queries x int8 rows with s32 products, times scale_row x
   scale_query, then the serve selection. Plain version
@@ -186,17 +197,35 @@ def _block_topj_i8q_reference(qi, qscales, corpus, scales, J: int, block_size: i
 # the bodies drt_block_topj reports it ran
 BODIES = ("block_topj", "int4_certified", "flat_certified", "flat_serve")
 
+# (query dtype, row dtype or "int4", serve) of the pairs a Hopper body takes at some shapes:
+# certified K5 (fp32: flat_certified.cu; bf16: flat_serve.cu), K6 (flat_serve.cu), K10
+# (int4_certified.cu); serve K8
+# over fp32 (flat_certified.cu), bf16 and int8 rows, K11, K12 and its sq4 body (flat_serve.cu)
+HOPPER_PAIRS = frozenset({
+    (torch.float32, torch.float32, False), (torch.bfloat16, torch.bfloat16, False),
+    (torch.bfloat16, torch.int8, False), (torch.float32, "int4", False),
+    (torch.float32, torch.float32, True), (torch.bfloat16, torch.bfloat16, True),
+    (torch.bfloat16, torch.int8, True), (torch.int8, torch.int8, True),
+    (torch.bfloat16, "int4", True), (torch.int8, "int4", True)})
+
+
+def hopper_pair(qtype, ctype, serve: bool, int4: bool) -> bool:
+    """Whether a Hopper body takes (query dtype, row dtype) at some shapes, in the
+    certified or the serve selection (``int4``: nibble-packed int8 rows): where it
+    does, ``block_topj.cu``'s body running the call counts on ``<counter>_generic``."""
+    if int4 and ctype != torch.int8:  # int4 rows are nibble-packed into int8
+        return False
+    return (qtype, "int4" if int4 else ctype, bool(serve)) in HOPPER_PAIRS
+
 
 def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qscales=None,
             serve=False, int4=False):
     """Check the operands and launch ``drt_block_topj``; returns (vals, ids).
     A launch adds one to ``wrapper.<counter>``, and to
     ``wrapper.<counter>_generic`` where the C entry reports that
-    ``block_topj.cu``'s body ran a call that ``int4_certified.cu`` (fp32 x
-    int4) or ``flat_certified.cu`` (fp32 x fp32, bf16 x bf16) could take at
-    other shapes, certified, or that ``flat_serve.cu`` (int8 x int8, int8 x
-    int4, bf16 x int4) could take at other shapes, serve.
-    ``wrapper.last_body`` names the body that ran."""
+    ``block_topj.cu``'s body ran a call whose pair a Hopper body takes at other
+    shapes (:func:`hopper_pair`). ``wrapper.last_body`` names the body that
+    ran."""
     name = wrapper.__name__
     Q, H = q.shape
     N = corpus.shape[0]
@@ -235,9 +264,7 @@ def _launch(wrapper, counter, q, corpus, J, block_size, n_valid, scales=None, qs
         INT4_CODE if int4 else TYPE_CODES[corpus.dtype], int(serve), ctypes.byref(body),
         _native.stream_ptr(q)), "drt_block_topj")
     wrapper.last_body = BODIES[body.value]
-    # the type pairs a Hopper body takes at other shapes
-    hopper = int4 or (q.dtype == torch.int8 if serve else corpus.dtype != torch.int8)
-    if body.value == 0 and hopper:
+    if body.value == 0 and hopper_pair(q.dtype, corpus.dtype, serve, int4):
         setattr(wrapper, counter + "_generic", getattr(wrapper, counter + "_generic") + 1)
     return vals, ids
 
@@ -273,6 +300,7 @@ def block_topj(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: int,
 block_topj.launches = 0
 block_topj.launches_generic = 0
 block_topj.launches_int8 = 0
+block_topj.launches_int8_generic = 0
 block_topj.launches_int4 = 0
 block_topj.launches_int4_generic = 0
 block_topj.last_body = None
@@ -298,6 +326,7 @@ def block_topj_serve(q: torch.Tensor, corpus: torch.Tensor, J: int, block_size: 
 
 
 block_topj_serve.launches = 0
+block_topj_serve.launches_generic = 0
 block_topj_serve.last_body = None
 block_topj_serve.launches_int4 = 0
 block_topj_serve.launches_int4_generic = 0

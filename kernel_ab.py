@@ -5,8 +5,9 @@ checkout (say the parent commit), on one card, in turns.
     mkdir -p _chip_scratch/parent
     git archive <commit> denseretrievaltoolkits_torch | tar -x -C _chip_scratch/parent
     python3 kernel_ab.py --other _chip_scratch/parent
-                         [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf|int4|ivfpq|contrastive|flat|serve]
-                         [--seed 0] [--profile] [--ptxas] [--out FILE]
+                         [--kernel mlp_ln|attn_ln|flash_bwd|pq|ivf|int4|ivfpq|contrastive|flat|serve|
+                                   flat8]
+                         [--seed 0] [--profile] [--ptxas] [--sass] [--variant V] [--out FILE]
 
 ``--kernel mlp_ln`` (the default): K2, called through its wrapper
 ``ops/attn.py:fused_mlp_ln`` as the encoder calls it, at the bf16 bert-base shapes
@@ -87,11 +88,30 @@ that ran where the checkout names it. ``--ptxas`` reads ``flat_certified.cu``.
 (``block_topj_i8q(int4=True)``) and K12's int8 body (``block_topj_i8q``) on 1,000,000 seeded
 N(0, 1) rows x 768 (row 0 zero) quantized by K7 and packed by K9, 1024 seeded queries (K7's
 query quantization for K12), 4096-row blocks at J = 7 (the 1M-row serve J) and 11 (the
-262,144-row slabs'), and K12 int8 at the IVF side scan's 1024-row blocks and J = 4. Each
+262,144-row slabs'), K12 sq4 at J = 32 (its 32-key lists), and K12 int8 at the 8.8M IVFR256
+i8q side scan's 512-row blocks and J = 9. Each
 turn makes the same rows from the seed and reports checksums (which must agree); K12's
 errors are against its checkout's plain version (0: bit-equal), K11's the largest |score -
 fp64 score of the same bf16 queries|; the body that ran where the checkout names it.
 ``--ptxas`` reads ``flat_serve.cu``.
+
+``--kernel flat8``: K6 (``block_topj`` over int8 rows, bf16 queries) at J = 8 and 32 and K8
+(``block_topj_serve``) over fp32, bf16 and int8 rows at J = 7 (the 1M-row serve J) and 11 (the
+262,144-row slabs'), on 1,000,000 seeded N(0, 1) rows x 768 (int8 by K7), 1024 seeded
+queries, 4096-row blocks; and K8 fp32 and int8 at the IVF side scans' 512-row blocks (fp32 J =
+12, int8 J = 9 and 6). Each turn makes the same rows from the seed and reports checksums
+(which must agree), the largest |score - fp64 score of the same ids| over the first 256
+queries (queries in the kernels' input type, int8 rows times their scales) and the body that
+ran. ``--ptxas`` reads ``flat_serve.cu`` and ``flat_certified.cu``.
+
+``--sass`` reads the SASS of the kernel's sources (``cuobjdump -sass``) and scans each CUDA
+function for accesses to the registers of a wgmma still in flight: a write to its A
+fragments or accumulators, or a read of its accumulators, before the ``WARPGROUP.DEPBAR``
+that retires its group, following branches and loops (``gmma_hazards``: "may" on some path,
+"must" on every path); ``--listing NAME`` writes the SASS of the functions whose name holds
+NAME beside ``--out``. With ``--variant`` (``VARIANTS``), ``--ptxas`` and ``--sass``
+compile an edited copy of a source instead: ``bi8-two-sets`` is ``flat_serve.cu``'s BI8 body
+with two RS register sets in turn. Without ``--other`` only these reports run.
 
 Four processes run in turn, other, this, this, other; each imports the port from
 its own checkout (which builds its kernels into its own ``_build/``), makes the
@@ -108,6 +128,7 @@ import argparse
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -141,16 +162,42 @@ INT4_ROWS, INT4_QUERIES, INT4_BLOCK, INT4_J = 1_000_000, 1024, 4096, (8, 32)
 # K5: the same shape in fp32 and bf16 rows
 FLAT_ROWS, FLAT_QUERIES, FLAT_BLOCK, FLAT_J = 1_000_000, 1024, 4096, (8, 32)
 # K11 / K12: 1M rows x 768, 1024 queries; (body, J, block): the 1M-row serve J, the slabs' J,
-# and the IVF side scan's J and block
+# K12 sq4 at 32-key lists, and K12 int8 at the 8.8M IVFR256 i8q side scan's J and block
 SERVE_ROWS, SERVE_QUERIES = 1_000_000, 1024
 SERVE_CASES = tuple((b, j, 4096) for b in ("K11", "K12 sq4", "K12 int8") for j in (7, 11)) + (
-    ("K12 int8", 4, 1024),)
+    ("K12 sq4", 32, 4096), ("K12 int8", 9, 512))
+# K6 / K8: 1M rows x 768, 1024 queries; (body, J, block): K6 at the certified J and its
+# escalation's, K8 at the 1M-row serve J and the slabs', and at the IVF side scans' (block 512)
+FLAT8_CASES = (("K6", 8, 4096), ("K6", 32, 4096)) + tuple(
+    (f"K8 {d}", j, 4096) for d in ("fp32", "bf16", "int8") for j in (7, 11)) + (
+    ("K8 fp32", 12, 512), ("K8 int8", 9, 512), ("K8 int8", 6, 512))
+FLAT8_ERR_QUERIES = 256
 # K4: (Q, P) of the grad-cache scale and of the training path, stride P / Q
 CONTRASTIVE_SHAPES = ((4096, 32768), (32, 256))
 SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",),
            "pq": ("pq_serve.cu",), "ivf": ("ivf_cell.cu",), "int4": ("int4_certified.cu",),
            "ivfpq": ("ivf_cell.cu",), "contrastive": ("contrastive.cu",),
-           "flat": ("flat_certified.cu",), "serve": ("flat_serve.cu",)}
+           "flat": ("flat_certified.cu",), "serve": ("flat_serve.cu",),
+           "flat8": ("flat_serve.cu", "flat_certified.cu")}
+# --variant: (source, [(text, its replacement)]) compiled for --ptxas / --sass in place of
+# the checkout's source. bi8-two-sets: flat_serve.cu's BI8 body (K6, K8 int8) with two RS
+# register sets in turn, each built after wait_group 1 (one group left in flight), as K11's.
+VARIANTS = {"bi8-two-sets": ("flat_serve.cu", [
+    ("""        unsigned a0[KS][4];
+""", """        unsigned a0[KS][4], a1[KS][4];
+"""),
+    ("""          wgmma_wait<0>();  // the group that read the set is done""",
+     """          if constexpr (KIND == BI8)
+            wgmma_wait<1>();
+          else
+            wgmma_wait<0>();"""),
+    ("""            products(a0, none, j);""", """            if (j & 1)
+              products(a1, none, j);
+            else
+              products(a0, none, j);"""),
+    ("""        for (int kk = 0; kk < KS; ++kk) fence_regs(a0[kk]);
+""", """        for (int kk = 0; kk < KS; ++kk) fence_regs(a0[kk]), fence_regs(a1[kk]);
+""")])}
 
 
 def inputs(B, S, gen):
@@ -633,6 +680,45 @@ def serve_rows(chip_smoke, seed, profile):
     return out
 
 
+def flat8_rows(chip_smoke, seed, profile):
+    """K6 and K8 (fp32, bf16, int8 rows) of the imported checkout at FLAT8_CASES on rows and
+    queries made from the seed."""
+    from denseretrievaltoolkits_torch.ops import quant, topk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(SERVE_ROWS, H, generator=gen, device="cuda")
+    c8, s8 = quant.quantize_int8_device(x)
+    q = torch.randn(SERVE_QUERIES, H, generator=gen, device="cuda")
+    qb = q.bfloat16()
+    rows = {"fp32": (q, x, None), "bf16": (qb, x.bfloat16(), None), "int8": (qb, c8, s8)}
+    checksum = [float(q.sum()), float(x[::997].sum()), int(c8[::997].long().sum()),
+                float(s8.sum())]
+    out = {}
+    for body, J, blk in FLAT8_CASES:
+        qc, c, sc = rows["int8" if body == "K6" else body[3:]]
+        fn = topk.block_topj if body == "K6" else topk.block_topj_serve
+
+        def call(j=J, b=blk, qc=qc, c=c, sc=sc, fn=fn):
+            return fn(qc, c, j, b, SERVE_ROWS, sc)
+
+        vals, ids = call()
+        n = FLAT8_ERR_QUERIES
+        err = 0.0
+        for a in range(0, n, 16):
+            got = vals[a:a + 16].reshape(16, -1)
+            want = chip_smoke.rescore(q[a:a + 16], c, ids[a:a + 16].reshape(16, -1), sc)
+            err = max(err, float(torch.where(got.isfinite(), (want - got.double()).abs(),
+                                             0.0).max()))
+        row = {"ms": chip_smoke.cuda_ms(call, iters=5, warmup=1), "J": J, "block": blk,
+               "max_abs_err_fp64": err, "body": getattr(fn, "last_body", None),
+               "checksum": checksum}
+        if profile:
+            row["kernels_us"] = kernel_us(call, iters=3)
+        out[f"{body} J={J} block={blk}"] = row
+        del vals, ids
+    return out
+
+
 def contrastive_rows(chip_smoke, seed, profile):
     """K4's dq and dp of the imported checkout at the grad-cache and training shapes."""
     from denseretrievaltoolkits_torch.ops import contrastive as con
@@ -694,28 +780,318 @@ def worker(checkout, kernel, seed, profile, inputs=""):
         out.update(contrastive_rows(chip_smoke, seed, profile))
     elif kernel == "serve":
         out.update(serve_rows(chip_smoke, seed, profile))
+    elif kernel == "flat8":
+        out.update(flat8_rows(chip_smoke, seed, profile))
     else:
         out.update(block_rows(chip_smoke, seed, profile, k1=kernel == "attn_ln"))
     return out
 
 
-def ptxas(kernel):
-    """``nvcc -Xptxas -v`` on this checkout's sources of ``kernel``: the lines naming
-    entries, registers, shared memory and spills; and nvcc's largest exit code."""
+def source_path(name, variant, tmp):
+    """This checkout's ``csrc/<name>``, or a copy in ``tmp`` with ``variant``'s edits where
+    the variant edits that file."""
     sys.path.insert(0, ROOT)
     from denseretrievaltoolkits_torch.ops import _native
-    os.makedirs(_native.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_native.CSRC, name)
+    if not variant or VARIANTS[variant][0] != name:
+        return src
+    text = open(src).read()
+    for old, new in VARIANTS[variant][1]:
+        if text.count(old) != 1:
+            raise SystemExit(f"kernel_ab: variant {variant}: {old[:60]!r} is not in {name} once")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def ptxas(kernel, variant=""):
+    """``nvcc -Xptxas -v`` on this checkout's sources of ``kernel``: the lines naming
+    entries, registers, shared memory, spills and wgmma serialization; and nvcc's largest
+    exit code."""
+    sys.path.insert(0, ROOT)
+    from denseretrievaltoolkits_torch.ops import _native
     rc, lines = 0, []
-    for name in SOURCES[kernel]:
-        src = os.path.join(_native.CSRC, name)
-        obj = os.path.join(_native.BUILD_DIR, "ptxas_" + name.replace(".cu", ".o"))
-        proc = subprocess.run([_native.find_nvcc(), *_native.COMPILE_FLAGS, "-Xptxas", "-v",
-                               "-I", _native.CSRC, "-c", "-o", obj, src],
-                              capture_output=True, text=True)
-        rc = max(rc, proc.returncode)
-        lines += [ln for ln in (proc.stdout + proc.stderr).splitlines()
-                  if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SOURCES[kernel]:
+            proc = subprocess.run([_native.find_nvcc(), *_native.COMPILE_FLAGS, "-Xptxas", "-v",
+                                   "-I", _native.CSRC, "-c", "-o", os.path.join(tmp, "x.o"),
+                                   source_path(name, variant, tmp)],
+                                  capture_output=True, text=True)
+            rc = max(rc, proc.returncode)
+            lines += [ln for ln in (proc.stdout + proc.stderr).splitlines()
+                      if any(w in ln for w in ("Compiling entry", "Used", "spill", "wgmma"))]
     return rc, lines
+
+
+# --sass: the SASS of a source, scanned for accesses to the registers of an asynchronous
+# wgmma (HGMMA / IGMMA) while it may still run: a write to its A fragments or its
+# accumulators, or a read of its accumulators, before the WARPGROUP.DEPBAR that retires its
+# group. A group ends at the GMMA marked gsb0 (wgmma.commit_group); `DEPBAR.LE gsb0, N`
+# (wgmma.wait_group N) leaves the N newest in flight. The scan follows branches and loops
+# (a data-flow fixpoint over the instructions) twice: "may" joins the paths into a branch
+# target by union (a register in flight on some path; a loop that picks its register set by
+# a runtime parity shows both sets in flight), "must" by intersection (in flight on every
+# path: a hazard found so is one whichever way the branches went).
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_REG = re.compile(r"(?<![\w.])R(\d+)\b")
+_SASS_SHAPE = re.compile(r"\.64x(\d+)x\d+")
+_SASS_GMMA = ("HGMMA", "IGMMA", "QGMMA", "BGMMA")
+_SASS_NO_DEST = ("RED", "REDUX", "BAR", "BRA", "EXIT", "SYNCS", "WARPGROUP", "WARPSYNC",
+                 "BSSY", "BSYNC", "NOP", "MEMBAR", "FENCE", "DEPBAR", "UTMALDG", "UTMASTG",
+                 "UBLKCP", "CALL", "RET", "YIELD", "ERRBAR", "CCTL", "BPT", "UTMACCTL",
+                 "UTMAPF", "ARRIVES")
+
+
+def _sass_width(opcode):
+    """Registers the wide operand of ``opcode`` spans: its destination, and the data of a
+    store, the addend of a .WIDE multiply-add, every source of a double op."""
+    parts = opcode.split(".")
+    if parts[0] == "LDSM":
+        return int(parts[-1]) if parts[-1] in ("1", "2", "4") else 1
+    if "128" in parts:
+        return 4
+    if "64" in parts or "WIDE" in parts or "F64" in parts or parts[0] in ("DADD", "DMUL",
+                                                                           "DFMA"):
+        return 2
+    return 1
+
+
+def _sass_access(opcode, ops):
+    """(registers written, registers read) by one non-GMMA instruction."""
+    base, w = opcode.split(".")[0], _sass_width(opcode)
+    store = base.startswith("ST") or base in ("RED", "ATOM", "ATOMG", "ATOMS")
+    d = -1  # the operand index of the register destination
+    if not store and base not in _SASS_NO_DEST and ops:
+        if ops[0].startswith("R"):
+            d = 0
+        elif re.fullmatch(r"!?U?P(\d|T)", ops[0]) and len(ops) > 1 and ops[1].startswith("R"):
+            d = 1  # a predicate, then the register written (SHFL, LOP3)
+    writes = _sass_regs(ops[d], w) if d >= 0 else set()
+    reads, last = set(), max((k for k, op in enumerate(ops) if _SASS_REG.search(op)),
+                             default=-1)
+    for k, op in enumerate(ops):
+        if k == d:
+            continue
+        wide = base in ("DADD", "DMUL", "DFMA", "DSETP") or (
+            k == last and (store or "WIDE" in opcode.split(".")))
+        reads |= _sass_regs(op, w if wide else 1)
+    return writes, reads
+
+
+def _sass_operands(text):
+    """The operands of an instruction's text, split at the top-level commas."""
+    out, depth, cur = [], 0, ""
+    for ch in text:
+        if ch in "[(":
+            depth += 1
+        elif ch in "])":
+            depth -= 1
+        if ch == "," and depth == 0:
+            out.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    if cur.strip():
+        out.append(cur.strip())
+    return out
+
+
+def _sass_regs(operand, width):
+    """The registers an operand names: ``width`` from R<n> outside brackets, one inside."""
+    regs = set()
+    for m in _SASS_REG.finditer(operand):
+        inside = operand[:m.start()].count("[") > operand[:m.start()].count("]")
+        regs.update(range(int(m.group(1)), int(m.group(1)) + (1 if inside else width)))
+    return regs
+
+
+def parse_sass(text):
+    """cuobjdump -sass text -> {function: [(address, guard, opcode, operands)]}, and each
+    function's labels {label: address}."""
+    funcs, labels, name, pending = {}, {}, None, []
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name], labels[name], pending = [], {}, []
+            continue
+        if name is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSTR.search(line)
+        if not m:
+            continue
+        addr, body = int(m.group(1), 16), m.group(2).strip()
+        guard = ""
+        if body.startswith("@"):
+            guard, body = body.split(None, 1)
+        opcode, _, rest = body.partition(" ")
+        for lab in pending:
+            labels[name][lab] = addr
+        pending = []
+        funcs[name].append((addr, guard, opcode, _sass_operands(rest)))
+    return funcs, labels
+
+
+def gmma_hazards(instrs, labels, cap=8):
+    """Scan one function's instructions: counts of GMMAs (with A from registers, marked
+    gsb0), DEPBARs and local-memory accesses, and the hazards the may and the must scans
+    find, the first few as (address, kind, instruction text, the GMMA whose registers)."""
+    if not instrs:
+        return {"instructions": 0}
+    index = {a: i for i, (a, *_rest) in enumerate(instrs)}
+    # successors of each instruction (a branch whose target is not found: its fall-through)
+    succ, unresolved = [], 0
+    for i, (addr, guard, opcode, ops) in enumerate(instrs):
+        base = opcode.split(".")[0]
+        nxt = [i + 1] if i + 1 < len(instrs) else []
+        pred = bool(guard) and guard not in ("@PT", "@UPT")
+        if base in ("BRA", "JMP"):
+            tgt = None
+            for op in ops:
+                lab = re.search(r"\.L_x_\d+", op)
+                if lab and lab.group(0) in labels:
+                    tgt = labels[lab.group(0)]
+                hexa = re.fullmatch(r"`?\(?(0x[0-9a-f]+)\)?", op)
+                if hexa:
+                    tgt = int(hexa.group(1), 16)
+            t = [index[tgt]] if tgt in index else []
+            unresolved += not t
+            succ.append(t + (nxt if pred or not t else []))
+        elif base in ("EXIT", "RET", "BPT") and not pred:
+            succ.append([])
+        else:
+            succ.append(nxt)
+    # a register in flight: (register, kind "a" or "acc"); a state is (the committed groups,
+    # oldest first, each a frozenset of those; the open group)
+    access = {i: _sass_access(op, ops) for i, (_a, _g, op, ops) in enumerate(instrs)
+              if op.split(".")[0] not in _SASS_GMMA}
+
+    def step(i, state):
+        groups, open_ = state
+        _addr, _guard, opcode, ops = instrs[i]
+        base = opcode.split(".")[0]
+        if base in _SASS_GMMA:
+            shape = _SASS_SHAPE.search(opcode)
+            regs = set()
+            if ops and ops[0].startswith("R"):
+                regs |= {(r, "acc") for r in
+                         _sass_regs(ops[0], int(shape.group(1)) // 2 if shape else 1)}
+            if len(ops) > 1 and ops[1].startswith("R"):
+                regs |= {(r, "a") for r in _sass_regs(ops[1], 4)}
+            open_ = open_ | frozenset(regs)
+            if "gsb0" in ops:
+                groups, open_ = groups + (open_,), frozenset()
+                if len(groups) > cap:  # the oldest two as one: never fewer registers
+                    groups = (groups[0] | groups[1],) + groups[2:]
+        elif opcode.startswith("WARPGROUP.DEPBAR"):
+            m = re.search(r"0x([0-9a-f]+)", " ".join(ops))
+            keep = int(m.group(1), 16) if m else 0
+            groups = groups[len(groups) - keep:] if keep < len(groups) else groups
+        return groups, open_
+
+    def check(i, state):
+        if i not in access:
+            return None
+        writes, reads = access[i]
+        live = set().union(*state[0], state[1])
+        for r, kind in sorted(live):
+            if r in writes:
+                return "write", r
+            if kind == "acc" and r in reads:
+                return "read accumulator", r
+        return None
+
+    def owner(i, r):
+        """The nearest GMMA before instruction i naming register r, in address order from i
+        back to the function's start, then on from its end (a loop's back edge)."""
+        for k in list(range(i - 1, -1, -1)) + list(range(len(instrs) - 1, i, -1)):
+            _a, _g, op, ops = instrs[k]
+            if op.split(".")[0] in _SASS_GMMA:
+                shape = _SASS_SHAPE.search(op)
+                if r in _sass_regs(ops[0], int(shape.group(1)) // 2 if shape else 1) or (
+                        len(ops) > 1 and ops[1].startswith("R") and r in _sass_regs(ops[1], 4)):
+                    return k
+        return i
+
+    def join(a, b, must):
+        n = min(len(a[0]), len(b[0])) if must else max(len(a[0]), len(b[0]))
+        ga = ((frozenset(),) * n + a[0])[-n:] if n else ()
+        gb = ((frozenset(),) * n + b[0])[-n:] if n else ()
+        if must:
+            return tuple(x & y for x, y in zip(ga, gb)), a[1] & b[1]
+        return tuple(x | y for x, y in zip(ga, gb)), a[1] | b[1]
+
+    found = {}
+    for must in (False, True):
+        states, work, hazards = {0: ((), frozenset())}, [0], {}
+        while work:
+            i = work.pop()
+            hit = check(i, states[i])
+            if hit:
+                hazards[instrs[i][0]] = (hit[0], instrs[owner(i, hit[1])][0])
+            elif instrs[i][0] in hazards:
+                del hazards[instrs[i][0]]  # a must state only shrinks
+            out = step(i, states[i])
+            for j in succ[i]:
+                new = out if j not in states else join(states[j], out, must)
+                if states.get(j) != new:
+                    states[j] = new
+                    work.append(j)
+        found["must" if must else "may"] = hazards
+    text = {a: f"{g + ' ' if g else ''}{op} {', '.join(ops)}" for a, g, op, ops in instrs}
+    ops_of = [op for _a, _g, op, _o in instrs]
+    gmma = [o for o in instrs if o[2].split(".")[0] in _SASS_GMMA]
+    return {"instructions": len(instrs), "gmma": len(gmma),
+            "gmma_a_from_registers": sum(1 for o in gmma if len(o[3]) > 1
+                                         and o[3][1].startswith("R")),
+            "gsb0": sum(1 for o in gmma if "gsb0" in o[3]),
+            "depbar": sum(1 for op in ops_of if op.startswith("WARPGROUP.DEPBAR")),
+            "unresolved_branches": unresolved,
+            "ldl": sum(1 for op in ops_of if op.startswith("LDL")),
+            "stl": sum(1 for op in ops_of if op.startswith("STL")),
+            "hazards_may": len(found["may"]), "hazards_must": len(found["must"]),
+            "first_hazards": [f"/*{a:04x}*/ {'must' if a in found['must'] else 'may'} {k}: "
+                              f"{text[a]} (GMMA /*{o:04x}*/ {text[o]})"
+                              for a, (k, o) in sorted(found["may"].items())[:6]]}
+
+
+def sass(kernel, variant="", listing=""):
+    """The SASS of this checkout's sources of ``kernel`` (``variant`` applied), each CUDA
+    function scanned by :func:`gmma_hazards`. Returns (nvcc's or cuobjdump's largest exit
+    code, {function: scan}, the listing of each function whose name holds ``listing``)."""
+    sys.path.insert(0, ROOT)
+    from denseretrievaltoolkits_torch.ops import _native
+    nvcc = _native.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    rc, result, listed = 0, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SOURCES[kernel]:
+            cubin = os.path.join(tmp, name.replace(".cu", ".cubin"))
+            proc = subprocess.run([nvcc, *_native.COMPILE_FLAGS, "-I", _native.CSRC, "-cubin",
+                                   "-o", cubin, source_path(name, variant, tmp)],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                return proc.returncode, result, listed
+            proc = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True)
+            rc = max(rc, proc.returncode)
+            funcs, labels = parse_sass(proc.stdout)
+            names = subprocess.run(["c++filt"], input="\n".join(funcs), capture_output=True,
+                                   text=True).stdout.splitlines()
+            for (mangled, instrs), pretty in zip(funcs.items(), names or list(funcs)):
+                result[f"{name}: {pretty}"] = gmma_hazards(instrs, labels[mangled])
+                if listing and listing in pretty:
+                    at = {a: lab for lab, a in labels[mangled].items()}
+                    listed[f"{name}: {pretty}"] = "\n".join(
+                        (f"{at[a]}:\n" if a in at else "") + f"/*{a:04x}*/ {g} {op} {', '.join(o)}"
+                        for a, g, op, o in instrs)
+    return rc, result, listed
 
 
 def describe(name, turn, kernel):
@@ -727,7 +1103,7 @@ def describe(name, turn, kernel):
             f"{v['filled_slots']} filled slots, slots passed {v['slots_passed']}), max_abs "
             f"{v['max_abs_err']:.3e}, {v['ids_differing']} ids / {v['values_differing']} "
             f"values differing, checksum {v['checksum']}" for k, v in rows.items())
-    if kernel in ("int4", "flat"):
+    if kernel in ("int4", "flat", "flat8"):
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.3f} ms{' (' + v['body'] + ')' if v.get('body') else ''}, max "
             f"|score - fp64| {v['max_abs_err_fp64']:.3e}, checksum {v['checksum']}"
@@ -768,11 +1144,17 @@ def describe(name, turn, kernel):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--other", default="",
+                        help="root of the other checkout (none: only --ptxas / --sass)")
     parser.add_argument("--kernel", choices=sorted(SOURCES), default="mlp_ln")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--ptxas", action="store_true")
+    parser.add_argument("--sass", action="store_true")
+    parser.add_argument("--variant", choices=sorted(VARIANTS), default="")
+    parser.add_argument("--listing", default="",
+                        help="--sass: write the SASS of the functions whose name holds this "
+                             "beside --out")
     parser.add_argument("--out", default="")
     parser.add_argument("--worker", default="", help=argparse.SUPPRESS)
     parser.add_argument("--inputs", default="", help=argparse.SUPPRESS)
@@ -787,12 +1169,38 @@ def main(argv=None):
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}", flush=True)
     result = {"card": smi, "kernel": args.kernel, "seed": args.seed, "turns": []}
+    if args.variant:
+        result["variant"] = args.variant
     if args.ptxas:
-        rc, lines = ptxas(args.kernel)
+        rc, lines = ptxas(args.kernel, args.variant)
         print("\n".join(lines), flush=True)
         result["ptxas"] = lines
         if rc:
             return 1
+    if args.sass:
+        rc, scans, listed = sass(args.kernel, args.variant, args.listing)
+        if listed and args.out:
+            with open(args.out[:-len(".json")] + ".sass" if args.out.endswith(".json")
+                      else args.out + ".sass", "w") as fh:
+                fh.write("\n\n".join(f"// {fn}\n{text}" for fn, text in listed.items()))
+        for fn, scan in scans.items():
+            print(f"sass {fn}: " + ", ".join(f"{k} {v}" for k, v in scan.items()
+                                             if k != "first_hazards"), flush=True)
+            for line in scan.get("first_hazards", []):
+                print(f"  {line}", flush=True)
+        result["sass"] = scans
+        if rc:
+            return 1
+    if not args.other:
+        if not (args.ptxas or args.sass):
+            parser.error("--other is needed unless --ptxas or --sass is given")
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(result, fh, indent=1)
+        print(smi)
+        print(json.dumps(result))
+        return 0
     with tempfile.TemporaryDirectory() as tmp:  # the saved inputs of --kernel pq / ivf / ivfpq
         inputs = os.path.join(tmp, "inputs.pt")
         saved = {"pq": pq_inputs, "ivf": ivf_inputs, "ivfpq": ivfpq_inputs}
@@ -821,7 +1229,7 @@ def main(argv=None):
     flash = args.kernel == "flash_bwd"
     fields = ("dkv_ms", "dq_ms", "kernels_ms", "bwd_ms", "sdpa_bwd_ms") if flash else ("ms",)
     keys = [k for k, v in result["turns"][0].items() if isinstance(v, dict)]
-    if args.kernel in ("ivf", "int4", "ivfpq", "flat", "contrastive", "serve"):  # same inputs
+    if args.kernel in ("ivf", "int4", "ivfpq", "flat", "contrastive", "serve", "flat8"):
         for key in keys:
             sums = {json.dumps(t[key]["checksum"]) for t in result["turns"]}
             if len(sums) != 1:

@@ -197,8 +197,9 @@ def test_block_topj_and_certified_topk(gen, dtype, H):
 @pytest.mark.parametrize("J", [1, 8, 32])
 @pytest.mark.parametrize("H", [768, 128, 64])  # 12, 2 and 1 k-slices of 64 dims
 def test_block_topj_flat_wgmma_kernel(gen, dtype, H, J):
-    """K5's wgmma bodies (``flat_certified.cu``; fp32 products as fp16 pairs,
-    bf16 on TMA + wgmma): ids equal to the plain version's, scores within 1e-5,
+    """K5's wgmma bodies (fp32: ``flat_certified.cu``, products as fp16 pairs;
+    bf16: ``flat_serve.cu``, TMA + wgmma in the certified order): ids equal to
+    the plain version's, scores within 1e-5,
     over 1000-row blocks (not a multiple of the 64-row tile) with n_valid inside
     the last, exact ties inside a block, a zero row, rows and queries of other
     magnitudes (each row slice and query takes its own scale), an all-zero query
@@ -218,7 +219,8 @@ def test_block_topj_flat_wgmma_kernel(gen, dtype, H, J):
     n, n_gen = topk.block_topj.launches, topk.block_topj.launches_generic
     v, i = topk.block_topj(qc, c, J, 1000, 4990)
     torch.cuda.synchronize()
-    assert topk.block_topj.last_body == "flat_certified"
+    assert topk.block_topj.last_body == (
+        "flat_certified" if dtype == torch.float32 else "flat_serve")
     assert (topk.block_topj.launches, topk.block_topj.launches_generic) == (n + 1, n_gen)
     rv, ri = topk._block_topj_reference(qc, c, J, 1000, 4990)
     torch.testing.assert_close(v, rv, rtol=1e-5, atol=1e-5)
@@ -248,7 +250,7 @@ def test_block_topj_flat_wgmma_kernel(gen, dtype, H, J):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,offset", [(48, 0), (768, 2)])  # 2 elements: off 16-byte alignment
 def test_block_topj_flat_generic_body(gen, dtype, H, offset):
-    """K5 at the shapes ``flat_certified.cu`` does not take (H % 64 != 0, or rows
+    """K5 at the shapes its Hopper bodies do not take (H % 64 != 0, or rows
     off 16-byte alignment) runs ``block_topj.cu``'s bodies, counted on
     ``launches_generic`` too: the plain version's ids, scores within 1e-5."""
     c = _randn(gen, 3000, H, dtype=dtype)
@@ -1032,6 +1034,144 @@ def test_serve_generic_body(gen, body, H, offset):
         _assert_k11_lists(got, want, qx, c, sc)
     else:
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# --- K6 and K8 on the Hopper bodies: flat_serve.cu (bf16 / int8 rows), flat_certified.cu (fp32) --
+
+# body -> (wrapper, counter, last_body, row dtype, tolerance against the plain version)
+_FLAT8 = {"K6": (topk.block_topj, "launches_int8", "flat_serve", torch.int8, 1e-5),
+          "K8 fp32": (topk.block_topj_serve, "launches", "flat_certified", torch.float32, 1e-5),
+          "K8 bf16": (topk.block_topj_serve, "launches", "flat_serve", torch.bfloat16, 1e-4),
+          "K8 int8": (topk.block_topj_serve, "launches", "flat_serve", torch.int8, 1e-4)}
+
+
+def _assert_lists_near(got, want, q, rows_of, tol):
+    """Per-block lists against the plain version's: empty entries alike; at each rank the two
+    scores within ``tol`` of the terms' magnitudes (sum_d |q_d x_d| of the plain version's row
+    there, at least 1: two fp32 sums of cancelling terms part by more than ``tol`` of their
+    value); where ids differ (near ties of the two sums), both rows (``rows_of(ids)``: fp64
+    rows as the kernel scores them) score the kernel's score in fp64 within ``tol`` of their
+    terms' magnitudes under the queries ``q``."""
+    (v, i), (rv, ri) = got, want
+    assert torch.equal(i < 0, ri < 0)
+    for a in range(0, q.shape[0], 100):  # fp64 rows of 100 queries' lists at a time
+        qd, vv, ii, rr, rii = (t[a:a + 100] for t in (q.double(), v, i, rv, ri))
+        live = rii >= 0
+        rows = rows_of(rii.clamp(min=0).reshape(-1).long()).reshape(*rii.shape, -1)
+        mag = torch.einsum("qd,qbjd->qbj", qd.abs(), rows.abs()).clamp(min=1.0)
+        assert bool(((vv.double() - rr.double()).abs() <= tol * mag)[live].all())
+        qi_, blk, j = torch.nonzero(ii != rii, as_tuple=True)
+        for ids in (ii[qi_, blk, j], rii[qi_, blk, j]):
+            rows = rows_of(ids.long())
+            f64 = (qd[qi_] * rows).sum(1)
+            m = (qd[qi_].abs() * rows.abs()).sum(1).clamp(min=1.0)
+            assert bool(((f64 - vv[qi_, blk, j].double()).abs() <= tol * m).all())
+
+
+def _flat8_case(gen, body, H, N=5000, Q=1000):
+    """Rows for ``body`` (int8 by the plain K7) with planted rows: exact ties inside a block
+    (700-709), zero rows (3, 4, 900; int8 row 3 scores -0 by its scale -0), rows of other
+    magnitudes, and queries (row 5 zero); returns (call, ref, rows_of, q, rows)."""
+    from denseretrievaltoolkits_torch.ops.quant import _quantize_int8_reference
+
+    wrapper, _, _, dtype, _ = _FLAT8[body]
+    x = _randn(gen, N, H)
+    x[1500:1600] *= 1e-3
+    x[2500:2600] *= 1e3
+    q = _randn(gen, Q, H, scale=3.0)
+    q[5] = 0
+    if dtype == torch.int8:
+        c, sc = _quantize_int8_reference(x)
+        sc[700:710] = sc[700]
+        sc[3] = -0.0
+        qc = q.to(torch.bfloat16)
+    else:
+        c, sc, qc = x.to(dtype), None, q.to(dtype)
+    c[700:710] = c[700]
+    c[3] = c[4] = c[900] = 0
+    plain = (topk._block_topj_reference if wrapper is topk.block_topj
+             else topk._block_topj_serve_reference)
+
+    def rows_of(ids):
+        rows = c[ids].double()
+        return rows if sc is None else rows * sc[ids].double()[:, None]
+
+    return (lambda J, b, nv, rows=c: wrapper(qc, rows, J, b, nv, sc),
+            lambda J, b, nv: plain(qc, c, J, b, nv, sc), rows_of, qc, c)
+
+
+@pytest.mark.parametrize("block", [512, 1000, 4096])
+@pytest.mark.parametrize("H", [768, 256])
+@pytest.mark.parametrize("body,J", [("K6", 8), ("K6", 32)] + [
+    (b, j) for b in ("K8 fp32", "K8 bf16", "K8 int8") for j in (6, 7, 11, 32)])
+def test_flat8_wgmma_kernel(gen, body, J, H, block):
+    """K6 (bf16 queries x int8 rows, certified) and K8 over fp32, bf16 and int8 rows on their
+    Hopper bodies: scores within 1e-5 (K6, K8 fp32) or 1e-4 (K8 bf16 / int8) of the plain
+    version's and ids equal up to near ties, over 1000 queries (a tile cut short), blocks of
+    512, 1000 (no multiple of the 64-row tile) and 4096 rows, n_valid inside a tile; the zero
+    query ranks its +-0 scores as the plain version does (K6: every -0 made +0, ids ascending;
+    K8: -0 only for int8 row 3, below the +0 rows); one launch each, ``last_body`` the new
+    body's, ``_generic`` unmoved."""
+    call, ref, rows_of, qc, _ = _flat8_case(gen, body, H)
+    wrapper, counter, last, dtype, tol = _FLAT8[body]
+    n, n_gen = getattr(wrapper, counter), getattr(wrapper, counter + "_generic")
+    got = call(J, block, 4990)
+    torch.cuda.synchronize()
+    assert wrapper.last_body == last
+    assert (getattr(wrapper, counter), getattr(wrapper, counter + "_generic")) == (n + 1, n_gen)
+    want = ref(J, block, 4990)
+    _assert_lists_near(got, want, qc, rows_of, tol)
+    v5, i5 = got[0][5], got[1][5]
+    assert torch.equal(i5, want[1][5])  # every score +-0: the order is the ids'
+    assert bool((v5[i5 >= 0] == 0).all())
+    minus = i5 == 3 if body == "K8 int8" else torch.zeros_like(i5, dtype=torch.bool)
+    assert torch.equal(torch.signbit(v5) & (i5 >= 0), minus)
+
+
+@pytest.mark.parametrize("body", list(_FLAT8))
+def test_flat8_generic_body(gen, body):
+    """K6 and K8 on rows off 16-byte alignment (4 bytes) run ``block_topj.cu``'s body, counted
+    on ``<counter>_generic`` too, within the plain version's tolerance."""
+    call, ref, rows_of, qc, c = _flat8_case(gen, body, 768, N=3000, Q=70)
+    wrapper, counter, _, _, tol = _FLAT8[body]
+    off = 4 // c.element_size()
+    buf = torch.empty(c.numel() + off, dtype=c.dtype, device="cuda")
+    rows = buf[off:].view(c.shape)
+    rows.copy_(c)
+    n, n_gen = getattr(wrapper, counter), getattr(wrapper, counter + "_generic")
+    got = call(7, 1024, 2990, rows=rows)
+    torch.cuda.synchronize()
+    assert wrapper.last_body == "block_topj"
+    assert (getattr(wrapper, counter), getattr(wrapper, counter + "_generic")) == (n + 1,
+                                                                                   n_gen + 1)
+    _assert_lists_near(got, ref(7, 1024, 2990), qc, rows_of, tol)
+
+
+@pytest.mark.parametrize("J", [6, 12])
+@pytest.mark.parametrize("body", list(_FLAT8))
+def test_flat8_ctas_walk_several_blocks(gen, body, J):
+    """70,000 rows in 512-row blocks (the IVF side scans'), 1000 queries: enough (query tile,
+    block) pairs that each CTA walks several blocks in turn (up to 4096 rows, its query tile
+    resident, the last CTAs fewer), n_valid inside the last block: the plain version's lists."""
+    call, ref, rows_of, qc, _ = _flat8_case(gen, body, 768, N=70_000)
+    wrapper, _, last, _, tol = _FLAT8[body]
+    got = call(J, 512, 69_990)
+    torch.cuda.synchronize()
+    assert wrapper.last_body == last
+    _assert_lists_near(got, ref(J, 512, 69_990), qc, rows_of, tol)
+
+
+@pytest.mark.parametrize("body", ["K6", "K8 bf16", "K8 int8"])
+def test_flat8_wgmma_kernel_other_widths(gen, body):
+    """bf16 and int8 rows at H = 192 (int8: the last 128-byte stage half past the row, read
+    as zeros) and H = 1024 (fewer ring stages): the plain version's lists."""
+    for H in (192, 1024):
+        call, ref, rows_of, qc, _ = _flat8_case(gen, body, H, N=3000, Q=130)
+        wrapper, _, last, _, tol = _FLAT8[body]
+        got = call(11, 1000, 2990)
+        torch.cuda.synchronize()
+        assert wrapper.last_body == last, H
+        _assert_lists_near(got, ref(11, 1000, 2990), qc, rows_of, tol)
 
 
 # --- the IVF cell kernels: K13 (fixed-capacity cells) and K14 (ragged block list) --------------

@@ -141,20 +141,29 @@ def _int8_corpus(seed, n=1024, h=64):
     return rng, c, values, scales
 
 
+# (block, J, rows, n_valid) of the K6 / K8 parity cases: the JAX kernels take whole blocks, so
+# the rows are a multiple of the block, n_valid inside the last; blocks of 512 (the IVF side
+# scans') and 1000 (no multiple of the CUDA bodies' 64-row tile), J of the serve searches (7
+# at 1M rows, 11 on the slabs) and of the escalation (32)
+PARITY_CASES = [(256, 6, 1024, 1000)] + [(b, j, 2 * b, 2 * b - 10) for b in (512, 1000)
+                                         for j in (7, 11, 32)]
+
+
 def _per_block(v):
     """[n_blocks, J, Q] -> [Q, n_blocks, J]."""
     return np.transpose(np.asarray(v), (2, 0, 1))
 
 
-def test_block_topj_int8_plain_matches_pallas_kernel():
+@pytest.mark.parametrize("block,J,n,n_valid", PARITY_CASES)
+def test_block_topj_int8_plain_matches_pallas_kernel(block, J, n, n_valid):
     """K6: bf16 queries x int8 rows x per-row scales, as ``pallas_topk`` runs it."""
-    rng, _, values, scales = _int8_corpus(12)
+    rng, _, values, scales = _int8_corpus(12, n)
     q = rng.normal(size=(8, 64)).astype(np.float32)
     qb = jnp.asarray(q, jnp.bfloat16)
-    jv, ji = jtopk._pallas_block_topj_scaled(qb, jnp.asarray(values), jnp.asarray(scales), 6,
-                                             256, 1000)
+    jv, ji = jtopk._pallas_block_topj_scaled(qb, jnp.asarray(values), jnp.asarray(scales), J,
+                                             block, n_valid)
     tq = torch.from_numpy(np.asarray(qb.astype(jnp.float32))).bfloat16()
-    tv, ti = ttopk.block_topj(tq, torch.from_numpy(values), 6, 256, 1000,
+    tv, ti = ttopk.block_topj(tq, torch.from_numpy(values), J, block, n_valid,
                               torch.from_numpy(scales))
     np.testing.assert_array_equal(ti.numpy(), _per_block(ji))
     np.testing.assert_allclose(tv.numpy(), _per_block(jv), rtol=1e-5, atol=1e-5)
@@ -165,31 +174,32 @@ def _packed_quantum(block_size):
     return 2.0 ** ((block_size - 1).bit_length() - 23)
 
 
+@pytest.mark.parametrize("block,J,n,n_valid", PARITY_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-def test_block_topj_serve_plain_matches_packed_kernels(dtype):
+def test_block_topj_serve_plain_matches_packed_kernels(dtype, block, J, n, n_valid):
     """K8: per-block id sets of ``_pallas_block_topj_packed`` (fp32 / bf16) and
     ``_packed_scaled`` (int8); the port's exact scores sit within the TPU's
     rounding quantum of the packed ones."""
-    rng, c, values, scales = _int8_corpus(13)
+    rng, c, values, scales = _int8_corpus(13, n)
     q = rng.normal(size=(8, 64)).astype(np.float32)
     if dtype == "int8":
         qj = jnp.asarray(q, jnp.bfloat16)
         jv, ji = jtopk._pallas_block_topj_packed_scaled(qj, jnp.asarray(values),
-                                                        jnp.asarray(scales), 6, 256, 1000)
+                                                        jnp.asarray(scales), J, block, n_valid)
         corpus, sc = torch.from_numpy(values), torch.from_numpy(scales)
     else:
         jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
         qj, cj = jnp.asarray(q, jd), jnp.asarray(c, jd)
-        jv, ji = jtopk._pallas_block_topj_packed(qj, cj, 6, 256, 1000)
+        jv, ji = jtopk._pallas_block_topj_packed(qj, cj, J, block, n_valid)
         corpus, sc = torch.from_numpy(np.asarray(cj.astype(jnp.float32))), None
         corpus = corpus.to(tflat.DTYPES[dtype])
     tq = torch.from_numpy(np.asarray(qj.astype(jnp.float32))).to(
         torch.bfloat16 if dtype != "float32" else torch.float32)
-    tv, ti = ttopk.block_topj_serve(tq, corpus, 6, 256, 1000, sc)
+    tv, ti = ttopk.block_topj_serve(tq, corpus, J, block, n_valid, sc)
     jv, ji = _per_block(jv), _per_block(ji)
-    assert [set(r) for r in ti.numpy().reshape(-1, 6)] == [set(r) for r in ji.reshape(-1, 6)]
+    assert [set(r) for r in ti.numpy().reshape(-1, J)] == [set(r) for r in ji.reshape(-1, J)]
     np.testing.assert_allclose(np.sort(tv.numpy(), -1), np.sort(jv, -1),
-                               rtol=2 * _packed_quantum(256), atol=1e-6)
+                               rtol=2 * _packed_quantum(block), atol=1e-6)
 
 
 def test_block_topj_i8q_plain_matches_packed_kernel():
@@ -580,3 +590,203 @@ def test_serve_selection_rule_matches_select_packed(J):
     assert bool(torch.signbit(got_v[0, 0, J - 1])) and got_i[0, 0, J - 1] == 11
     assert 170 in got_i[0, 0].tolist()
     assert not bool((got_i[2] >= n_valid).any())
+
+
+# --- K6 / K8 int8 rows as bf16 fragments (csrc/common.cuh:i8x4_to_bf16), emulated --------------
+
+def _i8x4_to_bf16(w):
+    """common.cuh:i8x4_to_bf16 on uint32 words w: (lo, hi) bf16x2 words of bytes 0, 1 and 2, 3,
+    by the kernel's bit operations: the biased byte u = x + 128 in the low byte of the float
+    0x4B000000 (2^23 + u), less 2^23 + 128 (one fp32 subtraction), the result's high half."""
+    w = np.atleast_1d(np.asarray(w, np.uint32))
+    u = w ^ np.uint32(0x80808080)
+    halves = []
+    for k in range(4):
+        f = (((u >> (8 * k)) & 0xFF) | 0x4B000000).astype(np.uint32).view(np.float32)
+        halves.append((f - np.float32(8388736.0)).astype(np.float32).view(np.uint32) >> 16)
+    return halves[0] | (halves[1] << 16), halves[2] | (halves[3] << 16)
+
+
+def _bf16_bits_value(bits):
+    """bf16 bit patterns (uint16 in uint32) -> their values (float64)."""
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+def _bf16_column(i):
+    """int4_tiles.cuh:bf16_column: the k of dim offset i (0..15) of a 16-dim group."""
+    return 2 * (i >> 2) + (i & 1) + 8 * ((i >> 1) & 1)
+
+
+def test_int8_fragments_are_the_bf16_of_every_byte():
+    """The kernels' int8 -> bf16 conversion (K6 and K8 int8 fragments, ivf_cell.cu's int8
+    rows) is bit-equal to ``.to(torch.bfloat16)`` on all 256 byte values, in every byte of a
+    word."""
+    b = np.arange(256, dtype=np.uint32)
+    want = torch.from_numpy(b.astype(np.uint8).view(np.int8)).to(torch.bfloat16)
+    want = want.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+    for perm in (b, b[::-1], (b * 37) % 256, (b * 101 + 7) % 256):
+        words = [perm, (perm + 1) % 256, (perm + 128) % 256, 255 - perm]
+        lo, hi = _i8x4_to_bf16(words[0] | (words[1] << 8) | (words[2] << 16) | (words[3] << 24))
+        for got, byte in ((lo & 0xFFFF, words[0]), (lo >> 16, words[1]), (hi & 0xFFFF, words[2]),
+                          (hi >> 16, words[3])):
+            np.testing.assert_array_equal(got, want[byte])
+
+
+def test_int8_fragment_k_order_matches_the_query_tile():
+    """The k order of the int8 fragments equals the query tile's: thread t4's word (dims 4 t4
+    .. 4 t4 + 3 of a 16-dim group) gives k 2 t4, 2 t4 + 1 (its bytes 0, 1) and 2 t4 + 8, 2 t4
+    + 9 (bytes 2, 3), and the consumer warps' query words, pairs of 8 loaded dims at columns
+    c, c + 8, c + 2, c + 10, put dim i at bf16_column(i); so a group's products summed over k
+    are the dot product, exactly (fp64 here)."""
+    assert sorted(_bf16_column(i) for i in range(16)) == list(range(16))
+    rng = np.random.default_rng(7)
+    rows = rng.integers(-128, 128, size=(4, 16)).astype(np.int8)
+    qb = torch.from_numpy(rng.normal(size=16).astype(np.float32)).bfloat16()
+    qbits = qb.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+    col = np.zeros(16, np.uint32)  # the query tile's 16 columns, from the 16-byte loads
+    for d in (0, 8):
+        words = [qbits[d + 2 * p] | (qbits[d + 2 * p + 1] << 16) for p in range(4)]
+        c = _bf16_column(d)
+        for p, cc in enumerate((c, c + 8, c + 2, c + 10)):
+            col[cc], col[cc + 1] = words[p] & 0xFFFF, words[p] >> 16
+    qk = _bf16_bits_value(col)
+    for r in rows:
+        frag = np.zeros(16)
+        for t4 in range(4):
+            word = np.uint32(int.from_bytes(r[4 * t4:4 * t4 + 4].tobytes(), "little"))
+            lo, hi = (int(x[0]) for x in _i8x4_to_bf16(word))
+            frag[2 * t4], frag[2 * t4 + 1] = _bf16_bits_value([lo & 0xFFFF, lo >> 16])
+            frag[2 * t4 + 8], frag[2 * t4 + 9] = _bf16_bits_value([hi & 0xFFFF, hi >> 16])
+        assert float(frag @ qk) == float(r.astype(np.float64) @ qb.double().numpy())
+
+
+# --- K8 fp32: the serve selection of flat_certified.cu's fp32 body, emulated -----------------
+
+def _split_body_select(s, block, n_valid, J, zero, tile=64):
+    """flat_certified.cu's fp32 body's selection over one query's scores s [N] (+ zero, -0.0:
+    serve, every score kept; +0.0: certified, -0 made +0) in key order: J <= 16, two threads
+    each with a list of 8 (J <= 8) or 16 over half of every 64-row tile (the even list takes
+    the odd one at the block's end); J > 16, one thread with a list of 32 over every row;
+    per tile a list's
+    rows whose order beats its J-th key's order at the tile's start (0 while it holds fewer),
+    then inserted in row order against the floor as it stands. Returns (vals, ids)
+    [n_blocks, J]."""
+    s = (np.asarray(s, np.float32) + np.float32(zero)).astype(np.float32)
+    order = _score_order(s)
+    N = s.shape[0]
+    NL, parts = (8, 2) if J <= 8 else (16, 2) if J <= 16 else (32, 1)
+    n_blocks = -(-N // block)
+    vals = np.full((n_blocks, J), -np.inf, np.float32)
+    ids = np.full((n_blocks, J), -1, np.int32)
+    for blk in range(n_blocks):
+        start, row_lim = blk * block, min(N, blk * block + block, n_valid)
+        lists = [[] for _ in range(parts)]
+        for base in range(start, row_lim, tile):
+            for h, L in enumerate(lists):
+                floor = (L[J - 1] >> 32) if len(L) >= J else 0
+                width = tile // parts
+                rows = [r for r in range(base + width * h, base + width * (h + 1)) if r < row_lim]
+                for r in [r for r in rows if order[r] > floor]:
+                    if order[r] > floor:
+                        L.append((int(order[r]) << 32) | (~r & 0xFFFFFFFF))
+                        L.sort(reverse=True)
+                        del L[NL:]
+                        floor = (L[J - 1] >> 32) if len(L) >= J else 0
+        for p, key in enumerate(sorted(sum(lists, []), reverse=True)[:J]):
+            o = np.uint64(key >> 32)
+            bits = np.where(o & 0x80000000, o & 0x7FFFFFFF, ~o & 0xFFFFFFFF).astype(np.uint32)
+            vals[blk, p] = bits.view(np.float32)
+            ids[blk, p] = ~(key & 0xFFFFFFFF) & 0xFFFFFFFF
+    return vals, ids
+
+
+@pytest.mark.parametrize("J", [6, 7, 9, 11, 12, 16, 32])
+def test_serve_selection_on_split_scores_matches_select_packed(J):
+    """K8 over fp32 rows: the fp32 body's serve selection, emulated in key order on the
+    emulated split-product scores (fp16 pairs, as ``emulated_flat_scores``), equals
+    ``_select_packed`` on the same scores bit for bit, on planted rows: -0 against +0 at the
+    J-th place (serve keeps the -0, a later +0 displaces it), equal scores across the two
+    half-lists of a tile, across tiles and blocks (the smaller id first), 1000-row blocks, a
+    short last block, rows masked by n_valid inside a tile; certified (+0 added) it equals
+    ``_select_pairs`` with every -0 made +0."""
+    rng = np.random.default_rng(48)
+    N, block, n_valid = 2900, 1000, 2871
+    c = torch.from_numpy(rng.normal(size=(N, 64)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    s = emulated_flat_scores(q, c, "fp16").numpy().astype(np.float32)
+    s[0, :] = -np.abs(s[0, :]) - 1.0
+    s[0, 10:10 + 2 * (J - 2):2] = 0.0
+    s[0, 11:11 + 2 * (J - 2):2] = -0.0
+    s[0, 100:164] = -0.0
+    s[0, 170] = 0.0
+    s[1, [5, 37, 70, 100, 1001, 1040, 1999]] = s[1].max() + 1.0  # ties: halves, tiles, blocks
+    s[1, [6, 38, 71]] = -0.0
+    s[2, n_valid:] = s[2].max() + 50.0  # the best rows, past n_valid inside the last tile
+    scores = torch.from_numpy(s)
+    for certified in (False, True):
+        zero, select = (0.0, ttopk._select_pairs) if certified else (-0.0, ttopk._select_packed)
+        v, i = zip(*(_split_body_select(s[r], block, n_valid, J, zero) for r in range(3)))
+        want_v, want_i = ttopk._per_block(lambda a, b: scores[:, a:b], select, 3, N, J, block,
+                                          n_valid, "cpu")
+        got_v, got_i = torch.from_numpy(np.stack(v)), torch.from_numpy(np.stack(i))
+        assert torch.equal(got_i, want_i)
+        if certified:  # every -0 made +0, the plain version's may keep its -0
+            assert torch.equal(got_v, want_v) and not bool(torch.signbit(got_v[0, 0]).any())
+        else:
+            assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+            assert bool(torch.signbit(got_v[0, 0, J - 1])) and got_i[0, 0, J - 1] == 11
+            assert 170 in got_i[0, 0].tolist()
+        assert not bool((got_i[2] >= n_valid).any())
+
+
+# --- the Hopper-pair rule of ops/topk.py:_launch ----------------------------------------------
+
+def test_hopper_pair_rule_over_every_pair(monkeypatch):
+    """``hopper_pair`` is True exactly for the (query, row, selection) pairs a Hopper body
+    takes: certified fp32 x fp32 / bf16 x bf16 (K5), bf16 x int8 (K6), fp32 x int4 (K10);
+    serve fp32 x fp32, bf16 x bf16, bf16 x int8 (K8), int8 x int8 (K12), bf16 x int4 (K11),
+    int8 x int4 (K12 sq4); and ``_launch`` counts a call that ``block_topj.cu``'s body ran
+    (a C entry reporting body 0) on ``<counter>_generic`` for each pair the wrappers take."""
+    f32, b16, i8 = torch.float32, torch.bfloat16, torch.int8
+    taken = {(f32, f32, False, False), (b16, b16, False, False), (b16, i8, False, False),
+             (f32, i8, False, True), (f32, f32, True, False), (b16, b16, True, False),
+             (b16, i8, True, False), (i8, i8, True, False), (b16, i8, True, True),
+             (i8, i8, True, True)}
+    for qt in (f32, b16, i8):
+        for ct in (f32, b16, i8):
+            for serve in (False, True):
+                for int4 in (False, True):
+                    assert ttopk.hopper_pair(qt, ct, serve, int4) == (
+                        (qt, ct, serve, int4) in taken), (qt, ct, serve, int4)
+
+    class Lib:  # a C entry that ran block_topj.cu's body: leaves body at 0
+        def drt_block_topj(self, *args):
+            return 0
+
+    monkeypatch.setattr(ttopk._native, "library", lambda: Lib())
+    monkeypatch.setattr(ttopk._native, "stream_ptr", lambda t: 0)
+    H, N = 64, 300
+    rows = {f32: torch.zeros(N, H), b16: torch.zeros(N, H, dtype=b16),
+            i8: torch.zeros(N, H, dtype=i8)}
+    sc, qs = torch.ones(N), torch.ones(5)
+    calls = [(ttopk.block_topj, "launches", f32, f32, {}),
+             (ttopk.block_topj, "launches", b16, b16, {}),
+             (ttopk.block_topj, "launches_int8", b16, i8, {"scales": sc}),
+             (ttopk.block_topj, "launches_int4", f32, i8, {"scales": sc, "int4": True}),
+             (ttopk.block_topj_serve, "launches", f32, f32, {"serve": True}),
+             (ttopk.block_topj_serve, "launches", b16, b16, {"serve": True}),
+             (ttopk.block_topj_serve, "launches", b16, i8, {"scales": sc, "serve": True}),
+             (ttopk.block_topj_serve, "launches_int4", b16, i8,
+              {"scales": sc, "serve": True, "int4": True}),
+             (ttopk.block_topj_i8q, "launches", i8, i8, {"scales": sc, "qscales": qs,
+                                                          "serve": True}),
+             (ttopk.block_topj_i8q, "launches_int4", i8, i8,
+              {"scales": sc, "qscales": qs, "serve": True, "int4": True})]
+    for wrapper, counter, qt, ct, kw in calls:
+        for name in (counter, counter + "_generic"):
+            monkeypatch.setattr(wrapper, name, 0)
+        corpus = rows[ct][:, :H // 2].contiguous() if kw.get("int4") else rows[ct]
+        ttopk._launch(wrapper, counter, torch.zeros(5, H, dtype=qt), corpus, 7, 128, N, **kw)
+        assert wrapper.last_body == "block_topj"
+        assert (getattr(wrapper, counter), getattr(wrapper, counter + "_generic")) == (1, 1), (
+            wrapper.__name__, counter)
