@@ -37,11 +37,13 @@ Phases, each of which fails the run on error:
    (Q=1000, P=8000) and at the training path's shape (Q=32, P=256). Loss
    and grad errors, kernel vs plain ms (forward, and
    forward + backward), peak device memory of each path; plain variants with
-   the target one column off, or without the 1/n_q, must fail the bounds. K4
-   runs its tensor-core body (fp16 pairs, a cluster of four CTAs a 64-row
-   tile; ``launches_generic`` 0); its largest |grad - fp64| is printed beside
-   the FFMA body's on the same inputs (its C entry without scratch), with both
-   bodies' times.
+   the target one column off, or without the 1/n_q, must fail the bounds. K3
+   runs its tensor-core body (fp16 pairs, a 128-row query tile a CTA, the
+   passage axis in parts) and K4 its own (a cluster of four CTAs a 64-row
+   tile), ``launches_generic`` 0; their largest |lse, tgt - fp64| and
+   |grad - fp64| are printed beside the FFMA bodies' on the same inputs (the C
+   entries without scratch), with both bodies' times and the parts; K3's may
+   not exceed 2x the FFMA body's.
 5. The training main path, through the entry points a user calls: a bert-base
    (12 layers, H=768, bf16, ``attention='fused'``, ``fused_loss=True``, tied)
    built by ``DRModel.build`` from an architecture-only dir (seeded random
@@ -1043,11 +1045,26 @@ def ffma_bwd(con, dp, q, p, lse, stride, gout):
     return out
 
 
+def ffma_fwd(q, p, stride):
+    """K3's FFMA body (``contrastive_fwd_kernel``) on the same inputs: its C entry given no
+    scratch, which the tensor-core body needs."""
+    from denseretrievaltoolkits_torch.ops import _native
+
+    lse = torch.empty(q.shape[0], device=q.device)
+    tgt = torch.empty_like(lse)
+    body = ctypes.c_int(-1)
+    _native.check(_native.library().drt_contrastive_fwd(
+        q.data_ptr(), p.data_ptr(), lse.data_ptr(), tgt.data_ptr(), q.shape[0], p.shape[0],
+        q.shape[1], stride, 0, ctypes.byref(body), _native.stream_ptr(q)), "drt_contrastive_fwd")
+    check(body.value == 0, "drt_contrastive_fwd without scratch did not run the FFMA body")
+    return lse, tgt
+
+
 def phase_contrastive(gen, con):
     """K3 and K4 vs their plain versions, fp32, H=768: at grad-cache scale,
-    ragged, and at the training path's shape (Q=32, P=256). K4 runs its
-    tensor-core body (fp16 pairs; ``launches_generic`` 0), whose error against
-    the fp64 gradients is printed beside the FFMA body's on the same inputs."""
+    ragged, and at the training path's shape (Q=32, P=256). Both run their
+    tensor-core bodies (fp16 pairs; ``launches_generic`` 0), whose errors against
+    fp64 are printed beside the FFMA bodies' on the same inputs."""
     from denseretrievaltoolkits_torch.ops import _native
 
     H, stride = 768, 8
@@ -1091,27 +1108,45 @@ def phase_contrastive(gen, con):
                     float((got[2] - want[2]).abs().max() / want[2].abs().max()),
                     float((got[3] - want[3]).abs().max() / want[3].abs().max()))
 
-        generic0 = (con.contrastive_bwd_dq.launches_generic,
+        generic0 = (con.contrastive_fwd.launches_generic, con.contrastive_bwd_dq.launches_generic,
                     con.contrastive_bwd_dp.launches_generic)
         out = kernels()
         torch.cuda.synchronize()
+        k3_body = con.contrastive_fwd.last_body
         bodies = (con.contrastive_bwd_dq.last_body, con.contrastive_bwd_dp.last_body)
-        # the parts the tensor-core body split the walked axis into (minus a cudaError_t
-        # where the card's cluster occupancy could not be read)
+        # the parts the tensor-core bodies split the walked axis into (minus a cudaError_t
+        # where the card's SM count or cluster occupancy could not be read)
+        k3_parts = _native.library().drt_contrastive_fwd_parts(Q, P, H)
         splits = [_native.library().drt_contrastive_splits(Q, P, H, dp) for dp in (0, 1)]
+        check(k3_parts > 0, f"K3 Q={Q} P={P}: walked-axis parts {k3_parts}")
         check(min(splits) > 0, f"K4 Q={Q} P={P}: walked-axis parts dq / dp {splits}")
-        check(bodies == ("wgmma", "wgmma") and (con.contrastive_bwd_dq.launches_generic,
-                                                con.contrastive_bwd_dp.launches_generic) == generic0,
+        n_generic = (con.contrastive_fwd.launches_generic, con.contrastive_bwd_dq.launches_generic,
+                     con.contrastive_bwd_dp.launches_generic)
+        check(k3_body == "wgmma" and n_generic[0] == generic0[0],
+              f"K3 Q={Q} P={P}: ran {k3_body}, not the tensor-core body")
+        check(bodies == ("wgmma", "wgmma") and n_generic[1:] == generic0[1:],
               f"K4 Q={Q} P={P}: ran {bodies}, not the tensor-core body")
         want = plain_versions()
         loss_err, dq_err, dp_err = errors(out, want)
-        # against the fp64 gradients, beside the FFMA body's on the same inputs
+        # against fp64, beside the FFMA bodies' on the same inputs
         qd, pd = q.double(), p.double()
-        g64 = torch.exp(qd @ pd.T - torch.logsumexp(qd @ pd.T, 1)[:, None])
+        s64 = qd @ pd.T
+        lse64 = torch.logsumexp(s64, 1)
+        fwd64 = (lse64, s64[rows, rows * stride])
+        g64 = torch.exp(s64 - lse64[:, None])
+        del s64
         g64[rows, rows * stride] -= 1.0
         g64 /= Q
         want64 = (g64 @ pd, g64.T @ qd)
         del qd, pd, g64
+        k3_fp64_err = [float((a.double() - b).abs().max()) for a, b in zip(out[:2], fwd64)]
+        k3_ffma_fp64_err = [float((a.double() - b).abs().max())
+                            for a, b in zip(ffma_fwd(q, p, stride), fwd64)]
+        # at most 2x the FFMA body's, or one fp32 ulp of the largest value where both round
+        # alike (the training path's small shape)
+        k3_err_bound = [max(2 * e, 2.0 ** -23 * float(b.abs().max()))
+                        for e, b in zip(k3_ffma_fp64_err, fwd64)]
+        del fwd64
         lse_k = out[0]
         ffma = (ffma_bwd(con, False, q, p, lse_k, stride, one),
                 ffma_bwd(con, True, q, p, lse_k, stride, one))
@@ -1126,6 +1161,7 @@ def phase_contrastive(gen, con):
         lse = want[0]
         del out, want
         t = {"fwd": cuda_ms(lambda: con.contrastive_fwd(q, p, stride)),
+             "fwd_ffma": cuda_ms(lambda: ffma_fwd(q, p, stride)),
              "fwd_plain": cuda_ms(lambda: con._reference_contrastive_fwd(q, p, stride)),
              "dq": cuda_ms(lambda: con.contrastive_bwd_dq(q, p, lse, stride, one)),
              "dq_ffma": cuda_ms(lambda: ffma_bwd(con, False, q, p, lse, stride, one)),
@@ -1144,6 +1180,9 @@ def phase_contrastive(gen, con):
             f"{t['fwd_plain']:.3f}; dq {t['dq']:.3f} vs {t['dq_plain']:.3f}; dp {t['dp']:.3f} vs "
             f"{t['dp_plain']:.3f}; forward+backward {t['all']:.3f} vs {t['all_plain']:.3f}; peak "
             f"memory forward+backward {kernel_mib:.1f} MiB vs {plain_mib:.1f} MiB")
+        log(f"K3 Q={Q} P={P} body {k3_body}, walked-axis parts {k3_parts}: max |x - fp64| lse "
+            f"{k3_fp64_err[0]:.3e} tgt {k3_fp64_err[1]:.3e} (the FFMA body on the same inputs: "
+            f"{k3_ffma_fp64_err[0]:.3e} / {k3_ffma_fp64_err[1]:.3e}, {t['fwd_ffma']:.3f} ms)")
         log(f"K4 Q={Q} P={P} bodies dq / dp {bodies[0]} / {bodies[1]}, walked-axis parts "
             f"{splits[0]} / {splits[1]}: max |grad - fp64| of "
             f"max|grad| dq {fp64_err[0]:.3e} dp {fp64_err[1]:.3e} (the FFMA body on the same "
@@ -1151,6 +1190,8 @@ def phase_contrastive(gen, con):
             f"{t['dp_ffma']:.3f} ms)")
         check(loss_err <= loss_tol and dq_err <= grad_tol and dp_err <= grad_tol,
               f"K3/K4 Q={Q} P={P}: kernels disagree with their plain versions")
+        check(all(e <= b for e, b in zip(k3_fp64_err, k3_err_bound)),
+              f"K3 Q={Q} P={P}: lse / tgt error against fp64 {k3_fp64_err} past {k3_err_bound}")
         check(off[0] > loss_tol and min(off[1:]) > grad_tol,
               "a plain variant with the target one column off passes the bounds")
         check(min(no_nq[1:]) > grad_tol, "a plain variant without 1/n_q passes the bounds")
@@ -1161,7 +1202,8 @@ def phase_contrastive(gen, con):
             "max_abs_err": dict(zip(("lse", "tgt", "dq", "dp"), abs_err)), "ms": t,
             "peak_mib": kernel_mib, "plain_peak_mib": plain_mib, "target_off": off,
             "no_nq": no_nq, "bodies": bodies, "splits": splits, "fp64_rel_err": fp64_err,
-            "ffma_fp64_rel_err": ffma_fp64_err}
+            "ffma_fp64_rel_err": ffma_fp64_err, "k3_body": k3_body, "k3_parts": k3_parts,
+            "k3_fp64_abs_err": k3_fp64_err, "k3_ffma_fp64_abs_err": k3_ffma_fp64_err}
         del q, p, lse
         torch.cuda.empty_cache()
     return results
@@ -1265,6 +1307,8 @@ def phase_train(args, tmp):
     log(f"kernels: step losses {json.dumps([round(x, 5) for x in kern_losses])}, epoch means "
         f"{json.dumps(kern_means)}")
     check(all(n > 0 for n in launches.values()), "a kernel of the training path never launched")
+    check(con.contrastive_fwd.last_body == "wgmma",
+          f"K3 ran its {con.contrastive_fwd.last_body} body on the training path, not wgmma")
     check(all(math.isfinite(x) for x in kern_losses), "a training loss is not finite")
     check(kern_means[-1] < kern_means[0], "the loss did not fall from the first epoch to the last")
     k_loss1, k_grad = step1_grads()
@@ -4217,28 +4261,35 @@ def main(argv=None):
              "fwd", 0, 2 * Q * P * H),
             ("contrastive_bwd_dq", 121, big["max_abs_err"]["dq"], "dq", Q, 4 * Q * P * H),
             ("contrastive_bwd_dp", 150, big["max_abs_err"]["dp"], "dp", P, 4 * Q * P * H)):
-        # K4's bound is the three fp16 products that run (989 TFLOP/s), K3's its FFMA
+        # the bound is the three fp16 products that run (989 TFLOP/s); the FFMA bound beside it
         k4 = ms != "fwd"
-        b_ms, b_by = bound(4 * ((Q + P + out_rows) * H + 2 * Q), 3 * ops if k4 else ops,
-                           "bf16" if k4 else "fp32")
+        b_ms, b_by = bound(4 * ((Q + P + out_rows) * H + 2 * Q), 3 * ops, "bf16")
         kernels.append({"name": name, "route": "cuda", "source": src + "contrastive.cu",
                         "replaces": f"denseretrievaltoolkits_tpu/ops/contrastive.py:{line}",
                         "launches": train["launches"][name], "max_abs_err": err,
                         "ms": big["ms"][ms], "plain_ms": big["ms"][ms + "_plain"],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                         "train_shape_ms": k34["32x256"]["ms"][ms]})
-        if k4:  # K4's tensor-core body: fp16 pairs, the FFMA body and its bound beside it
+        kernels[-1].update({  # the tensor-core bodies: fp16 pairs, the FFMA body beside them
+            "source": ", ".join(src + f for f in ("contrastive.cu", "split.cuh", "hopper.cuh",
+                                                  "common.cuh")),
+            "ffma_ms": big["ms"][ms + "_ffma"],
+            "train_shape_ffma_ms": k34["32x256"]["ms"][ms + "_ffma"],
+            "ffma_bound_ms": bound(4 * ((Q + P + out_rows) * H + 2 * Q), ops, "fp32")[0],
+            "generic_launches": getattr(contrastive, name).launches_generic})
+        if not k4:  # K3: its walked-axis parts and its errors against fp64 beside the FFMA body's
+            kernels[-1].update({
+                "body": big["k3_body"], "parts": big["k3_parts"],
+                "train_shape_parts": k34["32x256"]["k3_parts"],
+                "fp64_abs_err": big["k3_fp64_abs_err"],
+                "ffma_fp64_abs_err": big["k3_ffma_fp64_abs_err"]})
+        else:
             i = 0 if ms == "dq" else 1
             kernels[-1].update({
-                "source": ", ".join(src + f for f in ("contrastive.cu", "split.cuh",
-                                                      "hopper.cuh", "common.cuh")),
-                "body": big["bodies"][i], "ffma_ms": big["ms"][ms + "_ffma"],
-                "train_shape_ffma_ms": k34["32x256"]["ms"][ms + "_ffma"],
+                "body": big["bodies"][i],
                 "fp64_rel_err": big["fp64_rel_err"][i],
                 "ffma_fp64_rel_err": big["ffma_fp64_rel_err"][i],
-                "ffma_bound_ms": bound(4 * ((Q + P + out_rows) * H + 2 * Q), ops, "fp32")[0],
-                "splits": big["splits"][i], "train_shape_splits": k34["32x256"]["splits"][i],
-                "generic_launches": getattr(contrastive, name).launches_generic})
+                "splits": big["splits"][i], "train_shape_splits": k34["32x256"]["splits"][i]})
     # this slice's kernels: times on the 1M-row corpus, launches on the int8 path; K6 and K8 on
     # their Hopper bodies (flat_serve.cu; K8 fp32 flat_certified.cu's fp16-pair body)
     for name, source, replaces, r, counter in (
@@ -4417,9 +4468,11 @@ def main(argv=None):
     kernels[2]["generic_launches"] = topk.block_topj.launches_generic
     check(topk.block_topj.launches_generic == 0,
           f"K5: block_topj.cu's body ran {topk.block_topj.launches_generic} times on the paths")
-    k4_generic = (contrastive.contrastive_bwd_dq.launches_generic,
-                  contrastive.contrastive_bwd_dp.launches_generic)
-    check(k4_generic == (0, 0), f"K4: the FFMA body ran {k4_generic} times on the paths")
+    k34_generic = (contrastive.contrastive_fwd.launches_generic,
+                   contrastive.contrastive_bwd_dq.launches_generic,
+                   contrastive.contrastive_bwd_dp.launches_generic)
+    check(k34_generic == (0, 0, 0),
+          f"K3 / K4 (dq, dp): the FFMA body ran {k34_generic} times on the paths")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

@@ -10,21 +10,43 @@
 //   :186, :200): with g = (exp(s - lse) - onehot) / n_q recomputed tile by tile,
 //   dq = g.p and dp = g^T.q, each times the upstream scalar.
 //
-// fp32 in, fp32 out. K3, and K4 at the shapes its tensor-core body does not take, compute
+// fp32 in, fp32 out. K3 and K4 at the shapes their tensor-core bodies do not take compute
 // their products in true fp32 on the CUDA cores (FFMA, no TF32: the reference's tolerances,
 // 1e-5 on the loss and the grads, leave no room for one TF32 pass). At the grad-cache scale
 // (Q=4096, P=32768, H=768) each pass is 2QPH or 4QPH flops and reads its operands from L2,
-// so these bodies are bound by FFMA issue (K4: 6.154 ms a pass).
+// so these bodies are bound by FFMA issue (K3: 3.077 ms, K4: 6.154 ms a pass).
 //
 // What the design keeps out of device memory: the [Q, P] scores, probabilities and g.
 // On the TPU the passage-tile axis is a sequential grid dimension carrying m/l/t in VMEM
 // scratch; here blocks run in no order, so a loop inside the block walks the other side:
-// - K3: a block owns 32 query rows, resident (transposed) in shared memory, and walks
+// - K3 (its FFMA body, at the shapes the tensor-core body below does not take): a block owns
+//   32 query rows, resident (transposed) in shared memory, and walks
 //   all passages in tiles of 256, staging 32-deep k-slices (prefetched into registers
 //   while the previous slice is scored). Each thread scores 8 rows x 4 columns and keeps
 //   its own running max / sum of exponentials / target score per row in registers; the
 //   lanes and the two warps that share a row merge once, at the end. Columns >= P never
 //   enter the sums (contrastive.py:50-51 masks them).
+// - K3 on the tensor cores (`contrastive_fwd_wgmma`, H % 64 == 0, 16-byte aligned rows): the
+//   products as fp16 pairs (split.cuh), three fp16 products at 989 TFLOP/s, 0.625 ms at the
+//   grad-cache scale. `absmax_kernel` and `split_planes_kernel` write q and p as fp16 hi and
+//   lo planes into the scratch first. A CTA owns a 128-row query tile (two consumer
+//   warpgroups of 64 rows, the wgmma M) and walks its part of the passages in 128-row tiles
+//   (the N); a producer warp brings each 64-dim stage of both tiles' planes by TMA into a
+//   ring of three. Per stage each warpgroup issues hi.lo and lo.hi, then hi.hi, as SS
+//   m64n128k16 wgmma, and moves the stage's sum into an fp32 total (one rounding a stage:
+//   the tensor cores truncate their sums, and a chain over all of H read 3-8x the FFMA
+//   body's error against fp64; the small products first leave only the hi.hi sums to
+//   truncate at the stage sum's magnitude). After a tile's last stage the epilogue runs in
+//   registers: columns >= P masked, each row's max over the thread's columns and its quad
+//   (shuffles), the running sum rescaled and the tile's exponentials added, the target score
+//   taken by the thread that holds column r * stride. The passage axis is split into parts
+//   so the grid fills the SMs (Q=4096: 32 query tiles x 4 parts; Q=32: one x 2), launched
+//   part-major so a part's CTAs walk the same passage tiles at once (128 x 128 tiles read
+//   6.4 GB from L2 at the grad-cache scale); each part writes its rows' (max, sum, target)
+//   and the part that finishes last, by a counter, merges them in part order (results repeat
+//   bit for bit). Tried and left out (PERF.md): a cluster of two query tiles multicasting the
+//   passage tile (L2 reads 4.8 GB, no faster), two accumulators in turn (spilled at the 168
+//   registers of a 288-thread CTA), the two warpgroups issuing in turn (slower).
 // - K4 (its FFMA body, at the shapes the tensor-core body below does not take): one body,
 //   two instances. dq: a block owns 32 query rows and walks the passages;
 //   dp: a block owns 32 passage rows and walks the queries. Per walked tile of 256 rows
@@ -407,11 +429,16 @@ __global__ void absmax_kernel(const float4* __restrict__ a, size_t n4a,
   if ((threadIdx.x & 31) == 0) atomicMax(out + blockIdx.y, __float_as_uint(m));
 }
 
-// x (n4 float4s) scaled by the power of two of its largest magnitude (*amax) and split into
-// fp16 planes: hi, then lo, each of x's shape (split.cuh)
-__global__ void split_planes_kernel(const float4* __restrict__ x, size_t n4,
-                                    const unsigned* __restrict__ amax, uint2* __restrict__ planes) {
-  const float s = split_pow2(split_exp(__uint_as_float(__ldg(amax))));
+// a (n4a float4s; with gridDim.y = 2 also b) scaled by the power of two of its largest
+// magnitude (*amax_a) and split into fp16 planes: hi, then lo, each of a's shape (split.cuh)
+__global__ void split_planes_kernel(const float4* __restrict__ a, size_t n4a,
+                                    const unsigned* __restrict__ amax_a, uint2* __restrict__ planes_a,
+                                    const float4* __restrict__ b, size_t n4b,
+                                    const unsigned* __restrict__ amax_b, uint2* __restrict__ planes_b) {
+  const float4* x = blockIdx.y ? b : a;
+  const size_t n4 = blockIdx.y ? n4b : n4a;
+  uint2* planes = blockIdx.y ? planes_b : planes_a;
+  const float s = split_pow2(split_exp(__uint_as_float(__ldg(blockIdx.y ? amax_b : amax_a))));
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     const float4 v = __ldg(x + i);
@@ -775,7 +802,7 @@ int launch_bwd_wgmma(const void* q, const void* p, const void* lse, const void* 
   const unsigned split_grid = blocks(n4w);
   split_planes_kernel<<<split_grid, 256, 0, stream>>>(
       static_cast<const float4*>(DP ? q : p), n4w, amax + (DP ? 0 : 1),
-      reinterpret_cast<uint2*>(planes));
+      reinterpret_cast<uint2*>(planes), nullptr, 0, nullptr, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   CUtensorMap tmw;
   const cuuint64_t dims[3] = {(cuuint64_t)TH, (cuuint64_t)n_walk, 2};
@@ -816,6 +843,306 @@ int launch_bwd_wgmma(const void* q, const void* p, const void* lse, const void* 
   return 0;
 }
 
+// ---- K3 on the tensor cores -------------------------------------------------------------
+
+constexpr int FT = 128;                // query rows a CTA (two warpgroups of 64), walked rows a tile
+constexpr uint32_t FTILE = FT * 128;   // a 64-dim slice of 128 rows of one fp16 plane (16 KB)
+constexpr uint32_t FSTAGE = 4 * FTILE; // a ring stage: the slice of q's hi, lo, p's hi, lo planes
+constexpr int FWD_NST = 3;             // ring stages
+constexpr int FWD_THREADS = 2 * WG_THREADS + 32;  // two consumer warpgroups, one producer warp
+// the ring, the full and empty mbarriers, and the last-part flag
+constexpr size_t FWD_SMEM = 1024 + FWD_NST * FSTAGE + 8 * 2 * FWD_NST + 16;
+constexpr int FWD_MAX_PARTS = 16;      // parts of the walked axis
+
+__device__ __forceinline__ void consumers_sync_all() {  // both consumer warpgroups
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// The scratch's header: the largest |q| and |p| (two words), then a counter a query tile of the
+// parts that have written their partials; zeroed before the call.
+size_t fwd_header_bytes(int q_tiles) { return ((size_t)16 + 4 * (size_t)q_tiles + 255) & ~(size_t)255; }
+
+// q and p as fp16 planes (tmq: [2][Q][H], tmp: [2][P][H], hi then lo; boxes of 64 dims x 128
+// rows, 128-byte swizzle, rows past the end as zeros); amax: their largest magnitudes as float
+// bits. CTA b takes query tile b % q_tiles and walked tiles [s tpp, (s + 1) tpp) of part
+// s = b / q_tiles (part-major: a part's CTAs walk the same tiles together). Per row it keeps the
+// running max m, sum of exp(s - m) l and target score t of its part; with one part it writes
+// lse = log l + m and tgt = t, else (m, l, t) to ws ([3][parts][Q]) and the part that finishes
+// last (counters) merges the parts in part order.
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+contrastive_fwd_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmp,
+                      const unsigned* __restrict__ amax, unsigned* __restrict__ counters,
+                      float* __restrict__ ws, float* __restrict__ lse, float* __restrict__ tgt,
+                      int Q, int P, int H, int stride, int parts, int tpp) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = ring + FWD_NST * FSTAGE;
+  int* last_flag = reinterpret_cast<int*>(smem_raw + (bars - smem_addr(smem_raw)) + 16 * FWD_NST);
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (FWD_NST + s); };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q_tiles = (Q + FT - 1) / FT, part = blockIdx.x / q_tiles, qt = blockIdx.x % q_tiles;
+  const int q0 = qt * FT, NS = H / 64;
+  const int t_begin = part * tpp, t_end = min(t_begin + tpp, (P + FT - 1) / FT);
+  if (tid == 0) {
+    for (int s = 0; s < FWD_NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer: each walked tile's stages in turn, q's slice beside p's
+    if (lane == 0) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int t = t_begin; t < t_end; ++t)
+        for (int j = 0; j < NS; ++j) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), FSTAGE);
+          const uint32_t dst = ring + stage * FSTAGE;
+          for (int h = 0; h < 2; ++h) {
+            tma_load_3d(dst + h * FTILE, &tmq, 64 * j, q0, h, full(stage));
+            tma_load_3d(dst + (2 + h) * FTILE, &tmp, 64 * j, t * FT, h, full(stage));
+          }
+          if (++stage == FWD_NST) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // warpgroup wg: query rows q0 + 64 wg + 16 w + g (+ 8); a warpgroup with no real row only
+  // passes the stages on
+  const int wg = warp >> 2, wwarp = warp & 3, g = lane >> 2, t4 = lane & 3;
+  // the planes' scales, taken out by two exact multiplies (their product may leave 2^+-126)
+  const float unscale_q = split_pow2(-split_exp(__uint_as_float(__ldg(amax))));
+  const float unscale_p = split_pow2(-split_exp(__uint_as_float(__ldg(amax + 1))));
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, tv[2] = {0.f, 0.f};
+  int stage = 0;
+  unsigned phase = 0;
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  };
+  auto next_stage = [&]() {
+    if (++stage == FWD_NST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  if (q0 + 64 * wg < Q) {
+    float acc[64], tot[64];
+    for (int t = t_begin; t < t_end; ++t) {
+      for (int j = 0; j < NS; ++j) {
+        mbar_wait(full(stage), phase);
+        const uint32_t st = ring + stage * FSTAGE;
+        const uint32_t qh = st + wg * 64 * 128, ql = qh + FTILE;
+        const uint32_t ph = st + 2 * FTILE, pl = st + 3 * FTILE;
+        // the stage's small products (hi.lo, lo.hi) first: the tensor cores truncate each sum,
+        // and a truncation of the running sum costs up to an ulp of it, so only the four
+        // hi.hi products, added last, truncate at the stage sum's magnitude
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t o = kk * 32;
+          wgmma_f16_ss_n128(acc, sw128_desc(qh + o, 16), sw128_desc(pl + o, 16), kk > 0);
+          wgmma_f16_ss_n128(acc, sw128_desc(ql + o, 16), sw128_desc(ph + o, 16), 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_f16_ss_n128(acc, sw128_desc(qh + kk * 32, 16), sw128_desc(ph + kk * 32, 16), 1);
+        wgmma_commit();
+        // the stage's sum into the fp32 total (one rounding a stage: a chain over all of H,
+        // its sums truncated, was 3-8x the FFMA body's error, PERF.md)
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(stage);
+        next_stage();
+        if (j == 0) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) tot[i] = acc[i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+        }
+      }
+      // the tile's scores: tot[4 n + 2 i + e] at row g + 8 i, column c0 + 8 n + 2 t4 + e;
+      // columns >= P masked; per row the quad's max, then the running sum rescaled and this
+      // tile's exponentials added; the target score where the tile holds it
+      const int c0 = t * FT;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * n + 2 * i + e;
+            tot[k] = c0 + 8 * n + 2 * t4 + e < P ? tot[k] * unscale_q * unscale_p : -INFINITY;
+            mx = fmaxf(mx, tot[k]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[i], mx);  // finite: the tile's first column is real
+        float sum = l[i] * expf(m[i] - mn);
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) sum += expf(tot[4 * n + 2 * i + e] - mn);
+        l[i] = sum;
+        m[i] = mn;
+        const long long row = q0 + 64 * wg + 16 * wwarp + g + 8 * i;
+        const long long col = row * stride;
+        if (row < Q && col >= c0 && col < c0 + FT && col < P && ((col >> 1) & 3) == t4) {
+          const int n_t = (int)(col - c0) >> 3, e_t = (int)col & 1;
+#pragma unroll
+          for (int n = 0; n < 16; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (n == n_t && e == e_t) tv[i] += tot[4 * n + 2 * i + e];
+        }
+      }
+    }
+  } else {
+    for (int t = t_begin; t < t_end; ++t)
+      for (int j = 0; j < NS; ++j) {
+        mbar_wait(full(stage), phase);
+        release(stage);
+        next_stage();
+      }
+  }
+
+  // the quad's sums (its m is shared), by the thread of t4 = 0
+  float* ws_m = ws;
+  float* ws_l = ws + (size_t)parts * Q;
+  float* ws_t = ws + 2 * (size_t)parts * Q;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float L = l[i], T = tv[i];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      L += __shfl_xor_sync(0xffffffffu, L, o);
+      T += __shfl_xor_sync(0xffffffffu, T, o);
+    }
+    const int row = q0 + 64 * wg + 16 * wwarp + g + 8 * i;
+    if (t4 == 0 && row < Q) {
+      if (parts == 1) {
+        lse[row] = logf(L) + m[i];
+        tgt[row] = T;
+      } else {
+        ws_m[(size_t)part * Q + row] = m[i];
+        ws_l[(size_t)part * Q + row] = L;
+        ws_t[(size_t)part * Q + row] = T;
+      }
+    }
+  }
+  if (parts == 1) return;
+  // the last part of this query tile to finish merges every part's rows, in part order
+  __threadfence();
+  consumers_sync_all();
+  if (tid == 0) *last_flag = atomicAdd(counters + qt, 1u) == (unsigned)parts - 1;
+  consumers_sync_all();
+  if (!*last_flag) return;
+  __threadfence();
+  const int row = q0 + tid;
+  if (tid >= FT || row >= Q) return;
+  float M = -INFINITY;
+  for (int s = 0; s < parts; ++s) M = fmaxf(M, __ldcg(ws_m + (size_t)s * Q + row));
+  float L = 0.f, T = 0.f;
+  for (int s = 0; s < parts; ++s) {
+    const float ms = __ldcg(ws_m + (size_t)s * Q + row);
+    if (ms != -INFINITY) L += __ldcg(ws_l + (size_t)s * Q + row) * expf(ms - M);
+    T += __ldcg(ws_t + (size_t)s * Q + row);
+  }
+  lse[row] = logf(L) + M;
+  tgt[row] = T;
+}
+
+// 1 where K3's tensor-core body takes the shape: H % 64 == 0, 16-byte aligned rows
+bool fwd_takes_wgmma(int H, const void* a, const void* b) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
+  return H >= 64 && H % 64 == 0 && (ptrs & 15) == 0;
+}
+
+// The parts of K3's walked axis: the fewest that minimize the waves of CTAs (one an SM) times
+// the walked tiles a CTA takes; *tpp the tiles a part. Returns 0, or the SM count query's error.
+int fwd_parts(int Q, int P, int* parts, int* tpp) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    sms = n;
+  }
+  const long long q_tiles = (Q + FT - 1) / FT, tiles = (P + FT - 1) / FT;
+  long long best_cost = -1;
+  for (int s = 1; s <= FWD_MAX_PARTS && s <= tiles; ++s) {
+    const long long per = (tiles + s - 1) / s, used = (tiles + per - 1) / per;
+    const long long cost = ((q_tiles * used + sms - 1) / sms) * per;
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      *parts = (int)used;
+      *tpp = (int)per;
+    }
+  }
+  return 0;
+}
+
+size_t fwd_scratch_bytes(int Q, int P, int H, int parts) {
+  return fwd_header_bytes((Q + FT - 1) / FT) + (size_t)(Q + P) * H * 4 +
+         (parts > 1 ? (size_t)3 * parts * Q * 4 : 0);
+}
+
+int launch_fwd_wgmma(const void* q, const void* p, void* lse, void* tgt, int Q, int P, int H,
+                     int stride, unsigned char* scratch, cudaStream_t stream) {
+  int parts = 1, tpp = 1;
+  if (int e = fwd_parts(Q, P, &parts, &tpp)) return e;
+  const int q_tiles = (Q + FT - 1) / FT;
+  const size_t header = fwd_header_bytes(q_tiles);
+  unsigned* amax = reinterpret_cast<unsigned*>(scratch);
+  unsigned* counters = amax + 4;
+  unsigned char* planes_q = scratch + header;
+  unsigned char* planes_p = planes_q + (size_t)Q * H * 4;
+  float* ws = reinterpret_cast<float*>(planes_p + (size_t)P * H * 4);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, header, stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n4q = (size_t)Q * H / 4, n4p = (size_t)P * H / 4;
+  auto blocks = [](size_t n4) { return (unsigned)(n4 / 256 + 1 < 528 ? n4 / 256 + 1 : 528); };
+  const dim3 grid2(blocks(n4q > n4p ? n4q : n4p), 2);
+  absmax_kernel<<<grid2, 256, 0, stream>>>(static_cast<const float4*>(q), n4q,
+                                           static_cast<const float4*>(p), n4p, amax);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  split_planes_kernel<<<grid2, 256, 0, stream>>>(
+      static_cast<const float4*>(q), n4q, amax, reinterpret_cast<uint2*>(planes_q),
+      static_cast<const float4*>(p), n4p, amax + 1, reinterpret_cast<uint2*>(planes_p));
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  CUtensorMap tmq, tmp;
+  const cuuint32_t box[3] = {64, (cuuint32_t)FT, 1};
+  for (int side = 0; side < 2; ++side) {
+    const cuuint64_t rows = side ? P : Q;
+    const cuuint64_t dims[3] = {(cuuint64_t)H, rows, 2};
+    const cuuint64_t strides[2] = {(cuuint64_t)H * 2, rows * H * 2};
+    if (int e = tensor_map(side ? &tmp : &tmq, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                           side ? planes_p : planes_q, 3, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B))
+      return e;
+  }
+  if ((err = cudaFuncSetAttribute(contrastive_fwd_wgmma,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM)) !=
+      cudaSuccess)
+    return (int)err;
+  contrastive_fwd_wgmma<<<q_tiles * parts, FWD_THREADS, FWD_SMEM, stream>>>(
+      tmq, tmp, amax, counters, ws, static_cast<float*>(lse), static_cast<float*>(tgt), Q, P, H,
+      stride, parts, tpp);
+  return (int)cudaGetLastError();
+}
+
 // What every entry checks: fp32 rows of H % 4 == 0 floats, 16-byte aligned, that fit.
 bool takes(int n_rows_a, int n_rows_b, int H, const void* a, const void* b) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
@@ -850,10 +1177,39 @@ int launch_bwd(const void* q, const void* p, const void* lse, const void* gout, 
 
 }  // namespace
 
+// The parts K3's tensor-core body splits the walked axis into at this shape: 0 where the FFMA
+// body runs it, minus a cudaError_t where the card's SM count could not be read.
+extern "C" int drt_contrastive_fwd_parts(int Q, int P, int H) {
+  if (H < 64 || H % 64 != 0 || Q < 1 || P < 1) return 0;
+  int parts = 0, tpp = 0;
+  if (int err = fwd_parts(Q, P, &parts, &tpp)) return -err;
+  return parts;
+}
+
+// The scratch bytes K3's tensor-core body needs at this shape (0: the FFMA body runs it; minus
+// a cudaError_t as drt_contrastive_fwd_parts): the operands' largest magnitudes and a counter a
+// 128-row query tile, q and p as fp16 hi and lo planes ((Q + P) x H x 4 bytes), and where the
+// walked axis is split, each part's (max, sum, target) a row.
+extern "C" long long drt_contrastive_fwd_scratch_bytes(int Q, int P, int H) {
+  const int parts = drt_contrastive_fwd_parts(Q, P, H);
+  if (parts <= 0) return parts;
+  return (long long)fwd_scratch_bytes(Q, P, H, parts);
+}
+
 // K3: lse[Q] and tgt[Q] of fp32 q [Q, H] against fp32 p [P, H]; target of row r is r * stride.
+// scratch: drt_contrastive_fwd_scratch_bytes(Q, P, H) bytes, 16-byte aligned, for the
+// tensor-core body (null: the FFMA body); `body`, where not null, is set to 1 where the
+// tensor-core body ran, else 0.
 extern "C" int drt_contrastive_fwd(const void* q, const void* p, void* lse, void* tgt, int Q,
-                                   int P, int H, int stride, void* stream) {
+                                   int P, int H, int stride, void* scratch, int* body,
+                                   void* stream) {
+  if (body != nullptr) *body = 0;
   if (!takes(Q, P, H, q, p) || stride < 1) return (int)cudaErrorInvalidValue;
+  if (scratch != nullptr && fwd_takes_wgmma(H, q, p)) {
+    if (body != nullptr) *body = 1;
+    return launch_fwd_wgmma(q, p, lse, tgt, Q, P, H, stride, static_cast<unsigned char*>(scratch),
+                            static_cast<cudaStream_t>(stream));
+  }
   const size_t smem = fwd_smem_bytes(H);
   cudaError_t err = cudaFuncSetAttribute(contrastive_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -903,8 +1259,8 @@ extern "C" int drt_contrastive_dp(const void* q, const void* p, const void* lse,
                           static_cast<cudaStream_t>(stream));
 }
 
-// The widest H (a multiple of 4) the three bodies take: K3 keeps 32 query rows and K4 a
-// [32, H] accumulator in shared memory.
+// The widest H (a multiple of 4) the entries take: the FFMA bodies, which every shape may
+// run, keep K3's 32 query rows and K4's [32, H] accumulator in shared memory.
 extern "C" int drt_contrastive_max_h() {
   int H = 0;
   while (fwd_smem_bytes(H + 4) <= SMEM_MAX && bwd_smem_bytes(H + 4) <= SMEM_MAX) H += 4;

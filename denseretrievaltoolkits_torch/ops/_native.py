@@ -70,8 +70,12 @@ SIGNATURES = {
     "drt_quantize_int8": [_P] * 3 + [_I] * 4 + [_P],
     # x, packed, scales, n_in, n_out, H, is_bf16, stream
     "drt_quantize_int4": [_P] * 3 + [_I] * 4 + [_P],
-    # q, p, lse, tgt, Q, P, H, stride, stream
-    "drt_contrastive_fwd": [_P] * 4 + [_I] * 4 + [_P],
+    # q, p, lse, tgt, Q, P, H, stride, scratch (drt_contrastive_fwd_scratch_bytes), body
+    # (int*, written: 1 where the tensor-core body ran, else 0), stream
+    "drt_contrastive_fwd": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
+    # Q, P, H -> the parts K3's tensor-core body splits the walked axis into (0: the FFMA
+    # body runs it; minus a cudaError_t: the SM count query failed)
+    "drt_contrastive_fwd_parts": [_I] * 3,
     # q, p, lse, gout, dq (dp), Q, P, H, stride, scratch (drt_contrastive_scratch_bytes),
     # body (int*, written: 1 where the tensor-core body ran, else 0), stream
     "drt_contrastive_dq": [_P] * 5 + [_I] * 4 + [_P, _P, _P],
@@ -172,6 +176,10 @@ def library() -> ctypes.CDLL:
     # (0: the FFMA body runs it; minus a cudaError_t as drt_contrastive_splits)
     lib.drt_contrastive_scratch_bytes.argtypes = [_I, _I, _I, _I]
     lib.drt_contrastive_scratch_bytes.restype = ctypes.c_longlong
+    # Q, P, H -> the scratch bytes K3's tensor-core body needs (0: the FFMA body runs it;
+    # minus a cudaError_t as drt_contrastive_fwd_parts)
+    lib.drt_contrastive_fwd_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.drt_contrastive_fwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 

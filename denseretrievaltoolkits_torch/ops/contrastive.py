@@ -6,15 +6,19 @@ computed without the [Q, P] score matrix.
 
 - :func:`contrastive_fwd` (K3, ``csrc/contrastive.cu``): per query row the
   log-sum-exp of its scores and its target score. Plain version:
-  :func:`_reference_contrastive_fwd`.
+  :func:`_reference_contrastive_fwd`. At H % 64 == 0 with 16-byte aligned
+  rows the products run on the tensor cores as fp16 pairs (a CTA a 128-row
+  query tile, the passages in 128-row tiles by TMA, an online log-sum-exp in
+  registers, the passage axis split across CTAs and merged in part order).
 - :func:`contrastive_bwd_dq` / :func:`contrastive_bwd_dp` (K4, the same
   source): dq = g·p and dp = gᵀ·q with g = (exp(s − lse) − onehot)/n_q
   recomputed per tile, times the upstream scalar. Plain version:
   :func:`_reference_contrastive_bwd`, the closed form on a materialized [Q, P].
   At H = 768 with 16-byte aligned rows the products run on the tensor cores
   as fp16 pairs (a cluster of four CTAs a 64-row tile, one quarter of H
-  each); other shapes run the FFMA body, counted on
-  ``<wrapper>.launches_generic`` too. ``<wrapper>.last_body`` names the
+  each).
+- Shapes a tensor-core body does not take run the same source's FFMA body,
+  counted on ``<wrapper>.launches_generic`` too. ``<wrapper>.last_body`` names the
   body of the last call ("wgmma" or "ffma").
 - :func:`fused_contrastive_loss`: the differentiable loss, K3 forward (saving
   lse) and K4 backward. :func:`contrastive_loss_auto` takes it when P % Q == 0
@@ -22,8 +26,8 @@ computed without the [Q, P] score matrix.
 
 A wrapper runs its plain version for tensors on the CPU. For CUDA tensors it
 launches its kernel or raises; it never falls back. Launches are counted in
-``<wrapper>.launches``. The kernels take fp32 (K3's products, and K4's FFMA
-body's, in true fp32).
+``<wrapper>.launches``. The kernels take fp32 (the FFMA bodies' products in
+true fp32, the tensor-core bodies' as fp16 hi / lo pairs, ``csrc/split.cuh``).
 """
 
 from __future__ import annotations
@@ -74,21 +78,36 @@ def _check(name, q, p, *extra):
 def contrastive_fwd(q: torch.Tensor, p: torch.Tensor, stride: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (lse [Q], tgt [Q]) fp32 for q [Q,H], p [P,H]; the target of row r
-    is column r·stride."""
+    is column r·stride. The tensor-core body where the C entry takes the shape
+    (it reports which body ran), with the scratch it asks for: the operands'
+    largest magnitudes, both sides' fp16 planes ((Q + P) x H x 4 bytes) and,
+    where the walked axis is split across CTAs, each part's row partials."""
     if not q.is_cuda:
         return _reference_contrastive_fwd(q, p, stride)
     _check("contrastive_fwd", q, p)
+    lib = _native.library()
     Q, H = q.shape
     lse = torch.empty(Q, dtype=torch.float32, device=q.device)
     tgt = torch.empty_like(lse)
+    n_scratch = lib.drt_contrastive_fwd_scratch_bytes(Q, p.shape[0], H)
+    if n_scratch < 0:  # the card's SM count could not be read
+        _native.check(-n_scratch, "drt_contrastive_fwd_scratch_bytes")
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device) if n_scratch else None
+    body = ctypes.c_int(0)
     contrastive_fwd.launches += 1
-    _native.check(_native.library().drt_contrastive_fwd(
+    _native.check(lib.drt_contrastive_fwd(
         q.data_ptr(), p.data_ptr(), lse.data_ptr(), tgt.data_ptr(), Q, p.shape[0], H, stride,
-        _native.stream_ptr(q)), "drt_contrastive_fwd")
+        0 if scratch is None else scratch.data_ptr(), ctypes.byref(body), _native.stream_ptr(q)),
+        "drt_contrastive_fwd")
+    contrastive_fwd.last_body = "wgmma" if body.value else "ffma"
+    if not body.value:
+        contrastive_fwd.launches_generic += 1
     return lse, tgt
 
 
 contrastive_fwd.launches = 0
+contrastive_fwd.launches_generic = 0
+contrastive_fwd.last_body = None
 
 
 def _bwd(wrapper, entry, q, p, lse, stride, gout, rows):

@@ -72,11 +72,12 @@ against seeded random 8-bit codes of the same row bytes (PQ96, d_sub 8, a random
 the 8-bit decode reads its table through L2. Errors are over the filled slots' lists
 against the checkout's plain version. ``--ptxas`` reads ``ivf_cell.cu``.
 
-``--kernel contrastive``: K4, dq and dp through ``ops/contrastive.py``'s wrappers, at
-``chip_smoke.py``'s grad-cache shape (Q=4096, P=32768) and the training path's own (Q=32,
-P=256), H=768, 0.3 N(0, 1) reps from the seed, lse from the checkout's K3; each gradient's
-largest difference to the fp64 gradient over its largest value, and the body that ran where
-the checkout names it. ``--ptxas`` reads ``contrastive.cu``.
+``--kernel contrastive``: K3 (lse and tgt) and K4 (dq and dp) through
+``ops/contrastive.py``'s wrappers, at ``chip_smoke.py``'s grad-cache shape (Q=4096,
+P=32768) and the training path's own (Q=32, P=256), H=768, 0.3 N(0, 1) reps from the seed,
+K4's lse from the checkout's K3; each output's largest difference to the fp64 value over its
+largest value, the body that ran where the checkout names it, and checksums of the inputs
+(which must agree) and of K3's outputs. ``--ptxas`` and ``--sass`` read ``contrastive.cu``.
 
 ``--kernel flat``: K5, the certified search's block top-J, through
 ``ops/topk.py:block_topj`` on 1,000,000 seeded N(0, 1) rows x 768 in fp32 and in bf16, 1024
@@ -172,7 +173,7 @@ FLAT8_CASES = (("K6", 8, 4096), ("K6", 32, 4096)) + tuple(
     (f"K8 {d}", j, 4096) for d in ("fp32", "bf16", "int8") for j in (7, 11)) + (
     ("K8 fp32", 12, 512), ("K8 int8", 9, 512), ("K8 int8", 6, 512))
 FLAT8_ERR_QUERIES = 256
-# K4: (Q, P) of the grad-cache scale and of the training path, stride P / Q
+# K3 / K4: (Q, P) of the grad-cache scale and of the training path, stride P / Q
 CONTRASTIVE_SHAPES = ((4096, 32768), (32, 256))
 SOURCES = {"mlp_ln": ("mlp_ln.cu",), "attn_ln": ("attn_ln.cu",), "flash_bwd": ("flash_attn.cu",),
            "pq": ("pq_serve.cu",), "ivf": ("ivf_cell.cu",), "int4": ("int4_certified.cu",),
@@ -720,7 +721,8 @@ def flat8_rows(chip_smoke, seed, profile):
 
 
 def contrastive_rows(chip_smoke, seed, profile):
-    """K4's dq and dp of the imported checkout at the grad-cache and training shapes."""
+    """K3's lse and tgt, K4's dq and dp of the imported checkout at the grad-cache and
+    training shapes."""
     from denseretrievaltoolkits_torch.ops import contrastive as con
 
     out = {}
@@ -729,10 +731,28 @@ def contrastive_rows(chip_smoke, seed, profile):
         q = 0.3 * torch.randn(Q, H, generator=gen, device="cuda")
         p = 0.3 * torch.randn(P, H, generator=gen, device="cuda")
         stride, one = P // Q, torch.ones((), device="cuda")
-        lse, _ = con.contrastive_fwd(q, p, stride)
         qd, pd = q.double(), p.double()
         rows = torch.arange(Q, device="cuda")
-        g = torch.exp(qd @ pd.T - torch.logsumexp(qd @ pd.T, 1)[:, None])
+        sd = qd @ pd.T
+        lse64 = torch.logsumexp(sd, 1)
+        exact = {"lse": lse64, "tgt": sd[rows, rows * stride]}
+
+        def fwd():
+            return con.contrastive_fwd(q, p, stride)
+        got = fwd()
+        row = {"ms": chip_smoke.cuda_ms(fwd, iters=10, warmup=2),
+               "body": getattr(con.contrastive_fwd, "last_body", None),
+               "checksum": [float(q.sum()), float(p.sum())],
+               "out_checksum": [float(got[0].double().sum()), float(got[1].double().sum())]}
+        for name, x in zip(("lse", "tgt"), got):
+            row[f"{name}_rel_err_fp64"] = float((x.double() - exact[name]).abs().max()
+                                                / exact[name].abs().max())
+        if profile:
+            row["kernels_us"] = kernel_us(fwd, iters=3)
+        out[f"K3 Q={Q} P={P}"] = row
+        lse = got[0]
+        g = torch.exp(sd - lse64[:, None])
+        del sd, exact
         g[rows, rows * stride] -= 1.0
         g /= Q
         exact = {"dq": g @ pd, "dp": g.T @ qd}
@@ -1117,7 +1137,10 @@ def describe(name, turn, kernel):
     if kernel == "contrastive":
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.4f} ms{' (' + v['body'] + ')' if v.get('body') else ''}, max "
-            f"|grad - fp64| of max|grad| {v['rel_err_fp64']:.3e}" for k, v in rows.items())
+            + (f"|x - fp64| of max|x| lse {v['lse_rel_err_fp64']:.3e} tgt "
+               f"{v['tgt_rel_err_fp64']:.3e}, outputs' checksum {v['out_checksum']}"
+               if k.startswith("K3") else
+               f"|grad - fp64| of max|grad| {v['rel_err_fp64']:.3e}") for k, v in rows.items())
     if kernel == "ivfpq":
         return f"{name} ({turn['package']}, build {turn['build_s']:.1f} s): " + "; ".join(
             f"{k} {v['ms']:.3f} ms (J={v['J']}, sel {v['sel']}, Qcap {v['qcap']}, "

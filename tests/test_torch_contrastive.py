@@ -174,3 +174,60 @@ def test_split_products_hold_the_k4_bound(scheme, Q, P):
         bound = 2e-5 * float(e.abs().max())
         assert float((g.double() - e.double()).abs().max()) <= bound
         assert float((g.double() - pl.double()).abs().max()) <= bound
+
+
+# --- K3's tensor-core products (csrc/contrastive.cu), emulated ------------------------------
+
+def _emulated_fwd(q, p, stride, parts, tile=128):
+    """lse, tgt as K3's tensor-core body forms them, with test_torch_topk.py's split
+    emulation: q and p each scaled by one power of two (from its largest magnitude) and split
+    into fp16 pairs; each 64-dim stage's three products summed in fp32, the stages' sums added
+    in fp32 in stage order and scaled back; the passages in 128-column tiles, `parts` runs of
+    them, each with an online log-sum-exp and target score; the parts merged in part order."""
+    from test_torch_topk import split_exp, split_matmul
+
+    n_q, H = q.shape
+    e_q, e_p = split_exp(q.abs().amax()).reshape(1, 1), split_exp(p.abs().amax()).reshape(1, 1)
+    s = torch.zeros(n_q, p.shape[0])
+    for d in range(0, H, 64):  # scaled by powers of two, the fp32 sums round alike
+        s = s + split_matmul(q[:, d:d + 64], p[:, d:d + 64], "fp16", e_q, e_p)
+    rows = torch.arange(n_q)
+    tgt_all = s[rows, rows * stride]
+    n_tiles = -(-p.shape[0] // tile)
+    per = -(-n_tiles // parts)
+    ms, ls = [], []
+    for part in range(parts):
+        m = torch.full((n_q,), float("-inf"))
+        l = torch.zeros(n_q)
+        for t in range(part * per, min((part + 1) * per, n_tiles)):
+            st = s[:, t * tile:(t + 1) * tile]
+            mn = torch.maximum(m, st.amax(1))
+            l = l * torch.exp(m - mn) + torch.exp(st - mn[:, None]).sum(1)
+            m = mn
+        ms.append(m)
+        ls.append(l)
+    M = torch.stack(ms).amax(0)
+    L = sum(li * torch.exp(mi - M) for mi, li in zip(ms, ls))
+    return torch.log(L) + M, tgt_all
+
+
+@pytest.mark.parametrize("Q,P,parts", [(32, 256, 2), (64, 512, 4), (100, 700, 6)])
+def test_split_products_hold_the_k3_bound(Q, P, parts):
+    """K3's split products and its online log-sum-exp over 128-column tiles split into parts,
+    emulated at H = 768 on chip_smoke.py's data (0.3 N(0, 1)), stay within the reference's
+    1e-5: lse and tgt against the fp64 values and against the Pallas forward (interpret mode)
+    of the JAX fused loss, and the loss against the JAX loss."""
+    rng = np.random.default_rng(5)
+    q = (0.3 * rng.normal(size=(Q, 768))).astype(np.float32)
+    p = (0.3 * rng.normal(size=(P, 768))).astype(np.float32)
+    stride = P // Q
+    lse, tgt = _emulated_fwd(torch.from_numpy(q), torch.from_numpy(p), stride, parts)
+    sd = torch.from_numpy(q).double() @ torch.from_numpy(p).double().T
+    rows = torch.arange(Q)
+    np.testing.assert_allclose(lse.double().numpy(), torch.logsumexp(sd, 1).numpy(),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tgt.double().numpy(), sd[rows, rows * stride].numpy(),
+                               rtol=0, atol=1e-5)
+    jloss, jlse = jcon._fwd_impl(jnp.asarray(q), jnp.asarray(p), stride)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:Q, 0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(float((lse - tgt).sum() / Q), float(jloss), rtol=1e-5)

@@ -549,6 +549,71 @@ def test_contrastive_bwd_wgmma_kernel(gen, Q, P):
     assert torch.equal(con.contrastive_bwd_dp(q, p, lse, stride, gout), dp)
 
 
+def _ffma_fwd(q, p, stride):
+    """K3's FFMA body (``contrastive_fwd_kernel``) on the same inputs: its C entry given no
+    scratch, which the tensor-core body needs."""
+    import ctypes
+
+    from denseretrievaltoolkits_torch.ops import _native
+
+    lse = torch.empty(q.shape[0], device="cuda")
+    tgt = torch.empty_like(lse)
+    body = ctypes.c_int(-1)
+    _native.check(_native.library().drt_contrastive_fwd(
+        q.data_ptr(), p.data_ptr(), lse.data_ptr(), tgt.data_ptr(), q.shape[0], p.shape[0],
+        q.shape[1], stride, 0, ctypes.byref(body), _native.stream_ptr(q)), "drt_contrastive_fwd")
+    assert body.value == 0
+    return lse, tgt
+
+
+@pytest.mark.parametrize("Q,P,H", [(32, 256, 768), (64, 512, 768), (100, 700, 768), (5, 10, 768),
+                                   (1000, 8000, 768), (64, 512, 256), (64, 512, 1024)])
+def test_contrastive_fwd_wgmma_kernel(gen, Q, P, H):
+    """K3's tensor-core body (H % 64 == 0, fp16 pairs, 128-row query tiles, the passage axis
+    split across CTAs): lse and tgt within the reference's 1e-5 of the plain version, ragged
+    Q and P, the training path's Q=32, P=256; the error against fp64 at most 2x the FFMA
+    body's on the same inputs (or one fp32 ulp of the largest value, where both round alike);
+    ``launches_generic`` stays; a second call repeats bit for bit."""
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+
+    stride = P // Q
+    q, p = _randn(gen, Q, H, scale=0.3), _randn(gen, P, H, scale=0.3)
+    n_gen = con.contrastive_fwd.launches_generic
+    lse, tgt = con.contrastive_fwd(q, p, stride)
+    torch.cuda.synchronize()
+    assert con.contrastive_fwd.last_body == "wgmma"
+    assert con.contrastive_fwd.launches_generic == n_gen
+    rlse, rtgt = con._reference_contrastive_fwd(q, p, stride)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tgt, rtgt, rtol=1e-5, atol=1e-5)
+    sd = q.double() @ p.double().T
+    rows = torch.arange(Q, device="cuda")
+    exact = (torch.logsumexp(sd, 1), sd[rows, rows * stride])
+    for got, ffma, want in zip((lse, tgt), _ffma_fwd(q, p, stride), exact):
+        floor = 2.0 ** -23 * float(want.abs().max())
+        err, ffma_err = (float((x.double() - want).abs().max()) for x in (got, ffma))
+        assert err <= max(2 * ffma_err, floor), (err, ffma_err)
+    again = con.contrastive_fwd(q, p, stride)
+    assert torch.equal(again[0], lse) and torch.equal(again[1], tgt)
+
+
+def test_contrastive_fwd_generic_body(gen):
+    """K3 at a width the tensor-core body does not take (H % 64 != 0) runs the FFMA body,
+    counted on ``launches_generic`` too, within 1e-5 of the plain version."""
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+
+    Q, P, H = 40, 160, 48
+    q, p = _randn(gen, Q, H, scale=0.3), _randn(gen, P, H, scale=0.3)
+    n = con.contrastive_fwd.launches_generic
+    lse, tgt = con.contrastive_fwd(q, p, 4)
+    torch.cuda.synchronize()
+    assert con.contrastive_fwd.last_body == "ffma"
+    assert con.contrastive_fwd.launches_generic == n + 1
+    rlse, rtgt = con._reference_contrastive_fwd(q, p, 4)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tgt, rtgt, rtol=1e-5, atol=1e-5)
+
+
 def test_contrastive_bwd_generic_body(gen):
     """K4 at a width the tensor-core body does not take (H != 768) runs the FFMA
     body, counted on ``launches_generic`` too, within 1e-5 of max|grad|."""
