@@ -2,7 +2,7 @@
 """Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash) once on a card; check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json] [--flash_only]
-                          [--blocks_only] [--eval_only] [--ivf_only]
+                          [--blocks_only] [--eval_only] [--ivf_only] [--train_only]
 
 Phases, each of which fails the run on error:
 
@@ -228,6 +228,27 @@ Phases, each of which fails the run on error:
    again), and the kernels' step-1 gradient is no further from
    the same model's fp32 gradient than the plain path's; steps/s and peak
    memory against ``attention='xla'``.
+23. Grad-cache training through ``DRModel.build`` and ``Trainer`` with
+   ``grad_cache`` (``train/grad_cache.py``): bert-base bf16, fused attention and
+   loss, tied, on ``make_train_rows`` batches (q_max_len 32, p_max_len 128). At
+   64 queries x 8 passages (chunks of 16 and 128) the step-1 loss and gradient
+   against the full-batch step on the same weights (phase 5's bounds, and a
+   gradient cosine >= 0.9999 and norm ratio within 1e-3 of 1); at 4096 x 8
+   (chunks of 256 and 1024) one timed step after two at 512 x 8 with the same
+   chunks: K3 and K4 launch once at Q=4096, P=32768 (K3's wgmma body, no
+   FFMA-body launch) and K1 / K2 once a layer for each chunk in passes 1 and 3,
+   counted from 0 just before the step; every loss finite, steps/s, real
+   tokens/s, each pass's device ms (CUDA events), and the peak, held to 1.25x
+   the same chunks' peak at 512 x 8.
+24. ``remat`` at the training path's shape (32 x 8, S=128, bf16): '', 'full' and
+   'attn' on ``attention='fused'`` and ``'xla'``, through ``DRModel.build`` and
+   ``Trainer``; the step-1 loss (within 1e-6 relative) and gradient (cosine
+   >= 0.99999) against the same attention without remat, peak memory and
+   steps/s: 'full' must lower the peak on both, 'attn' on 'xla', and 'attn' on
+   'fused' stay within 1% of ''. Counters zeroed before each run and read
+   after it: K1 / K2 once a layer on each side a step on 'fused' (twice with
+   'full'), K3 / K4 once a step.
+   ``--train_only`` runs phases 5, 23 and 24 alone.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -1397,6 +1418,281 @@ def phase_train(args, tmp):
             "steps_per_s": kern_rate[0], "tokens_per_s": kern_rate[1],
             "plain_steps_per_s": plain_rate[0], "plain_tokens_per_s": plain_rate[1],
             "peak_mib": kern_rate[2], "plain_peak_mib": plain_rate[2]}
+
+
+# Grad-cache training (phase A): agreement with the full-batch step where that fits (64
+# queries x 8 passages, chunks of 16 queries and 128 passages), then the scale the fused
+# loss exists for (4096 x 8: Q=4096, P=32768, the K3 / K4 shape of phase 4) with chunks of
+# 256 queries and 1024 passages, and the same chunks at 512 x 8 for the peak's reference:
+# one chunk sets the peak, not the batch, so 4096's may exceed 512's by at most 1.25x. The
+# 512 x 8 steps warm up the chunks' encode shapes, so 4096 x 8 runs one timed step.
+GC_AGREE_QUERIES, GC_AGREE_CHUNKS = 64, (16, 128)
+# the agreement is also held tighter than phase 5's bounds: only the order of the fp32 sums
+# over chunks moves (read on an H100: cosine 0.99997, norm ratio 0.99995)
+GC_AGREE_COS, GC_AGREE_NORM = 0.9999, 1e-3
+GC_SCALE_QUERIES, GC_PEAK_QUERIES, GC_CHUNKS = 4096, 512, (256, 1024)
+GC_PEAK_RATIO = 1.25
+# remat (phase B): the training path's shape; recomputation repeats the forward, so the
+# step-1 loss and gradients equal those without remat (expected bit-equal)
+REMAT_CASES = (("fused", ""), ("fused", "full"), ("fused", "attn"), ("xla", ""),
+               ("xla", "full"), ("xla", "attn"))
+REMAT_LOSS_REL, REMAT_GRAD_COS, REMAT_TIMED_STEPS = 1e-6, 0.99999, 4
+REMAT_FUSED_ATTN_PEAK = 0.01  # 'attn' on 'fused' adds nothing: its peak within 1% of ''
+
+
+def train_model_args(tmp, label, **kw):
+    """A bert-base architecture-only dir (seeded random init at TRAIN_LAYERS) and its
+    ModelArguments: bf16, tied, CLS pooling, fused loss, ``kw`` on top."""
+    from denseretrievaltoolkits_torch.config import ModelArguments
+    from denseretrievaltoolkits_torch.models.bert import BertConfig, save_config
+
+    arch = os.path.join(tmp, f"bert-base-{label}")
+    save_config(BertConfig(num_hidden_layers=TRAIN_LAYERS), arch)
+    return ModelArguments(model_name_or_path=arch, dtype="bfloat16", fused_loss=True,
+                          pooling="first", **{"attention": "fused", **kw})
+
+
+def train_batch(rng, n_queries, n_passages=8, q_len=32, p_len=128):
+    """One (query, passage) batch of ``make_train_rows`` rows, padded as the training
+    path's collator pads."""
+    from denseretrievaltoolkits_torch.data.collators import pad_batch
+
+    rows = make_train_rows(rng, n_queries, n_passages, p_len, q_len)
+    return (pad_batch([q for q, _ in rows], q_len, 0),
+            pad_batch([p for _, ps in rows for p in ps], p_len, 0))
+
+
+def step_trainer(tmp, label, model, **kw):
+    """A Trainer over ``model`` for single steps (adamw at TRAIN_LR, no schedule)."""
+    from denseretrievaltoolkits_torch.config import TrainingArguments
+    from denseretrievaltoolkits_torch.train.trainer import Trainer
+
+    return Trainer(TrainingArguments(
+        output_dir=os.path.join(tmp, label, "out"), cache_train_dir=os.path.join(tmp, label, "c"),
+        learning_rate=TRAIN_LR, optimizer="adamw", log_every=0, **kw), model)
+
+
+def step_grads(trainer, batch):
+    """(loss, flat fp32 gradient) of one Trainer step: the step leaves each
+    parameter's gradient in ``.grad``."""
+    loss = float(trainer.train_step(batch))
+    grad = torch.cat([p.grad.flatten().float() for p in trainer.model.parameters()
+                      if p.grad is not None])
+    return loss, grad
+
+
+def grad_agreement(loss, grad, ref_loss, ref_grad):
+    """(loss relative gap, gradient cosine, norm ratio), in fp64."""
+    a, b = grad.double(), ref_grad.double()
+    return (abs(loss - ref_loss) / abs(ref_loss), float(a @ b / (a.norm() * b.norm())),
+            float(a.norm() / b.norm()))
+
+
+@contextlib.contextmanager
+def pass_events(gc):
+    """CUDA events around each pass of ``train/grad_cache.py``'s step; yields the
+    list of (pass, start, end) they fill."""
+    marks = []
+
+    def timed(name, fn):
+        def run(model, *a):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(model, *a)
+            end.record()
+            label = name if name == "loss (K3 / K4)" else f"{name} {a[0]}"
+            marks.append((label, start, end, [tuple(t.shape) for t in a if torch.is_tensor(t)]))
+            return out
+        return run
+
+    with mock.patch.object(gc, "encode_chunks", timed("encode", gc.encode_chunks)), \
+            mock.patch.object(gc, "rep_grads", timed("loss (K3 / K4)", gc.rep_grads)), \
+            mock.patch.object(gc, "backward_chunks", timed("backward", gc.backward_chunks)):
+        yield marks
+
+
+def phase_grad_cache(args, tmp):
+    """Phase A: bert-base bf16, fused attention and loss, tied, trained through
+    ``Trainer`` with ``grad_cache``: agreement with the full-batch step at 64 x 8, then
+    4096 x 8 (K3 / K4 at Q=4096, P=32768) with its passes' device time and its peak
+    against the same chunks' at 512 x 8."""
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+    from denseretrievaltoolkits_torch.ops import attn, contrastive as con
+    from denseretrievaltoolkits_torch.train import grad_cache as gc
+
+    margs = train_model_args(tmp, "gc")
+    rng = np.random.default_rng(args.seed + 23)
+
+    def trainer(label, chunks=None):
+        kw = {} if chunks is None else dict(grad_cache=True, gc_q_chunk_size=chunks[0],
+                                           gc_p_chunk_size=chunks[1])
+        return step_trainer(tmp, label, DRModel.build(margs, device="cuda", seed=args.seed),
+                            **kw)
+
+    counted = (attn.fused_attention_ln, attn.fused_mlp_ln, con.contrastive_fwd,
+               con.contrastive_bwd_dq, con.contrastive_bwd_dp)
+    loss_kernels = counted[2:]
+    # agreement with the full-batch step, same weights and batch
+    small = train_batch(rng, GC_AGREE_QUERIES)
+    full = trainer("gc-full")
+    f_loss, f_grad = step_grads(full, small)
+    del full
+    chunked = trainer("gc-agree", GC_AGREE_CHUNKS)
+    c_loss, c_grad = step_grads(chunked, small)
+    del chunked
+    rel, cos, ratio = grad_agreement(c_loss, c_grad, f_loss, f_grad)
+    del c_grad, f_grad
+    log(f"grad-cache vs full-batch step at {GC_AGREE_QUERIES} x 8 (chunks {GC_AGREE_CHUNKS}): "
+        f"step-1 loss {c_loss:.6f} vs {f_loss:.6f} (rel {rel:.3e}, <= {TRAIN_STEP1_REL:g}); "
+        f"gradient cosine {cos:.7f} (>= {TRAIN_GRAD_COS:g}), norm ratio {ratio:.7f} (within "
+        f"{TRAIN_GRAD_NORM:g} of 1)")
+    check(rel <= TRAIN_STEP1_REL, "grad-cache: step-1 loss disagrees with the full-batch step")
+    check(cos >= TRAIN_GRAD_COS, "grad-cache: gradients disagree with the full-batch step")
+    check(abs(ratio - 1) <= TRAIN_GRAD_NORM,
+          "grad-cache: gradient norms disagree with the full-batch step")
+    check(cos >= GC_AGREE_COS and abs(ratio - 1) <= GC_AGREE_NORM,
+          f"grad-cache: gradient cosine {cos:.7f} or norm ratio {ratio:.7f} outside the "
+          f"chunking's bounds ({GC_AGREE_COS:g}, within {GC_AGREE_NORM:g} of 1)")
+    torch.cuda.empty_cache()
+
+    gc_trainer = trainer("gc-scale", GC_CHUNKS)
+
+    def peak_step(batch):
+        """(loss, max_memory_allocated MiB) of one step from a reset peak"""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(gc_trainer.train_step(batch))
+        torch.cuda.synchronize()
+        return loss, torch.cuda.max_memory_allocated() / 2 ** 20
+
+    ref_batch = train_batch(rng, GC_PEAK_QUERIES)
+    peak_step(ref_batch)  # warm-up at the same chunks
+    ref_loss, ref_peak = peak_step(ref_batch)
+    del ref_batch
+    big = train_batch(rng, GC_SCALE_QUERIES)
+    Q, P = big[0]["input_ids"].shape[0], big[1]["input_ids"].shape[0]
+    tokens = int(big[0]["attention_mask"].sum()) + int(big[1]["attention_mask"].sum())
+    log(f"grad-cache training: bert-base L={TRAIN_LAYERS} bf16 fused attention + fused loss, "
+        f"tied; {Q} queries x 8 passages (P={P}), chunks of {GC_CHUNKS[0]} queries and "
+        f"{GC_CHUNKS[1]} passages; {tokens} real tokens a step")
+    # K1 / K2 once a layer for each chunk in passes 1 and 3 (pass 3's backward recomputes in
+    # plain PyTorch), K3 / K4 once in pass 2
+    want = {fn.__name__: 2 * TRAIN_LAYERS * (Q // GC_CHUNKS[0] + P // GC_CHUNKS[1])
+            for fn in counted[:2]}
+    want.update({fn.__name__: 1 for fn in loss_kernels})
+    generic0 = [fn.launches_generic for fn in loss_kernels]
+    for fn in counted:
+        fn.launches = 0
+    with pass_events(gc) as marks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, peak = peak_step(big)
+        dt = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    generic = [fn.launches_generic - g for fn, g in zip(loss_kernels, generic0)]
+    k3_body = con.contrastive_fwd.last_body
+    del gc_trainer, big
+    torch.cuda.empty_cache()
+    passes = {}
+    loss_shapes = set()
+    for name, start, end, shapes in marks:
+        passes.setdefault(name, []).append(start.elapsed_time(end))
+        if name.startswith("loss"):
+            loss_shapes.add(tuple(shapes))
+    passes_ms = {k: float(np.sum(v)) for k, v in passes.items()}
+    log(f"grad-cache passes at {Q} x 8, device ms of the step (CUDA events): "
+        f"{json.dumps({k: round(v, 3) for k, v in passes_ms.items()})}; the loss pass took reps "
+        f"{sorted(loss_shapes)}")
+    log(f"grad-cache at {Q} x 8: {1 / dt:.4f} steps/s, {tokens / dt:.0f} real tokens/s (1 step "
+        f"after the {GC_PEAK_QUERIES} x 8 steps at the same chunks); loss {loss!r}; peak "
+        f"{peak:.0f} MiB vs {ref_peak:.0f} MiB at {GC_PEAK_QUERIES} x 8 (ratio "
+        f"{peak / ref_peak:.4f}, <= {GC_PEAK_RATIO}); launches {json.dumps(launches)} (want "
+        f"{json.dumps(want)}), K3 body {k3_body}, FFMA-body launches (K3, dq, dp) {generic}")
+    check(all(math.isfinite(x) for x in (loss, ref_loss)), "grad-cache: a loss is not finite")
+    check(launches == want, f"grad-cache: launches at {Q} x {P} {launches}, not {want}")
+    check(loss_shapes == {((Q, 768), (P, 768))},
+          f"grad-cache: the loss pass took reps {loss_shapes}, not [{Q}, 768] x [{P}, 768]")
+    check(k3_body == "wgmma", f"grad-cache: K3 ran its {k3_body} body, not wgmma")
+    check(generic == [0, 0, 0], f"grad-cache: the FFMA bodies ran {generic} times")
+    check(peak <= GC_PEAK_RATIO * ref_peak,
+          f"grad-cache: peak {peak:.0f} MiB at {Q} x 8 exceeds {GC_PEAK_RATIO} x the "
+          f"{ref_peak:.0f} MiB of the same chunks at {GC_PEAK_QUERIES} x 8")
+    return {"launches": launches, "agree_step1_rel": rel, "agree_grad_cos": cos,
+            "agree_grad_norm_ratio": ratio, "loss": loss, "ref_loss": ref_loss,
+            "passes_ms": passes_ms, "steps_per_s": 1 / dt, "tokens_per_s": tokens / dt,
+            "tokens_per_step": tokens,
+            "peak_mib": peak, "ref_peak_mib": ref_peak, "peak_ratio": peak / ref_peak,
+            "k3_body": k3_body, "generic_launches": generic}
+
+
+def phase_remat(args, tmp):
+    """Phase B: bert-base bf16 at the training path's shape (32 x 8, S=128) through
+    ``DRModel.build`` and ``Trainer`` with remat '', 'full' and 'attn' on 'fused' and on
+    'xla': step-1 loss and gradients against the same attention without remat, peak
+    memory and steps/s of each. One model lives at a time, and the reference gradients
+    wait on the host, so the peaks compare."""
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+    from denseretrievaltoolkits_torch.ops import attn, contrastive as con
+
+    batch = train_batch(np.random.default_rng(args.seed + 29), TRAIN_BATCH)
+    counted = (attn.fused_attention_ln, attn.fused_mlp_ln, con.contrastive_fwd,
+               con.contrastive_bwd_dq, con.contrastive_bwd_dp)
+    steps = 3 + REMAT_TIMED_STEPS
+    results, ref = {}, {}
+    for attention, remat in REMAT_CASES:
+        label = f"{attention} remat={remat!r}"
+        model = DRModel.build(train_model_args(tmp, "remat", attention=attention, remat=remat),
+                              device="cuda", seed=args.seed)
+        # a step: K1 / K2 once a layer on each side in the forward ('fused' only), again in
+        # the recompute of 'full'; K3 / K4 once
+        blocks = 0 if attention != "fused" else 2 * TRAIN_LAYERS * (2 if remat == "full" else 1)
+        want = {fn.__name__: steps * n for fn, n in zip(counted, (blocks,) * 2 + (1,) * 3)}
+        for fn in counted:
+            fn.launches = 0
+        trainer = step_trainer(tmp, f"remat-{attention}-{remat}", model)
+        loss, grad = step_grads(trainer, batch)
+        grad = grad.cpu()
+        for _ in range(2):  # warm-up
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_TIMED_STEPS):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        r = {"loss": loss, "steps_per_s": REMAT_TIMED_STEPS / (time.perf_counter() - t0),
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "launches": {fn.__name__: fn.launches for fn in counted}}
+        del trainer, model
+        if not remat:
+            ref[attention] = (loss, grad)
+        r_loss, r_grad = ref[attention]
+        r["loss_rel"], r["grad_cos"], r["grad_norm_ratio"] = grad_agreement(loss, grad, r_loss,
+                                                                             r_grad)
+        r["grad_max_abs_gap"] = float((grad - r_grad).abs().max())
+        del grad
+        torch.cuda.empty_cache()
+        results[label] = r
+        log(f"remat {label}: step-1 loss {loss:.7f} (rel gap {r['loss_rel']:.3e}), largest "
+            f"gradient gap {r['grad_max_abs_gap']:.3e}, cosine {r['grad_cos']:.9f} vs no remat; "
+            f"peak {r['peak_mib']:.0f} MiB, {r['steps_per_s']:.4f} steps/s; launches in "
+            f"{steps} steps {json.dumps(r['launches'])}")
+        check(r["loss_rel"] <= REMAT_LOSS_REL, f"remat {label}: step-1 loss differs")
+        check(r["grad_cos"] >= REMAT_GRAD_COS, f"remat {label}: gradients differ")
+        check(r["launches"] == want, f"remat {label}: launches {r['launches']}, not {want}")
+    del ref
+    # the kernels line's count: the runs with remat on ('full' and 'attn'), not the references
+    launches = {fn.__name__: sum(r["launches"][fn.__name__] for (_, remat), r in
+                                 zip(REMAT_CASES, results.values()) if remat)
+                for fn in counted}
+    log(f"launches on the remat runs ('full' and 'attn'): {json.dumps(launches)}")
+    peak = {k: v["peak_mib"] for k, v in results.items()}
+    fused, xla = peak["fused remat=''"], peak["xla remat=''"]
+    check(peak["fused remat='full'"] < fused, "remat 'full' did not lower the peak on 'fused'")
+    check(peak["xla remat='attn'"] < xla, "remat 'attn' did not lower the peak on 'xla'")
+    check(abs(peak["fused remat='attn'"] - fused) <= REMAT_FUSED_ATTN_PEAK * fused,
+          "remat 'attn' moved the peak on 'fused' by more than 1%")
+    return {"launches": launches, "runs": results}
 
 
 def plain_flash_qkv(flash, qkv, seg, nh, hd):
@@ -4109,6 +4405,9 @@ def main(argv=None):
     parser.add_argument("--ivf_only", action="store_true",
                         help="run only the IVF cell kernels' phases (14 and 16: 1M and 8.8M "
                              "rows), for their readings; prints no kernels line")
+    parser.add_argument("--train_only", action="store_true",
+                        help="run only the training paths (phase 5, grad-cache and remat: "
+                             "phases 23 and 24), for iterating on them; prints no kernels line")
     parser.add_argument("--eval_only", action="store_true",
                         help="run only the evaluation paths (phases 11, 15 and 18, with the "
                              "plain encoder's PQ96 gaps), for their readings at another --seed; "
@@ -4171,6 +4470,16 @@ def main(argv=None):
         log(f"failed checks: {json.dumps(FAILED)}")
         log(smi)
         return 1 if FAILED else 0
+    if args.train_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {"card": smi, "seed": args.seed, "train": phase_train(args, tmp),
+                       "grad_cache": phase_grad_cache(args, tmp),
+                       "remat": phase_remat(args, tmp)}
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(results, fh, indent=1)
+        log(smi)
+        return 0
     if args.flash_only:
         with tempfile.TemporaryDirectory() as tmp:
             results = {"card": smi, "seed": args.seed,
@@ -4201,6 +4510,8 @@ def main(argv=None):
         int8_path = phase_int8_path(args, tmp, kern)
         del kern
         train = phase_train(args, tmp)
+        grad_cache = phase_grad_cache(args, tmp)
+        remat = phase_remat(args, tmp)
         flash_serving = phase_flash_serving(args, tmp)
         flash_train = phase_flash_train(args, tmp)
         eval_path, ctx = phase_eval_path(args, tmp)
@@ -4239,6 +4550,10 @@ def main(argv=None):
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1], "library_ms": None}
                for name, source, replaces, r in rows]
+    for row in kernels[:2]:  # K1 / K2 on the training paths too
+        row.update(train_launches=train["launches"][row["name"]],
+                   grad_cache_launches=grad_cache["launches"][row["name"]],
+                   remat_launches=remat["launches"][row["name"]])
     kernels[0].update({k: rows[0][3][k] for k in ("body", "stage_a_ms", "stage_b_ms",
                                                   "scratch_bound_ms")})  # K1's two launches
     kernels[1]["chain_ms"] = rows[1][3]["chain_ms"]  # K2: the xla block's bf16 chain
@@ -4269,7 +4584,10 @@ def main(argv=None):
                         "launches": train["launches"][name], "max_abs_err": err,
                         "ms": big["ms"][ms], "plain_ms": big["ms"][ms + "_plain"],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                        "train_shape_ms": k34["32x256"]["ms"][ms]})
+                        "train_shape_ms": k34["32x256"]["ms"][ms],
+                        # the grad-cache path's launches at this row's shape (Q=4096, P=32768)
+                        "grad_cache_launches": grad_cache["launches"][name],
+                        "remat_launches": remat["launches"][name]})
         kernels[-1].update({  # the tensor-core bodies: fp16 pairs, the FFMA body beside them
             "source": ", ".join(src + f for f in ("contrastive.cu", "split.cuh", "hopper.cuh",
                                                   "common.cuh")),
@@ -4478,6 +4796,7 @@ def main(argv=None):
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "build_s": _native.build_seconds, "block_kernels": blocks,
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
+                       "grad_cache": grad_cache, "remat": remat,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
                        "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,

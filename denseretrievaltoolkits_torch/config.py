@@ -94,8 +94,8 @@ class ModelArguments:
     remat: str = field(
         default="",
         metadata={"help": "Rematerialization: '' (off) | 'full' (checkpoint "
-                  "whole encoder blocks) | 'attn' (recompute only attention "
-                  "tensors). Not ported yet: the port raises for both"},
+                  "whole encoder blocks) | 'attn' (recompute only the xla "
+                  "path's attention tensors)"},
     )
     fused_loss: bool = field(
         default=False,

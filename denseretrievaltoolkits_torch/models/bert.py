@@ -14,6 +14,14 @@ runs 'flash' as 'xla' there, bert.py:331-332), and its pad rows attend only the
 pad keys before S, where the reference's also average its 128-row padding:
 real rows agree, pad rows differ but stay finite.
 
+``remat`` recomputes activations in the backward instead of keeping them
+(``bert_encode(remat=...)``, bert.py:296-345 there): ``'full'`` checkpoints each
+block (``torch.utils.checkpoint``); ``'attn'`` checkpoints only the xla path's
+attention, whose [B, nh, S, S] scores and probabilities are the tensors the
+reference tags (bert.py:269-275). On ``'fused'`` and ``'flash'`` ``'attn'`` adds
+nothing: K1 keeps only its inputs and recomputes in its backward, and the
+reference tags no flash tensor.
+
 Weights keep the reference's ``[in, out]`` kernel layout, so the JAX pytree
 maps onto the module with no transpose (``models/convert.py``). Matrices and
 biases are stored in ``param_dtype`` and cast to the compute dtype at every
@@ -33,11 +41,13 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import attn as attn_ops
 from ..ops import flash as flash_ops
 
 ATTENTIONS = ("xla", "flash", "fused")
+REMATS = ("", "full", "attn")
 
 
 @dataclass(frozen=True)
@@ -126,8 +136,10 @@ def _dense(h, kernel, bias):
     return torch.matmul(h, kernel.to(h.dtype)) + bias.to(h.dtype)
 
 
-def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str):
-    """One post-LN BERT block. x [B,S,H] compute dtype; mask [B,S] 0/1."""
+def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str,
+                  remat_attn: bool = False):
+    """One post-LN BERT block. x [B,S,H] compute dtype; mask [B,S] 0/1.
+    ``remat_attn``: on the xla path, recompute the attention in the backward."""
     c = config
     nh, hd = c.num_attention_heads, c.head_dim
     qkv = _dense(x, layer.qkv_kernel, layer.qkv_bias)
@@ -141,6 +153,9 @@ def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str)
             layer.wo_bias.to(cd), layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
     if attention == "flash":
         ctx = flash_ops.flash_attention_qkv(qkv, mask, nh, hd).reshape(x.shape)
+    elif remat_attn:
+        ctx = checkpoint(attn_ops._reference_attention, qkv, mask, 1.0 / math.sqrt(hd), nh, hd,
+                         use_reentrant=False)
     else:
         ctx = attn_ops._reference_attention(qkv, mask, 1.0 / math.sqrt(hd), nh, hd)
     # as the xla path: projection and residual in the compute dtype, fp32 LayerNorm
@@ -155,16 +170,20 @@ def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str)
 class BertEncoder(nn.Module):
     """BERT encoder + HF-style pooler. ``forward`` returns last_hidden_state
     [B,S,H] in ``dtype`` (the reference ``bert_encode``). ``param_dtype``
-    (default: ``dtype``) is the storage dtype of matrices and biases."""
+    (default: ``dtype``) is the storage dtype of matrices and biases;
+    ``remat`` one of :data:`REMATS`, applied where autograd records."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
-                 attention: str = "xla", device=None, param_dtype=None):
+                 attention: str = "xla", device=None, param_dtype=None, remat: str = ""):
         super().__init__()
         if attention not in ATTENTIONS:
             raise ValueError(f"Unknown attention impl: {attention}")
+        if remat not in REMATS:
+            raise ValueError(f"Unknown remat: {remat!r} (one of {REMATS})")
         self.config = config
         self.dtype = dtype
         self.attention = attention
+        self.remat = remat
         param_dtype = param_dtype or dtype
         self.embeddings = BertEmbeddings(config, device=device)
         self.layers = nn.ModuleList(
@@ -184,8 +203,14 @@ class BertEncoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         x = x + emb.token_type[token_type_ids]
         x = layer_norm(x, emb.ln_scale, emb.ln_bias, c.layer_norm_eps).to(self.dtype)
+        remat = self.remat if torch.is_grad_enabled() else ""
         for layer in self.layers:
-            x = encoder_block(x, layer, attention_mask, c, self.attention)
+            if remat == "full":
+                x = checkpoint(encoder_block, x, layer, attention_mask, c, self.attention,
+                               use_reentrant=False)
+            else:
+                x = encoder_block(x, layer, attention_mask, c, self.attention,
+                                  remat_attn=remat == "attn")
         return x
 
     def pooler(self, hidden):

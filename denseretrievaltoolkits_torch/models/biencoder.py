@@ -64,10 +64,8 @@ class DRModelSpec:
             raise ValueError(f"Unknown backbone: {self.backbone}")
         if self.attention not in bert.ATTENTIONS:
             raise ValueError(f"Unknown attention impl: {self.attention}")
-        if self.remat:
-            raise NotImplementedError(
-                f"remat={self.remat!r} is not ported yet (ROADMAP queue 1, item '`remat`', "
-                f"torch.utils.checkpoint)")
+        if self.remat not in bert.REMATS:
+            raise ValueError(f"Unknown remat: {self.remat!r} (one of {bert.REMATS})")
 
 
 class DRModel(nn.Module):
@@ -88,7 +86,7 @@ class DRModel(nn.Module):
 
         def tower():
             return bert.BertEncoder(spec.bert_config, dtype, spec.attention, device=self.device,
-                                    param_dtype=param_dtype)
+                                    param_dtype=param_dtype, remat=spec.remat)
 
         self.lm_q = tower()
         self.lm_p = None if spec.tied else tower()
@@ -155,16 +153,20 @@ class DRModel(nn.Module):
             out["p_reps"] = self._reps(*self._towers("passage"), passage)
         if query is None or passage is None:
             return out
-        if self.spec.fused_loss:
-            from ..ops.contrastive import contrastive_loss_auto
-
-            loss, scores = contrastive_loss_auto(out["q_reps"], out["p_reps"])
-        else:
-            loss, scores = contrastive_loss(out["q_reps"], out["p_reps"])
+        loss, scores = self.loss(out["q_reps"], out["p_reps"])
         out["loss"] = loss
         if scores is not None:
             out["scores"] = scores
         return out
+
+    def loss(self, q_reps: torch.Tensor, p_reps: torch.Tensor):
+        """The in-batch contrastive loss of reps: (loss, scores), scores None
+        on the fused path (K3 / K4 with ``fused_loss`` where P % Q == 0)."""
+        if self.spec.fused_loss:
+            from ..ops.contrastive import contrastive_loss_auto
+
+            return contrastive_loss_auto(q_reps, p_reps)
+        return contrastive_loss(q_reps, p_reps)
 
     def encode_only_forward(self, query=None, passage=None) -> Dict[str, torch.Tensor]:
         """Reps, never a loss (the reference ``DRModelForInference`` contract)."""

@@ -2,8 +2,9 @@
 
 Counterpart of ``Trainer`` in ``denseretrievaltoolkits_tpu/train/trainer.py``
 (:42-697): warmup derived from ``warmup_ratio``, one optimizer update per
-``train_step``, the epoch loop with the shared ``prefetch``, a log line and
-``train_log.jsonl`` at the log cadence, a ``torch.profiler`` trace of step 2
+``train_step`` (the full batch, or chunked with ``grad_cache``), the epoch
+loop with the shared ``prefetch``, a log line and ``train_log.jsonl`` at the
+log cadence, a ``torch.profiler`` trace of step 2
 when ``profile_dir`` is set, the stop on a non-finite epoch loss, the save
 cadence (the deploy format under ``cache_train_dir/result{N}`` and a resume
 checkpoint, ``torch.save`` of params, optimizer state, epoch and step, under
@@ -30,8 +31,8 @@ Corpus texts are read as ``dataset[rows]["original"]``, row by row where the
 dataset has no fancy indexing (a plain list of dicts).
 
 The model holds its parameters, so there is no ``params`` argument. The
-miner, a mesh and ``grad_cache`` (ROADMAP queue 1, 'Mining and BM25',
-``parallel/`` and 'Grad-cache') are later slices: given any of them, the constructor raises.
+miner and a mesh (ROADMAP queue 1, 'Mining and BM25' and ``parallel/``) are
+later slices: given either, the constructor raises.
 
 Resume differs from the reference on purpose. The reference saves ``ep + 1``
 (the epochs done) and ``load`` starts at ``epoch + 1``, so a resumed run skips
@@ -55,6 +56,7 @@ from ..data.loaders import prefetch
 from ..evaluator.metrics import get_metrics
 from ..evaluator.nq_eval import AnswerMatcher
 from ..index.flat import FlatIPIndex
+from .grad_cache import grad_cache_backward
 from .optimizers import get_optimizer
 
 logger = logging.getLogger(__name__)
@@ -74,12 +76,6 @@ class Trainer:
             if given is not None:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP queue 1, item '{item}')")
-        if getattr(training_args, "grad_cache", False):
-            # the full-batch step has the same gradient, but not the chunked memory bound
-            raise NotImplementedError(
-                "grad_cache (chunked encode with cached rep gradients) is not ported yet "
-                "(ROADMAP queue 1, item 'Grad-cache'); unset grad_cache to train the "
-                "full batch at once")
         self.training_args = training_args
         self.model = model
         self.corpus_dataloader = corpus_dataloader
@@ -109,12 +105,21 @@ class Trainer:
         self.step = 0
 
     def train_step(self, batch) -> torch.Tensor:
-        """One optimizer update on a (query, passage) batch. Returns the loss
-        as a device tensor: no per-step host sync (trainer.py:177-187)."""
+        """One optimizer update on a (query, passage) batch: the full batch
+        through autograd, or with ``grad_cache`` the chunked step of
+        ``train/grad_cache.py`` (``gc_q_chunk_size`` / ``gc_p_chunk_size`` rows a
+        chunk; trainer.py:136-146). Returns the loss as a device tensor: no
+        per-step host sync (trainer.py:177-187)."""
+        args = self.training_args
         self.model.train()
-        loss = self.model.forward(batch[0], batch[1])["loss"]
-        self.optimizer.zero_grad()
-        loss.backward()
+        if args.grad_cache:
+            self.optimizer.zero_grad()
+            loss = grad_cache_backward(self.model, batch[0], batch[1], args.gc_q_chunk_size,
+                                       args.gc_p_chunk_size)
+        else:
+            loss = self.model.forward(batch[0], batch[1])["loss"]
+            self.optimizer.zero_grad()
+            loss.backward()
         self.optimizer.step()
         self.step += 1
         return loss.detach()
@@ -146,8 +151,7 @@ class Trainer:
                     f"non-finite mean loss {mean_loss} at epoch {ep + 1}; "
                     f"resume from the last checkpoint under "
                     f"{args.output_dir}/checkpoint with --resume_from "
-                    f"(consider a lower learning_rate; rematerialization, --remat, is not "
-                    f"ported yet: ROADMAP queue 1, item '`remat`')")
+                    f"(consider a lower learning_rate or --remat full)")
             logger.info("epoch %d done, mean loss %.4f", ep + 1, mean_loss)
             self._log_metrics({"epoch": ep + 1, "step": self.step, "mean_loss": mean_loss,
                                "epoch_seconds": time.time() - t0})

@@ -6,8 +6,12 @@ imports ``jax``, ``jaxlib``, ``flax``, ``optax`` or any module of the JAX
 package, nor the ``regex`` package, which the card's machine lacks too
 (``evaluator/nq_eval.py`` tokenizes with ``unicodedata`` instead). It keeps
 its own copies of the modules the two packages share (``config``, ``data.collators``, ``data.loaders``, ``evaluator.metrics``,
-``index.modes``, ``evaluator.nq_eval``); ``tests/test_torch_shared.py`` and
-``tests/test_torch_eval.py`` hold each copy to its original."""
+``index.modes``, ``evaluator.nq_eval``, and ``data.datasets``, ``data.preprocess``,
+``data.samplers``, ``utils``);
+``tests/test_torch_shared.py``, ``tests/test_torch_eval.py`` and
+``tests/test_torch_data.py`` hold each copy to its original. ``transformers``
+and ``datasets``, which the card's machine lacks too, are imported only inside
+functions, never when a module is imported."""
 
 import ast
 import pathlib
@@ -32,6 +36,37 @@ def _imported(path):
 def test_port_imports(path):
     for name in _imported(path):
         assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+LOADED_IN_FUNCTIONS = ("transformers", "datasets")
+
+
+def _imported_at_import_time(path):
+    """Absolute imports outside function bodies: what importing the module runs."""
+    todo = list(ast.parse(path.read_text()).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_hf_packages_imported_only_in_functions(path):
+    for name in _imported_at_import_time(path):
+        assert name.split(".")[0] not in LOADED_IN_FUNCTIONS, (path, name)
+
+
+def test_hf_rule_sees_module_level_imports(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import os\ntry:\n    from datasets import load_dataset\nexcept ImportError:\n"
+                   "    pass\nclass A:\n    import transformers\n"
+                   "def f():\n    import datasets\n")
+    assert sorted(_imported_at_import_time(bad)) == ["datasets", "os", "transformers"]
 
 
 def test_kernel_sources_present():

@@ -267,8 +267,6 @@ def test_params_are_fp32_masters_and_serving_stores_compute_dtype():
     # the cast at use reproduces the serving weights: identical bf16 reps
     q = _batch(3, 8, 4)
     torch.testing.assert_close(train.encode_query(q), serve.encode_query(q), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="queue 1, item '`remat`'"):
-        _build(remat="full")
 
 
 def test_convert_roundtrip_and_npz(tmp_path):
@@ -419,8 +417,8 @@ def test_non_finite_loss_stops(tmp_path):
 
 
 def test_non_finite_loss_message_advises_no_unported_flag(tmp_path):
-    """The message names --remat as not ported (the port refuses the flag, see
-    models/biencoder.py) instead of advising it."""
+    """The message advises what the reference's does (trainer.py:226-230):
+    a lower learning rate or --remat full, which the port now takes."""
     port = _build(seed=1)
     trainer = Trainer(_args(tmp_path, max_epochs=1), port, train_loader=_loader())
     with torch.no_grad():
@@ -428,11 +426,8 @@ def test_non_finite_loss_message_advises_no_unported_flag(tmp_path):
             prm.fill_(float("nan"))
     with pytest.raises(FloatingPointError) as err:
         trainer.train()
-    msg = str(err.value)
-    assert "--remat full" not in msg
-    assert "--remat, is not ported yet: ROADMAP queue 1, item '`remat`'" in msg
-    with pytest.raises(NotImplementedError, match="item '`remat`'"):
-        _build(seed=1, remat="full")
+    assert "(consider a lower learning_rate or --remat full)" in str(err.value)
+    assert _build(seed=1, remat="full").lm_q.remat == "full"
 
 
 def test_profile_trace_and_unported_arguments(tmp_path):
@@ -452,13 +447,3 @@ def test_profile_trace_and_unported_arguments(tmp_path):
                      ({"mesh": object()}, "'`parallel/` and `utils/distributed.py`'")):
         with pytest.raises(NotImplementedError, match=f"queue 1, item {re.escape(item)}"):
             Trainer(dataclasses.replace(args), _build(seed=2), **kw)
-
-
-def test_grad_cache_raises_until_ported(tmp_path):
-    """``grad_cache`` parses, but the port has no chunked step yet: the
-    Trainer refuses it, naming its ROADMAP item, instead of silently running
-    the full-batch step without the chunked memory bound."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 'Grad-cache'"):
-        Trainer(_args(tmp_path, grad_cache=True, gc_q_chunk_size=2), _build(seed=2),
-                train_loader=_loader())
-    assert Trainer(_args(tmp_path), _build(seed=2), train_loader=_loader()).step == 0
