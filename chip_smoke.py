@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash) once on a card; check them.
+"""Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash, LoRA, mining) once on a card; check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json] [--flash_only]
                           [--blocks_only] [--eval_only] [--ivf_only] [--train_only]
@@ -248,7 +248,29 @@ Phases, each of which fails the run on error:
    'fused' stay within 1% of ''. Counters zeroed before each run and read
    after it: K1 / K2 once a layer on each side a step on 'fused' (twice with
    'full'), K3 / K4 once a step.
-   ``--train_only`` runs phases 5, 23 and 24 alone.
+25. LoRA through ``DRModel.build(param_efficient_method='lora', lora_rank=8)`` and
+   ``Trainer`` at the training path's shape (32 x 8, S=128, bf16, fused attention and
+   loss): the step-1 loss and the adapters' gradient against the plain loss (phase 5's
+   bounds); 2 warm-up and 4 timed steps, steps/s and peak memory beside a full
+   fine-tune of the same model timed the same way; counters zeroed before: K1 / K2 0
+   (a LoRA layer runs the xla block), K3 / K4 once a step; every frozen tensor
+   bit-equal after, every adapter moved. Then B drawn N(0, 0.2), ``merge_lora`` and 512
+   passages (S=156) encoded by the merged tower on K1 / K2 against the adapted tower
+   (reps cosine >= 0.999); ``export_hf`` and ``DRModel.build`` from that directory on
+   the card with neither ``transformers`` nor ``safetensors`` loaded (the same reps
+   within fp32 rounding); one LoRA step at S=512 on 'flash' (8 x 8; the flash kernels
+   launched) against the same step on 'xla' (phase 22's step-loss bound).
+   ``--train_only`` runs phases 5 and 23-25 alone.
+26. Mining: bert-base (bf16, fused) encodes 32,768 synthetic passages (S=156, phase
+   11's generator) into the trainer's float32 index (``_encoding_corpus``); ``DenseMiner``
+   mines 7 negatives for each of 4,096 train queries from k = 17 in ``serve`` (K8) and
+   in ``exact`` (K5): queries/s, the share of samples whose lists are equal (>= 0.99),
+   no sample's own positive mined, counters of K1 / K2 / K5 / K8 per mode; then a
+   2-epoch ``Trainer.train`` with ``mine_per_train=1`` over 64 samples (epoch 2 trains on
+   the mined rows, its losses finite); ``BM25Negatives`` over the 32,768-passage train
+   pool on the native engine, built from ``native/bm25.cpp`` into ``_build/`` (wall
+   seconds; rankings held to the Python retriever's on 256 queries by score).
+   ``--eval_only`` runs it after phases 11, 15 and 18.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -1693,6 +1715,379 @@ def phase_remat(args, tmp):
     check(abs(peak["fused remat='attn'"] - fused) <= REMAT_FUSED_ATTN_PEAK * fused,
           "remat 'attn' moved the peak on 'fused' by more than 1%")
     return {"launches": launches, "runs": results}
+
+
+# LoRA (phase 25): bert-base bf16 with rank-8 adapters at the training path's shape (32 x 8,
+# S=128, fused loss), 2 warm-up and LORA_TIMED_STEPS timed steps, beside a full fine-tune of
+# the same model timed the same way. The step-1 loss and the adapters' gradient take phase 5's
+# bounds against the plain loss. For the merge, B is drawn N(0, LORA_MERGE_B) (6 steps at lr
+# 1e-5 leave it near 0, where a merge that adds nothing would pass): the merged tower's reps
+# (K1 / K2) within LORA_MERGE_COS of the adapted tower's (the xla block), whose own distance
+# from the base tower must be LORA_MERGE_MOVED times larger. LORA_PASSAGES passages at S=156
+# are encoded; the flash step is phase 22's shape (8 x 8, S=512), held to 'xla' by
+# FLASH_STEP_GAP.
+LORA_RANK, LORA_TIMED_STEPS, LORA_PASSAGES = 8, 4, 512
+LORA_MERGE_B, LORA_MERGE_COS, LORA_MERGE_MOVED = 0.2, 0.999, 10
+# Mining (phase 26): bert-base, MINE_PASSAGES synthetic passages at S=156 (phase 11's
+# generator), MINE_QUERIES train queries whose positive is the passage they are cut from,
+# train_n_passages 8 (k = 7 + 10); serve (K8) against exact (K5): the share of samples whose
+# mined lists are equal. serve's recall is >= 0.999 (PERF.md section 2), so a list of 7
+# differs only where a near tie swaps at the 7th place: bound MINE_SERVE_AGREE (provisional
+# until the first reading). The hook: MINE_HOOK_QUERIES samples, 2 epochs. BM25: its rankings
+# held to the Python retriever's by score on BM25_QUERIES queries (atol 1e-4, as
+# tests/test_bm25_native.py:33-52).
+MINE_PASSAGES, MINE_QUERIES, MINE_N_PASSAGES, MINE_SERVE_AGREE = 32_768, 4096, 8, 0.99
+MINE_HOOK_QUERIES, BM25_QUERIES = 64, 256
+
+
+class StubTokenizer:
+    """``prepare_for_model`` as a BERT tokenizer does it on token ids: [CLS] ids [SEP],
+    truncated to max_length (the card's machine has no ``transformers``)."""
+
+    pad_token_id = 0
+    vocab_size = 30522
+
+    def prepare_for_model(self, ids, truncation=None, max_length=None, padding=False,
+                          return_attention_mask=False, return_token_type_ids=False):
+        return {"input_ids": [101] + list(ids)[:max(0, max_length - 2)] + [102]}
+
+
+def cosines(a, b):
+    """Row cosines of two [n, D] tensors, in fp64."""
+    a, b = a.double(), b.double()
+    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+
+
+def phase_lora(args, tmp):
+    """Phase 25: LoRA training, the merged tower served, HF export and reload, a flash step."""
+    from denseretrievaltoolkits_torch.config import ModelArguments
+    from denseretrievaltoolkits_torch.data.collators import pad_batch
+    from denseretrievaltoolkits_torch.models import lora
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+    from denseretrievaltoolkits_torch.ops import attn, contrastive as con, flash
+
+    rng = np.random.default_rng(args.seed + 25)
+    batches = [train_batch(rng, TRAIN_BATCH) for _ in range(2 + LORA_TIMED_STEPS)]
+    lora_args = dict(param_efficient_method="lora", lora_rank=LORA_RANK)
+    log(f"LoRA: bert-base L={TRAIN_LAYERS} bf16 fused attention + fused loss, tied, rank "
+        f"{LORA_RANK} on q and v; {TRAIN_BATCH} x 8 passages, S=128, adamw lr {TRAIN_LR:g}; "
+        f"{len(batches)} steps (2 warm-up)")
+
+    def build(label, **kw):
+        return DRModel.build(train_model_args(tmp, label, **kw), device="cuda", seed=args.seed)
+
+    def adapter_grads(model, batch):
+        """(step-1 loss, the adapters' gradient, flat fp32) of one forward + backward."""
+        loss = model(*batch)["loss"]
+        loss.backward()
+        grad = torch.cat([p.grad.flatten().float() for n, p in model.named_parameters()
+                          if "lora_" in n])
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grad
+
+    # step 1 against the plain loss, same weights and batch
+    model = build("lora-step1", **lora_args)
+    lora.lora_trainable(model)
+    k_loss, k_grad = adapter_grads(model, batches[0])
+    with plain_encoder():
+        p_loss, p_grad = adapter_grads(model, batches[0])
+    del model
+    rel, cos, ratio = grad_agreement(k_loss, k_grad, p_loss, p_grad)
+    del k_grad, p_grad
+    log(f"LoRA step 1, fused loss vs plain: loss {k_loss:.6f} vs {p_loss:.6f} (rel {rel:.3e}, "
+        f"<= {TRAIN_STEP1_REL:g}); adapters' gradient cosine {cos:.7f} (>= {TRAIN_GRAD_COS:g}), "
+        f"norm ratio {ratio:.7f} (within {TRAIN_GRAD_NORM:g} of 1)")
+    check(rel <= TRAIN_STEP1_REL, "LoRA: step-1 loss disagrees with the plain loss")
+    check(cos >= TRAIN_GRAD_COS and abs(ratio - 1) <= TRAIN_GRAD_NORM,
+          "LoRA: the adapters' step-1 gradient disagrees with the plain loss's")
+
+    counted = (attn.fused_attention_ln, attn.fused_mlp_ln, con.contrastive_fwd,
+               con.contrastive_bwd_dq, con.contrastive_bwd_dp)
+
+    def run(label, **kw):
+        """Train ``batches`` on a fresh model: (trainer, losses, steps/s, peak MiB of the
+        timed steps, launches over all steps)."""
+        trainer = step_trainer(tmp, label, build(label, **kw))
+        for fn in counted:
+            fn.launches = 0
+        losses = [trainer.train_step(b) for b in batches[:2]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses += [trainer.train_step(b) for b in batches[2:]]
+        torch.cuda.synchronize()
+        rate = LORA_TIMED_STEPS / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        return (trainer, [float(x) for x in losses], rate, peak,
+                {fn.__name__: fn.launches for fn in counted})
+
+    full, _, full_rate, full_peak, _ = run("lora-full")
+    del full
+    torch.cuda.empty_cache()
+    model = build("lora-train", **lora_args)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not lora.is_trainable(n)}
+    adapters = {n: p.detach().clone() for n, p in model.named_parameters() if "lora_" in n}
+    del model
+    trainer, losses, rate, peak, launches = run("lora-train", **lora_args)
+    model = trainer.model
+    steps = len(batches)
+    want = {"fused_attention_ln": 0, "fused_mlp_ln": 0, "contrastive_fwd": steps,
+            "contrastive_bwd_dq": steps, "contrastive_bwd_dp": steps}
+    params = dict(model.named_parameters())
+    changed = [n for n, v in frozen.items() if not torch.equal(params[n], v)]
+    still = [n for n, v in adapters.items() if torch.equal(params[n], v)]
+    n_train = sum(p.numel() for n, p in params.items() if lora.is_trainable(n))
+    del frozen, adapters
+    log(f"LoRA training: losses {json.dumps([round(x, 5) for x in losses])}; {rate:.4f} steps/s "
+        f"(full fine-tune {full_rate:.4f}), peak {peak:.0f} MiB (full fine-tune {full_peak:.0f}); "
+        f"{n_train} trainable of {sum(p.numel() for p in params.values())} parameters; "
+        f"launches in {steps} steps {json.dumps(launches)} (want {json.dumps(want)}); frozen "
+        f"tensors changed: {len(changed)}, adapters unmoved: {len(still)}")
+    check(all(math.isfinite(x) for x in losses), "LoRA: a training loss is not finite")
+    check(launches == want, f"LoRA: launches {launches}, not {want}")
+    check(not changed, f"LoRA: frozen tensors moved: {changed[:5]}")
+    check(not still, f"LoRA: adapters that never moved: {still[:5]}")
+
+    # the merged tower on K1 / K2 against the adapted one on the xla block
+    p_rows = make_train_rows(np.random.default_rng(args.seed + 251), LORA_PASSAGES, 1, 156, 32)
+    passages = [pad_batch([ps[0] for _, ps in p_rows[i:i + 64]], 156, 0)
+                for i in range(0, LORA_PASSAGES, 64)]
+
+    def encode():
+        return torch.cat([model.encode_passage(b) for b in passages])
+
+    b_rng = torch.Generator(device=model.device).manual_seed(args.seed + 252)
+    b_params = [p for n, p in params.items() if n.endswith(("lora_q_B", "lora_v_B"))]
+    with torch.no_grad():
+        for p in b_params:
+            p.zero_()
+        base = encode()
+        for p in b_params:
+            p.copy_(torch.randn(p.shape, generator=b_rng, device=p.device) * LORA_MERGE_B)
+    adapted = encode()
+    lora.merge_lora(model.lm_q)
+    for fn in counted[:2]:
+        fn.launches = 0
+    merged = encode()
+    merged_launches = {fn.__name__: fn.launches for fn in counted[:2]}
+    merge_cos = float(cosines(merged, adapted).min())
+    moved_cos = float(cosines(adapted, base).min())
+    log(f"LoRA merged (B ~ N(0, {LORA_MERGE_B})), {LORA_PASSAGES} passages at S=156: reps cosine "
+        f"merged (K1 / K2) vs adapted (xla block) min {merge_cos:.7f} (>= {LORA_MERGE_COS}); "
+        f"adapted vs base min {moved_cos:.7f}; K1 / K2 launches {json.dumps(merged_launches)}")
+    check(merge_cos >= LORA_MERGE_COS, "LoRA: the merged tower encodes unlike the adapted one")
+    check(1 - moved_cos >= LORA_MERGE_MOVED * (1 - merge_cos),
+          "LoRA: the adapters barely move the reps; the merge check sees nothing")
+    check(all(n > 0 for n in merged_launches.values()),
+          "LoRA: the merged tower did not run K1 / K2")
+
+    # export_hf, then DRModel.build from that directory, with no transformers / safetensors
+    hf_dir = os.path.join(tmp, "lora-hf")
+    model.export_hf(hf_dir)
+    reloaded = DRModel.build(ModelArguments(model_name_or_path=hf_dir, dtype="bfloat16",
+                                            attention="fused", fused_loss=True, pooling="first"),
+                             device="cuda")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("transformers", "safetensors"))
+    hf_gap = float((torch.cat([reloaded.encode_passage(b) for b in passages]) - merged)
+                   .abs().max())
+    scale = float(merged.abs().max())
+    del reloaded
+    log(f"export_hf -> DRModel.build from it: reps max-abs gap {hf_gap:.3e} (max |rep| "
+        f"{scale:.3f}); modules of transformers / safetensors loaded: {loaded}")
+    check(not loaded, f"the HF path loaded {loaded}")
+    check(hf_gap <= 2 ** -23 * scale, "the HF export reloads to other reps")
+    del trainer, model, params, b_params, base, adapted, merged
+    torch.cuda.empty_cache()
+
+    # one LoRA step at S=512 on 'flash', against the same step on 'xla'
+    rows = make_train_rows(np.random.default_rng(args.seed + 253), FLASH_TRAIN_BATCH, 8, 512,
+                           32, median=FLASH_MEDIAN_LEN, sigma=FLASH_LEN_SIGMA, min_len=16)
+    fbatch = (pad_batch([q for q, _ in rows], 32, 0),
+              pad_batch([p for _, ps in rows for p in ps], 512, 0))
+    fcounted = (flash.flash_fwd, flash.flash_bwd_dkv, flash.flash_bwd_dq)
+    flash_losses, flash_launches = {}, {}
+    for attention in ("flash", "xla"):
+        for fn in fcounted:
+            fn.launches = 0
+        t = step_trainer(tmp, f"lora-{attention}",
+                         build(f"lora-{attention}", attention=attention, **lora_args))
+        flash_losses[attention] = float(t.train_step(fbatch))
+        flash_launches[attention] = {fn.__name__: fn.launches for fn in fcounted}
+        del t
+        torch.cuda.empty_cache()
+    gap = abs(flash_losses["flash"] - flash_losses["xla"])
+    log(f"LoRA step at {FLASH_TRAIN_BATCH} x 8, S=512: loss flash {flash_losses['flash']:.6f} vs "
+        f"xla {flash_losses['xla']:.6f} (gap {gap:.4e}, <= {FLASH_STEP_GAP}); flash launches "
+        f"{json.dumps(flash_launches)}")
+    check(all(n > 0 for n in flash_launches["flash"].values()),
+          "LoRA: the flash step did not launch the flash kernels")
+    check(not any(flash_launches["xla"].values()), "LoRA: the xla step launched flash kernels")
+    check(gap <= FLASH_STEP_GAP, "LoRA: the flash step's loss disagrees with xla's")
+    return {"step1_rel": rel, "grad_cos": cos, "grad_norm_ratio": ratio, "losses": losses,
+            "steps_per_s": rate, "peak_mib": peak, "full_steps_per_s": full_rate,
+            "full_peak_mib": full_peak, "trainable": n_train, "launches": launches,
+            "merge_cos": merge_cos, "moved_cos": moved_cos, "merged_launches": merged_launches,
+            "hf_gap": hf_gap, "flash_losses": flash_losses,
+            "flash_launches": flash_launches["flash"]}
+
+
+def phase_mining(args, tmp):
+    """Phase 26: DenseMiner over a 32,768-passage index (serve on K8, exact on K5), the
+    Trainer's mine_per_train hook, and BM25Negatives on the native engine."""
+    from denseretrievaltoolkits_torch.config import DataArguments, TrainingArguments
+    from denseretrievaltoolkits_torch.data.collators import QPCollator, pad_batch
+    from denseretrievaltoolkits_torch.data.loaders import DataLoader
+    from denseretrievaltoolkits_torch.data.samplers import BM25Negatives, RandomSampleNegatives
+    from denseretrievaltoolkits_torch.evaluator import bm25, bm25_native
+    from denseretrievaltoolkits_torch.mine.miner import DenseMiner
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+    from denseretrievaltoolkits_torch.ops import attn, topk
+    from denseretrievaltoolkits_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(args.seed + 26)
+    corpus, queries = synthetic_qa(rng, MINE_PASSAGES, MINE_QUERIES, 156, 32)
+    for row in corpus:
+        row["text"] = row["tokens"][1:-1]
+    n_neg = MINE_N_PASSAGES - 1
+    # query j is cut from passage j (its positive); its first negatives are random passages
+    # past the queries' own, so a positive's text lies only in its own sample (BM25 excludes
+    # a sample's own positives by their place in the pool, not by text)
+    samples = [{"query": q["tokens"][1:-1], "positives": [corpus[j]["text"]],
+                "negatives": [corpus[int(i)]["text"]
+                              for i in rng.integers(MINE_QUERIES, MINE_PASSAGES, n_neg)]}
+               for j, q in enumerate(queries)]
+    tok = StubTokenizer()
+    dargs = DataArguments(train_n_passages=MINE_N_PASSAGES, q_max_len=32, p_max_len=128,
+                          data_cache_dir=os.path.join(tmp, "mine-cache"))
+    model = DRModel.build(train_model_args(tmp, "mine"), device="cuda", seed=args.seed)
+    corpus_loader = DataLoader(corpus, args.batch, lambda b: (
+        [r["id"] for r in b], pad_batch([r["tokens"] for r in b], 156, 0)))
+    train_loader = DataLoader(samples[:MINE_HOOK_QUERIES], TRAIN_BATCH, QPCollator(
+        dargs, RandomSampleNegatives(dargs, seed=args.seed), tok), shuffle=True, seed=args.seed)
+    targs = TrainingArguments(
+        output_dir=os.path.join(tmp, "mine", "out"), cache_train_dir=os.path.join(
+            tmp, "mine", "cache"), train_batch_size=TRAIN_BATCH, max_epochs=2,
+        learning_rate=TRAIN_LR, optimizer="adamw", log_every=1, save_per_train=10,
+        mine_per_train=1, save_corpus_artifacts=False)
+    trainer = Trainer(targs, model, corpus_dataloader=corpus_loader, train_loader=train_loader)
+    log(f"mining: bert-base L={TRAIN_LAYERS} bf16 fused, {MINE_PASSAGES} passages (S=156) into "
+        f"a {targs.index_dtype} FlatIPIndex, {MINE_QUERIES} train queries (S=32), "
+        f"train_n_passages {MINE_N_PASSAGES}")
+    counted = {"fused_attention_ln": attn.fused_attention_ln,
+               "fused_mlp_ln": attn.fused_mlp_ln, "block_topj (K5)": topk.block_topj,
+               "block_topj_serve (K8)": topk.block_topj_serve}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._encoding_corpus(0)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    mined, seconds, launches = {}, {}, {}
+    # serve, exact (counted), then exact, serve again (timed: the first call of a mode also
+    # pays its first-use costs)
+    for i, mode in enumerate(("serve", "exact", "exact", "serve")):
+        for fn in counted.values():
+            fn.launches = 0
+        miner = DenseMiner(trainer, tok, dargs, search_mode=None if mode == "serve" else mode)
+        t0 = time.perf_counter()
+        rows = miner.mine(samples)
+        seconds[mode] = time.perf_counter() - t0
+        if i < 2:
+            mined[mode] = rows
+            launches[mode] = {k: fn.launches for k, fn in counted.items()}
+        else:
+            check(rows == mined[mode], f"mining: a second {mode} mine differs from the first")
+    same = float(np.mean([a["negatives"] == b["negatives"]
+                          for a, b in zip(mined["serve"], mined["exact"])]))
+    refreshed = {m: sum(r["negatives"] is not s["negatives"] for r, s in zip(rows, samples))
+                 for m, rows in mined.items()}
+    own = sum(tuple(n) in {tuple(p) for p in s["positives"]}
+              for rows in mined.values() for r, s in zip(rows, samples) for n in r["negatives"])
+    qps = {m: MINE_QUERIES / s for m, s in seconds.items()}
+    log(f"corpus encode {encode_s:.2f} s; DenseMiner over {MINE_QUERIES} queries (k = "
+        f"{n_neg} + 10), each mode's second run: serve {seconds['serve']:.3f} s "
+        f"({qps['serve']:.0f} queries/s), exact {seconds['exact']:.3f} s ({qps['exact']:.0f} queries/s); refreshed "
+        f"{json.dumps(refreshed)}; mined lists equal serve vs exact: {same:.5f} (>= "
+        f"{MINE_SERVE_AGREE}); own positives mined: {own}; launches {json.dumps(launches)}")
+    check(same >= MINE_SERVE_AGREE, "mining: serve's mined lists disagree with exact's")
+    check(own == 0, "mining: a sample's own positive was mined as its negative")
+    check(all(n == MINE_QUERIES for n in refreshed.values()), "mining: samples not refreshed")
+    check(launches["serve"]["block_topj_serve (K8)"] > 0
+          and launches["serve"]["block_topj (K5)"] == 0, "mining: serve did not run on K8")
+    check(launches["exact"]["block_topj (K5)"] > 0
+          and launches["exact"]["block_topj_serve (K8)"] == 0, "mining: exact did not run on K5")
+    check(all(launches[m][k] > 0 for m in launches for k in ("fused_attention_ln",
+                                                               "fused_mlp_ln")),
+          "mining: the query encode did not run K1 / K2")
+
+    # the hook: two epochs, each ending in a mine from a fresh encode of the corpus
+    miner = DenseMiner(trainer, tok, dargs)
+    outputs, seen = [], {}
+    mine = miner.mine
+    miner.mine = lambda rows: outputs.append(mine(rows)) or outputs[-1]
+    collate = train_loader.collate_fn
+
+    def recording(rows):
+        seen.setdefault(train_loader.epoch, []).extend(id(r) for r in rows)
+        return collate(rows)
+
+    train_loader.collate_fn = recording
+    trainer.miner = miner
+    trainer.train()
+    with open(os.path.join(targs.output_dir, "train_log.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    epoch_losses = [[r["loss"] for r in recs if r.get("epoch") == e and "loss" in r]
+                    for e in (1, 2)]
+    mined_ids = {id(r) for r in outputs[0]} if outputs else set()
+    on_mined = bool(seen.get(1)) and all(i in mined_ids for i in seen[1])
+    log(f"mine_per_train=1 over 2 epochs of {MINE_HOOK_QUERIES} samples: mined {len(outputs)} "
+        f"times, index of epoch {trainer._indexed_ep}; epoch 2 trained on the mined rows: "
+        f"{on_mined}; losses {json.dumps(epoch_losses)}")
+    check(len(outputs) == 2 and trainer.train_loader.dataset is outputs[-1],
+          "mining: the hook did not replace the train set each epoch")
+    check(on_mined, "mining: epoch 2 did not train on the mined rows")
+    check(bool(epoch_losses[1]) and all(math.isfinite(x) for x in epoch_losses[1]),
+          "mining: an epoch-2 loss is not finite")
+    del trainer, model, miner
+    torch.cuda.empty_cache()
+
+    # BM25 negatives over the train pool on the native engine, built here
+    t0 = time.perf_counter()
+    lib = bm25_native.build()
+    build_s = time.perf_counter() - t0
+    sampler = BM25Negatives(dargs, tok.vocab_size, seed=args.seed)
+    t0 = time.perf_counter()
+    bm25_rows = sampler.load_passages(samples)
+    bm25_s = time.perf_counter() - t0
+    nat = sampler.retriever
+    py = bm25.BM25Retriever(n_neg, tok.vocab_size, seed=args.seed)
+    py.load_passages(samples)
+    worst = 0.0
+    for s in samples[:BM25_QUERIES]:
+        q = s["query"]
+
+        def score(ids):
+            return sorted((sum(py._score_term(w, d) for w in q
+                               if d in py.doc_contained_word.get(w, ())) for d in ids),
+                          reverse=True)
+
+        worst = max(worst, float(np.abs(np.subtract(score(nat.search(q, 10)),
+                                                    score(py.search(q, 10)))).max()))
+    own = sum(tuple(n) in {tuple(p) for p in s["positives"]}
+              for r, s in zip(bm25_rows, samples) for n in r["negatives"])
+    log(f"BM25Negatives (native, {os.path.relpath(lib, ROOT)} built in {build_s:.2f} s) over "
+        f"{len(nat.passage)} passages of {MINE_QUERIES} samples: {bm25_s:.3f} s; rankings vs the "
+        f"Python retriever on {BM25_QUERIES} queries: largest score gap {worst:.3e} (<= 1e-4); "
+        f"own positives mined {own}")
+    check(type(nat).__name__ == "NativeBM25Retriever", "BM25: not the native engine")
+    check(os.path.dirname(lib) == bm25_native.BUILD_DIR and os.path.exists(lib),
+          "BM25: the engine was not built into _build/")
+    check(worst <= 1e-4, "BM25: native rankings disagree with the Python retriever's")
+    check(own == 0 and all(len(r["negatives"]) == n_neg for r in bm25_rows),
+          "BM25: a mined list is short or holds its own positive")
+    return {"encode_s": encode_s, "mine_s": seconds, "queries_per_s": qps,
+            "serve_exact_same": same, "launches": launches, "hook_epoch_losses": epoch_losses,
+            "bm25_s": bm25_s, "bm25_build_s": build_s, "bm25_score_gap": worst}
 
 
 def plain_flash_qkv(flash, qkv, seg, nh, hd):
@@ -4406,11 +4801,13 @@ def main(argv=None):
                         help="run only the IVF cell kernels' phases (14 and 16: 1M and 8.8M "
                              "rows), for their readings; prints no kernels line")
     parser.add_argument("--train_only", action="store_true",
-                        help="run only the training paths (phase 5, grad-cache and remat: "
-                             "phases 23 and 24), for iterating on them; prints no kernels line")
+                        help="run only the training paths (phase 5, grad-cache, remat and "
+                             "LoRA: phases 23-25), for iterating on them; prints no kernels "
+                             "line")
     parser.add_argument("--eval_only", action="store_true",
-                        help="run only the evaluation paths (phases 11, 15 and 18, with the "
-                             "plain encoder's PQ96 gaps), for their readings at another --seed; "
+                        help="run only the evaluation paths (phases 11, 15, 18 and 26, with "
+                             "the plain encoder's PQ96 gaps), for their readings at another "
+                             "--seed; "
                              "lists every failed check instead of stopping at the first, exits "
                              "1 if any failed; prints no kernels line")
     args = parser.parse_args(argv)
@@ -4461,9 +4858,10 @@ def main(argv=None):
             plain_pq96 = plain_encoder_pq96_gaps(args, tmp)
             pq_eval = phase_pq_eval_path(args, tmp, ctx, plain_pq96)
             del ctx
+            mining = phase_mining(args, tmp)
         results = {"card": smi, "seed": args.seed, "eval_path": eval_path, "ivf_eval": ivf_eval,
                    "pq96_plain_encoder_gaps": plain_pq96, "pq_eval": pq_eval,
-                   "failed_checks": FAILED}
+                   "mining": mining, "failed_checks": FAILED}
         if args.out:
             with open(args.out, "w") as fh:
                 json.dump(results, fh, indent=1)
@@ -4474,7 +4872,7 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             results = {"card": smi, "seed": args.seed, "train": phase_train(args, tmp),
                        "grad_cache": phase_grad_cache(args, tmp),
-                       "remat": phase_remat(args, tmp)}
+                       "remat": phase_remat(args, tmp), "lora": phase_lora(args, tmp)}
         if args.out:
             with open(args.out, "w") as fh:
                 json.dump(results, fh, indent=1)
@@ -4512,6 +4910,7 @@ def main(argv=None):
         train = phase_train(args, tmp)
         grad_cache = phase_grad_cache(args, tmp)
         remat = phase_remat(args, tmp)
+        lora = phase_lora(args, tmp)
         flash_serving = phase_flash_serving(args, tmp)
         flash_train = phase_flash_train(args, tmp)
         eval_path, ctx = phase_eval_path(args, tmp)
@@ -4519,6 +4918,7 @@ def main(argv=None):
         plain_pq96 = plain_encoder_pq96_gaps(args, tmp)
         pq_eval = phase_pq_eval_path(args, tmp, ctx, plain_pq96)
         del ctx
+        mining = phase_mining(args, tmp)
     scale = phase_scale(gen, flat, topk, SCALE_QUERIES)
     scale4 = phase_scale4(gen, flat, SCALE4_QUERIES)
     ivf_scale = phase_ivf_scale(args.seed + 11, flat, ivf_bulk)
@@ -4553,7 +4953,13 @@ def main(argv=None):
     for row in kernels[:2]:  # K1 / K2 on the training paths too
         row.update(train_launches=train["launches"][row["name"]],
                    grad_cache_launches=grad_cache["launches"][row["name"]],
-                   remat_launches=remat["launches"][row["name"]])
+                   remat_launches=remat["launches"][row["name"]],
+                   # LoRA training (0: a LoRA layer runs the xla block), the merged tower's
+                   # encode, and the miner's query encodes (serve and exact)
+                   lora_train_launches=lora["launches"][row["name"]],
+                   lora_merged_launches=lora["merged_launches"][row["name"]],
+                   mining_launches=sum(m[row["name"]] for m in mining["launches"].values()))
+    kernels[2]["mining_launches"] = mining["launches"]["exact"]["block_topj (K5)"]
     kernels[0].update({k: rows[0][3][k] for k in ("body", "stage_a_ms", "stage_b_ms",
                                                   "scratch_bound_ms")})  # K1's two launches
     kernels[1]["chain_ms"] = rows[1][3]["chain_ms"]  # K2: the xla block's bf16 chain
@@ -4587,7 +4993,8 @@ def main(argv=None):
                         "train_shape_ms": k34["32x256"]["ms"][ms],
                         # the grad-cache path's launches at this row's shape (Q=4096, P=32768)
                         "grad_cache_launches": grad_cache["launches"][name],
-                        "remat_launches": remat["launches"][name]})
+                        "remat_launches": remat["launches"][name],
+                        "lora_launches": lora["launches"][name]})
         kernels[-1].update({  # the tensor-core bodies: fp16 pairs, the FFMA body beside them
             "source": ", ".join(src + f for f in ("contrastive.cu", "split.cuh", "hopper.cuh",
                                                   "common.cuh")),
@@ -4632,6 +5039,7 @@ def main(argv=None):
                                generic_launches=topk.block_topj.launches_int8_generic)
         elif counter == "block_topj_serve":  # K8 int8's times at the other J, its fp32 and bf16
             f32, b16 = int8_topk["K8 float32"], int8_topk["K8 bfloat16"]
+            kernels[-1]["mining_launches"] = mining["launches"]["serve"]["block_topj_serve (K8)"]
             kernels[-1].update({f: r[f] for f in r if f == "body" or f.startswith("ms_j")})
             kernels[-1].update(
                 generic_launches=topk.block_topj_serve.launches_generic,
@@ -4755,6 +5163,8 @@ def main(argv=None):
                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if key.startswith("F-"):  # the LoRA step at S=512
+            row["lora_launches"] = lora["flash_launches"][name.split(" ")[0]]
         if "library_fwd_bwd_ms" in r:
             row.update(fwd_bwd_ms=r["fwd_bwd_ms"], library_fwd_bwd_ms=r["library_fwd_bwd_ms"],
                        bwd_ms=r["bwd_ms"], library_bwd_ms=r["library_bwd_ms"],
@@ -4796,7 +5206,8 @@ def main(argv=None):
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "build_s": _native.build_seconds, "block_kernels": blocks,
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
-                       "grad_cache": grad_cache, "remat": remat,
+                       "grad_cache": grad_cache, "remat": remat, "lora": lora,
+                       "mining": mining,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
                        "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,

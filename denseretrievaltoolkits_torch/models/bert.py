@@ -28,7 +28,8 @@ biases are stored in ``param_dtype`` and cast to the compute dtype at every
 use, as the reference does (bert.py:200-244): training keeps fp32 master
 parameters, so gradients and optimizer state are fp32; serving stores them
 in the compute dtype, where the cast is a no-op. Embeddings and LayerNorm
-parameters stay fp32. Every parameter takes gradients.
+parameters stay fp32. Every parameter takes gradients, unless LoRA freezes the
+base (``models/lora.py``: adapters on q and v, stored like the matrices).
 """
 
 from __future__ import annotations
@@ -139,11 +140,24 @@ def _dense(h, kernel, bias):
 def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str,
                   remat_attn: bool = False):
     """One post-LN BERT block. x [B,S,H] compute dtype; mask [B,S] 0/1.
-    ``remat_attn``: on the xla path, recompute the attention in the backward."""
+    ``remat_attn``: on the xla path, recompute the attention in the backward.
+    A layer with LoRA adapters (``models/lora.py``) adds them to q and v and runs
+    the xla block on 'fused', never K1 / K2, as the reference (bert.py:215)."""
     c = config
     nh, hd = c.num_attention_heads, c.head_dim
     qkv = _dense(x, layer.qkv_kernel, layer.qkv_bias)
-    if attention == "fused":
+    lora = getattr(layer, "lora_q_A", None) is not None
+    if lora:
+        # the reference adds (x A) B to q and v after its fused QKV product, each
+        # product and the sum in the compute dtype (bert.py:248-254)
+        H = c.hidden_size
+        delta_q = torch.matmul(torch.matmul(x, layer.lora_q_A.to(x.dtype)),
+                               layer.lora_q_B.to(x.dtype))
+        delta_v = torch.matmul(torch.matmul(x, layer.lora_v_A.to(x.dtype)),
+                               layer.lora_v_B.to(x.dtype))
+        qkv = torch.cat([qkv[..., :H] + delta_q, qkv[..., H:2 * H], qkv[..., 2 * H:] + delta_v],
+                        dim=-1)
+    if attention == "fused" and not lora:
         cd = x.dtype
         x = attn_ops.fused_attention_ln(
             qkv, x, mask, layer.o_kernel.to(cd), layer.o_bias.to(cd), layer.attn_ln_scale,

@@ -7,8 +7,9 @@ contrastive loss (plain, or the fused K3/K4 kernels with ``fused_loss``);
 ``DRModel.build`` from a directory the JAX package saved (``openmatch_config.json``
 + ``weights.npz``, biencoder.py:244-280), an architecture-only directory or a
 config (seeded random init); and ``save`` in that same layout, which the JAX
-package loads. HF-hub loading waits for ROADMAP queue 1, item 'LoRA and HF
-import/export'.
+package loads; a local HF directory, read without ``transformers``
+(``models/hf_import.py``), and ``export_hf`` to one. LoRA adapters
+(``models/lora.py``) with ``param_efficient_method='lora'``.
 
 ``DRModel`` trains: matrices are fp32 master parameters cast to the compute
 dtype at use. ``DRModelForInference`` serves: it stores them in the compute
@@ -28,7 +29,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..train.losses import contrastive_loss
-from . import bert, linear
+from . import bert, hf_import, linear, lora
 from .convert import (init_params_numpy, load_jax_params, params_from_jax, params_to_jax,
                       save_jax_params)
 from .pooling import l2_normalize, pool
@@ -177,10 +178,6 @@ class DRModel(nn.Module):
             out["p_reps"] = self.encode_passage(passage)
         return out
 
-    def load_jax_tower(self, tower: str, tree: Dict) -> None:
-        """Load a JAX BERT pytree (numpy) into ``lm_q`` or ``lm_p``."""
-        getattr(self, tower).load_state_dict(params_from_jax(tree))
-
     def _manifest(self) -> Dict:
         """The reference's manifest schema (biencoder.py:174-183)."""
         spec = self.spec
@@ -213,28 +210,63 @@ class DRModel(nn.Module):
         with open(os.path.join(output_dir, MANIFEST), "w") as fh:
             json.dump(self._manifest(), fh, indent=4)
 
+    def add_lora(self, rank: int, seed: int = 0) -> None:
+        """Adapters of ``rank`` on every tower layer (``models/lora.py``), drawn from
+        (seed, 2), as the reference folds its key (biencoder.py:341-347); untied
+        towers start from the same adapters (:350)."""
+        for lm in (self.lm_q, self.lm_p):
+            if lm is not None:
+                lora.add_lora(lm, rank, seed=(seed, 2))
+
+    def load_tower_tree(self, tower: str, tree: Dict) -> None:
+        """Load a reference-layout tree into ``lm_q`` or ``lm_p``; a tree with LoRA
+        leaves gives the tower adapters of their rank first."""
+        lm = getattr(self, tower)
+        layers = tree["layers"]
+        if "lora_q_A" in layers and not lora.has_lora(lm):
+            lora.add_lora_shaped(lm, int(np.asarray(layers["lora_q_A"]).shape[-1]))
+        lm.load_state_dict(params_from_jax(tree))
+
+    def export_hf(self, output_dir: str) -> None:
+        """The towers in the HF deploy format (``config.json`` + ``model.safetensors``,
+        biencoder.py:209-219 there): tied to ``output_dir``, untied to ``query_model/``
+        and ``passage_model/``. Adapters are merged into the exported weights first
+        (``merge_lora_tree``); the model itself keeps them. The reference drops them
+        here (ROADMAP queue 3, findings)."""
+        def tower(lm, path):
+            tree = lora.merge_lora_tree(params_to_jax(lm.state_dict()))
+            hf_import.save_pretrained_hf(tree, self.spec.bert_config, path)
+
+        if self.spec.tied:
+            tower(self.lm_q, output_dir)
+        else:
+            tower(self.lm_q, os.path.join(output_dir, "query_model"))
+            tower(self.lm_p, os.path.join(output_dir, "passage_model"))
+
     @classmethod
     def build(cls, model_args, bert_config: Optional[bert.BertConfig] = None,
               device=None, seed: int = 0) -> "DRModel":
         """From a saved checkpoint dir (either package's ``save``), an
-        architecture-only dir (``bert_config.json``, random init), or random
-        init from ``bert_config``. Random weights come from
-        ``init_params_numpy(seed)``; random heads (``add_linear_head``) from
-        ``linear.init_head`` seeded with (seed, 1, 0) and, untied, (seed, 1, 1),
-        as the reference folds its key (biencoder.py:351-359). The model lives
-        on ``device``: the CUDA card unless the caller names another (without
-        a card that raises). LoRA raises until it is ported."""
-        if getattr(model_args, "param_efficient_method", None) == "lora":
-            # the reference adds rank-r adapters and trains only them; training every
-            # parameter instead would be another model
-            raise NotImplementedError(
-                "param_efficient_method='lora' is not ported yet (ROADMAP queue 1, item "
-                "'LoRA and HF import/export')")
+        architecture-only dir (``bert_config.json``, random init), a local HF
+        directory (``config.json`` + ``model.safetensors`` or ``pytorch_model.bin``,
+        read without ``transformers``: ``models/hf_import.py``), or random init
+        from ``bert_config``. Random weights come from ``init_params_numpy(seed)``;
+        random heads (``add_linear_head``) from ``linear.init_head`` seeded with
+        (seed, 1, 0) and, untied, (seed, 1, 1), as the reference folds its key
+        (biencoder.py:351-359). ``param_efficient_method='lora'`` adds adapters of
+        ``lora_rank`` drawn from (seed, 2) on every path; a checkpoint that holds
+        adapters reloads with them. From a checkpoint without adapters the
+        reference ignores 'lora' (biencoder.py:280) and trains every parameter; the
+        port adds them there too (ROADMAP queue 3, findings). A hub id raises: it
+        needs a download. The model lives on ``device``: the CUDA card unless the
+        caller names another (without a card that raises)."""
         path = model_args.model_name_or_path
         dtype = getattr(model_args, "dtype", "float32")
         attention = getattr(model_args, "attention", "xla")
         training = dict(remat=getattr(model_args, "remat", ""),
                         fused_loss=getattr(model_args, "fused_loss", False))
+        rank = getattr(model_args, "lora_rank", 8) \
+            if getattr(model_args, "param_efficient_method", None) == "lora" else 0
         if path and os.path.isdir(path) and os.path.exists(os.path.join(path, MANIFEST)):
             with open(os.path.join(path, MANIFEST)) as fh:
                 manifest = json.load(fh)
@@ -253,38 +285,45 @@ class DRModel(nn.Module):
                 dtype=dtype, attention=attention, **training)
             model = cls(spec, device=device,
                         head_dims=tuple(heads[0].kernel.shape) if heads else None)
-            model.load_jax_tower("lm_q", load_jax_params(qdir))
+            model.load_tower_tree("lm_q", load_jax_params(qdir))
             if not tied:
-                model.load_jax_tower("lm_p", load_jax_params(os.path.join(path, "passage_model")))
+                model.load_tower_tree("lm_p", load_jax_params(os.path.join(path, "passage_model")))
             if heads:
                 model.head_q.load_state_dict(heads[0].state_dict())
                 if not tied:
                     model.head_p.load_state_dict(heads[1].state_dict())
+            if rank and not lora.has_lora(model):
+                model.add_lora(rank, seed)
             return model
 
+        if path and (os.path.exists(os.path.join(path, "t5_config.json"))
+                     or ("t5" in path.lower() and not os.path.isdir(path))):
+            raise NotImplementedError(
+                "T5 towers are not ported yet (ROADMAP queue 1, item 'T5 and reranker')")
         if path and os.path.isdir(path) and os.path.exists(os.path.join(path, "bert_config.json")) \
                 and not os.path.exists(os.path.join(path, "weights.npz")):
             config = bert.load_config(path)
+            tree = init_params_numpy(config, seed)
         elif path:
-            raise NotImplementedError(
-                f"{path!r} is not a checkpoint saved by the JAX package; HF checkpoints wait "
-                f"for ROADMAP queue 1, item 'LoRA and HF import/export'")
+            tree, config = hf_import.params_from_pretrained(path)
         else:
             config = bert_config or bert.BertConfig()
+            tree = init_params_numpy(config, seed)
         spec = DRModelSpec(
             bert_config=config, tied=not model_args.untie_encoder, feature=model_args.feature,
             pooling=model_args.pooling, linear_head=model_args.add_linear_head,
             normalize=model_args.normalize, dtype=dtype, attention=attention, **training)
         dims = (model_args.projection_in_dim, model_args.projection_out_dim)
         model = cls(spec, device=device, head_dims=dims)
-        tree = init_params_numpy(config, seed)
-        model.load_jax_tower("lm_q", tree)
+        model.load_tower_tree("lm_q", tree)
         if model.lm_p is not None:
-            model.load_jax_tower("lm_p", tree)
+            model.load_tower_tree("lm_p", tree)
         if spec.linear_head:
             for i, head in enumerate((model.head_q, model.head_p)):
                 if head is not None:
                     head.load_state_dict(linear.init_head(*dims, (seed, 1, i)).state_dict())
+        if rank:
+            model.add_lora(rank, seed)
         return model
 
 

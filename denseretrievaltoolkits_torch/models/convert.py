@@ -8,7 +8,9 @@ numpy only, so a retriever trained with the JAX package is served by the port
 unchanged, and build a seeded random pytree of the same layout where no
 checkpoint exists. The inverse bridge (:func:`params_to_jax`,
 :func:`save_jax_params`) writes a port-trained encoder in that layout, so the
-JAX package loads it with ``bert.load_params``.
+JAX package loads it with ``bert.load_params``. LoRA adapters travel as the
+reference's four stacked leaves, ``lora_q_A`` / ``lora_v_A`` ``[L, H, r]`` and
+``lora_q_B`` / ``lora_v_B`` ``[L, r, H]`` (``models/lora.py``), in both directions.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from .bert import BertConfig
+from .lora import LORA_KEYS
 
 _LAYER_KEYS = ("o_kernel", "o_bias", "attn_ln_scale", "attn_ln_bias", "wi_kernel", "wi_bias",
                "wo_kernel", "wo_bias", "mlp_ln_scale", "mlp_ln_bias")
@@ -31,11 +34,13 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     ``load_state_dict`` casts to the module's storage dtypes). Q/K/V fuse
     into the ``[H,3H]`` kernel the encoder multiplies by."""
     layers = tree["layers"]
-    unknown = set(layers) - set(_LAYER_KEYS) - set(_QKV)
+    unknown = set(layers) - set(_LAYER_KEYS) - set(_QKV) - set(LORA_KEYS)
     if unknown:
-        raise NotImplementedError(
-            f"layer params {sorted(unknown)} are not served by the port (LoRA adapters "
-            f"wait for ROADMAP queue 1, item 'LoRA and HF import/export')")
+        raise NotImplementedError(f"layer params {sorted(unknown)} are not served by the port")
+    lora = [k for k in LORA_KEYS if k in layers]
+    if lora and len(lora) != len(LORA_KEYS):
+        raise ValueError(f"incomplete LoRA adapters {lora}: a tower has all of {LORA_KEYS} "
+                         f"or none")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))  # noqa: E731
     emb = tree["embeddings"]
     out = {f"embeddings.{k}": t(emb[k])
@@ -47,7 +52,7 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
             [np.asarray(layers[n][i]) for n in ("q_kernel", "k_kernel", "v_kernel")], axis=-1))
         out[p + "qkv_bias"] = t(np.concatenate(
             [np.asarray(layers[n][i]) for n in ("q_bias", "k_bias", "v_bias")], axis=-1))
-        for k in _LAYER_KEYS:
+        for k in _LAYER_KEYS + tuple(lora):
             out[p + k] = t(np.asarray(layers[k][i]))
     out["pooler_kernel"] = t(tree["pooler"]["kernel"])
     out["pooler_bias"] = t(tree["pooler"]["bias"])
@@ -64,7 +69,8 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
     L = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("layers."))
     layer = [{k.split(".", 2)[2]: n(v) for k, v in state.items()
               if k.startswith(f"layers.{i}.")} for i in range(L)]
-    layers = {k: np.stack([lay[k] for lay in layer]) for k in _LAYER_KEYS}
+    layers = {k: np.stack([lay[k] for lay in layer]) for k in _LAYER_KEYS + LORA_KEYS
+              if k in layer[0]}
     for fused, parts in (("qkv_kernel", _QKV[0::2]), ("qkv_bias", _QKV[1::2])):
         stacked = np.stack([lay[fused] for lay in layer])
         for name, part in zip(parts, np.split(stacked, 3, axis=-1)):

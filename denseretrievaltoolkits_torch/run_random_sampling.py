@@ -15,10 +15,11 @@ It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
 On a host with several cards it trains on the one ``device`` names: the
 full-batch step there has the gradient of the reference's data-parallel mesh.
 The tokenizer (``transformers``) and the datasets (``datasets``) are loaded
-inside :func:`main`, so they are needed only where it runs. Hard-negative
-mining (``--mine_per_train``) and tensor parallelism (``--tp_size`` > 1) are
-later slices: :func:`main` refuses them before anything loads, naming their
-ROADMAP items.
+inside :func:`main`, so they are needed only where it runs. With
+``--mine_per_train N`` a ``DenseMiner`` refreshes the train set's negatives
+from the evaluation index every N epochs, as the root script attaches it.
+Tensor parallelism (``--tp_size`` > 1) is a later slice: :func:`main` refuses
+it before anything loads, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ import logging
 
 from .config import DataArguments, ModelArguments, TrainingArguments, parse_args
 
+
+def refuse_tensor_parallel(training_args) -> None:
+    """``--tp_size`` > 1 raises before anything loads: tensor parallelism is a later
+    slice."""
+    if training_args.tp_size > 1:
+        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP queue 1, "
+                                  "item '`parallel/` and `utils/distributed.py`')")
 
 
 def main(argv=None, device=None):
@@ -37,12 +45,7 @@ def main(argv=None, device=None):
     )
     model_args, data_args, training_args = parse_args(
         (ModelArguments, DataArguments, TrainingArguments), args=argv)
-    for given, what, item in ((training_args.mine_per_train, "hard-negative mining",
-                               "Mining and BM25"),
-                              (training_args.tp_size > 1, "tensor parallelism",
-                               "`parallel/` and `utils/distributed.py`")):
-        if given:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item '{item}')")
+    refuse_tensor_parallel(training_args)
 
     from .utils.runtime import setup_runtime
 
@@ -80,6 +83,10 @@ def main(argv=None, device=None):
     trainer = Trainer(training_args, model, corpus_dataloader=corpus_dl, train_loader=train_dl,
                       eval_loader=eval_dl, test_loader=test_dl,
                       label_kind="answers" if is_exactmatch else "docids")
+    if training_args.mine_per_train:
+        from .mine.miner import DenseMiner
+
+        trainer.miner = DenseMiner(trainer, tokenizer, data_args)
     if training_args.resume_from:
         trainer.load(training_args.resume_from)
     trainer.train()

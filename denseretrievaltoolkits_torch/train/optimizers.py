@@ -13,6 +13,8 @@ differ from optax's are pinned here:
   into every param group right before each update; ``LambdaLR`` is not used
   (it divides by a base lr that may be 0).
 
+Given a model with LoRA adapters, only the adapters and the heads train.
+
 ``adagrad``, ``rmsprop`` and ``adafactor`` raise: optax's formulas differ from
 torch's (accumulator init, where eps sits, decay), so mapping them onto
 ``torch.optim`` would change the result.
@@ -79,7 +81,21 @@ class ScheduledOptimizer:
         self.count = int(state["count"])
 
 
-def get_optimizer(training_args, params: Iterable[torch.nn.Parameter]) -> ScheduledOptimizer:
+def get_optimizer(training_args, params: Union[torch.nn.Module, Iterable[torch.nn.Parameter]]
+                  ) -> ScheduledOptimizer:
+    """The optimizer over ``params``: a module's parameters, or only its LoRA-trainable
+    ones when it has adapters (``models/lora.py:lora_trainable``, which takes the
+    gradient off the base). A parameter outside the optimizer never moves, whatever
+    the weight decay or schedule: the reference's ``multi_transform`` with
+    ``set_to_zero`` (optimizers.py:46-65 there) leaves the frozen base bit-unchanged."""
+    if isinstance(params, torch.nn.Module):
+        from ..models.lora import has_lora, lora_trainable
+
+        if has_lora(params):
+            logger.info("LoRA adapters found: freezing the base parameters")
+            params = lora_trainable(params)
+        else:
+            params = params.parameters()
     name = training_args.optimizer
     if name in _NOT_PORTED:
         raise NotImplementedError(

@@ -30,9 +30,13 @@ serve, exact ADC; IVF-PQ: K17 bulk), labels the hits with
 Corpus texts are read as ``dataset[rows]["original"]``, row by row where the
 dataset has no fancy indexing (a plain list of dicts).
 
-The model holds its parameters, so there is no ``params`` argument. The
-miner and a mesh (ROADMAP queue 1, 'Mining and BM25' and ``parallel/``) are
-later slices: given either, the constructor raises.
+A ``miner`` (``mine/miner.py:DenseMiner``) refreshes the train set's negatives
+every ``mine_per_train`` epochs, after the evaluation, from the index of that
+epoch's weights (re-encoded when stale), as the reference does
+(trainer.py:239-252). The model holds its parameters, so there is no
+``params`` argument; with LoRA adapters only they and the heads train
+(``optimizers.get_optimizer``). A mesh (ROADMAP queue 1, ``parallel/``) is a
+later slice: given one, the constructor raises.
 
 Resume differs from the reference on purpose. The reference saves ``ep + 1``
 (the epochs done) and ``load`` starts at ``epoch + 1``, so a resumed run skips
@@ -70,12 +74,9 @@ class Trainer:
     def __init__(self, training_args, model, corpus_dataloader=None, train_loader=None,
                  eval_loader=None, test_loader=None, mesh=None, label_kind: str = "answers",
                  miner=None):
-        for given, what, item in ((miner, "hard-negative mining", "Mining and BM25"),
-                                  (mesh, "a device mesh",
-                                   "`parallel/` and `utils/distributed.py`")):
-            if given is not None:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP queue 1, item '{item}')")
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1, item "
+                                      "'`parallel/` and `utils/distributed.py`')")
         self.training_args = training_args
         self.model = model
         self.corpus_dataloader = corpus_dataloader
@@ -83,6 +84,7 @@ class Trainer:
         self.eval_loader = eval_loader
         self.test_loader = test_loader
         self.label_kind = label_kind  # "answers" (NQ-style) | "docids" (relevancy)
+        self.miner = miner  # mine/miner.py DenseMiner, run at the mine_per_train cadence
         self.topk = training_args.topk_list
         self.start_epoch = 0
         self.idx: List = []  # docid order of the corpus index
@@ -101,7 +103,7 @@ class Trainer:
                     kw.setdefault("max_steps", total)
             except TypeError:
                 pass  # loader without __len__: schedule kwargs must be explicit
-        self.optimizer = get_optimizer(training_args, model.parameters())
+        self.optimizer = get_optimizer(training_args, model)
         self.step = 0
 
     def train_step(self, batch) -> torch.Tensor:
@@ -125,7 +127,7 @@ class Trainer:
         return loss.detach()
 
     def train(self) -> None:
-        """Epoch loop with the log, save and evaluation cadences, then the
+        """Epoch loop with the log, save, evaluation and mining cadences, then the
         test evaluation (trainer.py:191-254)."""
         args = self.training_args
         for ep in range(self.start_epoch, args.max_epochs):
@@ -159,6 +161,15 @@ class Trainer:
                 self.save(ep + 1)
             if self.eval_loader is not None and (ep + 1) % args.eval_per_train == 0:
                 self.evaluate(self.eval_loader, ep + 1)
+            if (self.miner is not None and getattr(args, "mine_per_train", 0)
+                    and (ep + 1) % args.mine_per_train == 0
+                    and self.corpus_dataloader is not None):
+                # the refresh (trainer.py:239-252 there): the index of this epoch's
+                # weights (re-encoded when stale), then the mined rows train from here
+                if self._indexed_ep != ep + 1:
+                    self._encoding_corpus(ep + 1)
+                    self._indexed_ep = ep + 1
+                self.train_loader.dataset = self.miner.mine(list(self.train_loader.dataset))
         if self.test_loader is not None:
             self.evaluate(self.test_loader, -1)
 

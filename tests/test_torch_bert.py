@@ -267,11 +267,19 @@ def test_load_jax_params_roundtrip(tmp_path):
 
 def test_flash_and_lora_raise():
     """attention='flash' builds (its kernels are ported, tests/test_torch_flash.py);
-    an unknown attention and LoRA adapters still raise."""
+    an unknown attention raises. LoRA adapters load (tests/test_torch_lora.py), but
+    an incomplete set of their four leaves raises, and so does an unknown leaf."""
     assert tbert.BertEncoder(tbert.BertConfig(**CFG), attention="flash").attention == "flash"
     with pytest.raises(ValueError, match="Unknown attention"):
         tbert.BertEncoder(tbert.BertConfig(**CFG), attention="splash")
     tree = _tree()
     tree["layers"]["lora_q_A"] = np.zeros((2, 64, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(ValueError, match="LoRA"):
+        params_from_jax(tree)
+    tree["layers"].update(lora_q_B=np.zeros((2, 4, 64), np.float32),
+                          lora_v_A=np.zeros((2, 64, 4), np.float32),
+                          lora_v_B=np.zeros((2, 4, 64), np.float32))
+    assert params_from_jax(tree)["layers.1.lora_v_B"].shape == (4, 64)
+    tree["layers"]["prefix_kernel"] = np.zeros((2, 64), np.float32)
+    with pytest.raises(NotImplementedError, match="prefix_kernel"):
         params_from_jax(tree)

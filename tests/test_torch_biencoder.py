@@ -18,6 +18,7 @@ from denseretrievaltoolkits_tpu.config import ModelArguments
 from denseretrievaltoolkits_tpu.models import bert as jbert
 from denseretrievaltoolkits_tpu.models import biencoder as jbi
 from denseretrievaltoolkits_torch.models import biencoder as tbi
+from denseretrievaltoolkits_torch.models import lora
 
 CFG = jbert.BertConfig(vocab_size=91, hidden_size=64, num_hidden_layers=2,
                        num_attention_heads=4, intermediate_size=128, max_position_embeddings=40)
@@ -98,9 +99,10 @@ def test_manifest_and_unsupported_paths(tmp_path):
 
 @pytest.mark.parametrize("source", ["random-init", "architecture-dir", "jax-checkpoint"])
 def test_lora_raises_until_ported(jax_model, tmp_path, source):
-    """``param_efficient_method='lora'`` parses, but the port has no adapters
-    yet: every build path refuses it, naming its ROADMAP item, instead of
-    training every parameter."""
+    """``param_efficient_method='lora'`` builds adapters of ``lora_rank`` on every
+    tower, from every source (a JAX checkpoint without adapters too, where the
+    reference ignores the flag: ROADMAP queue 3, findings). B = 0, so the reps are
+    the base model's exactly; only the adapters and heads train."""
     path = ""
     if source == "architecture-dir":
         jbert.save_config(CFG, str(tmp_path))
@@ -110,7 +112,16 @@ def test_lora_raises_until_ported(jax_model, tmp_path, source):
         jmodel.save(jparams, str(tmp_path))
         path = str(tmp_path)
     args = ModelArguments(model_name_or_path=path, param_efficient_method="lora", lora_rank=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 'LoRA and HF import/export'"):
-        tbi.DRModel.build(args, bert_config=CFG, device="cpu")
+    adapted = tbi.DRModel.build(args, bert_config=CFG, device="cpu")
+    towers = [adapted.lm_q] + ([adapted.lm_p] if adapted.lm_p is not None else [])
+    assert all(lm.layers[-1].lora_q_A.shape == (CFG.hidden_size, 4) for lm in towers)
+    if len(towers) == 2:  # untied towers start from the same adapters
+        torch.testing.assert_close(towers[0].layers[1].lora_v_A, towers[1].layers[1].lora_v_A,
+                                   rtol=0, atol=0)
     args.param_efficient_method = None
-    assert tbi.DRModel.build(args, bert_config=CFG, device="cpu") is not None
+    base = tbi.DRModel.build(args, bert_config=CFG, device="cpu")
+    assert not lora.has_lora(base)
+    q = _batch(6)
+    torch.testing.assert_close(adapted.encode_query(q), base.encode_query(q), rtol=0, atol=0)
+    n_heads = sum(h is not None for h in (adapted.head_q, adapted.head_p))
+    assert len(lora.lora_trainable(adapted)) == 4 * CFG.num_hidden_layers * len(towers) + n_heads

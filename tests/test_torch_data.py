@@ -140,9 +140,21 @@ def test_random_sample_negatives_same_draws(pos_fixed, neg_fixed):
         t([{"query": [1], "positives": [[2]], "negatives": [[3]]}])
 
 
-def test_bm25_negatives_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="item 'Mining and BM25'"):
-        tsam.BM25Negatives(DataArguments(train_n_passages=3), vocab_size=50)
+def test_bm25_negatives_is_a_later_slice(data, tmp_path):
+    """``BM25Negatives`` is ported (the native engine and the cache file against the
+    JAX package's: tests/test_torch_mining.py): on the tokenized train split, the
+    Python retriever's mined rows equal the JAX package's, and collate-time sampling
+    draws as its sampler does."""
+    train = _rows(jds.ExactMatchDataset(_data_args(data, "jax"), data["tokenizer"]
+                                        ).load_train()[0])
+    out = []
+    for mod in (jsam, tsam):
+        args = DataArguments(train_n_passages=3, data_cache_dir=str(tmp_path / mod.__name__))
+        sampler = mod.BM25Negatives(args, vocab_size=data["tokenizer"].vocab_size, seed=2,
+                                    use_native=False)
+        mined = sampler.load_passages(train)
+        out.append((mined, sampler(mined[:4])))
+    assert out[1] == out[0] and len(out[0][0]) == 12
 
 
 def test_utils(data):

@@ -7,9 +7,11 @@ package, nor the ``regex`` package, which the card's machine lacks too
 (``evaluator/nq_eval.py`` tokenizes with ``unicodedata`` instead). It keeps
 its own copies of the modules the two packages share (``config``, ``data.collators``, ``data.loaders``, ``evaluator.metrics``,
 ``index.modes``, ``evaluator.nq_eval``, and ``data.datasets``, ``data.preprocess``,
-``data.samplers``, ``utils``);
-``tests/test_torch_shared.py``, ``tests/test_torch_eval.py`` and
-``tests/test_torch_data.py`` hold each copy to its original. ``transformers``
+``data.samplers``, ``utils``, ``evaluator.bm25``, ``mine.miner``);
+``tests/test_torch_shared.py``, ``tests/test_torch_eval.py``,
+``tests/test_torch_data.py`` and ``tests/test_torch_mining.py`` hold each copy
+to its original. ``transformers`` and ``safetensors`` never load on the HF path
+(``models/hf_import.py``, ``tests/test_torch_hf.py``). ``transformers``
 and ``datasets``, which the card's machine lacks too, are imported only inside
 functions, never when a module is imported."""
 
@@ -74,3 +76,14 @@ def test_kernel_sources_present():
     assert names == {"attn_ln.cu", "mlp_ln.cu", "block_topj.cu", "contrastive.cu", "quant.cu",
                      "flash_attn.cu", "pq_serve.cu", "ivf_cell.cu", "int4_certified.cu",
                      "flat_certified.cu", "flat_serve.cu"}
+
+
+def test_slice_modules_present():
+    """The LoRA, HF, mining and BM25 modules of the port, each under the AST checks
+    above."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"models/lora.py", "models/hf_import.py", "mine/miner.py", "evaluator/bm25.py",
+            "evaluator/bm25_native.py", "run_BM25_negative.py"} <= names
+    for path in ("models/hf_import.py",):
+        assert not {n.split(".")[0] for n in _imported(PORT / path)} & {"transformers",
+                                                                        "safetensors"}

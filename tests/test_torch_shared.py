@@ -1,6 +1,7 @@
 """The port's own copies of the modules it shares with the JAX package, held
 to their originals: ``config``, ``data.collators``, ``data.loaders``,
-``evaluator.metrics`` and ``index.modes``. Same fields and defaults, the same
+``evaluator.metrics``, ``index.modes``, ``evaluator.bm25`` and the native BM25
+engine's source ``native/bm25.cpp`` (byte for byte). Same fields and defaults, the same
 parse of the same argv, the same batches, loader order, metrics and mode
 resolution (raises included). Inputs are seeded numpy; everything compares
 exactly."""
@@ -8,6 +9,8 @@ exactly."""
 import dataclasses
 import itertools
 import json
+import pathlib
+import random
 
 import numpy as np
 import pytest
@@ -15,11 +18,13 @@ import pytest
 from denseretrievaltoolkits_tpu import config as jconfig
 from denseretrievaltoolkits_tpu.data import collators as jcol
 from denseretrievaltoolkits_tpu.data import loaders as jload
+from denseretrievaltoolkits_tpu.evaluator import bm25 as jbm25
 from denseretrievaltoolkits_tpu.evaluator import metrics as jmet
 from denseretrievaltoolkits_tpu.index import modes as jmodes
 from denseretrievaltoolkits_torch import config as tconfig
 from denseretrievaltoolkits_torch.data import collators as tcol
 from denseretrievaltoolkits_torch.data import loaders as tload
+from denseretrievaltoolkits_torch.evaluator import bm25 as tbm25
 from denseretrievaltoolkits_torch.evaluator import metrics as tmet
 from denseretrievaltoolkits_torch.index import modes as tmodes
 
@@ -161,3 +166,25 @@ def test_resolve_mode_every_pair():
         for name in ("resolve_pq_mode", "resolve_ivfpq_mode"):
             got, want = (_outcome(getattr(m, name), mode) for m in (tmodes, jmodes))
             assert got[0] == want[0] and (got[0] != "ok" or got == want), (name, mode)
+
+
+def test_bm25_copies():
+    """``native/bm25.cpp`` is a byte-for-byte copy in the port (built into its own
+    ``_build/``, never from ``csrc/``, which the CUDA build hashes); ``BM25Retriever``
+    gives the same spans, idfs, searches (random padding included) and ``retrieve``."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    port_src = root / "denseretrievaltoolkits_torch" / "native" / "bm25.cpp"
+    assert port_src.read_bytes() == (root / "native" / "bm25.cpp").read_bytes()
+    assert not list((root / "denseretrievaltoolkits_torch" / "csrc").glob("bm25*"))
+    rng = random.Random(4)
+    corpus = [{"positives": [[rng.randrange(60) for _ in range(rng.randrange(3, 12))]],
+               "negatives": [[rng.randrange(60) for _ in range(rng.randrange(3, 12))]
+                             for _ in range(rng.randrange(0, 4))]} for _ in range(25)]
+    t, j = tbm25.BM25Retriever(topK=4, seed=9), jbm25.BM25Retriever(topK=4, seed=9)
+    assert t.load_passages(corpus) == j.load_passages(corpus)
+    assert t.idf == j.idf and t.avg_doc_len == j.avg_doc_len
+    for _ in range(12):
+        q = [rng.randrange(80) for _ in range(5)]
+        assert t.search(q, 30) == j.search(q, 30)  # 30: past the matches, so it pads
+        assert t.retrieve(q, corpus[0]["negatives"] + corpus[1]["positives"]) == \
+            j.retrieve(q, corpus[0]["negatives"] + corpus[1]["positives"])

@@ -432,8 +432,8 @@ def test_non_finite_loss_message_advises_no_unported_flag(tmp_path):
 
 def test_profile_trace_and_unported_arguments(tmp_path):
     """The profiler trace of step 2; evaluation loaders are taken (the
-    evaluation itself is held to the JAX Trainer in tests/test_torch_eval.py),
-    while the miner and a mesh still raise, naming their ROADMAP items."""
+    evaluation itself is held to the JAX Trainer in tests/test_torch_eval.py) and so is
+    a miner, while a mesh still raises, naming its ROADMAP item."""
     args = _args(tmp_path, max_epochs=1, profile_dir=str(tmp_path / "prof"))
     trainer = Trainer(args, _build(seed=2), train_loader=_loader())
     trainer.train()
@@ -443,7 +443,8 @@ def test_profile_trace_and_unported_arguments(tmp_path):
                          eval_loader=[], test_loader=[], label_kind="docids")
     assert evaluating.eval_loader == evaluating.test_loader == evaluating.corpus_dataloader == []
     assert evaluating.label_kind == "docids" and evaluating.index is None
-    for kw, item in (({"miner": object()}, "'Mining and BM25'"),
-                     ({"mesh": object()}, "'`parallel/` and `utils/distributed.py`'")):
-        with pytest.raises(NotImplementedError, match=f"queue 1, item {re.escape(item)}"):
-            Trainer(dataclasses.replace(args), _build(seed=2), **kw)
+    miner = object()  # a miner is taken (tests/test_torch_mining.py runs one)
+    assert Trainer(dataclasses.replace(args), _build(seed=2), miner=miner).miner is miner
+    item = "'`parallel/` and `utils/distributed.py`'"
+    with pytest.raises(NotImplementedError, match=f"queue 1, item {re.escape(item)}"):
+        Trainer(dataclasses.replace(args), _build(seed=2), mesh=object())
