@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash, LoRA, mining) once on a card; check them.
+"""Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash, LoRA, mining, T5, reranking) once on a card; check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json] [--flash_only]
                           [--blocks_only] [--eval_only] [--ivf_only] [--train_only]
+                          [--rerank_only]
 
 Phases, each of which fails the run on error:
 
@@ -271,6 +272,24 @@ Phases, each of which fails the run on error:
    pool on the native engine, built from ``native/bm25.cpp`` into ``_build/`` (wall
    seconds; rankings held to the Python retriever's on 256 queries by score).
    ``--eval_only`` runs it after phases 11, 15 and 18.
+27. T5 and reranking: a t5-base dual encoder (``google-t5/t5-base``'s widths, seeded
+   random weights; ``encoder_only``, mean pooling, bf16, fused loss) built by
+   ``DRModel.build`` from an architecture-only dir: its step 1 against the plain loss
+   (phase 5's bounds), then 2 warm-up and 4 timed ``Trainer`` steps at 32 x 8 (q 32 / p
+   128): K3 / K4 once a step, K1 / K2 never; steps/s, real tokens/s, peak memory. Saved,
+   rebuilt by ``DRModelForInference.build``, it encodes 8192 passages (S=156) and 512
+   queries into a float32 ``FlatIPIndex`` (512-row blocks), searched at k=100 in
+   ``exact`` (K5, held to its plain version over the same reps: top-100 overlap >= 0.99)
+   and ``serve`` (K8, recall against exact >= 0.999): passages/s, queries/s; the card's
+   bucket table equal to the host's; bf16 reps cosine >= 0.999 to the fp32 reps of the
+   same weights. Then a BERT-base cross-encoder (mr) and a t5-base token scorer
+   (``t5_full``, ce), each built by ``RRModel.build``, train through ``RRTrainer`` on 8
+   queries x (1 + 7) pairs of 160 tokens (2 warm-up, 4 timed steps; losses finite) and
+   evaluate (``RRTrainer.evaluate``) over the T5 index's top 100 for 64 queries: 6,400
+   dump rows, the metrics file with ``query_num`` 64; steps/s, pairs/s, peak memory;
+   the fp32 scores of 256 pairs on the card within 1e-3 of the largest |score| of the
+   same weights' on the CPU. Counters zeroed before each part and read after.
+   ``--rerank_only`` runs it alone.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -284,6 +303,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -1740,16 +1760,50 @@ MINE_PASSAGES, MINE_QUERIES, MINE_N_PASSAGES, MINE_SERVE_AGREE = 32_768, 4096, 8
 MINE_HOOK_QUERIES, BM25_QUERIES = 64, 256
 
 
+# T5 and the rerankers (phase 27): t5-base as published in google-t5/t5-base's config.json
+# (d_model 768, d_kv 64, d_ff 3072, 12 layers, 12 heads, vocab 32,128, 32 buckets over 128
+# positions, relu, tied), seeded random weights. (a) The T5 dual encoder (encoder_only, mean
+# pooling, bf16, fused loss) trains at the training path's shape (32 x 8, q 32 / p 128), 2
+# warm-up and T5_TIMED_STEPS timed steps; its step 1 takes phase 5's bounds against the plain
+# loss. (b) It encodes args.passages passages (S=156, phase 11's generator) and args.queries
+# queries into a float32 FlatIPIndex (INDEX_BLOCK rows a block): exact (K5) held to its plain
+# version over the same reps by phase 3's top-100 overlap bound, serve (K8) to exact by
+# T5_SERVE_RECALL; its bf16 reps to the fp32 reps of the same weights by T5_REPS_COS, on
+# T5_COS_BATCHES batches. (c) The BERT-base cross-encoder (mr) and the T5-base token scorer
+# (t5_full, ce; the stub tokenizer's RR_TOKENS are t5's ids of "true" / "false") train through
+# RRTrainer on RR_QUERIES queries x (1 + RR_NEGATIVES) pairs of RR_LEN tokens, 2 warm-up and
+# RR_TIMED_STEPS timed steps, and evaluate (b)'s exact top-k for RR_EVAL_QUERIES queries. The
+# fp32 scores of RR_CPU_PAIRS pairs on the card against the same weights on the CPU: within
+# RR_CPU_REL of the largest |score| (fp32 sums in another order, and no TF32: set in main).
+T5_BASE = dict(vocab_size=32128, d_model=768, d_kv=64, d_ff=3072, num_layers=12, num_heads=12,
+               relative_attention_num_buckets=32, relative_attention_max_distance=128,
+               is_gated_act=False, tie_word_embeddings=True)
+T5_TIMED_STEPS, T5_SERVE_RECALL, T5_REPS_COS, T5_COS_BATCHES = 4, 0.999, 0.999, 16
+RR_QUERIES, RR_NEGATIVES, RR_LEN, RR_TIMED_STEPS = 8, 7, 160, 4
+RR_EVAL_QUERIES, RR_EVAL_BATCH, RR_CPU_PAIRS, RR_CPU_REL = 64, 64, 256, 1e-3
+RR_TOKENS = {"true": 1176, "false": 6136}
+
+
 class StubTokenizer:
-    """``prepare_for_model`` as a BERT tokenizer does it on token ids: [CLS] ids [SEP],
-    truncated to max_length (the card's machine has no ``transformers``)."""
+    """``prepare_for_model`` as a BERT tokenizer does it on token ids: [CLS] ids [SEP], and
+    for a pair [CLS] a [SEP] b [SEP] with the first truncated (``only_first``), to
+    max_length; ``encode`` of the reranker's two label words (the card's machine has no
+    ``transformers``)."""
 
     pad_token_id = 0
     vocab_size = 30522
 
-    def prepare_for_model(self, ids, truncation=None, max_length=None, padding=False,
-                          return_attention_mask=False, return_token_type_ids=False):
-        return {"input_ids": [101] + list(ids)[:max(0, max_length - 2)] + [102]}
+    def prepare_for_model(self, ids, pair_ids=None, truncation=None, max_length=None,
+                          padding=False, return_attention_mask=False,
+                          return_token_type_ids=False):
+        if pair_ids is None:
+            return {"input_ids": [101] + list(ids)[:max(0, max_length - 2)] + [102]}
+        b = list(pair_ids)[:max_length - 3]
+        return {"input_ids": [101] + list(ids)[:max(0, max_length - 3 - len(b))] + [102] + b
+                + [102]}
+
+    def encode(self, text, add_special_tokens=True):
+        return [RR_TOKENS[text]]
 
 
 def cosines(a, b):
@@ -2088,6 +2142,307 @@ def phase_mining(args, tmp):
     return {"encode_s": encode_s, "mine_s": seconds, "queries_per_s": qps,
             "serve_exact_same": same, "launches": launches, "hook_epoch_losses": epoch_losses,
             "bm25_s": bm25_s, "bm25_build_s": build_s, "bm25_score_gap": worst}
+
+
+def phase_rerank(args, tmp):
+    """Phase 27: a T5-base dual encoder trained (K3 / K4) and served (K5 / K8), then the
+    BERT-base and T5-base rerankers trained and evaluated by RRTrainer over its top-k."""
+    from denseretrievaltoolkits_torch.config import (DataArguments, ModelArguments,
+                                                     RRTrainingArguments)
+    from denseretrievaltoolkits_torch.data.collators import create_pair_example, pad_batch
+    from denseretrievaltoolkits_torch.data.loaders import RerankerDataloader
+    from denseretrievaltoolkits_torch.index.flat import FlatIPIndex
+    from denseretrievaltoolkits_torch.models import t5
+    from denseretrievaltoolkits_torch.models.bert import BertConfig, save_config
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel, DRModelForInference
+    from denseretrievaltoolkits_torch.models.reranker import RRModel
+    from denseretrievaltoolkits_torch.ops import attn, contrastive as con, topk
+    from denseretrievaltoolkits_torch.run_encode import encode_batches
+    from denseretrievaltoolkits_torch.train.trainer import RRTrainer
+
+    counted = {"fused_attention_ln": attn.fused_attention_ln, "fused_mlp_ln": attn.fused_mlp_ln,
+               "contrastive_fwd": con.contrastive_fwd, "contrastive_bwd_dq": con.contrastive_bwd_dq,
+               "contrastive_bwd_dp": con.contrastive_bwd_dp, "block_topj (K5)": topk.block_topj,
+               "block_topj_serve (K8)": topk.block_topj_serve}
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    cfg = t5.T5Config(**T5_BASE)
+    arch = os.path.join(tmp, "t5-base")
+    t5.save_config(cfg, arch)
+    rng = np.random.default_rng(args.seed + 27)
+    batches = [train_batch(rng, TRAIN_BATCH) for _ in range(2 + T5_TIMED_STEPS)]
+    margs = ModelArguments(model_name_or_path=arch, encoder_only=True, pooling="mean",
+                           dtype="bfloat16", fused_loss=True)
+    log(f"T5: t5-base (d_model {cfg.d_model}, {cfg.num_layers} layers, {cfg.num_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.relative_attention_num_buckets} buckets / "
+        f"{cfg.relative_attention_max_distance}, relu, tied) dual encoder, bf16, mean pooling, "
+        f"fused loss; {TRAIN_BATCH} x 8 passages, q 32 / p 128, adamw lr {TRAIN_LR:g}; "
+        f"{len(batches)} steps (2 warm-up)")
+
+    # (a) step 1 against the plain loss on the same weights, then training through Trainer
+    t_part = time.perf_counter()
+    model = DRModel.build(margs, device="cuda", seed=args.seed)
+    check(model.spec.backbone == "t5" and isinstance(model.lm_q, t5.T5Model),
+          "T5: DRModel.build did not build a T5 encoder tower")
+
+    def grads(batch):
+        loss = model(*batch)["loss"]
+        loss.backward()
+        g = torch.cat([p.grad.flatten().float() for p in model.parameters() if p.grad is not None])
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), g
+
+    k_loss, k_grad = grads(batches[0])
+    with plain_encoder():
+        p_loss, p_grad = grads(batches[0])
+    rel, cos, ratio = grad_agreement(k_loss, k_grad, p_loss, p_grad)
+    del k_grad, p_grad
+    log(f"T5 step 1, fused loss vs plain: loss {k_loss:.6f} vs {p_loss:.6f} (rel {rel:.3e}, <= "
+        f"{TRAIN_STEP1_REL:g}); gradient cosine {cos:.7f} (>= {TRAIN_GRAD_COS:g}), norm ratio "
+        f"{ratio:.7f} (within {TRAIN_GRAD_NORM:g} of 1)")
+    check(rel <= TRAIN_STEP1_REL, "T5: step-1 loss disagrees with the plain loss")
+    check(cos >= TRAIN_GRAD_COS and abs(ratio - 1) <= TRAIN_GRAD_NORM,
+          "T5: the step-1 gradient disagrees with the plain loss's")
+    trainer = step_trainer(tmp, "t5-train", model)
+    zero()
+    losses = [trainer.train_step(b) for b in batches[:2]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(b) for b in batches[2:]]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    train_launches = read()
+    losses = [float(x) for x in losses]
+    tokens = sum(int(q["attention_mask"].sum()) + int(p["attention_mask"].sum())
+                 for q, p in batches[2:])
+    t5_train = {"step1_rel": rel, "grad_cos": cos, "grad_norm_ratio": ratio, "losses": losses,
+                "steps_per_s": T5_TIMED_STEPS / elapsed, "tokens_per_s": tokens / elapsed,
+                "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "launches": train_launches}
+    steps = len(batches)
+    want = {k: 0 for k in counted}
+    want.update(contrastive_fwd=steps, contrastive_bwd_dq=steps, contrastive_bwd_dp=steps)
+    log(f"T5 training: losses {json.dumps([round(x, 5) for x in losses])}; "
+        f"{t5_train['steps_per_s']:.4f} steps/s, {t5_train['tokens_per_s']:.0f} real tokens/s, "
+        f"peak {t5_train['peak_mib']:.0f} MiB; launches in {steps} steps "
+        f"{json.dumps(train_launches)} (want {json.dumps(want)})")
+    check(all(math.isfinite(x) for x in losses), "T5: a training loss is not finite")
+    check(train_launches == want, f"T5: launches {train_launches}, not {want}")
+    served_dir = os.path.join(tmp, "t5-served")
+    model.save(served_dir)
+    del trainer, model
+    torch.cuda.empty_cache()
+    t5_train["seconds"] = time.perf_counter() - t_part
+    log(f"T5 part (a): {t5_train['seconds']:.1f} s with the build, the step-1 check and the save")
+    t_part = time.perf_counter()
+
+    # (b) serve it: the deploy format rebuilt, encode, a float32 index, exact and serve
+    corpus, queries = synthetic_qa(np.random.default_rng(args.seed + 271), args.passages,
+                                   args.queries, 156, 32)
+
+    def side(rows, width):
+        return [([r.get("id", r.get("query_id")) for r in rows[s:s + args.batch]],
+                 pad_batch([r["tokens"] for r in rows[s:s + args.batch]], width, 0))
+                for s in range(0, len(rows), args.batch)]
+
+    p_batches, q_batches = side(corpus, 156), side(queries, 32)
+    served = DRModelForInference.build(ModelArguments(model_name_or_path=served_dir,
+                                                      dtype="bfloat16"), device="cuda")
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_reps, p_lookup = encode_batches(served, p_batches, "passage", args.batch)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    q_reps, q_lookup = encode_batches(served, q_batches, "query", args.batch)
+    encode_launches = read()
+    del served
+    check(p_reps.shape == (args.passages, cfg.d_model) and np.isfinite(p_reps).all()
+          and np.isfinite(q_reps).all(), "T5: passage / query reps of the wrong shape or "
+                                         "not finite")
+    host = t5.bucket_table(156, 156, cfg)
+    card = t5.bucket_table(156, 156, cfg, device="cuda")
+    rel_pos = torch.arange(156)[None, :] - torch.arange(156)[:, None]
+    on_card = t5.relative_position_bucket(rel_pos.cuda(), True, cfg.relative_attention_num_buckets,
+                                          cfg.relative_attention_max_distance).cpu()
+    formula_diff = int((on_card != host).sum())
+    served32 = DRModelForInference.build(ModelArguments(model_name_or_path=served_dir,
+                                                        dtype="float32"), device="cuda")
+    p32, _ = encode_batches(served32, p_batches[:T5_COS_BATCHES], "passage", args.batch)
+    del served32
+    torch.cuda.empty_cache()
+    reps_cos = float(cosines(torch.from_numpy(p_reps[:len(p32)]), torch.from_numpy(p32)).min())
+    log(f"T5 serving: {args.passages} passages (S=156) at {args.passages / encode_s:.1f} "
+        f"passages/s, {args.queries} queries (S=32); launches {json.dumps(encode_launches)}; "
+        f"bf16 vs fp32 reps cosine min {reps_cos:.7f} over {len(p32)} passages (>= "
+        f"{T5_REPS_COS}); bucket table on the card equal to the host's: "
+        f"{torch.equal(card.cpu(), host)}; the fp32 formula run on the card differs from it at "
+        f"{formula_diff} of {host.numel()} (query, key) pairs")
+    check(torch.equal(card.cpu(), host), "T5: the card's bucket table differs from the host's")
+    check(reps_cos >= T5_REPS_COS, "T5: bf16 reps disagree with the fp32 reps")
+    check(not any(encode_launches.values()), "T5: the encode launched a BERT or loss kernel")
+    index = FlatIPIndex(p_reps.shape[1], dtype="float32", block_size=INDEX_BLOCK, device="cuda")
+    index.add(p_reps)
+    index.search(q_reps[:1], args.k)  # uploads the corpus; not part of the search time
+    ids, qps, search_launches = {}, {}, {}
+    for mode in ("exact", "serve"):
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ids[mode] = index.batch_search(q_reps, args.k, args.queries, mode=mode)
+        qps[mode] = args.queries / (time.perf_counter() - t0)
+        search_launches[mode] = read()
+    with mock.patch.object(topk, "block_topj", topk._block_topj_reference):
+        _, plain_ids = index.batch_search(q_reps, args.k, args.queries, mode="exact")
+    plain_overlap = overlap(ids["exact"], plain_ids)
+    serve_recall = overlap(ids["serve"], ids["exact"])
+    hits = np.array([[p_lookup[i] == f"d{q}" for i in row] for q, row in enumerate(ids["exact"])])
+    log(f"T5 search (k={args.k}, {INDEX_BLOCK}-row blocks): exact {qps['exact']:.1f} / serve "
+        f"{qps['serve']:.1f} queries/s; exact vs its plain version over the same reps top-"
+        f"{args.k} overlap {plain_overlap:.5f} (>= 0.99); serve recall vs exact "
+        f"{serve_recall:.5f} (>= {T5_SERVE_RECALL}); own passage in the top {args.k} for "
+        f"{hits.any(1).mean():.4f} of queries; launches {json.dumps(search_launches)}")
+    check(plain_overlap >= 0.99, "T5: the exact search disagrees with its plain version")
+    check(serve_recall >= T5_SERVE_RECALL, "T5: serve's recall against exact is too low")
+    check(search_launches["exact"]["block_topj (K5)"] > 0
+          and search_launches["exact"]["block_topj_serve (K8)"] == 0,
+          "T5: the exact search did not run on K5")
+    check(search_launches["serve"]["block_topj_serve (K8)"] > 0
+          and search_launches["serve"]["block_topj (K5)"] == 0,
+          "T5: the serve search did not run on K8")
+    t5_serve = {"passages_per_s": args.passages / encode_s, "queries_per_s": qps,
+                "reps_cos_fp32": reps_cos, "plain_overlap": plain_overlap,
+                "serve_recall": serve_recall, "launches": search_launches,
+                "encode_launches": encode_launches, "card_formula_bucket_diff": formula_diff,
+                "seconds": time.perf_counter() - t_part}
+    del index
+    log(f"T5 part (b): {t5_serve['seconds']:.1f} s")
+
+    # (c) the rerankers: trained by RRTrainer, then over (b)'s exact top-k
+    tok = StubTokenizer()
+    bert_arch = os.path.join(tmp, "rr-bert-base")
+    save_config(BertConfig(num_hidden_layers=TRAIN_LAYERS), bert_arch)
+
+    def pair(q_ids, p_ids):
+        return create_pair_example(q_ids, p_ids, tok, RR_LEN)
+
+    prng = np.random.default_rng(args.seed + 272)
+    rr_batches = []
+    for i in range(2 + RR_TIMED_STEPS):
+        qs = range(i * RR_QUERIES, (i + 1) * RR_QUERIES)
+        pos = [pair(queries[j]["tokens"][1:-1], corpus[j]["tokens"][1:-1]) for j in qs]
+        neg = [pair(queries[j]["tokens"][1:-1], corpus[int(n)]["tokens"][1:-1]) for j in qs
+               for n in prng.integers(args.queries, args.passages, RR_NEGATIVES)]
+        rr_batches.append((pad_batch(pos, RR_LEN, 0), pad_batch(neg, RR_LEN, 0)))
+    rows = [{"query_id": queries[j]["query_id"], "query": queries[j]["tokens"][1:-1],
+             "doc_id": p_lookup[i], "document": corpus[i]["tokens"][1:-1],
+             "original": corpus[i]["original"], "answers": queries[j]["answers"]}
+            for j in range(RR_EVAL_QUERIES) for i in ids["exact"][j]]
+
+    class Pairs:  # RRDataset's rows without ``datasets``: the handoff's preprocessed pairs
+        def load_dataset(self):
+            return rows
+
+    dargs = DataArguments(q_max_len=32, p_max_len=RR_LEN - 32)
+    # the card-vs-CPU pairs in batches of 32 by length, each padded to its longest: the
+    # CPU's fp32 forward is the slow side
+    cpu_pairs = sorted((pair(r["query"], r["document"]) for r in rows[:RR_CPU_PAIRS]), key=len)
+    cpu_batches = [pad_batch(chunk, len(chunk[-1]), 0)
+                   for chunk in (cpu_pairs[s:s + 32] for s in range(0, len(cpu_pairs), 32))]
+    rerank = {}
+    for label, path, extra, loss_fn in (
+            ("bert", bert_arch, dict(pooling="first"), "mr"),
+            ("t5_full", arch, dict(encoder_only=False, pos_token="true", neg_token="false"),
+             "ce")):
+        t_part = time.perf_counter()
+        root = os.path.join(tmp, f"rr-{label}")
+        rargs = RRTrainingArguments(
+            output_dir=os.path.join(root, "out"), cache_train_dir=os.path.join(root, "cache"),
+            learning_rate=TRAIN_LR, optimizer="adamw", loss_fn=loss_fn, topk="1,10,100",
+            log_every=0, eval_batch_size=RR_EVAL_BATCH)
+        model = RRModel.build(ModelArguments(model_name_or_path=path, dtype="bfloat16", **extra),
+                              train_args=rargs, tokenizer=tok, device="cuda", seed=args.seed)
+        check(model.spec.backbone == label, f"rerank: built {model.spec.backbone}, not {label}")
+        trainer = RRTrainer(rargs, model)
+        zero()
+        losses = [trainer.train_step(b) for b in rr_batches[:2]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses += [trainer.train_step(b) for b in rr_batches[2:]]
+        torch.cuda.synchronize()
+        rate = RR_TIMED_STEPS / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = [float(x) for x in losses]
+        loader = RerankerDataloader(dargs, Pairs(), tok, batch_size=RR_EVAL_BATCH
+                                    ).get_eval_dataloader()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate(loader, 3)
+        eval_s = time.perf_counter() - t0
+        launches = read()
+        host_s = None
+        if label == "bert":  # the same evaluation with every score 0: its host side alone
+            zeros = lambda b: torch.zeros(len(b["input_ids"]), 1)  # noqa: E731
+            with mock.patch.object(trainer.model, "score", zeros):
+                t0 = time.perf_counter()
+                trainer.evaluate(loader, 4)
+                host_s = time.perf_counter() - t0
+        with open(os.path.join(rargs.rr_result_dir, "3.0.json")) as fh:
+            dumped = [json.loads(line) for line in fh]
+        metrics_path = os.path.join(rargs.cache_train_dir, "3.0_RR_metrics")
+        with open(metrics_path) as fh:
+            saved = json.load(fh)
+        # fp32 scores of the same weights (the trained fp32 masters), card against CPU
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        spec32 = dataclasses.replace(model.spec, dtype="float32")
+        del trainer, model
+        torch.cuda.empty_cache()
+        scores, t0 = {}, time.perf_counter()
+        for device in ("cuda", "cpu"):
+            m = RRModel(spec32, device=device)
+            m.load_state_dict(state)
+            scores[device] = torch.cat([m.score(b).float().cpu() for b in cpu_batches])
+            del m
+        cpu_check_s = time.perf_counter() - t0
+        del state
+        torch.cuda.empty_cache()
+        gap = float((scores["cuda"] - scores["cpu"]).abs().max())
+        scale = float(scores["cpu"].abs().max())
+        n_pairs = RR_QUERIES * (1 + RR_NEGATIVES)
+        rerank[label] = {"losses": losses, "steps_per_s": rate, "pairs_per_s": rate * n_pairs,
+                         "peak_mib": peak, "eval_s": eval_s, "eval_pairs_per_s": len(rows) / eval_s,
+                         "metrics": metrics, "dump_rows": len(dumped), "launches": launches,
+                         "cpu_gap": gap, "cpu_scale": scale, "cpu_check_s": cpu_check_s,
+                         "eval_host_s": host_s,
+                         "seconds": time.perf_counter() - t_part}
+        log(f"rerank {label} (bf16, {loss_fn}): losses {json.dumps([round(x, 5) for x in losses])}"
+            f"; {rate:.4f} steps/s ({rate * n_pairs:.1f} pairs/s of {RR_LEN} tokens), peak "
+            f"{peak:.0f} MiB; evaluate over the T5 index's top {args.k} of {RR_EVAL_QUERIES} "
+            f"queries: {len(dumped)} rows in {eval_s:.2f} s ({len(rows) / eval_s:.0f} pairs/s"
+            + (f"; {host_s:.2f} s of host work alone, every score 0" if host_s else "") + "), "
+            f"metrics {json.dumps(metrics)}; launches {json.dumps(launches)}; fp32 scores of "
+            f"{len(scores['cpu'])} pairs, card vs CPU: max gap {gap:.3e} (largest |score| "
+            f"{scale:.3f}, bound {RR_CPU_REL:g} of it; {cpu_check_s:.1f} s); this part "
+            f"{time.perf_counter() - t_part:.1f} s")
+        check(all(math.isfinite(x) for x in losses), f"rerank {label}: a loss is not finite")
+        check(len(dumped) == len(rows) == RR_EVAL_QUERIES * args.k,
+              f"rerank {label}: the dump holds {len(dumped)} rows")
+        check(saved == metrics and metrics["query_num"] == RR_EVAL_QUERIES,
+              f"rerank {label}: the metrics file is not the evaluation's")
+        check(all(math.isfinite(r["score"]) for r in dumped), f"rerank {label}: a score is not "
+                                                               f"finite")
+        check(not any(launches.values()), f"rerank {label}: a kernel launched: {launches}")
+        check(len(scores["cpu"]) == RR_CPU_PAIRS and gap <= RR_CPU_REL * max(scale, 1.0),
+              f"rerank {label}: fp32 scores on the card disagree with the CPU's")
+    return {"t5_train": t5_train, "t5_serve": t5_serve, "rerank": rerank}
 
 
 def plain_flash_qkv(flash, qkv, seg, nh, hd):
@@ -4810,6 +5165,9 @@ def main(argv=None):
                              "--seed; "
                              "lists every failed check instead of stopping at the first, exits "
                              "1 if any failed; prints no kernels line")
+    parser.add_argument("--rerank_only", action="store_true",
+                        help="run only the T5 and reranker phase (27), for its readings; "
+                             "prints no kernels line")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4878,6 +5236,14 @@ def main(argv=None):
                 json.dump(results, fh, indent=1)
         log(smi)
         return 0
+    if args.rerank_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {"card": smi, "seed": args.seed, "rerank": phase_rerank(args, tmp)}
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(results, fh, indent=1)
+        log(smi)
+        return 0
     if args.flash_only:
         with tempfile.TemporaryDirectory() as tmp:
             results = {"card": smi, "seed": args.seed,
@@ -4919,6 +5285,7 @@ def main(argv=None):
         pq_eval = phase_pq_eval_path(args, tmp, ctx, plain_pq96)
         del ctx
         mining = phase_mining(args, tmp)
+        rerank = phase_rerank(args, tmp)
     scale = phase_scale(gen, flat, topk, SCALE_QUERIES)
     scale4 = phase_scale4(gen, flat, SCALE4_QUERIES)
     ivf_scale = phase_ivf_scale(args.seed + 11, flat, ivf_bulk)
@@ -4958,8 +5325,13 @@ def main(argv=None):
                    # encode, and the miner's query encodes (serve and exact)
                    lora_train_launches=lora["launches"][row["name"]],
                    lora_merged_launches=lora["merged_launches"][row["name"]],
-                   mining_launches=sum(m[row["name"]] for m in mining["launches"].values()))
+                   mining_launches=sum(m[row["name"]] for m in mining["launches"].values()),
+                   # the T5 dual encoder's training and encode (0: T5 runs no BERT block)
+                   t5_launches=(rerank["t5_train"]["launches"][row["name"]]
+                                + rerank["t5_serve"]["encode_launches"][row["name"]]))
     kernels[2]["mining_launches"] = mining["launches"]["exact"]["block_topj (K5)"]
+    # the T5 index's exact search
+    kernels[2]["t5_launches"] = rerank["t5_serve"]["launches"]["exact"]["block_topj (K5)"]
     kernels[0].update({k: rows[0][3][k] for k in ("body", "stage_a_ms", "stage_b_ms",
                                                   "scratch_bound_ms")})  # K1's two launches
     kernels[1]["chain_ms"] = rows[1][3]["chain_ms"]  # K2: the xla block's bf16 chain
@@ -4994,7 +5366,9 @@ def main(argv=None):
                         # the grad-cache path's launches at this row's shape (Q=4096, P=32768)
                         "grad_cache_launches": grad_cache["launches"][name],
                         "remat_launches": remat["launches"][name],
-                        "lora_launches": lora["launches"][name]})
+                        "lora_launches": lora["launches"][name],
+                        # the T5 dual encoder's training steps (Q=32, P=256)
+                        "t5_launches": rerank["t5_train"]["launches"][name]})
         kernels[-1].update({  # the tensor-core bodies: fp16 pairs, the FFMA body beside them
             "source": ", ".join(src + f for f in ("contrastive.cu", "split.cuh", "hopper.cuh",
                                                   "common.cuh")),
@@ -5040,6 +5414,8 @@ def main(argv=None):
         elif counter == "block_topj_serve":  # K8 int8's times at the other J, its fp32 and bf16
             f32, b16 = int8_topk["K8 float32"], int8_topk["K8 bfloat16"]
             kernels[-1]["mining_launches"] = mining["launches"]["serve"]["block_topj_serve (K8)"]
+            kernels[-1]["t5_launches"] = \
+                rerank["t5_serve"]["launches"]["serve"]["block_topj_serve (K8)"]
             kernels[-1].update({f: r[f] for f in r if f == "body" or f.startswith("ms_j")})
             kernels[-1].update(
                 generic_launches=topk.block_topj_serve.launches_generic,
@@ -5207,7 +5583,7 @@ def main(argv=None):
             json.dump({"card": smi, "build_s": _native.build_seconds, "block_kernels": blocks,
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
                        "grad_cache": grad_cache, "remat": remat, "lora": lora,
-                       "mining": mining,
+                       "mining": mining, "rerank": rerank,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
                        "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,

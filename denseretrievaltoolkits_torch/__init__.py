@@ -1,11 +1,12 @@
 """denseretrievaltoolkits_torch: the PyTorch + CUDA port of denseretrievaltoolkits_tpu.
 
 The JAX package beside it is the reference. This package holds the serving
-path: the BERT dual encoder (``models/``), its fused encoder-block kernels,
-the block top-k kernel family and int8 quantization (``ops/`` + ``csrc/``),
-the flat inner-product index in fp32, bf16 and int8 (``index/``), the offline
-retrieval CLI (``evaluator/``) and the encode CLI (``run_encode``); and the
-training path (``train/``). It imports ``torch``, never ``jax`` and nothing
+path: the BERT and T5 dual encoders and the cross-encoder reranker
+(``models/``), the fused encoder-block kernels, the block top-k kernel family
+and int8 quantization (``ops/`` + ``csrc/``), the flat inner-product index in
+fp32, bf16 and int8 (``index/``), the offline retrieval CLI (``evaluator/``)
+and the encode CLI (``run_encode``); and the training path (``train/``, with
+the reranker's ``RRTrainer``). It imports ``torch``, never ``jax`` and nothing
 of the JAX package (it keeps its own ``config``, ``data`` and
 ``index.modes``). Its entry points run on the CUDA card unless the caller
 passes ``device="cpu"``.

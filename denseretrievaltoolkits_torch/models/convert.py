@@ -11,6 +11,12 @@ checkpoint exists. The inverse bridge (:func:`params_to_jax`,
 JAX package loads it with ``bert.load_params``. LoRA adapters travel as the
 reference's four stacked leaves, ``lora_q_A`` / ``lora_v_A`` ``[L, H, r]`` and
 ``lora_q_B`` / ``lora_v_B`` ``[L, r, H]`` (``models/lora.py``), in both directions.
+
+A T5 tree (``models/t5.py``: ``shared``, ``enc_rel_bias``, ``encoder``,
+``enc_final_ln``, and with a decoder ``decoder``, ``dec_rel_bias``,
+``dec_final_ln``, ``lm_head``; the encoder's LoRA leaves inside ``encoder``) maps
+onto a ``T5Model`` key for key, its ``a/b`` paths as ``a.b``: both functions
+take either kind of tree.
 """
 
 from __future__ import annotations
@@ -29,10 +35,30 @@ _LAYER_KEYS = ("o_kernel", "o_bias", "attn_ln_scale", "attn_ln_bias", "wi_kernel
 _QKV = ("q_kernel", "q_bias", "k_kernel", "k_bias", "v_kernel", "v_bias")
 
 
+def is_t5_tree(tree: Dict) -> bool:
+    return "encoder" in tree and "layers" not in tree
+
+
+def _t5_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    lora = [k for k in LORA_KEYS if k in tree["encoder"]]
+    if lora and len(lora) != len(LORA_KEYS):
+        raise ValueError(f"incomplete LoRA adapters {lora}: a tower has all of {LORA_KEYS} "
+                         f"or none")
+    out = {}
+    for k, v in tree.items():
+        items = v.items() if isinstance(v, dict) else [(None, v)]
+        for sub, leaf in items:
+            out[k if sub is None else f"{k}.{sub}"] = torch.tensor(np.asarray(leaf, np.float32))
+    return out
+
+
 def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     """JAX BERT pytree (numpy arrays) -> ``BertEncoder`` state_dict (fp32;
     ``load_state_dict`` casts to the module's storage dtypes). Q/K/V fuse
-    into the ``[H,3H]`` kernel the encoder multiplies by."""
+    into the ``[H,3H]`` kernel the encoder multiplies by. A T5 tree -> the
+    ``T5Model`` state dict."""
+    if is_t5_tree(tree):
+        return _t5_from_jax(tree)
     layers = tree["layers"]
     unknown = set(layers) - set(_LAYER_KEYS) - set(_QKV) - set(LORA_KEYS)
     if unknown:
@@ -64,8 +90,17 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
     gradients) -> the JAX BERT pytree of fp32 numpy arrays: ``qkv_*`` splits
     back into ``q/k/v`` and the layers stack on axis 0. Inverse of
     :func:`params_from_jax`. The arrays are copies: later in-place updates of
-    the module do not reach them."""
+    the module do not reach them. A ``T5Model`` state dict -> the T5 tree."""
     n = lambda t: np.array(t.detach().float().cpu())  # noqa: E731
+    if "shared" in state:
+        tree: Dict = {}
+        for k, v in state.items():
+            head, _, leaf = k.partition(".")
+            if leaf:
+                tree.setdefault(head, {})[leaf] = n(v)
+            else:
+                tree[head] = n(v)
+        return tree
     L = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("layers."))
     layer = [{k.split(".", 2)[2]: n(v) for k, v in state.items()
               if k.startswith(f"layers.{i}.")} for i in range(L)]

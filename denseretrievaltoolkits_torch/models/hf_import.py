@@ -1,4 +1,4 @@
-"""HF BERT checkpoints in and out of the port, without ``transformers``.
+"""HF BERT and T5 checkpoints in and out of the port, without ``transformers``.
 
 Counterpart of ``denseretrievaltoolkits_tpu/models/hf_import.py`` (:22-155):
 a torch ``BertModel`` state dict becomes the reference's stacked-layer tree
@@ -14,7 +14,12 @@ a torch ``BertModel`` state dict becomes the reference's stacked-layer tree
   then the raw bytes), or from ``pytorch_model.bin`` by
   ``torch.load(weights_only=True)``;
 - old checkpoints' LayerNorm ``gamma`` / ``beta`` are renamed ``weight`` /
-  ``bias``, as ``transformers`` renames them on load.
+  ``bias``, as ``transformers`` renames them on load;
+- a ``config.json`` with ``model_type: t5`` maps onto ``T5Config`` by its
+  ``from_hf_config`` (``models/t5.py``), and its weights onto the T5 tree by
+  ``t5.params_from_torch_state_dict``: the encoder alone (what
+  ``T5EncoderModel.from_pretrained`` takes, from either checkpoint kind) or with
+  the decoder.
 
 Export writes ``config.json`` and a ``model.safetensors`` by the same format
 by hand; ``transformers.BertModel.from_pretrained`` loads the directory. A
@@ -33,6 +38,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from . import t5
 from .bert import BertConfig
 
 SAFETENSORS = "model.safetensors"
@@ -196,13 +202,16 @@ def params_to_torch_state_dict(tree: Dict, config: BertConfig) -> Dict[str, torc
 
 # -- directories --------------------------------------------------------------------------------
 
-def config_from_hf(hf: Dict) -> BertConfig:
+def config_from_hf(hf: Dict):
     """An HF ``config.json`` (a dict) -> ``BertConfig``, the fields the reference's
-    ``from_hf_config`` maps; absent keys take HF's defaults."""
-    if hf.get("model_type", "bert") != "bert":
-        raise NotImplementedError(
-            f"model_type {hf['model_type']!r}: only BERT towers are ported (T5 waits for "
-            f"ROADMAP queue 1, item 'T5 and reranker')")
+    ``from_hf_config`` maps, or for ``model_type: t5`` a ``T5Config``; absent keys take
+    HF's defaults. Other model types raise."""
+    model_type = hf.get("model_type", "bert")
+    if model_type == "t5":
+        return t5.T5Config.from_hf_config(hf)
+    if model_type != "bert":
+        raise ValueError(f"model_type {model_type!r}: the port reads BERT and T5 towers only, "
+                         f"as the reference does")
     return BertConfig(**{k: hf.get(k, v) for k, v in HF_DEFAULTS.items()})
 
 
@@ -233,21 +242,30 @@ def read_state_dict(path: str) -> Dict[str, Any]:
     for index in (SAFETENSORS + ".index.json", TORCH_BIN + ".index.json"):
         if os.path.isfile(os.path.join(path, index)):
             raise NotImplementedError(
-                f"{path}: a sharded checkpoint ({index}) is not read by the port; BERT sizes "
-                f"never shard under save_pretrained's 5 GB default")
+                f"{path}: a sharded checkpoint ({index}) is not read by the port; BERT and "
+                f"T5-base sizes never shard under save_pretrained's 5 GB default")
     raise FileNotFoundError(f"{path}: no {SAFETENSORS} or {TORCH_BIN}")
 
 
-def params_from_pretrained(local_dir: str) -> Tuple[Dict, BertConfig]:
-    """A local HF BERT directory -> (reference-layout tree, ``BertConfig``). A path that
-    is no local directory (a hub id) raises: it needs a download."""
+def read_config(local_dir: str):
+    """The ``BertConfig`` or ``T5Config`` of a local HF directory's ``config.json``."""
+    with open(os.path.join(local_dir, HF_CONFIG)) as fh:
+        return config_from_hf(json.load(fh))
+
+
+def params_from_pretrained(local_dir: str, with_decoder: bool = False) -> Tuple[Dict, Any]:
+    """A local HF BERT or T5 directory -> (reference-layout tree, ``BertConfig`` or
+    ``T5Config``); a T5 tree holds the decoder with ``with_decoder``, else the encoder
+    only. A path that is no local directory (a hub id) raises: it needs a download."""
     if not os.path.isdir(local_dir):
         raise NotImplementedError(
             f"{local_dir!r} is not a local directory: a hub id needs a download, which the "
             f"port does not do (ROADMAP queue 1, item 'LoRA and HF import/export' reads local "
             f"HF directories only)")
-    with open(os.path.join(local_dir, HF_CONFIG)) as fh:
-        config = config_from_hf(json.load(fh))
+    config = read_config(local_dir)
+    if isinstance(config, t5.T5Config):
+        return t5.params_from_torch_state_dict(read_state_dict(local_dir), config,
+                                               with_decoder=with_decoder), config
     return params_from_torch_state_dict(read_state_dict(local_dir), config), config
 
 

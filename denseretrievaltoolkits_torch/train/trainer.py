@@ -38,6 +38,11 @@ epoch's weights (re-encoded when stale), as the reference does
 (``optimizers.get_optimizer``). A mesh (ROADMAP queue 1, ``parallel/``) is a
 later slice: given one, the constructor raises.
 
+``RRTrainer`` (trainer.py:699-796 there) trains a ``models.reranker.RRModel`` on
+(pos_pairs, neg_pairs) batches and evaluates it over the dense retriever's
+top-k pairs: the rerank dump ``{rr_result_dir}/{ep}.0.json`` and the metrics
+``{cache_train_dir}/{ep}.0_RR_metrics``.
+
 Resume differs from the reference on purpose. The reference saves ``ep + 1``
 (the epochs done) and ``load`` starts at ``epoch + 1``, so a resumed run skips
 an epoch (trainer.py:235-236, 695). Here ``load`` starts at the first epoch
@@ -425,3 +430,64 @@ class Trainer:
         self.optimizer.load_state_dict(payload["opt_state"])
         self.start_epoch = int(payload["meta"]["epoch"]) if ckpt_type is None else 0
         self.step = int(payload["meta"]["step"])
+
+
+class RRTrainer(Trainer):
+    """Cross-encoder reranker trainer (JAX ``RRTrainer``, trainer.py:699-796): trains a
+    ``models.reranker.RRModel`` in place on (pos_pairs, neg_pairs) batches and
+    evaluates it over the dense retriever's top-k pairs."""
+
+    def train_step(self, batch) -> torch.Tensor:
+        """One optimizer update on a (pos_pairs, neg_pairs) batch; the loss as a device
+        tensor."""
+        self.model.train()
+        loss = self.model(batch[0], batch[1])["loss"]
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return loss.detach()
+
+    def evaluate(self, pair_loader, ep: int) -> Dict[str, float]:
+        """Score each (q, d) pair, group by qid, sort, compute metrics (trainer.py:754-796):
+        the relevance is the last score (``[1]`` heads and ``[neg, pos]`` logits alike);
+        each pair is labeled by ``AnswerMatcher`` and dumped to
+        ``{rr_result_dir}/{ep}.0.json`` inside the batch loop, so document text never
+        accumulates; the metrics go to ``{cache_train_dir}/{ep}.0_RR_metrics``. The
+        reference pads each batch to the loader's size for XLA's static shapes; here
+        each batch is scored as it comes, with the same rows and metrics."""
+        args = self.training_args
+        result: Dict[Any, tuple] = {}
+        matcher = AnswerMatcher()
+        self.model.eval()
+        os.makedirs(args.rr_result_dir, exist_ok=True)
+        with open(os.path.join(args.rr_result_dir, f"{ep}.0.json"), "w",
+                  encoding="utf-8") as fh:
+            for qids, batch, answers, docs, dids in pair_loader:
+                scores = self.model.score(batch).float().cpu().numpy()
+                for q, a, d, s, did in zip(qids, answers, docs, scores, dids):
+                    bucket = result.setdefault(q, ([], []))
+                    score = float(s[-1])
+                    match = int(matcher.match(did, d, a))
+                    bucket[0].append(score)
+                    bucket[1].append(match)
+                    json.dump({"qid": q, "did": did, "score": score, "match": match,
+                               "document": d}, fh, ensure_ascii=False)
+                    fh.write("\n")
+        m_all = {f"{m}@{k}": 0.0 for m in ("MRR", "NDCG", "Recall") for k in self.topk}
+        eval_num = 0
+        for qid, (scores, is_true) in result.items():
+            eval_num += 1
+            order = np.argsort(-np.asarray(scores))
+            batch_metrics = get_metrics(np.asarray(is_true)[order][None, :], self.topk)
+            for key in m_all:
+                m_all[key] += batch_metrics[key]
+        dp = max(2, getattr(args, "decimal_place", 4))
+        for key in m_all:
+            m_all[key] = m_all[key] / max(eval_num, 1)
+            logger.info("%s %.*f", key, dp, m_all[key])
+        m_all["query_num"] = eval_num
+        with open(os.path.join(args.cache_train_dir, f"{ep}.0_RR_metrics"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(m_all, fh, ensure_ascii=False)
+        return m_all

@@ -19,6 +19,7 @@ from denseretrievaltoolkits_tpu.models import bert as jbert
 from denseretrievaltoolkits_tpu.models import biencoder as jbi
 from denseretrievaltoolkits_torch.models import biencoder as tbi
 from denseretrievaltoolkits_torch.models import lora
+from denseretrievaltoolkits_torch.models import t5 as tt5
 
 CFG = jbert.BertConfig(vocab_size=91, hidden_size=64, num_hidden_layers=2,
                        num_attention_heads=4, intermediate_size=128, max_position_embeddings=40)
@@ -82,8 +83,12 @@ def test_fused_attention_build_matches_xla(jax_model, tmp_path):
 def test_manifest_and_unsupported_paths(tmp_path):
     with pytest.raises(ValueError, match="pooling"):
         tbi.DRModelSpec(bert_config=CFG, pooling="sum")
-    with pytest.raises(NotImplementedError, match="T5"):
-        tbi.DRModelSpec(bert_config=CFG, backbone="t5")
+    # a T5 spec builds (the port's T5 towers: tests/test_torch_t5.py); others raise
+    t5_cfg = tt5.T5Config(vocab_size=91, d_model=32, d_kv=8, d_ff=48, num_layers=2, num_heads=4)
+    for backbone in ("t5", "t5_full"):
+        assert tbi.DRModelSpec(bert_config=t5_cfg, backbone=backbone).backbone == backbone
+    with pytest.raises(ValueError, match="backbone"):
+        tbi.DRModelSpec(bert_config=CFG, backbone="roberta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbi.DRModel.build(ModelArguments(model_name_or_path="bert-base-uncased"))
     # an architecture-only dir random-inits from its bert_config.json

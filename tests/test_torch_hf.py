@@ -5,8 +5,9 @@ The port reads and writes local HF directories by hand (``models/hf_import.py``:
 by ``torch.load``). Here, where ``transformers`` exists, its ``BertModel``
 loads the port's export (forward within 1e-3, as ``tests/test_hf_export.py``),
 and the port reads what ``save_pretrained`` writes into the same tree as the
-JAX package's ``params_from_torch_state_dict`` (bit-equal). Tiny local models,
-no network.
+JAX package's ``params_from_torch_state_dict`` (bit-equal), for BERT and for T5
+(``T5EncoderModel`` and ``T5ForConditionalGeneration`` directories). Tiny local
+models, no network.
 """
 
 import json
@@ -24,10 +25,12 @@ from denseretrievaltoolkits_tpu.models import bert as jbert
 from denseretrievaltoolkits_tpu.models import biencoder as jbi
 from denseretrievaltoolkits_tpu.models import hf_import as jhf
 from denseretrievaltoolkits_tpu.models import lora as jlora
+from denseretrievaltoolkits_tpu.models import t5 as jt5
 from denseretrievaltoolkits_torch.models import bert as tbert
 from denseretrievaltoolkits_torch.models import biencoder as tbi
 from denseretrievaltoolkits_torch.models import hf_import as thf
 from denseretrievaltoolkits_torch.models import lora as tlora
+from denseretrievaltoolkits_torch.models import t5 as tt5
 from denseretrievaltoolkits_torch.models.convert import params_to_jax
 
 TINY = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
@@ -247,5 +250,94 @@ def test_hub_ids_and_sharded_checkpoints_raise(tmp_path):
     (tmp_path / "model.safetensors.index.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="sharded"):
         thf.params_from_pretrained(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="T5"):
-        thf.config_from_hf({"model_type": "t5"})
+    # a T5 config.json maps onto T5Config (the reference's from_hf_config): is_gated_act
+    # from feed_forward_proj, relative_attention_max_distance 128 where absent, HF's
+    # defaults for the rest; other model types raise
+    cfg = thf.config_from_hf({"model_type": "t5", "d_model": 48, "num_layers": 3,
+                              "feed_forward_proj": "gated-gelu", "tie_word_embeddings": False})
+    assert cfg == tt5.T5Config(d_model=48, num_layers=3, is_gated_act=True,
+                               tie_word_embeddings=False, relative_attention_max_distance=128)
+    assert not thf.config_from_hf({"model_type": "t5"}).is_gated_act
+    with pytest.raises(ValueError, match="roberta"):
+        thf.config_from_hf({"model_type": "roberta"})
+
+
+# --- T5 directories ---------------------------------------------------------------------------
+
+T5_HF = dict(vocab_size=128, d_model=32, d_kv=8, d_ff=48, num_layers=2, num_heads=4,
+             relative_attention_num_buckets=8, relative_attention_max_distance=20,
+             decoder_start_token_id=0)
+# (model class, tie_word_embeddings, feed_forward_proj, num_decoder_layers, serialization)
+T5_CASES = {
+    "encoder-safetensors": ("T5EncoderModel", True, "relu", None, True),
+    "encoder-bin": ("T5EncoderModel", True, "relu", None, False),
+    "full-tied-safetensors": ("T5ForConditionalGeneration", True, "relu", None, True),
+    "full-untied-gated-bin": ("T5ForConditionalGeneration", False, "gated-gelu", 3, False),
+    "full-untied-gated-safetensors": ("T5ForConditionalGeneration", False, "gated-gelu", 3,
+                                      True),
+}
+
+
+def _t5_hf_dir(kind, path):
+    import transformers
+
+    cls_name, tied, proj, n_dec, safe = T5_CASES[kind]
+    torch.manual_seed(len(kind))
+    config = transformers.T5Config(**T5_HF, tie_word_embeddings=tied, feed_forward_proj=proj,
+                                   num_decoder_layers=n_dec)
+    hf = getattr(transformers, cls_name)(config).eval()
+    hf.save_pretrained(path, safe_serialization=safe)
+    return hf
+
+
+@pytest.mark.parametrize("kind", sorted(T5_CASES))
+def test_reads_t5_hf_directories(kind, tmp_path):
+    """A T5 directory written by ``save_pretrained`` (safetensors or ``.bin``; tied, or
+    untied and gated with ``lm_head``; a ``num_decoder_layers`` the reference does not
+    read: it stacks ``num_layers`` decoder blocks) reads into the tree JAX's
+    ``params_from_torch_state_dict`` makes of the model's state dict, bit-equal: the
+    encoder alone from either kind, and the decoder from a full checkpoint. The config is
+    JAX's ``from_hf_config``'s. ``DRModel.build`` from the directory encodes as the JAX
+    package's build does (2e-5): ``encoder_only`` the pooled encoder, else the decoder's
+    step-0 state."""
+    path = str(tmp_path / f"t5-{kind}")
+    hf = _t5_hf_dir(kind, path)
+    jcfg = jt5.T5Config.from_hf_config(hf.config)
+    full = T5_CASES[kind][0] == "T5ForConditionalGeneration"
+    for with_decoder in (False, True) if full else (False,):
+        tree, config = thf.params_from_pretrained(path, with_decoder=with_decoder)
+        assert config == tt5.T5Config(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__})
+        want = _flat(jax.tree.map(np.asarray, jt5.params_from_torch_state_dict(
+            hf.state_dict(), jcfg, with_decoder=with_decoder)))
+        got = _flat(tree)
+        assert got.keys() == want.keys()
+        assert ("['lm_head']" in got) == (with_decoder and not T5_CASES[kind][1])
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    q = _ids(5)
+    for encoder_only in (True, False) if full else (True,):
+        margs = ModelArguments(model_name_or_path=path, encoder_only=encoder_only,
+                               pooling="mean")
+        port = tbi.DRModel.build(margs, device="cpu")
+        jmodel, jparams = jbi.DRModel.build(margs)
+        assert port.spec.backbone == jmodel.spec.backbone == ("t5" if encoder_only
+                                                              else "t5_full")
+        np.testing.assert_allclose(
+            port.encode_query(q).numpy(),
+            np.asarray(jmodel.encode_query(jparams, jax.tree.map(jnp.asarray, q))),
+            rtol=2e-5, atol=2e-5)
+
+
+def test_t5_checkpoint_with_only_embed_tokens(tmp_path):
+    """A T5 file may keep only ``encoder.embed_tokens.weight`` of the tied pair: the port
+    reads it as ``shared``, equal to JAX's tree of the full state dict."""
+    hf = _t5_hf_dir("encoder-bin", str(tmp_path / "src"))
+    sd = {k: v for k, v in hf.state_dict().items() if k != "shared.weight"}
+    assert "encoder.embed_tokens.weight" in sd
+    os.makedirs(tmp_path / "t5")
+    torch.save(sd, tmp_path / "t5" / "pytorch_model.bin")
+    os.replace(tmp_path / "src" / "config.json", tmp_path / "t5" / "config.json")
+    tree, _ = thf.params_from_pretrained(str(tmp_path / "t5"))
+    want = jt5.params_from_torch_state_dict(hf.state_dict(), jt5.T5Config.from_hf_config(
+        hf.config))
+    np.testing.assert_array_equal(tree["shared"], np.asarray(want["shared"]))

@@ -7,7 +7,8 @@ package, nor the ``regex`` package, which the card's machine lacks too
 (``evaluator/nq_eval.py`` tokenizes with ``unicodedata`` instead). It keeps
 its own copies of the modules the two packages share (``config``, ``data.collators``, ``data.loaders``, ``evaluator.metrics``,
 ``index.modes``, ``evaluator.nq_eval``, and ``data.datasets``, ``data.preprocess``,
-``data.samplers``, ``utils``, ``evaluator.bm25``, ``mine.miner``);
+``data.samplers``, ``utils``, ``evaluator.bm25``, ``mine.miner``, ``evaluator.trec``,
+``evaluator.convert``);
 ``tests/test_torch_shared.py``, ``tests/test_torch_eval.py``,
 ``tests/test_torch_data.py`` and ``tests/test_torch_mining.py`` hold each copy
 to its original. ``transformers`` and ``safetensors`` never load on the HF path
@@ -87,3 +88,16 @@ def test_slice_modules_present():
     for path in ("models/hf_import.py",):
         assert not {n.split(".")[0] for n in _imported(PORT / path)} & {"transformers",
                                                                         "safetensors"}
+
+
+def test_t5_and_reranker_modules_present():
+    """The T5 and reranker slice's modules, each under the AST checks above: the T5
+    towers, the reranker, the trec / convert copies and the ``run_reranker`` twin; none
+    reads HF files through ``transformers`` or ``safetensors``."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    new = {"models/t5.py", "models/reranker.py", "evaluator/trec.py", "evaluator/convert.py",
+           "run_reranker.py"}
+    assert new <= names
+    for path in sorted(new):
+        assert not {n.split(".")[0] for n in _imported(PORT / path)} & {"transformers",
+                                                                        "safetensors"}, path

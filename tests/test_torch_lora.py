@@ -5,7 +5,9 @@ Weights are made with numpy from a seed; the JAX package's adapters
 ``params_from_jax`` and back by ``params_to_jax``, so both run the same
 numbers. fp32 within 2e-5 (``tests/test_bert_parity.py:226``); bf16 within two
 bf16 ulps and, on the mean, 1.1x the base towers' own gap. Training: the trainer trajectory's
-tolerances of ``tests/test_torch_train.py``; the frozen base bit-unchanged.
+tolerances of ``tests/test_torch_train.py``; the frozen base bit-unchanged. T5 towers
+take ``add_lora_t5``'s adapters on the encoder's q and v; the reference has no T5 merge
+or export, so the port's raise.
 """
 
 import glob
@@ -21,12 +23,14 @@ from denseretrievaltoolkits_tpu.config import ModelArguments, TrainingArguments
 from denseretrievaltoolkits_tpu.models import bert as jbert
 from denseretrievaltoolkits_tpu.models import biencoder as jbi
 from denseretrievaltoolkits_tpu.models import lora as jlora
+from denseretrievaltoolkits_tpu.models import t5 as jt5
 from denseretrievaltoolkits_tpu.train.trainer import Trainer as JaxTrainer
 from denseretrievaltoolkits_torch.data.collators import pad_batch
 from denseretrievaltoolkits_torch.data.loaders import DataLoader
 from denseretrievaltoolkits_torch.models import bert as tbert
 from denseretrievaltoolkits_torch.models import biencoder as tbi
 from denseretrievaltoolkits_torch.models import lora as tlora
+from denseretrievaltoolkits_torch.models import t5 as tt5
 from denseretrievaltoolkits_torch.models.convert import (
     init_params_numpy,
     params_from_jax,
@@ -404,3 +408,95 @@ def test_resume_carries_the_adapters_optimizer_state(tmp_path):
     resumed.train()
     for k, v in straight.model.state_dict().items():
         torch.testing.assert_close(resumed.model.state_dict()[k], v, rtol=0, atol=0)
+
+
+# --- T5 towers (add_lora_t5) -----------------------------------------------------------------
+
+T5_TINY = dict(vocab_size=120, d_model=32, d_kv=8, d_ff=48, num_layers=2, num_heads=4,
+               relative_attention_num_buckets=8, relative_attention_max_distance=20)
+
+
+def _t5_adapted_tree(seed=0, b_scale=0.3):
+    """A seeded T5 tree with the JAX package's ``add_lora_t5`` adapters, B made non-zero."""
+    cfg = tt5.T5Config(**T5_TINY)
+    base = jax.tree.map(jnp.asarray, tt5.init_params_numpy(cfg, seed))
+    tree = jax.tree.map(np.asarray, jlora.add_lora_t5(base, jax.random.key(seed + 1), rank=RANK))
+    rng = np.random.default_rng(seed + 2)
+    for name in ("lora_q_B", "lora_v_B"):
+        tree["encoder"][name] = (b_scale * rng.standard_normal(tree["encoder"][name].shape)
+                                 ).astype(np.float32)
+    return tree
+
+
+def _t5_tower(tree):
+    enc = tt5.T5Model(tt5.T5Config(**T5_TINY))
+    if "lora_q_A" in tree["encoder"]:
+        tlora.add_lora_shaped(enc, RANK)
+    enc.load_state_dict(params_from_jax(tree))
+    return enc
+
+
+def test_t5_adapters_match_jax():
+    """``add_lora_t5``: A ~ N(0, 1) d_model^-0.5 of [L, d_model, r], B = 0 of [L, r, inner],
+    so the adapted tower starts at its base; with B != 0 the encoder matches JAX
+    ``t5_encode`` of the same tree (fp32, 2e-5), the adapters applied on the encoder's q
+    and v."""
+    cfg = tt5.T5Config(**T5_TINY)
+    batch = _batch(4, 12, 2)
+    base_tree = tt5.init_params_numpy(cfg, 0)
+    base = _encode(_t5_tower(base_tree), batch)
+    adapted = tlora.add_lora(_t5_tower(base_tree), RANK, seed=7)
+    a = adapted.encoder.lora_q_A.detach().numpy()
+    assert a.shape == (2, 32, RANK) and abs(a.std() * 32 ** 0.5 - 1) < 0.2
+    assert adapted.encoder.lora_v_B.shape == (2, RANK, 32) and not adapted.encoder.lora_v_B.any()
+    np.testing.assert_array_equal(_encode(adapted, batch), base)
+    tree = _t5_adapted_tree()
+    ref = np.asarray(jt5.t5_encode(jax.tree.map(jnp.asarray, tree), jt5.T5Config(**T5_TINY),
+                                   jnp.asarray(batch["input_ids"]),
+                                   jnp.asarray(batch["attention_mask"])))
+    out = _encode(_t5_tower(tree), batch)
+    assert np.abs(out - base).max() > 0.1  # the adapters moved the output
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_t5_trainable_set_and_no_merge_or_export(tmp_path):
+    """A T5 dual encoder with 'lora': the trainable set is ``lora_mask``'s (4 stacked
+    adapters a tower and the heads); the reference has no T5 merge or export, so
+    ``merge_lora``, ``merge_lora_tree`` and ``export_hf`` raise; ``t5_full`` takes no
+    adapters (biencoder.py:341 there); the adapters save and build in JAX with the same
+    reps."""
+    tt5.save_config(tt5.T5Config(**T5_TINY), str(tmp_path / "arch"))
+    kw = dict(model_name_or_path=str(tmp_path / "arch"), encoder_only=True, **_margs())
+    port = tbi.DRModel.build(ModelArguments(**kw), seed=2, device="cpu")
+    assert tlora.has_lora(port)
+    trainable = {id(p) for p in tlora.lora_trainable(port)}
+    params = {"lm_q": params_to_jax(port.lm_q.state_dict()),
+              "lm_p": params_to_jax(port.lm_p.state_dict()),
+              "head_q": {"kernel": port.head_q.kernel.detach().numpy()},
+              "head_p": {"kernel": port.head_p.kernel.detach().numpy()}}
+    mask = jax.tree_util.tree_flatten_with_path(jlora.lora_mask(params))[0]
+    want = {(path[0].key, path[-1].key) for path, on in mask if on}
+    got = {(n.split(".")[0], n.split(".")[-1]) for n, p in port.named_parameters()
+           if id(p) in trainable}
+    assert got == want and len(want) == 10
+    with pytest.raises(ValueError, match="no merge"):
+        tlora.merge_lora(port.lm_q)
+    with pytest.raises(ValueError, match="no merge"):
+        tlora.merge_lora_tree(params["lm_q"])
+    with pytest.raises(ValueError, match="no HF export"):
+        port.export_hf(str(tmp_path / "hf"))
+    full = tbi.DRModel.build(ModelArguments(**{**kw, "encoder_only": False}), seed=2,
+                             device="cpu")
+    assert full.spec.backbone == "t5_full" and not tlora.has_lora(full)
+    with torch.no_grad():
+        port.lm_q.encoder.lora_v_B.normal_(0, 0.2)
+    port.save(str(tmp_path / "saved"))
+    jmodel, jparams = jbi.DRModel.build(ModelArguments(model_name_or_path=str(tmp_path / "saved")))
+    assert "lora_v_B" in jparams["lm_q"]["encoder"]
+    q = {k: np.asarray(v) for k, v in _batch(4, 10, 3).items()}
+    np.testing.assert_allclose(
+        port.encode_query(q).numpy(),
+        np.asarray(jmodel.encode_query(jparams, jax.tree.map(jnp.asarray, q))), atol=1e-5)
+    back = tbi.DRModel.build(ModelArguments(model_name_or_path=str(tmp_path / "saved")),
+                             device="cpu")
+    torch.testing.assert_close(back.encode_query(q), port.encode_query(q), rtol=0, atol=0)

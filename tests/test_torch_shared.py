@@ -1,8 +1,8 @@
 """The port's own copies of the modules it shares with the JAX package, held
 to their originals: ``config``, ``data.collators``, ``data.loaders``,
-``evaluator.metrics``, ``index.modes``, ``evaluator.bm25`` and the native BM25
-engine's source ``native/bm25.cpp`` (byte for byte). Same fields and defaults, the same
-parse of the same argv, the same batches, loader order, metrics and mode
+``evaluator.metrics``, ``index.modes``, ``evaluator.bm25``, ``evaluator.trec``,
+``evaluator.convert`` and the native BM25 engine's source ``native/bm25.cpp``
+(byte for byte). Same fields and defaults, the same parse of the same argv, the same batches, loader order, metrics and mode
 resolution (raises included). Inputs are seeded numpy; everything compares
 exactly."""
 
@@ -19,13 +19,17 @@ from denseretrievaltoolkits_tpu import config as jconfig
 from denseretrievaltoolkits_tpu.data import collators as jcol
 from denseretrievaltoolkits_tpu.data import loaders as jload
 from denseretrievaltoolkits_tpu.evaluator import bm25 as jbm25
+from denseretrievaltoolkits_tpu.evaluator import convert as jconvert
 from denseretrievaltoolkits_tpu.evaluator import metrics as jmet
+from denseretrievaltoolkits_tpu.evaluator import trec as jtrec
 from denseretrievaltoolkits_tpu.index import modes as jmodes
 from denseretrievaltoolkits_torch import config as tconfig
 from denseretrievaltoolkits_torch.data import collators as tcol
 from denseretrievaltoolkits_torch.data import loaders as tload
 from denseretrievaltoolkits_torch.evaluator import bm25 as tbm25
+from denseretrievaltoolkits_torch.evaluator import convert as tconvert
 from denseretrievaltoolkits_torch.evaluator import metrics as tmet
+from denseretrievaltoolkits_torch.evaluator import trec as ttrec
 from denseretrievaltoolkits_torch.index import modes as tmodes
 
 CLASSES = ["ModelArguments", "DataArguments", "TrainingArguments", "RRTrainingArguments"]
@@ -188,3 +192,48 @@ def test_bm25_copies():
         assert t.search(q, 30) == j.search(q, 30)  # 30: past the matches, so it pads
         assert t.retrieve(q, corpus[0]["negatives"] + corpus[1]["positives"]) == \
             j.retrieve(q, corpus[0]["negatives"] + corpus[1]["positives"])
+
+
+def test_trec_and_convert_copies(tmp_path):
+    """``evaluator/trec.py`` and ``evaluator/convert.py``: the same names; the same TREC
+    file, reads (6- and 3-column, ``as_list``, ``max_len_per_q``), shard merge and dump
+    conversions (nq_eval JSON, TREC, with and without scores), byte for byte."""
+    for t, j in ((ttrec, jtrec), (tconvert, jconvert)):
+        assert sorted(n for n in vars(t) if not n.startswith("_")) == \
+            sorted(n for n in vars(j) if not n.startswith("_"))
+    rng = random.Random(6)
+    runs = [{f"q{q}": {f"d{rng.randrange(40)}": round(rng.uniform(-3, 3), 4)
+                       for _ in range(rng.randrange(1, 9))} for q in range(7)}
+            for _ in range(3)]
+    for m, name in ((ttrec, "port"), (jtrec, "jax")):
+        m.save_as_trec(runs[0], str(tmp_path / f"{name}.trec"))
+        m.save_as_trec(runs[1], str(tmp_path / f"{name}-id.trec"), run_id="x")
+    for suffix in (".trec", "-id.trec"):
+        assert (tmp_path / f"port{suffix}").read_bytes() == (tmp_path / f"jax{suffix}").read_bytes()
+    three = tmp_path / "three.run"
+    three.write_text("".join(f"{q} {d} {s}\n" for q, ds in runs[2].items() for d, s in ds.items()))
+    for path in (str(tmp_path / "jax.trec"), str(three)):
+        for kw in (dict(), dict(as_list=True), dict(max_len_per_q=2)):
+            assert ttrec.load_from_trec(path, **kw) == jtrec.load_from_trec(path, **kw)
+    bad = tmp_path / "bad.run"
+    bad.write_text("q1 d1\n")
+    for m in (ttrec, jtrec):
+        with pytest.raises(ValueError, match="Invalid run format"):
+            m.load_from_trec(str(bad))
+    assert ttrec.merge_retrieval_results_by_score(runs, topk=3) == \
+        jtrec.merge_retrieval_results_by_score(runs, topk=3)
+    dump = tmp_path / "dump.json"
+    with open(dump, "w") as fh:
+        for q in range(5):
+            for r in range(4):
+                row = {"doc_id": f"d{rng.randrange(30)}", "query_id": f"q{q}", "query": "x y",
+                       "document": f"text {q} {r}", "answers": ["a"]}
+                if q != 3:  # one query without scores: the rank-order fallback
+                    row["score"] = round(rng.uniform(0, 9), 3)
+                fh.write(json.dumps(row) + "\n")
+    for m, name in ((tconvert, "port"), (jconvert, "jax")):
+        assert m.retrieval_jsonl_to_nq_json(str(dump), str(tmp_path / f"{name}.nq.json")) == \
+            jconvert.retrieval_jsonl_to_nq_json(str(dump))
+        m.retrieval_jsonl_to_trec(str(dump), str(tmp_path / f"{name}.dump.trec"))
+    for suffix in (".nq.json", ".dump.trec"):
+        assert (tmp_path / f"port{suffix}").read_bytes() == (tmp_path / f"jax{suffix}").read_bytes()
