@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json] [--flash_only]
                           [--blocks_only] [--eval_only] [--ivf_only] [--train_only]
-                          [--rerank_only]
+                          [--rerank_only] [--dist_only]
 
 Phases, each of which fails the run on error:
 
@@ -290,6 +290,15 @@ Phases, each of which fails the run on error:
    the fp32 scores of 256 pairs on the card within 1e-3 of the largest |score| of the
    same weights' on the CPU. Counters zeroed before each part and read after.
    ``--rerank_only`` runs it alone.
+28. Optimizers (``--train_only``): bert-base bf16 'fused' at 32 x 8, 1 warm-up and 3
+   timed steps each of adagrad, rmsprop and adafactor; step 1's update of sampled
+   tensors held to optax's formula in float64 on the host; K3 / K4 4 launches each.
+29. Data parallelism and sharding (``--dist_only``): worker processes of this script.
+   (a) NCCL, one rank: a mesh step bit-equal to the step without one. (b)-(d) gloo, two
+   ranks sharing ``cuda:0``: the data-parallel step, ``negatives_x_device=False`` and
+   grad-cache under the mesh against one process; the sharded flat index over
+   1,000,000 x 768 rows; ``Trainer.evaluate`` on the mesh into flat, IVF16,SQ8, PQ96,
+   PQ192x4, IVF16,PQ96x4 and PCAR384,SQ8 against one process. Launches by rank.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -304,6 +313,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import functools
 import json
 import math
@@ -1504,14 +1514,17 @@ def train_batch(rng, n_queries, n_passages=8, q_len=32, p_len=128):
             pad_batch([p for _, ps in rows for p in ps], p_len, 0))
 
 
-def step_trainer(tmp, label, model, **kw):
-    """A Trainer over ``model`` for single steps (adamw at TRAIN_LR, no schedule)."""
+def step_trainer(tmp, label, model, mesh=None, **kw):
+    """A Trainer over ``model`` (on ``mesh``) for single steps (adamw at TRAIN_LR, no
+    schedule, unless ``kw`` says otherwise)."""
     from denseretrievaltoolkits_torch.config import TrainingArguments
     from denseretrievaltoolkits_torch.train.trainer import Trainer
 
-    return Trainer(TrainingArguments(
-        output_dir=os.path.join(tmp, label, "out"), cache_train_dir=os.path.join(tmp, label, "c"),
-        learning_rate=TRAIN_LR, optimizer="adamw", log_every=0, **kw), model)
+    targs = dict(output_dir=os.path.join(tmp, label, "out"),
+                 cache_train_dir=os.path.join(tmp, label, "c"), learning_rate=TRAIN_LR,
+                 optimizer="adamw", log_every=0)
+    targs.update(kw)
+    return Trainer(TrainingArguments(**targs), model, mesh=mesh)
 
 
 def step_grads(trainer, batch):
@@ -5136,7 +5149,549 @@ def phase_pq_eval_path(args, tmp, ctx, plain_gaps):
         torch.cuda.empty_cache()
     return out
 
+# The optimizers written to optax's formulas (phase 28): bert-base bf16 'fused', 32 x 8,
+# S=128; a warm-up step and 3 timed steps each; step 1's update on a sample of tensors
+# (the word embeddings and one layer's wi, both factored by adafactor, and one LN bias)
+# held to the optimizer's formula evaluated in float64 on the host: within OPT_REL of
+# the update, plus half an fp32 ulp of the parameter (the update's rounding into it).
+OPT_NAMES, OPT_TIMED_STEPS, OPT_REL = ("adagrad", "rmsprop", "adafactor"), 3, 1e-5
+OPT_LR = TRAIN_LR
+
+
+def opt_reference(name, p, g, lr):
+    """Step 1's new parameter by ``name``'s optax formula at its defaults, float64."""
+    p, g = p.astype(np.float64), g.astype(np.float64)
+    if name == "adagrad":
+        acc = 0.1 + g * g
+        return p - lr * g * np.where(acc > 0, 1 / np.sqrt(acc + 1e-7), 0.0)
+    if name == "rmsprop":
+        return p - lr * g / np.sqrt(0.1 * g * g + 1e-8)
+    g2 = g * g + 1e-30  # adafactor, step 0: decay 1 - 1^-0.8 = 0
+    if p.ndim >= 2 and sorted(p.shape)[-2] >= 128:
+        order = np.argsort(p.shape)
+        d1, d0 = int(order[-2]), int(order[-1])
+        v_row, v_col = g2.mean(axis=d0), g2.mean(axis=d1)
+        row = (v_row / v_row.mean(axis=d1 - 1 if d1 > d0 else d1, keepdims=True)) ** -0.5
+        u = g * np.expand_dims(row, d0) * np.expand_dims(v_col ** -0.5, d1)
+    else:
+        u = g * g2 ** -0.5
+    u = u / max(1.0, float(np.sqrt(np.mean(u * u))))
+    return p - lr * u * max(float(np.sqrt(np.mean(p * p))), 1e-3)
+
+
+def phase_optimizers(args, tmp):
+    """Phase 28: adagrad, rmsprop and adafactor through ``Trainer`` on the card."""
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+    from denseretrievaltoolkits_torch.ops import contrastive as con
+
+    margs = train_model_args(tmp, "opt")
+    batch = train_batch(np.random.default_rng(args.seed + 28), TRAIN_BATCH)
+    counted = (con.contrastive_fwd, con.contrastive_bwd_dq, con.contrastive_bwd_dp)
+    model = DRModel.build(margs, device="cuda", seed=args.seed)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {}
+    for name in OPT_NAMES:  # each from the same initial weights
+        model.load_state_dict(init)
+        for prm in model.parameters():
+            prm.grad = None
+        trainer = step_trainer(tmp, f"opt-{name}", model, optimizer=name, learning_rate=OPT_LR)
+        lm = trainer.model.lm_q
+        named = dict(lm.named_parameters())
+        # the word embeddings [30522, 768] and layer 0's wi [768, 3072] (both factored by
+        # adafactor), and the embeddings' LN bias
+        sample = ["embeddings.word", "layers.0.wi_kernel", "embeddings.ln_bias"]
+        before = {k: named[k].detach().float().cpu().numpy().copy() for k in sample}
+        for fn in counted:
+            fn.launches = 0
+        loss1 = float(trainer.train_step(batch))
+        errs = {}
+        for k in sample:
+            prm = named[k]
+            got = prm.detach().float().cpu().numpy().astype(np.float64)
+            want = opt_reference(name, before[k], prm.grad.float().cpu().numpy(), OPT_LR)
+            delta = np.abs(want - before[k])
+            ulp = np.spacing(np.abs(got).astype(np.float32)).astype(np.float64) / 2
+            excess = np.abs(got - want) - ulp
+            errs[k] = float(np.max(excess / np.maximum(delta, 1e-30)))
+            check(np.all(excess <= OPT_REL * np.maximum(delta, np.max(delta) * 1e-3)),
+                  f"phase 28: {name} step 1's update of {k} disagrees with optax's formula "
+                  f"(worst {errs[k]:.3e} of the update)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(trainer.train_step(batch)) for _ in range(OPT_TIMED_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        out[name] = {"step1_loss": loss1, "losses": losses, "steps_per_s": OPT_TIMED_STEPS / dt,
+                     "sampled": sample, "step1_worst_rel": errs, "launches": launches}
+        log(f"phase 28 {name}: step-1 loss {loss1:.5f}, then {json.dumps(losses)}; "
+            f"{OPT_TIMED_STEPS / dt:.2f} steps/s; step-1 update vs float64 formula, worst "
+            f"share {json.dumps(errs)}; launches {json.dumps(launches)}")
+        check(all(math.isfinite(x) for x in [loss1] + losses), f"phase 28: {name} loss not finite")
+        check(all(n == 1 + OPT_TIMED_STEPS for n in launches.values()),
+              f"phase 28: {name}: K3 / K4 launches {launches}, not one a step")
+        del trainer
+    del model, init
+    torch.cuda.empty_cache()
+    return out
+
+
+# Data parallelism and sharding (phase 29): worker processes of this script
+# (``--dist_worker``), each printing one JSON line of readings and launch counts; the
+# parent checks them. (a) NCCL, one rank: a mesh step bit-equal to the step without a
+# mesh. (b)-(d) gloo, two ranks sharing cuda:0 (NCCL refuses a card twice).
+DIST_TIMEOUT_S = 420
+DIST_ROWS, DIST_QUERIES, DIST_K = 1_000_000, 1024, 100
+DIST_SERVE_RECALL, DIST_I8Q_RECALL = 0.999, 0.97  # phase 7's bounds (PERF.md §2)
+DIST_EVAL_KINDS = (("flat", dict(index_dtype="float32", search_mode="exact")),
+                   ("IVF16,SQ8", dict(index_factory="IVF16,SQ8", nprobe=4, search_mode="bulk")),
+                   ("PQ96", dict(index_factory="PQ96", nprobe=32, search_mode="serve")),
+                   ("PQ192x4", dict(index_factory="PQ192x4", nprobe=32, search_mode="serve")),
+                   ("IVF16,PQ96x4", dict(index_factory="IVF16,PQ96x4", nprobe=4,
+                                         search_mode="bulk")),
+                   ("PCAR384,SQ8", dict(index_factory="PCAR384,SQ8", search_mode="exact")))
+# the trained kinds' mesh evaluation against the one-process one on the same reps: the
+# int8 path's kernel-vs-plain bars (phases 15 / 18): top-100 overlap and metric gap. The
+# sharded IVF index is ragged, as the JAX package's: the one-card factory's IVF16,SQ8 is
+# the fixed-capacity index (K13), so the mesh's IVF16,SQ8 is held to IVFR16,SQ8 in one
+# process by these bars, and to IVF16,SQ8 by phase 15's (against float32 flat)
+DIST_EVAL_OVERLAP, DIST_EVAL_GAP = 0.999, 0.004
+DIST_EVAL_REFERENCE = {"IVF16,SQ8": "IVFR16,SQ8"}
+
+
+def _counters():
+    """Every wrapper counter of the kernels phase 29 runs, by kernel."""
+    from denseretrievaltoolkits_torch.ops import attn, contrastive as con, ivf_bulk, ivf_pq, pq, \
+        quant, topk
+
+    return {"K1 fused_attention_ln": (attn.fused_attention_ln, "launches"),
+            "K2 fused_mlp_ln": (attn.fused_mlp_ln, "launches"),
+            "K3 contrastive_fwd": (con.contrastive_fwd, "launches"),
+            "K4 contrastive_bwd_dq": (con.contrastive_bwd_dq, "launches"),
+            "K4 contrastive_bwd_dp": (con.contrastive_bwd_dp, "launches"),
+            "K5 block_topj": (topk.block_topj, "launches"),
+            "K6 block_topj int8": (topk.block_topj, "launches_int8"),
+            "K7 quantize_int8_device": (quant.quantize_int8_device, "launches"),
+            "K8 block_topj_serve": (topk.block_topj_serve, "launches"),
+            "K12 block_topj_i8q": (topk.block_topj_i8q, "launches"),
+            "K13 cell_topj": (ivf_bulk.cell_topj, "launches_int8"),
+            "K14 ragged_topj": (ivf_bulk.ragged_topj, "launches_int8"),
+            "K15 pq_topj_blocks 4-bit": (pq.pq_topj_blocks, "launches_4bit"),
+            "K16 pq_topj_blocks int8 codebook": (pq.pq_topj_blocks, "launches_i8dec"),
+            "K17 ragged_topj_pq": (ivf_pq.ragged_topj_pq, "launches")}
+
+
+def read_counts(reset=False):
+    out = {}
+    for name, (fn, attr) in _counters().items():
+        out[name] = int(getattr(fn, attr, 0))
+        if reset:
+            setattr(fn, attr, 0)
+    return out
+
+
+def _digest(*tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(np.ascontiguousarray(t.detach().cpu().numpy() if torch.is_tensor(t) else t)
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _params_digest(model):
+    return _digest(*[p.detach() for p in model.parameters()])
+
+
+def dist_nccl_step(args, tmp, mesh):
+    """(a) One rank over NCCL: a ``Trainer(mesh=...)`` step against the same step
+    without a mesh, on bert-base 32 x 8 from the same seed."""
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+
+    margs = train_model_args(tmp, "nccl")
+    batch = train_batch(np.random.default_rng(args.seed + 29), TRAIN_BATCH)
+    out = {}
+    for label, m in (("mesh", mesh), ("plain", None)):
+        model = DRModel.build(margs, device="cuda", seed=args.seed)
+        trainer = step_trainer(tmp, f"nccl-{label}", model, mesh=m)
+        read_counts(reset=True)
+        loss, grad = step_grads(trainer, batch)
+        out[label] = {"loss": loss, "grad": _digest(grad), "params": _params_digest(model),
+                      "launches": read_counts()}
+        del trainer, model, grad
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_gloo(args, tmp, mesh):
+    """(b)-(d) on two gloo ranks sharing cuda:0. One model, reset to its initial weights
+    before each part; the one-process references split over the ranks (rank 0 the 32 x 8
+    step, rank 1 the 64 x 8 one), each compared on the rank that ran it (the mesh's
+    gradients are the same on both)."""
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+
+    r, w = mesh.rank, mesh.size
+    out = {"rank": r}
+    # the collectives gloo takes on CUDA tensors (every later part needs them)
+    x = torch.full((4,), float(r + 1), device="cuda")
+    probe = {"all_gather": torch.cat(mesh.all_gather(x)).tolist(),
+             "all_reduce": mesh.all_sum_(x.clone()).tolist()}
+    y = x.clone()
+    torch.distributed.broadcast(y, 0)
+    probe["broadcast"] = y.tolist()
+    out["gloo_cuda"] = probe
+
+    def rows(b, n):
+        return {k: v[r * n:(r + 1) * n] for k, v in b.items()}
+
+    model = DRModel.build(train_model_args(tmp, f"gloo{r}"), device="cuda", seed=args.seed)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def fresh():
+        model.load_state_dict(init)
+        for prm in model.parameters():
+            prm.grad = None
+        return model
+
+    # (b) the data-parallel step at a global 32 x 8 (16 x 8 a rank); grad-cache at 64 x 8
+    batch = train_batch(np.random.default_rng(args.seed + 29), TRAIN_BATCH)
+    local = (rows(batch[0], TRAIN_BATCH // w), rows(batch[1], TRAIN_BATCH * 8 // w))
+    big = train_batch(np.random.default_rng(args.seed + 30), GC_AGREE_QUERIES)
+    big_local = (rows(big[0], GC_AGREE_QUERIES // w), rows(big[1], GC_AGREE_QUERIES * 8 // w))
+    ref_loss, ref_grad = step_grads(step_trainer(tmp, f"dist-ref-{r}", fresh()),
+                                    batch if r == 0 else big)
+    trainer = step_trainer(tmp, f"dist-{r}", fresh(), mesh=mesh)
+    read_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grad = step_grads(trainer, local)
+    losses = [loss] + [float(trainer.train_step(local)) for _ in range(2)]
+    torch.cuda.synchronize()
+    out["dp"] = {"losses": losses, "steps_per_s": 3 / (time.perf_counter() - t0),
+                 "params": _params_digest(model), "launches": read_counts()}
+    if r == 0:
+        out["dp"]["vs_one_process"] = grad_agreement(loss, grad, ref_loss, ref_grad)
+    del trainer, grad
+    # negatives_x_device off: the mean of the two ranks' own 16 x 8 losses
+    fresh()
+    with torch.no_grad():
+        own = float(model(*local)["loss"])
+    trainer = step_trainer(tmp, f"dist-local-{r}", model, mesh=mesh, negatives_x_device=False)
+    out["local"] = {"own_loss": own, "mesh_loss": float(trainer.train_step(local))}
+    # grad-cache under the mesh, chunks 16 / 128
+    trainer = step_trainer(tmp, f"dist-gc-{r}", fresh(), mesh=mesh, grad_cache=True,
+                           gc_q_chunk_size=GC_AGREE_CHUNKS[0], gc_p_chunk_size=GC_AGREE_CHUNKS[1])
+    read_counts(reset=True)
+    loss, grad = step_grads(trainer, big_local)
+    out["gc"] = {"loss": loss, "launches": read_counts()}
+    if r == 1:
+        out["gc"]["vs_one_process"] = grad_agreement(loss, grad, ref_loss, ref_grad)
+    del trainer, grad, ref_grad
+    torch.cuda.empty_cache()
+    out["search"] = dist_search(args, mesh)
+    torch.cuda.empty_cache()
+    out["eval"] = dist_eval(args, tmp, mesh, fresh())  # phase 11's model: the same seed
+    return out
+
+
+def dist_search(args, mesh):
+    """(c) The sharded flat index over phase 2's recipe of rows (1M x 768 from a CUDA
+    generator seeded --seed, then the queries): fp32 exact (K5), int8 (K7 at add_device,
+    then K6 exact, K8 serve, K12 i8q); rank 0 also searches a one-process
+    ``FlatIPIndex`` over the same rows."""
+    from denseretrievaltoolkits_torch.index.flat import FlatIPIndex
+    from denseretrievaltoolkits_torch.parallel.sharded_index import ShardedFlatIndex
+    from denseretrievaltoolkits_torch.utils.distributed import host_corpus_bounds
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    corpus = torch.randn(DIST_ROWS, 768, generator=gen, device="cuda")
+    q = torch.randn(DIST_QUERIES, 768, generator=gen, device="cuda")
+    lo, hi = host_corpus_bounds(DIST_ROWS, mesh.size, mesh.rank)
+    out = {"window": [lo, hi]}
+    if mesh.rank == 0:
+        one = FlatIPIndex(768, device="cuda")
+        one.add_device(corpus)
+        one_s, one_i = one.search(q, DIST_K)
+        del one
+    mine = corpus[lo:hi].contiguous()
+    del corpus
+    torch.cuda.empty_cache()
+    read_counts(reset=True)
+    res = {}
+    for dtype, modes in (("float32", ("exact",)), ("int8", ("exact", "serve", "i8q"))):
+        idx = ShardedFlatIndex(mesh, 768, dtype=dtype, device="cuda")
+        idx.add_device(mine)
+        idx.global_rows = DIST_ROWS
+        for mode in modes:
+            idx.search(q[:64], DIST_K, mode=mode)  # first use
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, i = idx.search(q, DIST_K, mode=mode)
+            res[f"{dtype} {mode}"] = (s, i, time.perf_counter() - t0)
+        del idx
+    out["launches"] = read_counts()
+    out["digest"] = _digest(*[v for s, i, _ in res.values() for v in (s, i)])
+    out["seconds"] = {k: t for k, (_, _, t) in res.items()}
+    ex = res["int8 exact"][1]
+    out["recall"] = {m: float(np.mean([len(set(a) & set(b)) / DIST_K
+                                       for a, b in zip(res[f"int8 {m}"][1], ex)]))
+                     for m in ("serve", "i8q")}
+    if mesh.rank == 0:
+        s, i, _ = res["float32 exact"]
+        out["fp32_ids_equal"] = bool(np.array_equal(i, one_i))
+        out["fp32_score_rel"] = float(np.max(np.abs(s - one_s) / np.maximum(np.abs(one_s),
+                                                                              1e-30)))
+    return out
+
+
+def dist_eval(args, tmp, mesh, model):
+    """(d) ``Trainer.evaluate`` on the mesh: phase 11's 8192 planted passages and 512
+    queries (``model``: phase 11's seeded random weights, untrained), each rank encoding its
+    ``host_corpus_bounds`` window, into every kind of DIST_EVAL_KINDS. The one-process
+    evaluations of the same kinds (and DIST_EVAL_REFERENCE's) run first, split over the
+    ranks, into ``args.shared``; rank 0 then reads them all."""
+    from denseretrievaltoolkits_torch.config import TrainingArguments
+    from denseretrievaltoolkits_torch.data.collators import pad_batch
+    from denseretrievaltoolkits_torch.data.loaders import DataLoader
+    from denseretrievaltoolkits_torch.train.trainer import Trainer
+    from denseretrievaltoolkits_torch.utils.distributed import host_corpus_bounds
+
+    corpus, queries = synthetic_qa(np.random.default_rng(args.seed + 1), args.passages,
+                                   args.queries, 156, 32)
+    kinds = DIST_EVAL_KINDS + tuple((ref, dict(kw, index_factory=ref))
+                                    for kind, kw in DIST_EVAL_KINDS
+                                    for ref in [DIST_EVAL_REFERENCE.get(kind)] if ref)
+    eps = {kind: i + 1 for i, (kind, _) in enumerate(kinds)}
+
+    def targs_at(root, kw):
+        return TrainingArguments(output_dir=os.path.join(root, "out"),
+                                 cache_train_dir=os.path.join(root, "cache"),
+                                 retrieve_num=args.k, topk="1,10,100", **kw)
+
+    def evaluate(root, mesh_or_none, bounds, todo):
+        corpus_dl = DataLoader(corpus, args.batch, lambda b: (
+            [r["id"] for r in b], pad_batch([r["tokens"] for r in b], 156, 0)),
+            shard_bounds=bounds)
+        query_dl = DataLoader(queries, args.batch, lambda b: (
+            [r["query_id"] for r in b], pad_batch([r["tokens"] for r in b], 32, 0),
+            [r["answers"] for r in b], [r["original"] for r in b]))
+        out = {}
+        for kind, kw in todo:
+            targs = targs_at(root, kw)
+            trainer = Trainer(targs, model, corpus_dataloader=corpus_dl, eval_loader=query_dl,
+                              mesh=mesh_or_none)
+            read_counts(reset=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.evaluate(query_dl, eps[kind])
+            torch.cuda.synchronize()
+            out[kind] = {"metrics": metrics, "seconds": time.perf_counter() - t0,
+                         "launches": read_counts(), "dump_written": os.path.exists(
+                             os.path.join(targs.retrieve_dir, f"{eps[kind]}.0.json")),
+                         "dumps": len(os.listdir(targs.retrieve_dir))}
+            del trainer
+        return out
+
+    one_root = os.path.join(args.shared, "dist-eval-one")
+    res = {"one": evaluate(one_root, None, None, kinds[mesh.rank::mesh.size])}
+    mesh.barrier()
+    mesh_root = os.path.join(tmp, "dist-eval-mesh")
+    res["mesh"] = evaluate(mesh_root, mesh, host_corpus_bounds(len(corpus), mesh.size,
+                                                               mesh.rank), DIST_EVAL_KINDS)
+    if mesh.rank == 0:  # every reference's metrics and dump, from the shared directory
+        ref_metrics, overlap = {}, {}
+        for kind, kw in DIST_EVAL_KINDS:
+            mine, _ = read_dump(targs_at(mesh_root, kw), eps[kind])
+            for against in {kind, DIST_EVAL_REFERENCE.get(kind, kind)}:
+                ref_args = targs_at(one_root, dict(kw, index_factory=against)
+                                    if "index_factory" in kw else kw)
+                ref_metrics[against] = _metrics_of(ref_args, eps[against])
+                theirs, _ = read_dump(ref_args, eps[against])
+                overlap[f"{kind} vs {against}"] = float(np.mean(
+                    [len(set(mine[q]) & set(d)) / len(d) for q, d in theirs.items()]))
+        res["reference_metrics"], res["overlap"] = ref_metrics, overlap
+    return res
+
+
+def dist_worker(argv):
+    """One rank of phase 29: ``--dist_worker <case> <rank> <world> <port> <dir> <seed>``;
+    prints its readings as one JSON line, last."""
+    from denseretrievaltoolkits_torch.parallel.mesh import make_mesh
+    from denseretrievaltoolkits_torch.utils.distributed import maybe_initialize_distributed
+
+    case, rank, world, port, work, seed = argv[0], int(argv[1]), int(argv[2]), argv[3], \
+        argv[4], int(argv[5])
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    backend = "nccl" if case == "nccl" else "gloo"
+    if world == 1:  # maybe_initialize_distributed leaves a lone process alone
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group(backend, init_method="env://", world_size=1,
+                                             rank=0, timeout=datetime.timedelta(seconds=300))
+    else:
+        maybe_initialize_distributed(backend, device="cuda:0", timeout_s=300)
+    args = argparse.Namespace(seed=seed, passages=8192, queries=512, batch=64, k=DIST_K,
+                              shared=work)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        out = (dist_nccl_step if case == "nccl" else dist_gloo)(args, tmp, make_mesh())
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def spawn_world(case, world, seed, work):
+    """Start ``world`` ranks of ``case``; returns their Popen handles and log paths."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = []
+    for r in range(world):
+        log_path = os.path.join(work, f"{case}.rank{r}.log")
+        with open(log_path, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist_worker", case, str(r),
+                 str(world), port, work, str(seed)], stdout=fh, stderr=subprocess.STDOUT),
+                log_path))
+    return procs
+
+
+def collect(procs, deadline):
+    """Each rank's JSON line; a rank that fails or outlives the deadline fails the phase
+    (every rank is killed first)."""
+    outs, failed = [], None
+    try:
+        for p, _ in procs:
+            try:
+                if p.wait(timeout=max(1.0, deadline - time.time())) != 0 and failed is None:
+                    failed = f"a rank exited {p.returncode}"
+            except subprocess.TimeoutExpired:
+                failed = f"a rank outlived the phase's {DIST_TIMEOUT_S} s"
+                break
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for _, path in procs:
+        with open(path) as fh:
+            text = fh.read()
+        if failed:
+            log(f"--- {path}\n{text[-4000:]}")
+        else:
+            outs.append(json.loads(text.strip().splitlines()[-1]))
+    check(failed is None, f"phase 29: {failed}")
+    return outs
+
+
+def phase_dist(args, tmp):
+    """Phase 29: data parallelism and the sharded indexes over worker processes."""
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = os.path.join(tmp, "dist")
+    os.makedirs(work, exist_ok=True)
+    deadline = time.time() + DIST_TIMEOUT_S
+    nccl = spawn_world("nccl", 1, args.seed, work)
+    gloo = spawn_world("gloo", 2, args.seed, work)
+    (a,) = collect(nccl, deadline)
+    b = collect(gloo, deadline)
+    seconds = time.perf_counter() - t_start
+    # (a) NCCL, one rank
+    log(f"phase 29 (a) NCCL world 1: mesh step loss {a['mesh']['loss']!r} vs {a['plain']['loss']!r}"
+        f"; gradient / parameter digests equal: {a['mesh']['grad'] == a['plain']['grad']} / "
+        f"{a['mesh']['params'] == a['plain']['params']}")
+    check(a["mesh"]["loss"] == a["plain"]["loss"] and a["mesh"]["grad"] == a["plain"]["grad"]
+          and a["mesh"]["params"] == a["plain"]["params"],
+          "phase 29 (a): the NCCL world-1 mesh step is not bit-equal to the step without a mesh")
+    r0, r1 = sorted(b, key=lambda o: o["rank"])
+    log(f"phase 29 gloo collectives on CUDA tensors: {json.dumps(r0['gloo_cuda'])}")
+    check(r0["gloo_cuda"]["all_gather"] == [1.0] * 4 + [2.0] * 4
+          and r0["gloo_cuda"]["all_reduce"] == [3.0] * 4
+          and r1["gloo_cuda"]["broadcast"] == [1.0] * 4, "phase 29: gloo collectives on CUDA")
+    # (b) the data-parallel step
+    rel, cos, ratio = r0["dp"]["vs_one_process"]
+    log(f"phase 29 (b) gloo 2 ranks x 16 x 8: step-1 loss rel {rel:.3e} (<= {TRAIN_STEP1_REL:g}),"
+        f" gradient cosine {cos:.6f} (>= {TRAIN_GRAD_COS:g}), norm ratio {ratio:.6f}; losses "
+        f"{json.dumps(r0['dp']['losses'])}; {r0['dp']['steps_per_s']:.3f} steps/s (two ranks on "
+        f"one card); parameters after 3 steps equal: {r0['dp']['params'] == r1['dp']['params']}")
+    check(rel <= TRAIN_STEP1_REL and cos >= TRAIN_GRAD_COS and abs(ratio - 1) <= TRAIN_GRAD_NORM,
+          "phase 29 (b): the DP step-1 loss / gradient disagrees with one process's")
+    check(r0["dp"]["params"] == r1["dp"]["params"] and r0["dp"]["losses"] == r1["dp"]["losses"],
+          "phase 29 (b): the two ranks' parameters differ after 3 steps")
+    own = (r0["local"]["own_loss"] + r1["local"]["own_loss"]) / 2
+    local_rel = abs(r0["local"]["mesh_loss"] - own) / abs(own)
+    log(f"phase 29 (b) negatives_x_device off: mesh loss {r0['local']['mesh_loss']!r}, mean of "
+        f"the ranks' own losses {own!r} (rel {local_rel:.3e})")
+    check(local_rel <= 1e-6 and r0["local"]["mesh_loss"] == r1["local"]["mesh_loss"],
+          "phase 29 (b): negatives_x_device=False is not the mean of the ranks' losses")
+    rel, cos, ratio = r1["gc"]["vs_one_process"]
+    log(f"phase 29 (b) grad-cache under the mesh at 64 x 8, chunks {GC_AGREE_CHUNKS}: loss rel "
+        f"{rel:.3e}, gradient cosine {cos:.7f} (>= {GC_AGREE_COS:g}), norm ratio {ratio:.7f} "
+        f"(within {GC_AGREE_NORM:g} of 1)")
+    check(rel <= TRAIN_STEP1_REL and cos >= GC_AGREE_COS and abs(ratio - 1) <= GC_AGREE_NORM,
+          "phase 29 (b): grad-cache under the mesh disagrees with the full batch")
+    # (c) the sharded flat index
+    s0, s1 = r0["search"], r1["search"]
+    log(f"phase 29 (c) sharded flat, {DIST_ROWS} x 768 over 2 ranks ({s0['window']}, "
+        f"{s1['window']}): fp32 exact ids equal one process's: {s0['fp32_ids_equal']}, scores rel "
+        f"{s0['fp32_score_rel']:.3e}; int8 recall serve {s0['recall']['serve']:.5f} (>= "
+        f"{DIST_SERVE_RECALL}), i8q {s0['recall']['i8q']:.5f} (>= {DIST_I8Q_RECALL}); seconds "
+        f"{json.dumps(s0['seconds'])}; ranks identical: {s0['digest'] == s1['digest']}")
+    check(s0["fp32_ids_equal"] and s0["fp32_score_rel"] <= 1e-6,
+          "phase 29 (c): the sharded fp32 search differs from one process's")
+    check(s0["recall"]["serve"] >= DIST_SERVE_RECALL and s0["recall"]["i8q"] >= DIST_I8Q_RECALL,
+          "phase 29 (c): sharded serve / i8q recall below phase 7's bounds")
+    check(s0["digest"] == s1["digest"], "phase 29 (c): the two ranks' search results differ")
+    # (d) evaluation on the mesh
+    e0, e1 = r0["eval"], r1["eval"]
+    for kind, _ in DIST_EVAL_KINDS:
+        m0, m1 = e0["mesh"][kind]["metrics"], e1["mesh"][kind]["metrics"]
+        check(m0 == m1, f"phase 29 (d): {kind}: the ranks' metrics differ")
+        check(e0["mesh"][kind]["dump_written"] and e1["mesh"][kind]["dumps"] == 0,
+              f"phase 29 (d): {kind}: a dump not from rank 0 alone")
+        ref = DIST_EVAL_REFERENCE.get(kind, kind)
+        for against, (overlap_min, gap_max) in ((ref, (DIST_EVAL_OVERLAP, DIST_EVAL_GAP)),) + (
+                ((kind, (IVF_VS_FP32, IVF_METRIC_GAP)),) if ref != kind else ()):
+            one = e0["reference_metrics"][against]
+            secs = {**e0["one"], **e1["one"]}[against]["seconds"]
+            gap = max(abs(m0[k] - one[k]) for k in one if k != "query_num")
+            overlap = e0["overlap"][f"{kind} vs {against}"]
+            log(f"phase 29 (d) evaluate {kind} on the mesh vs {against} in one process: "
+                f"{json.dumps(m0)} vs {json.dumps(one)}; top-{args.k} overlap {overlap:.5f} (>= "
+                f"{overlap_min}), largest metric gap {gap:.5f} (<= {gap_max}); "
+                f"{e0['mesh'][kind]['seconds']:.2f} s (one process {secs:.2f} s)")
+            if kind == "flat":
+                check(m0 == one, "phase 29 (d): flat: the mesh's metrics differ from one "
+                                 "process's")
+            check(overlap >= overlap_min and gap <= gap_max,
+                  f"phase 29 (d): {kind}: the mesh evaluation strays from {against}'s in one "
+                  f"process")
+    # launches by rank, summed over the ranks
+    per_rank = [{k: o["dp"]["launches"][k] + o["gc"]["launches"][k] + o["search"]["launches"][k]
+                 + sum(e["launches"][k] for e in o["eval"]["mesh"].values())
+                 for k in o["dp"]["launches"]} for o in (r0, r1)]
+    reference = {k: sum(e["launches"][k] for o in (r0, r1) for e in o["eval"]["one"].values())
+                 for k in per_rank[0]}
+    launches = {k: sum(p[k] for p in per_rank) for k in per_rank[0]}
+    log(f"phase 29 launches by rank {json.dumps(per_rank)}; rank 0's one-process references "
+        f"{json.dumps(reference)}; NCCL world 1 {json.dumps(a['mesh']['launches'])}; "
+        f"{seconds:.1f} s")
+    check(all(n > 0 for k, n in launches.items() if not k.startswith("K13")),
+          f"phase 29: a kernel of the mesh paths never launched: {launches}")
+    return {"nccl": a, "gloo": [r0, r1], "launches_by_rank": per_rank, "launches": launches,
+            "reference_launches": reference, "seconds": seconds}
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dist_worker"]:  # one rank of phase 29, started by phase_dist
+        return dist_worker(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--passages", type=int, default=8192)
@@ -5168,6 +5723,9 @@ def main(argv=None):
     parser.add_argument("--rerank_only", action="store_true",
                         help="run only the T5 and reranker phase (27), for its readings; "
                              "prints no kernels line")
+    parser.add_argument("--dist_only", action="store_true",
+                        help="run only the data-parallel and sharded-index phase (29) over its "
+                             "worker processes; prints no kernels line")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5230,7 +5788,16 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             results = {"card": smi, "seed": args.seed, "train": phase_train(args, tmp),
                        "grad_cache": phase_grad_cache(args, tmp),
-                       "remat": phase_remat(args, tmp), "lora": phase_lora(args, tmp)}
+                       "remat": phase_remat(args, tmp), "lora": phase_lora(args, tmp),
+                       "optimizers": phase_optimizers(args, tmp)}
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(results, fh, indent=1)
+        log(smi)
+        return 0
+    if args.dist_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {"card": smi, "seed": args.seed, "dist": phase_dist(args, tmp)}
         if args.out:
             with open(args.out, "w") as fh:
                 json.dump(results, fh, indent=1)
@@ -5255,41 +5822,56 @@ def main(argv=None):
                 json.dump(results, fh, indent=1)
         log(smi)
         return 0
-    blocks = phase_block_kernels(gen, attn)
-    k5 = phase_topk(gen, topk, blockwise_topk, args.corpus_rows)
-    k34 = phase_contrastive(gen, contrastive)
-    k7, x_int8 = phase_quant(gen, quant, args.corpus_rows)
-    int8_topk = phase_int8_topk(gen, topk, quant, blockwise_topk, x_int8)
+    seconds = {}  # wall seconds of each phase, the card synchronized after it
+
+    def timed(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    blocks = timed("phase_block_kernels", phase_block_kernels, gen, attn)
+    k5 = timed("phase_topk", phase_topk, gen, topk, blockwise_topk, args.corpus_rows)
+    k34 = timed("phase_contrastive", phase_contrastive, gen, contrastive)
+    k7, x_int8 = timed("phase_quant", phase_quant, gen, quant, args.corpus_rows)
+    int8_topk = timed("phase_int8_topk", phase_int8_topk, gen, topk, quant, blockwise_topk,
+                      x_int8)
     del x_int8
     torch.cuda.empty_cache()
-    k9, x_int4 = phase_quant4(gen, quant, args.corpus_rows)
-    int4_topk = phase_int4_topk(gen, topk, quant, blockwise_topk, x_int4)
+    k9, x_int4 = timed("phase_quant4", phase_quant4, gen, quant, args.corpus_rows)
+    int4_topk = timed("phase_int4_topk", phase_int4_topk, gen, topk, quant, blockwise_topk,
+                      x_int4)
     del x_int4
     torch.cuda.empty_cache()
-    flash_kernels = phase_flash_kernels(gen, flash, attn)
-    ivf_kernels = phase_ivf_kernels(args.seed + 7, flat, ivf, ivf_bulk, args.corpus_rows)
-    pq_kernels = phase_pq_kernels(args.seed + 13, flat, pq, args.corpus_rows)
+    flash_kernels = timed("phase_flash_kernels", phase_flash_kernels, gen, flash, attn)
+    ivf_kernels = timed("phase_ivf_kernels", phase_ivf_kernels, args.seed + 7, flat, ivf,
+                        ivf_bulk, args.corpus_rows)
+    pq_kernels = timed("phase_pq_kernels", phase_pq_kernels, args.seed + 13, flat, pq,
+                       args.corpus_rows)
     with tempfile.TemporaryDirectory() as tmp:
-        main_path, kern = phase_main_path(args, tmp)
-        int8_path = phase_int8_path(args, tmp, kern)
+        main_path, kern = timed("phase_main_path", phase_main_path, args, tmp)
+        int8_path = timed("phase_int8_path", phase_int8_path, args, tmp, kern)
         del kern
-        train = phase_train(args, tmp)
-        grad_cache = phase_grad_cache(args, tmp)
-        remat = phase_remat(args, tmp)
-        lora = phase_lora(args, tmp)
-        flash_serving = phase_flash_serving(args, tmp)
-        flash_train = phase_flash_train(args, tmp)
-        eval_path, ctx = phase_eval_path(args, tmp)
-        ivf_eval = phase_ivf_eval_path(args, tmp, ctx)
-        plain_pq96 = plain_encoder_pq96_gaps(args, tmp)
-        pq_eval = phase_pq_eval_path(args, tmp, ctx, plain_pq96)
+        train = timed("phase_train", phase_train, args, tmp)
+        grad_cache = timed("phase_grad_cache", phase_grad_cache, args, tmp)
+        remat = timed("phase_remat", phase_remat, args, tmp)
+        lora = timed("phase_lora", phase_lora, args, tmp)
+        optimizers = timed("phase_optimizers", phase_optimizers, args, tmp)
+        flash_serving = timed("phase_flash_serving", phase_flash_serving, args, tmp)
+        flash_train = timed("phase_flash_train", phase_flash_train, args, tmp)
+        eval_path, ctx = timed("phase_eval_path", phase_eval_path, args, tmp)
+        ivf_eval = timed("phase_ivf_eval_path", phase_ivf_eval_path, args, tmp, ctx)
+        plain_pq96 = timed("plain_encoder_pq96_gaps", plain_encoder_pq96_gaps, args, tmp)
+        pq_eval = timed("phase_pq_eval_path", phase_pq_eval_path, args, tmp, ctx, plain_pq96)
         del ctx
-        mining = phase_mining(args, tmp)
-        rerank = phase_rerank(args, tmp)
-    scale = phase_scale(gen, flat, topk, SCALE_QUERIES)
-    scale4 = phase_scale4(gen, flat, SCALE4_QUERIES)
-    ivf_scale = phase_ivf_scale(args.seed + 11, flat, ivf_bulk)
-    pq_scale = phase_pq_scale(args.seed + 17, flat, pq, ivf_pq)
+        mining = timed("phase_mining", phase_mining, args, tmp)
+        rerank = timed("phase_rerank", phase_rerank, args, tmp)
+        dist = timed("phase_dist", phase_dist, args, tmp)
+    scale = timed("phase_scale", phase_scale, gen, flat, topk, SCALE_QUERIES)
+    scale4 = timed("phase_scale4", phase_scale4, gen, flat, SCALE4_QUERIES)
+    ivf_scale = timed("phase_ivf_scale", phase_ivf_scale, args.seed + 11, flat, ivf_bulk)
+    pq_scale = timed("phase_pq_scale", phase_pq_scale, args.seed + 17, flat, pq, ivf_pq)
 
     src = "denseretrievaltoolkits_torch/csrc/"
     rows = [
@@ -5577,13 +6159,37 @@ def main(argv=None):
                    contrastive.contrastive_bwd_dp.launches_generic)
     check(k34_generic == (0, 0, 0),
           f"K3 / K4 (dq, dp): the FFMA body ran {k34_generic} times on the paths")
+    # phase 29's launches, rank by rank (K13: IVF16,SQ8's one-process reference on rank 0
+    # runs the fixed-capacity cells; the sharded IVF index is ragged, K14), and phase 28's
+    dist_keys = {"fused_attention_ln": "K1 fused_attention_ln",
+                 "fused_mlp_ln": "K2 fused_mlp_ln", "block_topj": "K5 block_topj",
+                 "contrastive_fwd": "K3 contrastive_fwd",
+                 "contrastive_bwd_dq": "K4 contrastive_bwd_dq",
+                 "contrastive_bwd_dp": "K4 contrastive_bwd_dp",
+                 "block_topj (K6, int8 rows)": "K6 block_topj int8",
+                 "quantize_int8_device": "K7 quantize_int8_device",
+                 "block_topj_serve": "K8 block_topj_serve", "block_topj_i8q": "K12 block_topj_i8q",
+                 "cell_topj (K13, int8 cells)": "K13 cell_topj",
+                 "ragged_topj (K14, int8 cells)": "K14 ragged_topj",
+                 "pq_topj_blocks (K15, 4-bit codes)": "K15 pq_topj_blocks 4-bit",
+                 "pq_topj_blocks (K16, int8 codebook)": "K16 pq_topj_blocks int8 codebook",
+                 "ragged_topj_pq (K17)": "K17 ragged_topj_pq"}
+    for row in kernels:
+        key = dist_keys.get(row["name"])
+        if key is not None:
+            row["dist_launches_by_rank"] = [r[key] for r in dist["launches_by_rank"]]
+            row["dist_reference_launches"] = dist["reference_launches"][key]
+        if row["name"].startswith("contrastive_"):
+            row["optimizer_launches"] = {n: o["launches"][row["name"]]
+                                         for n, o in optimizers.items()}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "build_s": _native.build_seconds, "block_kernels": blocks,
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
                        "grad_cache": grad_cache, "remat": remat, "lora": lora,
-                       "mining": mining, "rerank": rerank,
+                       "mining": mining, "rerank": rerank, "optimizers": optimizers,
+                       "dist": dist, "phase_seconds": seconds,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
                        "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,
@@ -5592,6 +6198,7 @@ def main(argv=None):
                        "flash_serving": flash_serving, "flash_train": flash_train,
                        "kernels": kernels}, fh,
                       indent=1)
+    log(f"phase seconds: {json.dumps(seconds)}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

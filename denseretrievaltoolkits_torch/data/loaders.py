@@ -11,8 +11,10 @@ Static shapes: training iterates full batches only (``drop_last``); eval/corpus
 loaders pad the final batch up to ``batch_size`` and report the valid count.
 
 The port's own copy of ``denseretrievaltoolkits_tpu/data/loaders.py``, with
-the same names and behaviour. ``CorpusDataloader(shard_hosts=True)`` needs
-the multi-process corpus bounds, which are not ported yet, and raises.
+the same names and behaviour. ``CorpusDataloader(shard_hosts=True)`` takes
+this process's contiguous window of the corpus
+(``utils/distributed.py:host_corpus_bounds``), the rows its rank of a sharded
+index holds.
 """
 
 from __future__ import annotations
@@ -306,9 +308,9 @@ class CorpusDataloader:
                         bucket_step=step if self.bucketed else 0)
         bounds = None
         if self.shard_hosts:
-            raise NotImplementedError(
-                "multi-process corpus encode (shard_hosts) is not ported yet "
-                "(ROADMAP queue 1, item '`parallel/` and `utils/distributed.py`')")
+            from ..utils.distributed import host_corpus_bounds
+
+            bounds = host_corpus_bounds(len(self.dataset))
         # sort key: pre-tokenized passage length (+2 covers [CLS]/[SEP];
         # exactness is irrelevant — any monotone proxy groups lengths)
         sort = (lambda ex: len(ex["text"]) + 2) if self.bucketed else None

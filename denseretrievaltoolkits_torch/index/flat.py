@@ -188,6 +188,12 @@ class FlatIPIndex:
                mode: str = "exact") -> Tuple[np.ndarray, np.ndarray]:
         """Top-k search. Returns (scores [Q,k], indices [Q,k]) sorted descending.
         ``mode`` resolves through ``index/modes.py`` (see the module docstring)."""
+        scores, ids = self.search_tensors(q_reps, k, mode)
+        return scores.cpu().numpy(), ids.cpu().numpy()
+
+    def search_tensors(self, q_reps, k: int = 1000,
+                       mode: str = "exact") -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`search`'s (scores, indices), left on the index's device."""
         mode = resolve_mode(mode, self.dtype)
         k = min(k, self._n)
         q = torch.as_tensor(q_reps, dtype=torch.float32, device=self.device)
@@ -206,7 +212,7 @@ class FlatIPIndex:
         else:
             values, scales = self._materialize()
             scores, ids = self._topk(q, values, scales, self._n, k, mode)
-        return scores.cpu().numpy(), ids.cpu().numpy()
+        return scores, ids
 
     def batch_search(self, q_reps, k: int, batch_size: int, quiet: bool = False,
                      mode: str = "exact") -> Tuple[np.ndarray, np.ndarray]:
@@ -236,20 +242,39 @@ class FlatIPIndex:
             return values.cpu().numpy(), scales.cpu().numpy()
         return np.zeros((0, self._width()), np.int8), np.zeros((0,), np.float32)
 
-    def save(self, path: str) -> None:
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    def payload(self) -> dict:
+        """The arrays of ``path.npz``: ``values`` + ``scales`` (int8 / int4, as
+        stored), or ``reps`` (fp32 / bf16 rows widened to fp32, lossless)."""
         native = self._native_int8_payload()
         if native is not None:
-            np.savez(path + ".npz", values=native[0], scales=native[1])
+            return {"values": native[0], "scales": native[1]}
+        if self._device_slabs:
+            full = torch.cat([v[:n].float() for v, _, n in self._device_slabs]).cpu().numpy()
+        elif self._chunks:
+            full = np.concatenate(self._chunks, axis=0)
         else:
-            if self._device_slabs:
-                # bf16/fp32 slabs: widen to fp32 (lossless) for the checkpoint
-                full = torch.cat([v[:n].float() for v, _, n in self._device_slabs]).cpu().numpy()
-            elif self._chunks:
-                full = np.concatenate(self._chunks, axis=0)
-            else:
-                full = np.zeros((0, self.dim), np.float32)
-            np.savez(path + ".npz", reps=full)
+            full = np.zeros((0, self.dim), np.float32)
+        return {"reps": full}
+
+    def add_native(self, values: np.ndarray, scales: Optional[np.ndarray]) -> None:
+        """Rows as ``payload`` gives them: int8 / int4 ``values`` with ``scales``
+        become one device slab without requantizing; fp32 rows are staged."""
+        if scales is None:
+            if values.shape[0]:
+                self.add(values)
+            return
+        if values.ndim != 2 or values.shape[1] != self._width():
+            raise ValueError(f"{self.dtype} values of dim {self.dim} must be [n, "
+                             f"{self._width()}], got {values.shape}")
+        if values.shape[0]:
+            self._device_slabs.append((torch.from_numpy(np.ascontiguousarray(values)).to(
+                self.device), torch.from_numpy(np.ascontiguousarray(scales)).to(self.device),
+                int(values.shape[0])))
+            self._n += int(values.shape[0])
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path + ".npz", **self.payload())
         with open(path + ".meta.json", "w") as fh:
             json.dump({"dim": self.dim, "dtype": self.dtype, "n": self._n,
                        "docid": self.docid}, fh)
@@ -264,17 +289,9 @@ class FlatIPIndex:
         idx = cls(meta["dim"], dtype=meta["dtype"], device=device)
         with np.load(path + ".npz") as z:
             if "values" in z:
-                values, scales = z["values"], z["scales"]
-                if values.ndim != 2 or values.shape[1] != idx._width():
-                    raise ValueError(f"{path}.npz: {meta['dtype']} values of dim {idx.dim} "
-                                     f"must be [n, {idx._width()}], got {values.shape}")
-                if values.shape[0]:
-                    idx._device_slabs.append((torch.from_numpy(values).to(idx.device),
-                                              torch.from_numpy(scales).to(idx.device),
-                                              int(values.shape[0])))
-                    idx._n = int(values.shape[0])
-            elif z["reps"].shape[0]:
-                idx.add(z["reps"])
+                idx.add_native(z["values"], z["scales"])
+            else:
+                idx.add_native(z["reps"], None)
         idx.docid = meta.get("docid", [])
         return idx
 

@@ -10,7 +10,11 @@ current model's hardest negatives are one top-k sweep over the train queries:
   sample's own positives (by docid, else by token list) -> the next
   ``n_negatives`` passages' token lists become the sample's ``negatives``.
 
-The reps stay on the card from the encode to the search. A ``-1`` row (fewer
+The reps stay on the card from the encode to the search. On a mesh every rank
+encodes the same train queries on its own card (the JAX package's ``_local_rows``,
+miner.py:66-70 there, takes a host's copy of the replicated batch), the sharded
+index's search is collective and gives every rank the same rows, so every rank mines
+the same negatives. A ``-1`` row (fewer
 candidates than k) is skipped, and a sample is refreshed only when it gets all
 ``n_negatives``. The mined rows feed the same sampler and collator as before.
 The reference measured the envelope (its docstring): at 7 mined negatives from

@@ -12,7 +12,8 @@ engine, built at first use), then train on the mined rows through the
         --data_cache_dir <cache> --train_n_passages 8
 
 It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU. As
-``run_random_sampling.py`` here, it trains on the one device, refuses
+``run_random_sampling.py`` here, it trains on the one device, or under
+``torchrun`` over a data-parallel mesh of the processes, refuses
 ``--tp_size`` > 1 before anything loads, and loads ``transformers`` and
 ``datasets`` inside :func:`main` only.
 """
@@ -22,7 +23,8 @@ from __future__ import annotations
 import logging
 
 from .config import DataArguments, ModelArguments, TrainingArguments, parse_args
-from .run_random_sampling import refuse_tensor_parallel
+from .parallel.mesh import refuse_tensor_parallel
+from .run_random_sampling import data_parallel_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -35,7 +37,7 @@ def main(argv=None, device=None):
     )
     model_args, data_args, training_args = parse_args(
         (ModelArguments, DataArguments, TrainingArguments), args=argv)
-    refuse_tensor_parallel(training_args)
+    refuse_tensor_parallel(training_args.tp_size)
 
     from .utils.runtime import setup_runtime
 
@@ -84,7 +86,7 @@ def main(argv=None, device=None):
     trainer = Trainer(training_args, model, corpus_dataloader=corpus_dl, train_loader=train_dl,
                       eval_loader=eval_dl if corpus_dl is not None else None,
                       test_loader=test_dl if corpus_dl is not None else None,
-                      label_kind="answers" if is_exactmatch else "docids")
+                      mesh=data_parallel_mesh(training_args), label_kind="answers" if is_exactmatch else "docids")
     if training_args.resume_from:
         trainer.load(training_args.resume_from)
     trainer.train()

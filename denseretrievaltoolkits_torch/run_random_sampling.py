@@ -12,8 +12,11 @@ dataset and loader picked by registry, the corpus loader, the ``Trainer``,
         --dtype bfloat16 --attention fused --fused_loss --grad_cache
 
 It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
-On a host with several cards it trains on the one ``device`` names: the
-full-batch step there has the gradient of the reference's data-parallel mesh.
+Under ``torchrun`` each process trains on ``cuda:LOCAL_RANK`` (or ``device``)
+over a data-parallel mesh of all the processes (``parallel/mesh.py``; the
+process group starts as nccl for CUDA and gloo for the CPU, unless the caller
+started one before): each loads its shard of the train set and its window of
+the corpus, as the root script's mesh does.
 The tokenizer (``transformers``) and the datasets (``datasets``) are loaded
 inside :func:`main`, so they are needed only where it runs. With
 ``--mine_per_train N`` a ``DenseMiner`` refreshes the train set's negatives
@@ -27,14 +30,18 @@ from __future__ import annotations
 import logging
 
 from .config import DataArguments, ModelArguments, TrainingArguments, parse_args
+from .parallel.mesh import refuse_tensor_parallel
 
 
-def refuse_tensor_parallel(training_args) -> None:
-    """``--tp_size`` > 1 raises before anything loads: tensor parallelism is a later
-    slice."""
-    if training_args.tp_size > 1:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP queue 1, "
-                                  "item '`parallel/` and `utils/distributed.py`')")
+def data_parallel_mesh(training_args):
+    """The mesh over the started process group when it has several ranks, else None
+    (root run_random_sampling.py:88-92)."""
+    from .parallel.mesh import make_mesh
+    from .utils.distributed import process_shard
+
+    if process_shard()[0] > 1:
+        return make_mesh(training_args.dp_size, training_args.tp_size)
+    return None
 
 
 def main(argv=None, device=None):
@@ -45,7 +52,7 @@ def main(argv=None, device=None):
     )
     model_args, data_args, training_args = parse_args(
         (ModelArguments, DataArguments, TrainingArguments), args=argv)
-    refuse_tensor_parallel(training_args)
+    refuse_tensor_parallel(training_args.tp_size)
 
     from .utils.runtime import setup_runtime
 
@@ -82,6 +89,7 @@ def main(argv=None, device=None):
 
     trainer = Trainer(training_args, model, corpus_dataloader=corpus_dl, train_loader=train_dl,
                       eval_loader=eval_dl, test_loader=test_dl,
+                      mesh=data_parallel_mesh(training_args),
                       label_kind="answers" if is_exactmatch else "docids")
     if training_args.mine_per_train:
         from .mine.miner import DenseMiner

@@ -12,7 +12,10 @@ save cadence (none with ``--eval_only``), then ``evaluate(eval_dl, 3)``:
         --dataset nq --data_dir <train jsonl> --cache_train_dir <the retriever's cache> \\
         --loss_fn mr [--eval_only]
 
-It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU. The
+It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
+Under ``torchrun`` each process trains on ``cuda:LOCAL_RANK`` (or ``device``)
+over a data-parallel mesh of all the processes (its shard of the train pairs;
+every rank scores the evaluation pairs, rank 0 writes them). The
 tokenizer (``transformers``) and the datasets (``datasets``) are loaded inside
 :func:`main`, so they are needed only where it runs. Tensor parallelism
 (``--tp_size`` > 1) is a later slice: :func:`main` refuses it before anything
@@ -24,7 +27,8 @@ from __future__ import annotations
 import logging
 
 from .config import DataArguments, ModelArguments, RRTrainingArguments, parse_args
-from .run_random_sampling import refuse_tensor_parallel
+from .parallel.mesh import refuse_tensor_parallel
+from .run_random_sampling import data_parallel_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -37,7 +41,7 @@ def main(argv=None, eval_only: bool = False, device=None):
     )
     model_args, data_args, training_args = parse_args(
         (ModelArguments, DataArguments, RRTrainingArguments), args=argv)
-    refuse_tensor_parallel(training_args)
+    refuse_tensor_parallel(training_args.tp_size)
 
     import torch
 
@@ -72,7 +76,8 @@ def main(argv=None, eval_only: bool = False, device=None):
     eval_dl = RerankerDataloader(data_args, eval_dataset, tokenizer,
                                  batch_size=training_args.eval_batch_size).get_eval_dataloader()
 
-    trainer = RRTrainer(training_args, model, train_loader=train_dl)
+    trainer = RRTrainer(training_args, model, train_loader=train_dl,
+                        mesh=data_parallel_mesh(training_args))
     if training_args.resume_from:
         trainer.load(training_args.resume_from)
     if not eval_only and training_args.max_epochs > 0:

@@ -25,9 +25,11 @@ sums.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+from ..parallel.mesh import Mesh, gather_rows
 
 
 def n_chunks(rows: int, chunk_size: int) -> int:
@@ -74,19 +76,30 @@ def backward_chunks(model, side: str, chunks, grads: torch.Tensor) -> None:
         model._reps(lm, head, chunk).backward(g)
 
 
-def grad_cache_backward(model, query, passage, q_chunk_size: int,
-                        p_chunk_size: int) -> torch.Tensor:
+def grad_cache_backward(model, query, passage, q_chunk_size: int, p_chunk_size: int,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The three passes over one (query, passage) batch. Accumulates the
     full-batch loss's gradient into the parameters' ``.grad`` (zero them
-    before) and returns the loss, a device scalar."""
+    before) and returns the loss, a device scalar.
+
+    On a ``mesh`` the batch is this rank's block: pass 2 runs the global loss
+    over every rank's reps (gathered without a graph) and pass 3 this rank's
+    rows of its gradient, so each rank's ``.grad`` holds its own rows' share
+    and the caller sums them over the ranks (``all_reduce_grads``)."""
     q = model._batch(query)
     p = model._batch(passage)
     # the ids go to the device once: pass 3 reuses pass 1's chunks, which are views
     # of these (32,768 passages x 128 int64 ids are 34 MB)
     q_chunks = _chunks(q, n_chunks(q["input_ids"].shape[0], q_chunk_size))
     p_chunks = _chunks(p, n_chunks(p["input_ids"].shape[0], p_chunk_size))
-    loss, dq, dp = rep_grads(model, encode_chunks(model, "query", q_chunks),
-                             encode_chunks(model, "passage", p_chunks))
+    q_reps = encode_chunks(model, "query", q_chunks)
+    p_reps = encode_chunks(model, "passage", p_chunks)
+    if mesh is None:
+        loss, dq, dp = rep_grads(model, q_reps, p_reps)
+    else:
+        nq, np_, r = q_reps.shape[0], p_reps.shape[0], mesh.rank
+        loss, dq, dp = rep_grads(model, gather_rows(q_reps, mesh), gather_rows(p_reps, mesh))
+        dq, dp = dq[r * nq:(r + 1) * nq], dp[r * np_:(r + 1) * np_]
     backward_chunks(model, "query", q_chunks, dq)
     backward_chunks(model, "passage", p_chunks, dp)
     return loss

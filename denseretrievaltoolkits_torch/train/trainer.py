@@ -35,8 +35,19 @@ every ``mine_per_train`` epochs, after the evaluation, from the index of that
 epoch's weights (re-encoded when stale), as the reference does
 (trainer.py:239-252). The model holds its parameters, so there is no
 ``params`` argument; with LoRA adapters only they and the heads train
-(``optimizers.get_optimizer``). A mesh (ROADMAP queue 1, ``parallel/``) is a
-later slice: given one, the constructor raises.
+(``optimizers.get_optimizer``).
+
+A ``mesh`` (``parallel/mesh.py``: one rank a card, trainer.py:85-170 there)
+makes the trainer data-parallel: rank 0's parameters are broadcast at start;
+each rank steps on its slice of the global batch (the loaders' strided,
+equal-length shards), the contrastive loss covers every rank's reps
+(``negatives_x_device``, else each rank's own block and the mean over ranks),
+and the averaged gradient is the full batch's, so the ranks' parameters stay
+equal. The evaluation encodes this rank's ``host_corpus_bounds`` window of
+the corpus (``CorpusDataloader(shard_hosts=True)``) into a sharded index
+(``parallel/``), searches it with replicated queries, and returns the same
+metrics on every rank; rank 0 alone writes the dumps, the metrics, the
+deploy format and the checkpoints.
 
 ``RRTrainer`` (trainer.py:699-796 there) trains a ``models.reranker.RRModel`` on
 (pos_pairs, neg_pairs) batches and evaluates it over the dense retriever's
@@ -65,6 +76,7 @@ from ..data.loaders import prefetch
 from ..evaluator.metrics import get_metrics
 from ..evaluator.nq_eval import AnswerMatcher
 from ..index.flat import FlatIPIndex
+from ..parallel.mesh import all_reduce_grads, data_parallel_backward, rank_zero
 from .grad_cache import grad_cache_backward
 from .optimizers import get_optimizer
 
@@ -73,15 +85,20 @@ logger = logging.getLogger(__name__)
 CHECKPOINT_FILE = "state.pt"
 
 
+def _dataset_ids(dataset) -> List:
+    """The ``id`` column of a corpus dataset (HF datasets or a list of dicts)."""
+    try:
+        return list(dataset["id"])
+    except (TypeError, KeyError, IndexError):
+        return [row["id"] for row in dataset]
+
+
 class Trainer:
     """Trains a ``models.biencoder.DRModel`` in place."""
 
     def __init__(self, training_args, model, corpus_dataloader=None, train_loader=None,
                  eval_loader=None, test_loader=None, mesh=None, label_kind: str = "answers",
                  miner=None):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1, item "
-                                      "'`parallel/` and `utils/distributed.py`')")
         self.training_args = training_args
         self.model = model
         self.corpus_dataloader = corpus_dataloader
@@ -90,6 +107,9 @@ class Trainer:
         self.test_loader = test_loader
         self.label_kind = label_kind  # "answers" (NQ-style) | "docids" (relevancy)
         self.miner = miner  # mine/miner.py DenseMiner, run at the mine_per_train cadence
+        self.mesh = mesh  # parallel/mesh.py Mesh: data parallel over its ranks
+        if mesh is not None:
+            mesh.broadcast_module(model)
         self.topk = training_args.topk_list
         self.start_epoch = 0
         self.idx: List = []  # docid order of the corpus index
@@ -122,7 +142,13 @@ class Trainer:
         if args.grad_cache:
             self.optimizer.zero_grad()
             loss = grad_cache_backward(self.model, batch[0], batch[1], args.gc_q_chunk_size,
-                                       args.gc_p_chunk_size)
+                                       args.gc_p_chunk_size, mesh=self.mesh)
+            if self.mesh is not None:  # each rank's rows carry their true share: sum them
+                all_reduce_grads(self.model.parameters(), self.mesh, mean=False)
+        elif self.mesh is not None:
+            self.optimizer.zero_grad()
+            loss = data_parallel_backward(self.model, batch[0], batch[1], self.mesh,
+                                          getattr(args, "negatives_x_device", True))
         else:
             loss = self.model.forward(batch[0], batch[1])["loss"]
             self.optimizer.zero_grad()
@@ -195,7 +221,9 @@ class Trainer:
         return loss
 
     def _log_metrics(self, record: Dict[str, Any]) -> None:
-        """Append a record to ``{output_dir}/train_log.jsonl``."""
+        """Append a record to ``{output_dir}/train_log.jsonl`` (rank 0's)."""
+        if not rank_zero(self.mesh):
+            return
         try:
             os.makedirs(self.training_args.output_dir, exist_ok=True)
             path = os.path.join(self.training_args.output_dir, "train_log.jsonl")
@@ -207,11 +235,25 @@ class Trainer:
 
     # -- retrieval evaluation -------------------------------------------------
 
+    def _sharded(self) -> bool:
+        """The corpus index is split over several ranks."""
+        return self.mesh is not None and self.mesh.size > 1
+
     def _make_index(self, dim: int):
         """A flat index on the model's device at ``index_dtype``, or the
         ``index_factory`` string's, probing ``nprobe`` cells (trainer.py:290-323)."""
         args = self.training_args
         factory = getattr(args, "index_factory", "")
+        if self._sharded():
+            from ..parallel.sharded_index import ShardedFlatIndex
+            from ..parallel.sharded_ivf import sharded_index_factory
+
+            if factory:
+                return sharded_index_factory(self.mesh, dim, factory,
+                                             nprobe=getattr(args, "nprobe", 32),
+                                             device=self.model.device)
+            return ShardedFlatIndex(self.mesh, dim, dtype=args.index_dtype,
+                                    device=self.model.device)
         if factory:
             from ..index.flat import index_factory
 
@@ -228,7 +270,10 @@ class Trainer:
         docids to ``{ep}.0.json``. An index that is not trained yet takes no
         rows: the reps go to the memmap only (made whatever
         ``save_corpus_artifacts`` says, removed after unless it is set), and
-        :meth:`_build_trained_index` fits and fills the index from there."""
+        :meth:`_build_trained_index` fits and fills the index from there. On a
+        mesh each rank encodes its own window (``{ep}.{rank}.npy``), the index
+        learns the corpus size before it is built, and the docid order is the
+        dataset's (trainer.py:402-418 there)."""
         args = self.training_args
         loader = self.corpus_dataloader
         slab_rows = max(loader.batch_size, getattr(args, "index_slab_rows", 262144))
@@ -240,7 +285,8 @@ class Trainer:
         mmap = None
         spill = False  # a trained factory index: rows go to the memmap, not the device
         row = 0
-        mmap_path = os.path.join(args.encode_corpus_dir, f"{ep}.0.npy")
+        rank = 0 if self.mesh is None else self.mesh.rank
+        mmap_path = os.path.join(args.encode_corpus_dir, f"{ep}.{rank}.npy")
 
         def flush():
             nonlocal buf, buf_rows
@@ -270,6 +316,8 @@ class Trainer:
             row += valid
             ids.extend(batch_ids)
         flush()
+        if self._sharded():
+            self.index.global_rows = len(loader.dataset)
         if mmap is not None:
             mmap.flush()
             if spill:
@@ -277,14 +325,14 @@ class Trainer:
             del mmap
             if spill and not save:
                 os.remove(mmap_path)
-        self.idx = ids
+        self.idx = _dataset_ids(loader.dataset) if self._sharded() else ids
         self.index.docid = self.idx
         # a length-sorted encode iterates out of dataset order: index row r
         # holds dataset row perm[r] (docids already follow the iteration)
         self._row2ds = (np.asarray(loader._indices())
                         if getattr(loader, "length_sorted", False) else None)
         if save:
-            with open(os.path.join(args.encode_corpus_dir, f"{ep}.0.json"), "w",
+            with open(os.path.join(args.encode_corpus_dir, f"{ep}.{rank}.json"), "w",
                       encoding="utf-8") as fh:
                 json.dump({"id": ids}, fh, ensure_ascii=False)
 
@@ -302,11 +350,14 @@ class Trainer:
                               chunk_rows=int(max(1, min(n_rows, chunk_rows))))
 
     def _index_corpus(self, ep: int) -> None:
-        """Save the index and its docid order (trainer.py:455-468)."""
+        """Save the index (collective on a mesh) and, from rank 0, its docid
+        order (trainer.py:455-468)."""
         args = self.training_args
         if not getattr(args, "save_corpus_artifacts", True):
             return
         self.index.save(args.index_file + str(ep))
+        if not rank_zero(self.mesh):
+            return
         order = {"id": self.idx}
         if self._row2ds is not None:
             order["perm"] = np.asarray(self._row2ds).tolist()
@@ -317,10 +368,16 @@ class Trainer:
     def _load_index(self, ep: int) -> None:
         """Restore a saved index and its docid order onto the model's device
         (trainer.py:470-494)."""
-        from ..index.io import load_index
-
         args = self.training_args
-        self.index = load_index(args.index_file + str(ep), device=self.model.device)
+        if self._sharded():
+            from ..parallel.sharded_ivf import load_sharded_index
+
+            self.index = load_sharded_index(args.index_file + str(ep), self.mesh,
+                                            device=self.model.device)
+        else:
+            from ..index.io import load_index
+
+            self.index = load_index(args.index_file + str(ep), device=self.model.device)
         with open(os.path.join(args.index_order_dir, f"{ep}.docid.txt"),
                   encoding="utf-8") as fh:
             order = json.load(fh)
@@ -359,8 +416,9 @@ class Trainer:
         search_mode = getattr(args, "search_mode", "exact")
         self.model.eval()
         os.makedirs(args.retrieve_dir, exist_ok=True)
-        with open(os.path.join(args.retrieve_dir, f"{ep}.0.json"), "w",
-                  encoding="utf-8") as dump_fh:
+        # queries are replicated over the ranks: rank 0 writes for all (trainer.py:530)
+        with open(os.path.join(args.retrieve_dir, f"{ep}.0.json") if rank_zero(self.mesh)
+                  else os.devnull, "w", encoding="utf-8") as dump_fh:
             for qids, batch, answers, originals in query_loader:
                 q_reps = self.model.encode_query(batch)
                 valid = int(q_reps.shape[0])
@@ -392,9 +450,10 @@ class Trainer:
             m_all[key] = m_all[key] / max(eval_num, 1)
             logger.info("%s %.*f", key, dp, m_all[key])
         m_all["query_num"] = eval_num
-        with open(os.path.join(args.cache_train_dir, f"{ep}.0_metrics"), "w",
-                  encoding="utf-8") as fh:
-            json.dump(m_all, fh, ensure_ascii=False)
+        if rank_zero(self.mesh):
+            with open(os.path.join(args.cache_train_dir, f"{ep}.0_metrics"), "w",
+                      encoding="utf-8") as fh:
+                json.dump(m_all, fh, ensure_ascii=False)
         return m_all
 
     # -- persistence ---------------------------------------------------------
@@ -402,10 +461,15 @@ class Trainer:
     def save(self, i_epoch: int) -> None:
         """Deploy format under ``cache_train_dir/result{N}`` (the layout the
         JAX package and ``DRModelForInference.build`` load) and the resume
-        checkpoint under ``output_dir/checkpoint/ep{N}``."""
+        checkpoint under ``output_dir/checkpoint/ep{N}``; on a mesh rank 0
+        writes them (every rank holds the same parameters) and the ranks meet
+        after."""
         args = self.training_args
-        self.model.save(os.path.join(args.cache_train_dir, f"result{i_epoch}"))
-        self.save_checkpoint(os.path.join(args.output_dir, "checkpoint"), i_epoch)
+        if rank_zero(self.mesh):
+            self.model.save(os.path.join(args.cache_train_dir, f"result{i_epoch}"))
+            self.save_checkpoint(os.path.join(args.output_dir, "checkpoint"), i_epoch)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def save_checkpoint(self, path: str, epoch: int) -> None:
         """``path/ep{epoch}/state.pt``: params, optimizer state (with its update
@@ -439,11 +503,16 @@ class RRTrainer(Trainer):
 
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer update on a (pos_pairs, neg_pairs) batch; the loss as a device
-        tensor."""
+        tensor. On a mesh each rank's pairs are its slice of the global batch: the
+        gradients and the loss are averaged over the ranks, the mean over every pair
+        (trainer.py:715-741 there)."""
         self.model.train()
         loss = self.model(batch[0], batch[1])["loss"]
         self.optimizer.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_grads(self.model.parameters(), self.mesh, mean=True)
+            loss = self.mesh.mean(loss)
         self.optimizer.step()
         self.step += 1
         return loss.detach()
@@ -455,14 +524,16 @@ class RRTrainer(Trainer):
         ``{rr_result_dir}/{ep}.0.json`` inside the batch loop, so document text never
         accumulates; the metrics go to ``{cache_train_dir}/{ep}.0_RR_metrics``. The
         reference pads each batch to the loader's size for XLA's static shapes; here
-        each batch is scored as it comes, with the same rows and metrics."""
+        each batch is scored as it comes, with the same rows and metrics. On a mesh the
+        pairs are replicated: every rank scores them all and returns the same metrics,
+        and rank 0 writes the files (trainer.py:754-796)."""
         args = self.training_args
         result: Dict[Any, tuple] = {}
         matcher = AnswerMatcher()
         self.model.eval()
         os.makedirs(args.rr_result_dir, exist_ok=True)
-        with open(os.path.join(args.rr_result_dir, f"{ep}.0.json"), "w",
-                  encoding="utf-8") as fh:
+        with open(os.path.join(args.rr_result_dir, f"{ep}.0.json") if rank_zero(self.mesh)
+                  else os.devnull, "w", encoding="utf-8") as fh:
             for qids, batch, answers, docs, dids in pair_loader:
                 scores = self.model.score(batch).float().cpu().numpy()
                 for q, a, d, s, did in zip(qids, answers, docs, scores, dids):
@@ -487,7 +558,8 @@ class RRTrainer(Trainer):
             m_all[key] = m_all[key] / max(eval_num, 1)
             logger.info("%s %.*f", key, dp, m_all[key])
         m_all["query_num"] = eval_num
-        with open(os.path.join(args.cache_train_dir, f"{ep}.0_RR_metrics"), "w",
-                  encoding="utf-8") as fh:
-            json.dump(m_all, fh, ensure_ascii=False)
+        if rank_zero(self.mesh):
+            with open(os.path.join(args.cache_train_dir, f"{ep}.0_RR_metrics"), "w",
+                      encoding="utf-8") as fh:
+                json.dump(m_all, fh, ensure_ascii=False)
         return m_all

@@ -1,7 +1,7 @@
 """Import rules of the torch port, checked on its source (AST, no import).
 
-The port runs where there is no jax: nothing in it, nor ``chip_smoke.py`` or
-``kernel_ab.py``,
+The port runs where there is no jax: nothing in it, nor ``chip_smoke.py``,
+``kernel_ab.py`` or the multi-process tests' worker ``tests/torch_dist_worker.py``,
 imports ``jax``, ``jaxlib``, ``flax``, ``optax`` or any module of the JAX
 package, nor the ``regex`` package, which the card's machine lacks too
 (``evaluator/nq_eval.py`` tokenizes with ``unicodedata`` instead). It keeps
@@ -23,7 +23,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "denseretrievaltoolkits_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+                                      ROOT / "tests" / "torch_dist_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "denseretrievaltoolkits_tpu", "regex")
 
 
@@ -101,3 +102,14 @@ def test_t5_and_reranker_modules_present():
     for path in sorted(new):
         assert not {n.split(".")[0] for n in _imported(PORT / path)} & {"transformers",
                                                                         "safetensors"}, path
+
+
+def test_parallel_modules_present():
+    """The data-parallel slice's modules, each under the AST checks above: the mesh, the
+    three sharded indexes, the process-group start-up, and the workers the multi-process
+    tests start, which import the port alone."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"denseretrievaltoolkits_torch/{m}" for m in (
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_index.py",
+        "parallel/sharded_ivf.py", "parallel/sharded_pq.py", "utils/distributed.py")} <= names
+    assert "tests/torch_dist_worker.py" in names

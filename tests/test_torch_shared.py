@@ -1,7 +1,7 @@
 """The port's own copies of the modules it shares with the JAX package, held
 to their originals: ``config``, ``data.collators``, ``data.loaders``,
 ``evaluator.metrics``, ``index.modes``, ``evaluator.bm25``, ``evaluator.trec``,
-``evaluator.convert`` and the native BM25 engine's source ``native/bm25.cpp``
+``evaluator.convert``, ``utils.distributed``'s corpus bounds and the native BM25 engine's source ``native/bm25.cpp``
 (byte for byte). Same fields and defaults, the same parse of the same argv, the same batches, loader order, metrics and mode
 resolution (raises included). Inputs are seeded numpy; everything compares
 exactly."""
@@ -23,6 +23,7 @@ from denseretrievaltoolkits_tpu.evaluator import convert as jconvert
 from denseretrievaltoolkits_tpu.evaluator import metrics as jmet
 from denseretrievaltoolkits_tpu.evaluator import trec as jtrec
 from denseretrievaltoolkits_tpu.index import modes as jmodes
+from denseretrievaltoolkits_tpu.utils import distributed as jdist
 from denseretrievaltoolkits_torch import config as tconfig
 from denseretrievaltoolkits_torch.data import collators as tcol
 from denseretrievaltoolkits_torch.data import loaders as tload
@@ -31,6 +32,7 @@ from denseretrievaltoolkits_torch.evaluator import convert as tconvert
 from denseretrievaltoolkits_torch.evaluator import metrics as tmet
 from denseretrievaltoolkits_torch.evaluator import trec as ttrec
 from denseretrievaltoolkits_torch.index import modes as tmodes
+from denseretrievaltoolkits_torch.utils import distributed as tdist
 
 CLASSES = ["ModelArguments", "DataArguments", "TrainingArguments", "RRTrainingArguments"]
 
@@ -237,3 +239,14 @@ def test_trec_and_convert_copies(tmp_path):
         m.retrieval_jsonl_to_trec(str(dump), str(tmp_path / f"{name}.dump.trec"))
     for suffix in (".nq.json", ".dump.trec"):
         assert (tmp_path / f"port{suffix}").read_bytes() == (tmp_path / f"jax{suffix}").read_bytes()
+
+
+def test_distributed_copy():
+    """``host_corpus_bounds`` over a grid of (rows, processes, process, local shards),
+    and one process's ``process_shard``, as the JAX package's (utils/distributed.py:53-81
+    there; the port drives one card a process, so its default ``local_shards`` is 1)."""
+    for n, procs, shards in itertools.product((0, 1, 7, 96, 1001), (1, 2, 3, 8), (1, 2)):
+        for p in range(procs):
+            assert tdist.host_corpus_bounds(n, procs, p, shards) == jdist.host_corpus_bounds(
+                n, n_proc=procs, proc_idx=p, local_shards=shards), (n, procs, p, shards)
+    assert tdist.process_shard() == jdist.process_shard() == (1, 0)

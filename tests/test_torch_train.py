@@ -36,6 +36,7 @@ from denseretrievaltoolkits_torch.models.convert import (
     save_jax_params,
 )
 from denseretrievaltoolkits_torch.ops import attn as tattn
+from denseretrievaltoolkits_torch.parallel.mesh import make_mesh
 from denseretrievaltoolkits_torch.train import optimizers as topt
 from denseretrievaltoolkits_torch.train import schedulers as tsched
 from denseretrievaltoolkits_torch.train.trainer import Trainer
@@ -174,9 +175,10 @@ def test_optimizer_names(tmp_path, caplog):
     opt = topt.get_optimizer(args("lamb"), p)
     assert isinstance(opt.optimizer, torch.optim.AdamW) and "defaulting to adamw" in caplog.text
     assert opt.optimizer.defaults["weight_decay"] == 1e-4  # optax's, not torch's 1e-2
-    for name in ("adagrad", "rmsprop", "adafactor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 'Optimizers adagrad, rmsprop and adafactor'"):
-            topt.get_optimizer(args(name), p)
+    # adagrad, rmsprop and adafactor are optax's formulas (tests/test_torch_optimizers.py)
+    for name, cls in (("adagrad", topt.Adagrad), ("rmsprop", topt.RMSProp),
+                      ("adafactor", topt.Adafactor)):
+        assert isinstance(topt.get_optimizer(args(name), p).optimizer, cls)
     with pytest.raises(NotImplementedError, match="eps_root"):
         topt.get_optimizer(args("adam", optimizer_kwargs={"eps_root": 1e-8}), p)
 
@@ -432,8 +434,9 @@ def test_non_finite_loss_message_advises_no_unported_flag(tmp_path):
 
 def test_profile_trace_and_unported_arguments(tmp_path):
     """The profiler trace of step 2; evaluation loaders are taken (the
-    evaluation itself is held to the JAX Trainer in tests/test_torch_eval.py) and so is
-    a miner, while a mesh still raises, naming its ROADMAP item."""
+    evaluation itself is held to the JAX Trainer in tests/test_torch_eval.py) and so are
+    a miner and a mesh (tests/test_torch_parallel.py runs one), while tensor parallelism
+    still raises, naming its ROADMAP item."""
     args = _args(tmp_path, max_epochs=1, profile_dir=str(tmp_path / "prof"))
     trainer = Trainer(args, _build(seed=2), train_loader=_loader())
     trainer.train()
@@ -445,6 +448,8 @@ def test_profile_trace_and_unported_arguments(tmp_path):
     assert evaluating.label_kind == "docids" and evaluating.index is None
     miner = object()  # a miner is taken (tests/test_torch_mining.py runs one)
     assert Trainer(dataclasses.replace(args), _build(seed=2), miner=miner).miner is miner
-    item = "'`parallel/` and `utils/distributed.py`'"
+    mesh = make_mesh()  # no process group: one rank
+    assert Trainer(dataclasses.replace(args), _build(seed=2), mesh=mesh).mesh is mesh
+    item = "'`parallel/` tensor parallelism (`tp_size > 1`)'"
     with pytest.raises(NotImplementedError, match=f"queue 1, item {re.escape(item)}"):
-        Trainer(dataclasses.replace(args), _build(seed=2), mesh=object())
+        make_mesh(tp_size=2)
