@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json] [--flash_only]
                           [--blocks_only] [--eval_only] [--ivf_only] [--train_only]
-                          [--rerank_only] [--dist_only]
+                          [--rerank_only] [--dist_only] [--cli_only]
 
 Phases, each of which fails the run on error:
 
@@ -287,7 +287,7 @@ Phases, each of which fails the run on error:
    queries x (1 + 7) pairs of 160 tokens (2 warm-up, 4 timed steps; losses finite) and
    evaluate (``RRTrainer.evaluate``) over the T5 index's top 100 for 64 queries: 6,400
    dump rows, the metrics file with ``query_num`` 64; steps/s, pairs/s, peak memory;
-   the fp32 scores of 256 pairs on the card within 1e-3 of the largest |score| of the
+   the fp32 scores of 64 pairs on the card within 1e-3 of the largest |score| of the
    same weights' on the CPU. Counters zeroed before each part and read after.
    ``--rerank_only`` runs it alone.
 28. Optimizers (``--train_only``): bert-base bf16 'fused' at 32 x 8, 1 warm-up and 3
@@ -299,6 +299,20 @@ Phases, each of which fails the run on error:
    grad-cache under the mesh against one process; the sharded flat index over
    1,000,000 x 768 rows; ``Trainer.evaluate`` on the mesh into flat, IVF16,SQ8, PQ96,
    PQ192x4, IVF16,PQ96x4 and PCAR384,SQ8 against one process. Launches by rank.
+30. The CLIs, recipes and entry points (``--cli_only``), with neither ``transformers``
+   nor ``datasets`` loaded (the port's own tokenizer and JSON reader). (a)
+   ``run_toolkits.main`` at bert-base (architecture-only dir, a ``vocab.txt`` of 30,522
+   entries) over the ``quality_trend`` twin's planted data (65,536 passages: 16 blocks of
+   4096, so k=100 takes K5, not the scan): ``train_random`` (bf16, 'fused', fused loss, one
+   epoch with evaluation), ``encode`` (passages, queries), ``retrieve`` (its ranking's
+   top-100 overlap with the trainer's exact ranking >= 0.999), ``nq_eval`` (its top-k
+   accuracies equal the trainer's Recall@k of the same ranking), ``train_bm25`` (native
+   BM25) and ``rerank`` (BERT-base, mr) over the ``train_random`` dump; each stage's files
+   and counts; counters zeroed before each stage and read after. (b) The ``quality_trend``
+   twin (4 layers, 128 wide, planted, lr 1e-3, 2 epochs, serve search: K8, ``--rerank``):
+   its final test MRR@10 at or above ``TREND_MRR10``. (c) ``graft_entry.entry()``'s step
+   once (finite loss) and ``dryrun_multichip(2)`` (two gloo ranks on ``cuda:0``). (d) The
+   ``profile_encoder`` twin at B=256, S=156 (JSON under ``chiprun_out/``).
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -318,6 +332,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1793,7 +1808,7 @@ T5_BASE = dict(vocab_size=32128, d_model=768, d_kv=64, d_ff=3072, num_layers=12,
                is_gated_act=False, tie_word_embeddings=True)
 T5_TIMED_STEPS, T5_SERVE_RECALL, T5_REPS_COS, T5_COS_BATCHES = 4, 0.999, 0.999, 16
 RR_QUERIES, RR_NEGATIVES, RR_LEN, RR_TIMED_STEPS = 8, 7, 160, 4
-RR_EVAL_QUERIES, RR_EVAL_BATCH, RR_CPU_PAIRS, RR_CPU_REL = 64, 64, 256, 1e-3
+RR_EVAL_QUERIES, RR_EVAL_BATCH, RR_CPU_PAIRS, RR_CPU_REL = 64, 64, 64, 1e-3
 RR_TOKENS = {"true": 1176, "false": 6136}
 
 
@@ -5687,6 +5702,233 @@ def phase_dist(args, tmp):
     return {"nccl": a, "gloo": [r0, r1], "launches_by_rank": per_rank, "launches": launches,
             "reference_launches": reference, "seconds": seconds}
 
+CLI_PASSAGES = 65_536  # 16 blocks of FlatIPIndex's 4096 rows: 16 x J=8 slots hold k=100
+CLI_TRAIN, CLI_EVAL = 512, 128
+CLI_VOCAB = 30_522  # bert-base-uncased's vocabulary size
+TREND_MRR10 = 0.002  # the twin's final test MRR@10 (CPU rehearsal 0.0051; random 1e-4)
+HF_PACKAGES = ("transformers", "datasets")
+
+
+def _cli_counters():
+    """The counters phase 30 zeroes before a stage and reads after it; the generic
+    bodies' counters are read as differences (the final checks read them whole)."""
+    from denseretrievaltoolkits_torch.ops import attn, contrastive as con, flash, topk
+
+    counted = {"K1 fused_attention_ln": (attn.fused_attention_ln, "launches"),
+               "K2 fused_mlp_ln": (attn.fused_mlp_ln, "launches"),
+               "K3 contrastive_fwd": (con.contrastive_fwd, "launches"),
+               "K4 contrastive_bwd_dq": (con.contrastive_bwd_dq, "launches"),
+               "K4 contrastive_bwd_dp": (con.contrastive_bwd_dp, "launches"),
+               "K5 block_topj": (topk.block_topj, "launches"),
+               "K8 block_topj_serve": (topk.block_topj_serve, "launches"),
+               "F-fwd flash_fwd": (flash.flash_fwd, "launches")}
+    generic = {"K3 generic": (con.contrastive_fwd, "launches_generic"),
+               "K4 dq generic": (con.contrastive_bwd_dq, "launches_generic"),
+               "K4 dp generic": (con.contrastive_bwd_dp, "launches_generic"),
+               "K5 generic": (topk.block_topj, "launches_generic"),
+               "K8 generic": (topk.block_topj_serve, "launches_generic")}
+    return counted, generic
+
+
+def cli_stage(name, fn, *fn_args, **fn_kw):
+    """Run one stage with the counters zeroed before it; (its result, its counts)."""
+    counted, generic = _cli_counters()
+    for f, attr in counted.values():
+        setattr(f, attr, 0)
+    before = {k: int(getattr(f, attr, 0)) for k, (f, attr) in generic.items()}
+    t = time.perf_counter()
+    out = fn(*fn_args, **fn_kw)
+    torch.cuda.synchronize()
+    counts = {k: int(getattr(f, attr, 0)) for k, (f, attr) in counted.items()}
+    counts.update({k: int(getattr(f, attr, 0)) - before[k] for k, (f, attr) in generic.items()})
+    counts["seconds"] = time.perf_counter() - t
+    log(f"phase 30 {name}: {json.dumps(counts)}")
+    check(not any(counts[k] for k in generic), f"{name}: a generic body ran: {counts}")
+    check(not any(m.split(".")[0] in HF_PACKAGES for m in sys.modules),
+          f"{name}: transformers or datasets got imported")
+    return out, counts
+
+
+def make_cli_model_dir(path):
+    """An architecture-only bert-base dir (random init from the seed) whose vocab.txt holds
+    the planted data's words, padded to 30,522 entries, with a BertTokenizerFast config."""
+    from denseretrievaltoolkits_torch.models import bert
+    from denseretrievaltoolkits_torch.recipes import quality_trend
+
+    os.makedirs(path, exist_ok=True)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + quality_trend._words()
+    vocab += [f"[unused{i}]" for i in range(CLI_VOCAB - len(vocab))]
+    with open(os.path.join(path, "vocab.txt"), "w") as fh:
+        fh.write("\n".join(vocab))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "BertTokenizerFast", "do_lower_case": True}, fh)
+    bert.save_config(bert.BertConfig(vocab_size=CLI_VOCAB), path)
+    return path
+
+
+def phase_cli(args, tmp):
+    """Phase 30: the CLIs through ``run_toolkits``, the ``quality_trend`` twin,
+    ``graft_entry`` and the ``profile_encoder`` twin (module docstring)."""
+    import random
+
+    from denseretrievaltoolkits_torch import graft_entry, run_toolkits
+    from denseretrievaltoolkits_torch.evaluator.convert import retrieval_jsonl_to_nq_json
+    from denseretrievaltoolkits_torch.recipes import profile_encoder, quality_trend
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "cli")
+    out = {}
+    # (a) the pipeline's stages at bert-base
+    t = time.perf_counter()
+    data_dir, corpus_path = quality_trend.make_dataset(work, random.Random(args.seed), CLI_TRAIN,
+                                                       CLI_EVAL, CLI_PASSAGES)
+    model_dir = make_cli_model_dir(os.path.join(work, "bert-base"))
+    out["data_seconds"] = time.perf_counter() - t
+    cache, outdir = os.path.join(work, "cache"), os.path.join(work, "out")
+    common = ["--tokenizer_name", model_dir, "--dtype", "bfloat16", "--attention", "fused",
+              "--dataset", "nq", "--data_dir", data_dir,
+              "--data_cache_dir", os.path.join(work, "data_cache"), "--q_max_len", "16",
+              "--p_max_len", "32",
+              "--corpus_batch_size", "512", "--seed", str(args.seed)]
+    train_argv = common + [
+        "--model_name_or_path", model_dir, "--fused_loss", "--corpus_path", corpus_path,
+        "--train_n_passages", "2", "--train_batch_size", "32", "--eval_batch_size", "64",
+        "--test_batch_size", "64", "--max_epochs", "1", "--eval_per_train", "1",
+        "--save_per_train", "1", "--learning_rate", str(TRAIN_LR), "--optimizer", "adamw",
+        "--topk", "5,10,100", "--retrieve_num", "100", "--log_every", "0",
+        "--output_dir", outdir, "--cache_train_dir", cache]
+    _, out["train_random"] = cli_stage("train_random", run_toolkits.main,
+                                       ["train_random"] + train_argv)
+    with open(os.path.join(cache, "-1.0_metrics")) as fh:
+        trained_metrics = json.load(fh)
+    check(trained_metrics["query_num"] == CLI_EVAL and os.path.exists(
+        os.path.join(cache, "1.0_metrics")), "train_random: the dev / test metric files")
+    ranked, n_rows = read_dump(argparse.Namespace(retrieve_dir=os.path.join(cache, "retrieve")),
+                               -1)
+    check(len(ranked) == CLI_EVAL and n_rows == CLI_EVAL * 100, "train_random: test dump rows")
+    trained = os.path.join(cache, "result1")
+    q_pkl, p_pkl = os.path.join(work, "q.pkl"), os.path.join(work, "p.pkl")
+    enc = common + ["--model_name_or_path", trained]
+    _, out["encode_passages"] = cli_stage(
+        "encode passages", run_toolkits.main,
+        ["encode"] + enc + ["--encode_in_path", corpus_path, "--encodedp_save_path", p_pkl])
+    _, out["encode_queries"] = cli_stage(
+        "encode queries", run_toolkits.main,
+        ["encode"] + enc + ["--encode_in_path", os.path.join(data_dir, "test.jsonl"),
+                            "--encode_is_qry", "--encodedq_save_path", q_pkl,
+                            "--corpus_batch_size", "64"])  # the trainer's test batches
+    from denseretrievaltoolkits_torch.evaluator.retrieval import pickle_load
+
+    p_reps, p_ids = pickle_load(p_pkl)
+    q_reps, q_ids = pickle_load(q_pkl)
+    check(p_reps.shape == (CLI_PASSAGES, 768) and len(p_ids) == CLI_PASSAGES
+          and q_reps.shape == (CLI_EVAL, 768) and np.isfinite(p_reps).all(),
+          "encode: reps of the passages and queries")
+    ranking = os.path.join(work, "ranking.tsv")
+    _, out["retrieve"] = cli_stage(
+        "retrieve", run_toolkits.main,
+        ["retrieve", "--query_reps", q_pkl, "--passage_reps", p_pkl, "--depth", "100",
+         "--batch_size", str(CLI_EVAL), "--save_ranking_to", ranking, "--save_text"])
+    cli = {}
+    with open(ranking) as fh:
+        for line in fh:
+            qid, did, _ = line.split("\t")
+            cli.setdefault(qid, []).append(did)
+    vs = overlap([ranked[q] for q in sorted(ranked)], [cli.get(q, []) for q in sorted(ranked)])
+    out["retrieve_overlap"] = vs
+    log(f"retrieve: {sum(map(len, cli.values()))} ranking lines, top-100 overlap with the "
+        f"trainer's exact ranking {vs:.5f} (>= 0.999)")
+    check(sum(map(len, cli.values())) == CLI_EVAL * 100 and vs >= 0.999,
+          "retrieve disagrees with the trainer's exact ranking")
+    nq_json = os.path.join(work, "nq.json")
+    retrieval_jsonl_to_nq_json(os.path.join(cache, "retrieve", "-1.0.json"), nq_json)
+    acc, out["nq_eval"] = cli_stage("nq_eval", run_toolkits.main,
+                                    ["nq_eval", "--retrieval", nq_json, "--topk", "5", "10",
+                                     "100"])
+    out["nq_eval_accuracy"] = acc
+    gaps = {k: abs(acc[k] - trained_metrics[f"Recall@{k}"]) for k in (5, 10, 100)}
+    check(max(gaps.values()) == 0, f"nq_eval vs the trainer's Recall@k: {gaps}")
+    bm25_out = os.path.join(work, "bm25")
+    bm25_argv = common + [
+        "--model_name_or_path", model_dir, "--fused_loss", "--train_n_passages", "4",
+        "--train_batch_size", "32", "--max_epochs", "1", "--save_per_train", "1",
+        "--learning_rate", str(TRAIN_LR), "--log_every", "1",
+        "--output_dir", os.path.join(bm25_out, "out"),
+        "--cache_train_dir", os.path.join(bm25_out, "cache")]
+    _, out["train_bm25"] = cli_stage("train_bm25", run_toolkits.main, ["train_bm25"] + bm25_argv)
+    with open(os.path.join(bm25_out, "out", "train_log.jsonl")) as fh:
+        bm25_losses = [r["loss"] for r in map(json.loads, fh) if "loss" in r]
+    check(len(bm25_losses) == CLI_TRAIN // 32 and np.isfinite(bm25_losses).all(),
+          "train_bm25: a finite loss a step")
+    rr_cache = os.path.join(work, "rr_cache")
+    os.makedirs(os.path.join(rr_cache, "retrieve"))
+    shutil.copy(os.path.join(cache, "retrieve", "-1.0.json"),
+                os.path.join(rr_cache, "retrieve", "-1.0.json"))
+    rr_argv = common + [
+        "--model_name_or_path", model_dir, "--train_n_passages", "4", "--train_batch_size", "32",
+        "--eval_batch_size", "256", "--max_epochs", "1", "--save_per_train", "1",
+        "--learning_rate", str(TRAIN_LR), "--loss_fn", "mr", "--log_every", "0",
+        "--output_dir", os.path.join(work, "rr_out"), "--cache_train_dir", rr_cache]
+    rr_metrics, out["rerank"] = cli_stage("rerank", run_toolkits.main, ["rerank"] + rr_argv)
+    with open(os.path.join(rr_cache, "3.0_RR_metrics")) as fh:
+        check(json.load(fh)["query_num"] == CLI_EVAL, "rerank: the metrics file's query_num")
+    out["rerank_metrics"] = rr_metrics
+    a = out
+    check(all(a["train_random"][k] > 0 for k in ("K1 fused_attention_ln", "K2 fused_mlp_ln",
+                                                  "K3 contrastive_fwd", "K4 contrastive_bwd_dq",
+                                                  "K4 contrastive_bwd_dp", "K5 block_topj")),
+          "train_random: K1-K5 launched")
+    check(all(a[s]["K1 fused_attention_ln"] > 0 and a[s]["K2 fused_mlp_ln"] > 0
+              for s in ("encode_passages", "encode_queries", "train_bm25")),
+          "encode / train_bm25: K1 / K2 launched")
+    check(a["retrieve"]["K5 block_topj"] > 0, "retrieve: K5 launched")
+    check(a["train_bm25"]["K3 contrastive_fwd"] > 0, "train_bm25: K3 launched")
+    out["a_seconds"] = time.perf_counter() - t_phase
+
+    # (b) the quality_trend twin on its own 4-layer / 128-wide tower
+    t = time.perf_counter()
+    trend, out["quality_trend"] = cli_stage(
+        "quality_trend", quality_trend.main,
+        ["--out", os.path.join(work, "trend"), "--epochs", "2", "--lr", "1e-3",
+         "--search_mode", "serve", "--rerank", "--device", "cuda", "--seed", str(args.seed)])
+    out["trend"] = trend
+    mrr = trend["trend"]["-1"]["MRR@10"]
+    log(f"quality_trend: test MRR@10 {mrr:.4f} (>= {TREND_MRR10}), Recall@100 "
+        f"{trend['trend']['-1']['Recall@100']:.4f}; + reranker MRR@10 "
+        f"{trend['rerank']['MRR@10']:.4f}")
+    check(mrr >= TREND_MRR10, "quality_trend: the test MRR@10 under its bound")
+    check(out["quality_trend"]["K8 block_topj_serve"] > 0, "quality_trend: K8 launched")
+    out["b_seconds"] = time.perf_counter() - t
+
+    # (c) graft_entry: the flagship step once, then the dry run over two gloo ranks
+    t = time.perf_counter()
+    fn, (model, query, passage) = graft_entry.entry()
+    (loss, scores), out["entry"] = cli_stage("graft_entry.entry", fn, model, query, passage)
+    out["entry_loss"] = float(loss.detach())
+    check(math.isfinite(out["entry_loss"]) and tuple(scores.shape) == (8, 16),
+          "graft_entry.entry: a finite loss and 8 x 16 scores")
+    check(out["entry"]["K1 fused_attention_ln"] > 0, "graft_entry.entry: K1 / K2 launched")
+    del model, loss, scores
+    torch.cuda.empty_cache()
+    dry = graft_entry.dryrun_multichip(2, "tiny")
+    out["dryrun_loss"] = dry["loss"]
+    check(math.isfinite(dry["loss"]), "dryrun_multichip(2): a finite loss")
+    out["c_seconds"] = time.perf_counter() - t
+
+    # (d) the profile_encoder twin at its full shapes
+    t = time.perf_counter()
+    prof_out = os.path.join(ROOT, "chiprun_out", "profile_encoder.json")
+    out["profile_encoder"], out["profile_counts"] = cli_stage(
+        "profile_encoder", profile_encoder.main, ["--out", prof_out])
+    check(out["profile_counts"]["F-fwd flash_fwd"] > 0 and
+          out["profile_counts"]["K1 fused_attention_ln"] > 0,
+          "profile_encoder: F-fwd and K1 / K2 launched")
+    out["d_seconds"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 30: {out['seconds']:.1f} s ((a) {out['a_seconds']:.1f}, (b) "
+        f"{out['b_seconds']:.1f}, (c) {out['c_seconds']:.1f}, (d) {out['d_seconds']:.1f})")
+    return out
+
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
@@ -5726,6 +5968,9 @@ def main(argv=None):
     parser.add_argument("--dist_only", action="store_true",
                         help="run only the data-parallel and sharded-index phase (29) over its "
                              "worker processes; prints no kernels line")
+    parser.add_argument("--cli_only", action="store_true",
+                        help="run only the CLI, recipe and entry-point phase (30); prints no "
+                             "kernels line")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5803,6 +6048,14 @@ def main(argv=None):
                 json.dump(results, fh, indent=1)
         log(smi)
         return 0
+    if args.cli_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {"card": smi, "seed": args.seed, "cli": phase_cli(args, tmp)}
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(results, fh, indent=1)
+        log(smi)
+        return 0
     if args.rerank_only:
         with tempfile.TemporaryDirectory() as tmp:
             results = {"card": smi, "seed": args.seed, "rerank": phase_rerank(args, tmp)}
@@ -5868,6 +6121,7 @@ def main(argv=None):
         mining = timed("phase_mining", phase_mining, args, tmp)
         rerank = timed("phase_rerank", phase_rerank, args, tmp)
         dist = timed("phase_dist", phase_dist, args, tmp)
+        cli = timed("phase_cli", phase_cli, args, tmp)
     scale = timed("phase_scale", phase_scale, gen, flat, topk, SCALE_QUERIES)
     scale4 = timed("phase_scale4", phase_scale4, gen, flat, SCALE4_QUERIES)
     ivf_scale = timed("phase_ivf_scale", phase_ivf_scale, args.seed + 11, flat, ivf_bulk)
@@ -6182,6 +6436,19 @@ def main(argv=None):
         if row["name"].startswith("contrastive_"):
             row["optimizer_launches"] = {n: o["launches"][row["name"]]
                                          for n, o in optimizers.items()}
+    # phase 30's launches, stage by stage (the CLIs, the quality_trend twin, graft_entry's
+    # step and the profile_encoder twin, whose 'flash' encodes run F-fwd)
+    cli_keys = {"fused_attention_ln": "K1 fused_attention_ln", "fused_mlp_ln": "K2 fused_mlp_ln",
+                "block_topj": "K5 block_topj", "contrastive_fwd": "K3 contrastive_fwd",
+                "contrastive_bwd_dq": "K4 contrastive_bwd_dq",
+                "contrastive_bwd_dp": "K4 contrastive_bwd_dp",
+                "block_topj_serve": "K8 block_topj_serve", "flash_fwd (F-fwd)": "F-fwd flash_fwd"}
+    cli_stages = ("train_random", "encode_passages", "encode_queries", "retrieve", "train_bm25",
+                  "rerank", "quality_trend", "entry", "profile_counts")
+    for row in kernels:
+        key = cli_keys.get(row["name"])
+        if key is not None:
+            row["cli_launches"] = {st: cli[st][key] for st in cli_stages if cli[st][key]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -6189,7 +6456,7 @@ def main(argv=None):
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
                        "grad_cache": grad_cache, "remat": remat, "lora": lora,
                        "mining": mining, "rerank": rerank, "optimizers": optimizers,
-                       "dist": dist, "phase_seconds": seconds,
+                       "dist": dist, "cli": cli, "phase_seconds": seconds,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
                        "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,

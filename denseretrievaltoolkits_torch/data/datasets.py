@@ -7,8 +7,10 @@ then run per-example tokenizing preprocessors through parallel
 fixed-shape numpy batches produced by the collators.
 
 The port's own copy of ``denseretrievaltoolkits_tpu/data/datasets.py``, with
-the same names, registries and behaviour. ``datasets`` is imported inside the
-functions that load, so the package imports where it is not installed.
+the same names, registries and behaviour. Local JSON / JSON-Lines files (the
+``json`` loader) are read by the port's own reader (``data/json_reader.py``),
+which gives ``datasets``' rows; only a hub name goes through ``datasets``,
+imported there.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import glob
 import os
 from typing import Optional
 
+from .json_reader import is_local, load_json
 from .preprocess import (
     CorpusPreProcessor,
     DocPreProcessor,
@@ -33,6 +36,20 @@ RELEVANCY_DATASET = ["msmarco"]
 EXACTMATCH_DATASET = ["nq", "wq", "tq", "squad"]
 
 
+def load_dataset(name: str, data_files=None, cache_dir: Optional[str] = None):
+    """``{split: rows}`` of a dataset: local ``json`` files through the port's
+    reader, anything else through ``datasets.load_dataset`` (which must then be
+    installed)."""
+    if name == "json" and is_local(data_files):
+        return load_json(data_files)
+    try:
+        import datasets
+    except ImportError as exc:
+        raise ImportError(f"dataset {name!r} (data_files={data_files!r}) is no set of local "
+                          "JSON files: it needs `datasets`, which is not installed") from exc
+    return datasets.load_dataset(name, data_files=data_files, cache_dir=cache_dir)
+
+
 def _num_proc(requested: int, n_rows: int) -> Optional[int]:
     """datasets.map errors when num_proc > shards; clamp for small datasets."""
     n = min(requested, max(1, n_rows // 64))
@@ -43,8 +60,6 @@ class AbstractDataset:
     """Split loading + preprocessor mapping (abstract_dataset.py:15-140)."""
 
     def __init__(self, data_args, tokenizer, cache_dir: str = None):
-        from datasets import load_dataset
-
         self.cache_dir = cache_dir
         self.dataset = load_dataset(
             data_args.dataset_name,
@@ -107,8 +122,6 @@ class AbstractDataset:
         return self.train_dataset
 
     def load_corpus_data(self, shard_num: int = 1, shard_idx: int = 0):
-        from datasets import load_dataset
-
         self.corpus = load_dataset(
             self.data_args.corpus_name,
             data_files=self.data_args.corpus_path,
@@ -173,8 +186,6 @@ class CorpusDataset:
         self.proc_num = data_args.dataset_proc_num
 
     def load_dataset(self, shard_num: int = 1, shard_idx: int = 0):
-        from datasets import load_dataset
-
         corpus = load_dataset(
             self.data_args.corpus_name,
             data_files=self.data_args.corpus_path,
@@ -206,8 +217,6 @@ class RRDataset:
         self.cache_dir = cache_dir
 
     def load_dataset(self):
-        from datasets import load_dataset
-
         files = sorted(glob.glob(os.path.join(self.retrieve_dir, "*.json")))
         if not files:
             raise FileNotFoundError(f"no retrieval dumps in {self.retrieve_dir}")

@@ -179,14 +179,14 @@ def evaluate_retrieval(retrieval_file: str, topk: Sequence[int], regex: bool = F
     return result
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--retrieval", type=str, metavar="path",
                         help="Path to retrieval output file.")
     parser.add_argument("--topk", type=int, nargs="+", help="topk to evaluate")
     parser.add_argument("--regex", action="store_true", default=False, help="regex match")
-    args = parser.parse_args()
-    evaluate_retrieval(args.retrieval, args.topk, args.regex)
+    args = parser.parse_args(argv)
+    return evaluate_retrieval(args.retrieval, args.topk, args.regex)
 
 
 if __name__ == "__main__":

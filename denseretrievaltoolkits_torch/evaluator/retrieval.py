@@ -112,7 +112,7 @@ def run(query_reps: str, passage_reps: str = "", save_ranking_to: str = "",
     return all_scores, psg_indices
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
         datefmt="%m/%d/%Y %H:%M:%S",
@@ -151,7 +151,7 @@ def main(argv=None):
         parser.error("give exactly one of --passage_reps / --index_path")
     run(args.query_reps, args.passage_reps, args.save_ranking_to, args.depth,
         args.batch_size, args.save_text, args.quiet, args.index_dtype,
-        args.search_mode, index_path=args.index_path)
+        args.search_mode, index_path=args.index_path, device=device)
 
 
 if __name__ == "__main__":

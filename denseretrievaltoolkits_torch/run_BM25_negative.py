@@ -14,8 +14,8 @@ engine, built at first use), then train on the mined rows through the
 It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU. As
 ``run_random_sampling.py`` here, it trains on the one device, or under
 ``torchrun`` over a data-parallel mesh of the processes, refuses
-``--tp_size`` > 1 before anything loads, and loads ``transformers`` and
-``datasets`` inside :func:`main` only.
+``--tp_size`` > 1 before anything loads, and reads a BERT tokenizer directory and
+local JSON files without ``transformers`` or ``datasets``.
 """
 
 from __future__ import annotations

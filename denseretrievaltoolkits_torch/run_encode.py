@@ -8,9 +8,10 @@ the same pickle output, consumable by ``evaluator/retrieval.py``:
         --attention fused --encode_in_path corpus.jsonl --p_max_len 156 \\
         --encodedp_save_path corpus.pkl --corpus_batch_size 64
 
-``datasets`` and the tokenizer (``transformers``) are imported inside
-:func:`main`; :func:`encode_batches`, the batch loop, needs neither and also
-drives pre-tokenised ids.
+:func:`main` reads a BERT tokenizer directory and local JSON-Lines inputs with
+the port's own tokenizer and reader, so it runs without ``transformers`` and
+``datasets`` (a T5 tokenizer or a hub dataset needs them);
+:func:`encode_batches`, the batch loop, also drives pre-tokenised ids.
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ def encode_batches(model, batches: Iterable[Tuple[List, dict]], side: str,
     return torch.cat(reps).cpu().numpy(), lookup
 
 
-def main(argv=None):
+def main(argv=None, device=None):
+    """Encode ``--encode_in_path`` on ``device`` (the card unless the caller names
+    another) into the pickle at ``--encodedq_save_path`` / ``--encodedp_save_path``."""
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
         datefmt="%m/%d/%Y %H:%M:%S",
@@ -63,17 +66,14 @@ def main(argv=None):
     if not save_path:
         raise SystemExit("--encodedq_save_path / --encodedp_save_path is required")
 
-    from datasets import load_dataset
-    from transformers import AutoTokenizer
-
     from .data.collators import EncodeCollator
+    from .data.datasets import load_dataset
     from .data.loaders import DataLoader
     from .models.biencoder import DRModelForInference
+    from .utils.tokenization import load_tokenizer
 
-    tokenizer = AutoTokenizer.from_pretrained(
-        model_args.tokenizer_name or model_args.model_name_or_path,
-        cache_dir=model_args.cache_dir)
-    model = DRModelForInference.build(model_args, seed=training_args.seed)  # on the card
+    tokenizer = load_tokenizer(model_args)
+    model = DRModelForInference.build(model_args, seed=training_args.seed, device=device)
 
     ds = load_dataset("json", data_files=list(data_args.encode_in_path),
                       cache_dir=data_args.data_cache_dir)["train"].shard(

@@ -17,8 +17,9 @@ over a data-parallel mesh of all the processes (``parallel/mesh.py``; the
 process group starts as nccl for CUDA and gloo for the CPU, unless the caller
 started one before): each loads its shard of the train set and its window of
 the corpus, as the root script's mesh does.
-The tokenizer (``transformers``) and the datasets (``datasets``) are loaded
-inside :func:`main`, so they are needed only where it runs. With
+A BERT tokenizer directory and local JSON files are read by the port's own
+tokenizer and reader, without ``transformers`` or ``datasets``; a T5 tokenizer
+or a hub dataset needs them (``utils/tokenization.py``, ``data/datasets.py``). With
 ``--mine_per_train N`` a ``DenseMiner`` refreshes the train set's negatives
 from the evaluation index every N epochs, as the root script attaches it.
 Tensor parallelism (``--tp_size`` > 1) is a later slice: :func:`main` refuses

@@ -15,9 +15,9 @@ save cadence (none with ``--eval_only``), then ``evaluate(eval_dl, 3)``:
 It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
 Under ``torchrun`` each process trains on ``cuda:LOCAL_RANK`` (or ``device``)
 over a data-parallel mesh of all the processes (its shard of the train pairs;
-every rank scores the evaluation pairs, rank 0 writes them). The
-tokenizer (``transformers``) and the datasets (``datasets``) are loaded inside
-:func:`main`, so they are needed only where it runs. Tensor parallelism
+every rank scores the evaluation pairs, rank 0 writes them). A BERT tokenizer
+directory and local JSON files need neither ``transformers`` nor ``datasets``
+(``utils/tokenization.py``, ``data/datasets.py``). Tensor parallelism
 (``--tp_size`` > 1) is a later slice: :func:`main` refuses it before anything
 loads.
 """

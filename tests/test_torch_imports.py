@@ -8,13 +8,16 @@ package, nor the ``regex`` package, which the card's machine lacks too
 its own copies of the modules the two packages share (``config``, ``data.collators``, ``data.loaders``, ``evaluator.metrics``,
 ``index.modes``, ``evaluator.nq_eval``, and ``data.datasets``, ``data.preprocess``,
 ``data.samplers``, ``utils``, ``evaluator.bm25``, ``mine.miner``, ``evaluator.trec``,
-``evaluator.convert``);
+``evaluator.convert``, ``data.simple_preprocess``, and the recipes ``quality_trend``,
+``quality_multiseed`` and ``profile_encoder``);
 ``tests/test_torch_shared.py``, ``tests/test_torch_eval.py``,
 ``tests/test_torch_data.py`` and ``tests/test_torch_mining.py`` hold each copy
 to its original. ``transformers`` and ``safetensors`` never load on the HF path
 (``models/hf_import.py``, ``tests/test_torch_hf.py``). ``transformers``
 and ``datasets``, which the card's machine lacks too, are imported only inside
-functions, never when a module is imported."""
+functions, never when a module is imported, and only for a T5 tokenizer or a hub
+dataset: a BERT tokenizer directory and local JSON files are read by the port's own
+``utils/tokenization.py`` and ``data/json_reader.py``."""
 
 import ast
 import pathlib
@@ -113,3 +116,26 @@ def test_parallel_modules_present():
         "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_index.py",
         "parallel/sharded_ivf.py", "parallel/sharded_pq.py", "utils/distributed.py")} <= names
     assert "tests/torch_dist_worker.py" in names
+
+
+def test_cli_and_recipe_modules_present():
+    """The CLI slice's modules, each under the AST checks above (the HF rule covers the
+    recipes too): the tokenizer and its character tables, the JSON reader,
+    ``simple_preprocess``, ``run_toolkits``, ``graft_entry`` and the three recipes. None
+    imports ``transformers`` or ``datasets`` but the tokenizer loader and the dataset
+    loader, for T5 tokenizers and hub names, inside functions."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    new = {"utils/tokenization.py", "utils/bert_chars.py", "data/json_reader.py",
+           "data/simple_preprocess.py", "run_toolkits.py", "graft_entry.py",
+           "recipes/__init__.py", "recipes/quality_trend.py", "recipes/quality_multiseed.py",
+           "recipes/profile_encoder.py"}
+    assert new <= names
+    hf = {"transformers", "datasets"}
+    for path in sorted(new - {"utils/tokenization.py"}):
+        assert not {n.split(".")[0] for n in _imported(PORT / path)} & hf, path
+    assert {n.split(".")[0] for n in _imported(PORT / "utils/tokenization.py")} & hf == \
+        {"transformers"}
+    assert {n.split(".")[0] for n in _imported(PORT / "data/datasets.py")} & hf == {"datasets"}
+    for path in ("run_encode.py", "run_random_sampling.py", "run_BM25_negative.py",
+                 "run_reranker.py"):
+        assert not {n.split(".")[0] for n in _imported(PORT / path)} & hf, path
