@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash, LoRA, mining, T5, reranking) once on a card; check them.
+"""Drive the torch port's paths (serving, training, evaluation, IVF, PQ, flash, LoRA, mining, T5, reranking, parallelism, CLIs, recipes) once on a card; check them.
 
     python3 chip_smoke.py [--seed 0] [--passages 8192] [--out results.json] [--flash_only]
                           [--blocks_only] [--eval_only] [--ivf_only] [--train_only]
-                          [--rerank_only] [--dist_only] [--cli_only]
+                          [--rerank_only] [--dist_only] [--cli_only] [--recipes_only]
 
 Phases, each of which fails the run on error:
 
@@ -235,13 +235,14 @@ Phases, each of which fails the run on error:
    64 queries x 8 passages (chunks of 16 and 128) the step-1 loss and gradient
    against the full-batch step on the same weights (phase 5's bounds, and a
    gradient cosine >= 0.9999 and norm ratio within 1e-3 of 1); at 4096 x 8
-   (chunks of 256 and 1024) one timed step after two at 512 x 8 with the same
-   chunks: K3 and K4 launch once at Q=4096, P=32768 (K3's wgmma body, no
+   (chunks of 256 and 1024; a bert-base GC_SCALE_LAYERS = 4 deep) one timed step after two
+   at 512 x 8 with the same chunks: K3 and K4 launch once at Q=4096, P=32768 (K3's wgmma body, no
    FFMA-body launch) and K1 / K2 once a layer for each chunk in passes 1 and 3,
    counted from 0 just before the step; every loss finite, steps/s, real
    tokens/s, each pass's device ms (CUDA events), and the peak, held to 1.25x
    the same chunks' peak at 512 x 8.
-24. ``remat`` at the training path's shape (32 x 8, S=128, bf16): '', 'full' and
+24. ``remat`` at the training path's shape (32 x 8, S=128, bf16, REMAT_LAYERS = 4 deep):
+   '', 'full' and
    'attn' on ``attention='fused'`` and ``'xla'``, through ``DRModel.build`` and
    ``Trainer``; the step-1 loss (within 1e-6 relative) and gradient (cosine
    >= 0.99999) against the same attention without remat, peak memory and
@@ -293,16 +294,21 @@ Phases, each of which fails the run on error:
 28. Optimizers (``--train_only``): bert-base bf16 'fused' at 32 x 8, 1 warm-up and 3
    timed steps each of adagrad, rmsprop and adafactor; step 1's update of sampled
    tensors held to optax's formula in float64 on the host; K3 / K4 4 launches each.
-29. Data parallelism and sharding (``--dist_only``): worker processes of this script.
-   (a) NCCL, one rank: a mesh step bit-equal to the step without one. (b)-(d) gloo, two
-   ranks sharing ``cuda:0``: the data-parallel step, ``negatives_x_device=False`` and
-   grad-cache under the mesh against one process; the sharded flat index over
-   1,000,000 x 768 rows; ``Trainer.evaluate`` on the mesh into flat, IVF16,SQ8, PQ96,
-   PQ192x4, IVF16,PQ96x4 and PCAR384,SQ8 against one process. Launches by rank.
+29. Data parallelism, sharding and tensor parallelism (``--dist_only``): worker processes
+   of this script, bert-base DIST_LAYERS = 4 deep. (a) NCCL, one rank: a mesh step
+   bit-equal to the step without one. (b)-(d) gloo, two ranks sharing ``cuda:0``: the
+   data-parallel step, ``negatives_x_device=False`` and grad-cache under the mesh against
+   one process; the sharded flat index over 1,000,000 x 768 rows; ``Trainer.evaluate`` on
+   the mesh into flat, IVF16,SQ8, PQ96, PQ192x4, IVF16,PQ96x4 and PCAR384,SQ8 against one
+   process. (e) tp = 2 on two more gloo ranks (``make_mesh(1, 2)``), bert-base widths
+   TP_LAYERS = 2 deep in fp32: one step on 'xla', 'fused' (K1 / K2 on the gathered
+   weights) and 'flash' (S=512) each against one process (phase 5's bounds), one adafactor
+   step's update against one process's, ``Trainer.save`` reloaded by ``DRModel.build``;
+   the two ranks' gradients equal; exact launches. Launches by rank.
 30. The CLIs, recipes and entry points (``--cli_only``), with neither ``transformers``
    nor ``datasets`` loaded (the port's own tokenizer and JSON reader). (a)
-   ``run_toolkits.main`` at bert-base (architecture-only dir, a ``vocab.txt`` of 30,522
-   entries) over the ``quality_trend`` twin's planted data (65,536 passages: 16 blocks of
+   ``run_toolkits.main`` at bert-base widths CLI_LAYERS = 4 deep (architecture-only dir, a
+   ``vocab.txt`` of 30,522 entries) over the ``quality_trend`` twin's planted data (65,536 passages: 16 blocks of
    4096, so k=100 takes K5, not the scan): ``train_random`` (bf16, 'fused', fused loss, one
    epoch with evaluation), ``encode`` (passages, queries), ``retrieve`` (its ranking's
    top-100 overlap with the trainer's exact ranking >= 0.999), ``nq_eval`` (its top-k
@@ -311,8 +317,16 @@ Phases, each of which fails the run on error:
    and counts; counters zeroed before each stage and read after. (b) The ``quality_trend``
    twin (4 layers, 128 wide, planted, lr 1e-3, 2 epochs, serve search: K8, ``--rerank``):
    its final test MRR@10 at or above ``TREND_MRR10``. (c) ``graft_entry.entry()``'s step
-   once (finite loss) and ``dryrun_multichip(2)`` (two gloo ranks on ``cuda:0``). (d) The
-   ``profile_encoder`` twin at B=256, S=156 (JSON under ``chiprun_out/``).
+   once (finite loss) and ``dryrun_multichip(2)`` (two gloo ranks on ``cuda:0`` at tp = 2).
+   (d) The ``profile_encoder`` twin at B=256, S=156 (JSON under ``chiprun_out/``).
+31. The twins of the six ``bench.py`` recipes (``--recipes_only``), through their ``main``
+   at cut sizes (RECIPE_ENV): latency_probe (262,144 rows, IVF64), bench_pcar_sq4 (1M),
+   bench_pcar_38m (2M in four 500,000-row slabs), pq_capacity (2M, IVF64), ivfpq_sweep
+   (1M, IVF256, the OPQ rotation shared through the twins' cache) and varlen_probe
+   (16,384 passages on 'fused', one trial). Counters zeroed before and read after: K1,
+   K2, K7, K8, K9, K11, K12 sq4, K14, K15 and K17 launched; each held to its plain version
+   at its first call; the slab-merged reference against one pass; recall bounds; the
+   bodies each search ran, recorded, and no generic-body launch.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -1499,24 +1513,29 @@ GC_AGREE_QUERIES, GC_AGREE_CHUNKS = 64, (16, 128)
 GC_AGREE_COS, GC_AGREE_NORM = 0.9999, 1e-3
 GC_SCALE_QUERIES, GC_PEAK_QUERIES, GC_CHUNKS = 4096, 512, (256, 1024)
 GC_PEAK_RATIO = 1.25
+# the 4096 x 8 and 512 x 8 steps run a bert-base of this depth (widths unchanged): pass 3,
+# 96% of the step, scales with the layers; K3 / K4 still run at Q=4096, P=32768
+GC_SCALE_LAYERS = 4
 # remat (phase B): the training path's shape; recomputation repeats the forward, so the
 # step-1 loss and gradients equal those without remat (expected bit-equal)
 REMAT_CASES = (("fused", ""), ("fused", "full"), ("fused", "attn"), ("xla", ""),
                ("xla", "full"), ("xla", "attn"))
 REMAT_LOSS_REL, REMAT_GRAD_COS, REMAT_TIMED_STEPS = 1e-6, 0.99999, 4
+REMAT_LAYERS = 4  # bert-base widths at this depth
 REMAT_FUSED_ATTN_PEAK = 0.01  # 'attn' on 'fused' adds nothing: its peak within 1% of ''
 
 
-def train_model_args(tmp, label, **kw):
-    """A bert-base architecture-only dir (seeded random init at TRAIN_LAYERS) and its
-    ModelArguments: bf16, tied, CLS pooling, fused loss, ``kw`` on top."""
+def train_model_args(tmp, label, layers=None, **kw):
+    """A bert-base architecture-only dir (seeded random init at ``layers``, TRAIN_LAYERS
+    by default) and its ModelArguments: bf16, tied, CLS pooling, fused loss, ``kw`` on
+    top."""
     from denseretrievaltoolkits_torch.config import ModelArguments
     from denseretrievaltoolkits_torch.models.bert import BertConfig, save_config
 
     arch = os.path.join(tmp, f"bert-base-{label}")
-    save_config(BertConfig(num_hidden_layers=TRAIN_LAYERS), arch)
-    return ModelArguments(model_name_or_path=arch, dtype="bfloat16", fused_loss=True,
-                          pooling="first", **{"attention": "fused", **kw})
+    save_config(BertConfig(num_hidden_layers=layers or TRAIN_LAYERS), arch)
+    return ModelArguments(model_name_or_path=arch, fused_loss=True, pooling="first",
+                          **{"attention": "fused", "dtype": "bfloat16", **kw})
 
 
 def train_batch(rng, n_queries, n_passages=8, q_len=32, p_len=128):
@@ -1591,13 +1610,14 @@ def phase_grad_cache(args, tmp):
     from denseretrievaltoolkits_torch.train import grad_cache as gc
 
     margs = train_model_args(tmp, "gc")
+    scale_margs = train_model_args(tmp, "gc-scale", layers=GC_SCALE_LAYERS)
     rng = np.random.default_rng(args.seed + 23)
 
-    def trainer(label, chunks=None):
+    def trainer(label, chunks=None, model_args=margs):
         kw = {} if chunks is None else dict(grad_cache=True, gc_q_chunk_size=chunks[0],
                                            gc_p_chunk_size=chunks[1])
-        return step_trainer(tmp, label, DRModel.build(margs, device="cuda", seed=args.seed),
-                            **kw)
+        return step_trainer(tmp, label, DRModel.build(model_args, device="cuda",
+                                                      seed=args.seed), **kw)
 
     counted = (attn.fused_attention_ln, attn.fused_mlp_ln, con.contrastive_fwd,
                con.contrastive_bwd_dq, con.contrastive_bwd_dp)
@@ -1625,7 +1645,7 @@ def phase_grad_cache(args, tmp):
           f"chunking's bounds ({GC_AGREE_COS:g}, within {GC_AGREE_NORM:g} of 1)")
     torch.cuda.empty_cache()
 
-    gc_trainer = trainer("gc-scale", GC_CHUNKS)
+    gc_trainer = trainer("gc-scale", GC_CHUNKS, scale_margs)
 
     def peak_step(batch):
         """(loss, max_memory_allocated MiB) of one step from a reset peak"""
@@ -1642,12 +1662,12 @@ def phase_grad_cache(args, tmp):
     big = train_batch(rng, GC_SCALE_QUERIES)
     Q, P = big[0]["input_ids"].shape[0], big[1]["input_ids"].shape[0]
     tokens = int(big[0]["attention_mask"].sum()) + int(big[1]["attention_mask"].sum())
-    log(f"grad-cache training: bert-base L={TRAIN_LAYERS} bf16 fused attention + fused loss, "
+    log(f"grad-cache training: bert-base L={GC_SCALE_LAYERS} bf16 fused attention + fused loss, "
         f"tied; {Q} queries x 8 passages (P={P}), chunks of {GC_CHUNKS[0]} queries and "
         f"{GC_CHUNKS[1]} passages; {tokens} real tokens a step")
     # K1 / K2 once a layer for each chunk in passes 1 and 3 (pass 3's backward recomputes in
     # plain PyTorch), K3 / K4 once in pass 2
-    want = {fn.__name__: 2 * TRAIN_LAYERS * (Q // GC_CHUNKS[0] + P // GC_CHUNKS[1])
+    want = {fn.__name__: 2 * GC_SCALE_LAYERS * (Q // GC_CHUNKS[0] + P // GC_CHUNKS[1])
             for fn in counted[:2]}
     want.update({fn.__name__: 1 for fn in loss_kernels})
     generic0 = [fn.launches_generic for fn in loss_kernels]
@@ -1711,11 +1731,12 @@ def phase_remat(args, tmp):
     results, ref = {}, {}
     for attention, remat in REMAT_CASES:
         label = f"{attention} remat={remat!r}"
-        model = DRModel.build(train_model_args(tmp, "remat", attention=attention, remat=remat),
+        model = DRModel.build(train_model_args(tmp, "remat", layers=REMAT_LAYERS,
+                                               attention=attention, remat=remat),
                               device="cuda", seed=args.seed)
         # a step: K1 / K2 once a layer on each side in the forward ('fused' only), again in
         # the recompute of 'full'; K3 / K4 once
-        blocks = 0 if attention != "fused" else 2 * TRAIN_LAYERS * (2 if remat == "full" else 1)
+        blocks = 0 if attention != "fused" else 2 * REMAT_LAYERS * (2 if remat == "full" else 1)
         want = {fn.__name__: steps * n for fn, n in zip(counted, (blocks,) * 2 + (1,) * 3)}
         for fn in counted:
             fn.launches = 0
@@ -5256,6 +5277,7 @@ def phase_optimizers(args, tmp):
 # parent checks them. (a) NCCL, one rank: a mesh step bit-equal to the step without a
 # mesh. (b)-(d) gloo, two ranks sharing cuda:0 (NCCL refuses a card twice).
 DIST_TIMEOUT_S = 420
+DIST_LAYERS = 4  # the data-parallel worlds' bert-base depth (widths unchanged)
 DIST_ROWS, DIST_QUERIES, DIST_K = 1_000_000, 1024, 100
 DIST_SERVE_RECALL, DIST_I8Q_RECALL = 0.999, 0.97  # phase 7's bounds (PERF.md §2)
 DIST_EVAL_KINDS = (("flat", dict(index_dtype="float32", search_mode="exact")),
@@ -5324,7 +5346,7 @@ def dist_nccl_step(args, tmp, mesh):
     without a mesh, on bert-base 32 x 8 from the same seed."""
     from denseretrievaltoolkits_torch.models.biencoder import DRModel
 
-    margs = train_model_args(tmp, "nccl")
+    margs = train_model_args(tmp, "nccl", layers=DIST_LAYERS)
     batch = train_batch(np.random.default_rng(args.seed + 29), TRAIN_BATCH)
     out = {}
     for label, m in (("mesh", mesh), ("plain", None)):
@@ -5360,7 +5382,8 @@ def dist_gloo(args, tmp, mesh):
     def rows(b, n):
         return {k: v[r * n:(r + 1) * n] for k, v in b.items()}
 
-    model = DRModel.build(train_model_args(tmp, f"gloo{r}"), device="cuda", seed=args.seed)
+    model = DRModel.build(train_model_args(tmp, f"gloo{r}", layers=DIST_LAYERS), device="cuda",
+                          seed=args.seed)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     def fresh():
@@ -5406,7 +5429,121 @@ def dist_gloo(args, tmp, mesh):
     torch.cuda.empty_cache()
     out["search"] = dist_search(args, mesh)
     torch.cuda.empty_cache()
-    out["eval"] = dist_eval(args, tmp, mesh, fresh())  # phase 11's model: the same seed
+    out["eval"] = dist_eval(args, tmp, mesh, fresh())  # phase 11's seed, DIST_LAYERS deep
+    return out
+
+
+TP_LAYERS = 2  # the tensor-parallel case's bert-base depth (widths unchanged)
+# fp32: the model axis changes the order of the row-parallel products' sums, and in bf16 that
+# alone moves a random-weight step's gradient to a cosine of 0.986 (a CPU rehearsal), the
+# bf16-vs-fp32 level (phase 22's); in fp32 the sums' order is all that differs
+TP_DTYPE = "float32"
+# (attention, queries, passage length) of the tensor-parallel steps: 8 passages a query
+TP_STEPS = (("xla", 16, 128), ("fused", 16, 128), ("flash", 8, 512))
+# the fp32 steps and adafactor's step-1 update on the mesh against one process's: loss rel,
+# gradient (update) cosine, norm ratio's distance from 1. Only the order of the model
+# group's fp32 sums differs; the first chip run read loss rel <= 9.3e-6, cosines
+# >= 0.9999999 and norm ratios within 4.3e-5 of 1
+TP_LOSS_REL, TP_GRAD_COS, TP_GRAD_NORM = 1e-4, 0.99999, 1e-3
+
+
+def full_grads(model):
+    """The flat fp32 gradient of every parameter, each cut leaf's parts gathered over the
+    model group: one process's layout."""
+    from denseretrievaltoolkits_torch.parallel.mesh import param_shard
+
+    parts = []
+    for p in model.parameters():
+        if p.grad is not None:
+            spec = param_shard(p)
+            g = p.grad if spec is None else spec.join(p.tp_mesh.model_gather(p.grad))
+            parts.append(g.flatten().float())
+    return torch.cat(parts)
+
+
+def _tp_counters():
+    from denseretrievaltoolkits_torch.ops import attn, contrastive as con, flash
+
+    return {"K1 fused_attention_ln": attn.fused_attention_ln, "K2 fused_mlp_ln": attn.fused_mlp_ln,
+            "K3 contrastive_fwd": con.contrastive_fwd,
+            "K4 contrastive_bwd_dq": con.contrastive_bwd_dq,
+            "K4 contrastive_bwd_dp": con.contrastive_bwd_dp, "F-fwd flash_fwd": flash.flash_fwd,
+            "F-dkv flash_bwd_dkv": flash.flash_bwd_dkv, "F-dq flash_bwd_dq": flash.flash_bwd_dq}
+
+
+def dist_tp(args, tmp, mesh):
+    """(e) Tensor parallelism on two gloo ranks sharing cuda:0, tp = 2 (``make_mesh(1, 2)``):
+    bert-base widths at TP_LAYERS in TP_DTYPE, each BERT layer cut over the model axis. One
+    step each on 'xla', 'fused' (K1 / K2 on the gathered weights) and 'flash' (S=512)
+    against the same step in one process (rank 0 runs it), then one adafactor step against
+    one process's update, then ``Trainer.save`` (the parts gathered) reloaded by
+    ``DRModel.build`` in this process."""
+    from denseretrievaltoolkits_torch.config import ModelArguments
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+    from denseretrievaltoolkits_torch.parallel.mesh import gathered
+
+    r = mesh.tp_rank
+    out = {"rank": r, "mesh": mesh.shape}
+    rng = np.random.default_rng(args.seed + 31)
+    counters = _tp_counters()
+    for attention, nq, p_len in TP_STEPS:
+        batch = train_batch(rng, nq, p_len=p_len)
+        margs = train_model_args(tmp, f"tp-{attention}", layers=TP_LAYERS, attention=attention,
+                                 dtype=TP_DTYPE)
+        if r == 0:
+            ref = step_grads(step_trainer(tmp, f"tp-ref-{attention}", DRModel.build(
+                margs, device="cuda", seed=args.seed)), batch)
+        model = DRModel.build(margs, device="cuda", seed=args.seed)
+        trainer = step_trainer(tmp, f"tp-{attention}-{r}", model, mesh=mesh)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        item = {"loss": loss, "seconds": time.perf_counter() - t0,
+                "launches": {k: fn.launches for k, fn in counters.items()},
+                "queries": nq, "p_len": p_len}
+        grad = full_grads(model)
+        item["grad"] = _digest(grad)
+        if r == 0:
+            item["vs_one_process"] = grad_agreement(loss, grad, *ref)
+            del ref
+        out[attention] = item
+        del trainer, model, grad
+        torch.cuda.empty_cache()
+    # one adafactor step (its factored moments, clip and parameter RMS summed over the
+    # model group) against one process's update from the same weights
+    batch = train_batch(rng, 16)
+    margs = train_model_args(tmp, "tp-adafactor", layers=TP_LAYERS, attention="fused",
+                             dtype=TP_DTYPE)
+
+    def update(mesh_or_none, label):
+        model = DRModel.build(margs, device="cuda", seed=args.seed)
+        trainer = step_trainer(tmp, label, model, mesh=mesh_or_none, optimizer="adafactor")
+        with gathered(model):
+            before = torch.cat([p.detach().flatten().float().clone()
+                                for p in model.parameters()])
+        loss = float(trainer.train_step(batch))
+        with gathered(model):
+            after = torch.cat([p.detach().flatten().float() for p in model.parameters()])
+        return trainer, loss, after - before
+
+    if r == 0:
+        _, ref_loss, ref_update = update(None, "tp-adafactor-ref")
+    trainer, loss, upd = update(mesh, f"tp-adafactor-{r}")
+    out["adafactor"] = {"loss": loss, "update": _digest(upd)}
+    if r == 0:
+        out["adafactor"]["vs_one_process"] = grad_agreement(loss, upd, ref_loss, ref_update)
+    # the deploy format of a tensor-parallel run, read back in this process
+    trainer.save(1)
+    with gathered(trainer.model):  # a collective: every rank
+        full = [v.detach().clone() for v in trainer.model.state_dict().values()]
+    if r == 0:
+        saved = os.path.join(trainer.training_args.cache_train_dir, "result1")
+        back = DRModel.build(ModelArguments(model_name_or_path=saved), device="cuda")
+        out["reloaded_equal"] = all(torch.equal(a, b) for a, b in
+                                    zip(back.state_dict().values(), full))
     return out
 
 
@@ -5553,7 +5690,10 @@ def dist_worker(argv):
     args = argparse.Namespace(seed=seed, passages=8192, queries=512, batch=64, k=DIST_K,
                               shared=work)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
-        out = (dist_nccl_step if case == "nccl" else dist_gloo)(args, tmp, make_mesh())
+        if case == "tp":  # one data rank of two model ranks
+            out = dist_tp(args, tmp, make_mesh(1, 2))
+        else:
+            out = (dist_nccl_step if case == "nccl" else dist_gloo)(args, tmp, make_mesh())
     torch.distributed.destroy_process_group()
     print(json.dumps(out))
     return 0
@@ -5614,8 +5754,10 @@ def phase_dist(args, tmp):
     deadline = time.time() + DIST_TIMEOUT_S
     nccl = spawn_world("nccl", 1, args.seed, work)
     gloo = spawn_world("gloo", 2, args.seed, work)
+    tp_world = spawn_world("tp", 2, args.seed, work)
     (a,) = collect(nccl, deadline)
     b = collect(gloo, deadline)
+    tp = sorted(collect(tp_world, deadline), key=lambda o: o["rank"])
     seconds = time.perf_counter() - t_start
     # (a) NCCL, one rank
     log(f"phase 29 (a) NCCL world 1: mesh step loss {a['mesh']['loss']!r} vs {a['plain']['loss']!r}"
@@ -5687,6 +5829,41 @@ def phase_dist(args, tmp):
             check(overlap >= overlap_min and gap <= gap_max,
                   f"phase 29 (d): {kind}: the mesh evaluation strays from {against}'s in one "
                   f"process")
+    # (e) tensor parallelism
+    t0, t1 = tp
+    check(t0["mesh"] == {"data": 1, "model": 2}, f"phase 29 (e): mesh {t0['mesh']}")
+    for attention, nq, p_len in TP_STEPS:
+        e0, e1 = t0[attention], t1[attention]
+        rel, cos, ratio = e0["vs_one_process"]
+        blocks = 2 * TP_LAYERS  # each layer of the query and passage passes, one step
+        want = {k: 0 for k in e0["launches"]}
+        want.update({k: 1 for k in want if k.startswith(("K3", "K4"))})
+        if attention == "fused":
+            want.update({"K1 fused_attention_ln": blocks, "K2 fused_mlp_ln": blocks})
+        if attention == "flash":
+            want.update({k: blocks for k in want if k.startswith("F-")})
+        log(f"phase 29 (e) tp=2 '{attention}' at {nq} x 8, S={p_len}, L={TP_LAYERS}: step-1 "
+            f"loss rel {rel:.3e} (<= {TP_LOSS_REL:g}), gradient cosine {cos:.7f} (>= "
+            f"{TP_GRAD_COS:g}), norm ratio {ratio:.7f} (within {TP_GRAD_NORM:g} of 1) "
+            f"against one process; {e0['seconds']:.3f} s a step (two ranks on one card); "
+            f"launches a rank {json.dumps(e0['launches'])} (want {json.dumps(want)})")
+        check(rel <= TP_LOSS_REL and cos >= TP_GRAD_COS and abs(ratio - 1) <= TP_GRAD_NORM,
+              f"phase 29 (e): the tp '{attention}' step disagrees with one process's")
+        check(e0["grad"] == e1["grad"] and e0["loss"] == e1["loss"],
+              f"phase 29 (e): the model ranks' '{attention}' losses or gradients differ")
+        check(e0["launches"] == want and e1["launches"] == want,
+              f"phase 29 (e): '{attention}' launches {e0['launches']} / {e1['launches']}, not "
+              f"{want}")
+    rel, cos, ratio = t0["adafactor"]["vs_one_process"]
+    log(f"phase 29 (e) tp=2 adafactor step: loss rel {rel:.3e} (<= {TP_LOSS_REL:g}), update "
+        f"cosine {cos:.7f} (>= {TP_GRAD_COS:g}), norm ratio {ratio:.7f} (within "
+        f"{TP_GRAD_NORM:g} of 1) against one process; deploy format reloaded in one process "
+        f"equal: {t0['reloaded_equal']}")
+    check(rel <= TP_LOSS_REL and cos >= TP_GRAD_COS and abs(ratio - 1) <= TP_GRAD_NORM,
+          "phase 29 (e): the tp adafactor update disagrees with one process's")
+    check(t0["adafactor"]["update"] == t1["adafactor"]["update"],
+          "phase 29 (e): the model ranks' adafactor updates differ")
+    check(t0["reloaded_equal"], "phase 29 (e): the saved tp model does not reload equal")
     # launches by rank, summed over the ranks
     per_rank = [{k: o["dp"]["launches"][k] + o["gc"]["launches"][k] + o["search"]["launches"][k]
                  + sum(e["launches"][k] for e in o["eval"]["mesh"].values())
@@ -5699,11 +5876,14 @@ def phase_dist(args, tmp):
         f"{seconds:.1f} s")
     check(all(n > 0 for k, n in launches.items() if not k.startswith("K13")),
           f"phase 29: a kernel of the mesh paths never launched: {launches}")
-    return {"nccl": a, "gloo": [r0, r1], "launches_by_rank": per_rank, "launches": launches,
-            "reference_launches": reference, "seconds": seconds}
+    tp_launches = {att: t0[att]["launches"] for att, _, _ in TP_STEPS}
+    return {"nccl": a, "gloo": [r0, r1], "tp": [t0, t1], "launches_by_rank": per_rank,
+            "launches": launches, "reference_launches": reference, "tp_launches": tp_launches,
+            "seconds": seconds}
 
 CLI_PASSAGES = 65_536  # 16 blocks of FlatIPIndex's 4096 rows: 16 x J=8 slots hold k=100
 CLI_TRAIN, CLI_EVAL = 512, 128
+CLI_LAYERS = 4  # run_toolkits' bert-base depth (widths and vocabulary unchanged)
 CLI_VOCAB = 30_522  # bert-base-uncased's vocabulary size
 TREND_MRR10 = 0.002  # the twin's final test MRR@10 (CPU rehearsal 0.0051; random 1e-4)
 HF_PACKAGES = ("transformers", "datasets")
@@ -5750,7 +5930,8 @@ def cli_stage(name, fn, *fn_args, **fn_kw):
 
 
 def make_cli_model_dir(path):
-    """An architecture-only bert-base dir (random init from the seed) whose vocab.txt holds
+    """An architecture-only bert-base dir at CLI_LAYERS (random init from the seed) whose
+    vocab.txt holds
     the planted data's words, padded to 30,522 entries, with a BertTokenizerFast config."""
     from denseretrievaltoolkits_torch.models import bert
     from denseretrievaltoolkits_torch.recipes import quality_trend
@@ -5762,7 +5943,7 @@ def make_cli_model_dir(path):
         fh.write("\n".join(vocab))
     with open(os.path.join(path, "tokenizer_config.json"), "w") as fh:
         json.dump({"tokenizer_class": "BertTokenizerFast", "do_lower_case": True}, fh)
-    bert.save_config(bert.BertConfig(vocab_size=CLI_VOCAB), path)
+    bert.save_config(bert.BertConfig(vocab_size=CLI_VOCAB, num_hidden_layers=CLI_LAYERS), path)
     return path
 
 
@@ -5930,6 +6111,261 @@ def phase_cli(args, tmp):
     return out
 
 
+# -- phase 31: the twins of the recipes that import bench.py, at reduced sizes ----------------
+
+# each twin's cut: its environment knobs (or bench_data's constants) and arguments. The sweep
+# keeps its IVF256: at 2048-row blocks the reference's Qcap cap (QCAP_ELEMS / block = 64
+# slots a cell) drops probes once 2048 queries x nprobe / nlist passes it, and at IVF64 its
+# recall10@100 fell from 0.7248 at nprobe 8 to 0.5433 at 16-64 (a chip run)
+RECIPE_ENV = {"LAT_DOCS": "262144", "LAT_NLIST": "64", "LAT_NPROBE": "8",
+              "PCAR38M_DOCS": "2000000", "PCAR38M_SLAB": "500000", "PCAR38M_QUERIES": "1024",
+              "PQCAP_DOCS": "2000000", "PQCAP_SLAB": "500000", "PQCAP_CHUNK": "500000",
+              "PQCAP_NLIST": "64", "PQCAP_NPROBE": "8", "BENCH_IVFPQ_NLIST": "256"}
+RECIPE_SWEEP_DOCS, RECIPE_SQ4_DOCS = 1_000_000, 1_000_000
+# bounds, set before the first reading on the card: serve / i8q of PCAR384,SQ4 against the
+# int8 reference (the twin reads 0.86-0.88 at 200,000 rows on a CPU), int8 serve at J = 4
+# against J = 16, the OPQ192x4 arms' recall10@100, the latency IVF arms against the flat serve
+# of the same queries (a query's top 100 spans many of the mixture's 4096 components, so many
+# cells: 0.53 at IVF16, nprobe 4 over 100,000 rows on a CPU), the bucketed reps against the
+# padded ones
+RECIPE_PCAR_RECALL, RECIPE_INT8_RECALL = 0.75, 0.99
+RECIPE_PQ_RECALL, RECIPE_IVFPQ_RECALL, RECIPE_LAT_IVF_RECALL = 0.6, 0.5, 0.4
+RECIPE_VARLEN_COS = 0.999
+RECIPE_SLAB_OVERLAP = 0.999  # slab-merged vs one pass: the same top-100 sets, ties aside
+RECIPE_CHECK_Q = 64  # query rows of the one call each kernel is held to its plain version at
+RECIPE_PLAIN_REL = 1e-4  # top-J scores: of the largest |score|; quantizers: bit-equal
+
+
+def _recipe_counters():
+    from denseretrievaltoolkits_torch.ops import attn, ivf_bulk, ivf_pq, pq, quant, topk
+
+    return {"K1 fused_attention_ln": (attn.fused_attention_ln, "launches"),
+            "K2 fused_mlp_ln": (attn.fused_mlp_ln, "launches"),
+            "K7 quantize_int8_device": (quant.quantize_int8_device, "launches"),
+            "K8 block_topj_serve": (topk.block_topj_serve, "launches"),
+            "K9 quantize_int4_device": (quant.quantize_int4_device, "launches"),
+            "K11 block_topj_serve int4": (topk.block_topj_serve, "launches_int4"),
+            "K12 sq4 block_topj_i8q int4": (topk.block_topj_i8q, "launches_int4"),
+            "K14 ragged_topj": (ivf_bulk.ragged_topj, "launches_int8"),
+            "K15 pq_topj_blocks 4-bit": (pq.pq_topj_blocks, "launches_4bit"),
+            "K17 ragged_topj_pq": (ivf_pq.ragged_topj_pq, "launches")}
+
+
+def _generic_counters():
+    from denseretrievaltoolkits_torch.ops import ivf_bulk, topk
+
+    return {"block_topj_serve.launches_generic": (topk.block_topj_serve, "launches_generic"),
+            "block_topj_serve.launches_int4_generic": (topk.block_topj_serve,
+                                                       "launches_int4_generic"),
+            "block_topj_i8q.launches_generic": (topk.block_topj_i8q, "launches_generic"),
+            "block_topj_i8q.launches_int4_generic": (topk.block_topj_i8q,
+                                                     "launches_int4_generic"),
+            "ragged_topj.launches_generic": (ivf_bulk.ragged_topj, "launches_generic")}
+
+
+def on_card(t):
+    """Whether a wrapper given ``t`` launches its kernel (CPU tensors take the plain
+    version)."""
+    return t.is_cuda
+
+
+def _topj_agreement(got, want):
+    gv, gi = got
+    wv, wi = want
+    fin = torch.isfinite(wv)
+    same_mask = bool(torch.equal(torch.isfinite(gv), fin))
+    err = float((gv - wv).abs()[fin].max()) if fin.any() else 0.0
+    top = float(wv.abs()[fin].max()) if fin.any() else 1.0
+    ids = float((gi == wi)[fin].float().mean()) if fin.any() else 1.0
+    ok = same_mask and err <= RECIPE_PLAIN_REL * top + 1e-6 and ids >= 0.99
+    return {"max_abs_err": err, "max_abs_score": top, "ids_equal": ids, "ok": ok}
+
+
+def _cut_rows(t, n):
+    return t[:n].contiguous() if torch.is_tensor(t) else t
+
+
+@contextlib.contextmanager
+def held_to_plain(checks):
+    """Each recipe kernel's first call on the card is also run, after it, by its plain
+    version on the same inputs (the top-J kernels' on their first RECIPE_CHECK_Q query
+    rows, the kernel again on those rows), into ``checks``; those extra launches are
+    taken back off the counters. The wrappers keep their counters (shared attributes)."""
+    from denseretrievaltoolkits_torch.ops import attn, ivf_bulk, ivf_pq, pq, quant, topk
+
+    q = RECIPE_CHECK_Q
+
+    def ragged_plain(block_cell, qslab, values, row_ids, scales, J, block, sel=None,
+                     qscales=None, slots=None):
+        return ivf_bulk._ivf_topj_reference(qslab, values, row_ids, scales, qscales, block_cell,
+                                            1, J, block, block if sel is None else sel, slots)
+
+    def ragged_pq_plain(block_cell, qslab, codes, row_ids, poff, table, J, block, sel=None,
+                        nbits=8, slots=None):
+        return ivf_pq._ivf_pq_topj_reference(qslab, codes, row_ids, poff, table, block_cell,
+                                             J, block, block if sel is None else sel, nbits,
+                                             slots)
+
+    def ln_agreement(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        tol = float(torch.clamp(bf16_ulp(want), min=3e-2).max()) \
+            if got.dtype == torch.bfloat16 else 1e-5
+        return {"max_abs_err": err, "tol": tol, "ok": err <= tol}
+
+    def quant_agreement(got, want):
+        ok = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        return {"values_equal": float((got[0] == want[0]).float().mean()),
+                "max_abs_err": float((got[1] - want[1]).abs().max()), "ok": ok}
+
+    # (module, name, plain version, the arguments of the checked call, agreement)
+    cut_q0 = lambda a: (_cut_rows(a[0], q),) + tuple(a[1:])  # noqa: E731
+    cut_q01 = lambda a: (_cut_rows(a[0], q), _cut_rows(a[1], q)) + tuple(a[2:])  # noqa: E731
+    table = (
+        (topk, "block_topj_serve", topk._block_topj_serve_reference, cut_q0, _topj_agreement),
+        (topk, "block_topj_i8q", topk._block_topj_i8q_reference, cut_q01, _topj_agreement),
+        (pq, "pq_topj_blocks", pq._pq_topj_reference, cut_q0, _topj_agreement),
+        (ivf_bulk, "ragged_topj", ragged_plain, None, _topj_agreement),
+        (ivf_pq, "ragged_topj_pq", ragged_pq_plain, None, _topj_agreement),
+        (quant, "quantize_int8_device", quant._quantize_int8_reference, None, quant_agreement),
+        (quant, "quantize_int4_device", quant._quantize_int4_reference, None, quant_agreement),
+        (attn, "fused_attention_ln", attn._reference_attention_ln, None, ln_agreement),
+        (attn, "fused_mlp_ln", attn._reference_mlp_ln, None, ln_agreement))
+    patches = []
+    for module, name, plain, cut, agree in table:
+        real = getattr(module, name)
+
+        def checked(*a, _real=real, _name=name, _plain=plain, _cut=cut, _agree=agree, **kw):
+            out = _real(*a, **kw)
+            int4 = kw.get("int4") or (_name.startswith("block_topj") and a[-1] is True)
+            key = _name + (" int4" if int4 else "")
+            if key not in checks and any(torch.is_tensor(t) and on_card(t) for t in a):
+                saved = {k: v for k, v in vars(_real).items() if k.startswith("launches")}
+                args = a if _cut is None else _cut(a)
+                got = out if _cut is None else _real(*args, **kw)
+                checks[key] = _agree(got, _plain(*args, **kw))
+                checks[key]["shape"] = [list(t.shape) for t in args if torch.is_tensor(t)][:3]
+                for k, v in saved.items():
+                    setattr(_real, k, v)
+            return out
+
+        checked.__dict__ = real.__dict__  # the counters and last_body stay the wrapper's
+        patches.append(mock.patch.object(module, name, checked))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield checks
+
+
+def phase_recipes(args, tmp):
+    """Phase 31: the twins of the JAX package's six ``bench.py`` recipes
+    (``denseretrievaltoolkits_torch/recipes/``) at reduced sizes, through their ``main``:
+    latency_probe (262,144 rows, IVF64, nprobe 8), bench_pcar_sq4 (1M), bench_pcar_38m (2M,
+    four 500,000-row slabs), pq_capacity (2M, 500,000-row slabs, IVF64), ivfpq_sweep (1M,
+    IVF256; the rotation from pq_capacity's through the twins' cache) and varlen_probe (its
+    own 16,384 passages on 'fused', one trial). Counters zeroed before and read after; each
+    kernel also held to its plain version at one call (``held_to_plain``). The slab-merged
+    reference against one pass over the same rows; recall bounds; no generic-body launch at
+    the recipes' shapes (the counters stay, and the kernels line's checks cover them)."""
+    from denseretrievaltoolkits_torch.recipes import bench_data as bd
+    from denseretrievaltoolkits_torch.recipes import (bench_pcar_38m, bench_pcar_sq4,
+                                                      ivfpq_sweep, latency_probe, pq_capacity,
+                                                      varlen_probe)
+
+    t_phase = time.perf_counter()
+    counted, generic = _recipe_counters(), _generic_counters()
+    generic0 = {k: getattr(fn, attr) for k, (fn, attr) in generic.items()}
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    out, seconds, checks = {}, {}, {}
+    cache = os.path.join(tmp, "recipe_cache")
+    with mock.patch.dict(os.environ, RECIPE_ENV), mock.patch.object(bd, "CACHE_DIR", cache), \
+            mock.patch.object(bd, "N_DOCS_INT8", RECIPE_SWEEP_DOCS), held_to_plain(checks):
+        for name, run in (
+                ("latency_probe", lambda: latency_probe.main([])),
+                ("bench_pcar_sq4", lambda: bench_pcar_sq4.main(["--docs", str(RECIPE_SQ4_DOCS)])),
+                ("bench_pcar_38m", lambda: bench_pcar_38m.main([])),
+                ("pq_capacity", lambda: pq_capacity.main([])),
+                ("ivfpq_sweep", lambda: ivfpq_sweep.main([])),
+                ("varlen_probe", lambda: varlen_probe.main(["--attention", "fused",
+                                                            "--trials", "1"]))):
+            bd._SPEC_STATE.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[name] = run()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+    launches = {k: int(getattr(fn, attr)) for k, (fn, attr) in counted.items()}
+    generic_launches = {k: int(getattr(fn, attr)) - generic0[k]
+                        for k, (fn, attr) in generic.items()}
+    # the slab-merged reference against one pass over the same 2M rows
+    n = int(RECIPE_ENV["PCAR38M_DOCS"])
+    centers = bd.make_centers("cuda")
+    q8 = bd.spectrumed_chunk(centers, 10**9, int(RECIPE_ENV["PCAR38M_QUERIES"])).to(
+        torch.bfloat16)
+    _, one_pass = bd.slab_reference(centers, q8, n, n, tag="one pass")
+    slabbed = out["bench_pcar_38m"]["ref_ids"]
+    slab_overlap = float(np.mean([len(set(a) & set(b)) / len(b)
+                                  for a, b in zip(slabbed, one_pass)]))
+    slab_equal = float(np.mean([set(a) == set(b) for a, b in zip(slabbed, one_pass)]))
+    del centers, q8
+    torch.cuda.empty_cache()
+    lat, sq4, p38, cap, sweep, var = (out[k] for k in (
+        "latency_probe", "bench_pcar_sq4", "bench_pcar_38m", "pq_capacity", "ivfpq_sweep",
+        "varlen_probe"))
+    flat_ids = lat["ids"]["flat"]
+    lat_recall = {arm: float(np.mean([len(set(a) & set(b)) / len(b) for a, b in
+                                      zip(lat["ids"][arm], flat_ids)]))
+                  for arm in ("bulk", "probe")}
+    readings = {
+        "latency_p50_ms": lat["p50_ms"], "latency_ivf_vs_flat": lat_recall,
+        "pcar_sq4": {k: sq4[k] for k in ("int8_qps", "int8_recall", "pca_kept_variance",
+                                         "serve", "i8q")},
+        "pcar_38m": {k: v for k, v in p38.items() if k not in ("ref_ids", "matrix")},
+        "slab_vs_one_pass": {"overlap": slab_overlap, "equal_sets": slab_equal},
+        "pq_capacity": cap, "ivfpq_sweep": sweep,
+        "varlen": {k: var[k] for k in ("widths", "tokens_fixed", "tokens_bucketed", "trials",
+                                       "min_cosine")}}
+    log(f"phase 31 recipes: seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    log(f"phase 31 readings: {json.dumps(readings)}")
+    log(f"phase 31 launches {json.dumps(launches)}; generic-body launches at the recipes' "
+        f"shapes {json.dumps(generic_launches)} (want 0: the kernels line's checks count them)")
+    log(f"phase 31 kernels against their plain versions at one call: {json.dumps(checks)}")
+    for name in launches:
+        check(launches[name] > 0, f"phase 31: {name} never launched")
+    check(not any(generic_launches.values()),
+          f"phase 31: block_topj.cu's body ran at the recipes' shapes: {generic_launches}")
+    want_checks = {"block_topj_serve", "block_topj_serve int4", "block_topj_i8q int4",
+                   "pq_topj_blocks", "ragged_topj", "ragged_topj_pq", "quantize_int8_device",
+                   "quantize_int4_device", "fused_attention_ln", "fused_mlp_ln"}
+    check(want_checks <= set(checks), f"phase 31: kernels not held to their plain versions: "
+                                      f"{sorted(want_checks - set(checks))}")
+    for name, c in checks.items():
+        check(c["ok"], f"phase 31: {name} disagrees with its plain version: {c}")
+    check(slab_overlap >= RECIPE_SLAB_OVERLAP,
+          f"phase 31: the slab-merged reference's top-100 overlap {slab_overlap:.5f} with one "
+          f"pass")
+    for arm in ("serve", "i8q"):
+        for recipe, r in (("bench_pcar_sq4", sq4[arm]), ("bench_pcar_38m", p38[arm])):
+            check(r["recall100"] >= RECIPE_PCAR_RECALL,
+                  f"phase 31: {recipe} {arm} recall@100 {r['recall100']:.4f}")
+    check(sq4["int8_recall"] >= RECIPE_INT8_RECALL,
+          f"phase 31: int8 serve recall {sq4['int8_recall']:.4f}")
+    check(cap[0]["recall10in100"] >= RECIPE_PQ_RECALL,
+          f"phase 31: pq_capacity flat recall10@100 {cap[0]['recall10in100']}")
+    for line in cap[1:] + sweep:
+        check(line["recall10in100"] >= RECIPE_IVFPQ_RECALL,
+              f"phase 31: {line['metric']} recall10@100 {line['recall10in100']}")
+    for arm, r in lat_recall.items():
+        check(r >= RECIPE_LAT_IVF_RECALL, f"phase 31: latency {arm} vs flat recall {r:.4f}")
+    check(var["min_cosine"] >= RECIPE_VARLEN_COS,
+          f"phase 31: varlen bucketed vs fixed reps cosine {var['min_cosine']:.6f}")
+    total = time.perf_counter() - t_phase
+    log(f"phase 31: {total:.1f} s")
+    return {"seconds": seconds, "total_seconds": total, "readings": readings,
+            "launches": launches, "generic_launches": generic_launches, "plain_checks": checks}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist_worker"]:  # one rank of phase 29, started by phase_dist
@@ -5970,6 +6406,9 @@ def main(argv=None):
                              "worker processes; prints no kernels line")
     parser.add_argument("--cli_only", action="store_true",
                         help="run only the CLI, recipe and entry-point phase (30); prints no "
+                             "kernels line")
+    parser.add_argument("--recipes_only", action="store_true",
+                        help="run only the bench.py recipes' twins (phase 31); prints no "
                              "kernels line")
     args = parser.parse_args(argv)
 
@@ -6056,6 +6495,14 @@ def main(argv=None):
                 json.dump(results, fh, indent=1)
         log(smi)
         return 0
+    if args.recipes_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {"card": smi, "seed": args.seed, "recipes": phase_recipes(args, tmp)}
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(results, fh, indent=1, default=str)
+        log(smi)
+        return 0
     if args.rerank_only:
         with tempfile.TemporaryDirectory() as tmp:
             results = {"card": smi, "seed": args.seed, "rerank": phase_rerank(args, tmp)}
@@ -6122,6 +6569,7 @@ def main(argv=None):
         rerank = timed("phase_rerank", phase_rerank, args, tmp)
         dist = timed("phase_dist", phase_dist, args, tmp)
         cli = timed("phase_cli", phase_cli, args, tmp)
+        recipes = timed("phase_recipes", phase_recipes, args, tmp)
     scale = timed("phase_scale", phase_scale, gen, flat, topk, SCALE_QUERIES)
     scale4 = timed("phase_scale4", phase_scale4, gen, flat, SCALE4_QUERIES)
     ivf_scale = timed("phase_ivf_scale", phase_ivf_scale, args.seed + 11, flat, ivf_bulk)
@@ -6449,6 +6897,31 @@ def main(argv=None):
         key = cli_keys.get(row["name"])
         if key is not None:
             row["cli_launches"] = {st: cli[st][key] for st in cli_stages if cli[st][key]}
+    # phase 29 (e)'s tensor-parallel steps (a rank's launches by attention) and phase 31's
+    # recipe twins
+    tp_keys = {"fused_attention_ln": "K1 fused_attention_ln", "fused_mlp_ln": "K2 fused_mlp_ln",
+               "contrastive_fwd": "K3 contrastive_fwd",
+               "contrastive_bwd_dq": "K4 contrastive_bwd_dq",
+               "contrastive_bwd_dp": "K4 contrastive_bwd_dp",
+               "flash_fwd (F-fwd)": "F-fwd flash_fwd", "flash_bwd_dkv (F-dkv)": "F-dkv flash_bwd_dkv",
+               "flash_bwd_dq (F-dq)": "F-dq flash_bwd_dq"}
+    recipe_keys = {"fused_attention_ln": "K1 fused_attention_ln",
+                   "fused_mlp_ln": "K2 fused_mlp_ln",
+                   "quantize_int8_device": "K7 quantize_int8_device",
+                   "block_topj_serve": "K8 block_topj_serve",
+                   "quantize_int4_device": "K9 quantize_int4_device",
+                   "block_topj_serve (K11, int4 rows)": "K11 block_topj_serve int4",
+                   "block_topj_i8q (K12 sq4, int4 rows)": "K12 sq4 block_topj_i8q int4",
+                   "ragged_topj (K14, int8 cells)": "K14 ragged_topj",
+                   "pq_topj_blocks (K15, 4-bit codes)": "K15 pq_topj_blocks 4-bit",
+                   "ragged_topj_pq (K17)": "K17 ragged_topj_pq"}
+    for row in kernels:
+        key = tp_keys.get(row["name"])
+        if key is not None:
+            row["tp_launches"] = {att: n[key] for att, n in dist["tp_launches"].items()}
+        key = recipe_keys.get(row["name"])
+        if key is not None:
+            row["recipe_launches"] = recipes["launches"][key]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -6456,7 +6929,7 @@ def main(argv=None):
                        "k5": k5, "k3_k4": k34, "main_path": main_path, "train": train,
                        "grad_cache": grad_cache, "remat": remat, "lora": lora,
                        "mining": mining, "rerank": rerank, "optimizers": optimizers,
-                       "dist": dist, "cli": cli, "phase_seconds": seconds,
+                       "dist": dist, "cli": cli, "recipes": recipes, "phase_seconds": seconds,
                        "k7": k7, "int8_topk": int8_topk, "int8_path": int8_path,
                        "scale": scale, "k9": k9, "int4_topk": int4_topk,
                        "eval_path": eval_path, "scale4": scale4, "ivf_kernels": ivf_kernels,
@@ -6464,7 +6937,7 @@ def main(argv=None):
                        "pq_eval": pq_eval, "pq96_plain_encoder_gaps": plain_pq96, "pq_scale": pq_scale, "flash_kernels": flash_kernels,
                        "flash_serving": flash_serving, "flash_train": flash_train,
                        "kernels": kernels}, fh,
-                      indent=1)
+                      indent=1, default=str)
     log(f"phase seconds: {json.dumps(seconds)}")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -277,7 +277,7 @@ class CorpusDataloader:
 
     def __init__(self, data_args, dataset, tokenizer, batch_size: int = 128,
                  shard_num: int = 1, shard_idx: int = 0,
-                 shard_hosts: bool = False, bucketed: Optional[bool] = None):
+                 shard_hosts=False, bucketed: Optional[bool] = None):
         self.data_args = data_args
         self.corpus = dataset
         self.tokenizer = tokenizer
@@ -285,7 +285,9 @@ class CorpusDataloader:
         self.shard_num = shard_num
         self.shard_idx = shard_idx
         # multi-host: each host encodes the contiguous corpus window matching
-        # its devices' shards of the global index (host_corpus_bounds)
+        # its devices' shards of the global index (host_corpus_bounds): True for
+        # this rank's window of the process group, or a mesh's data axis as
+        # (size, rank), whose model ranks encode the same window
         self.shard_hosts = shard_hosts
         # bucketed variable-length encode: length-sorted iteration + per-batch
         # bucket padding (collators.bucket_length). Single-host only: the
@@ -310,7 +312,8 @@ class CorpusDataloader:
         if self.shard_hosts:
             from ..utils.distributed import host_corpus_bounds
 
-            bounds = host_corpus_bounds(len(self.dataset))
+            axis = self.shard_hosts if isinstance(self.shard_hosts, tuple) else (None, None)
+            bounds = host_corpus_bounds(len(self.dataset), *axis)
         # sort key: pre-tokenized passage length (+2 covers [CLS]/[SEP];
         # exactness is irrelevant — any monotone proxy groups lengths)
         sort = (lambda ex: len(ex["text"]) + 2) if self.bucketed else None

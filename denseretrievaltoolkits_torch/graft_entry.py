@@ -6,18 +6,17 @@ The port's twin of the JAX package's root ``__graft_entry__.py``:
   is the flagship model's forward step, the BERT-base dual encoder (bf16,
   ``attention='fused'``: K1 / K2) computing the in-batch contrastive loss and
   the scores, on the card unless ``device`` names another;
-- :func:`dryrun_multichip` runs ONE data-parallel training step and the
-  sharded searches (flat fp32, int8 in exact / serve / i8q, int4 i8q,
-  ``IVFR8,SQ8`` i8q, ``PQ8`` and ``IVF8,PQ64x4`` approx) over ``n`` worker
-  processes, ``gloo`` ranks that share one card (or the CPU), at 128 dimensions
-  (the JAX dry run's IVF-PQ leg's; its other searches take 32, under the card's
-  int8-query bodies' H % 128).
+- :func:`dryrun_multichip` runs ONE training step and the sharded searches
+  (flat fp32, int8 in exact / serve / i8q, int4 i8q, ``IVFR8,SQ8`` i8q, ``PQ8``
+  and ``IVF8,PQ64x4`` approx) over ``n`` worker processes, ``gloo`` ranks that
+  share one card (or the CPU), at 128 dimensions (the JAX dry run's IVF-PQ
+  leg's; its other searches take 32, under the card's int8-query bodies' H %
+  128). As the JAX dry run (:140-142 there) the mesh is ``tp = 2`` for even
+  ``n``, ``dp = n / tp``: the step cuts the BERT layers over the model axis
+  (``parallel/mesh.py``) and the indexes shard over the data axis.
 
-The JAX dry run shards a 2-D mesh, ``tp = 2`` for even ``n`` (:140 there).
-Here ``dp = n`` and ``tp = 1``: tensor parallelism is ROADMAP queue 1 item 13,
-a later slice (``parallel/mesh.py`` refuses ``tp_size`` > 1). Run the dry run
-alone as ``python -m denseretrievaltoolkits_torch.graft_entry [n] [tiny|bert-base]
-[device]``.
+Run the dry run alone as ``python -m denseretrievaltoolkits_torch.graft_entry [n]
+[tiny|bert-base] [device]``.
 """
 
 from __future__ import annotations
@@ -90,8 +89,8 @@ def _free_port() -> int:
 
 
 def dryrun_multichip(n_devices: int, size: str = None, device=None) -> dict:
-    """ONE training step over an ``n_devices``-rank data-parallel mesh and the
-    sharded-index searches, in ``n_devices`` worker processes (gloo on
+    """ONE training step over an ``n_devices``-rank mesh (``tp = 2`` for even
+    ``n_devices``) and the sharded-index searches, in ``n_devices`` worker processes (gloo on
     ``127.0.0.1``). ``size`` (or env ``GRAFT_DRYRUN_SIZE``): "tiny" (default) or
     "bert-base"; ``device``: the card all ranks share (``cuda:0``) unless named.
     Raises if a rank fails or the ranks disagree; returns rank 0's readings."""
@@ -153,8 +152,9 @@ def _dryrun_rank(rank: int, world: int, port: str, size: str, device: str, work:
     if device == "cpu":
         torch.set_num_threads(1)
     maybe_initialize_distributed("gloo", device=device, timeout_s=DRYRUN_TIMEOUT_S)
-    mesh = make_mesh(world, 1)
-    dp = mesh.size
+    tp = 2 if world % 2 == 0 else 1
+    mesh = make_mesh(world // tp, tp)
+    dp, data_rank = mesh.size, mesh.rank
 
     config = BertConfig() if size == "bert-base" else _tiny_config()
     model = build_model(config, device=device)
@@ -166,13 +166,13 @@ def _dryrun_rank(rank: int, world: int, port: str, size: str, device: str, work:
     query, passage = (_batch(rng, 2 * dp, 16, config.vocab_size),
                       _batch(rng, 4 * dp, 24, config.vocab_size))
 
-    def mine(batch):  # this rank's slice of the global batch
+    def mine(batch):  # this data rank's slice of the global batch
         n = batch["input_ids"].shape[0] // dp
-        return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        return {k: v[data_rank * n:(data_rank + 1) * n] for k, v in batch.items()}
 
     loss = float(trainer.train_step((mine(query), mine(passage))))
     assert np.isfinite(loss), f"non-finite loss {loss}"
-    out = {"mesh": {"data": dp, "model": 1}, "loss": loss, "searches": {}}
+    out = {"mesh": dict(mesh.shape), "loss": loss, "searches": {}}
 
     def searched(name, index, q, n_rows, mode=None):
         kw = {} if mode is None else {"mode": mode}
@@ -182,7 +182,7 @@ def _dryrun_rank(rank: int, world: int, port: str, size: str, device: str, work:
         out["searches"][name] = ids.tolist()
 
     def window(rows):
-        lo, hi = host_corpus_bounds(rows.shape[0], dp, rank)
+        lo, hi = host_corpus_bounds(rows.shape[0], dp, data_rank)
         return rows[lo:hi]
 
     # sharded flat-index search over the data axis (per-shard top-k + merge); 128 dims

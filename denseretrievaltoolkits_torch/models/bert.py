@@ -46,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import attn as attn_ops
 from ..ops import flash as flash_ops
+from ..parallel import mesh as tp
 
 ATTENTIONS = ("xla", "flash", "fused")
 REMATS = ("", "full", "attn")
@@ -142,43 +143,81 @@ def encoder_block(x, layer: BertLayer, mask, config: BertConfig, attention: str,
     """One post-LN BERT block. x [B,S,H] compute dtype; mask [B,S] 0/1.
     ``remat_attn``: on the xla path, recompute the attention in the backward.
     A layer with LoRA adapters (``models/lora.py``) adds them to q and v and runs
-    the xla block on 'fused', never K1 / K2, as the reference (bert.py:215)."""
+    the xla block on 'fused', never K1 / K2, as the reference (bert.py:215).
+
+    A layer cut over a mesh's model axis (``parallel/mesh.py:shard_module``) runs
+    Megatron's scheme on 'xla' and 'flash': this rank's heads and MLP columns,
+    the row-parallel products summed over the model group before their bias,
+    the residual and the LN (so the bias is added once), and the column-parallel
+    products' input gradient summed in the backward. On 'fused' K1 / K2 fuse the
+    out-projection and the LN, so no partial sum may enter them: the layer's
+    leaves are all-gathered and the kernels run on the full weights, as GSPMD
+    does around a ``pallas_call`` it cannot partition; each rank keeps its part
+    of the weight gradient. LoRA adapters stay replicated: each rank adds its
+    heads' columns of ``(x A) B``."""
     c = config
     nh, hd = c.num_attention_heads, c.head_dim
-    qkv = _dense(x, layer.qkv_kernel, layer.qkv_bias)
+    mesh = getattr(layer, "tp", None)
     lora = getattr(layer, "lora_q_A", None) is not None
+    w = {name: getattr(layer, name) for name in (
+        "qkv_kernel", "qkv_bias", "o_kernel", "o_bias", "wi_kernel", "wi_bias", "wo_kernel",
+        "wo_bias")}
+    local = mesh is not None and not (attention == "fused" and not lora)
+    if mesh is not None and not local:
+        for name in ("qkv_kernel", "qkv_bias", "o_kernel", "wi_kernel", "wi_bias", "wo_kernel"):
+            w[name] = tp.gather_leaf(w[name], mesh)
+    x_in = tp.copy_to_model(x, mesh) if local else x
+    qkv = _dense(x_in, w["qkv_kernel"], w["qkv_bias"])
+    if local:
+        nh = nh // mesh.tp
     if lora:
         # the reference adds (x A) B to q and v after its fused QKV product, each
         # product and the sum in the compute dtype (bert.py:248-254)
-        H = c.hidden_size
-        delta_q = torch.matmul(torch.matmul(x, layer.lora_q_A.to(x.dtype)),
-                               layer.lora_q_B.to(x.dtype))
-        delta_v = torch.matmul(torch.matmul(x, layer.lora_v_A.to(x.dtype)),
-                               layer.lora_v_B.to(x.dtype))
+        H = qkv.shape[-1] // 3
+        a_q, b_q, a_v, b_v = (getattr(layer, n).to(x.dtype) for n in (
+            "lora_q_A", "lora_q_B", "lora_v_A", "lora_v_B"))
+        if local:  # replicated adapters: their gradients summed over the model group
+            a_q, b_q, a_v, b_v = (tp.copy_to_model(t, mesh) for t in (a_q, b_q, a_v, b_v))
+            cols = slice(mesh.tp_rank * H, (mesh.tp_rank + 1) * H)
+            b_q, b_v = b_q[:, cols], b_v[:, cols]
+        delta_q = torch.matmul(torch.matmul(x_in, a_q), b_q)
+        delta_v = torch.matmul(torch.matmul(x_in, a_v), b_v)
         qkv = torch.cat([qkv[..., :H] + delta_q, qkv[..., H:2 * H], qkv[..., 2 * H:] + delta_v],
                         dim=-1)
     if attention == "fused" and not lora:
         cd = x.dtype
         x = attn_ops.fused_attention_ln(
-            qkv, x, mask, layer.o_kernel.to(cd), layer.o_bias.to(cd), layer.attn_ln_scale,
+            qkv, x, mask, w["o_kernel"].to(cd), w["o_bias"].to(cd), layer.attn_ln_scale,
             layer.attn_ln_bias, 1.0 / math.sqrt(hd), nh, hd, c.layer_norm_eps)
         return attn_ops.fused_mlp_ln(
-            x, layer.wi_kernel.to(cd), layer.wi_bias.to(cd), layer.wo_kernel.to(cd),
-            layer.wo_bias.to(cd), layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
+            x, w["wi_kernel"].to(cd), w["wi_bias"].to(cd), w["wo_kernel"].to(cd),
+            w["wo_bias"].to(cd), layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
     if attention == "flash":
-        ctx = flash_ops.flash_attention_qkv(qkv, mask, nh, hd).reshape(x.shape)
+        ctx = flash_ops.flash_attention_qkv(qkv, mask, nh, hd).reshape(
+            qkv.shape[:-1] + (nh * hd,))
     elif remat_attn:
         ctx = checkpoint(attn_ops._reference_attention, qkv, mask, 1.0 / math.sqrt(hd), nh, hd,
                          use_reentrant=False)
     else:
         ctx = attn_ops._reference_attention(qkv, mask, 1.0 / math.sqrt(hd), nh, hd)
     # as the xla path: projection and residual in the compute dtype, fp32 LayerNorm
-    attn_out = _dense(ctx, layer.o_kernel, layer.o_bias)
+    if local:
+        attn_out = _dense_sum(ctx, w["o_kernel"], w["o_bias"], mesh)
+    else:
+        attn_out = _dense(ctx, w["o_kernel"], w["o_bias"])
     x = layer_norm(x + attn_out, layer.attn_ln_scale, layer.attn_ln_bias, c.layer_norm_eps)
-    h = _dense(x, layer.wi_kernel, layer.wi_bias)
+    h = _dense(tp.copy_to_model(x, mesh) if local else x, w["wi_kernel"], w["wi_bias"])
     h = torch.nn.functional.gelu(h)
-    h = _dense(h, layer.wo_kernel, layer.wo_bias)
+    h = _dense_sum(h, w["wo_kernel"], w["wo_bias"], mesh) if local else \
+        _dense(h, w["wo_kernel"], w["wo_bias"])
     return layer_norm(x + h, layer.mlp_ln_scale, layer.mlp_ln_bias, c.layer_norm_eps)
+
+
+def _dense_sum(h, kernel, bias, mesh):
+    """A row-parallel product: this rank's partial ``h . kernel`` in the compute dtype
+    (as GSPMD's partitioned dot), summed over the model group in fp32, then the
+    (replicated) bias once."""
+    return tp.sum_over_model(torch.matmul(h, kernel.to(h.dtype)), mesh) + bias.to(h.dtype)
 
 
 class BertEncoder(nn.Module):

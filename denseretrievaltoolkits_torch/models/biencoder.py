@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.mesh import gathered
 from ..train.losses import contrastive_loss
 from . import bert, hf_import, linear, lora, t5
 from .convert import (init_params_numpy, is_t5_tree, load_jax_params, params_from_jax,
@@ -228,7 +229,13 @@ class DRModel(nn.Module):
         at the top, untied ones under ``query_model/`` and ``passage_model/``,
         heads (``query_head/``, ``passage_head/`` when untied), the
         ``bert_config.json`` (or ``t5_config.json``) of each tower and
-        ``openmatch_config.json``."""
+        ``openmatch_config.json``. Towers cut over a mesh's model axis are
+        gathered first, on every rank of the world, and global rank 0 writes."""
+        with gathered(self) as writer:
+            if writer:
+                self._save(output_dir)
+
+    def _save(self, output_dir: str) -> None:
         os.makedirs(output_dir, exist_ok=True)
 
         def tower(lm, path):
@@ -271,7 +278,8 @@ class DRModel(nn.Module):
         and ``passage_model/``. Adapters are merged into the exported weights first
         (``merge_lora_tree``); the model itself keeps them. The reference drops them
         here (ROADMAP queue 3, findings). T5 towers raise: the reference exports BERT
-        keys only (hf_import.py:92 there)."""
+        keys only (hf_import.py:92 there). Cut towers are gathered first, as in
+        :meth:`save`."""
         if self.spec.backbone != "bert":
             raise ValueError(f"export_hf: a {self.spec.backbone} tower has no HF export, as in "
                              f"the reference (ROADMAP queue 3, findings)")
@@ -280,11 +288,14 @@ class DRModel(nn.Module):
             tree = lora.merge_lora_tree(params_to_jax(lm.state_dict()))
             hf_import.save_pretrained_hf(tree, self.spec.bert_config, path)
 
-        if self.spec.tied:
-            tower(self.lm_q, output_dir)
-        else:
-            tower(self.lm_q, os.path.join(output_dir, "query_model"))
-            tower(self.lm_p, os.path.join(output_dir, "passage_model"))
+        with gathered(self) as writer:
+            if not writer:
+                return
+            if self.spec.tied:
+                tower(self.lm_q, output_dir)
+            else:
+                tower(self.lm_q, os.path.join(output_dir, "query_model"))
+                tower(self.lm_p, os.path.join(output_dir, "passage_model"))
 
     @classmethod
     def build(cls, model_args, bert_config: Optional[bert.BertConfig] = None,

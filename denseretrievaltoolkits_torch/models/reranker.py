@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.mesh import gathered
 from ..train.losses import rr_loss_functions
 from . import bert, linear
 from .biencoder import (BACKBONES, DTYPES, MANIFEST, device_batch, hidden_size,
@@ -136,14 +137,19 @@ class RRModel(nn.Module):
 
     def save(self, output_dir: str) -> None:
         """The reference's layout (reranker.py:155-164): ``weights.npz``, the tower's
-        config, the head (not for ``t5_full``), ``openmatch_config.json``."""
-        os.makedirs(output_dir, exist_ok=True)
-        save_jax_params(params_to_jax(self.lm.state_dict()), output_dir)
-        save_tower_config(self.spec.bert_config, output_dir)
-        if self.head is not None:
-            linear.save_head(self.head, output_dir)
-        with open(os.path.join(output_dir, MANIFEST), "w") as fh:
-            json.dump(self._manifest(), fh, indent=4)
+        config, the head (not for ``t5_full``), ``openmatch_config.json``. A tower cut
+        over a mesh's model axis is gathered first, on every rank, and global rank 0
+        writes."""
+        with gathered(self) as writer:
+            if not writer:
+                return
+            os.makedirs(output_dir, exist_ok=True)
+            save_jax_params(params_to_jax(self.lm.state_dict()), output_dir)
+            save_tower_config(self.spec.bert_config, output_dir)
+            if self.head is not None:
+                linear.save_head(self.head, output_dir)
+            with open(os.path.join(output_dir, MANIFEST), "w") as fh:
+                json.dump(self._manifest(), fh, indent=4)
 
     def load_tree(self, tree: Dict, head: Optional[linear.LinearHead] = None) -> None:
         """Load a reference-layout tower tree (and a head's kernel)."""

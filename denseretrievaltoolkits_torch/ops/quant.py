@@ -143,11 +143,11 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     """packed [N, H/2] int8 -> the codes [N, H] int8 in dim order: the low
-    nibbles (dims 0 .. H/2-1), then the high nibbles, each sign-extended."""
-    x = packed.to(torch.int32)
-    lo = ((x & 0xF) ^ 8) - 8
-    hi = (((x >> 4) & 0xF) ^ 8) - 8
-    return torch.cat([lo, hi], dim=1).to(torch.int8)
+    nibbles (dims 0 .. H/2-1), then the high nibbles, each sign-extended (an
+    arithmetic right shift of the int8 byte, the low nibble first shifted up)."""
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(packed, 4), 4)
+    hi = torch.bitwise_right_shift(packed, 4)
+    return torch.cat([lo, hi], dim=1)
 
 
 def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

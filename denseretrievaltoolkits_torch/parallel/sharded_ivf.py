@@ -76,7 +76,8 @@ def fit_on_rank0(mesh: Mesh, fit, state, device) -> list:
         box = [None]
     if mesh.size > 1:
         torch.distributed.broadcast_object_list(
-            box, 0, group=mesh.group, device=device if device.type == "cuda" else None)
+            box, mesh.global_rank(0), group=mesh.group,
+            device=device if device.type == "cuda" else None)
     return box[0]
 
 

@@ -13,9 +13,9 @@ engine, built at first use), then train on the mined rows through the
 
 It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU. As
 ``run_random_sampling.py`` here, it trains on the one device, or under
-``torchrun`` over a data-parallel mesh of the processes, refuses
-``--tp_size`` > 1 before anything loads, and reads a BERT tokenizer directory and
-local JSON files without ``transformers`` or ``datasets``.
+``torchrun`` over a ``--dp_size x --tp_size`` mesh of the processes (made before
+anything loads), and reads a BERT tokenizer directory and local JSON files
+without ``transformers`` or ``datasets``.
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ from __future__ import annotations
 import logging
 
 from .config import DataArguments, ModelArguments, TrainingArguments, parse_args
-from .parallel.mesh import refuse_tensor_parallel
-from .run_random_sampling import data_parallel_mesh
+from .run_random_sampling import data_parallel_mesh, data_shard
 
 logger = logging.getLogger(__name__)
 
@@ -37,11 +36,11 @@ def main(argv=None, device=None):
     )
     model_args, data_args, training_args = parse_args(
         (ModelArguments, DataArguments, TrainingArguments), args=argv)
-    refuse_tensor_parallel(training_args.tp_size)
 
     from .utils.runtime import setup_runtime
 
     device = setup_runtime(device)
+    mesh = data_parallel_mesh(training_args)
 
     from .data.datasets import EXACTMATCH_DATASET, CorpusDataset, ExactMatchDataset, \
         RelevancyDataset
@@ -49,7 +48,6 @@ def main(argv=None, device=None):
     from .data.samplers import BM25Negatives
     from .models.biencoder import DRModel
     from .train.trainer import Trainer
-    from .utils.distributed import process_shard
     from .utils.tokenization import load_tokenizer
 
     tokenizer = load_tokenizer(model_args)
@@ -70,7 +68,7 @@ def main(argv=None, device=None):
     bm25dataset = bm25_sampler.load_passages(train_dataset)
     logger.info("BM25 negatives ready: %d samples", len(bm25dataset))
 
-    shard_num, shard_idx = process_shard()
+    shard_num, shard_idx = data_shard(mesh)
     dataloader = loader_cls(data_args, dataset, tokenizer, bm25_sampler, batch_size=batch_size,
                             seed=training_args.seed, shard_num=shard_num, shard_idx=shard_idx)
     _, eval_dl, test_dl = dataloader.get_dataloader()
@@ -81,12 +79,13 @@ def main(argv=None, device=None):
         corpus = CorpusDataset(data_args, tokenizer, cache)
         corpus_dl = CorpusDataloader(data_args, corpus, tokenizer,
                                      training_args.corpus_batch_size,
-                                     shard_hosts=shard_num > 1).get_dataloader()
+                                     shard_hosts=(shard_num, shard_idx) if shard_num > 1 else False
+                                     ).get_dataloader()
 
     trainer = Trainer(training_args, model, corpus_dataloader=corpus_dl, train_loader=train_dl,
                       eval_loader=eval_dl if corpus_dl is not None else None,
                       test_loader=test_dl if corpus_dl is not None else None,
-                      mesh=data_parallel_mesh(training_args), label_kind="answers" if is_exactmatch else "docids")
+                      mesh=mesh, label_kind="answers" if is_exactmatch else "docids")
     if training_args.resume_from:
         trainer.load(training_args.resume_from)
     trainer.train()

@@ -22,8 +22,12 @@ tokenizer and reader, without ``transformers`` or ``datasets``; a T5 tokenizer
 or a hub dataset needs them (``utils/tokenization.py``, ``data/datasets.py``). With
 ``--mine_per_train N`` a ``DenseMiner`` refreshes the train set's negatives
 from the evaluation index every N epochs, as the root script attaches it.
-Tensor parallelism (``--tp_size`` > 1) is a later slice: :func:`main` refuses
-it before anything loads, naming its ROADMAP item.
+``--dp_size`` / ``--tp_size`` lay the processes out as a data x model mesh
+(root run_random_sampling.py:95-99): ``torchrun --nproc_per_node 4 -m
+denseretrievaltoolkits_torch.run_random_sampling ... --tp_size 2`` cuts each BERT
+layer over two ranks (``parallel/mesh.py``) and trains two data shards. The
+mesh is made before anything loads; a ``--tp_size`` the world size does not
+divide raises there.
 """
 
 from __future__ import annotations
@@ -31,18 +35,26 @@ from __future__ import annotations
 import logging
 
 from .config import DataArguments, ModelArguments, TrainingArguments, parse_args
-from .parallel.mesh import refuse_tensor_parallel
 
 
 def data_parallel_mesh(training_args):
-    """The mesh over the started process group when it has several ranks, else None
-    (root run_random_sampling.py:88-92)."""
-    from .parallel.mesh import make_mesh
-    from .utils.distributed import process_shard
+    """The ``dp_size x tp_size`` mesh over the started process group when it has
+    several ranks or ``tp_size`` > 1, else None (root run_random_sampling.py:95-99).
+    Made before the loaders: each loads its data rank's shard."""
+    import torch.distributed as dist
 
-    if process_shard()[0] > 1:
+    from .parallel.mesh import make_mesh
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world > 1 or training_args.tp_size > 1:
         return make_mesh(training_args.dp_size, training_args.tp_size)
     return None
+
+
+def data_shard(mesh) -> tuple:
+    """(shard_num, shard_idx) of the loaders: the mesh's data axis (the ranks of one
+    model group load the same shard), (1, 0) without a mesh."""
+    return (mesh.size, mesh.rank) if mesh is not None else (1, 0)
 
 
 def main(argv=None, device=None):
@@ -53,11 +65,11 @@ def main(argv=None, device=None):
     )
     model_args, data_args, training_args = parse_args(
         (ModelArguments, DataArguments, TrainingArguments), args=argv)
-    refuse_tensor_parallel(training_args.tp_size)
 
     from .utils.runtime import setup_runtime
 
     device = setup_runtime(device)
+    mesh = data_parallel_mesh(training_args)
 
     from .data.datasets import EXACTMATCH_DATASET, CorpusDataset, ExactMatchDataset, \
         RelevancyDataset
@@ -65,7 +77,6 @@ def main(argv=None, device=None):
     from .data.samplers import RandomSampleNegatives
     from .models.biencoder import DRModel
     from .train.trainer import Trainer
-    from .utils.distributed import process_shard
     from .utils.tokenization import load_tokenizer
 
     tokenizer = load_tokenizer(model_args)
@@ -78,7 +89,7 @@ def main(argv=None, device=None):
 
     batch_size = [training_args.train_batch_size, training_args.eval_batch_size,
                   training_args.test_batch_size]
-    shard_num, shard_idx = process_shard()
+    shard_num, shard_idx = data_shard(mesh)
     dataset = dataset_cls(data_args, tokenizer, cache_dir=cache)
     rnd_sampler = RandomSampleNegatives(data_args, seed=training_args.seed)
     corpus = CorpusDataset(data_args, tokenizer, cache)
@@ -86,12 +97,12 @@ def main(argv=None, device=None):
                             seed=training_args.seed, shard_num=shard_num, shard_idx=shard_idx)
     train_dl, eval_dl, test_dl = dataloader.get_dataloader()
     corpus_dl = CorpusDataloader(data_args, corpus, tokenizer, training_args.corpus_batch_size,
-                                 shard_hosts=shard_num > 1).get_dataloader()
+                                 shard_hosts=(shard_num, shard_idx) if shard_num > 1 else False
+                                 ).get_dataloader()
 
     trainer = Trainer(training_args, model, corpus_dataloader=corpus_dl, train_loader=train_dl,
                       eval_loader=eval_dl, test_loader=test_dl,
-                      mesh=data_parallel_mesh(training_args),
-                      label_kind="answers" if is_exactmatch else "docids")
+                      mesh=mesh, label_kind="answers" if is_exactmatch else "docids")
     if training_args.mine_per_train:
         from .mine.miner import DenseMiner
 

@@ -17,9 +17,9 @@ Under ``torchrun`` each process trains on ``cuda:LOCAL_RANK`` (or ``device``)
 over a data-parallel mesh of all the processes (its shard of the train pairs;
 every rank scores the evaluation pairs, rank 0 writes them). A BERT tokenizer
 directory and local JSON files need neither ``transformers`` nor ``datasets``
-(``utils/tokenization.py``, ``data/datasets.py``). Tensor parallelism
-(``--tp_size`` > 1) is a later slice: :func:`main` refuses it before anything
-loads.
+(``utils/tokenization.py``, ``data/datasets.py``). ``--dp_size`` / ``--tp_size``
+lay the processes out as a data x model mesh, made before anything loads: a BERT
+tower is cut over the model axis (``parallel/mesh.py``), a T5 one stays whole.
 """
 
 from __future__ import annotations
@@ -27,8 +27,7 @@ from __future__ import annotations
 import logging
 
 from .config import DataArguments, ModelArguments, RRTrainingArguments, parse_args
-from .parallel.mesh import refuse_tensor_parallel
-from .run_random_sampling import data_parallel_mesh
+from .run_random_sampling import data_parallel_mesh, data_shard
 
 logger = logging.getLogger(__name__)
 
@@ -41,20 +40,19 @@ def main(argv=None, eval_only: bool = False, device=None):
     )
     model_args, data_args, training_args = parse_args(
         (ModelArguments, DataArguments, RRTrainingArguments), args=argv)
-    refuse_tensor_parallel(training_args.tp_size)
 
     import torch
 
     from .utils.runtime import setup_runtime
 
     device = setup_runtime(device)
+    mesh = data_parallel_mesh(training_args)
 
     from .data.datasets import ExactMatchDataset, RRDataset
     from .data.loaders import ExactMatchDataloader, RerankerDataloader
     from .data.samplers import RandomSampleNegatives
     from .models.reranker import RRModel
     from .train.trainer import RRTrainer
-    from .utils.distributed import process_shard
     from .utils.tokenization import load_tokenizer
 
     tokenizer = load_tokenizer(model_args)
@@ -64,7 +62,7 @@ def main(argv=None, eval_only: bool = False, device=None):
     cache = data_args.data_cache_dir or model_args.cache_dir
     batch_size = [training_args.train_batch_size, training_args.eval_batch_size,
                   training_args.test_batch_size]
-    shard_num, shard_idx = process_shard()
+    shard_num, shard_idx = data_shard(mesh)
     dataset = ExactMatchDataset(data_args, tokenizer, cache_dir=cache)
     rnd_sampler = RandomSampleNegatives(data_args, seed=training_args.seed)
     dataloader = ExactMatchDataloader(data_args, dataset, tokenizer, rnd_sampler,
@@ -77,7 +75,7 @@ def main(argv=None, eval_only: bool = False, device=None):
                                  batch_size=training_args.eval_batch_size).get_eval_dataloader()
 
     trainer = RRTrainer(training_args, model, train_loader=train_dl,
-                        mesh=data_parallel_mesh(training_args))
+                        mesh=mesh)
     if training_args.resume_from:
         trainer.load(training_args.resume_from)
     if not eval_only and training_args.max_epochs > 0:

@@ -20,7 +20,9 @@ names and defaults, and a schedule composed in.
   (it divides by a base lr that may be 0).
 
 An optax kwarg with no translation here raises. Given a model with LoRA
-adapters, only the adapters and the heads train.
+adapters, only the adapters and the heads train. Under tensor parallelism
+(``parallel/mesh.py``) each rank's optimizer steps its parts of the cut leaves;
+adafactor sums its reductions over the model group.
 """
 
 from __future__ import annotations
@@ -138,7 +140,11 @@ class Adafactor(torch.optim.Optimizer):
     the clip to a block RMS of ``clipping_threshold``, the lr, the
     parameter's block RMS (at least 1e-3) with ``multiply_by_parameter_scale``,
     an undebiased ``momentum`` EMA, ``weight_decay_rate`` times the parameter
-    (not lr-scaled, as optax adds it), then the sign flip."""
+    (not lr-scaled, as optax adds it), then the sign flip. A parameter cut over a
+    mesh's model axis is factored by its full shape, and its moments' means over
+    the cut axis, the clip's RMS and the parameter's RMS sum over the model group
+    (:class:`_CutLeaf`): the update is the one-process update's part. The
+    element-wise optimizers need nothing of the kind."""
 
     def __init__(self, params, lr: float, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, decay_offset: int = 0,
@@ -152,10 +158,6 @@ class Adafactor(torch.optim.Optimizer):
             clipping_threshold=clipping_threshold, momentum=momentum,
             weight_decay_rate=weight_decay_rate, eps=eps, factored=factored))
 
-    @staticmethod
-    def _rms(x: torch.Tensor) -> torch.Tensor:
-        return torch.sqrt(torch.mean(x * x))
-
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
@@ -164,7 +166,8 @@ class Adafactor(torch.optim.Optimizer):
                     continue
                 g = p.grad
                 state = self.state[p]
-                dims = _factored_dims(tuple(p.shape), group["factored"],
+                cut = _CutLeaf(p)
+                dims = _factored_dims(cut.full, group["factored"],
                                       group["min_dim_size_to_factor"])
                 if not state:
                     state["step"] = 0
@@ -187,18 +190,19 @@ class Adafactor(torch.optim.Optimizer):
                 else:
                     d1, d0 = dims
                     v_row, v_col = state["v_row"], state["v_col"]
-                    v_row.copy_(beta * v_row + (1.0 - beta) * g_sqr.mean(dim=d0))
-                    v_col.copy_(beta * v_col + (1.0 - beta) * g_sqr.mean(dim=d1))
+                    v_row.copy_(beta * v_row + (1.0 - beta) * cut.mean(g_sqr, d0))
+                    v_col.copy_(beta * v_col + (1.0 - beta) * cut.mean(g_sqr, d1))
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+                    row_col_mean = cut.mean(v_row, reduced_d1, dropped=d0, keepdim=True,
+                                            size=cut.full[d1])
                     row_factor = (v_row / row_col_mean) ** -0.5
                     col_factor = v_col ** -0.5
                     u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
                 if group["clipping_threshold"] is not None:
-                    u = u / torch.clamp(self._rms(u) / group["clipping_threshold"], min=1.0)
+                    u = u / torch.clamp(cut.rms(u) / group["clipping_threshold"], min=1.0)
                 u = group["lr"] * u
                 if group["multiply_by_parameter_scale"]:
-                    rms = self._rms(p)
+                    rms = cut.rms(p)
                     u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
                 if group["momentum"] is not None:
                     ema = state["ema"]
@@ -207,6 +211,36 @@ class Adafactor(torch.optim.Optimizer):
                 if group["weight_decay_rate"] is not None:
                     u = u + group["weight_decay_rate"] * p
                 p.add_(-u)
+
+
+class _CutLeaf:
+    """Reductions over a parameter's full array when it is cut over a mesh's model
+    axis (``parallel/mesh.py:shard_module``): a sum over the cut axis, or over every
+    element, adds up the model ranks' partial sums; optax runs on the full array."""
+
+    def __init__(self, p: torch.Tensor):
+        self.spec = getattr(p, "tp_shard", None)
+        self.mesh = getattr(p, "tp_mesh", None)
+        self.full = tuple(p.shape) if self.spec is None else self.spec.full_shape(p.shape)
+
+    def mean(self, x: torch.Tensor, dim: int, dropped: Optional[int] = None,
+             keepdim: bool = False, size: Optional[int] = None) -> torch.Tensor:
+        """The mean over ``dim`` of ``x``, which is the parameter with axis ``dropped``
+        reduced away (None: the parameter itself); ``size`` is the full length of
+        ``dim``."""
+        axis = None if self.spec is None else self.spec.axis
+        if axis is not None and dropped is not None:
+            axis = None if axis == dropped else axis - (axis > dropped)
+        if axis != dim:
+            return x.mean(dim=dim, keepdim=keepdim)
+        total = self.mesh.model_sum_(x.sum(dim=dim, keepdim=keepdim))
+        return total / (self.full[dim] if size is None else size)
+
+    def rms(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spec is None:
+            return torch.sqrt(torch.mean(x * x))
+        total = self.mesh.model_sum_(torch.sum(x * x).reshape(1)).reshape(())
+        return torch.sqrt(total / float(np.prod(self.full)))
 
 
 def _adam_kwargs(name, kw):

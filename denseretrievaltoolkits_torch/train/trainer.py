@@ -49,6 +49,16 @@ the corpus (``CorpusDataloader(shard_hosts=True)``) into a sharded index
 metrics on every rank; rank 0 alone writes the dumps, the metrics, the
 deploy format and the checkpoints.
 
+A mesh with a model axis (``tp_size`` > 1) also cuts the BERT layers over it
+(``parallel/mesh.py:shard_module``, as ``shard_state`` there) before the
+optimizer is made, so each rank's optimizer state covers its parts. The ranks
+of a model group step on the same rows; gradients are averaged over the data
+group. ``save`` gathers the parts into the deploy format (one process, or the
+JAX package through ``params_to_jax``, loads it); the resume checkpoint keeps
+each model rank's parts (``state.tp{m}.pt``). In the evaluation the model ranks
+of a data rank encode the same window, each into its data group's index, and
+model rank 0's group alone writes the encoded corpus and the index.
+
 ``RRTrainer`` (trainer.py:699-796 there) trains a ``models.reranker.RRModel`` on
 (pos_pairs, neg_pairs) batches and evaluates it over the dense retriever's
 top-k pairs: the rerank dump ``{rr_result_dir}/{ep}.0.json`` and the metrics
@@ -76,7 +86,8 @@ from ..data.loaders import prefetch
 from ..evaluator.metrics import get_metrics
 from ..evaluator.nq_eval import AnswerMatcher
 from ..index.flat import FlatIPIndex
-from ..parallel.mesh import all_reduce_grads, data_parallel_backward, rank_zero
+from ..parallel.mesh import (all_reduce_grads, data_parallel_backward, rank_zero,
+                             shard_module)
 from .grad_cache import grad_cache_backward
 from .optimizers import get_optimizer
 
@@ -107,9 +118,10 @@ class Trainer:
         self.test_loader = test_loader
         self.label_kind = label_kind  # "answers" (NQ-style) | "docids" (relevancy)
         self.miner = miner  # mine/miner.py DenseMiner, run at the mine_per_train cadence
-        self.mesh = mesh  # parallel/mesh.py Mesh: data parallel over its ranks
+        self.mesh = mesh  # parallel/mesh.py Mesh: data (and tensor) parallel over its ranks
         if mesh is not None:
             mesh.broadcast_module(model)
+            shard_module(model, mesh)  # before the optimizer: its state takes the parts
         self.topk = training_args.topk_list
         self.start_epoch = 0
         self.idx: List = []  # docid order of the corpus index
@@ -287,6 +299,9 @@ class Trainer:
         row = 0
         rank = 0 if self.mesh is None else self.mesh.rank
         mmap_path = os.path.join(args.encode_corpus_dir, f"{ep}.{rank}.npy")
+        if not self._writes_index():  # a model rank > 0 spills to its own file, then drops it
+            save = False
+            mmap_path = mmap_path[:-len(".npy")] + f".tp{self.mesh.tp_rank}.npy"
 
         def flush():
             nonlocal buf, buf_rows
@@ -349,11 +364,16 @@ class Trainer:
         self.index.add_chunks(lambda s, r: torch.from_numpy(np.asarray(mmap[s:s + r])), n_rows,
                               chunk_rows=int(max(1, min(n_rows, chunk_rows))))
 
+    def _writes_index(self) -> bool:
+        """This rank's data group writes the encoded corpus and the index: model
+        rank 0's (every group holds the same)."""
+        return self.mesh is None or self.mesh.tp_rank == 0
+
     def _index_corpus(self, ep: int) -> None:
-        """Save the index (collective on a mesh) and, from rank 0, its docid
-        order (trainer.py:455-468)."""
+        """Save the index (collective on a mesh's data group) and, from rank 0, its
+        docid order (trainer.py:455-468)."""
         args = self.training_args
-        if not getattr(args, "save_corpus_artifacts", True):
+        if not getattr(args, "save_corpus_artifacts", True) or not self._writes_index():
             return
         self.index.save(args.index_file + str(ep))
         if not rank_zero(self.mesh):
@@ -463,24 +483,34 @@ class Trainer:
         JAX package and ``DRModelForInference.build`` load) and the resume
         checkpoint under ``output_dir/checkpoint/ep{N}``; on a mesh rank 0
         writes them (every rank holds the same parameters) and the ranks meet
-        after."""
+        after. With a model axis every rank joins the deploy format's gather
+        (``model.save``), and data rank 0 of each model rank writes its parts'
+        checkpoint."""
         args = self.training_args
-        if rank_zero(self.mesh):
+        tp = self.mesh is not None and self.mesh.tp > 1
+        if rank_zero(self.mesh) or tp:
             self.model.save(os.path.join(args.cache_train_dir, f"result{i_epoch}"))
+        if self.mesh is None or self.mesh.rank == 0:
             self.save_checkpoint(os.path.join(args.output_dir, "checkpoint"), i_epoch)
-        if self.mesh is not None:
-            self.mesh.barrier()
+        if self.mesh is not None and self.mesh.live:
+            torch.distributed.barrier()  # every rank of the world: each model rank wrote
+
+    def _checkpoint_file(self) -> str:
+        if self.mesh is None or self.mesh.tp == 1:
+            return CHECKPOINT_FILE
+        return CHECKPOINT_FILE.replace(".pt", f".tp{self.mesh.tp_rank}.pt")
 
     def save_checkpoint(self, path: str, epoch: int) -> None:
-        """``path/ep{epoch}/state.pt``: params, optimizer state (with its update
-        count), and ``epoch`` (epochs completed) and ``step``."""
+        """``path/ep{epoch}/state.pt`` (``state.tp{m}.pt``, this model rank's parts,
+        under a model axis): params, optimizer state (with its update count), and
+        ``epoch`` (epochs completed) and ``step``."""
         ckpt_dir = os.path.join(os.path.abspath(path), f"ep{epoch}")
         os.makedirs(ckpt_dir, exist_ok=True)
         payload = {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
                    "meta": {"epoch": epoch, "step": self.step}}
-        tmp = os.path.join(ckpt_dir, CHECKPOINT_FILE + ".tmp")
+        tmp = os.path.join(ckpt_dir, self._checkpoint_file() + ".tmp")
         torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(ckpt_dir, CHECKPOINT_FILE))
+        os.replace(tmp, os.path.join(ckpt_dir, self._checkpoint_file()))
 
     def load(self, filename: str, ckpt_type=None) -> None:
         """Resume params, optimizer state and step from a checkpoint dir.
@@ -488,7 +518,7 @@ class Trainer:
         (``ckpt_type`` given: at epoch 0, as the reference)."""
         # on the host: the optimizer moves its state to each parameter's device,
         # and keeps the update counts on the host as torch.optim wants them
-        payload = torch.load(os.path.join(filename, CHECKPOINT_FILE), map_location="cpu",
+        payload = torch.load(os.path.join(filename, self._checkpoint_file()), map_location="cpu",
                              weights_only=True)
         self.model.load_state_dict(payload["params"])
         self.optimizer.load_state_dict(payload["opt_state"])

@@ -88,10 +88,12 @@ def test_entry_point_matches_jax(setup, grad_cache):
 
 
 @pytest.mark.parametrize("flags,item", [(["--mine_per_train", "1"], "Mining and BM25"),
-                                         (["--tp_size", "2"], "`parallel/`")],
+                                         (["--tp_size", "2"], "must divide the world size 1")],
                          ids=["mining", "tensor-parallel"])
 def test_entry_point_refuses_later_slices(setup, flags, item):
-    """Tensor parallelism raises before anything loads, naming its item. Hard-negative
+    """A ``--tp_size`` the world does not hold (2 in one process) raises when the mesh
+    is made, before anything loads; tests/test_torch_parallel.py runs the entry point
+    at ``--tp_size 2`` over two ranks. Hard-negative
     mining is ported: with ``--mine_per_train 1`` over 2 epochs both entry points
     attach a DenseMiner, and epoch 2 trains on the mined rows with the same losses
     (rtol 1e-5, atol 2e-6). Without a card, the default device raises before any data
@@ -113,7 +115,7 @@ def test_entry_point_refuses_later_slices(setup, flags, item):
         return
     argv = common + ["--output_dir", str(tmp / "r" / "out"),
                      "--cache_train_dir", str(tmp / "r" / "cache")]
-    with pytest.raises(NotImplementedError, match=f"item '{re.escape(item)}"):
+    with pytest.raises(ValueError, match=re.escape(item)):
         port_entry.main(argv + flags, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="pass device='cpu'"):

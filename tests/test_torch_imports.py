@@ -139,3 +139,17 @@ def test_cli_and_recipe_modules_present():
     for path in ("run_encode.py", "run_random_sampling.py", "run_BM25_negative.py",
                  "run_reranker.py"):
         assert not {n.split(".")[0] for n in _imported(PORT / path)} & hf, path
+
+
+def test_bench_recipe_modules_present():
+    """The twins of the six recipes that import ``bench.py``, and ``bench_data``, the
+    port's own copies of the helpers they share, each under the AST checks above: none
+    imports ``bench``, the JAX package's root ``recipes`` or an HF package."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    new = {f"recipes/{m}.py" for m in ("bench_data", "varlen_probe", "latency_probe",
+                                       "ivfpq_sweep", "bench_pcar_sq4", "bench_pcar_38m",
+                                       "pq_capacity")}
+    assert new <= names
+    for path in sorted(new):
+        top = {n.split(".")[0] for n in _imported(PORT / path)}
+        assert not top & {"bench", "recipes", "transformers", "datasets"}, path

@@ -317,5 +317,5 @@ def test_bm25_entry_point_matches_jax(data, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="pass device='cpu'"):
             port_bm25_entry.main(common + ["--output_dir", str(tmp_path / "r")])
-    with pytest.raises(NotImplementedError, match="`parallel/`"):
+    with pytest.raises(ValueError, match="tp_size 2 must divide the world size 1"):
         port_bm25_entry.main(common + ["--tp_size", "2"], device="cpu")

@@ -117,7 +117,7 @@ def test_mesh_without_a_process_group():
     assert process_shard() == (1, 0)
     with pytest.raises(ValueError, match="world size"):
         make_mesh(dp_size=2)
-    with pytest.raises(NotImplementedError, match="tp_size > 1"):
+    with pytest.raises(ValueError, match="tp_size 2 must divide the world size 1"):
         make_mesh(1, 2)
 
 
@@ -523,6 +523,70 @@ def test_entry_point_on_two_processes(eval_world, tmp_path):
     work, entry_argv, _, _ = eval_world
     _same_entry_runs(_entry_run(work / "entry"), _one_process_entry(entry_argv, tmp_path / "one"),
                      2, ["-1.0_metrics", "1.0_metrics"])
+
+
+def test_entry_point_tensor_parallel(eval_world, tmp_path):
+    """``run_random_sampling.main --tp_size 2`` over the 2 ranks: one data rank of two
+    model ranks, each BERT layer cut over them, the global batch of 8 on both. The
+    per-step losses and the dev and test metrics equal one process's at the same
+    batch (losses within 1e-5 + 2e-6); rank 0 alone wrote them, and the deploy
+    format it wrote from the gathered parts loads in one process."""
+    from denseretrievaltoolkits_torch.models.biencoder import DRModel
+
+    work, entry_argv, _, _ = eval_world
+    _same_entry_runs(_entry_run(work / "entry_tp"),
+                     _one_process_entry(entry_argv, tmp_path / "one"),
+                     2, ["-1.0_metrics", "1.0_metrics"])
+    model = DRModel.build(ModelArguments(model_name_or_path=str(work / "entry_tp" / "cache"
+                                                                / "result1")), device="cpu")
+    one = DRModel.build(ModelArguments(model_name_or_path=str(tmp_path / "one" / "cache"
+                                                              / "result1")), device="cpu")
+    H = model.spec.bert_config.hidden_size
+    for (k, a), b in zip(model.state_dict().items(), one.state_dict().values()):
+        a, b = a.numpy(), b.numpy()
+        if k.endswith("qkv_bias"):  # the k bias: fp32 noise that adamw lifts to +-lr a step
+            np.testing.assert_allclose(a[H:2 * H], b[H:2 * H], atol=2 * 2e-3, err_msg=k)
+            a, b = np.concatenate([a[:H], a[2 * H:]]), np.concatenate([b[:H], b[2 * H:]])
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=5e-5, err_msg=k)
+    assert sorted(os.listdir(work / "entry_tp" / "out" / "checkpoint" / "ep1")) == \
+        ["state.tp0.pt", "state.tp1.pt"]
+
+
+@pytest.fixture(scope="module")
+def eval_world_tp(eval_world):
+    """The evaluation data on 4 ranks as a dp = 2, tp = 2 mesh (worker case
+    ``evaluate_tp``)."""
+    return run_world("evaluate_tp", 4, eval_world[0])
+
+
+def test_evaluate_and_entry_point_at_dp2_tp2(eval_world, eval_world_tp, tmp_path):
+    """dp = 2, tp = 2 over 4 ranks: each rank encodes its data rank's corpus window
+    with its model rank's half of every BERT layer. The flat and IVFR8,SQ8 indexes
+    shard over the data axis, and model rank 0's ranks alone save them (the save
+    ends in a barrier of their data group, which model rank 1 does not enter): the
+    metrics on every rank equal one process's within 1e-6, the saved flat index
+    reloads, and the miner mines the one-process rows. ``run_random_sampling.main
+    --tp_size 2`` then trains two data shards of 4 and evaluates: its losses and
+    metrics equal one process's at the global batch of 8 (losses within 1e-5 +
+    2e-6), and each model rank wrote its checkpoint's parts."""
+    work, entry_argv, _, one = eval_world
+    for r, out in enumerate(eval_world_tp):
+        a, b = jbounds(48, n_proc=2, proc_idx=r // 2, local_shards=1)
+        np.testing.assert_array_equal(out["window"], np.arange(a, b))
+        metrics = json.loads(str(out["metrics"]))
+        for name, _ in W.EVAL_CONFIGS[:2]:
+            assert metrics[name]["query_num"] == 8
+            for key, value in metrics[name].items():
+                assert value == pytest.approx(one[name][key], abs=1e-6), (r, name, key)
+        for mode in W.MINE_MODES:
+            assert metrics[f"mined/{mode}"] == json.loads(json.dumps(one[f"mined/{mode}"]))
+        assert metrics["flat_reloaded_rows"] == 48
+    assert sorted(os.listdir(work / "mesh_tp-flat" / "cache" / "retrieve")) == ["1.0.json"]
+    _same_entry_runs(_entry_run(work / "entry_dp2tp2"),
+                     _one_process_entry(entry_argv, tmp_path / "one"),
+                     2, ["-1.0_metrics", "1.0_metrics"])
+    assert sorted(os.listdir(work / "entry_dp2tp2" / "out" / "checkpoint" / "ep1")) == \
+        ["state.tp0.pt", "state.tp1.pt"]
 
 
 def test_mining_hook_on_two_processes(eval_world, tmp_path):

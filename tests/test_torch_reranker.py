@@ -375,12 +375,13 @@ def test_entry_point_matches_jax(entry, monkeypatch, eval_only):
 
 
 def test_entry_point_refuses_tensor_parallel(entry):
-    """``--tp_size 2`` raises before anything loads, naming its item; without a card the
+    """``--tp_size 2`` in one process raises when the mesh is made, before anything loads
+    (two ranks take it: tests/test_torch_tensor_parallel.py); without a card the
     default device raises."""
     tmp, common = entry
     argv = common + ["--output_dir", str(tmp / "r" / "out"),
                      "--cache_train_dir", str(tmp / "r" / "cache")]
-    with pytest.raises(NotImplementedError, match="item '`parallel/`"):
+    with pytest.raises(ValueError, match="tp_size 2 must divide the world size 1"):
         port_entry.main(argv + ["--tp_size", "2"], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="pass device='cpu'"):

@@ -10,7 +10,6 @@ import dataclasses
 import glob
 import json
 import os
-import re
 
 import numpy as np
 import jax
@@ -435,8 +434,9 @@ def test_non_finite_loss_message_advises_no_unported_flag(tmp_path):
 def test_profile_trace_and_unported_arguments(tmp_path):
     """The profiler trace of step 2; evaluation loaders are taken (the
     evaluation itself is held to the JAX Trainer in tests/test_torch_eval.py) and so are
-    a miner and a mesh (tests/test_torch_parallel.py runs one), while tensor parallelism
-    still raises, naming its ROADMAP item."""
+    a miner and a mesh (tests/test_torch_parallel.py runs one), while a model axis the
+    world does not hold (tp_size 2 in one process) raises when the mesh is made
+    (tests/test_torch_tensor_parallel.py runs two ranks)."""
     args = _args(tmp_path, max_epochs=1, profile_dir=str(tmp_path / "prof"))
     trainer = Trainer(args, _build(seed=2), train_loader=_loader())
     trainer.train()
@@ -450,6 +450,5 @@ def test_profile_trace_and_unported_arguments(tmp_path):
     assert Trainer(dataclasses.replace(args), _build(seed=2), miner=miner).miner is miner
     mesh = make_mesh()  # no process group: one rank
     assert Trainer(dataclasses.replace(args), _build(seed=2), mesh=mesh).mesh is mesh
-    item = "'`parallel/` tensor parallelism (`tp_size > 1`)'"
-    with pytest.raises(NotImplementedError, match=f"queue 1, item {re.escape(item)}"):
+    with pytest.raises(ValueError, match="tp_size 2 must divide the world size 1"):
         make_mesh(tp_size=2)

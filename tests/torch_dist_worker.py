@@ -123,6 +123,8 @@ EVAL_CONFIGS = (("flat", dict(index_dtype="float32", search_mode="exact")),
                 ("opq", dict(index_factory="OPQ4,PQ4", search_mode="exact")))
 MINE_MODES = ("serve", "exact")
 MINE_ARGV = ["--mine_per_train", "1", "--max_epochs", "2", "--eval_per_train", "2"]
+# the two ranks as one data rank of two model ranks, at the one-process batch of 8
+TP_ENTRY_ARGV = ["--tp_size", "2", "--train_batch_size", "8"]
 
 
 def eval_setup(work, shard_num=1, shard_idx=0, shard_hosts=False):
@@ -147,8 +149,8 @@ def eval_setup(work, shard_num=1, shard_idx=0, shard_hosts=False):
     return dev, corpus, spec, (tokenizer, dargs, list(factory.train_dataset))
 
 
-def run_evaluations(work, label, mesh, dev, corpus, spec, mine_inputs):
-    """``Trainer.evaluate`` into each of EVAL_CONFIGS; {config: metrics}, and the
+def run_evaluations(work, label, mesh, dev, corpus, spec, mine_inputs, configs=EVAL_CONFIGS):
+    """``Trainer.evaluate`` into each of ``configs``; {config: metrics}, and the
     files under the shared cache dirs. After the flat evaluation ``DenseMiner``
     mines the train samples from its index in each of MINE_MODES
     (``mined/<mode>``)."""
@@ -157,7 +159,7 @@ def run_evaluations(work, label, mesh, dev, corpus, spec, mine_inputs):
 
     model = DRModel.build(ModelArguments(model_name_or_path=spec["model_dir"]), device="cpu")
     metrics = {}
-    for ep, (name, kw) in enumerate(EVAL_CONFIGS, start=1):
+    for ep, (name, kw) in enumerate(configs, start=1):
         args = train_args(work, f"{label}-{name}", topk="1,5,10", retrieve_num=10,
                           index_train_rows=64, **kw)
         trainer = Trainer(args, model, corpus_dataloader=corpus, eval_loader=dev,
@@ -176,19 +178,38 @@ def run_evaluations(work, label, mesh, dev, corpus, spec, mine_inputs):
 
 def case_evaluate(work, mesh):
     """``Trainer.evaluate`` on the mesh over this rank's corpus window, the
-    windows themselves, and ``run_random_sampling.main`` over the process group."""
+    windows themselves, and ``run_random_sampling.main`` over the process group:
+    data-parallel, with mining, and at ``--tp_size 2``."""
     from denseretrievaltoolkits_torch import run_random_sampling
 
     dev, corpus, spec, mine_inputs = eval_setup(work, shard_hosts=True)
     out = {"window": np.asarray(corpus._indices()),
            "metrics": np.array(json.dumps(run_evaluations(work, "mesh", mesh, dev, corpus,
                                                          spec, mine_inputs)))}
-    for label, extra in (("entry", []), ("entry_mine", MINE_ARGV)):
+    for label, extra in (("entry", []), ("entry_mine", MINE_ARGV), ("entry_tp", TP_ENTRY_ARGV)):
         root = os.path.join(work, label)
         run_random_sampling.main(spec["entry_argv"] + extra
                                  + ["--output_dir", os.path.join(root, "out"),
                                     "--cache_train_dir", os.path.join(root, "cache")],
                                  device="cpu")
+    return out
+
+
+def case_evaluate_tp(work, mesh):
+    """On a dp = 2, tp = 2 mesh: ``Trainer.evaluate`` over this data rank's corpus
+    window into the flat and IVF indexes, which shard over the data axis and which
+    model rank 0's ranks alone save, with the miner; then ``run_random_sampling.main
+    --tp_size 2`` over the 4 ranks."""
+    from denseretrievaltoolkits_torch import run_random_sampling
+
+    dev, corpus, spec, mine_inputs = eval_setup(work, shard_hosts=(mesh.size, mesh.rank))
+    out = {"window": np.asarray(corpus._indices()),
+           "metrics": np.array(json.dumps(run_evaluations(work, "mesh_tp", mesh, dev, corpus,
+                                                         spec, mine_inputs, EVAL_CONFIGS[:2])))}
+    root = os.path.join(work, "entry_dp2tp2")
+    run_random_sampling.main(spec["entry_argv"] + ["--tp_size", "2"]
+                             + ["--output_dir", os.path.join(root, "out"),
+                                "--cache_train_dir", os.path.join(root, "cache")], device="cpu")
     return out
 
 
@@ -273,6 +294,72 @@ def case_index(work, mesh):
     return out
 
 
+# (label, attention, optimizer, learning rate, optimizer kwargs, steps) of the tensor-parallel
+# steps: adamw's and adafactor's lr keep the update of a gradient that is 0 in exact arithmetic
+# (the k bias: fp32 noise, lifted to about lr by either) within the parameters' tolerance
+TP_STEPS = (("xla_sgd", "xla", "sgd", 0.1, {}, 2),
+            ("xla_adamw", "xla", "adamw", 2e-5, {}, 1),
+            ("fused_adamw", "fused", "adamw", 2e-5, {}, 1),
+            ("flash_adamw", "flash", "adamw", 2e-5, {}, 1),
+            ("xla_adafactor", "xla", "adafactor", 1e-2, {}, 1),
+            # factored moments over the cut axes (min_dim 16 factors every matrix here)
+            ("fused_adafactor_factored", "fused", "adafactor", 1e-2,
+             {"min_dim_size_to_factor": 16}, 2))
+
+
+def tp_step(work, mesh, label, attention, optimizer, lr, opt_kw, steps, **model_kw):
+    """``steps`` steps of ``Trainer`` on this data rank's slice of the global batch (the
+    same batches as case_train); the losses and the full (gathered) parameters."""
+    from denseretrievaltoolkits_torch.parallel.mesh import gathered
+    from denseretrievaltoolkits_torch.train.trainer import Trainer
+
+    tag = f"{label}{mesh.rank}.{mesh.tp_rank}"
+    q, p = token_batch(8, 8, 1), token_batch(16, 12, 2)
+    batch = (rank_slice(q, mesh.rank, mesh.size), rank_slice(p, mesh.rank, mesh.size))
+    trainer = Trainer(train_args(work, tag, optimizer=optimizer, learning_rate=lr,
+                                 optimizer_kwargs=dict(opt_kw)),
+                      build_model(attention=attention, **model_kw), mesh=mesh)
+    out = {f"{label}/losses": np.array([float(trainer.train_step(batch)) for _ in range(steps)])}
+    with gathered(trainer.model):
+        out.update(state_of(trainer.model.lm_q, label))
+    return out, trainer
+
+
+def case_tp(work, mesh):
+    """Tensor-parallel steps on a (dp, tp) mesh: each of TP_STEPS, a LoRA step, an
+    RRTrainer step and the deploy format of a tp run (``Trainer.save``)."""
+    from denseretrievaltoolkits_torch.models.reranker import RRModel
+    from denseretrievaltoolkits_torch.parallel.mesh import gathered
+    from denseretrievaltoolkits_torch.train.trainer import RRTrainer
+
+    out = {"mesh": np.array([mesh.size, mesh.tp, mesh.rank, mesh.tp_rank])}
+    for label, attention, optimizer, lr, opt_kw, steps in TP_STEPS:
+        reading, trainer = tp_step(work, mesh, label, attention, optimizer, lr, opt_kw, steps)
+        out.update(reading)
+        if label == "xla_sgd":  # the deploy format and this model rank's resume checkpoint
+            trainer.save(1)
+            out["shard_qkv"] = trainer.model.lm_q.layers[0].qkv_kernel.detach().numpy().copy()
+    reading, _ = tp_step(work, mesh, "lora", "xla", "sgd", 0.5, {}, 2,
+                         param_efficient_method="lora", lora_rank=4)
+    out.update(reading)
+    margs = ModelArguments(model_name_or_path=os.path.join(work, "rr_arch"), pooling="first",
+                           pos_token="yes", neg_token="no")
+    rargs = RRTrainingArguments(output_dir=os.path.join(work, f"rr{mesh.rank}.{mesh.tp_rank}"),
+                                cache_train_dir=os.path.join(work, "rrc"), loss_fn="mr",
+                                margin=0.7, optimizer="sgd", learning_rate=1e-2, log_every=0,
+                                save_per_train=10)
+    rr = RRModel.build(margs, train_args=rargs, tokenizer=RRTok(), device="cpu", seed=3)
+    rtrainer = RRTrainer(rargs, rr, mesh=mesh)
+    r, w = mesh.rank, mesh.size
+    pairs = [(token_batch(8, 12, 10 + i), token_batch(8, 12, 20 + i)) for i in range(2)]
+    out["rr_losses"] = np.array([float(rtrainer.train_step((rank_slice(a, r, w),
+                                                             rank_slice(b, r, w))))
+                                 for a, b in pairs])
+    with gathered(rr):
+        out.update(state_of(rr.lm, "rr"))
+    return out
+
+
 CASES = {"train": case_train, "evaluate": case_evaluate, "index": case_index}
 
 
@@ -282,7 +369,13 @@ def main(argv):
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     maybe_initialize_distributed("gloo", device="cpu", timeout_s=120)
-    out = CASES[case](work, make_mesh())
+    if case.startswith("tp"):  # "tp<dp>x<tp>": the tensor-parallel steps on a dp x tp mesh
+        dp, tp = map(int, case[2:].split("x"))
+        out = case_tp(work, make_mesh(dp, tp))
+    elif case == "evaluate_tp":
+        out = case_evaluate_tp(work, make_mesh(2, 2))
+    else:
+        out = CASES[case](work, make_mesh())
     np.savez(os.path.join(work, f"{case}.rank{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
     return 0
